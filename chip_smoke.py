@@ -5,16 +5,29 @@ Run from the root of a checkout, on a machine with one GPU::
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``vietnamese_qa_system_tpu_torch/
-csrc``, holds each kernel against its plain PyTorch version at the shapes of
-the serving path, then drives that path once at the full width of the
-``mpnet_class`` encoder (random weights from a seed): four 1M-row vector
-stores, ingest of 2,048 synthetic Vietnamese passages at max_len 512 (the
-flash kernel), an HTTP server answering /search and /ingest, and top-k on
-the three int8 stores held against the plain path.  Each kernel's launch
-counter must move during that run.
+csrc`` (one nvcc per source, all at once), holds each kernel against its
+plain PyTorch version at the shapes of its serving path, times it beside
+its bound and a PyTorch library call, then drives two serving paths once:
+
+- retrieval, at the full width of the ``mpnet_class`` encoder (random
+  weights from a seed): four 1M-row vector stores, ingest of 2,048
+  synthetic Vietnamese passages at max_len 512 (the flash kernel), an HTTP
+  server answering /search and /ingest, and top-k on the three int8 stores
+  held against the plain path;
+- question answering, at the full width of ``phogpt_4b_class`` (32 layers,
+  d 3072, int8c weights drawn on the card from a seed): ``QAPipeline``
+  behind HTTP ``/qa`` answering concurrent questions over the retrieval
+  path's 1M-row bf16 store, every decode-step dense layer through the w8
+  GEMM kernel; a torch.profiler trace of the decode loop says where a
+  step's time goes; then a two-layer twin of the same weights decodes greedily
+  on the card and on the host (plain path), held to agree by logits and
+  by the top-2 margin rule.
+
+Each path resets the kernels' launch counters just before it runs and
+reads them just after; every kernel of the path must have launched.
 
 Output: the GPU's name and power limit, one line per check, a JSON line
-with each kernel's launches, error and times, and as the last line
+with each kernel's launches, error, times and bound, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
 exits non-zero; it also exits non-zero, printing no result, when no GPU is
 visible.  Imports neither jax nor the JAX package.
@@ -23,6 +36,8 @@ visible.  Imports neither jax nor the JAX package.
 from __future__ import annotations
 
 import copy
+import dataclasses
+import itertools
 import json
 import os
 import subprocess
@@ -39,6 +54,21 @@ FLASH_O_TOL = 2e-2   # bf16 output: a few ulps at |o| < 2
 FLASH_LSE_TOL = 1e-2  # f32 log-sum-exp after bf16 probabilities
 ENCODER_COS_TOL = 0.9999
 RERANK_SCORE_TOL = 1e-5  # f32 re-score sums in another order on the host
+# K6 at the PhoGPT-4B decode shapes: M = the bucketed batch, (K, N) of
+# wq/wk/wv/wo, the MLP up and the MLP down projections
+W8_ROWS = (1, 8, 16)
+W8_SHAPES = ((3072, 3072), (3072, 12288), (12288, 3072))
+W8_PER_LAYER = {(3072, 3072): 4, (3072, 12288): 1, (12288, 3072): 1}
+W8_REL_TOL = 1e-4  # max abs err / max |plain|: the same exact products summed in another order
+READER_QUESTIONS, READER_PROMPT_LEN, READER_NEW_TOKENS = 8, 512, 32
+# 4 rows x (48 + 15) tokens = 252 rows: the teacher-forced check takes K6 too
+TWIN_LAYERS, TWIN_ROWS, TWIN_PROMPT_LEN, TWIN_NEW_TOKENS = 2, 4, 48, 16
+TRACE_STEPS = 8  # decode steps in the profiler trace of the QA path
+TWIN_LOGIT_TOL = 5e-2  # |logits| ~ 1-5; bf16-rounded inputs flip where card and host differ by an ulp
+# H100 SXM5 data sheet (dense, 700 W): HBM 3.35 TB/s, 989 TFLOP/s bf16,
+# 1,979 TOP/s int8 on the tensor cores
+HBM_BYTES_S, BF16_OPS_S, INT8_OPS_S = 3.35e12, 989e12, 1979e12
+L2_BYTES = 50 << 20
 
 
 def check(cond: bool, what: str) -> None:
@@ -70,6 +100,40 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, iters: int) -> float:
+    """Mean device time of ``fn`` over ``iters`` calls captured in one CUDA
+    graph and replayed: the host's per-call cost (Python, ctypes, the
+    allocator) is out of the measurement, which microsecond kernels need."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(5):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (5 * iters)
+
+
+def bound(n_bytes: float, ops: float, ops_per_s: float) -> dict:
+    """The least time the card could take: each input read once and each
+    output written once at the HBM rate, or the operations at the peak
+    rate of their type, whichever is longer."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_S, ops / ops_per_s
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3, "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
 def rank_recall(q, corpus, ids, k: int) -> float:
     """bench.py's rank-count rule: an id is a true top-k member iff fewer
     than k corpus rows score strictly higher (plain f32 scores)."""
@@ -97,10 +161,14 @@ def phase_topk(torch, T, quant, gen, report):
     torch.cuda.synchronize()
     check(int(iv.max()) < valid and rank_recall(q[:64], corpus[:valid], iv, K) == 1.0,
           f"K1 bf16 valid_n={valid} < N: ids below valid_n, recall 1.000")
+    out_bytes = B * K * 8  # f32 scores + int32 ids
     report["matmul_topk_bf16"] = {
         "max_abs_err": err,
         "ms": cuda_ms(lambda: T.topk_bf16(q, corpus, N, K), 10),
         "plain_ms": cuda_ms(lambda: T.topk_bf16_plain(q, corpus, N, K), 3),
+        "library_ms": cuda_ms(lambda: torch.topk(q @ corpus.T, K), 5),
+        "library_call": "composite: torch.matmul (bf16 scores) then torch.topk",
+        **bound(B * D * 2 + N * D * 2 + out_bytes, 2 * B * N * D, BF16_OPS_S),
     }
     del corpus
 
@@ -109,11 +177,13 @@ def phase_topk(torch, T, quant, gen, report):
     gcodes, _ = quant.quantize_int8_global(base)
     del base
     q_i8, _ = T.quantize_queries(torch.randn(B, D, generator=gen, device="cuda"))
-    for name, kern, plain in (
+    for name, kern, plain, library, n_scale in (
         ("matmul_topk_int8", lambda n, k: T.topk_int8(q_i8, codes, scales, n, k),
-         lambda n, k: T.topk_int8_plain(q_i8, codes, scales, n, k)),
+         lambda n, k: T.topk_int8_plain(q_i8, codes, scales, n, k),
+         lambda: torch.topk(torch._int_mm(q_i8, codes.T).float() * scales, K), 4),
         ("matmul_topk_int8_global", lambda n, k: T.topk_int8_global(q_i8, gcodes, n, k),
-         lambda n, k: T.topk_int8_global_plain(q_i8, gcodes, n, k)),
+         lambda n, k: T.topk_int8_global_plain(q_i8, gcodes, n, k),
+         lambda: torch.topk(torch._int_mm(q_i8, gcodes.T), K), 0),
     ):
         worst = 0.0
         for n, k in ((N, K), (N, K_RERANK), (N - 777, K)):
@@ -126,6 +196,9 @@ def phase_topk(torch, T, quant, gen, report):
             "max_abs_err": worst,
             "ms": cuda_ms(lambda: kern(N, K), 10),
             "plain_ms": cuda_ms(lambda: plain(N, K), 3),
+            "library_ms": cuda_ms(library, 5),
+            "library_call": "composite: torch._int_mm (int32 scores) then torch.topk",
+            **bound(B * D + N * D + N * n_scale + out_bytes, 2 * B * N * D, INT8_OPS_S),
         }
 
 
@@ -153,10 +226,76 @@ def phase_flash(torch, A, gen, report, rel_bias_of):
           "K4 flash: o and lse finite, kv_lens == 0 rows included")
     check(diff.max().item() <= FLASH_O_TOL, f"K4 flash B={b} H={h} T={t} D={d}: o max abs err <= {FLASH_O_TOL}")
     check(lse_diff.max().item() <= FLASH_LSE_TOL, f"K4 flash: lse max abs err <= {FLASH_LSE_TOL}")
+    # the library yardstick: SDPA with the bias and the key mask folded
+    # into one float mask (built outside the timed call)
+    keys = torch.arange(t, device="cuda")
+    key_mask = torch.where(keys[None, :] < lens[:, None], 0.0, float("-inf"))
+    sdpa_mask = (bias[None] + key_mask[:, None, None, :]).to(torch.bfloat16)
+    q4, k4, v4 = (x.view(b, h, t, d) for x in (qb, kb, vb))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    io_bytes = 4 * b * h * t * d * 2 + h * t * t * 4 + b * h * 4 + b * h * t * 4  # q k v o, bias, lens, lse
     report["flash_attention_fwd"] = {
         "max_abs_err": diff.max().item(),
         "ms": cuda_ms(lambda: A.flash_fwd(qb, kb, vb, lens_bh, bias, h), 20),
         "plain_ms": cuda_ms(lambda: A.flash_fwd_plain(qb, kb, vb, lens_bh, bias, h), 5),
+        "library_ms": cuda_ms(lambda: sdpa(q4, k4, v4, attn_mask=sdpa_mask, scale=1.0), 20),
+        "library_call": "torch.nn.functional.scaled_dot_product_attention, bias + key mask as a bf16 attn_mask",
+        **bound(io_bytes, 4 * t * d * h * int(lens.sum()), BF16_OPS_S),  # keys this run's kv_lens admit
+    }
+
+
+def phase_w8(torch, report):
+    """K6 against its plain version at the PhoGPT-4B decode shapes, timed
+    over enough weight copies to stream them from HBM as a decode step
+    does (one layer's weights never stay in L2 across a 32-layer step).
+    Device times come from CUDA graph replays; the host-paced time of the
+    same calls (events around plain launches) is printed beside them."""
+    from vietnamese_qa_system_tpu_torch.models.quantize import dequantize_weight, quantize_weight
+    from vietnamese_qa_system_tpu_torch.ops import w8_matmul as W
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    layer = dict.fromkeys(("ms", "plain_ms", "library_ms", "bound_ms"), 0.0)
+    worst = 0.0
+    for k, n in W8_SHAPES:
+        leaf = quantize_weight(torch.randn(k, n, generator=gen, device="cuda") * 0.02, "int8c")
+        copies = max(2, -(-3 * L2_BYTES // (k * n)))
+        wqs = [leaf["w_q"].clone() for _ in range(copies)]
+        w_bf16 = [dequantize_weight(wq, leaf["w_s"], torch.bfloat16) for wq in wqs]
+        ws = leaf["w_s"]
+        for m in W8_ROWS:
+            x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
+            y = W.w8_matmul(x, wqs[0], ws, out_dtype=torch.float32)
+            again = W.w8_matmul(x, wqs[0], ws, out_dtype=torch.float32)
+            ref = W.w8_matmul_reference(x, wqs[0], ws, torch.float32)
+            torch.cuda.synchronize()
+            err = (y - ref).abs().max().item()
+            rel = err / ref.abs().max().item()
+            check(rel <= W8_REL_TOL and torch.equal(y, again),
+                  f"K6 w8_matmul M={m} K={k} N={n}: max abs err {err:.3e} ({rel:.2e} of max |y|) <= {W8_REL_TOL}, "
+                  "repeats bit for bit")
+            worst = max(worst, err)
+            def kernel(it=itertools.cycle(wqs)):
+                return W.w8_matmul(x, next(it), ws, out_dtype=torch.float32)
+
+            rows = {
+                "ms": graph_ms(kernel, 24),
+                "plain_ms": graph_ms(lambda: W.w8_matmul_reference(x, wqs[0], ws, torch.float32), 6),
+                "library_ms": graph_ms(lambda it=itertools.cycle(w_bf16): torch.matmul(x, next(it)), 24),
+                **bound(m * k * 2 + k * n + n * 4 + m * n * 4, 2 * m * k * n, BF16_OPS_S),
+            }
+            print(f"K6 M={m:2d} K={k:5d} N={n:5d}: kernel {rows['ms'] * 1e3:7.2f} us (host-paced "
+                  f"{cuda_ms(kernel, 60) * 1e3:6.2f}), plain {rows['plain_ms'] * 1e3:7.2f} us, library (bf16 "
+                  f"weight, twice the bytes) {rows['library_ms'] * 1e3:7.2f} us, bound {rows['bound_ms'] * 1e3:6.2f} "
+                  f"us ({rows['bound_by']})", flush=True)
+            if m == 8:
+                for key in layer:
+                    layer[key] += W8_PER_LAYER[(k, n)] * rows[key]
+        del wqs, w_bf16
+    report["w8_matmul"] = {
+        "max_abs_err": worst, **layer, "bound_by": "bytes",
+        "library_call": "composite: torch.matmul of bf16 x with a pre-dequantized bf16 weight (twice the bytes)",
+        "shape": "one PhoGPT-4B layer's six calls at M=8: 4x (3072,3072) + (3072,12288) + (12288,3072)",
+        "timing": "device time, CUDA graph replay of 24 calls over weight copies larger than L2",
     }
 
 
@@ -191,16 +330,49 @@ def on_cpu(store):
 
 def post(url: str, payload: dict) -> dict:
     req = urllib.request.Request(url, data=json.dumps(payload).encode(), headers={"Content-Type": "application/json"})
-    with urllib.request.urlopen(req, timeout=120) as resp:
+    with urllib.request.urlopen(req, timeout=300) as resp:
         return json.loads(resp.read())
 
 
+def serve(app):
+    """An HTTP server for ``app`` on an ephemeral port; returns (url, stop)."""
+    from vietnamese_qa_system_tpu_torch.engine import make_server
+
+    httpd = make_server(app, host="127.0.0.1", port=0)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+
+    def stop():
+        httpd.shutdown()
+        httpd.server_close()
+        app.close()
+        thread.join(timeout=30)
+
+    return f"http://127.0.0.1:{httpd.server_address[1]}", stop
+
+
+def ask_all(url: str, path: str, payloads: list[dict]) -> list:
+    """POST every payload at once, one thread each; a failed request
+    leaves None."""
+    answers = [None] * len(payloads)
+
+    def ask(j):
+        answers[j] = post(url + path, payloads[j])
+
+    threads = [threading.Thread(target=ask, args=(j,)) for j in range(len(payloads))]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=600)
+    return answers
+
+
 def phase_slice(torch, pkg, gen):
-    """The serving path once, end to end, with the launch counters reset."""
+    """The retrieval serving path once, end to end, with the launch
+    counters reset; returns the launches and what the QA path reuses."""
     from vietnamese_qa_system_tpu_torch.core import make_generator
     from vietnamese_qa_system_tpu_torch.data import ByteTokenizer, batch_encode
-    from vietnamese_qa_system_tpu_torch.engine import (DocStore, IngestPipeline, Retriever, ServingApp,
-                                                       VectorStore, make_server)
+    from vietnamese_qa_system_tpu_torch.engine import DocStore, IngestPipeline, Retriever, ServingApp, VectorStore
     from vietnamese_qa_system_tpu_torch.models import init_encoder, mpnet_class
     from vietnamese_qa_system_tpu_torch.ops.cuda_kernels import FLASH_FWD
 
@@ -247,41 +419,27 @@ def phase_slice(torch, pkg, gen):
     retriever = Retriever(encoder, tok, stores["bf16"], docstore, max_len=128, query_batch=32)
     app = ServingApp(retriever, ingest=IngestPipeline(encoder, tok, stores["bf16"], docstore, batch_size=32,
                                                       max_len=128), k=5, max_batch=32)
-    httpd = make_server(app, host="127.0.0.1", port=0)
-    server = threading.Thread(target=httpd.serve_forever, daemon=True)
-    server.start()
-    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    url, stop = serve(app)
+    # queries: passages whose tokens fit max_len 128, so the query and the
+    # ingested passage see the same tokens
+    short = [i for i, t in enumerate(texts) if len(tok.encode(t)) <= 128]
     try:
-        # queries: passages whose tokens fit max_len 128, so the query and
-        # the ingested passage see the same tokens
-        short = [i for i, t in enumerate(texts) if len(tok.encode(t)) <= 128][:12]
-        check(len(short) >= 8, f"{len(short)} passages fit the 128-token query length")
-        answers = [None] * len(short)
-
-        def ask(j, i):
-            answers[j] = post(f"{url}/search", {"query": texts[i], "k": 5})
-
-        threads = [threading.Thread(target=ask, args=(j, i)) for j, i in enumerate(short)]
-        for th in threads:
-            th.start()
-        for th in threads:
-            th.join(timeout=300)
+        check(len(short) >= 12 + READER_QUESTIONS, f"{len(short)} passages fit the 128-token query length")
+        asked = short[:12]
+        answers = ask_all(url, "/search", [{"query": texts[i], "k": 5} for i in asked])
         hits = 0
-        for i, ans in zip(short, answers):
+        for i, ans in zip(asked, answers):
             found = [r for r in (ans or {}).get("results", []) if r["id"] == int(doc_ids[i])]
             hits += bool(found) and found[0]["doc"] == texts[i]
-        check(hits == len(short), f"{hits}/{len(short)} HTTP /search answers return their passage's id and doc in the top-5")
+        check(hits == len(asked), f"{hits}/{len(asked)} HTTP /search answers return their passage's id and doc in the top-5")
         new = post(f"{url}/ingest", {"texts": ["Bài viết mới về giáo dục ở Việt Nam."], "sources": ["http"]})
         check(new["ids"] == [filled + N_PASSAGES] and new["index_size"] == filled + N_PASSAGES + 1,
               "HTTP /ingest appended one document")
         with urllib.request.urlopen(f"{url}/healthz", timeout=60) as resp:
             health = json.loads(resp.read())
-        check(health["ok"] and health["stats"]["search"]["requests"] == len(short), "HTTP /healthz counts the searches")
+        check(health["ok"] and health["stats"]["search"]["requests"] == len(asked), "HTTP /healthz counts the searches")
     finally:
-        httpd.shutdown()
-        httpd.server_close()
-        app.close()
-        server.join(timeout=30)
+        stop()
 
     # the three int8 stores against the plain path (a host twin of each)
     qv = stores["bf16"].get_vectors(list(range(32)))
@@ -297,7 +455,192 @@ def phase_slice(torch, pkg, gen):
             ok = same_ids and torch.equal(s.cpu(), ps)
         check(ok and bool((i[:, 0].cpu() == torch.arange(32)).all()),
               f"{dt} store top-{K} equals the plain path; each query finds its source vector first")
-    return {k.name: k.launches for k in pkg.KERNELS}
+    launches = {k.name: k.launches for k in pkg.KERNELS}
+    ctx = {"encoder": encoder, "tok": tok, "store": stores["bf16"], "docstore": docstore, "texts": texts,
+           "questions": short[12: 12 + READER_QUESTIONS]}
+    return launches, ctx
+
+
+def phase_reader(torch, pkg, ctx):
+    """The QA serving path once at PhoGPT-4B width (int8c, random weights
+    from the seed), with the launch counters reset; returns its launches,
+    the reader and a batch of its prompts."""
+    from vietnamese_qa_system_tpu_torch.core import make_generator
+    from vietnamese_qa_system_tpu_torch.data import batch_encode
+    from vietnamese_qa_system_tpu_torch.engine import QAPipeline, Retriever, ServingApp
+    from vietnamese_qa_system_tpu_torch.models import init_causal_lm, phogpt_4b_class
+    from vietnamese_qa_system_tpu_torch.models import generate as G
+
+    cfg = phogpt_4b_class()
+    t0 = time.perf_counter()
+    reader = init_causal_lm(cfg, make_generator(SEED + 1, "cuda"), quantize="int8c")
+    torch.cuda.synchronize()
+    n_bytes = sum(t.numel() * t.element_size() for t in reader.state_dict().values())
+    print(f"reader phogpt_4b_class: {cfg.n_layers} layers, d {cfg.d_model}, d_ff {cfg.d_ff}, {cfg.n_heads} heads, "
+          f"int8c, {n_bytes / 1e9:.2f} GB on the card, drawn and quantized in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    tok, texts = ctx["tok"], ctx["texts"]
+    retriever = Retriever(ctx["encoder"], tok, ctx["store"], ctx["docstore"], max_len=128, query_batch=16)
+    qa = QAPipeline(retriever, reader, tok, k=3, max_prompt_len=READER_PROMPT_LEN, max_new_tokens=READER_NEW_TOKENS)
+    app = ServingApp(retriever, qa, k=3, max_batch=16, max_wait_s=0.2)
+    url, stop = serve(app)
+    questions = [texts[i] for i in ctx["questions"]]
+    try:
+        for kern in pkg.KERNELS:
+            kern.launches = 0
+        t0 = time.perf_counter()
+        answers = ask_all(url, "/qa", [{"question": q} for q in questions])
+        torch.cuda.synchronize()
+        launches = {k.name: k.launches for k in pkg.KERNELS}
+        wall = time.perf_counter() - t0
+        with urllib.request.urlopen(f"{url}/healthz", timeout=60) as resp:
+            stats = json.loads(resp.read())["stats"]["qa"]
+    finally:
+        stop()
+    print(f"/qa: {len(questions)} concurrent questions answered in {wall:.2f} s over {stats['batches']} batch(es); "
+          f"launches {json.dumps(launches)}", flush=True)
+    good = [a is not None and not a["refused"] and a["contexts"][:1] == [q] and isinstance(a["answer"], str)
+            for q, a in zip(questions, answers)]
+    check(all(good), f"{sum(good)}/{len(questions)} HTTP /qa answers (200) carry their own passage as contexts[0]")
+    per_call = 6 * cfg.n_layers * READER_NEW_TOKENS
+    check(stats["requests"] == len(questions) and launches["w8_matmul"] == per_call * stats["batches"],
+          f"K6 launched {per_call} times (6 x {cfg.n_layers} layers x {READER_NEW_TOKENS} steps) per generate call, "
+          f"{stats['batches']} call(s); the prefill ({READER_PROMPT_LEN}-token rows) took the dequantize route")
+
+    # prefill seconds and decode tokens/s of the same prompts in one batch
+    prompts, _ = qa.retrieve(questions)
+    ids, mask = batch_encode(tok, prompts, READER_PROMPT_LEN, pad_side="left")
+    timings = {}
+    torch.cuda.reset_peak_memory_stats()
+    G.generate(reader, torch.from_numpy(ids).cuda(), torch.from_numpy(mask).cuda(),
+               max_new_tokens=READER_NEW_TOKENS, eos_id=tok.eos_id, timings=timings)
+    tps = len(prompts) * READER_NEW_TOKENS / timings["decode_s"]
+    print(f"reader B={len(prompts)} T={READER_PROMPT_LEN}: prefill {timings['prefill_s']:.3f} s, decode "
+          f"{READER_NEW_TOKENS} steps in {timings['decode_s']:.3f} s = {tps:.1f} tokens/s, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB", flush=True)
+    trace_decode(torch, reader, torch.from_numpy(ids).cuda(), torch.from_numpy(mask).cuda(), tok.eos_id,
+                 timings["decode_s"] / READER_NEW_TOKENS)
+    return launches, reader
+
+
+def trace_decode(torch, reader, ids, mask, eos_id, step_s):
+    """Where a decode step's time goes: a torch.profiler trace of one
+    generate call's decode loop (its ``generate.decode`` span) gives the
+    device's busy time a step (the union of its kernels), that time by the
+    aten call that launched each kernel, and the host's operator calls,
+    kernel launches and synchronisations a step (with their callers).  The idle share compares the busy time with
+    ``step_s``, the wall time of a step of the untraced run (the profiler
+    slows the host)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from vietnamese_qa_system_tpu_torch.models import generate as G
+
+    timings = {}
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        G.generate(reader, ids, mask, max_new_tokens=TRACE_STEPS, eos_id=eos_id, timings=timings)
+    events = prof.events()
+    # the host's span (kineto adds a device-side twin of the same name)
+    span = [e for e in events if e.name == "generate.decode" and e.device_type == DeviceType.CPU]
+    if len(span) != 1:
+        print(f"decode trace: {len(span)} generate.decode spans recorded; breakdown not measured", flush=True)
+        return
+    t0, t1 = span[0].time_range.start, span[0].time_range.end
+    kernels = sorted((e for e in events if e.device_type == DeviceType.CUDA and e.time_range.start >= t0
+                      and e.name != "generate.decode"),
+                     key=lambda e: e.time_range.start)
+    if not kernels:
+        print("decode trace: the profiler recorded no device kernels; device time a step not measured", flush=True)
+        return
+    # each kernel's device time goes to the outermost aten call that launched
+    # it: a device event shares its id with the runtime call (cudaLaunchKernel,
+    # cudaMemcpyAsync) whose host parent is the innermost aten call.  K6 is
+    # launched through ctypes, inside no aten call.
+    runtime = {e.id: e for e in events if e.device_type == DeviceType.CPU and e.name.startswith("cu")}
+
+    def outer_aten(op) -> str:
+        while op is not None and op.cpu_parent is not None and op.cpu_parent.name.startswith("aten::"):
+            op = op.cpu_parent
+        return op.name if op is not None and op.name.startswith("aten::") else "(no aten call)"
+
+    def caller(kernel) -> str:
+        if kernel.name.startswith("w8_") or "::w8_" in kernel.name:
+            return "K6 (w8_gemm, w8_reduce)"
+        launch = runtime.get(kernel.id)
+        return outer_aten(None if launch is None else launch.cpu_parent)
+
+    busy, reach, by_caller = 0.0, t0, {}
+    for e in kernels:
+        start, end = e.time_range.start, e.time_range.end
+        busy += max(0.0, end - max(start, reach))
+        reach = max(reach, end)
+        key = caller(e)
+        by_caller[key] = by_caller.get(key, 0.0) + (end - start)
+    host = [e for e in events if e.device_type != DeviceType.CUDA and t0 <= e.time_range.start <= t1]
+    ops = sum(1 for e in host if e.name.startswith("aten::")
+              and (e.cpu_parent is None or not e.cpu_parent.name.startswith("aten::")))
+    sync_callers = {}
+    for e in host:
+        if "Synchronize" in e.name:
+            key = f"{e.name} in {outer_aten(e.cpu_parent)}"
+            sync_callers[key] = sync_callers.get(key, 0) + 1
+    syncs = sum(sync_callers.values())
+    launch_calls = sum(1 for e in host if "LaunchKernel" in e.name)
+    n = TRACE_STEPS
+    busy_ms, step_ms = busy / 1e3 / n, step_s * 1e3
+    print(f"decode trace ({n} steps, B={ids.shape[0]}, torch.profiler): device busy {busy_ms:.3f} ms a step "
+          f"({len(kernels) / n:.0f} kernels); traced wall {(reach - t0) / 1e3 / n:.3f} ms a step; untraced wall "
+          f"{step_ms:.3f} ms a step -> device idle share {1 - busy_ms / step_ms:.3f}; host a step: "
+          f"{ops / n:.0f} top-level aten calls, {launch_calls / n:.0f} kernel-launch API calls, "
+          f"{syncs / n:.1f} synchronize calls", flush=True)
+    for key, us in sorted(by_caller.items(), key=lambda kv: -kv[1])[:12]:
+        print(f"  device a step, kernels of {key}: {us / 1e3 / n:.3f} ms", flush=True)
+    for key, count in sorted(sync_callers.items(), key=lambda kv: -kv[1]):
+        print(f"  host a step, {key}: {count / n:.1f}", flush=True)
+
+
+def phase_twin(torch, reader):
+    """Two layers of the reader's weights, full width: greedy decode on the
+    card (through K6) against the host plain path."""
+    import numpy as np
+
+    from vietnamese_qa_system_tpu_torch.models import causal_from_state_dict
+    from vietnamese_qa_system_tpu_torch.models import generate as G
+
+    cfg = dataclasses.replace(reader.cfg, n_layers=TWIN_LAYERS, use_flash_attention=False)
+    state = {k: v for k, v in reader.state_dict().items()
+             if not k.startswith("blocks.") or int(k.split(".")[1]) < TWIN_LAYERS}
+    card = causal_from_state_dict(state, cfg)
+    host = causal_from_state_dict({k: v.cpu() for k, v in state.items()}, cfg)
+    rng = np.random.default_rng(SEED)
+    ids = torch.from_numpy(rng.integers(4, 260, (TWIN_ROWS, TWIN_PROMPT_LEN)).astype(np.int32))
+    mask = torch.ones_like(ids)
+    mask[1::2, :8] = 0
+    ids = ids * mask
+    out_card = G.generate(card, ids.cuda(), mask.cuda(), max_new_tokens=TWIN_NEW_TOKENS).cpu()
+    out_host = G.generate(host, ids, mask, max_new_tokens=TWIN_NEW_TOKENS)
+    # logits that chose each token, teacher-forced on the card's stream
+    full = torch.cat([mask, torch.ones((TWIN_ROWS, TWIN_NEW_TOKENS - 1), dtype=mask.dtype)], dim=1)
+    pos = (torch.cumsum(full, 1) - 1).clamp_min(0)
+    seq = out_card[:, :-1].long()
+    with torch.inference_mode():
+        lc = card(seq.cuda(), full.cuda(), positions=pos.cuda()).cpu()[:, TWIN_PROMPT_LEN - 1:]
+        lh = host(seq, full, positions=pos)[:, TWIN_PROMPT_LEN - 1:]
+    err = (lc - lh).abs().max().item()
+    top2 = torch.topk(lh, 2, dim=-1).values
+    margin = top2[..., 0] - top2[..., 1]
+    agree = True
+    first_tie = []
+    for r in range(TWIN_ROWS):
+        ties = torch.nonzero(margin[r] < TWIN_LOGIT_TOL).flatten()
+        until = int(ties[0]) if len(ties) else TWIN_NEW_TOKENS
+        first_tie.append(until)
+        agree &= torch.equal(out_card[r, TWIN_PROMPT_LEN: TWIN_PROMPT_LEN + until],
+                             out_host[r, TWIN_PROMPT_LEN: TWIN_PROMPT_LEN + until])
+    print(f"twin ({TWIN_LAYERS} layers, full width): logits max abs err {err:.3e} over {TWIN_NEW_TOKENS} steps, "
+          f"smallest top-2 margin {margin.min().item():.3e}, tokens compared up to steps {first_tie}", flush=True)
+    check(err <= TWIN_LOGIT_TOL, f"twin greedy logits on the card agree with the host plain path within {TWIN_LOGIT_TOL}")
+    check(agree, "twin greedy tokens agree with the host until the first top-2 margin below the tolerance")
 
 
 def main() -> int:
@@ -319,17 +662,24 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
     cuda_kernels.library()
-    print(f"kernels built from csrc/ in {time.perf_counter() - t0:.1f} s")
+    print(f"kernels built from csrc/ in {time.perf_counter() - t0:.1f} s", flush=True)
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     report: dict = {}
     phase_topk(torch, T, quant, gen, report)
     table = torch.randn(32, FLASH_H, generator=gen, device="cuda") * 0.02
     phase_flash(torch, A, gen, report, lambda t: relative_attention_bias(table, t, mpnet_class()))
-    launches = phase_slice(torch, pkg, gen)
-    print("launches in the serving run: " + json.dumps(launches))
-    for kern in pkg.KERNELS:
-        check(launches[kern.name] > 0, f"{kern.name} launched on the serving path")
+    phase_w8(torch, report)
+    retrieval, ctx = phase_slice(torch, pkg, gen)
+    print("launches in the retrieval run: " + json.dumps(retrieval))
+    for name in ("matmul_topk_bf16", "matmul_topk_int8", "matmul_topk_int8_global", "flash_attention_fwd"):
+        check(retrieval[name] > 0, f"{name} launched on the retrieval path")
+    reader_launches, reader = phase_reader(torch, pkg, ctx)
+    del ctx
+    for name in ("matmul_topk_bf16", "w8_matmul"):
+        check(reader_launches[name] > 0, f"{name} launched on the QA path")
+    phase_twin(torch, reader)
+    launches = dict(retrieval, w8_matmul=reader_launches["w8_matmul"])
     kernels = [
         {"name": k.name, "route": k.route, "source": k.source, "replaces": k.replaces,
          "launches": launches[k.name], **report[k.name]}

@@ -127,7 +127,7 @@ def test_http_search_and_ingest_roundtrip(encoders):
                               ("/ingest", {"texts": "x"}), ("/qa", {"question": "x"})):
             with pytest.raises(urllib.error.HTTPError) as err:
                 _post(url + path, payload)
-            assert err.value.code == (404 if path == "/qa" else 400)
+            assert err.value.code == 400  # /qa: no reader configured
     finally:
         httpd.shutdown()
         httpd.server_close()

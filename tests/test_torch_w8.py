@@ -1,0 +1,170 @@
+"""The port's w8 GEMM (kernel K6's plain version), its route gate and the
+int8 / int8c weight quantization against the JAX package.
+
+Tolerances: the plain version dequantizes before an f32 product while the
+JAX kernel (interpret mode) folds the scale after the K sum; both sum f32
+products of the same bf16 activations and int8 codes, so they differ by
+f32 rounding only: max abs error <= 1e-5 of max |y|.  Codes and scales are
+compared bit for bit.
+"""
+
+import dataclasses
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from vietnamese_qa_system_tpu.models import causal_lm as jlm
+from vietnamese_qa_system_tpu.models import config as jc
+from vietnamese_qa_system_tpu.models import quantize as jq
+from vietnamese_qa_system_tpu.models.layers import dense as jdense
+from vietnamese_qa_system_tpu.models.layers import init_dense
+from vietnamese_qa_system_tpu.ops import w8_matmul as jw8
+from vietnamese_qa_system_tpu_torch.core import make_generator
+from vietnamese_qa_system_tpu_torch.models import ModelConfig, causal_from_jax, init_causal_lm
+from vietnamese_qa_system_tpu_torch.models import quantize as tq
+from vietnamese_qa_system_tpu_torch.models.layers import Dense
+from vietnamese_qa_system_tpu_torch.ops import cuda_kernels
+from vietnamese_qa_system_tpu_torch.ops import w8_matmul as tw8
+
+torch.set_num_threads(2)
+REL_TOL = 1e-5
+
+
+def _codes(rng, k, n):
+    w = rng.standard_normal((k, n)).astype(np.float32) * 0.05
+    s = (np.abs(w).max(axis=0) / 127.0).astype(np.float32)
+    q = np.clip(np.round(w / s[None, :]), -127, 127).astype(np.int8)
+    return q, s
+
+
+@pytest.mark.parametrize("m,k,n", [(8, 512, 640), (1, 256, 128), (37, 384, 1280), (256, 128, 256)])
+def test_plain_matches_jax_kernel_and_reference(m, k, n):
+    rng = np.random.default_rng(m + k + n)
+    q, s = _codes(rng, k, n)
+    x = rng.standard_normal((m, k)).astype(np.float32)
+    xb = jnp.asarray(x, jnp.bfloat16)
+    kernel = np.asarray(jw8.w8_matmul(xb, jnp.asarray(q), jnp.asarray(s), out_dtype=jnp.float32))
+    ref = np.asarray(jw8.w8_matmul_reference(xb, jnp.asarray(q), jnp.asarray(s), jnp.float32))
+    got = tw8.w8_matmul(torch.from_numpy(x), torch.from_numpy(q), torch.from_numpy(s),
+                        out_dtype=torch.float32).numpy()
+    plain = tw8.w8_matmul_reference(torch.from_numpy(x).to(torch.bfloat16), torch.from_numpy(q),
+                                    torch.from_numpy(s), torch.float32).numpy()
+    assert got.shape == (m, n) and got.dtype == np.float32
+    scale = np.abs(ref).max()
+    assert np.abs(got - kernel).max() <= REL_TOL * scale
+    assert np.abs(got - ref).max() <= REL_TOL * scale
+    np.testing.assert_array_equal(got, plain)
+
+
+def test_supports_and_divisibility_match_jax():
+    for m in (1, 8, 16, 255, 256, 257, 4096):
+        for k in (64, 100, 128, 384, 640, 3072, 5632):
+            for n in (96, 128, 200, 1280, 12288):
+                assert tw8.supports(m, k, n) == jw8.supports(m, k, n), (m, k, n)
+    with pytest.raises(ValueError, match="divisible"):
+        tw8.w8_matmul(torch.zeros(8, 100), torch.zeros(100, 640, dtype=torch.int8), torch.ones(640))
+    assert tw8.supports(300, 128, 128, max_rows=512)
+
+
+@pytest.mark.parametrize("mode,d_in,block", [("int8c", 256, 64), ("int8c", 5632, 64), ("int8", 256, 64),
+                                             ("int8", 384, 96), ("int8", 5632, 128)])
+def test_quantize_weight_bit_identical(mode, d_in, block):
+    w = np.random.default_rng(d_in).standard_normal((d_in, 96)).astype(np.float32) * 0.05
+    w[3, 7] = 0.9  # an outlier
+    w[:, 5] = 0.0  # an all-zero column: the 1e-12 absmax floor
+    want = jq.quantize_weight(jnp.asarray(w), mode, block)
+    got = tq.quantize_weight(torch.from_numpy(w), mode, block)
+    assert got["w_q"].dtype == torch.int8 and got["w_s"].dtype == torch.float32
+    np.testing.assert_array_equal(got["w_q"].numpy(), np.asarray(want["w_q"]))
+    np.testing.assert_array_equal(got["w_s"].numpy(), np.asarray(want["w_s"]))
+    back = tq.dequantize_weight(got["w_q"], got["w_s"], torch.float32).numpy()
+    np.testing.assert_array_equal(back, np.asarray(jq.dequantize_weight(want, jnp.float32)))
+    if mode == "int8c":
+        assert got["w_s"].shape == (1, 96)
+
+
+def test_nf4_is_not_ported():
+    for mode in ("nf4", "nf4-dq"):
+        with pytest.raises(NotImplementedError, match="not ported"):
+            tq.quantize_weight(torch.zeros(64, 8), mode)
+    with pytest.raises(ValueError, match="mode"):
+        tq.quantize_weight(torch.zeros(64, 8), "int4")
+
+
+@pytest.mark.parametrize("mode", ["int8c", "int8"])
+@pytest.mark.parametrize("rows", [4, 256, 300])
+def test_dense_route_matches_jax(mode, rows):
+    """int8c at <= 256 rows takes K6 (here its plain version), the JAX
+    package the w8 kernel; 300 rows and blockwise int8 take the dequantize
+    route (bf16 weight) in both."""
+    p = init_dense(jax.random.key(0), 256, 384)
+    leaf = {"b": p["b"] + 0.1, **jq.quantize_weight(p["w"], mode)}
+    x = np.random.default_rng(rows).standard_normal((rows // 4, 4, 256)).astype(np.float32)
+    want = np.asarray(jdense(leaf, jnp.asarray(x)))
+    layer = Dense(256, 384)
+    layer.set_quantized(torch.tensor(np.asarray(leaf["w_q"])), torch.tensor(np.asarray(leaf["w_s"])))
+    layer.b = torch.nn.Parameter(torch.tensor(np.asarray(leaf["b"])))
+    got = layer(torch.from_numpy(x)).detach().numpy()
+    assert got.shape == want.shape
+    assert np.abs(got - want).max() <= REL_TOL * np.abs(want).max()
+
+
+def test_quantize_dense_tree_matches_jax():
+    """The port quantizes the same dense layers as the JAX package (not the
+    untied LM head, not the embeddings), each to the bytes of the JAX
+    ``quantize_weight``.  The JAX tree quantizer runs ``quantize_weight``
+    under ``jax.jit``, where XLA turns ``absmax / 127`` into a product with
+    the reciprocal: its scales are up to one ulp off the eager function,
+    and a code that sits on a rounding tie moves by one."""
+    cfg = dataclasses.replace(jc.llama_1b_class(), vocab_size=512, d_model=256, n_heads=4, n_kv_heads=2,
+                              n_layers=2, d_ff=512)
+    params = jax.tree.map(np.asarray, jlm.init_causal_lm(jax.random.key(0), cfg))
+    pcfg = ModelConfig.from_dict(dataclasses.asdict(cfg))
+    model = tq.quantize_dense_tree(causal_from_jax(params, pcfg), "int8c")
+    want = causal_from_jax(jax.tree.map(np.asarray, jq.quantize_dense_tree(params, "int8c")), pcfg)
+    got_sd, want_sd = model.state_dict(), want.state_dict()
+    assert got_sd.keys() == want_sd.keys()
+    assert "lm_head.w" in got_sd and "blocks.0.mlp.wg.w_q" in got_sd and "tok_embed" in got_sd
+    float_sd = causal_from_jax(params, pcfg).state_dict()
+    for name in got_sd:
+        assert got_sd[name].dtype == want_sd[name].dtype, name
+        if name.endswith(".w_q"):
+            eager = jq.quantize_weight(jnp.asarray(float_sd[name[:-2]].numpy()), "int8c")
+            np.testing.assert_array_equal(got_sd[name].numpy(), np.asarray(eager["w_q"]))
+            np.testing.assert_array_equal(got_sd[name[:-1] + "s"].numpy(), np.asarray(eager["w_s"]))
+            moved = (got_sd[name].int() - want_sd[name].int()).abs()
+            assert moved.max() <= 1 and moved.float().mean() < 1e-3, name
+        elif name.endswith(".w_s"):
+            np.testing.assert_array_max_ulp(got_sd[name].numpy(), want_sd[name].numpy(), maxulp=1)
+        else:
+            assert torch.equal(got_sd[name], want_sd[name]), name
+
+
+def test_init_quantizes_layer_by_layer():
+    cfg = ModelConfig.from_dict(dataclasses.asdict(dataclasses.replace(
+        jc.phogpt_4b_class(), vocab_size=512, d_model=384, n_heads=6, n_layers=2, d_ff=768)))
+    a = init_causal_lm(cfg, make_generator(5), quantize="int8c")
+    b = tq.quantize_dense_tree(init_causal_lm(cfg, make_generator(5)), "int8c")
+    sa, sb = a.state_dict(), b.state_dict()
+    assert sa.keys() == sb.keys() and all(torch.equal(sa[k], sb[k]) for k in sa)
+    assert sa["blocks.1.mlp.wi.w_q"].dtype == torch.int8 and sa["blocks.1.mlp.wi.w_s"].shape == (1, 768)
+    assert not any(k.endswith(".w") for k in sa)  # tied head: every dense layer is quantized
+
+
+@pytest.mark.parametrize("kernel", cuda_kernels.KERNELS, ids=lambda k: k.name)
+def test_kernel_registry_names_its_source_and_the_tpu_kernel(kernel):
+    """Each registered kernel's C entry point is defined in the source file
+    it names, and ``replaces`` points at a kernel function of the JAX
+    package."""
+    root = Path(__file__).resolve().parent.parent
+    src = (root / kernel.source).read_text()
+    c_api = src.split('extern "C" {', 1)[1]
+    params = c_api.split(f"int {kernel.symbol}(", 1)[1].split(")", 1)[0]
+    assert len(kernel.argtypes) == params.count(",") + 1
+    path, line = kernel.replaces.split(":")
+    assert path.startswith("vietnamese_qa_system_tpu/")
+    assert (root / path).read_text().splitlines()[int(line) - 1].startswith("def _")

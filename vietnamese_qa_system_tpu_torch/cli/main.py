@@ -1,15 +1,22 @@
-"""Command-line interface of the port: ``ingest`` and ``serve``.
+"""Command-line interface of the port: ``ingest``, ``serve`` and ``chat``.
 
-Counterpart of ``vietnamese_qa_system_tpu/cli/main.py:535-931``::
+Counterpart of ``vietnamese_qa_system_tpu/cli/main.py:535-1044``::
 
     python -m vietnamese_qa_system_tpu_torch.cli ingest --inputs docs.jsonl \\
         --index idx --db docs.sqlite --encoder mpnet --dtype int8_global
     python -m vietnamese_qa_system_tpu_torch.cli serve --index idx \\
-        --db docs.sqlite --encoder mpnet --port 8080
+        --db docs.sqlite --encoder mpnet --port 8080 \\
+        --reader-size phogpt4b --reader-quantize int8c
+    python -m vietnamese_qa_system_tpu_torch.cli chat --model-size phogpt4b \\
+        --quantize int8c
 
-Both take ``--device`` (default ``cuda``; a missing GPU raises).  Hybrid
-BM25 retrieval, IVF indexes, HF weight directories and the reader LM are
-not ported yet and raise where the JAX CLI would use them.
+Each takes ``--device`` (default ``cuda``; a missing GPU raises).  The
+reader answers with random weights drawn from ``--seed`` on the device,
+layer by layer (quantized as each layer is made).  Hybrid BM25 retrieval,
+IVF indexes, HF weight directories, reader checkpoints, nf4 weights,
+speculative decoding and draft models, sharded readers and the continuous
+engine behind ``/generate`` are not ported yet and raise where the JAX CLI
+would use them; seq2seq readers and beam search have no flag yet.
 """
 
 from __future__ import annotations
@@ -23,6 +30,8 @@ from typing import Optional
 
 # presets of the retrieval encoders (cli/main.py:547-551)
 ENCODERS = ("tiny", "minilm", "mpnet")
+# presets of the causal readers (cli/main.py:171-182, :710-720)
+READERS = ("tiny", "gpt125m", "gptneo125m", "pythia410m", "llama1b", "qwen2-05b", "bloom560m", "phogpt4b")
 
 
 def _encoder(spec: str, seed: int, device):
@@ -37,6 +46,37 @@ def _encoder(spec: str, seed: int, device):
     if spec not in presets:
         raise SystemExit(f"unknown encoder {spec!r}: use one of {', '.join(ENCODERS)}")
     return init_encoder(presets[spec](), make_generator(seed), device=device)
+
+
+def _reader(size: str, tok, seed: int, device, quantize: Optional[str]):
+    """A causal reader with random weights drawn on ``device`` from
+    ``seed``, quantized layer by layer as it is made."""
+    import dataclasses
+
+    from ..core.device import make_generator
+    from ..models import config as mcfg
+    from ..models import init_causal_lm
+
+    presets = {
+        "tiny": lambda: mcfg.tiny_test("causal"), "gpt125m": mcfg.gpt_125m_class, "gptneo125m": mcfg.gpt_neo_125m,
+        "pythia410m": mcfg.pythia_410m_class, "llama1b": mcfg.llama_1b_class, "qwen2-05b": mcfg.qwen2_05b_class,
+        "bloom560m": mcfg.bloom_560m_class, "phogpt4b": mcfg.phogpt_4b_class,
+    }
+    cfg = presets[size]()
+    if tok.vocab_size > cfg.vocab_size:
+        cfg = dataclasses.replace(cfg, vocab_size=tok.vocab_size)
+    print("(no reader checkpoint: answering with RANDOM weights)", flush=True)
+    model = init_causal_lm(cfg, make_generator(seed, device), quantize=quantize)
+    if quantize:
+        print(f"reader decodes over a {quantize} base", flush=True)
+    return model
+
+
+def _refuse(args, flags: dict) -> None:
+    """Raise for a JAX CLI option the port has no counterpart for yet."""
+    for flag, (attr, idle) in flags.items():
+        if getattr(args, attr) != idle:
+            raise NotImplementedError(f"{flag} is not ported yet")
 
 
 def _tokenizer(spec: str):
@@ -99,9 +139,14 @@ def _check_ported_index(args) -> None:
 
 def cmd_serve(args) -> int:
     from ..core.device import resolve_device
-    from ..engine import DocStore, IngestPipeline, Retriever, ServingApp, VectorStore, make_server
+    from ..engine import DocStore, IngestPipeline, QAPipeline, Retriever, ServingApp, VectorStore, make_server
 
     _check_ported_index(args)
+    _refuse(args, {
+        "--reader-params": ("reader_params", None), "--reader-strategy": ("reader_strategy", None),
+        "--continuous-slots": ("continuous_slots", 0), "--reader-draft-size": ("reader_draft_size", None),
+        "--reader-draft-params": ("reader_draft_params", None), f"--speculative {args.speculative}": ("speculative", "none"),
+    })
     device = resolve_device(args.device)
     encoder = _encoder(args.encoder, args.seed, device)
     tok = _tokenizer(args.tokenizer)
@@ -114,6 +159,11 @@ def cmd_serve(args) -> int:
     qbatch = args.max_batch if args.port is not None else 256
     retriever = Retriever(encoder, tok, store, docstore, max_len=args.max_len, mode=args.search_mode,
                           query_batch=qbatch)
+    qa = None
+    if args.reader_size:
+        reader = _reader(args.reader_size, tok, args.seed + 1, device, args.reader_quantize)
+        qa = QAPipeline(retriever, reader, tok, k=args.k, min_score=args.min_score,
+                        max_new_tokens=args.max_new_tokens)
     if args.port is None:
         print(f"index: {store.size} vectors; type a query (empty line quits)")
         while True:
@@ -123,18 +173,25 @@ def cmd_serve(args) -> int:
                 break
             if not query:
                 break
+            if qa is not None:
+                ans = qa.answer([query])[0]
+                print(f"answer{'(refused)' if ans.refused else ''}> {ans.answer}")
+                for rank, (doc, score) in enumerate(zip(ans.contexts, ans.scores)):
+                    print(f"  ctx {rank + 1}. score={score:.3f} {doc[:120]}")
+                continue
             for rank, r in enumerate(retriever.search([query], k=args.k)[0]):
                 doc = (r.doc or "")[:160].replace("\n", " ")
                 print(f"  {rank + 1}. [{r.id}] score={r.score:.3f} {doc}")
         return 0
 
     ingest = IngestPipeline(encoder, tok, store, docstore, batch_size=args.max_batch, max_len=args.max_len)
-    app = ServingApp(retriever, ingest=ingest, k=args.k, max_k=args.max_k, max_batch=args.max_batch,
+    app = ServingApp(retriever, qa, ingest=ingest, k=args.k, max_k=args.max_k, max_batch=args.max_batch,
                      max_wait_s=args.batch_wait_ms / 1000.0)
     httpd = make_server(app, host=args.host, port=args.port)
     print(
         f"serving {store.size} vectors on http://{httpd.server_address[0]}:{httpd.server_address[1]} "
-        f"(max_batch={args.max_batch}, wait={args.batch_wait_ms}ms; endpoints: /healthz /search /ingest)",
+        f"(max_batch={args.max_batch}, wait={args.batch_wait_ms}ms; endpoints: /healthz /search /ingest"
+        f"{' /qa' if qa else ''})",
         flush=True,
     )
 
@@ -156,9 +213,42 @@ def cmd_serve(args) -> int:
     return 0
 
 
+def cmd_chat(args) -> int:
+    """Interactive generation REPL over a causal reader."""
+    import torch
+
+    from ..core.device import resolve_device
+    from ..data import QUESTION_PREFIX, RESPONSE_PREFIX, batch_encode
+    from ..models import GenerationConfig, generate_with_config
+
+    _refuse(args, {
+        "--init-params": ("init_params", None), "--draft-size": ("draft_size", None),
+        "--draft-params": ("draft_params", None),
+    })
+    device = resolve_device(args.device)
+    tok = _tokenizer(args.tokenizer)
+    model = _reader(args.model_size, tok, args.seed, device, args.quantize)
+    gen = GenerationConfig(max_new_tokens=args.max_new_tokens, temperature=args.temperature)
+    print("chat REPL — empty line quits", flush=True)
+    while True:
+        try:
+            text = input("user> ").strip()
+        except EOFError:
+            break
+        if not text:
+            break
+        prompt = f"{QUESTION_PREFIX}\n{text}\n\n{RESPONSE_PREFIX}\n"
+        ids, mask = batch_encode(tok, [prompt], args.max_len, pad_side="left")
+        out = generate_with_config(model, torch.from_numpy(ids).to(device), torch.from_numpy(mask).to(device),
+                                   gen, eos_id=tok.eos_id)
+        new_tokens = out[0, ids.shape[1]:].tolist()
+        print(f"model> {tok.decode([t for t in new_tokens if t not in (tok.pad_id, tok.eos_id)])}", flush=True)
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="vietnamese_qa_system_tpu_torch",
-                                description="Vietnamese QA retrieval on PyTorch / CUDA")
+                                description="Vietnamese QA (retrieval and reader) on PyTorch / CUDA")
     sub = p.add_subparsers(dest="command", required=True)
 
     pi = sub.add_parser("ingest", help="build the retrieval index")
@@ -181,7 +271,7 @@ def build_parser() -> argparse.ArgumentParser:
     pi.add_argument("--device", default="cuda")
     pi.set_defaults(fn=cmd_ingest)
 
-    ps = sub.add_parser("serve", help="retrieval REPL, or the HTTP API with --port")
+    ps = sub.add_parser("serve", help="retrieval (or QA with --reader-size) REPL, or the HTTP API with --port")
     ps.add_argument("--index", required=True)
     ps.add_argument("--ivf-index", default=None, help="IVF directory (not ported yet)")
     ps.add_argument("--db", required=True)
@@ -205,8 +295,41 @@ def build_parser() -> argparse.ArgumentParser:
                          "bm25.json needs 1.0")
     ps.add_argument("--search-mode", default="fast", choices=["fast", "turbo"],
                     help="kept for parity with the JAX CLI: every mode of the port is exact")
+    ps.add_argument("--reader-size", default=None, choices=READERS,
+                    help="enable full QA (/qa): retrieve + generate with a causal reader LM (random weights "
+                         "from --seed)")
+    ps.add_argument("--reader-quantize", choices=["int8", "int8c", "nf4", "nf4-dq"], default=None,
+                    help="quantize the reader's dense weights for decode; int8c (one scale per output channel) "
+                         "decodes through the w8 GEMM kernel (K6); nf4 is not ported yet")
+    ps.add_argument("--min-score", type=float, default=0.2,
+                    help="retrieval score below which /qa refuses instead of answering")
+    ps.add_argument("--max-new-tokens", type=int, default=128, help="completion budget of each /qa answer")
+    ps.add_argument("--speculative", choices=["none", "ngram", "draft"], default="none",
+                    help="speculative decoding for the reader (only none is ported)")
+    ps.add_argument("--reader-params", default=None, help="reader checkpoint (not ported yet)")
+    ps.add_argument("--reader-strategy", choices=["tp", "fsdp_tp"], default=None,
+                    help="shard the reader over several GPUs (not ported yet)")
+    ps.add_argument("--reader-draft-size", default=None, help="draft model preset (not ported yet)")
+    ps.add_argument("--reader-draft-params", default=None, help="draft model checkpoint (not ported yet)")
+    ps.add_argument("--continuous-slots", type=int, default=0,
+                    help="POST /generate via continuous batching (not ported yet)")
     ps.add_argument("--device", default="cuda")
     ps.set_defaults(fn=cmd_serve)
+
+    pc = sub.add_parser("chat", help="interactive generation REPL")
+    pc.add_argument("--model-size", default="tiny", choices=READERS)
+    pc.add_argument("--tokenizer", default="byte")
+    pc.add_argument("--max-len", type=int, default=256)
+    pc.add_argument("--max-new-tokens", type=int, default=128)
+    pc.add_argument("--temperature", type=float, default=0.0)
+    pc.add_argument("--quantize", choices=["int8", "int8c", "nf4", "nf4-dq"], default=None,
+                    help="quantize dense weights for decode; int8c decodes through the w8 GEMM kernel (K6)")
+    pc.add_argument("--init-params", default=None, help="model checkpoint (not ported yet)")
+    pc.add_argument("--draft-size", default=None, help="draft model preset (not ported yet)")
+    pc.add_argument("--draft-params", default=None, help="draft model checkpoint (not ported yet)")
+    pc.add_argument("--seed", type=int, default=42)
+    pc.add_argument("--device", default="cuda")
+    pc.set_defaults(fn=cmd_chat)
     return p
 
 

@@ -28,7 +28,9 @@ def resolve_device(name: str | torch.device = "cuda") -> torch.device:
     return dev
 
 
-def make_generator(seed: int) -> torch.Generator:
-    """A CPU ``torch.Generator`` seeded explicitly (random init draws on the
-    host, so one seed gives the same weights on every device)."""
-    return torch.Generator(device="cpu").manual_seed(int(seed))
+def make_generator(seed: int, device: str | torch.device = "cpu") -> torch.Generator:
+    """A ``torch.Generator`` on ``device`` seeded explicitly.  The default
+    draws on the host, so one seed gives the same weights on every device;
+    a device generator lets a multi-billion-parameter reader be drawn
+    where it lives."""
+    return torch.Generator(device=device).manual_seed(int(seed))

@@ -1,6 +1,7 @@
 from .chunking import chunk_text
 from .docstore import DocStore
 from .ingest import IngestPipeline
+from .qa import QAAnswer, QAPipeline
 from .query import DualRetriever, Retriever, SearchResult, dual_agreement
 from .server import MicroBatcher, ServingApp, make_server
 from .store import VectorStore
@@ -10,6 +11,8 @@ __all__ = [
     "DualRetriever",
     "IngestPipeline",
     "MicroBatcher",
+    "QAAnswer",
+    "QAPipeline",
     "Retriever",
     "SearchResult",
     "ServingApp",

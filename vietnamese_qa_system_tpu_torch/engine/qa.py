@@ -1,0 +1,105 @@
+"""End-to-end QA: retrieve -> RAG prompt -> reader generation.
+
+Counterpart of ``vietnamese_qa_system_tpu/engine/qa.py`` for causal
+readers: batched retrieval, prompt assembly with the template bank's
+``[CTX i]`` format, KV-cache batch generation (models/generate.py), and a
+score threshold below which a question gets a refusal.  The same seeded
+``random.Random`` picks the templates in the same order as the JAX
+pipeline, so both render the same prompts and refusals.
+
+Seq2seq readers and speculative decoding are not ported yet and raise.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import random
+from typing import Optional, Sequence
+
+import torch
+
+from ..data.schemas import QUESTION_PREFIX, RESPONSE_PREFIX, QAExample
+from ..data.templates import DEFAULT_BANK
+from ..data.tokenizer import batch_encode
+from ..models.generate import GenerationConfig, generate_with_config
+from .query import Retriever
+
+
+@dataclasses.dataclass
+class QAAnswer:
+    question: str
+    answer: Optional[str]
+    contexts: list[str]
+    scores: list[float]
+    refused: bool = False
+
+
+class QAPipeline:
+    """``reader`` is a :class:`~..models.causal_lm.CausalLM` (its ``cfg``
+    and device come with it)."""
+
+    def __init__(self, retriever: Retriever, reader, reader_tokenizer, *, k: int = 3, min_score: float = 0.2,
+                 max_prompt_len: int = 512, max_new_tokens: int = 128, temperature: float = 0.0, seed: int = 0,
+                 speculative: str = "none"):
+        if reader.cfg.arch != "causal":
+            raise NotImplementedError(f"{reader.cfg.arch} readers are not ported yet")
+        if speculative != "none":
+            raise NotImplementedError(f"speculative decoding (speculative={speculative!r}) is not ported yet")
+        self.retriever = retriever
+        self.reader = reader
+        self.tok = reader_tokenizer
+        self.k = k
+        self.min_score = min_score
+        self.max_prompt_len = max_prompt_len
+        self.max_new_tokens = max_new_tokens
+        self.temperature = temperature
+        self.rng = random.Random(seed)
+
+    def _build_prompt(self, question: str, contexts: Sequence[str]) -> str:
+        context = QAExample.flatten_docs(list(contexts))
+        body = DEFAULT_BANK.render_random("prompt", self.rng, question=question, context=context)
+        return f"{QUESTION_PREFIX}\n{body}\n\n{RESPONSE_PREFIX}\n"
+
+    def answer(self, questions: Sequence[str]) -> list[QAAnswer]:
+        prompts, metas = self.retrieve(questions)
+        return self.generate_answers(prompts, metas)
+
+    def retrieve(self, questions: Sequence[str]):
+        """Stage 1, the only part that touches (mutable) index state:
+        search, refusal triage, prompt assembly."""
+        hits = self.retriever.search(questions, k=self.k)
+        prompts, metas = [], []
+        for question, row in zip(questions, hits):
+            kept = [r for r in row if r.score >= self.min_score and r.doc]
+            if not kept:
+                refusal = DEFAULT_BANK.render_random("no_answer", self.rng, question=question)
+                metas.append(QAAnswer(question, refusal, [], [r.score for r in row], refused=True))
+                prompts.append(None)
+                continue
+            metas.append(QAAnswer(question, None, [r.doc for r in kept], [r.score for r in kept]))
+            prompts.append(self._build_prompt(question, [r.doc for r in kept]))
+        return prompts, metas
+
+    def generate_answers(self, prompts: Sequence[Optional[str]], metas: list[QAAnswer]) -> list[QAAnswer]:
+        """Stage 2: reader generation over the assembled prompts."""
+        live = [i for i, p in enumerate(prompts) if p is not None]
+        if not live:
+            return metas
+        # pad the batch to the next power of two, as the JAX pipeline does:
+        # it keeps the row count of every dense layer the JAX run has, and
+        # with it the route (kernel K6 at <= 256 rows) and its rounding
+        n = len(live)
+        bucket = 1 << (n - 1).bit_length()
+        texts = [prompts[i] for i in live] + [" "] * (bucket - n)
+        ids, mask = batch_encode(self.tok, texts, self.max_prompt_len, pad_side="left")
+        dev = self.reader.device
+        out = generate_with_config(
+            self.reader, torch.from_numpy(ids).to(dev), torch.from_numpy(mask).to(dev),
+            GenerationConfig(max_new_tokens=self.max_new_tokens, temperature=self.temperature),
+            eos_id=self.tok.eos_id,
+        ).cpu().numpy()
+        for row, i in enumerate(live):
+            new_tokens = out[row, ids.shape[1]:]
+            completion = self.tok.decode([t for t in new_tokens if t not in (self.tok.pad_id, self.tok.eos_id)])
+            metas[i].answer = completion.strip()
+        return metas

@@ -1,20 +1,24 @@
 """HTTP serving layer with request micro-batching.
 
-Counterpart of ``vietnamese_qa_system_tpu/engine/server.py`` for the
-retrieval endpoints: concurrent requests land in a queue and one worker
-drains up to ``max_batch`` of them into one batched retrieval call, so the
-top-k kernel scores many queries per launch.  The worker thread launches on
-its own current CUDA stream (the kernel wrappers look it up at each call).
+Counterpart of ``vietnamese_qa_system_tpu/engine/server.py``: concurrent
+requests land in a queue and one worker per endpoint drains up to
+``max_batch`` of them into one batched call, so the top-k kernel scores
+many queries per launch and the reader decodes many questions per step.
+Each worker thread launches on its own current CUDA stream (the kernel
+wrappers look it up at each call).
 
 Endpoints (JSON over stdlib http.server):
 
 - ``GET /healthz`` -> {"ok": true, "index_size": N, "stats": {...}}
 - ``POST /search`` {"query": str, "k": int?} -> ranked contexts
+- ``POST /qa`` {"question": str} -> generated answer + contexts (when built
+  with a QAPipeline reader)
 - ``POST /ingest`` {"texts": [str, ...], "sources": [str, ...]?} ->
   {"ids": [...]} -- online index growth (when built with an
   IngestPipeline).
 
-``/qa`` and ``/generate`` need the reader LM, which is not ported yet.
+``/generate`` needs the continuous-batching engine, which is not ported
+yet: it answers 501.
 """
 
 from __future__ import annotations
@@ -119,11 +123,12 @@ class MicroBatcher:
 
 class ServingApp:
     """Request routing + batching over a Retriever (and an optional
-    IngestPipeline for online growth)."""
+    QAPipeline reader and IngestPipeline for online growth)."""
 
     def __init__(
         self,
         retriever,
+        qa=None,
         *,
         ingest=None,
         k: int = 10,
@@ -134,6 +139,7 @@ class ServingApp:
         max_ingest_texts: int = 4096,
     ):
         self.retriever = retriever
+        self.qa = qa
         self.ingest = ingest
         self.k = k
         # every dispatch runs top-k at this one value and slices per request
@@ -154,6 +160,7 @@ class ServingApp:
         self._latencies: dict[str, list[float]] = {}
         self._lat_lock = threading.Lock()
         self._search_batcher = MicroBatcher(self._search_batch, max_batch, max_wait_s)
+        self._qa_batcher = MicroBatcher(self._qa_batch, max_batch, max_wait_s) if qa is not None else None
 
     # ---- batched backend (runs on the batcher worker thread) ----
 
@@ -172,6 +179,22 @@ class ServingApp:
                 }
             )
         return out
+
+    def _qa_batch(self, questions: list[str]) -> list[dict]:
+        # hold the index lock for retrieval only; the decode is pure and
+        # must not block searches for its duration
+        with self._lock:
+            prompts, metas = self.qa.retrieve(questions)
+        answers = self.qa.generate_answers(prompts, metas)
+        return [
+            {
+                "answer": a.answer,
+                "refused": a.refused,
+                "contexts": list(a.contexts),
+                "scores": [round(float(s), 6) for s in a.scores],
+            }
+            for a in answers
+        ]
 
     # ---- request entry points (called from HTTP handler threads) ----
 
@@ -193,6 +216,11 @@ class ServingApp:
         if isinstance(k, bool) or not isinstance(k, int) or not (1 <= k <= self.max_k):
             raise ValueError(f"'k' must be an int in [1, {self.max_k}], got {k!r}")
         return self._timed("search", self._search_batcher.submit((query, k)))
+
+    def answer(self, question: str) -> dict:
+        if self._qa_batcher is None:
+            raise LookupError("no reader configured (serve --reader-size)")
+        return self._timed("qa", self._qa_batcher.submit(question))
 
     def add_texts(self, texts: Sequence[str], sources=None) -> dict:
         if self.ingest is None:
@@ -221,6 +249,8 @@ class ServingApp:
 
     def health(self) -> dict:
         stats = {"search": dict(self._search_batcher.stats)}
+        if self._qa_batcher is not None:
+            stats["qa"] = dict(self._qa_batcher.stats)
         with self._lat_lock:
             snapshot = {k: list(v) for k, v in self._latencies.items()}
         for endpoint, lat in snapshot.items():
@@ -235,12 +265,15 @@ class ServingApp:
         return {
             "ok": True,
             "index_size": self.retriever.store.size,
+            "qa": self.qa is not None,
             "ingest": self.ingest is not None,
             "stats": stats,
         }
 
     def close(self) -> None:
         self._search_batcher.close()
+        if self._qa_batcher is not None:
+            self._qa_batcher.close()
 
 
 def make_server(app: ServingApp, host: str = "127.0.0.1", port: int = 0):
@@ -314,6 +347,15 @@ def make_server(app: ServingApp, host: str = "127.0.0.1", port: int = 0):
                         self._reply(400, {"error": "missing 'query'"})
                         return
                     self._reply(200, app.search(query, req.get("k")))
+                elif self.path == "/qa":
+                    question = req.get("question")
+                    if not isinstance(question, str) or not question.strip():
+                        self._reply(400, {"error": "missing 'question'"})
+                        return
+                    self._reply(200, app.answer(question))
+                elif self.path == "/generate":
+                    self._reply(501, {"error": "/generate needs the continuous-batching engine, which is not "
+                                               "ported yet"})
                 elif self.path == "/ingest":
                     texts = req.get("texts")
                     if not isinstance(texts, list) or not all(

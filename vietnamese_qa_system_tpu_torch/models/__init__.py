@@ -1,14 +1,36 @@
-from .config import ModelConfig, minilm_class, mpnet_class, tiny_test
+from .causal_lm import CausalLM, init_causal_lm, make_cache, unstack_blocks
+from .config import (ModelConfig, bloom_560m_class, gpt_125m_class, gpt_neo_125m, llama_1b_class, minilm_class,
+                     mpnet_class, phogpt_4b_class, pythia_410m_class, qwen2_05b_class, tiny_test)
 from .encoder import SentenceEncoder, init_encoder, relative_attention_bias
-from .params import encoder_from_jax
+from .generate import GenerationConfig, generate_with_config
+from .params import causal_from_jax, causal_from_state_dict, encoder_from_jax
+from .quantize import dequantize_weight, quantize_dense_tree, quantize_weight
 
 __all__ = [
+    "CausalLM",
+    "GenerationConfig",
     "ModelConfig",
     "SentenceEncoder",
+    "bloom_560m_class",
+    "causal_from_jax",
+    "causal_from_state_dict",
+    "dequantize_weight",
     "encoder_from_jax",
+    "generate_with_config",
+    "gpt_125m_class",
+    "gpt_neo_125m",
+    "init_causal_lm",
     "init_encoder",
+    "llama_1b_class",
+    "make_cache",
     "minilm_class",
     "mpnet_class",
+    "phogpt_4b_class",
+    "pythia_410m_class",
+    "quantize_dense_tree",
+    "quantize_weight",
+    "qwen2_05b_class",
     "relative_attention_bias",
     "tiny_test",
+    "unstack_blocks",
 ]

@@ -1,0 +1,213 @@
+"""Decoder-only causal LM (RoPE/NeoX, learned-position GPT-Neo, ALiBi
+BLOOM/MPT, llama/Qwen2 GQA families; tied or untied head).
+
+Counterpart of ``vietnamese_qa_system_tpu/models/causal_lm.py`` for
+serving: ``CausalLM.hidden_states`` with and without a KV cache,
+``forward`` (the head is a plain f32 product of bf16-rounded inputs),
+``init_causal_lm``, ``_layer_kinds``, ``_window_mask`` and
+``unstack_blocks``.  The port keeps a plain list of layers: a scan-stacked
+JAX tree is unstacked once when it is carried over (models/params.py).
+
+The cache-less branch with ``use_flash_attention=True`` needs the causal
+form of the flash forward (K4), which is not ported yet: it raises
+``NotImplementedError`` rather than falling back to plain attention.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from .config import ModelConfig
+from .layers import Block, Dense, LayerNorm, _matmul, alibi_bias, causal_mask, rope_frequencies
+from .quantize import quantize_dense_tree
+
+
+def unstack_blocks(params: dict, n_layers: int) -> dict:
+    """Scan-stacked pytree (every block leaf (L, ...)) -> list of blocks.
+    No-op on list-form params.  Leaves are numpy arrays or tensors."""
+    blocks = params["blocks"]
+    if isinstance(blocks, list):
+        return params
+
+    def take(node, i):
+        if isinstance(node, dict):
+            return {k: take(v, i) for k, v in node.items()}
+        return node[i]
+
+    out = dict(params)
+    out["blocks"] = [take(blocks, i) for i in range(n_layers)]
+    return out
+
+
+def _layer_kinds(cfg: ModelConfig):
+    """Per-layer attention kind: "global" | "local" (GPT-Neo alternates)."""
+    if cfg.attention_layers is None:
+        return ("global",) * cfg.n_layers
+    if len(cfg.attention_layers) != cfg.n_layers:
+        raise ValueError(f"attention_layers has {len(cfg.attention_layers)} entries for {cfg.n_layers} layers")
+    return cfg.attention_layers
+
+
+def _window_mask(q_slots, k_slots, window: int):
+    """Sliding-window constraint in cache-SLOT space: a query sees keys at
+    most ``window - 1`` slots behind it (exact for left-padded decode: query
+    and key positions shift by the same per-row pad offset)."""
+    return (q_slots[..., :, None] - k_slots[None, :]) < window
+
+
+def make_cache(cfg: ModelConfig, b: int, total_len: int, device) -> list[dict]:
+    """One bf16 {"k", "v"} (B, total_len, kv heads, head_dim) buffer per
+    layer (GQA stores only the kv heads)."""
+    shape = (b, total_len, cfg.kv_heads, cfg.head_dim)
+    return [
+        {"k": torch.zeros(shape, dtype=torch.bfloat16, device=device),
+         "v": torch.zeros(shape, dtype=torch.bfloat16, device=device)}
+        for _ in range(cfg.n_layers)
+    ]
+
+
+def _block(cfg: ModelConfig, device) -> Block:
+    return Block(cfg.d_model, cfg.n_heads, cfg.d_ff, cfg.norm_eps, n_kv_heads=cfg.n_kv_heads, norm=cfg.norm,
+                 gated_mlp=cfg.mlp_gated, use_bias=cfg.attention_bias, device=device)
+
+
+class CausalLM(nn.Module):
+    """Parameters named as the JAX causal pytree (``tok_embed``,
+    ``blocks.0.attn.wq.w``, ``ln_f.scale``, ...)."""
+
+    def __init__(self, cfg: ModelConfig, *, device=None):
+        super().__init__()
+        if cfg.arch != "causal":
+            raise ValueError(f"CausalLM needs arch='causal', got {cfg.arch!r}")
+        self.cfg = cfg
+        d = cfg.d_model
+        rms = cfg.norm == "rmsnorm"
+        self.tok_embed = nn.Parameter(torch.empty(cfg.vocab_size, d, device=device))
+        self.blocks = nn.ModuleList(_block(cfg, device) for _ in range(cfg.n_layers))
+        self.ln_f = LayerNorm(d, cfg.norm_eps, bias=not rms, device=device)
+        self.pos_embed = (nn.Parameter(torch.empty(cfg.max_seq_len, d, device=device))
+                          if cfg.positional == "learned" else None)
+        self.emb_ln = LayerNorm(d, cfg.norm_eps, device=device) if cfg.embed_layernorm else None
+        self.lm_head = None if cfg.tie_embeddings else Dense(d, cfg.vocab_size, use_bias=False, device=device)
+
+    @property
+    def device(self) -> torch.device:
+        return self.tok_embed.device
+
+    def hidden_states(self, ids, attn_mask=None, *, positions=None, cache=None, cache_index=None):
+        """ids (B, T) -> final-norm hidden states (B, T, D) f32.
+
+        With ``cache`` (:func:`make_cache`) the mask covers the cache length,
+        (B, T, L) bool, and the new keys and values are written into the
+        cache in place at slot ``cache_index``."""
+        cfg = self.cfg
+        b, t = ids.shape
+        dev = ids.device
+        if positions is None:
+            positions = torch.arange(t, device=dev)[None, :].expand(b, t)
+        # positions past the tables read their last row, as JAX's clamped
+        # gathers do (a prompt + answer longer than max_seq_len)
+        positions = positions.clamp(0, cfg.max_seq_len - 1)
+        x = self.tok_embed[ids]
+        if cfg.scale_embedding:
+            x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype, device=dev)
+        rope = None
+        if cfg.positional == "learned":
+            x = x + self.pos_embed[positions]
+        elif cfg.positional == "rope":
+            rot = int(cfg.head_dim * cfg.rope_pct)
+            rot -= rot % 2
+            rope = rope_frequencies(rot, cfg.max_seq_len, cfg.rope_theta, device=dev)
+        adt = torch.bfloat16 if cfg.activations_bf16 else None
+        if self.emb_ln is not None:
+            x = self.emb_ln(x, out_dtype=adt)
+        elif adt is not None:
+            x = x.to(adt)
+        kinds = _layer_kinds(cfg)
+        has_local = "local" in kinds
+        alibi = cfg.positional == "alibi"
+
+        if cache is None:
+            if cfg.use_flash_attention:
+                raise NotImplementedError(
+                    "the cache-less causal forward with use_flash_attention=True needs the causal flash "
+                    "forward, which is not ported yet")
+            bias = alibi_bias(cfg.n_heads, t, cfg.alibi_mode, cfg.alibi_bias_max, dev) if alibi else None
+            mask = causal_mask(t, dev)
+            if attn_mask is not None:
+                mask = mask & attn_mask[:, None, :].bool()
+            local_mask = None
+            if has_local:
+                slots = torch.arange(t, device=dev)
+                local_mask = mask & _window_mask(slots, slots, cfg.attention_window)
+        else:
+            # decode: keys live in the cache; ALiBi uses cache-SLOT positions
+            # (a per-row padding shift of every key is a softmax row constant)
+            cache_len = cache[0]["k"].shape[1]
+            bias = alibi_bias(cfg.n_heads, cache_len, cfg.alibi_mode, cfg.alibi_bias_max, dev) if alibi else None
+            mask = attn_mask
+            local_mask = None
+            if has_local:
+                q_slots = cache_index + torch.arange(t, device=dev)
+                local_mask = mask & _window_mask(q_slots, torch.arange(cache_len, device=dev),
+                                                 cfg.attention_window)
+        for i, (blk, kind) in enumerate(zip(self.blocks, kinds)):
+            x = blk(x, mask=local_mask if kind == "local" else mask, rope=rope, positions=positions,
+                    cache=None if cache is None else cache[i], cache_index=cache_index,
+                    parallel_residual=cfg.parallel_residual, scale=cfg.attention_scale,
+                    activation=cfg.activation, bias=bias, clip=cfg.clip_qkv, activation_dtype=adt)
+        return self.ln_f(x)
+
+    def head(self, x):
+        """(…, D) hidden states -> (…, V) f32 logits (bf16 inputs)."""
+        w = self.tok_embed.T if self.cfg.tie_embeddings else self.lm_head.w
+        return _matmul(x, w)
+
+    def forward(self, ids, attn_mask=None, *, positions=None, cache=None, cache_index=None):
+        """ids (B, T) -> logits (B, T, V) f32."""
+        return self.head(self.hidden_states(ids, attn_mask, positions=positions, cache=cache,
+                                            cache_index=cache_index))
+
+
+def _init_dense_norms(module: nn.Module, generator: torch.Generator) -> None:
+    with torch.no_grad():
+        for mod in module.modules():
+            if isinstance(mod, Dense):
+                s = 1.0 / mod.w.shape[0] ** 0.5
+                mod.w.uniform_(-s, s, generator=generator)
+                if mod.b is not None:
+                    mod.b.zero_()
+            elif isinstance(mod, LayerNorm):
+                mod.scale.fill_(1.0)
+                if mod.bias is not None:
+                    mod.bias.zero_()
+
+
+def init_causal_lm(cfg: ModelConfig, generator: torch.Generator, *, quantize: str | None = None) -> CausalLM:
+    """Random weights with the JAX ``init_causal_lm`` distributions:
+    embeddings N(0, 0.02^2), dense weights U(-1/sqrt(d_in), 1/sqrt(d_in)),
+    zero biases, unit norm scales.  Drawn from ``generator`` on its own
+    device, layer by layer; with ``quantize`` ("int8" or "int8c") each
+    layer is quantized as soon as it is made, so a multi-billion-parameter
+    reader never holds more than one float layer."""
+    device = generator.device
+    model = CausalLM(cfg, device="meta")
+    model.blocks = nn.ModuleList()
+    model.to_empty(device=device)
+    with torch.no_grad():
+        model.tok_embed.normal_(0.0, 0.02, generator=generator)
+        for _ in range(cfg.n_layers):
+            blk = _block(cfg, device)
+            _init_dense_norms(blk, generator)
+            if quantize:
+                quantize_dense_tree(blk, quantize)
+            model.blocks.append(blk)
+        _init_dense_norms(model.ln_f, generator)
+        if model.pos_embed is not None:
+            model.pos_embed.normal_(0.0, 0.02, generator=generator)
+        if model.emb_ln is not None:
+            _init_dense_norms(model.emb_ln, generator)
+        if model.lm_head is not None:
+            _init_dense_norms(model.lm_head, generator)
+    return model.eval().requires_grad_(False)

@@ -1,9 +1,13 @@
-"""Transformer building blocks of the sentence encoder, as ``nn.Module``s.
+"""Transformer building blocks of the encoder and the causal LM, as
+``nn.Module``s.
 
-Counterpart of the encoder subset of ``vietnamese_qa_system_tpu/models/
-layers.py``: ``Dense`` (no int8 weights, no LoRA), ``LayerNorm``,
-``Attention`` (no cache, RoPE or GQA), ``MLP`` (gelu / gelu_new), ``Block``
-(pre- and post-LN), ``padding_mask`` and the bf16 activation policy.
+Counterpart of ``vietnamese_qa_system_tpu/models/layers.py``: ``Dense``
+(float, or int8 / int8c leaves; no LoRA), ``LayerNorm`` (RMSNorm when it
+has no bias), RoPE (partial rotary), ALiBi slopes and the key-only bias,
+``Attention`` (bf16 KV cache at a scalar ``cache_index``, GQA, ``clip_qkv``,
+the masked-softmax path, and the encoder's flash path), ``MLP`` (plain or
+gated), ``Block`` (pre-LN, post-LN, parallel residual), ``causal_mask`` and
+``padding_mask``.
 
 Parameter names and layouts follow the JAX pytree (dense weights are
 (d_in, d_out) and applied as ``x @ w``), so a JAX parameter tree maps onto
@@ -19,13 +23,18 @@ matmul of bf16-rounded inputs on every device (an exact emulation of
 
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import flash_attention
+from ..ops.w8_matmul import supports as w8_supports
+from ..ops.w8_matmul import w8_matmul
 
 COMPUTE_DTYPE = torch.bfloat16
+NEG_INF = -1e30  # finite, as in the reference
 
 
 def _matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -37,92 +46,228 @@ def _bf16(x: torch.Tensor) -> torch.Tensor:
     return x.to(COMPUTE_DTYPE).float()
 
 
+def dequantize_weight(w_q: torch.Tensor, w_s: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
+    """Reconstruct the (d_in, d_out) weight of an int8 leaf: codes ``w_q``
+    (d_in, d_out) times the f32 scales ``w_s`` (nb, d_out) of each block of
+    d_in / nb input rows."""
+    d_in, d_out = w_q.shape
+    nb = w_s.shape[0]
+    w = w_q.float().reshape(nb, d_in // nb, d_out) * w_s[:, None, :]
+    return w.reshape(d_in, d_out).to(dtype)
+
+
 class Dense(nn.Module):
+    """``x @ w (+ b)``.  A quantized layer (models/quantize.py) holds the
+    int8 codes ``w_q`` (d_in, d_out) and the f32 scales ``w_s`` (nb, d_out)
+    in place of ``w``."""
+
     def __init__(self, d_in: int, d_out: int, *, use_bias: bool = True, device=None):
         super().__init__()
         self.w = nn.Parameter(torch.empty(d_in, d_out, device=device))
+        self.register_buffer("w_q", None)
+        self.register_buffer("w_s", None)
         self.b = nn.Parameter(torch.empty(d_out, device=device)) if use_bias else None
 
+    def set_quantized(self, w_q: torch.Tensor, w_s: torch.Tensor) -> None:
+        """Replace the float weight by int8 codes and their scales."""
+        self.w = None
+        self.w_q = w_q
+        self.w_s = w_s
+
     def forward(self, x):
-        y = _matmul(x, self.w)
+        if self.w_q is None:
+            y = _matmul(x, self.w)
+        else:
+            d_in, d_out = self.w_q.shape
+            rows = x.numel() // d_in
+            if self.w_s.shape[0] == 1 and w8_supports(rows, d_in, d_out):
+                # int8c at decode row counts: kernel K6 streams the int8
+                # weight and folds the column scale after the K sum
+                y = w8_matmul(x.reshape(rows, d_in).to(COMPUTE_DTYPE), self.w_q, self.w_s,
+                              out_dtype=torch.float32)
+                y = y.reshape(*x.shape[:-1], d_out)
+            else:
+                # dequantize at the point of use: a transient bf16 weight
+                y = _matmul(x, dequantize_weight(self.w_q, self.w_s, COMPUTE_DTYPE))
         return y if self.b is None else y + self.b
 
 
 class LayerNorm(nn.Module):
-    """f32 layer norm; ``out_dtype`` optionally rounds the result."""
+    """f32 layer norm; without a bias it is RMSNorm (llama family), as the
+    JAX package selects the norm by the param dict's shape.  ``out_dtype``
+    optionally rounds the result."""
 
-    def __init__(self, d: int, eps: float, *, device=None):
+    def __init__(self, d: int, eps: float, *, bias: bool = True, device=None):
         super().__init__()
         self.eps = eps
         self.scale = nn.Parameter(torch.empty(d, device=device))
-        self.bias = nn.Parameter(torch.empty(d, device=device))
+        self.bias = nn.Parameter(torch.empty(d, device=device)) if bias else None
 
     def forward(self, x, out_dtype=None):
         x = x.float()
-        mu = x.mean(dim=-1, keepdim=True)
-        var = (x - mu).square().mean(dim=-1, keepdim=True)
-        out = (x - mu) * torch.rsqrt(var + self.eps) * self.scale + self.bias
+        if self.bias is None:
+            out = x * torch.rsqrt(x.square().mean(dim=-1, keepdim=True) + self.eps) * self.scale
+        else:
+            mu = x.mean(dim=-1, keepdim=True)
+            var = (x - mu).square().mean(dim=-1, keepdim=True)
+            out = (x - mu) * torch.rsqrt(var + self.eps) * self.scale + self.bias
         return out if out_dtype is None else out.to(out_dtype)
 
 
+# ---------------------------------------------------------------- positions
+
+
+def rope_frequencies(head_dim: int, max_len: int, theta: float = 10000.0, device=None):
+    """(max_len, head_dim/2) f32 cos/sin tables."""
+    inv = 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim))
+    t = torch.arange(max_len, dtype=torch.float32, device=device)
+    freqs = torch.outer(t, inv)
+    return torch.cos(freqs), torch.sin(freqs)
+
+
+def apply_rope(x, cos, sin, positions):
+    """x (B, T, H, Dh), positions (B, T): rotates the first ``2 *
+    cos.shape[-1]`` features (partial rotary); the rest pass through."""
+    rot = 2 * cos.shape[-1]
+    x_rot, x_pass = x[..., :rot], x[..., rot:]
+    cos_t = cos[positions][:, :, None, :]
+    sin_t = sin[positions][:, :, None, :]
+    x1, x2 = torch.chunk(x_rot.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos_t - x2 * sin_t, x2 * cos_t + x1 * sin_t], dim=-1).to(x.dtype)
+    if x_pass.shape[-1]:
+        out = torch.cat([out, x_pass], dim=-1)
+    return out
+
+
+def alibi_slopes(n_heads: int, mode: str = "bloom", bias_max: float = 8.0, device=None) -> torch.Tensor:
+    """Per-head ALiBi slopes (f32).  ``"bloom"``: HF ``build_alibi_tensor``
+    (closest lower power of two, extended by odd terms); ``"mpt"``: HF
+    ``build_mpt_alibi_tensor`` (next higher power of two, odd-index terms
+    ahead of the even ones, truncated)."""
+    if mode == "mpt":
+        n2 = 2 ** math.ceil(math.log2(n_heads))
+        slopes = [2.0 ** (-bias_max * i / n2) for i in range(1, n2 + 1)]
+        if n2 != n_heads:
+            slopes = (slopes[1::2] + slopes[0::2])[:n_heads]
+        return torch.tensor(slopes, dtype=torch.float32, device=device)
+    closest = 2 ** math.floor(math.log2(n_heads))
+    base = 2.0 ** (-(2.0 ** -(math.log2(closest) - 3)))
+    slopes = [base ** i for i in range(1, closest + 1)]
+    if closest != n_heads:
+        extra_base = 2.0 ** (-(2.0 ** -(math.log2(2 * closest) - 3)))
+        slopes += [extra_base ** i for i in range(1, 2 * (n_heads - closest) + 1, 2)]
+    return torch.tensor(slopes, dtype=torch.float32, device=device)
+
+
+def alibi_bias(n_heads: int, n_keys: int, mode: str = "bloom", bias_max: float = 8.0, device=None):
+    """(1, H, 1, K) key-only score bias ``slope_h * key_position``: the
+    relative form differs by a per-query constant, which softmax ignores."""
+    slopes = alibi_slopes(n_heads, mode, bias_max, device)
+    k = torch.arange(n_keys, dtype=torch.float32, device=device)
+    return slopes[None, :, None, None] * k[None, None, None, :]
+
+
+# ---------------------------------------------------------------- attention
+
+
 class Attention(nn.Module):
-    def __init__(self, d_model: int, *, device=None):
+    """``qkv_bias`` / ``o_bias``: the JAX ``use_bias`` True (both), False
+    (neither) or "qkv" (q/k/v only).  ``kv_dim`` < d_model is grouped-query
+    attention."""
+
+    def __init__(self, d_model: int, *, kv_dim: int | None = None, qkv_bias: bool = True, o_bias: bool = True,
+                 device=None):
         super().__init__()
-        self.wq = Dense(d_model, d_model, device=device)
-        self.wk = Dense(d_model, d_model, device=device)
-        self.wv = Dense(d_model, d_model, device=device)
-        self.wo = Dense(d_model, d_model, device=device)
+        kv_dim = kv_dim or d_model
+        self.wq = Dense(d_model, d_model, use_bias=qkv_bias, device=device)
+        self.wk = Dense(d_model, kv_dim, use_bias=qkv_bias, device=device)
+        self.wv = Dense(d_model, kv_dim, use_bias=qkv_bias, device=device)
+        self.wo = Dense(d_model, d_model, use_bias=o_bias, device=device)
 
-    def forward(self, x, *, n_heads: int, mask=None, flash=None, bias=None, scale=None):
-        """``mask`` (B, Tq, Tk) bool, True = attend; ``bias`` (1, H, Tq, Tk);
-        ``flash`` = {"kv_lens": (B,), "causal": bool} takes the fused kernel."""
-        b, t, d = x.shape
+    def forward(self, x, *, n_heads: int, mask=None, flash=None, bias=None, scale=None, n_kv_heads=None,
+                rope=None, positions=None, cache=None, cache_index=None, clip=None):
+        """``mask`` (B|1, Tq, Tk) bool, True = attend; ``bias`` (1, H, Tq|1,
+        Tk) added after the scaling; ``flash`` = {"kv_lens", "causal"} takes
+        the fused kernel (no cache).  ``cache`` {"k", "v"} (B, L, kv heads,
+        Dh) bf16 is written IN PLACE at slot ``cache_index`` and attention
+        then runs over all of it."""
+        b, t, _ = x.shape
+        kv_h = n_kv_heads or n_heads
 
-        def heads(y):
-            return y.reshape(b, t, n_heads, d // n_heads)
+        def proj(dense, heads):
+            y = dense(x)
+            if clip is not None:
+                y = y.clamp(-clip, clip)
+            return y.reshape(b, t, heads, -1)
 
-        q, k, v = heads(self.wq(x)), heads(self.wk(x)), heads(self.wv(x))
-        if flash is not None:
+        q, k, v = proj(self.wq, n_heads), proj(self.wk, kv_h), proj(self.wv, kv_h)
+        if rope is not None:
+            cos, sin = rope
+            q = apply_rope(q, cos, sin, positions)
+            k = apply_rope(k, cos, sin, positions)
+        if cache is not None:
+            cache["k"][:, cache_index: cache_index + t] = k.to(cache["k"].dtype)
+            cache["v"][:, cache_index: cache_index + t] = v.to(cache["v"].dtype)
+            k, v = cache["k"], cache["v"]
+        if kv_h != n_heads:
+            # repeat after the cache write: query head h reads kv head h // rep
+            rep = n_heads // kv_h
+            k = k.repeat_interleave(rep, dim=2)
+            v = v.repeat_interleave(rep, dim=2)
+        if flash is not None and cache is None:
             out = flash_attention(
                 q, k, v, kv_lens=flash.get("kv_lens"), causal=flash.get("causal", True),
-                scale=scale, bias=None if bias is None else bias[0],
+                scale=scale, bias=None if bias is None else bias[0], window=flash.get("window"),
             )
             return self.wo(out.reshape(b, t, -1))
         if scale is None:
-            scale = 1.0 / float(d // n_heads) ** 0.5
+            scale = 1.0 / float(q.shape[-1]) ** 0.5
         logits = torch.einsum("bqhd,bkhd->bhqk", _bf16(q), _bf16(k)) * scale
         if bias is not None:
             logits = logits + bias
         if mask is not None:
-            logits = torch.where(mask[:, None, :, :], logits, -1e30)
+            logits = torch.where(mask[:, None, :, :], logits, NEG_INF)
         probs = torch.softmax(logits, dim=-1)
         out = torch.einsum("bhqk,bkhd->bqhd", _bf16(probs), _bf16(v))
         return self.wo(out.reshape(b, t, -1))
 
 
 class MLP(nn.Module):
-    def __init__(self, d_model: int, d_ff: int, *, device=None):
+    def __init__(self, d_model: int, d_ff: int, *, gated: bool = False, use_bias: bool = True, device=None):
         super().__init__()
-        self.wi = Dense(d_model, d_ff, device=device)
-        self.wo = Dense(d_ff, d_model, device=device)
+        self.wi = Dense(d_model, d_ff, use_bias=use_bias, device=device)
+        self.wo = Dense(d_ff, d_model, use_bias=use_bias, device=device)
+        self.wg = Dense(d_model, d_ff, use_bias=use_bias, device=device) if gated else None
 
     def forward(self, x, activation: str = "gelu"):
+        if self.wg is not None:
+            # gated: silu (SwiGLU) unless the config asks for the tanh-GELU
+            # gate ("gelu_new", GeGLU)
+            g = self.wg(x)
+            a = F.gelu(g, approximate="tanh") if activation == "gelu_new" else F.silu(g)
+            return self.wo(a * self.wi(x))
         # "gelu" = exact (erf); "gelu_new" = tanh approximation
         approx = "tanh" if activation == "gelu_new" else "none"
         return self.wo(F.gelu(self.wi(x), approximate=approx))
 
 
 class Block(nn.Module):
-    def __init__(self, d_model: int, n_heads: int, d_ff: int, eps: float, *, device=None):
+    def __init__(self, d_model: int, n_heads: int, d_ff: int, eps: float, *, n_kv_heads: int | None = None,
+                 norm: str = "layernorm", gated_mlp: bool = False, use_bias: bool | str = True, device=None):
         super().__init__()
         self.n_heads = n_heads
-        self.ln1 = LayerNorm(d_model, eps, device=device)
-        self.attn = Attention(d_model, device=device)
-        self.ln2 = LayerNorm(d_model, eps, device=device)
-        self.mlp = MLP(d_model, d_ff, device=device)
+        self.n_kv_heads = n_kv_heads
+        rms = norm == "rmsnorm"
+        kv_dim = None if n_kv_heads is None else d_model // n_heads * n_kv_heads
+        self.ln1 = LayerNorm(d_model, eps, bias=not rms, device=device)
+        self.attn = Attention(d_model, kv_dim=kv_dim, qkv_bias=use_bias in (True, "qkv"), o_bias=use_bias is True,
+                              device=device)
+        self.ln2 = LayerNorm(d_model, eps, bias=not rms, device=device)
+        self.mlp = MLP(d_model, d_ff, gated=gated_mlp, use_bias=use_bias is True, device=device)
 
-    def forward(self, x, *, mask=None, flash=None, norm_position: str = "pre", bias=None,
-                scale=None, activation: str = "gelu", activation_dtype=None):
+    def forward(self, x, *, mask=None, flash=None, norm_position: str = "pre", bias=None, scale=None,
+                activation: str = "gelu", activation_dtype=None, parallel_residual: bool = False, rope=None,
+                positions=None, cache=None, cache_index=None, clip=None):
         """``activation_dtype`` (bf16) keeps the residual stream and norm
         outputs in that dtype; None keeps f32 activations."""
         adt = activation_dtype
@@ -130,13 +275,28 @@ class Block(nn.Module):
         def cast(h):
             return h if adt is None else h.to(adt)
 
-        attn_kw = dict(n_heads=self.n_heads, mask=mask, flash=flash, bias=bias, scale=scale)
+        attn_kw = dict(n_heads=self.n_heads, mask=mask, flash=flash, bias=bias, scale=scale,
+                       n_kv_heads=self.n_kv_heads, rope=rope, positions=positions, cache=cache,
+                       cache_index=cache_index, clip=clip)
         if norm_position == "post":
             # BERT layout: LN after each residual add
             x = self.ln1(x + cast(self.attn(x, **attn_kw)), out_dtype=adt)
             return self.ln2(x + cast(self.mlp(x, activation)), out_dtype=adt)
-        x = x + cast(self.attn(self.ln1(x, out_dtype=adt), **attn_kw))
+        h = self.attn(self.ln1(x, out_dtype=adt), **attn_kw)
+        if parallel_residual:
+            # GPT-NeoX: x + attn(ln1(x)) + mlp(ln2(x))
+            m = self.mlp(self.ln2(x, out_dtype=adt), activation)
+            return x + cast(h) + cast(m)
+        x = x + cast(h)
         return x + cast(self.mlp(self.ln2(x, out_dtype=adt), activation))
+
+
+# -------------------------------------------------------------------- masks
+
+
+def causal_mask(t: int, device=None) -> torch.Tensor:
+    """(1, T, T) boolean lower-triangular mask."""
+    return torch.tril(torch.ones((1, t, t), dtype=torch.bool, device=device))
 
 
 def padding_mask(attn_mask: torch.Tensor) -> torch.Tensor:

@@ -1,12 +1,14 @@
-"""Carry a JAX encoder parameter tree into the port."""
+"""Carry JAX parameter trees (numpy leaves) into the port's modules."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from .causal_lm import CausalLM, unstack_blocks
 from .config import ModelConfig
 from .encoder import SentenceEncoder
+from .layers import Dense
 
 
 def _flatten(tree, prefix: str, out: dict) -> dict:
@@ -34,3 +36,34 @@ def encoder_from_jax(params, cfg: ModelConfig, device="cpu") -> SentenceEncoder:
     model = SentenceEncoder(cfg, device="meta")
     model.load_state_dict(flat, strict=True, assign=True)
     return model.eval().requires_grad_(False)
+
+
+def causal_from_state_dict(state: dict, cfg: ModelConfig) -> CausalLM:
+    """A :class:`CausalLM` over the tensors of ``state`` (``state_dict``
+    names; quantized layers as ``.w_q`` / ``.w_s``), used as they are, on
+    their device.  Every tensor the module expects must be present, and
+    nothing else."""
+    model = CausalLM(cfg, device="meta")
+    for name, mod in model.named_modules():
+        if isinstance(mod, Dense) and f"{name}.w_q" in state:
+            mod.set_quantized(torch.empty_like(state[f"{name}.w_q"], device="meta"),
+                              torch.empty_like(state[f"{name}.w_s"], device="meta"))
+    model.load_state_dict(state, strict=True, assign=True)
+    return model.eval().requires_grad_(False)
+
+
+def causal_from_jax(params, cfg: ModelConfig, device="cpu") -> CausalLM:
+    """A JAX causal-LM pytree (numpy leaves; list-form or scan-stacked
+    blocks) -> :class:`CausalLM`.  Float leaves load as f32; quantized
+    ``int8`` / ``int8c`` leaves ``{w_q, w_s[, b]}`` are carried bit for bit
+    (int8 codes, f32 scales)."""
+    flat = {}
+    for name, leaf in _flatten(unstack_blocks(params, cfg.n_layers), "", {}).items():
+        leaf = np.asarray(leaf)
+        if name.endswith(".w_q") and leaf.dtype != np.int8:
+            raise NotImplementedError(f"{name}: {leaf.dtype} codes (nf4) are not ported yet; int8 and int8c are")
+        if name.endswith((".s_q", ".s_s", ".s_m")):
+            raise NotImplementedError(f"{name}: double-quantized (nf4-dq) leaves are not ported yet")
+        flat[name] = torch.from_numpy(np.array(leaf, dtype=leaf.dtype if leaf.dtype == np.int8 else np.float32))
+        flat[name] = flat[name].to(device)
+    return causal_from_state_dict(flat, cfg)
