@@ -7,7 +7,7 @@ Run from the root of a checkout, on a machine with one GPU::
 It builds the port's CUDA kernels from ``vietnamese_qa_system_tpu_torch/
 csrc`` (one nvcc per source, all at once), holds each kernel against its
 plain PyTorch version at the shapes of its serving path, times it beside
-its bound and a PyTorch library call, then drives two serving paths once:
+its bound and a PyTorch library call, then drives three serving paths once:
 
 - retrieval, at the full width of the ``mpnet_class`` encoder (random
   weights from a seed): four 1M-row vector stores, ingest of 2,048
@@ -21,7 +21,17 @@ its bound and a PyTorch library call, then drives two serving paths once:
   GEMM kernel; a torch.profiler trace of the decode loop says where a
   step's time goes; then a two-layer twin of the same weights decodes greedily
   on the card and on the host (plain path), held to agree by logits and
-  by the top-2 margin rule.
+  by the top-2 margin rule;
+- IVF retrieval at the repo's IVF configuration: a clustered 1,048,576 x
+  768 corpus drawn on the card (2,048 unit-norm centres, noise of total
+  norm 0.35, rows normalised; the retrieval path's 2,048 passage
+  embeddings among them), flat bf16 and int8_res stores (the int8 codes
+  through the K8 quantizer), ``IVFIndex.build`` at the defaults (4,096
+  clusters, cap 512), top-10 at nprobe 8 against the exact f32 oracle,
+  exact mode against the flat scan (K1), the int8_res rerank, spill adds,
+  HTTP /search over the index ``select_serving_index`` picks at batch 8
+  (the probe-score kernel K5), and the IVF-vs-flat latency sweep that
+  sets ``IVF_KAPPA``.
 
 Each path resets the kernels' launch counters just before it runs and
 reads them just after; every kernel of the path must have launched.
@@ -65,9 +75,16 @@ READER_QUESTIONS, READER_PROMPT_LEN, READER_NEW_TOKENS = 8, 512, 32
 TWIN_LAYERS, TWIN_ROWS, TWIN_PROMPT_LEN, TWIN_NEW_TOKENS = 2, 4, 48, 16
 TRACE_STEPS = 8  # decode steps in the profiler trace of the QA path
 TWIN_LOGIT_TOL = 5e-2  # |logits| ~ 1-5; bf16-rounded inputs flip where card and host differ by an ulp
+# the IVF path: clustered corpus (probe_ivf.py's 2,048 centres and sigma),
+# the repo's IVF configuration, the probe-score batches, the latency sweep
+IVF_CENTRES, IVF_SIGMA, IVF_QUERIES, IVF_NPROBE = 2048, 0.35, 32, 8
+PROBE_BATCHES = (1, 8, 32, 256)
+SWEEP_TO, SWEEP_MAX, SWEEP_REPS = 256, 4096, 9  # batches 1, 2, 4 .. 256, on to 4096 while IVF still wins
+PROBE_REL_TOL = 1e-5  # max abs err / max |s|: exact products, f32 sums in another order
+IVF_RECALL_FLOOR = 0.9
 # H100 SXM5 data sheet (dense, 700 W): HBM 3.35 TB/s, 989 TFLOP/s bf16,
-# 1,979 TOP/s int8 on the tensor cores
-HBM_BYTES_S, BF16_OPS_S, INT8_OPS_S = 3.35e12, 989e12, 1979e12
+# 1,979 TOP/s int8 on the tensor cores, 67 TFLOP/s f32 on the CUDA cores
+HBM_BYTES_S, BF16_OPS_S, INT8_OPS_S, F32_OPS_S = 3.35e12, 989e12, 1979e12, 67e12
 L2_BYTES = 50 << 20
 
 
@@ -299,6 +316,27 @@ def phase_w8(torch, report):
     }
 
 
+def phase_k8(torch, quant, gen, report):
+    """K8 against its plain version at 1,048,576 x 768 f32: codes and
+    scales bit-equal (and from a bf16 input)."""
+    x = torch.randn(N, D, generator=gen, device="cuda") * (torch.rand(N, 1, generator=gen, device="cuda") * 10 + 0.01)
+    x[0] = 0.0  # the 1e-12 scale floor
+    for inp in (x, x.to(torch.bfloat16)):
+        (q, s), (pq, ps) = quant.quantize_int8(inp), quant.quantize_int8_reference(inp)
+        torch.cuda.synchronize()
+        check(torch.equal(q, pq) and torch.equal(s, ps),
+              f"K8 quantize_int8 {N} x {D} {inp.dtype}: codes and scales bit-equal to the plain version")
+    report["quantize_int8"] = {
+        "max_abs_err": 0.0,
+        "ms": cuda_ms(lambda: quant.quantize_int8(x), 20),
+        "plain_ms": cuda_ms(lambda: quant.quantize_int8_reference(x), 5),
+        "library_ms": None,
+        "library_call": "none: no single PyTorch call quantizes per row",
+        # |x|, max, divide, round per element on the CUDA cores
+        **bound(N * D * 4 + N * D + N * 4, 4 * N * D, F32_OPS_S),
+    }
+
+
 def passages(n: int, seed: int) -> list[str]:
     """Synthetic Vietnamese passages, each unique by its opening words."""
     import numpy as np
@@ -457,7 +495,7 @@ def phase_slice(torch, pkg, gen):
               f"{dt} store top-{K} equals the plain path; each query finds its source vector first")
     launches = {k.name: k.launches for k in pkg.KERNELS}
     ctx = {"encoder": encoder, "tok": tok, "store": stores["bf16"], "docstore": docstore, "texts": texts,
-           "questions": short[12: 12 + READER_QUESTIONS]}
+           "doc_ids": doc_ids, "questions": short[12: 12 + READER_QUESTIONS]}
     return launches, ctx
 
 
@@ -524,38 +562,45 @@ def phase_reader(torch, pkg, ctx):
 
 
 def trace_decode(torch, reader, ids, mask, eos_id, step_s):
-    """Where a decode step's time goes: a torch.profiler trace of one
-    generate call's decode loop (its ``generate.decode`` span) gives the
+    """Where a decode step's time goes: a trace of one generate call's
+    decode loop (its ``generate.decode`` span, TRACE_STEPS steps)."""
+    from vietnamese_qa_system_tpu_torch.models import generate as G
+
+    trace_span(torch, f"decode trace ({TRACE_STEPS} steps, B={ids.shape[0]}, torch.profiler)", "generate.decode",
+               TRACE_STEPS, step_s,
+               lambda: G.generate(reader, ids, mask, max_new_tokens=TRACE_STEPS, eos_id=eos_id, timings={}))
+
+
+def trace_span(torch, label: str, span: str, n: int, step_s: float, run) -> None:
+    """Where a step's time goes: a torch.profiler trace of ``run``, whose
+    ``span`` (a record_function region) holds ``n`` steps, gives the
     device's busy time a step (the union of its kernels), that time by the
-    aten call that launched each kernel, and the host's operator calls,
-    kernel launches and synchronisations a step (with their callers).  The idle share compares the busy time with
-    ``step_s``, the wall time of a step of the untraced run (the profiler
-    slows the host)."""
+    aten call that launched each kernel (or by the hand-written kernel's
+    name: those launch through ctypes, inside no aten call), and the host's
+    operator calls, kernel launches and synchronisations a step (with their
+    callers).  The idle share compares the busy time with ``step_s``, the
+    wall time of a step of an untraced run (the profiler slows the host)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from vietnamese_qa_system_tpu_torch.models import generate as G
-
-    timings = {}
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        G.generate(reader, ids, mask, max_new_tokens=TRACE_STEPS, eos_id=eos_id, timings=timings)
+        run()
     events = prof.events()
     # the host's span (kineto adds a device-side twin of the same name)
-    span = [e for e in events if e.name == "generate.decode" and e.device_type == DeviceType.CPU]
-    if len(span) != 1:
-        print(f"decode trace: {len(span)} generate.decode spans recorded; breakdown not measured", flush=True)
+    found = [e for e in events if e.name == span and e.device_type == DeviceType.CPU]
+    if len(found) != 1:
+        print(f"{label}: {len(found)} {span} spans recorded; breakdown not measured", flush=True)
         return
-    t0, t1 = span[0].time_range.start, span[0].time_range.end
+    t0, t1 = found[0].time_range.start, found[0].time_range.end
     kernels = sorted((e for e in events if e.device_type == DeviceType.CUDA and e.time_range.start >= t0
-                      and e.name != "generate.decode"),
+                      and e.name != span),
                      key=lambda e: e.time_range.start)
     if not kernels:
-        print("decode trace: the profiler recorded no device kernels; device time a step not measured", flush=True)
+        print(f"{label}: the profiler recorded no device kernels; device time a step not measured", flush=True)
         return
     # each kernel's device time goes to the outermost aten call that launched
     # it: a device event shares its id with the runtime call (cudaLaunchKernel,
-    # cudaMemcpyAsync) whose host parent is the innermost aten call.  K6 is
-    # launched through ctypes, inside no aten call.
+    # cudaMemcpyAsync) whose host parent is the innermost aten call
     runtime = {e.id: e for e in events if e.device_type == DeviceType.CPU and e.name.startswith("cu")}
 
     def outer_aten(op) -> str:
@@ -564,10 +609,12 @@ def trace_decode(torch, reader, ids, mask, eos_id, step_s):
         return op.name if op is not None and op.name.startswith("aten::") else "(no aten call)"
 
     def caller(kernel) -> str:
-        if kernel.name.startswith("w8_") or "::w8_" in kernel.name:
-            return "K6 (w8_gemm, w8_reduce)"
         launch = runtime.get(kernel.id)
-        return outer_aten(None if launch is None else launch.cpu_parent)
+        key = outer_aten(None if launch is None else launch.cpu_parent)
+        if key != "(no aten call)":
+            return key
+        short = kernel.name.replace("(anonymous namespace)::", "").split("(")[0].removeprefix("void ")
+        return f"hand-written {short}"
 
     busy, reach, by_caller = 0.0, t0, {}
     for e in kernels:
@@ -586,13 +633,11 @@ def trace_decode(torch, reader, ids, mask, eos_id, step_s):
             sync_callers[key] = sync_callers.get(key, 0) + 1
     syncs = sum(sync_callers.values())
     launch_calls = sum(1 for e in host if "LaunchKernel" in e.name)
-    n = TRACE_STEPS
     busy_ms, step_ms = busy / 1e3 / n, step_s * 1e3
-    print(f"decode trace ({n} steps, B={ids.shape[0]}, torch.profiler): device busy {busy_ms:.3f} ms a step "
-          f"({len(kernels) / n:.0f} kernels); traced wall {(reach - t0) / 1e3 / n:.3f} ms a step; untraced wall "
-          f"{step_ms:.3f} ms a step -> device idle share {1 - busy_ms / step_ms:.3f}; host a step: "
-          f"{ops / n:.0f} top-level aten calls, {launch_calls / n:.0f} kernel-launch API calls, "
-          f"{syncs / n:.1f} synchronize calls", flush=True)
+    print(f"{label}: device busy {busy_ms:.3f} ms a step ({len(kernels) / n:.0f} kernels); traced wall "
+          f"{(reach - t0) / 1e3 / n:.3f} ms a step; untraced wall {step_ms:.3f} ms a step -> device idle share "
+          f"{1 - busy_ms / step_ms:.3f}; host a step: {ops / n:.0f} top-level aten calls, {launch_calls / n:.0f} "
+          f"kernel-launch API calls, {syncs / n:.1f} synchronize calls", flush=True)
     for key, us in sorted(by_caller.items(), key=lambda kv: -kv[1])[:12]:
         print(f"  device a step, kernels of {key}: {us / 1e3 / n:.3f} ms", flush=True)
     for key, count in sorted(sync_callers.items(), key=lambda kv: -kv[1]):
@@ -643,6 +688,229 @@ def phase_twin(torch, reader):
     check(agree, "twin greedy tokens agree with the host until the first top-2 margin below the tolerance")
 
 
+def clustered(torch, n: int, gen):
+    """n unit rows around IVF_CENTRES unit-norm centres (random membership),
+    Gaussian noise of total norm IVF_SIGMA, as tests/test_recall_clustered.py
+    builds its corpus."""
+    cents = torch.randn(IVF_CENTRES, D, generator=gen, device="cuda")
+    cents /= cents.norm(dim=1, keepdim=True)
+    pts = cents[torch.randint(0, IVF_CENTRES, (n,), generator=gen, device="cuda")]
+    pts += IVF_SIGMA / D ** 0.5 * torch.randn(n, D, generator=gen, device="cuda")
+    return pts / pts.norm(dim=1, keepdim=True)
+
+
+def perturbed(torch, rows, gen):
+    """Queries near corpus rows: 0.05 total-norm noise, renormalised."""
+    q = rows + 0.05 / D ** 0.5 * torch.randn(rows.shape, generator=gen, device="cuda")
+    return q / q.norm(dim=1, keepdim=True)
+
+
+def host_ms(fn, reps: int = 5) -> float:
+    """Median wall time of ``fn`` ending in a synchronize, after a warm-up:
+    what a serving loop pays for one call, the host's work included."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)[len(times) // 2]
+
+
+def phase_ivf(torch, pkg, ctx, gen):
+    """The IVF serving path once at full width, with the launch counters
+    reset; returns its launches and the built indexes for the K5 phase."""
+    from vietnamese_qa_system_tpu_torch.engine import (IVF_KAPPA, DocStore, IVFIndex, Retriever, ServingApp,
+                                                       VectorStore, ivf_crossover_batch, select_serving_index)
+
+    texts, n_pass = ctx["texts"], len(ctx["doc_ids"])
+    # the passages keep their embeddings and take ids 0 .. n_pass - 1
+    pass_vecs = torch.from_numpy(ctx["store"].get_vectors(ctx["doc_ids"])).cuda()
+    corpus = torch.cat([pass_vecs, clustered(torch, N - n_pass, gen)])
+    del pass_vecs
+    ctx["store"] = None  # the retrieval path's 1M-row store goes
+    torch.cuda.empty_cache()
+    docstore = DocStore()
+    docstore.insert(list(range(n_pass)), texts, ["synthetic"] * n_pass)
+
+    for kern in pkg.KERNELS:
+        kern.launches = 0
+    stores = {dt: VectorStore(N, D, dtype=dt, device="cuda") for dt in ("bf16", "int8_res")}
+    for st in stores.values():
+        for lo in range(0, N, 1 << 18):
+            st.add(corpus[lo: lo + (1 << 18)])
+    ivfs = {}
+    for dt, st in stores.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ivfs[dt] = IVFIndex.build(st)
+        torch.cuda.synchronize()
+        ivf = ivfs[dt]
+        print(f"IVF {dt} build over {N} rows: {time.perf_counter() - t0:.2f} s; {ivf.n_clusters} clusters x cap "
+              f"{ivf.cap}, {ivf.spill_count} spilled ({100.0 * ivf.spill_count / N:.2f}%), spill_cap {ivf.spill_cap}",
+              flush=True)
+    check(ivfs["bf16"].n_clusters == 4096 and ivfs["bf16"].cap == 512,
+          "IVF at the build defaults over 1M rows: 4,096 clusters, cap 512")
+
+    qi = torch.randperm(N - n_pass, generator=torch.Generator().manual_seed(SEED))[:IVF_QUERIES] + n_pass
+    q = perturbed(torch, corpus[qi.cuda()], gen)
+    oracle = torch.sort(q @ corpus.T, dim=1, descending=True, stable=True)[1][:, :K]
+
+    def recall(ids):
+        return sum(len(set(a) & set(b)) for a, b in zip(ids.tolist(), oracle.tolist())) / oracle.numel()
+
+    rec = {}
+    for dt, ivf in ivfs.items():
+        scores, ids = ivf.topk(q, K, nprobe=IVF_NPROBE)
+        rec[dt] = recall(ids)
+        print(f"IVF {dt} nprobe {IVF_NPROBE}: recall@{K} {rec[dt]:.4f} against the exact f32 oracle of "
+              f"{IVF_QUERIES} queries", flush=True)
+        check(rec[dt] >= IVF_RECALL_FLOOR, f"IVF {dt} recall@{K} at nprobe {IVF_NPROBE} >= {IVF_RECALL_FLOOR}")
+        if dt == "int8_res":
+            true = torch.gather(q @ corpus.T, 1, ids.long())
+            err = (scores - true).abs().max().item()
+            check(err <= 2e-3, f"IVF int8_res auto-rerank scores within 2e-3 of the f32 dot products ({err:.2e})")
+    bq = q.to(torch.bfloat16)
+    flat_vecs = stores["bf16"].vectors[:N]
+    _, exact_ids = ivfs["bf16"].topk(q, K, mode="exact")
+    _, flat_ids = stores["bf16"].topk(q, K)
+    check(rank_recall(bq, flat_vecs, exact_ids, K) == 1.0 and rank_recall(bq, flat_vecs, flat_ids, K) == 1.0,
+          f"IVF bf16 exact-mode top-{K} equals the flat K1 scan's by the rank-count rule")
+    new = perturbed(torch, corpus[qi[:4].cuda()], gen)
+    added = ivfs["int8_res"].add(new)
+    _, found = ivfs["int8_res"].topk(new, 1)
+    check(found[:, 0].cpu().tolist() == added.tolist(), "IVF int8_res spill adds (K8 codes) are found first")
+    del corpus
+
+    chosen, cross = select_serving_index(stores["bf16"], ivfs["bf16"], 8)
+    picked = "ivf" if chosen is ivfs["bf16"] else "flat"
+    print(f"select_serving_index at query batch 8: {picked} (crossover ~{cross}, IVF_KAPPA {IVF_KAPPA})", flush=True)
+    retriever = Retriever(ctx["encoder"], ctx["tok"], chosen, docstore, max_len=128, query_batch=8)
+    app = ServingApp(retriever, k=5, max_batch=8, max_wait_s=0.05)
+    url, stop = serve(app)
+    asked = ctx["questions"]
+    try:
+        answers = ask_all(url, "/search", [{"query": texts[i], "k": 5} for i in asked])
+    finally:
+        stop()
+    hits = sum(any(r["id"] == i for r in (a or {}).get("results", [])) for i, a in zip(asked, answers))
+    check(hits == len(asked), f"{hits}/{len(asked)} concurrent HTTP /search over the {picked} index find their "
+                              "passage in the top-5")
+
+    # where an interactive IVF query's time goes (batch 8, the HTTP phase's)
+    q8 = q[:8].contiguous()
+
+    def queries():
+        with torch.profiler.record_function("ivf.topk"):
+            for _ in range(TRACE_STEPS):
+                ivfs["bf16"].topk(q8, K)
+            torch.cuda.synchronize()
+
+    trace_span(torch, f"IVF query trace ({TRACE_STEPS} IVFIndex.topk calls, B=8, nprobe {IVF_NPROBE}, bf16)",
+               "ivf.topk", TRACE_STEPS, host_ms(lambda: ivfs["bf16"].topk(q8, K), SWEEP_REPS) / 1e3, queries)
+
+    # the IVF-vs-flat latency sweep on the 1M bf16 corpus: IVF_KAPPA.  The
+    # crossover is the largest batch at which IVF is faster with the flat
+    # scan faster at every larger swept batch; the sweep goes on doubling
+    # past SWEEP_TO until the flat scan wins twice running (or SWEEP_MAX)
+    sweep, batch = [], 1
+    while batch <= SWEEP_MAX:
+        qb = perturbed(torch, flat_vecs[torch.randint(0, N, (batch,), generator=gen, device="cuda")].float(), gen)
+        ivf_t = host_ms(lambda: ivfs["bf16"].topk(qb, K), SWEEP_REPS)
+        flat_t = host_ms(lambda: stores["bf16"].topk(qb, K), SWEEP_REPS)
+        sweep.append((batch, ivf_t, flat_t))
+        print(f"IVF-vs-flat B={batch:4d}: IVFIndex.topk {ivf_t:8.3f} ms, VectorStore.topk {flat_t:8.3f} ms", flush=True)
+        if batch >= SWEEP_TO and len(sweep) >= 2 and all(i > f for _, i, f in sweep[-2:]):
+            break
+        batch *= 2
+    wins = [b for b, i, f in sweep if i <= f]
+    ivf_b = ivfs["bf16"]
+    if not wins:
+        print("IVF crossover: the flat scan wins at every swept batch; kappa not derived", flush=True)
+    else:
+        cross_b, bounded = wins[-1], wins[-1] == sweep[-1][0]
+        kappa = ivf_b.size / (ivf_b.nprobe * ivf_b.cap * cross_b)
+        print(f"IVF crossover: {'none up to' if bounded else ''} B={cross_b}; kappa = {ivf_b.size} / ({ivf_b.nprobe} "
+              f"* {ivf_b.cap} * {cross_b}) = {kappa:.4f} ({'upper bound' if bounded else 'measured'}); IVF_KAPPA in "
+              f"engine/ivf.py: {IVF_KAPPA}, crossover it gives {ivf_crossover_batch(ivf_b)}", flush=True)
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in pkg.KERNELS}
+    del stores
+    return launches, ivfs
+
+
+def phase_k5(torch, P, ivfs, gen, report):
+    """K5 against its plain version at the 1M index's shapes: bf16 codes,
+    int8 codes with scales, and int8 codes with a global scale folded into
+    the query; probes from the queries' nearest centroids at P = nprobe.
+    Device times by CUDA graph replay over enough query batches that the
+    probed slabs come from HBM, not L2."""
+    ivf_bf, ivf_i8 = ivfs["bf16"], ivfs["int8_res"]
+    g_scale = torch.tensor(0.0123, device="cuda")
+    worst = 0.0
+    for b in PROBE_BATCHES:
+        for kind, ivf, scales in (("bf16", ivf_bf, None), ("int8", ivf_i8, ivf_i8.bucket_scales),
+                                  ("int8_global", ivf_i8, None)):
+            elt = 2 if kind == "bf16" else 1
+            cents_t = ivf.centroids.to(torch.bfloat16).float().T
+            per_call = b * IVF_NPROBE * ivf.cap * (D * elt + 8)
+            calls = []
+            for _ in range(max(1, -(-3 * L2_BYTES // per_call))):
+                q = perturbed(torch, torch.randn(b, D, generator=gen, device="cuda"), gen)
+                probe = torch.sort(q.to(torch.bfloat16).float() @ cents_t, dim=1, descending=True,
+                                   stable=True)[1][:, :IVF_NPROBE].to(torch.int32).contiguous()
+                calls.append((q * g_scale if kind == "int8_global" else q, probe))
+            q, probe = calls[0]
+            args = (ivf.buckets, scales, ivf.bucket_gids)
+            (s, g), (ps, pg) = P.ivf_probe_scores(q, probe, *args), P.ivf_probe_scores_plain(q, probe, *args)
+            torch.cuda.synchronize()
+            fin = torch.isfinite(ps)
+            err = (s - ps).abs()[fin].max().item()
+            rel = err / ps.abs()[fin].max().item()
+            check(torch.equal(g, pg) and torch.equal(torch.isneginf(s), torch.isneginf(ps)) and rel <= PROBE_REL_TOL,
+                  f"K5 {kind} B={b} P={IVF_NPROBE} cap={ivf.cap}: gids and -inf pattern equal, max abs err "
+                  f"{err:.2e} ({rel:.1e} of max |s|) <= {PROBE_REL_TOL}")
+            worst = max(worst, err)
+            cycle = itertools.cycle(calls)
+
+            def kernel():
+                qq, pp = next(cycle)
+                return P.ivf_probe_scores(qq, pp, *args)
+
+            def library():
+                # a yardstick only: bf16 scores of a gathered copy of the slabs
+                qq, pp = next(cycle)
+                slab = ivf.buckets.index_select(0, pp.reshape(-1).long()).view(b, -1, D).to(torch.bfloat16)
+                sc = torch.bmm(slab, qq.to(torch.bfloat16)[:, :, None])[..., 0].view(b, IVF_NPROBE, -1).float()
+                if scales is not None:
+                    sc = sc * scales[pp.long()]
+                return torch.where(ivf.bucket_gids[pp.long()] >= 0, sc, float("-inf"))
+
+            distinct = torch.unique(probe).numel()
+            n_bytes = (distinct * ivf.cap * (D * elt + 4 + (4 if scales is not None else 0)) + b * D * 4
+                       + b * IVF_NPROBE * (4 + ivf.cap * 8))
+            iters = 24 if b < 256 else 6
+            row = {
+                "ms": graph_ms(kernel, iters),
+                "plain_ms": cuda_ms(lambda: P.ivf_probe_scores_plain(q, probe, *args), 3),
+                "library_ms": graph_ms(library, iters),
+                **bound(n_bytes, 2 * b * IVF_NPROBE * ivf.cap * D, BF16_OPS_S),
+            }
+            print(f"K5 {kind:11s} B={b:3d}: kernel {row['ms'] * 1e3:8.2f} us, plain {row['plain_ms'] * 1e3:9.2f} us, "
+                  f"library {row['library_ms'] * 1e3:8.2f} us, bound {row['bound_ms'] * 1e3:7.2f} us "
+                  f"({row['bound_by']}; {distinct} distinct probed buckets)", flush=True)
+            if kind == "bf16" and b == 8:
+                report["ivf_probe_scores"] = dict(
+                    row, shape=f"bf16 buckets (4096, {ivf.cap}, {D}), B=8, P={IVF_NPROBE} (the HTTP phase's batch)",
+                    library_call="composite: index_select of the probed slabs, bf16 torch.bmm, scales, mask",
+                    timing="device time, CUDA graph replay over query batches whose slabs exceed L2")
+    report["ivf_probe_scores"]["max_abs_err"] = worst
+
+
 def main() -> int:
     import torch
 
@@ -653,6 +921,7 @@ def main() -> int:
     import vietnamese_qa_system_tpu_torch.ops as pkg
     from vietnamese_qa_system_tpu_torch.ops import attention as A
     from vietnamese_qa_system_tpu_torch.ops import cuda_kernels, quant
+    from vietnamese_qa_system_tpu_torch.ops import ivf_probe as P
     from vietnamese_qa_system_tpu_torch.ops import topk as T
     from vietnamese_qa_system_tpu_torch.models import mpnet_class, relative_attention_bias
 
@@ -670,16 +939,26 @@ def main() -> int:
     table = torch.randn(32, FLASH_H, generator=gen, device="cuda") * 0.02
     phase_flash(torch, A, gen, report, lambda t: relative_attention_bias(table, t, mpnet_class()))
     phase_w8(torch, report)
+    phase_k8(torch, quant, gen, report)
     retrieval, ctx = phase_slice(torch, pkg, gen)
     print("launches in the retrieval run: " + json.dumps(retrieval))
     for name in ("matmul_topk_bf16", "matmul_topk_int8", "matmul_topk_int8_global", "flash_attention_fwd"):
         check(retrieval[name] > 0, f"{name} launched on the retrieval path")
     reader_launches, reader = phase_reader(torch, pkg, ctx)
-    del ctx
     for name in ("matmul_topk_bf16", "w8_matmul"):
         check(reader_launches[name] > 0, f"{name} launched on the QA path")
     phase_twin(torch, reader)
-    launches = dict(retrieval, w8_matmul=reader_launches["w8_matmul"])
+    del reader
+    torch.cuda.empty_cache()
+    ivf_launches, ivfs = phase_ivf(torch, pkg, ctx, gen)
+    del ctx
+    print("launches in the IVF run: " + json.dumps(ivf_launches))
+    for name in ("ivf_probe_scores", "quantize_int8"):
+        check(ivf_launches[name] > 0, f"{name} launched on the IVF path")
+    phase_k5(torch, P, ivfs, gen, report)
+    del ivfs
+    launches = dict(retrieval, w8_matmul=reader_launches["w8_matmul"], ivf_probe_scores=ivf_launches["ivf_probe_scores"],
+                    quantize_int8=ivf_launches["quantize_int8"])
     kernels = [
         {"name": k.name, "route": k.route, "source": k.source, "replaces": k.replaces,
          "launches": launches[k.name], **report[k.name]}

@@ -49,7 +49,8 @@ PRESETS = {
 def _port(params, cfg, quantize=None):
     if quantize:
         params = jquant(params, quantize)
-    return causal_from_jax(jax.tree.map(np.asarray, params), ModelConfig.from_dict(dataclasses.asdict(cfg)))
+    return causal_from_jax(jax.tree.map(np.asarray, params), ModelConfig.from_dict(dataclasses.asdict(cfg)),
+                           device="cpu")
 
 
 def _close(got, want):
@@ -124,7 +125,7 @@ def test_scan_stacked_tree_carries_and_flash_refuses():
     assert jax.tree.structure(ours) == jax.tree.structure(listed)
     for a, b in zip(jax.tree.leaves(ours), jax.tree.leaves(listed)):
         np.testing.assert_array_equal(a, b)
-    model = causal_from_jax(params, ModelConfig.from_dict(dataclasses.asdict(cfg)))
+    model = causal_from_jax(params, ModelConfig.from_dict(dataclasses.asdict(cfg)), device="cpu")
     assert model.blocks[1].mlp.wi.w_q.dtype == torch.int8
     np.testing.assert_array_equal(model.blocks[1].mlp.wi.w_q.numpy(), params["blocks"]["mlp"]["wi"]["w_q"][1])
     flash = ModelConfig.from_dict(dataclasses.asdict(dataclasses.replace(cfg, use_flash_attention=True)))
@@ -137,7 +138,7 @@ def test_causal_from_jax_is_strict():
     params = jax.tree.map(np.asarray, jlm.init_causal_lm(jax.random.key(0), PRESETS["tiny"]))
     del params["blocks"][1]["ln2"]
     with pytest.raises(RuntimeError, match="ln2"):
-        causal_from_jax(params, ModelConfig.from_dict(dataclasses.asdict(PRESETS["tiny"])))
+        causal_from_jax(params, ModelConfig.from_dict(dataclasses.asdict(PRESETS["tiny"])), device="cpu")
 
 
 @pytest.mark.parametrize("n_heads", [6, 12, 16, 24])

@@ -51,7 +51,7 @@ def test_sentence_embed_matches_jax(layout, t, bf16):
     params = je.init_encoder(jax.random.key(0), cfg)
     ids, mask = _batch(t, 1)
     want = np.asarray(je.sentence_embed(params, cfg, jnp.asarray(ids), jnp.asarray(mask)))
-    model = encoder_from_jax(jax.tree.map(np.asarray, params), _port_cfg(cfg))
+    model = encoder_from_jax(jax.tree.map(np.asarray, params), _port_cfg(cfg), device="cpu")
     with torch.inference_mode():
         got = model.sentence_embed(torch.from_numpy(ids).long(), torch.from_numpy(mask).long()).numpy()
     live = mask.sum(1) > 0
@@ -72,14 +72,14 @@ def test_encoder_from_jax_is_strict():
     params = jax.tree.map(np.asarray, je.init_encoder(jax.random.key(0), cfg))
     del params["rel_bias"]
     with pytest.raises(RuntimeError, match="rel_bias"):
-        encoder_from_jax(params, _port_cfg(cfg))
+        encoder_from_jax(params, _port_cfg(cfg), device="cpu")
 
 
 def test_init_encoder_seeded():
     cfg = _port_cfg(LAYOUTS["mpnet"])
-    a = init_encoder(cfg, make_generator(3))
-    b = init_encoder(cfg, make_generator(3))
-    c = init_encoder(cfg, make_generator(4))
+    a = init_encoder(cfg, make_generator(3), device="cpu")
+    b = init_encoder(cfg, make_generator(3), device="cpu")
+    c = init_encoder(cfg, make_generator(4), device="cpu")
     sa, sb, sc = a.state_dict(), b.state_dict(), c.state_dict()
     assert sa.keys() == sb.keys() and all(torch.equal(sa[n], sb[n]) for n in sa)
     assert not torch.equal(sa["blocks.0.attn.wq.w"], sc["blocks.0.attn.wq.w"])

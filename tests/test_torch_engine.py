@@ -41,12 +41,12 @@ PASSAGES = [f"đoạn văn số {i} nói về chủ đề {i % 7}" for i in rang
 def encoders():
     cfg = tiny_test("encoder")
     params = je.init_encoder(jax.random.key(0), cfg)
-    port = encoder_from_jax(jax.tree.map(np.asarray, params), ModelConfig.from_json(cfg.to_json()))
+    port = encoder_from_jax(jax.tree.map(np.asarray, params), ModelConfig.from_json(cfg.to_json()), device="cpu")
     return params, cfg, port
 
 
 def _port_pipeline(port, **store_kw):
-    store = VectorStore(1024, port.cfg.d_model, tile_n=128, **store_kw)
+    store = VectorStore(1024, port.cfg.d_model, tile_n=128, device="cpu", **store_kw)
     docstore = DocStore()
     pipe = IngestPipeline(port, ttok.ByteTokenizer(), store, docstore, batch_size=16, max_len=32)
     return store, docstore, pipe
@@ -162,7 +162,7 @@ def test_jax_index_with_tail_loads_in_port(dtype, tmp_path):
     jstore.add(vecs[20:])  # 37 rows over 2 shards leave a host tail
     assert len(jstore._tail) == 1
     jstore.save(str(tmp_path))
-    port = VectorStore.load(str(tmp_path))
+    port = VectorStore.load(str(tmp_path), device="cpu")
     assert port.size == 37 and port.dtype == dtype
     q = _queries(vecs, 1)
     _, jids = jstore.topk(q, 5, mode="exact")
@@ -174,7 +174,7 @@ def test_jax_index_with_tail_loads_in_port(dtype, tmp_path):
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_port_index_loads_in_jax(dtype, tmp_path):
     vecs = _vectors(37, 64, 2)
-    port = VectorStore(512, 64, dtype=dtype, tile_n=128)
+    port = VectorStore(512, 64, dtype=dtype, tile_n=128, device="cpu")
     port.add(vecs[:10])
     port.add(torch.from_numpy(vecs[10:]))
     port.save(str(tmp_path))
@@ -187,14 +187,14 @@ def test_port_index_loads_in_jax(dtype, tmp_path):
     _, jids = jstore.topk(q, 5, mode="exact")
     _, tids = port.topk(q, 5)
     np.testing.assert_array_equal(tids.numpy(), np.asarray(jids))
-    again = VectorStore.load(str(tmp_path), capacity=0)
+    again = VectorStore.load(str(tmp_path), capacity=0, device="cpu")
     assert again.capacity == 128 and torch.equal(again.vectors[:37], port.vectors[:37])
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_store_add_matches_jax_codes(dtype):
     vecs = _vectors(50, 32, 4)
-    port = VectorStore(256, 32, dtype=dtype, tile_n=128)
+    port = VectorStore(256, 32, dtype=dtype, tile_n=128, device="cpu")
     port.add(vecs)
     jstore = JStore(256, 32, dtype=dtype, tile_n=128)
     jstore.add(vecs)
@@ -207,7 +207,7 @@ def test_store_add_matches_jax_codes(dtype):
 
 
 def test_store_guards_and_empty_roundtrip(tmp_path):
-    store = VectorStore(100, 16, tile_n=128, dtype="int8_global")
+    store = VectorStore(100, 16, tile_n=128, dtype="int8_global", device="cpu")
     assert store.capacity == 128
     with pytest.raises(ValueError, match="< k"):
         store.topk(np.zeros((1, 16), np.float32), 3)
@@ -216,8 +216,8 @@ def test_store_guards_and_empty_roundtrip(tmp_path):
     with pytest.raises(ValueError, match="expected"):
         store.add(np.zeros((3, 8), np.float32))
     store.save(str(tmp_path))
-    assert VectorStore.load(str(tmp_path)).size == 0
-    res = VectorStore(256, 16, tile_n=128, dtype="int8_res")
+    assert VectorStore.load(str(tmp_path), device="cpu").size == 0
+    res = VectorStore(256, 16, tile_n=128, dtype="int8_res", device="cpu")
     res.add(_vectors(20, 16, 5))
     with pytest.raises(ValueError, match="kernel limit"):
         res.topk(np.zeros((1, 16), np.float32), 5, rerank=MAX_K + 1)
@@ -254,24 +254,55 @@ def test_chunking_and_docstore_copies(tmp_path):
 # ------------------------------------------------------------------- CLI
 
 
-def test_cli_ingest_and_refusals(tmp_path):
+def test_cli_ingest_and_refusals(tmp_path, monkeypatch):
     docs = tmp_path / "docs.jsonl"
     docs.write_text("\n".join(json.dumps({"doc": p}, ensure_ascii=False) for p in PASSAGES[:8]), encoding="utf-8")
     idx, db = str(tmp_path / "idx"), str(tmp_path / "db.sqlite")
     assert cli(["ingest", "--inputs", str(docs), "--index", idx, "--db", db, "--device", "cpu",
                           "--capacity", "1024", "--dtype", "int8", "--batch-size", "8", "--max-len", "32"]) == 0
-    assert VectorStore.load(idx).size == 8
+    assert VectorStore.load(idx, device="cpu").size == 8
     serve = ["serve", "--index", idx, "--db", db, "--device", "cpu"]
     (tmp_path / "idx" / "bm25.json").write_text("{}")
     with pytest.raises(NotImplementedError, match="hybrid"):
         cli(serve)
-    with pytest.raises(NotImplementedError, match="IVF"):
+    # an IVF index serves; a flat dir is no --ivf-index
+    ivf = str(tmp_path / "ivf")
+    assert cli(["build-ivf", "--index", idx, "--out", ivf, "--clusters", "8", "--kmeans-iters", "1",
+                "--device", "cpu"]) == 0
+
+    def eof(prompt=""):
+        raise EOFError
+
+    monkeypatch.setattr("builtins.input", eof)
+    assert cli(["serve", "--index", ivf, "--db", db, "--device", "cpu", "--hybrid-weight", "1.0"]) == 0
+    with pytest.raises(SystemExit, match="not an IVF directory"):
         cli(serve + ["--hybrid-weight", "1.0", "--ivf-index", idx])
     with pytest.raises(NotImplementedError, match="hybrid"):
         cli(["ingest", "--inputs", str(docs), "--index", idx, "--db", db, "--device", "cpu", "--hybrid"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             cli(["serve", "--index", idx, "--db", db, "--hybrid-weight", "1.0"])
+
+
+def test_constructors_default_to_the_card(tmp_path, encoders):
+    """Stores, loaders and model constructors run on the card unless the caller
+    asks for the CPU; without a card that default raises, never runs on the
+    CPU in its place."""
+    from vietnamese_qa_system_tpu_torch.core import make_generator
+    from vietnamese_qa_system_tpu_torch.engine import IVFIndex
+    from vietnamese_qa_system_tpu_torch.models import causal_from_jax, init_encoder
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is visible: the defaults would run on it")
+    params, cfg, _ = encoders
+    VectorStore(128, 16, tile_n=128, device="cpu").save(str(tmp_path))
+    calls = [lambda: VectorStore(128, 16), lambda: VectorStore.load(str(tmp_path)), lambda: IVFIndex(),
+             lambda: init_encoder(ModelConfig.from_json(cfg.to_json()), make_generator(0)),
+             lambda: encoder_from_jax(jax.tree.map(np.asarray, params), ModelConfig.from_json(cfg.to_json())),
+             lambda: causal_from_jax({}, ModelConfig.from_json(cfg.to_json()))]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="cuda"):
+            call()
 
 
 # ---------------------------------------------------------------- no jax
@@ -291,13 +322,16 @@ NO_JAX = textwrap.dedent("""
     from vietnamese_qa_system_tpu_torch.engine import DocStore, IngestPipeline, Retriever, VectorStore
     from vietnamese_qa_system_tpu_torch.models import init_encoder, tiny_test
     enc = init_encoder(tiny_test("encoder"), make_generator(0), device="cpu")
-    store = VectorStore(256, enc.cfg.d_model, tile_n=128, dtype="int8_res")
+    store = VectorStore(256, enc.cfg.d_model, tile_n=128, dtype="int8_res", device="cpu")
     docs = DocStore()
     texts = [f"tài liệu số {i} về chủ đề {i % 5}" for i in range(16)]
     IngestPipeline(enc, ByteTokenizer(), store, docs, batch_size=8, max_len=32).add_texts(texts)
     rows = Retriever(enc, ByteTokenizer(), store, docs, max_len=32, query_batch=8).search(texts, k=3)
     assert [r[0].id for r in rows] == list(range(16)), rows
     assert [r[0].doc for r in rows] == texts
+    from vietnamese_qa_system_tpu_torch.engine import IVFIndex
+    ivf = IVFIndex.build(store, n_clusters=8, kmeans_iters=2, sample_n=16)
+    assert ivf.topk(store.get_vectors(range(16)), 1)[1][:, 0].tolist() == list(range(16))
     leaked = sorted(m for m in sys.modules if m == "vietnamese_qa_system_tpu" or m.startswith("vietnamese_qa_system_tpu.")
                     or m.split(".")[0] in ("jax", "jaxlib") and sys.modules[m] is not None)
     assert not leaked, leaked

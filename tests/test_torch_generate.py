@@ -39,7 +39,7 @@ def _reader(name, quantize=None, seed=0):
     params = jlm.init_causal_lm(jax.random.key(seed), cfg)
     if quantize:
         params = jquant(params, quantize)
-    port = causal_from_jax(jax.tree.map(np.asarray, params), ModelConfig.from_dict(dataclasses.asdict(cfg)))
+    port = causal_from_jax(jax.tree.map(np.asarray, params), ModelConfig.from_dict(dataclasses.asdict(cfg)), device="cpu")
     return params, cfg, port
 
 

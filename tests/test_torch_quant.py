@@ -60,3 +60,31 @@ def test_dequantize_matches():
     jqv, jsc = jq.quantize_int8_reference(jnp.asarray(x))
     out = tq.dequantize_int8(torch.from_numpy(np.asarray(jqv)), torch.from_numpy(np.asarray(jsc)))
     np.testing.assert_array_equal(out.numpy(), np.asarray(jq.dequantize_int8(jqv, jsc)))
+
+
+@pytest.mark.parametrize("shape", [(7, 16), (300, 64), (5, 768)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_quantize_int8_matches_jax_kernel(shape, dtype):
+    """K8's CPU route (its plain version) against the XLA reference (codes
+    and scales bit-equal) and the Pallas kernel in interpret mode, for f32
+    and bf16 inputs and ragged row counts (300 rows over 256-row tiles).
+
+    The Pallas kernel runs under jit, where XLA turns ``absmax / 127`` into
+    a product with the reciprocal: its scales are up to one ulp off its own
+    reference (a fault of the JAX package).  Its codes equal the port's
+    wherever its scale is the reference's."""
+    x = _inputs(shape, 4)
+    jx = jnp.asarray(x, jnp.bfloat16 if dtype == "bfloat16" else jnp.float32)
+    tx = torch.from_numpy(x).to(getattr(torch, dtype))
+    tqv, tsc = tq.quantize_int8(tx)
+    assert tqv.dtype == torch.int8 and tsc.dtype == torch.float32 and tsc.shape == (shape[0],)
+    rqv, rsc = jq.quantize_int8_reference(jx)
+    np.testing.assert_array_equal(tqv.numpy(), np.asarray(rqv))
+    np.testing.assert_array_equal(_bits(tsc.numpy()), _bits(rsc))
+    kqv, ksc = jq.quantize_int8(jx)
+    ulps = np.abs(_bits(ksc).astype(np.int64) - _bits(tsc.numpy()).astype(np.int64))
+    assert ulps.max() <= 1
+    same = ulps == 0
+    np.testing.assert_array_equal(np.asarray(kqv)[same], tqv.numpy()[same])
+    with pytest.raises(ValueError, match="expects"):
+        tq.quantize_int8(tx[0])

@@ -57,15 +57,15 @@ def both():
     JIngest(enc_params, enc_cfg, jtok.ByteTokenizer(), jstore, jdocs, batch_size=8, max_len=48).add_texts(DOCS)
     jretr = JRetriever(enc_params, enc_cfg, jtok.ByteTokenizer(), jstore, jdocs, max_len=48, query_batch=8)
 
-    encoder = encoder_from_jax(jax.tree.map(np.asarray, enc_params), _cfg(enc_cfg))
-    store, docs = VectorStore(1024, enc_cfg.d_model, tile_n=128), DocStore()
+    encoder = encoder_from_jax(jax.tree.map(np.asarray, enc_params), _cfg(enc_cfg), device="cpu")
+    store, docs = VectorStore(1024, enc_cfg.d_model, tile_n=128, device="cpu"), DocStore()
     ingest = IngestPipeline(encoder, ByteTokenizer(), store, docs, batch_size=8, max_len=48)
     ingest.add_texts(DOCS)
     retr = Retriever(encoder, ByteTokenizer(), store, docs, max_len=48, query_batch=8)
 
     reader_cfg = tiny_test("causal")
     reader_params = jquant(jlm.init_causal_lm(jax.random.key(1), reader_cfg), "int8c")
-    reader = causal_from_jax(jax.tree.map(np.asarray, reader_params), _cfg(reader_cfg))
+    reader = causal_from_jax(jax.tree.map(np.asarray, reader_params), _cfg(reader_cfg), device="cpu")
     return (jretr, reader_params, reader_cfg), (retr, reader, ingest)
 
 

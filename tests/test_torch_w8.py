@@ -124,12 +124,12 @@ def test_quantize_dense_tree_matches_jax():
                               n_layers=2, d_ff=512)
     params = jax.tree.map(np.asarray, jlm.init_causal_lm(jax.random.key(0), cfg))
     pcfg = ModelConfig.from_dict(dataclasses.asdict(cfg))
-    model = tq.quantize_dense_tree(causal_from_jax(params, pcfg), "int8c")
-    want = causal_from_jax(jax.tree.map(np.asarray, jq.quantize_dense_tree(params, "int8c")), pcfg)
+    model = tq.quantize_dense_tree(causal_from_jax(params, pcfg, device="cpu"), "int8c")
+    want = causal_from_jax(jax.tree.map(np.asarray, jq.quantize_dense_tree(params, "int8c")), pcfg, device="cpu")
     got_sd, want_sd = model.state_dict(), want.state_dict()
     assert got_sd.keys() == want_sd.keys()
     assert "lm_head.w" in got_sd and "blocks.0.mlp.wg.w_q" in got_sd and "tok_embed" in got_sd
-    float_sd = causal_from_jax(params, pcfg).state_dict()
+    float_sd = causal_from_jax(params, pcfg, device="cpu").state_dict()
     for name in got_sd:
         assert got_sd[name].dtype == want_sd[name].dtype, name
         if name.endswith(".w_q"):

@@ -1,11 +1,13 @@
-"""Command-line interface of the port: ``ingest``, ``serve`` and ``chat``.
+"""Command-line interface of the port: ``ingest``, ``build-ivf``, ``serve``
+and ``chat``.
 
 Counterpart of ``vietnamese_qa_system_tpu/cli/main.py:535-1044``::
 
     python -m vietnamese_qa_system_tpu_torch.cli ingest --inputs docs.jsonl \\
         --index idx --db docs.sqlite --encoder mpnet --dtype int8_global
+    python -m vietnamese_qa_system_tpu_torch.cli build-ivf --index idx --out ivf
     python -m vietnamese_qa_system_tpu_torch.cli serve --index idx \\
-        --db docs.sqlite --encoder mpnet --port 8080 \\
+        --ivf-index ivf --db docs.sqlite --encoder mpnet --port 8080 \\
         --reader-size phogpt4b --reader-quantize int8c
     python -m vietnamese_qa_system_tpu_torch.cli chat --model-size phogpt4b \\
         --quantize int8c
@@ -13,7 +15,7 @@ Counterpart of ``vietnamese_qa_system_tpu/cli/main.py:535-1044``::
 Each takes ``--device`` (default ``cuda``; a missing GPU raises).  The
 reader answers with random weights drawn from ``--seed`` on the device,
 layer by layer (quantized as each layer is made).  Hybrid BM25 retrieval,
-IVF indexes, HF weight directories, reader checkpoints, nf4 weights,
+sharded indexes, HF weight directories, reader checkpoints, nf4 weights,
 speculative decoding and draft models, sharded readers and the continuous
 engine behind ``/generate`` are not ported yet and raise where the JAX CLI
 would use them; seq2seq readers and beam search have no flag yet.
@@ -123,13 +125,57 @@ def cmd_ingest(args) -> int:
     return 0
 
 
+def cmd_build_ivf(args) -> int:
+    """Cluster a flat index into an IVF index (``serve`` loads either
+    directory by its meta.json type)."""
+    from ..core.device import resolve_device
+    from ..engine import IVFIndex, VectorStore
+
+    if args.shards != 1:
+        raise NotImplementedError("a sharded IVF index (--shards > 1) is not ported yet")
+    store = VectorStore.load(args.index, capacity=0, device=resolve_device(args.device))
+    ivf = IVFIndex.build(store, n_clusters=args.clusters, nprobe=args.nprobe, cap_mult=args.cap_mult,
+                         kmeans_iters=args.kmeans_iters, seed=args.seed)
+    ivf.save(args.out)
+    print(f"IVF index saved -> {args.out}: {ivf.size} vectors, {ivf.n_clusters} clusters x cap {ivf.cap}, "
+          f"{ivf.spill_count} spilled ({100.0 * ivf.spill_count / max(ivf.size, 1):.2f}%), "
+          f"default nprobe {ivf.nprobe}")
+    return 0
+
+
+def _serving_index(args, device, query_batch: int):
+    """The index ``serve`` answers from: ``--index`` as saved (flat or IVF),
+    or with ``--ivf-index`` the flat store or the IVF index, by
+    ``--index-select`` (``auto``: the card's measured crossover)."""
+    from ..engine import IVF_KAPPA, IVFIndex, VectorStore, ivf_crossover_batch, load_index, select_serving_index
+
+    store = load_index(args.index, capacity=args.capacity, device=device)
+    if args.ivf_index is not None:
+        ivf = load_index(args.ivf_index, device=device)
+        if not isinstance(ivf, IVFIndex):
+            raise SystemExit(f"--ivf-index {args.ivf_index} is not an IVF directory (build-ivf output)")
+        if not isinstance(store, VectorStore):
+            raise SystemExit("--index must be the FLAT store when --ivf-index is given")
+        if args.index_select == "auto":
+            chosen, cross = select_serving_index(store, ivf, query_batch)
+        else:
+            chosen, cross = (store if args.index_select == "flat" else ivf), None
+        kind = "ivf" if chosen is ivf else "flat"
+        print(f"index-select: {kind} (query batch {query_batch}"
+              + (f", crossover ~{cross}" if cross is not None else ", forced") + ")", flush=True)
+        return chosen
+    if isinstance(store, IVFIndex):
+        cross = ivf_crossover_batch(store)
+        if query_batch > cross:
+            print(f"WARNING: IVF index with query batch {query_batch} > crossover ~{cross} (= {store.size} rows / "
+                  f"(nprobe {store.nprobe} * cap {store.cap} * {IVF_KAPPA})); the flat scan answers such batches "
+                  "faster. Lower --max-batch, rebuild with a smaller build-ivf --nprobe, or pass the flat dir as "
+                  "--index with --ivf-index for automatic selection.", flush=True)
+    return store
+
+
 def _check_ported_index(args) -> None:
     """Refuse, loudly, what the JAX CLI would turn on but the port lacks."""
-    if getattr(args, "ivf_index", None) is not None:
-        raise NotImplementedError("IVF indexes (--ivf-index) are not ported yet")
-    with open(os.path.join(args.index, "meta.json")) as f:
-        if json.load(f).get("type") == "ivf":
-            raise NotImplementedError(f"{args.index} is an IVF index; IVF is not ported yet")
     if args.hybrid_weight < 1.0 and os.path.exists(os.path.join(args.index, "bm25.json")):
         raise NotImplementedError(
             f"{args.index} has a bm25.json and --hybrid-weight {args.hybrid_weight} < 1 would turn on "
@@ -150,13 +196,13 @@ def cmd_serve(args) -> int:
     device = resolve_device(args.device)
     encoder = _encoder(args.encoder, args.seed, device)
     tok = _tokenizer(args.tokenizer)
-    # shrink-to-fit by default: a query scans the stored corpus, not the
-    # build-time headroom; --capacity N leaves room for POST /ingest
-    store = VectorStore.load(args.index, capacity=args.capacity, device=device)
-    docstore = DocStore(args.db)
     # in HTTP mode every dispatch pads to query_batch: size it to the
     # micro-batch cap
     qbatch = args.max_batch if args.port is not None else 256
+    # shrink-to-fit by default: a query scans the stored corpus, not the
+    # build-time headroom; --capacity N leaves room for POST /ingest
+    store = _serving_index(args, device, qbatch)
+    docstore = DocStore(args.db)
     retriever = Retriever(encoder, tok, store, docstore, max_len=args.max_len, mode=args.search_mode,
                           query_batch=qbatch)
     qa = None
@@ -207,7 +253,9 @@ def cmd_serve(args) -> int:
     finally:
         httpd.server_close()
         app.close()
-        if app.dirty:
+        # only a flat store takes /ingest (an IVF index refuses it), so
+        # --index is only ever rewritten with a flat store
+        if app.dirty and isinstance(store, VectorStore):
             store.save(args.index)
             print(f"index persisted -> {args.index} ({store.size} vectors)")
     return 0
@@ -271,9 +319,25 @@ def build_parser() -> argparse.ArgumentParser:
     pi.add_argument("--device", default="cuda")
     pi.set_defaults(fn=cmd_ingest)
 
+    pf = sub.add_parser("build-ivf", help="cluster a flat index into an IVF index")
+    pf.add_argument("--index", required=True, help="flat index dir (ingest)")
+    pf.add_argument("--out", required=True, help="output IVF index dir")
+    pf.add_argument("--clusters", type=int, default=None, help="cluster count (default ~4*sqrt(N))")
+    pf.add_argument("--nprobe", type=int, default=8)
+    pf.add_argument("--cap-mult", type=float, default=1.6)
+    pf.add_argument("--kmeans-iters", type=int, default=10)
+    pf.add_argument("--shards", type=int, default=1, help="only 1 is ported")
+    pf.add_argument("--seed", type=int, default=0)
+    pf.add_argument("--device", default="cuda")
+    pf.set_defaults(fn=cmd_build_ivf)
+
     ps = sub.add_parser("serve", help="retrieval (or QA with --reader-size) REPL, or the HTTP API with --port")
     ps.add_argument("--index", required=True)
-    ps.add_argument("--ivf-index", default=None, help="IVF directory (not ported yet)")
+    ps.add_argument("--ivf-index", default=None,
+                    help="IVF directory (build-ivf) over the same corpus as --index (the flat store); serve then "
+                         "picks per query batch: IVF up to the measured crossover, flat past it")
+    ps.add_argument("--index-select", default="auto", choices=["auto", "flat", "ivf"],
+                    help="override the automatic IVF/flat choice when --ivf-index is given")
     ps.add_argument("--db", required=True)
     ps.add_argument("--capacity", type=int, default=0,
                     help="index capacity at serve time: 0 = shrink to the stored corpus; larger leaves "

@@ -1,6 +1,7 @@
 from .chunking import chunk_text
 from .docstore import DocStore
 from .ingest import IngestPipeline
+from .ivf import IVF_KAPPA, IVFIndex, ivf_crossover_batch, load_index, select_serving_index
 from .qa import QAAnswer, QAPipeline
 from .query import DualRetriever, Retriever, SearchResult, dual_agreement
 from .server import MicroBatcher, ServingApp, make_server
@@ -9,6 +10,8 @@ from .store import VectorStore
 __all__ = [
     "DocStore",
     "DualRetriever",
+    "IVFIndex",
+    "IVF_KAPPA",
     "IngestPipeline",
     "MicroBatcher",
     "QAAnswer",
@@ -19,5 +22,8 @@ __all__ = [
     "VectorStore",
     "chunk_text",
     "dual_agreement",
+    "ivf_crossover_batch",
+    "load_index",
     "make_server",
+    "select_serving_index",
 ]

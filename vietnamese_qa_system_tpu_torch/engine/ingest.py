@@ -68,6 +68,11 @@ class IngestPipeline:
         its index lock.  The docstore row commits first: a failure then
         leaves doc rows without vectors (invisible to search) rather than
         live vectors whose doc fetch returns None."""
+        if not isinstance(self.store, VectorStore):
+            # the JAX package fails here with an AttributeError (an IVF
+            # index has no capacity); the cause, said plainly, nothing added
+            raise ValueError(f"ingest adds to a flat VectorStore; this index is a {type(self.store).__name__}: "
+                             "ingest into the flat store, then rebuild the IVF index (build-ivf)")
         vecs = np.asarray(vecs, np.float32)
         if sources is not None and len(sources) != len(texts):
             raise ValueError(f"sources length {len(sources)} != texts length {len(texts)}")

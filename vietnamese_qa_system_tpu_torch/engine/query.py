@@ -15,7 +15,6 @@ import numpy as np
 
 from .docstore import DocStore
 from .ingest import embed_batches
-from .store import VectorStore
 
 
 @dataclasses.dataclass
@@ -27,9 +26,10 @@ class SearchResult:
 
 
 class Retriever:
-    """One encoder + one vector store + optional doc store."""
+    """One encoder + one index (a flat :class:`VectorStore` or an
+    :class:`~.ivf.IVFIndex`) + optional doc store."""
 
-    def __init__(self, encoder, tokenizer, store: VectorStore, docstore: Optional[DocStore] = None, *,
+    def __init__(self, encoder, tokenizer, store, docstore: Optional[DocStore] = None, *,
                  max_len: int = 128, query_batch: int = 256, mode: str = "fast", rerank: int | None = None):
         self.encoder = encoder
         self.tok = tokenizer

@@ -27,7 +27,7 @@ import numpy as np
 import torch
 
 from ..core.device import resolve_device
-from ..ops.quant import quantize_int8_reference, quantize_int8_residual
+from ..ops.quant import quantize_int8, quantize_int8_residual
 from ..ops.topk import MAX_K, matmul_topk
 
 
@@ -44,7 +44,7 @@ class VectorStore:
     n_shards = 1
 
     def __init__(self, capacity: int, dim: int, *, dtype: str = "bf16", tile_n: int | None = None,
-                 device="cpu"):
+                 device="cuda"):
         if dtype not in ("bf16", "int8", "int8_global", "int8_res"):
             raise ValueError(f"dtype must be bf16, int8, int8_global or int8_res, got {dtype!r}")
         if tile_n is None:
@@ -78,7 +78,7 @@ class VectorStore:
             raise ValueError(f"store full: size={self.size} + {e} > capacity={self.capacity}")
         rows = slice(self.size, self.size + e)
         if self.dtype == "int8":
-            self.vectors[rows], self.scales[rows] = quantize_int8_reference(new)
+            self.vectors[rows], self.scales[rows] = quantize_int8(new)
         elif self.dtype == "int8_res":
             q1, s1, q2, s2 = quantize_int8_residual(new)
             self.vectors[rows], self.scales[rows] = q1, s1
@@ -188,14 +188,14 @@ class VectorStore:
         np.save(os.path.join(path, "tail.npy"), np.zeros((0, self.dim), np.float32))
 
     @classmethod
-    def load(cls, path: str, *, capacity: int | None = None, device="cpu") -> "VectorStore":
+    def load(cls, path: str, *, capacity: int | None = None, device="cuda") -> "VectorStore":
         """Restore a saved index.  ``capacity=None`` keeps the build-time
         capacity; an int resizes to ``max(capacity, size)`` (``0`` is
         shrink-to-fit, which serving uses)."""
         with open(os.path.join(path, "meta.json")) as f:
             meta = json.load(f)
         if meta.get("type", "flat") != "flat":
-            raise NotImplementedError(f"{path} is a {meta['type']} index; only flat indexes are ported yet")
+            raise ValueError(f"{path} is a {meta['type']} index, not a flat store; open it with engine.load_index")
         size, n_old, dim = meta["size"], meta["n_shards"], meta["dim"]
         cap = meta["capacity"] if capacity is None else max(capacity, size)
         store = cls(cap, dim, dtype=meta["dtype"], tile_n=meta["tile_n"], device=device)

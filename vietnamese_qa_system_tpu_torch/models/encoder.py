@@ -15,6 +15,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..core.device import resolve_device
 from .config import ModelConfig
 from .layers import Block, Dense, LayerNorm, padding_mask
 
@@ -89,7 +90,7 @@ class SentenceEncoder(nn.Module):
     forward = sentence_embed
 
 
-def init_encoder(cfg: ModelConfig, generator: torch.Generator, *, device="cpu") -> SentenceEncoder:
+def init_encoder(cfg: ModelConfig, generator: torch.Generator, *, device="cuda") -> SentenceEncoder:
     """Random weights drawn from ``generator`` (a CPU generator, so a seed
     gives the same weights on every device): embeddings and the relative
     bias table N(0, 0.02^2), dense weights U(-1/sqrt(d_in), 1/sqrt(d_in)),
@@ -108,7 +109,7 @@ def init_encoder(cfg: ModelConfig, generator: torch.Generator, *, device="cpu") 
             elif isinstance(mod, LayerNorm):
                 mod.scale.fill_(1.0)
                 mod.bias.zero_()
-    return model.to(device).eval().requires_grad_(False)
+    return model.to(resolve_device(device)).eval().requires_grad_(False)
 
 
 @functools.lru_cache(maxsize=8)

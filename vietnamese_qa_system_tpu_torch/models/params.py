@@ -5,6 +5,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..core.device import resolve_device
 from .causal_lm import CausalLM, unstack_blocks
 from .config import ModelConfig
 from .encoder import SentenceEncoder
@@ -23,12 +24,13 @@ def _flatten(tree, prefix: str, out: dict) -> dict:
     return out
 
 
-def encoder_from_jax(params, cfg: ModelConfig, device="cpu") -> SentenceEncoder:
+def encoder_from_jax(params, cfg: ModelConfig, device="cuda") -> SentenceEncoder:
     """The JAX ``init_encoder`` pytree (numpy leaves) -> :class:`SentenceEncoder`.
 
     Paths join with dots (``params["blocks"][0]["attn"]["wq"]["w"]`` is
     ``blocks.0.attn.wq.w``); dense weights keep their (d_in, d_out) layout.
     Every tensor the module expects must be present, and nothing else."""
+    device = resolve_device(device)
     flat = {
         name: torch.tensor(np.asarray(leaf, dtype=np.float32), device=device)
         for name, leaf in _flatten(params, "", {}).items()
@@ -52,11 +54,12 @@ def causal_from_state_dict(state: dict, cfg: ModelConfig) -> CausalLM:
     return model.eval().requires_grad_(False)
 
 
-def causal_from_jax(params, cfg: ModelConfig, device="cpu") -> CausalLM:
+def causal_from_jax(params, cfg: ModelConfig, device="cuda") -> CausalLM:
     """A JAX causal-LM pytree (numpy leaves; list-form or scan-stacked
     blocks) -> :class:`CausalLM`.  Float leaves load as f32; quantized
     ``int8`` / ``int8c`` leaves ``{w_q, w_s[, b]}`` are carried bit for bit
     (int8 codes, f32 scales)."""
+    device = resolve_device(device)
     flat = {}
     for name, leaf in _flatten(unstack_blocks(params, cfg.n_layers), "", {}).items():
         leaf = np.asarray(leaf)

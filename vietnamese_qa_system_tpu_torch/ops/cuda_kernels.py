@@ -97,6 +97,16 @@ def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def on_card(t: torch.Tensor) -> bool:
+    """True: a wrapper launches its kernel on ``t``; False: ``t`` lies on
+    the CPU and the plain version runs.  Any other device raises."""
+    if t.is_cuda:
+        return True
+    if t.device.type != "cpu":
+        raise ValueError(f"unsupported device {t.device}")
+    return False
+
+
 class Kernel:
     """One hand-written kernel of the port: its C entry point in
     ``csrc/<file>`` and that entry point's argument types, what TPU kernel
@@ -148,4 +158,16 @@ W8_MATMUL = Kernel(
     (_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
     "vietnamese_qa_system_tpu/ops/w8_matmul.py:45",
 )
-KERNELS = (TOPK_BF16, TOPK_INT8, TOPK_INT8_GLOBAL, FLASH_FWD, W8_MATMUL)
+IVF_PROBE = Kernel(
+    "ivf_probe_scores", "vqa_ivf_probe", "ivf_probe.cu",
+    # q, probe_ids, buckets, scales, gids, is_int8, B, P, C, cap, D, out_s, out_g, stream
+    (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P),
+    "vietnamese_qa_system_tpu/ops/ivf_probe.py:53",
+)
+QUANT_INT8 = Kernel(
+    "quantize_int8", "vqa_quantize_int8", "quant.cu",
+    # x, is_bf16, N, D, q, scales, stream
+    (_P, _I, _I, _I, _P, _P, _P),
+    "vietnamese_qa_system_tpu/ops/quant.py:30",
+)
+KERNELS = (TOPK_BF16, TOPK_INT8, TOPK_INT8_GLOBAL, FLASH_FWD, W8_MATMUL, IVF_PROBE, QUANT_INT8)

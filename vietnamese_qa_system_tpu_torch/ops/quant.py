@@ -1,16 +1,22 @@
 """Symmetric int8 quantization (per-row, residual and global scales).
 
-Counterpart of ``vietnamese_qa_system_tpu/ops/quant.py:83-129``.  Codes and
-scales are bit-identical to the JAX package: ``x / scale`` in f32, then
+Counterpart of ``vietnamese_qa_system_tpu/ops/quant.py``.  Codes and scales
+are bit-identical to the JAX package: ``x / scale`` in f32, then
 ``torch.round`` (half to even, like ``jnp.round``), then a clamp to +-127.
-The store quantizes with these plain functions, as the JAX store does with
-its XLA reference; the Pallas ``_quant_kernel`` is off the serving path and
-not ported yet.
+
+:func:`quantize_int8` is kernel K8: on a CUDA tensor it runs the
+hand-written kernel of ``csrc/quant.cu`` (replaces the Pallas
+``_quant_kernel``), on a CPU tensor its plain version
+:func:`quantize_int8_reference`.  The int8 and int8_res adds of the stores
+quantize through it.  The TPU's ``tile_rows`` and ``interpret`` knobs are
+not carried over.
 """
 
 from __future__ import annotations
 
 import torch
+
+from .cuda_kernels import QUANT_INT8, on_card, stream_of
 
 
 def div127(x: torch.Tensor) -> torch.Tensor:
@@ -30,15 +36,36 @@ def quantize_int8_reference(x: torch.Tensor):
     return q, scale.reshape(-1)
 
 
+def quantize_int8(x: torch.Tensor):
+    """K8: (N, D) f32 or bf16 -> (codes (N, D) int8, scales (N,) f32), per-row
+    absmax scales; bit-identical to :func:`quantize_int8_reference` for
+    finite inputs."""
+    if x.ndim != 2:
+        raise ValueError(f"quantize_int8 expects (N, D), got {tuple(x.shape)}")
+    if not on_card(x):
+        return quantize_int8_reference(x)
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        x = x.float()
+    x = x.contiguous()
+    n, d = x.shape
+    q = torch.empty((n, d), dtype=torch.int8, device=x.device)
+    scales = torch.empty(n, dtype=torch.float32, device=x.device)
+    if n and d:
+        QUANT_INT8.launch(x.data_ptr(), int(x.dtype == torch.bfloat16), n, d, q.data_ptr(), scales.data_ptr(),
+                          stream_of(x))
+    return q, scales
+
+
 def quantize_int8_residual(x: torch.Tensor):
     """Two-level residual int8: ``x ~ q1*s1 + q2*s2`` with per-row scales.
 
     Returns ``(q1, s1, q2, s2)``; the second level quantizes the first
-    level's rounding error (backs the ``int8_res`` store dtype)."""
+    level's rounding error (backs the ``int8_res`` store dtype).  Both
+    levels go through :func:`quantize_int8`."""
     x = x.float()
-    q1, s1 = quantize_int8_reference(x)
+    q1, s1 = quantize_int8(x)
     r = x - q1.float() * s1[:, None]
-    q2, s2 = quantize_int8_reference(r)
+    q2, s2 = quantize_int8(r)
     return q1, s1, q2, s2
 
 

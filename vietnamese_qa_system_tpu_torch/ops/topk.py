@@ -25,7 +25,7 @@ from __future__ import annotations
 
 import torch
 
-from .cuda_kernels import TOPK_BF16, TOPK_INT8, TOPK_INT8_GLOBAL, stream_of
+from .cuda_kernels import TOPK_BF16, TOPK_INT8, TOPK_INT8_GLOBAL, on_card, stream_of
 from .quant import div127
 
 # Largest k of the kernels (one shared-memory list per query of the block).
@@ -108,18 +108,9 @@ def _scan_cuda(kernel, kind: int, q, corpus, scales, valid_n: int, k: int):
     return out_s, out_i
 
 
-def _dispatch(t: torch.Tensor) -> bool:
-    """True: launch the kernel; False: the tensor lies on the CPU."""
-    if t.is_cuda:
-        return True
-    if t.device.type != "cpu":
-        raise ValueError(f"unsupported device {t.device}")
-    return False
-
-
 def topk_bf16(q, corpus, valid_n: int, k: int):
     """K1: (scores f32, ids int32) of bf16 queries over a bf16 corpus."""
-    if _dispatch(q):
+    if on_card(q):
         if q.dtype != torch.bfloat16 or corpus.dtype != torch.bfloat16:
             raise ValueError("matmul_topk_bf16 needs bf16 queries and corpus")
         return _scan_cuda(TOPK_BF16, 0, q, corpus, None, valid_n, k)
@@ -128,7 +119,7 @@ def topk_bf16(q, corpus, valid_n: int, k: int):
 
 def topk_int8(q_i8, corpus, scales, valid_n: int, k: int):
     """K2: scores ``raw * scale[row]`` of int8 query codes over an int8 corpus."""
-    if _dispatch(q_i8):
+    if on_card(q_i8):
         if q_i8.dtype != torch.int8 or corpus.dtype != torch.int8:
             raise ValueError("matmul_topk_int8 needs int8 queries and corpus")
         return _scan_cuda(TOPK_INT8, 1, q_i8, corpus, scales, valid_n, k)
@@ -137,7 +128,7 @@ def topk_int8(q_i8, corpus, scales, valid_n: int, k: int):
 
 def topk_int8_global(q_i8, corpus, valid_n: int, k: int):
     """K3: raw integer scores (as f32) of int8 query codes over an int8 corpus."""
-    if _dispatch(q_i8):
+    if on_card(q_i8):
         if q_i8.dtype != torch.int8 or corpus.dtype != torch.int8:
             raise ValueError("matmul_topk_int8_global needs int8 queries and corpus")
         return _scan_cuda(TOPK_INT8_GLOBAL, 2, q_i8, corpus, None, valid_n, k)
