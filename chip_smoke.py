@@ -31,7 +31,16 @@ its bound and a PyTorch library call, then drives three serving paths once:
   exact mode against the flat scan (K1), the int8_res rerank, spill adds,
   HTTP /search over the index ``select_serving_index`` picks at batch 8
   (the probe-score kernel K5), and the IVF-vs-flat latency sweep that
-  sets ``IVF_KAPPA``.
+  sets ``IVF_KAPPA``;
+- training at the full width of ``phogpt_4b_class`` (32 layers, int8 base
+  drawn on the card from a seed, LoRA r 8, proj_bf16 remat, adamw):
+  the causal flash forward (K4 with the ALiBi key-only bias) and its
+  backward (K7) held against their plain versions at the training shapes
+  (and the sliding-window form at a GPT-Neo-like local layer's), three
+  ``Trainer.fit`` steps of global batch 8 at T = 1024 through K4 and K7 in
+  every layer, a profiler trace of one step, ``cli train`` in-process over
+  the repo's sample file, and a two-layer twin trained on the card and on
+  the host (plain versions) and resumed from a checkpoint.
 
 Each path resets the kernels' launch counters just before it runs and
 reads them just after; every kernel of the path must have launched.
@@ -52,6 +61,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
@@ -82,6 +92,14 @@ PROBE_BATCHES = (1, 8, 32, 256)
 SWEEP_TO, SWEEP_MAX, SWEEP_REPS = 256, 4096, 9  # batches 1, 2, 4 .. 256, on to 4096 while IVF still wins
 PROBE_REL_TOL = 1e-5  # max abs err / max |s|: exact products, f32 sums in another order
 IVF_RECALL_FLOOR = 0.9
+# the training path: PhoGPT-4B QLoRA steps of global batch 8 (grad_accum 2)
+# at T = 1024; K7 against its plain version relative to each gradient's
+# max |g| (bf16 P and dS summed in another tile order); the 2-layer twin's
+# card-vs-host agreement (loss relative; gradients relative to each
+# leaf's max: the kernels' bf16 P and dS against the plain version's)
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_T = 3, 8, 1024
+FLASH_GRAD_REL_TOL = 2e-2
+TWIN_T, TWIN_LOSS_TOL, TWIN_GRAD_REL_TOL = 128, 1e-3, 5e-2
 # H100 SXM5 data sheet (dense, 700 W): HBM 3.35 TB/s, 989 TFLOP/s bf16,
 # 1,979 TOP/s int8 on the tensor cores, 67 TFLOP/s f32 on the CUDA cores
 HBM_BYTES_S, BF16_OPS_S, INT8_OPS_S, F32_OPS_S = 3.35e12, 989e12, 1979e12, 67e12
@@ -911,6 +929,295 @@ def phase_k5(torch, P, ivfs, gen, report):
     report["ivf_probe_scores"]["max_abs_err"] = worst
 
 
+def pairs_kept(t: int, causal: bool, window) -> int:
+    """(query, key) pairs the mask keeps in a T x T tile of one head."""
+    if not causal:
+        return t * t
+    if window is None:
+        return t * (t + 1) // 2
+    return sum(min(q + 1, window) for q in range(t))
+
+
+def bwd_launch_args(torch, A, qb, kb, vb, o, lse, do, lens, bias, h, causal, window):
+    """The operands of K7's two C entry points, as ops/attention.flash_bwd
+    builds them (dd = rowsum(dO * O) plain torch), for timing each alone."""
+    bh, tq, d = qb.shape
+    dd = (do.float() * o.float()).sum(dim=-1).contiguous()
+    keep = (dd,)  # the caller keeps dd alive while the pointers are used
+    common = (qb.data_ptr(), kb.data_ptr(), vb.data_ptr(), do.data_ptr(), lse.data_ptr(), dd.data_ptr(),
+              lens.data_ptr(), None if bias is None else bias.data_ptr(), 0 if bias is None else bias.shape[1], bh, h,
+              tq, kb.shape[1], d, int(causal), int(window or 0))
+    return common, keep
+
+
+def phase_train_kernels(torch, A, gen, report):
+    """K4's causal forms and K7 against their plain versions at the
+    training shapes: the PhoGPT-4B shape (BH = 4 x 24, T = 1024, D = 128,
+    causal, MPT key-only ALiBi bias) and a GPT-Neo-like local layer (BH = 48,
+    T = 2048, D = 64, window 256).  K7 runs twice: its gradients must repeat
+    bit for bit.  Timed with CUDA events after a warm-up, beside the plain
+    versions and SDPA with the bias and mask as one float mask."""
+    from vietnamese_qa_system_tpu_torch.models.layers import alibi_bias
+    from vietnamese_qa_system_tpu_torch.ops.cuda_kernels import FLASH_BWD_DKDV, FLASH_BWD_DQ
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for label, b, h, t, d, window, alibi in (("PhoGPT-4B layer", 4, 24, TRAIN_T, 128, None, True),
+                                              ("local layer", 4, 12, 2048, 64, 256, False)):
+        bh = b * h
+        q, k, v, do = (torch.randn(bh, t, d, generator=gen, device="cuda") for _ in range(4))
+        qb, kb, vb = (q * d ** -0.5).to(torch.bfloat16).contiguous(), k.to(torch.bfloat16), v.to(torch.bfloat16)
+        dob = (do * 0.1).to(torch.bfloat16)
+        lens = torch.full((bh,), t, dtype=torch.int32, device="cuda")
+        bias = alibi_bias(h, t, "mpt", 8.0, "cuda")[0].contiguous() if alibi else None  # (H, 1, T)
+        o, lse = A.flash_fwd(qb, kb, vb, lens, bias, h, True, window)
+        po, plse = A.flash_fwd_plain(qb, kb, vb, lens, bias, h, True, window)
+        grads = A.flash_bwd(qb, kb, vb, o, lse, dob, lens, bias, h, True, window)
+        again = A.flash_bwd(qb, kb, vb, o, lse, dob, lens, bias, h, True, window)
+        plain = A.flash_bwd_plain(qb, kb, vb, o, lse, dob, lens, bias, h, True, window)
+        torch.cuda.synchronize()
+        o_err = (o.float() - po.float()).abs().max().item()
+        lse_err = (lse - plse).abs().max().item()
+        check(o_err <= FLASH_O_TOL and lse_err <= FLASH_LSE_TOL,
+              f"K4 causal {label} BH={bh} T={t} D={d} window={window} bias={'key-only' if alibi else None}: o max abs "
+              f"err {o_err:.2e} <= {FLASH_O_TOL}, lse {lse_err:.2e} <= {FLASH_LSE_TOL}")
+        errs = {}
+        for name, got, want in zip(("dq", "dk", "dv"), grads, plain):
+            errs[name] = (got.float() - want.float()).abs().max().item()
+            rel = errs[name] / want.float().abs().max().item()
+            check(rel <= FLASH_GRAD_REL_TOL and bool(torch.isfinite(got.float()).all()),
+                  f"K7 {label} {name}: max abs err {errs[name]:.2e} ({rel:.2e} of max |{name}|) <= "
+                  f"{FLASH_GRAD_REL_TOL}")
+        check(all(torch.equal(x, y) for x, y in zip(grads, again)), f"K7 {label}: dq, dk, dv repeat bit for bit")
+
+        pairs = bh * pairs_kept(t, True, window)
+        tile = bh * t * d * 2  # one (BH, T, D) bf16 tensor
+        # the library yardstick: SDPA with the ALiBi bias and the causal /
+        # band mask folded into one bf16 float mask, built outside the calls
+        pos = torch.arange(t, device="cuda")
+        keep = pos[None, :] <= pos[:, None]
+        if window:
+            keep &= pos[None, :] > pos[:, None] - window
+        mask = torch.where(keep, 0.0, float("-inf"))[None]
+        if bias is not None:
+            mask = mask + bias
+        mask = mask[None].to(torch.bfloat16)
+        q4, k4, v4 = (x.view(b, h, t, d) for x in (qb, kb, vb))
+        ql, kl, vl = (x.detach().clone().requires_grad_(True) for x in (q4, k4, v4))
+        dol = dob.view(b, h, t, d)
+
+        def sdpa_fwd_bwd():
+            out = sdpa(ql, kl, vl, attn_mask=mask, scale=1.0)
+            torch.autograd.grad(out, (ql, kl, vl), dol)
+
+        fwd = {
+            "ms": cuda_ms(lambda: A.flash_fwd(qb, kb, vb, lens, bias, h, True, window), 10),
+            "plain_ms": cuda_ms(lambda: A.flash_fwd_plain(qb, kb, vb, lens, bias, h, True, window), 2),
+            "library_ms": cuda_ms(lambda: sdpa(q4, k4, v4, attn_mask=mask, scale=1.0), 10),
+            # q k v o, lse, the key-only bias, lens; two products per kept pair
+            **bound(4 * tile + bh * t * 4 + (h * t * 4 if alibi else 0) + bh * 4, 4 * d * pairs, BF16_OPS_S),
+        }
+        common, _keep = bwd_launch_args(torch, A, qb, kb, vb, o, lse, dob, lens, bias, h, True, window)
+        dk, dv, dq = torch.empty_like(kb), torch.empty_like(vb), torch.empty_like(qb)
+        st = torch.cuda.current_stream().cuda_stream
+        lib_bwd = cuda_ms(sdpa_fwd_bwd, 5)
+        dkdv = {
+            "ms": cuda_ms(lambda: FLASH_BWD_DKDV.launch(*common, dk.data_ptr(), dv.data_ptr(), st), 10),
+            "plain_ms": cuda_ms(lambda: A.flash_bwd_plain(qb, kb, vb, o, lse, dob, lens, bias, h, True, window), 2),
+            "library_ms": lib_bwd,
+            # reads q k v dO lse dd (+ bias), writes dk dv; S, dP, dV, dK
+            **bound(6 * tile + 2 * bh * t * 4 + (h * t * 4 if alibi else 0), 8 * d * pairs, BF16_OPS_S),
+        }
+        dqr = {
+            "ms": cuda_ms(lambda: FLASH_BWD_DQ.launch(*common, dq.data_ptr(), st), 10),
+            "plain_ms": dkdv["plain_ms"],
+            "library_ms": lib_bwd,
+            # reads q k v dO lse dd (+ bias), writes dq; S, dP, dQ
+            **bound(5 * tile + 2 * bh * t * 4 + (h * t * 4 if alibi else 0), 6 * d * pairs, BF16_OPS_S),
+        }
+        print(f"K4 causal {label}: kernel {fwd['ms']:.3f} ms, plain {fwd['plain_ms']:.3f} ms, SDPA fwd "
+              f"{fwd['library_ms']:.3f} ms, bound {fwd['bound_ms']:.4f} ms ({fwd['bound_by']}); K7 dK/dV "
+              f"{dkdv['ms']:.3f} ms (bound {dkdv['bound_ms']:.4f}, {dkdv['bound_by']}), dQ {dqr['ms']:.3f} ms (bound "
+              f"{dqr['bound_ms']:.4f}, {dqr['bound_by']}), plain backward {dkdv['plain_ms']:.3f} ms, SDPA fwd+bwd "
+              f"{lib_bwd:.3f} ms", flush=True)
+        if alibi:
+            shape = f"BH={bh} (B={b} x H={h}), T={t}, D={d}, causal, MPT key-only ALiBi bias (the train path)"
+            report["flash_attention_fwd_causal"] = dict(
+                fwd, max_abs_err=o_err, shape=shape,
+                library_call="torch.nn.functional.scaled_dot_product_attention, ALiBi + causal mask as a bf16 "
+                             "attn_mask")
+            lib = "SDPA forward + backward (torch.autograd.grad), ALiBi + causal mask as a bf16 attn_mask"
+            report["flash_attention_bwd_dkdv"] = dict(dkdv, max_abs_err=max(errs["dk"], errs["dv"]), shape=shape,
+                                                      library_call=lib, plain_call="flash_bwd_plain (dq, dk, dv)")
+            report["flash_attention_bwd_dq"] = dict(dqr, max_abs_err=errs["dq"], shape=shape, library_call=lib,
+                                                    plain_call="flash_bwd_plain (dq, dk, dv)")
+        del q, k, v, do, qb, kb, vb, dob, o, lse, po, plse, grads, again, plain, mask, ql, kl, vl
+        torch.cuda.empty_cache()
+
+
+def train_batch(rng, b: int, t: int, vocab: int) -> dict:
+    """Seeded token ids; the first quarter of each row's labels is -100."""
+    import numpy as np
+
+    ids = rng.integers(3, vocab, (b, t)).astype(np.int32)
+    labels = ids.copy()
+    labels[:, : t // 4] = -100
+    return {"input_ids": ids, "attention_mask": np.ones_like(ids), "labels": labels}
+
+
+def phase_train(torch, pkg, logdir: str):
+    """The QLoRA training path at PhoGPT-4B width (32 layers, nothing cut;
+    int8 base drawn on the card layer by layer from the seed; LoRA r 8,
+    alpha 16 on the default targets; proj_bf16 remat; adamw, lr 2e-4):
+    TRAIN_STEPS Trainer.fit steps of global batch TRAIN_BATCH (grad_accum
+    2) at T = TRAIN_T, the launch counters reset just before and read just
+    after; then one more step under a torch.profiler trace."""
+    import numpy as np
+
+    from vietnamese_qa_system_tpu_torch.models import LoraConfig, phogpt_4b_class
+    from vietnamese_qa_system_tpu_torch.train import TrainConfig, Trainer
+    from vietnamese_qa_system_tpu_torch.utils.tree import tree_leaves
+
+    cfg = dataclasses.replace(phogpt_4b_class(), remat_policy="proj_bf16")
+    tcfg = TrainConfig(model=cfg, lora=LoraConfig(r=8, alpha=16), quantize_base="int8", optimizer="adamw", lr=2e-4,
+                       grad_accum=2, log_every=1, log_dir=logdir, run_name="train", seed=SEED + 7)
+    t0 = time.perf_counter()
+    trainer = Trainer(tcfg, total_steps=TRAIN_STEPS + 1, device="cuda")
+    torch.cuda.synchronize()
+    model = trainer.model
+    base = {n: t.clone() for n, t in model.state_dict().items() if n.endswith((".w_q", ".w_s"))}
+    base_gb = sum(t.numel() * t.element_size() for t in base.values()) / 1e9
+    adapter0 = [leaf.detach().clone() for leaf in tree_leaves(trainer.adapter)]
+    print(f"train phogpt_4b_class: {cfg.n_layers} layers, d {cfg.d_model}, d_ff {cfg.d_ff}, {cfg.n_heads} heads, "
+          f"vocab {cfg.vocab_size}, int8 base {base_gb:.2f} GB + LoRA r 8 ({sum(a.numel() for a in adapter0)} "
+          f"adapter parameters), drawn in {time.perf_counter() - t0:.1f} s", flush=True)
+    rng = np.random.default_rng(SEED)
+    batches = [train_batch(rng, TRAIN_BATCH, TRAIN_T, cfg.vocab_size) for _ in range(TRAIN_STEPS + 1)]
+    marks, peaks = [], []
+
+    def factory():  # a step ends when the next batch is asked for (log_every=1 syncs)
+        for bt in batches[:TRAIN_STEPS]:
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            if len(marks) > 1:
+                peaks.append(torch.cuda.max_memory_allocated())
+            torch.cuda.reset_peak_memory_stats()
+            yield bt
+
+    for kern in pkg.KERNELS:
+        kern.launches = 0
+    trainer.fit(factory, max_steps=TRAIN_STEPS)
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in pkg.KERNELS}
+    marks.append(time.perf_counter())
+    peaks.append(torch.cuda.max_memory_allocated())
+    with open(os.path.join(logdir, "train.jsonl")) as f:
+        logged = [json.loads(line) for line in f]
+    step_s = [b - a for a, b in zip(marks, marks[1:])]
+    tokens = TRAIN_BATCH * TRAIN_T
+    for rec, s, peak in zip(logged, step_s, peaks):
+        print(f"train step {rec['step']}: loss {rec['loss']:.6f}, grad_norm {rec['grad_norm']:.6f}, {s:.3f} s, "
+              f"{tokens / s:.1f} tokens/s, peak memory {peak / 1e9:.2f} GB", flush=True)
+    print("launches in the train run: " + json.dumps(launches), flush=True)
+    check(len(logged) == TRAIN_STEPS and all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"]) for r in logged),
+          f"{TRAIN_STEPS} train steps at PhoGPT-4B width: losses and grad norms finite")
+    moved = max((a - b).abs().max().item() for a, b in zip(tree_leaves(trainer.adapter), adapter0))
+    check(moved > 0, f"the adapter moved (max |delta| {moved:.3e})")
+    state = model.state_dict()
+    check(all(torch.equal(state[n], t) for n, t in base.items()),
+          f"the int8 base ({len(base)} code and scale tensors) is unchanged byte for byte")
+    calls = TRAIN_STEPS * tcfg.grad_accum * cfg.n_layers
+    for name in ("flash_attention_fwd_causal", "flash_attention_bwd_dkdv", "flash_attention_bwd_dq"):
+        check(launches[name] == calls, f"{name} launched {launches[name]} = {TRAIN_STEPS} steps x {tcfg.grad_accum} "
+                                       f"microbatches x {cfg.n_layers} layers (proj_bf16 keeps the forward's o "
+                                       f"and lse: no re-launch in the recompute)")
+    del base
+    dev_batch = trainer._device_batch(batches[-1])
+    trace_span(torch, f"train step trace (B={TRAIN_BATCH}, T={TRAIN_T}, torch.profiler)", "train.step", 1,
+               float(np.median(step_s)), lambda: trainer._step_fn(trainer.state, dev_batch))
+    return launches
+
+
+def phase_cli_train(torch, logdir: str) -> None:
+    """``cli train`` in-process at PhoGPT-4B width over the repo's sample."""
+    from vietnamese_qa_system_tpu_torch.cli.main import main as cli_main
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    argv = ["train", "--model-size", "phogpt4b", "--use-lora", "--quantize-base", "int8", "--remat-policy",
+            "proj_bf16", "--train-files", os.path.join(here, "examples", "sample_instruct.jsonl"), "--max-steps",
+            "2", "--batch-size", "8", "--log-every", "1", "--log-dir", logdir, "--run-name", "cli"]
+    t0 = time.perf_counter()
+    rc = cli_main(argv)
+    with open(os.path.join(logdir, "cli.jsonl")) as f:
+        logged = [json.loads(line) for line in f]
+    print(f"cli train: exit {rc} in {time.perf_counter() - t0:.1f} s; " + "; ".join(
+        f"step {r['step']} loss {r['loss']:.6f} grad_norm {r['grad_norm']:.6f}" for r in logged), flush=True)
+    check(rc == 0 and len(logged) == 2, "cli train --model-size phogpt4b --use-lora --quantize-base int8 "
+                                        "--remat-policy proj_bf16 --max-steps 2 --batch-size 8 exits 0")
+
+
+def phase_train_twin(torch, logdir: str) -> None:
+    """Two layers at PhoGPT-4B width: one microbatch's loss and adapter
+    gradients on the card (K4, K7) against the host (plain versions); then
+    a step resumed from a checkpoint equals the uninterrupted run's step."""
+    import numpy as np
+
+    from vietnamese_qa_system_tpu_torch.models import (LoraConfig, causal_from_state_dict, clear_lora, loss_fn,
+                                                       merge_lora, phogpt_4b_class)
+    from vietnamese_qa_system_tpu_torch.train import TrainConfig, Trainer
+    from vietnamese_qa_system_tpu_torch.utils.tree import tree_leaves, tree_map
+
+    cfg = dataclasses.replace(phogpt_4b_class(), n_layers=TWIN_LAYERS, remat_policy="proj_bf16")
+    lora = LoraConfig(r=8, alpha=16)
+    rng = np.random.default_rng(SEED + 3)
+
+    def make(ckpt_dir=None):
+        tcfg = TrainConfig(model=cfg, lora=lora, quantize_base="int8", lr=2e-4, grad_accum=2, log_every=1,
+                           log_dir=logdir, run_name="twin", seed=SEED + 9, checkpoint_dir=ckpt_dir,
+                           save_every_steps=1)
+        return Trainer(tcfg, total_steps=4, device="cuda")
+
+    twin = make()
+    with torch.no_grad():  # B != 0, so the gradients of A are not zero
+        for leaf in tree_leaves(twin.adapter)[1::2]:
+            leaf.normal_(0.0, 0.02, generator=torch.Generator(device="cuda").manual_seed(SEED))
+    mb = train_batch(rng, 2, TWIN_T, cfg.vocab_size)
+
+    def grads(model, adapter, device):
+        merge_lora(model, adapter, lora)
+        loss, _ = loss_fn(model, {k: torch.from_numpy(v.astype(np.int64)).to(device) for k, v in mb.items()})
+        g = torch.autograd.grad(loss, tree_leaves(adapter))
+        clear_lora(model)
+        return loss.item(), [x.float().cpu() for x in g]
+
+    card_loss, card_g = grads(twin.model, twin.adapter, "cuda")
+    host = causal_from_state_dict({k: v.cpu() for k, v in twin.model.state_dict().items()}, cfg)
+    host_ad = tree_map(lambda t: t.detach().cpu().requires_grad_(True), twin.adapter)
+    t0 = time.perf_counter()
+    host_loss, host_g = grads(host, host_ad, "cpu")
+    worst = max((a - b).abs().max().item() / b.abs().max().item() for a, b in zip(card_g, host_g))
+    print(f"train twin ({TWIN_LAYERS} layers, full width, B=2, T={TWIN_T}): loss card {card_loss:.6f} host "
+          f"{host_loss:.6f}; adapter gradients max abs err {worst:.3e} of each leaf's max (host {time.perf_counter() - t0:.1f} s)",
+          flush=True)
+    check(abs(card_loss - host_loss) <= TWIN_LOSS_TOL * abs(host_loss),
+          f"twin loss on the card agrees with the host plain path within {TWIN_LOSS_TOL} (relative)")
+    check(worst <= TWIN_GRAD_REL_TOL, f"twin adapter gradients agree within {TWIN_GRAD_REL_TOL} of each leaf's max")
+    del host, host_ad
+
+    ckpt = os.path.join(logdir, "twin_ckpt")
+    batches = [train_batch(rng, 4, TWIN_T, cfg.vocab_size) for _ in range(2)]
+    straight = make(ckpt)
+    straight.fit(lambda: iter(batches), max_steps=2)  # saves step_1 and step_2
+    resumed = make()
+    restored, meta = straight.ckpt.restore(resumed.state, step=1)
+    resumed.load_state(restored)
+    resumed._step_fn(resumed.state, resumed._device_batch(batches[1]))
+    diff = max((a - b).abs().max().item() for a, b in zip(tree_leaves(straight.adapter), tree_leaves(resumed.adapter)))
+    same = all(torch.equal(a, b) for a, b in zip(tree_leaves(straight.state), tree_leaves(resumed.state)))
+    print(f"twin checkpoint: restored step {meta['step']}, next step's adapter max abs diff {diff:.3e} from the "
+          f"uninterrupted run (state bit-equal: {same})", flush=True)
+    check(same, "checkpoint -> resume -> next step on the card equals the uninterrupted run's step, bit for bit")
+
+
 def main() -> int:
     import torch
 
@@ -957,8 +1264,20 @@ def main() -> int:
         check(ivf_launches[name] > 0, f"{name} launched on the IVF path")
     phase_k5(torch, P, ivfs, gen, report)
     del ivfs
+    torch.cuda.empty_cache()
+    phase_train_kernels(torch, A, gen, report)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as logdir:
+        train_launches = phase_train(torch, pkg, logdir)
+        torch.cuda.empty_cache()
+        for name in ("flash_attention_fwd_causal", "flash_attention_bwd_dkdv", "flash_attention_bwd_dq"):
+            check(train_launches[name] > 0, f"{name} launched on the train path")
+        phase_cli_train(torch, logdir)
+        torch.cuda.empty_cache()
+        phase_train_twin(torch, logdir)
     launches = dict(retrieval, w8_matmul=reader_launches["w8_matmul"], ivf_probe_scores=ivf_launches["ivf_probe_scores"],
-                    quantize_int8=ivf_launches["quantize_int8"])
+                    quantize_int8=ivf_launches["quantize_int8"],
+                    **{name: train_launches[name] for name in ("flash_attention_fwd_causal", "flash_attention_bwd_dkdv",
+                                                               "flash_attention_bwd_dq")})
     kernels = [
         {"name": k.name, "route": k.route, "source": k.source, "replaces": k.replaces,
          "launches": launches[k.name], **report[k.name]}

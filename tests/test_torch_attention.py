@@ -1,7 +1,8 @@
 """Parity of the port's flash attention forward (plain CPU path of kernel
 K4) with the JAX package's flash_attention (Pallas, interpret mode on the
 CPU) and its XLA reference.  Non-causal, with kv_lens (including 0) and
-with and without an (H, T, T) bias.  Tolerance: max abs 2e-2 on the bf16
+with and without an (H, T, T) bias; the causal, window and key-only forms
+and the backward are in test_torch_flash_bwd.py.  Tolerance: max abs 2e-2 on the bf16
 outputs (a few bf16 ulps at |o| < 2)."""
 
 import jax.numpy as jnp
@@ -83,10 +84,12 @@ def test_plain_lse_and_zero_length_rows():
 
 
 def test_unported_forms_raise():
+    """Every form of the kernel is ported now: causal (the default), the
+    window and the key-only bias run; a window without causal masking is
+    refused, as in the JAX package."""
     q = torch.zeros(1, 8, 2, 16)
-    with pytest.raises(NotImplementedError):
-        ta.flash_attention(q, q, q)  # causal is the default
-    with pytest.raises(NotImplementedError):
+    assert ta.flash_attention(q, q, q).shape == (1, 8, 2, 16)
+    assert ta.flash_attention(q, q, q, window=4).shape == (1, 8, 2, 16)
+    assert ta.flash_attention(q, q, q, causal=False, bias=torch.zeros(2, 1, 8)).shape == (1, 8, 2, 16)
+    with pytest.raises(ValueError, match="window requires causal"):
         ta.flash_attention(q, q, q, causal=False, window=4)
-    with pytest.raises(NotImplementedError):
-        ta.flash_attention(q, q, q, causal=False, bias=torch.zeros(2, 1, 8))

@@ -128,10 +128,15 @@ def test_scan_stacked_tree_carries_and_flash_refuses():
     model = causal_from_jax(params, ModelConfig.from_dict(dataclasses.asdict(cfg)), device="cpu")
     assert model.blocks[1].mlp.wi.w_q.dtype == torch.int8
     np.testing.assert_array_equal(model.blocks[1].mlp.wi.w_q.numpy(), params["blocks"]["mlp"]["wi"]["w_q"][1])
-    flash = ModelConfig.from_dict(dataclasses.asdict(dataclasses.replace(cfg, use_flash_attention=True)))
-    model.cfg = flash
-    with pytest.raises(NotImplementedError, match="not ported"):
-        model(torch.zeros((1, 8), dtype=torch.long))
+    # the cache-less forward with use_flash_attention=True used to refuse;
+    # it now runs the causal flash path with the ALiBi key-only bias and
+    # agrees with the JAX package's flash forward (Pallas, interpret mode)
+    flash = dataclasses.replace(cfg, use_flash_attention=True)
+    ids = np.random.default_rng(0).integers(0, 512, (2, 40))
+    model.cfg = ModelConfig.from_dict(dataclasses.asdict(flash))
+    with torch.inference_mode():
+        got = model(torch.from_numpy(ids).long()).numpy()
+    _close(got, np.asarray(jlm.forward(params, flash, jnp.asarray(ids, jnp.int32))))
 
 
 def test_causal_from_jax_is_strict():

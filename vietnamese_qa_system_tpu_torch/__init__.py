@@ -1,18 +1,22 @@
-"""PyTorch / CUDA port of the retrieval serving path, for one NVIDIA H100.
+"""PyTorch / CUDA port of the QA system, for one NVIDIA H100.
 
 The JAX package ``vietnamese_qa_system_tpu`` stays the reference; this
 package sits beside it and keeps its module paths, so each module here has
 its counterpart there:
 
 - ``core``    -- device resolution and seeded generators.
-- ``data``    -- the tokenizers (a copy; token ids match the JAX package).
+- ``data``    -- the tokenizers, templates, schemas and training loader
+                 (copies; token ids and batches match the JAX package).
 - ``ops``     -- the hand-written Hopper kernels (``csrc/``) behind
-                 ``matmul_topk`` and ``flash_attention``, each with its
-                 plain PyTorch version.
-- ``models``  -- the sentence encoder and its configuration.
-- ``engine``  -- vector store, doc store, chunking, ingest, query, HTTP
-                 serving.
-- ``cli``     -- ``ingest`` and ``serve``.
+                 ``matmul_topk``, ``flash_attention``, ``w8_matmul``,
+                 ``ivf_probe_scores`` and ``quantize_int8``, each with its
+                 plain PyTorch version; the chunked cross-entropy.
+- ``models``  -- the sentence encoder, the causal LM, generation, LoRA.
+- ``engine``  -- vector store, IVF index, doc store, chunking, ingest,
+                 query, QA, HTTP serving.
+- ``train``   -- the trainer, optimizers, checkpoints, perplexity.
+- ``utils``   -- JAX-order parameter trees, experiment trackers.
+- ``cli``     -- ``train``, ``ingest``, ``build-ivf``, ``serve``, ``chat``.
 
 Nothing here imports jax or the JAX package: the modules the port needs
 are carried into it, and the parity tests (``tests/test_torch_*.py``) hold

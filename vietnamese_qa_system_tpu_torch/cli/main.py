@@ -1,7 +1,12 @@
-"""Command-line interface of the port: ``ingest``, ``build-ivf``, ``serve``
-and ``chat``.
+"""Command-line interface of the port: ``train``, ``ingest``,
+``build-ivf``, ``serve`` and ``chat``.
 
-Counterpart of ``vietnamese_qa_system_tpu/cli/main.py:535-1044``::
+Counterpart of ``vietnamese_qa_system_tpu/cli/main.py:26-436`` and
+``:535-1044``::
+
+    python -m vietnamese_qa_system_tpu_torch.cli train --model-size phogpt4b \
+        --use-lora --quantize-base int8 --remat-policy proj_bf16 \
+        --train-files examples/sample_instruct.jsonl --max-steps 2
 
     python -m vietnamese_qa_system_tpu_torch.cli ingest --inputs docs.jsonl \\
         --index idx --db docs.sqlite --encoder mpnet --dtype int8_global
@@ -13,8 +18,12 @@ Counterpart of ``vietnamese_qa_system_tpu/cli/main.py:535-1044``::
         --quantize int8c
 
 Each takes ``--device`` (default ``cuda``; a missing GPU raises).  The
-reader answers with random weights drawn from ``--seed`` on the device,
-layer by layer (quantized as each layer is made).  Hybrid BM25 retrieval,
+reader answers, and ``train`` starts, with random weights drawn from
+``--seed`` on the device, layer by layer (quantized as each layer is
+made).  ``train`` refuses what is not ported yet: seq2seq models,
+``--init-params``, strategies other than dp, meshes, host offload, sharded
+checkpoints, nf4 bases, the once / once_folded dequant placements,
+generative eval, profiler traces and hub pushes.  Hybrid BM25 retrieval,
 sharded indexes, HF weight directories, reader checkpoints, nf4 weights,
 speculative decoding and draft models, sharded readers and the continuous
 engine behind ``/generate`` are not ported yet and raise where the JAX CLI
@@ -72,6 +81,194 @@ def _reader(size: str, tok, seed: int, device, quantize: Optional[str]):
     if quantize:
         print(f"reader decodes over a {quantize} base", flush=True)
     return model
+
+
+def _train_config(args):
+    """The model configuration of ``train``: a preset or a JSON file, with
+    --scan-layers / --remat-policy applied (cli/main.py:158-193)."""
+    import dataclasses
+
+    from ..models import config as mcfg
+
+    if args.arch != "causal":
+        raise NotImplementedError(f"training a {args.arch} model is not ported yet")
+    if args.model_config:
+        with open(args.model_config) as f:
+            cfg = mcfg.ModelConfig.from_json(f.read())
+    else:
+        presets = {
+            "tiny": lambda: mcfg.tiny_test("causal"), "gpt125m": mcfg.gpt_125m_class,
+            "gptneo125m": mcfg.gpt_neo_125m, "pythia410m": mcfg.pythia_410m_class, "llama1b": mcfg.llama_1b_class,
+            "qwen2-05b": mcfg.qwen2_05b_class, "bloom560m": mcfg.bloom_560m_class, "phogpt4b": mcfg.phogpt_4b_class,
+            "mt5small": mcfg.mt5_small_class, "seq2seq-small": mcfg.seq2seq_native_small,
+        }
+        cfg = presets[args.model_size]()
+    if args.scan_layers:
+        if cfg.arch != "causal" or cfg.attention_layers is not None:
+            raise SystemExit("--scan-layers requires a homogeneous causal model")
+        cfg = dataclasses.replace(cfg, scan_layers=True)
+    if args.remat_policy:
+        cfg = dataclasses.replace(cfg, remat_policy=args.remat_policy)
+    return cfg
+
+
+def _file_specs(files, schemas, fractions):
+    from ..data import DataFileSpec
+
+    schemas = schemas or ["instruct"] * len(files)
+    fractions = fractions or [1.0] * len(files)
+    fractions = [f / 100.0 if f > 1.0 else f for f in fractions]  # percentages or fractions
+    return [DataFileSpec(path, schema, frac) for path, schema, frac in zip(files, schemas, fractions)]
+
+
+def cmd_train(args) -> int:
+    """LoRA / QLoRA (or full) fine-tuning of a causal LM (cli/main.py:216-436)."""
+    import dataclasses
+
+    from ..data import IGNORE_INDEX, QADataLoader
+    from ..models import LoraConfig
+    from ..train import TrainConfig, Trainer, perplexity_eval
+
+    _refuse(args, {
+        "--init-params": ("init_params", None), "--mesh": ("mesh", None),
+        "--sharded-checkpoint": ("sharded_checkpoint", False), "--do-generative-eval": ("do_generative_eval", False),
+        "--push-to-hub": ("push_to_hub", None),
+    })
+    model = _train_config(args)
+    tok = _tokenizer(args.tokenizer)
+    if tok.vocab_size > model.vocab_size:
+        model = dataclasses.replace(model, vocab_size=tok.vocab_size)
+    lora = (LoraConfig(r=args.lora_r, alpha=args.lora_alpha,
+                       targets=tuple(args.lora_targets) if args.lora_targets else LoraConfig.targets)
+            if args.use_lora else None)
+    cfg = TrainConfig(
+        model=model, lora=lora, optimizer=args.optimizer, lr=args.lr, weight_decay=args.weight_decay,
+        max_grad_norm=args.max_grad_norm, schedule=args.lr_scheduler, warmup_steps=args.warmup_steps,
+        epochs=args.epochs, grad_accum=args.grad_accum, strategy=args.strategy, host_offload=args.host_offload,
+        checkpoint_dir=args.checkpoint_dir, save_every_steps=args.save_every_steps,
+        save_every_seconds=args.save_every_seconds, async_checkpoint=args.async_checkpoint, resume=args.resume,
+        quantize_base=args.quantize_base, qlora_dequant=args.qlora_dequant, seed=args.seed,
+        log_every=args.log_every, log_dir=args.log_dir, report_to=args.report_to, run_name=args.run_name,
+        remat=args.remat, profile_steps=args.profile_steps,
+    )
+    dl = QADataLoader(tok, task="causal", max_len=args.max_len, batch_size=args.batch_size, seed=args.seed,
+                      pack=args.pack)
+    train_examples = dl.load_examples(_file_specs(args.train_files, args.train_schemas, args.train_fractions),
+                                      max_examples=args.max_examples, split="train")
+    if not train_examples:
+        print(f"no training examples loaded (stats: {dl.stats} -- skipped_too_long>0 means --max-len "
+              f"{args.max_len} is too small for prompt+answer)", file=sys.stderr)
+        return 2
+    eval_examples = (dl.load_examples(_file_specs(args.eval_files, None, None), max_examples=args.max_examples,
+                                      split="eval") if args.eval_files else [])
+    if args.print_samples:
+        shown = 0
+        for batch in dl.batches(train_examples, shuffle=False):
+            for ids_row, labels_row in zip(batch["input_ids"], batch["labels"]):
+                if shown >= args.print_samples:
+                    break
+                full = tok.decode([t for t in ids_row if t != tok.pad_id])
+                target = tok.decode([t for t in labels_row if t not in (IGNORE_INDEX, tok.pad_id)])
+                print(f"--- sample {shown} ---\n{full}\n>>> target: {target}")
+                shown += 1
+            if shown >= args.print_samples:
+                break
+    if args.pack:
+        total_tokens = sum(len(ex["input_ids"]) for ex in train_examples)
+        steps_per_epoch = max((total_tokens // args.max_len) // args.batch_size, 1)
+    else:
+        steps_per_epoch = max(len(train_examples) // args.batch_size, 1)
+    trainer = Trainer(cfg, total_steps=args.max_steps or steps_per_epoch * args.epochs, device=args.device)
+
+    def train_batches(epoch: int):
+        return dl.batches(train_examples, epoch=epoch)
+
+    def eval_fn(state, epoch):
+        metrics = perplexity_eval(trainer.merged_params(), model, dl.batches(eval_examples, shuffle=False))
+        print(f"eval @ epoch {epoch}: {metrics}", flush=True)
+        return metrics
+
+    trainer.fit(train_batches, eval_fn=eval_fn if (args.do_eval and eval_examples) else None,
+                max_steps=args.max_steps)
+    print(f"training done at step {int(trainer.state['step'])}", flush=True)
+    if trainer.adapter is not None and args.checkpoint_dir:
+        # adapter-only artifact, in the JAX package's layout
+        from ..train.checkpoint import save_pytree
+
+        adapter_path = os.path.join(args.checkpoint_dir, "adapter.npz")
+        save_pytree(adapter_path, trainer.state["adapter"])
+        print(f"adapter saved -> {adapter_path} (r={args.lora_r}, alpha={args.lora_alpha})", flush=True)
+    return 0
+
+
+def _add_train_args(p: argparse.ArgumentParser) -> None:
+    """The JAX CLI's train flags (cli/main.py:26-155) and --device."""
+    g = p.add_argument_group("model")
+    g.add_argument("--arch", choices=["causal", "seq2seq"], default="causal", help="seq2seq is not ported yet")
+    g.add_argument("--model-size", default="tiny", choices=[*READERS, "mt5small", "seq2seq-small"],
+                   help="preset size (the seq2seq presets are not ported yet)")
+    g.add_argument("--model-config", help="path to a ModelConfig json (overrides preset)")
+    g.add_argument("--scan-layers", action="store_true",
+                   help="homogeneous layers with per-layer remat (the port keeps a list of layers)")
+    g.add_argument("--remat-policy", default=None, choices=["full", "dots", "proj_bf16", "none"],
+                   help="per-layer remat: full = recompute the layer, dots = save the products and the flash "
+                        "outputs, proj_bf16 = save the projections rounded to bf16, none = no remat")
+    g.add_argument("--init-params", help="checkpoint or converted weights to start from (not ported yet)")
+    g = p.add_argument_group("lora")
+    g.add_argument("--use-lora", action="store_true")
+    g.add_argument("--lora-r", type=int, default=8)
+    g.add_argument("--lora-alpha", type=int, default=16)
+    g.add_argument("--lora-targets", nargs="*", default=None)
+    g.add_argument("--quantize-base", choices=["int8", "nf4", "nf4-dq"], default=None,
+                   help="quantize the frozen base for LoRA training (nf4 / nf4-dq are not ported yet)")
+    g.add_argument("--qlora-dequant", choices=["fused", "once", "once_folded"], default="fused",
+                   help="dequant placement: at each matmul (fused); once / once_folded are not ported yet")
+    g = p.add_argument_group("optimization")
+    g.add_argument("--optimizer", default="adamw", choices=["adamw", "lion", "adamw8bit", "lion8bit"])
+    g.add_argument("--lr", type=float, default=2e-4)
+    g.add_argument("--weight-decay", type=float, default=0.0)
+    g.add_argument("--max-grad-norm", type=float, default=1.0)
+    g.add_argument("--lr-scheduler", default="linear", choices=["linear", "cosine", "constant"])
+    g.add_argument("--warmup-steps", type=int, default=0)
+    g.add_argument("--epochs", type=int, default=1)
+    g.add_argument("--max-steps", type=int, default=None)
+    g.add_argument("--batch-size", type=int, default=8, help="global batch (= grad-accum * microbatch)")
+    g.add_argument("--grad-accum", type=int, default=1)
+    g.add_argument("--remat", action="store_true", help="rematerialize the loss (gradient checkpointing)")
+    g = p.add_argument_group("distribution")
+    g.add_argument("--host-offload", choices=["optimizer", "params", "all"], default=None, help="not ported yet")
+    g.add_argument("--strategy", default="dp", choices=["dp", "zero2", "fsdp", "tp", "fsdp_tp"],
+                   help="only dp (one device) is ported")
+    g.add_argument("--mesh", default=None, help="mesh axes as json (not ported yet)")
+    g = p.add_argument_group("data")
+    g.add_argument("--train-files", nargs="+", required=False, default=[])
+    g.add_argument("--train-schemas", nargs="*", default=None, help="schema per file: qa|instruct (default instruct)")
+    g.add_argument("--train-fractions", nargs="*", type=float, default=None, help="mix fraction per file")
+    g.add_argument("--eval-files", nargs="*", default=[])
+    g.add_argument("--max-examples", type=int, default=None)
+    g.add_argument("--max-len", type=int, default=512)
+    g.add_argument("--pack", action="store_true", help="group_texts block packing")
+    g.add_argument("--tokenizer", default="byte", help='"byte" or a local HF tokenizer path')
+    g = p.add_argument_group("checkpoint / logging")
+    g.add_argument("--checkpoint-dir", default=None)
+    g.add_argument("--sharded-checkpoint", action="store_true", help="not ported yet")
+    g.add_argument("--save-every-steps", type=int, default=None)
+    g.add_argument("--save-every-seconds", type=float, default=None)
+    g.add_argument("--async-checkpoint", action="store_true", help="write checkpoints from a background thread")
+    g.add_argument("--resume", action="store_true")
+    g.add_argument("--log-dir", default="runs/logs")
+    g.add_argument("--report-to", default="jsonl", choices=["jsonl", "wandb"], help="wandb is not ported yet")
+    g.add_argument("--run-name", default=None)
+    g.add_argument("--push-to-hub", default=None, metavar="REPO_ID", help="not ported yet")
+    g.add_argument("--push-dry-run", action="store_true")
+    g.add_argument("--log-every", type=int, default=10)
+    g.add_argument("--seed", type=int, default=42)
+    g = p.add_argument_group("evaluation")
+    g.add_argument("--do-eval", action="store_true", help="perplexity over --eval-files after each epoch")
+    g.add_argument("--do-generative-eval", action="store_true", help="not ported yet")
+    g.add_argument("--print-samples", type=int, default=0, help="decode and print N training examples first")
+    g.add_argument("--profile-steps", type=int, default=0, help="device traces (not ported yet)")
+    p.add_argument("--device", default="cuda")
 
 
 def _refuse(args, flags: dict) -> None:
@@ -298,6 +495,10 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="vietnamese_qa_system_tpu_torch",
                                 description="Vietnamese QA (retrieval and reader) on PyTorch / CUDA")
     sub = p.add_subparsers(dest="command", required=True)
+
+    pt = sub.add_parser("train", help="fine-tune a causal LM (LoRA / QLoRA)")
+    _add_train_args(pt)
+    pt.set_defaults(fn=cmd_train)
 
     pi = sub.add_parser("ingest", help="build the retrieval index")
     pi.add_argument("--inputs", nargs="+", required=True)

@@ -1,16 +1,19 @@
 """Decoder-only causal LM (RoPE/NeoX, learned-position GPT-Neo, ALiBi
 BLOOM/MPT, llama/Qwen2 GQA families; tied or untied head).
 
-Counterpart of ``vietnamese_qa_system_tpu/models/causal_lm.py`` for
-serving: ``CausalLM.hidden_states`` with and without a KV cache,
-``forward`` (the head is a plain f32 product of bf16-rounded inputs),
-``init_causal_lm``, ``_layer_kinds``, ``_window_mask`` and
-``unstack_blocks``.  The port keeps a plain list of layers: a scan-stacked
-JAX tree is unstacked once when it is carried over (models/params.py).
+Counterpart of ``vietnamese_qa_system_tpu/models/causal_lm.py``:
+``CausalLM.hidden_states`` with and without a KV cache, ``forward`` (the
+head is a plain f32 product of bf16-rounded inputs), ``loss_fn`` (the
+chunked cross-entropy at real vocabularies), ``init_causal_lm``,
+``_layer_kinds``, ``_window_mask`` and ``unstack_blocks``.  The port keeps
+a plain list of layers: a scan-stacked JAX tree is unstacked once when it
+is carried over (models/params.py), and the per-layer remat that the JAX
+package applies to its scan body (``scan_layers`` with a ``remat_policy``
+other than "none") wraps each layer of the list instead.
 
-The cache-less branch with ``use_flash_attention=True`` needs the causal
-form of the flash forward (K4), which is not ported yet: it raises
-``NotImplementedError`` rather than falling back to plain attention.
+The cache-less forward with ``use_flash_attention=True`` runs every layer
+through the causal flash kernels (K4 forward, K7 backward), local layers
+in their sliding-window form, with ALiBi as the key-only bias.
 """
 
 from __future__ import annotations
@@ -19,8 +22,13 @@ import torch
 from torch import nn
 
 from .config import ModelConfig
-from .layers import Block, Dense, LayerNorm, _matmul, alibi_bias, causal_mask, rope_frequencies
+from .layers import Block, Dense, LayerNorm, _matmul, alibi_bias, causal_mask, remat_wrap, rope_frequencies
 from .quantize import quantize_dense_tree
+
+IGNORE_INDEX = -100  # label positions excluded from the loss
+# vocabularies at least this large take the chunked streaming loss
+# (ops/xent.py), as in the JAX package (causal_lm.py:360)
+CHUNKED_XENT_MIN_VOCAB = 16384
 
 
 def unstack_blocks(params: dict, n_layers: int) -> dict:
@@ -128,19 +136,24 @@ class CausalLM(nn.Module):
         has_local = "local" in kinds
         alibi = cfg.positional == "alibi"
 
+        flash = flash_local = None
         if cache is None:
-            if cfg.use_flash_attention:
-                raise NotImplementedError(
-                    "the cache-less causal forward with use_flash_attention=True needs the causal flash "
-                    "forward, which is not ported yet")
             bias = alibi_bias(cfg.n_heads, t, cfg.alibi_mode, cfg.alibi_bias_max, dev) if alibi else None
             mask = causal_mask(t, dev)
             if attn_mask is not None:
                 mask = mask & attn_mask[:, None, :].bool()
+            if cfg.use_flash_attention:
+                # right-padded batches: (causal & padding) is exactly
+                # (kv_lens, causal=True) for the fused kernels
+                lens = attn_mask.sum(dim=1).to(torch.int32) if attn_mask is not None else None
+                flash = {"kv_lens": lens, "causal": True}
             local_mask = None
             if has_local:
                 slots = torch.arange(t, device=dev)
                 local_mask = mask & _window_mask(slots, slots, cfg.attention_window)
+                if flash is not None:
+                    # (causal & padding & window) is the kernels' sliding-window form
+                    flash_local = dict(flash, window=cfg.attention_window)
         else:
             # decode: keys live in the cache; ALiBi uses cache-SLOT positions
             # (a per-row padding shift of every key is a softmax row constant)
@@ -152,22 +165,52 @@ class CausalLM(nn.Module):
                 q_slots = cache_index + torch.arange(t, device=dev)
                 local_mask = mask & _window_mask(q_slots, torch.arange(cache_len, device=dev),
                                                  cfg.attention_window)
+        remat = cache is None and cfg.scan_layers and cfg.remat_policy != "none"
         for i, (blk, kind) in enumerate(zip(self.blocks, kinds)):
-            x = blk(x, mask=local_mask if kind == "local" else mask, rope=rope, positions=positions,
+            local = kind == "local"
+            run = remat_wrap(blk, cfg.remat_policy) if remat else blk
+            x = run(x, mask=local_mask if local else mask, rope=rope, positions=positions,
                     cache=None if cache is None else cache[i], cache_index=cache_index,
                     parallel_residual=cfg.parallel_residual, scale=cfg.attention_scale,
-                    activation=cfg.activation, bias=bias, clip=cfg.clip_qkv, activation_dtype=adt)
+                    activation=cfg.activation, bias=bias, clip=cfg.clip_qkv, activation_dtype=adt,
+                    flash=flash_local if local else flash)
         return self.ln_f(x)
+
+    def head_weight(self):
+        """(D, V) classifier: the embedding transpose for tied heads."""
+        return self.tok_embed.T if self.cfg.tie_embeddings else self.lm_head.w
 
     def head(self, x):
         """(…, D) hidden states -> (…, V) f32 logits (bf16 inputs)."""
-        w = self.tok_embed.T if self.cfg.tie_embeddings else self.lm_head.w
-        return _matmul(x, w)
+        return _matmul(x, self.head_weight())
 
     def forward(self, ids, attn_mask=None, *, positions=None, cache=None, cache_index=None):
         """ids (B, T) -> logits (B, T, V) f32."""
         return self.head(self.hidden_states(ids, attn_mask, positions=positions, cache=cache,
                                             cache_index=cache_index))
+
+
+def loss_fn(model: CausalLM, batch: dict):
+    """Next-token cross-entropy with -100 masking -> (mean_loss, n_target).
+
+    batch: {"input_ids" (B, T), "labels" (B, T)} (an "attention_mask" is
+    ignored).  Vocabularies of at least CHUNKED_XENT_MIN_VOCAB stream the
+    classifier in chunks (ops/xent.py).  The forward is unmasked, as in
+    the JAX package (causal_lm.py:375-380): with right padding and causal
+    attention no real query attends a padded key, and padded positions
+    carry IGNORE_INDEX labels, so loss and gradients are the same."""
+    from ..ops.xent import masked_mean_xent
+
+    labels = batch["labels"][:, 1:]
+    if model.cfg.vocab_size >= CHUNKED_XENT_MIN_VOCAB:
+        h = model.hidden_states(batch["input_ids"], None)
+        return masked_mean_xent(h[:, :-1], model.head_weight(), labels, IGNORE_INDEX)
+    logits = model(batch["input_ids"], None)[:, :-1]
+    valid = labels != IGNORE_INDEX
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    token_ll = torch.gather(logp, -1, torch.where(valid, labels, 0)[..., None].long())[..., 0]
+    n = valid.sum().clamp_min(1)
+    return -torch.where(valid, token_ll, 0.0).sum() / n, n
 
 
 def _init_dense_norms(module: nn.Module, generator: torch.Generator) -> None:
@@ -190,7 +233,9 @@ def init_causal_lm(cfg: ModelConfig, generator: torch.Generator, *, quantize: st
     zero biases, unit norm scales.  Drawn from ``generator`` on its own
     device, layer by layer; with ``quantize`` ("int8" or "int8c") each
     layer is quantized as soon as it is made, so a multi-billion-parameter
-    reader never holds more than one float layer."""
+    reader never holds more than one float layer.  Every parameter comes
+    back frozen (``requires_grad`` False); a trainer unfreezes what it
+    trains."""
     device = generator.device
     model = CausalLM(cfg, device="meta")
     model.blocks = nn.ModuleList()

@@ -2,12 +2,15 @@
 ``nn.Module``s.
 
 Counterpart of ``vietnamese_qa_system_tpu/models/layers.py``: ``Dense``
-(float, or int8 / int8c leaves; no LoRA), ``LayerNorm`` (RMSNorm when it
-has no bias), RoPE (partial rotary), ALiBi slopes and the key-only bias,
-``Attention`` (bf16 KV cache at a scalar ``cache_index``, GQA, ``clip_qkv``,
-the masked-softmax path, and the encoder's flash path), ``MLP`` (plain or
-gated), ``Block`` (pre-LN, post-LN, parallel residual), ``causal_mask`` and
-``padding_mask``.
+(float, or int8 / int8c leaves, with LoRA factors attached by
+models/lora.py), ``LayerNorm`` (RMSNorm when it has no bias), RoPE (partial
+rotary), ALiBi slopes and the key-only bias, ``Attention`` (bf16 KV cache
+at a scalar ``cache_index``, GQA, ``clip_qkv``, the masked-softmax path,
+and the flash path: the encoder's bidirectional form and the causal LM's
+causal / sliding-window forms, differentiable through kernels K4 and K7),
+``MLP`` (plain or gated), ``Block`` (pre-LN, post-LN, parallel residual),
+``remat_wrap`` (the remat policies, through ``torch.utils.checkpoint``),
+``causal_mask`` and ``padding_mask``.
 
 Parameter names and layouts follow the JAX pytree (dense weights are
 (d_in, d_out) and applied as ``x @ w``), so a JAX parameter tree maps onto
@@ -23,11 +26,14 @@ matmul of bf16-rounded inputs on every device (an exact emulation of
 
 from __future__ import annotations
 
+import contextvars
+import functools
 import math
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from ..ops.attention import flash_attention
 from ..ops.w8_matmul import supports as w8_supports
@@ -35,6 +41,85 @@ from ..ops.w8_matmul import w8_matmul
 
 COMPUTE_DTYPE = torch.bfloat16
 NEG_INF = -1e30  # finite, as in the reference
+
+# set by remat_wrap("proj_bf16") while the wrapped layer runs (its forward
+# and its recompute in the backward): Dense rounds its output to bf16
+# through the operator below, which the policy saves (layers.py:22-34)
+_TAG_PROJ_BF16 = contextvars.ContextVar("tag_proj_bf16", default=False)
+
+
+@torch.library.custom_op("vqa_torch::proj_bf16", mutates_args=(), schema="(Tensor x) -> Tensor")
+def _proj_bf16(x):
+    return x.to(torch.bfloat16, copy=True)
+
+
+def _proj_bf16_context(ctx, inputs, output):
+    ctx.dtype = inputs[0].dtype
+
+
+_proj_bf16.register_autograd(lambda ctx, grad: grad.to(ctx.dtype), setup_context=_proj_bf16_context)
+
+
+def _maybe_tag_proj(y):
+    return torch.ops.vqa_torch.proj_bf16(y) if _TAG_PROJ_BF16.get() else y
+
+
+def _policy(saved) -> functools.partial:
+    """A selective-checkpoint context: the outputs of the ``saved``
+    operators are kept from the forward, everything else is recomputed."""
+    def policy(ctx, op, *args, **kwargs):
+        return CheckpointPolicy.MUST_SAVE if op in saved else CheckpointPolicy.PREFER_RECOMPUTE
+
+    return functools.partial(create_selective_checkpoint_contexts, policy)
+
+
+def remat_wrap(fn, policy_name: str):
+    """Wrap a layer body per ``ModelConfig.remat_policy``
+    (layers.py:45-107), through non-reentrant ``torch.utils.checkpoint``:
+
+    - ``"full"``: save only the layer's inputs; the backward re-runs the
+      whole layer forward, the flash kernel K4 included.
+    - ``"dots"``: save every matrix product's output (``aten.mm`` /
+      ``aten.addmm``, the projections) and the flash forward's o and lse
+      (the ``vqa_torch::flash_fwd`` operator); the rest is recomputed.
+    - ``"proj_bf16"``: every dense output (LoRA correction included) is
+      rounded to bf16 -- in the forward too, which is why the losses of
+      this policy differ from the others' -- and saved, with the flash
+      forward's o and lse; the rest is recomputed.
+    - ``"none"``: no remat.
+
+    PyTorch's eager checkpoint recomputes every operator it does not save,
+    including the inputs of saved ones (XLA drops the dead ones), so
+    ``dots`` and ``proj_bf16`` re-run the base dequantization and, in
+    ``proj_bf16``, the projections' products.  Without autograd (eval) the
+    layer runs plainly; ``proj_bf16`` still rounds."""
+    if policy_name == "none":
+        return fn
+    if policy_name not in ("full", "dots", "proj_bf16"):
+        raise ValueError(f"unknown remat_policy {policy_name!r}; want full | dots | proj_bf16 | none")
+    flash = torch.ops.vqa_torch.flash_fwd.default
+    context_fn = None
+    body = fn
+    if policy_name == "dots":
+        context_fn = _policy({torch.ops.aten.mm.default, torch.ops.aten.addmm.default, flash})
+    elif policy_name == "proj_bf16":
+        context_fn = _policy({torch.ops.vqa_torch.proj_bf16.default, flash})
+
+        def body(*a, **k):
+            tok = _TAG_PROJ_BF16.set(True)
+            try:
+                return fn(*a, **k)
+            finally:
+                _TAG_PROJ_BF16.reset(tok)
+
+    def wrapped(*a, **k):
+        if not torch.is_grad_enabled():
+            return body(*a, **k)
+        if context_fn is None:
+            return checkpoint(body, *a, use_reentrant=False, **k)
+        return checkpoint(body, *a, use_reentrant=False, context_fn=context_fn, **k)
+
+    return wrapped
 
 
 def _matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -59,7 +144,13 @@ def dequantize_weight(w_q: torch.Tensor, w_s: torch.Tensor, dtype=torch.bfloat16
 class Dense(nn.Module):
     """``x @ w (+ b)``.  A quantized layer (models/quantize.py) holds the
     int8 codes ``w_q`` (d_in, d_out) and the f32 scales ``w_s`` (nb, d_out)
-    in place of ``w``."""
+    in place of ``w``; they are buffers, frozen under autograd.
+
+    LoRA (models/lora.py ``merge_lora``): on a quantized layer the factors
+    ``lora_a`` (d_in, r) and ``lora_b`` (r, d_out, carrying alpha/r) apply
+    lazily, ``y += (x @ A) @ B`` in bf16 with f32 accumulation; on a float
+    layer ``w_merged`` = W + scale * A @ B stands in for ``w``.  Both are
+    plain attributes, set per forward by the train step."""
 
     def __init__(self, d_in: int, d_out: int, *, use_bias: bool = True, device=None):
         super().__init__()
@@ -67,6 +158,7 @@ class Dense(nn.Module):
         self.register_buffer("w_q", None)
         self.register_buffer("w_s", None)
         self.b = nn.Parameter(torch.empty(d_out, device=device)) if use_bias else None
+        self.lora_a = self.lora_b = self.w_merged = None
 
     def set_quantized(self, w_q: torch.Tensor, w_s: torch.Tensor) -> None:
         """Replace the float weight by int8 codes and their scales."""
@@ -76,7 +168,7 @@ class Dense(nn.Module):
 
     def forward(self, x):
         if self.w_q is None:
-            y = _matmul(x, self.w)
+            y = _matmul(x, self.w if self.w_merged is None else self.w_merged)
         else:
             d_in, d_out = self.w_q.shape
             rows = x.numel() // d_in
@@ -89,7 +181,11 @@ class Dense(nn.Module):
             else:
                 # dequantize at the point of use: a transient bf16 weight
                 y = _matmul(x, dequantize_weight(self.w_q, self.w_s, COMPUTE_DTYPE))
-        return y if self.b is None else y + self.b
+        if self.b is not None:
+            y = y + self.b
+        if self.lora_a is not None:
+            y = y + _matmul(_matmul(x, self.lora_a), self.lora_b)
+        return _maybe_tag_proj(y)
 
 
 class LayerNorm(nn.Module):
@@ -187,8 +283,9 @@ class Attention(nn.Module):
     def forward(self, x, *, n_heads: int, mask=None, flash=None, bias=None, scale=None, n_kv_heads=None,
                 rope=None, positions=None, cache=None, cache_index=None, clip=None):
         """``mask`` (B|1, Tq, Tk) bool, True = attend; ``bias`` (1, H, Tq|1,
-        Tk) added after the scaling; ``flash`` = {"kv_lens", "causal"} takes
-        the fused kernel (no cache).  ``cache`` {"k", "v"} (B, L, kv heads,
+        Tk) added after the scaling; ``flash`` = {"kv_lens", "causal",
+        "window"} takes the fused kernels (no cache; the bias reaches them
+        as (H, Tq|1, Tk)).  ``cache`` {"k", "v"} (B, L, kv heads,
         Dh) bf16 is written IN PLACE at slot ``cache_index`` and attention
         then runs over all of it."""
         b, t, _ = x.shape

@@ -1,4 +1,5 @@
-"""Carry JAX parameter trees (numpy leaves) into the port's modules."""
+"""Carry JAX parameter trees (numpy leaves) into the port's modules, and
+LoRA adapters both ways."""
 
 from __future__ import annotations
 
@@ -6,6 +7,7 @@ import numpy as np
 import torch
 
 from ..core.device import resolve_device
+from ..utils.tree import flatten_paths, nest, tree_leaves
 from .causal_lm import CausalLM, unstack_blocks
 from .config import ModelConfig
 from .encoder import SentenceEncoder
@@ -70,3 +72,21 @@ def causal_from_jax(params, cfg: ModelConfig, device="cuda") -> CausalLM:
         flat[name] = torch.from_numpy(np.array(leaf, dtype=leaf.dtype if leaf.dtype == np.int8 else np.float32))
         flat[name] = flat[name].to(device)
     return causal_from_state_dict(flat, cfg)
+
+
+def adapter_from_jax(adapter, device="cuda") -> dict:
+    """A JAX LoRA adapter pytree (numpy leaves; list-form or scan-stacked
+    blocks) -> the port's adapter tree (list-form nesting, f32 tensors that
+    require grad)."""
+    device = resolve_device(device)
+    blocks = adapter.get("blocks")
+    if isinstance(blocks, dict):  # scan-stacked: every leaf (L, ...)
+        adapter = unstack_blocks(adapter, len(tree_leaves(blocks)[0]))
+    flat = {name: torch.tensor(np.asarray(leaf, dtype=np.float32), device=device).requires_grad_(True)
+            for name, leaf in _flatten(adapter, "", {}).items()}
+    return nest(flat)
+
+
+def adapter_to_jax(adapter) -> dict:
+    """The port's adapter tree -> the JAX package's pytree, numpy leaves."""
+    return nest({name: leaf.detach().cpu().numpy() for name, leaf in flatten_paths(adapter).items()})

@@ -1,95 +1,212 @@
-"""Flash attention forward in the encoder's form.
+"""Flash attention, forward and backward.
 
-Counterpart of ``vietnamese_qa_system_tpu/ops/attention.py:967-1085``.  On a
-CUDA tensor the forward runs the hand-written kernel K4 of
-``csrc/flash_fwd.cu`` (replaces the Pallas ``_fa_kernel``); on a CPU tensor
-its plain PyTorch version :func:`flash_fwd_plain` runs instead.
+Counterpart of ``vietnamese_qa_system_tpu/ops/attention.py``.  On CUDA
+tensors the forward runs the hand-written kernel K4 of
+``csrc/flash_fwd.cu`` (replaces the Pallas ``_fa_kernel``) and the backward
+the two kernels K7 of ``csrc/flash_bwd.cu`` (replace ``_fa_bwd_fused_kernel``,
+``_fa_bwd_kv_kernel`` and ``_fa_bwd_q_kernel``); on CPU tensors their plain
+PyTorch versions :func:`flash_fwd_plain` and :func:`flash_bwd_plain` run
+instead.
 
-Ported form: non-causal, per-row key lengths (``kv_lens``), with or
-without an (H, Tq, Tk) additive bias -- what the sentence encoder runs at
-T >= 256.  The causal, sliding-window and key-only (H, 1, Tk) bias forms
-are not ported yet and raise ``NotImplementedError`` on every device.
-There is no backward: the port serves, it does not train.
+Every form of the TPU kernel is ported: bidirectional (the sentence
+encoder) or causal (the causal LM's cache-less forward, i.e. training),
+per-row key lengths (``kv_lens``), a causal sliding window (GPT-Neo's local
+layers), and an additive score bias, full (H, Tq, Tk) (MPNet relative
+positions) or key-only (H, 1, Tk) (ALiBi).  :func:`flash_attention` is
+differentiable in q, k and v through a ``torch.autograd.Function`` whose
+residuals are q, k, v, o and lse, as ``_flash_core_fwd`` keeps them; the
+bias gets a zero cotangent, as in the JAX package (exact for ALiBi's
+constant bias and for frozen relative-bias tables).
+
+The forward is also registered as the operator ``vqa_torch::flash_fwd`` so
+that the selective remat policies of models/layers.py can save its outputs
+(``flash_out`` / ``flash_lse`` in the JAX package) instead of re-running the
+kernel in the backward.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .cuda_kernels import FLASH_FWD, stream_of
+from .cuda_kernels import FLASH_BWD_DKDV, FLASH_BWD_DQ, FLASH_FWD, FLASH_FWD_CAUSAL, on_card, stream_of
 
 NEG_INF = -1e30  # finite, as in the reference: a row with no valid key averages V
 
 
-def flash_fwd_plain(qb, kb, vb, kv_lens, bias, n_heads: int):
+def _keep(tq: int, tk: int, kv_lens, causal: bool, window, device):
+    """(BH, Tq, Tk) bool: the kernels' mask -- k < kv_len, and k <= q when
+    causal, and k > q - window with a window."""
+    keys = torch.arange(tk, device=device)[None, None, :]
+    qs = torch.arange(tq, device=device)[None, :, None]
+    keep = keys < kv_lens.reshape(-1)[:, None, None]
+    if causal:
+        keep = keep & (keys <= qs)
+    if window:
+        keep = keep & (keys > qs - window)
+    return keep
+
+
+def _scores(qb, kb, bias, n_heads: int):
+    s = torch.bmm(qb.float(), kb.float().transpose(1, 2))
+    if bias is not None:
+        s = s + bias.float().repeat(qb.shape[0] // n_heads, 1, 1)  # (BH, Tq|1, Tk)
+    return s
+
+
+def flash_fwd_plain(qb, kb, vb, kv_lens, bias, n_heads: int, causal: bool = False, window: int | None = None):
     """Plain version of K4 on (BH, T, D) bf16 slabs -> (o bf16, lse f32).
 
     Same arithmetic as the kernel without the blocking: f32 scores, the
-    bias added before the key mask, probabilities rounded to bf16 for the
-    P V product and for the row sum."""
-    bh, tq, _ = qb.shape
-    tk = kb.shape[1]
-    s = torch.bmm(qb.float(), kb.float().transpose(1, 2))
-    if bias is not None:
-        s = s + bias.float().repeat(bh // n_heads, 1, 1)
-    keys = torch.arange(tk, device=qb.device)
-    s = torch.where(keys[None, None, :] < kv_lens.reshape(-1)[:, None, None], s, NEG_INF)
+    bias added before the mask, probabilities rounded to bf16 for the P V
+    product; the row sum adds the bf16 probabilities at D % 128 != 0 and
+    the f32 ones at D = 128, as the TPU kernel does."""
+    bh, tq, d = qb.shape
+    s = _scores(qb, kb, bias, n_heads)
+    s = torch.where(_keep(tq, kb.shape[1], kv_lens, causal, window, qb.device), s, NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
-    p = torch.exp(s - m).to(torch.bfloat16).float()
-    l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    e = torch.exp(s - m)
+    p = e.to(torch.bfloat16).float()
+    l = (e if d % 128 == 0 else p).sum(dim=-1, keepdim=True).clamp_min(1e-30)
     o = (torch.bmm(p, vb.float()) / l).to(torch.bfloat16)
     return o, (m + torch.log(l)).squeeze(-1)
 
 
-def flash_fwd(qb, kb, vb, kv_lens, bias, n_heads: int):
-    """K4 on (BH, T, D) bf16 slabs (q pre-scaled), ``kv_lens`` (BH,) int32,
-    ``bias`` (H, Tq, Tk) f32 or None -> (o (BH, Tq, D) bf16, lse (BH, Tq) f32)."""
-    if not qb.is_cuda:
-        if qb.device.type != "cpu":
-            raise ValueError(f"unsupported device {qb.device}")
-        return flash_fwd_plain(qb, kb, vb, kv_lens, bias, n_heads)
+def _check(qb, kb, vb, kv_lens, bias, n_heads: int, causal: bool, window) -> int:
+    """Validate the kernels' operands; returns the bias row count."""
     bh, tq, d = qb.shape
     tk = kb.shape[1]
     for name, t in (("q", qb), ("k", kb), ("v", vb)):
         if t.dtype != torch.bfloat16 or not t.is_contiguous() or t.device != qb.device:
-            raise ValueError(f"flash_fwd: {name} must be a contiguous bf16 tensor on {qb.device}")
+            raise ValueError(f"flash: {name} must be a contiguous bf16 tensor on {qb.device}")
     if kb.shape != (bh, tk, d) or vb.shape != (bh, tk, d):
-        raise ValueError(f"flash_fwd: k {tuple(kb.shape)} / v {tuple(vb.shape)} do not match q {tuple(qb.shape)}")
+        raise ValueError(f"flash: k {tuple(kb.shape)} / v {tuple(vb.shape)} do not match q {tuple(qb.shape)}")
     if d not in (32, 64, 128):
-        raise ValueError(f"flash_fwd kernel supports head dims 32, 64 and 128, got {d}")
+        raise ValueError(f"flash kernels support head dims 32, 64 and 128, got {d}")
     if kv_lens.dtype != torch.int32 or kv_lens.shape != (bh,) or not kv_lens.is_contiguous() or kv_lens.device != qb.device:
-        raise ValueError("flash_fwd: kv_lens must be a contiguous (BH,) int32 tensor on the q device")
+        raise ValueError("flash: kv_lens must be a contiguous (BH,) int32 tensor on the q device")
     if bh % n_heads:
-        raise ValueError(f"flash_fwd: BH={bh} is not a multiple of n_heads={n_heads}")
-    if bias is not None and (bias.dtype != torch.float32 or not bias.is_contiguous()
-                             or bias.shape != (n_heads, tq, tk) or bias.device != qb.device):
-        raise ValueError(f"flash_fwd: bias must be a contiguous ({n_heads}, {tq}, {tk}) float32 tensor")
+        raise ValueError(f"flash: BH={bh} is not a multiple of n_heads={n_heads}")
+    if window is not None and not causal:
+        raise ValueError("window requires causal=True")
+    if bias is None:
+        return 0
+    if (bias.dtype != torch.float32 or not bias.is_contiguous() or bias.device != qb.device
+            or bias.shape not in ((n_heads, tq, tk), (n_heads, 1, tk))):
+        raise ValueError(f"flash: bias must be a contiguous ({n_heads}, {tq} or 1, {tk}) float32 tensor")
+    return bias.shape[1]
+
+
+def flash_fwd(qb, kb, vb, kv_lens, bias, n_heads: int, causal: bool = False, window: int | None = None):
+    """K4 on (BH, T, D) bf16 slabs (q pre-scaled), ``kv_lens`` (BH,) int32,
+    ``bias`` (H, Tq, Tk) or (H, 1, Tk) f32 or None, ``causal``, ``window``
+    (causal only) -> (o (BH, Tq, D) bf16, lse (BH, Tq) f32)."""
+    if not on_card(qb):
+        return flash_fwd_plain(qb, kb, vb, kv_lens, bias, n_heads, causal, window)
+    bias_rows = _check(qb, kb, vb, kv_lens, bias, n_heads, causal, window)
+    bh, tq, d = qb.shape
     o = torch.empty((bh, tq, d), dtype=torch.bfloat16, device=qb.device)
     lse = torch.empty((bh, tq), dtype=torch.float32, device=qb.device)
-    FLASH_FWD.launch(
+    (FLASH_FWD_CAUSAL if causal else FLASH_FWD).launch(
         qb.data_ptr(), kb.data_ptr(), vb.data_ptr(), kv_lens.data_ptr(),
-        None if bias is None else bias.data_ptr(), bh, n_heads, tq, tk, d,
-        o.data_ptr(), lse.data_ptr(), stream_of(qb),
+        None if bias is None else bias.data_ptr(), bias_rows, bh, n_heads, tq, kb.shape[1], d,
+        int(causal), int(window or 0), o.data_ptr(), lse.data_ptr(), stream_of(qb),
     )
     return o, lse
 
 
+def flash_bwd_plain(qb, kb, vb, o, lse, do, kv_lens, bias, n_heads: int, causal: bool = False,
+                    window: int | None = None):
+    """Plain version of K7 -> (dq, dk, dv) bf16: P recomputed from lse
+    under the forward's mask (0 where masked), dS = P * (dP - rowsum(dO *
+    O)), products of bf16-rounded P and dS with f32 accumulation."""
+    dd = (do.float() * o.float()).sum(dim=-1, keepdim=True)
+    s = _scores(qb, kb, bias, n_heads)
+    keep = _keep(qb.shape[1], kb.shape[1], kv_lens, causal, window, qb.device)
+    p = torch.where(keep, torch.exp(s - lse[..., None]), 0.0)
+    ds = p * (torch.bmm(do.float(), vb.float().transpose(1, 2)) - dd)
+    pb, dsb = p.to(torch.bfloat16).float(), ds.to(torch.bfloat16).float()
+    dv = torch.bmm(pb.transpose(1, 2), do.float())
+    dk = torch.bmm(dsb.transpose(1, 2), qb.float())
+    dq = torch.bmm(dsb, kb.float())
+    return dq.to(torch.bfloat16), dk.to(torch.bfloat16), dv.to(torch.bfloat16)
+
+
+def flash_bwd(qb, kb, vb, o, lse, do, kv_lens, bias, n_heads: int, causal: bool = False,
+              window: int | None = None):
+    """K7: the forward's residuals (q, k, v, o (BH, T, D) bf16, lse (BH, Tq)
+    f32) and dO (BH, Tq, D) bf16 -> (dq, dk, dv) bf16.  ``dd = rowsum(dO *
+    O)`` is plain torch, as it is XLA in the JAX package."""
+    if not on_card(qb):
+        return flash_bwd_plain(qb, kb, vb, o, lse, do, kv_lens, bias, n_heads, causal, window)
+    bias_rows = _check(qb, kb, vb, kv_lens, bias, n_heads, causal, window)
+    bh, tq, d = qb.shape
+    tk = kb.shape[1]
+    for name, t, shape, dtype in (("o", o, (bh, tq, d), torch.bfloat16), ("do", do, (bh, tq, d), torch.bfloat16),
+                                  ("lse", lse, (bh, tq), torch.float32)):
+        if t.shape != shape or t.dtype != dtype or not t.is_contiguous() or t.device != qb.device:
+            raise ValueError(f"flash_bwd: {name} must be a contiguous {shape} {dtype} tensor on {qb.device}")
+    dd = (do.float() * o.float()).sum(dim=-1).contiguous()
+    dq = torch.empty_like(qb)
+    dk = torch.empty_like(kb)
+    dv = torch.empty_like(vb)
+    common = (qb.data_ptr(), kb.data_ptr(), vb.data_ptr(), do.data_ptr(), lse.data_ptr(), dd.data_ptr(),
+              kv_lens.data_ptr(), None if bias is None else bias.data_ptr(), bias_rows, bh, n_heads, tq, tk, d,
+              int(causal), int(window or 0))
+    FLASH_BWD_DKDV.launch(*common, dk.data_ptr(), dv.data_ptr(), stream_of(qb))
+    FLASH_BWD_DQ.launch(*common, dq.data_ptr(), stream_of(qb))
+    return dq, dk, dv
+
+
+@torch.library.custom_op(
+    "vqa_torch::flash_fwd", mutates_args=(),
+    schema="(Tensor q, Tensor k, Tensor v, Tensor kv_lens, Tensor? bias, int n_heads, bool causal, int window)"
+           " -> (Tensor, Tensor)",
+)
+def _flash_fwd_op(qb, kb, vb, kv_lens, bias, n_heads, causal, window):
+    return flash_fwd(qb, kb, vb, kv_lens, bias, n_heads, causal, window or None)
+
+
+class FlashAttention(torch.autograd.Function):
+    """K4 forward, K7 backward on (BH, T, D) bf16 slabs.  Residuals q, k, v,
+    o, lse; the bias cotangent is zero."""
+
+    @staticmethod
+    def forward(ctx, qb, kb, vb, kv_lens, bias, n_heads: int, causal: bool, window: int):
+        o, lse = torch.ops.vqa_torch.flash_fwd(qb, kb, vb, kv_lens, bias, n_heads, causal, window)
+        ctx.save_for_backward(qb, kb, vb, o, lse, kv_lens, bias)
+        ctx.cfg = (n_heads, causal, window or None)
+        ctx.mark_non_differentiable(lse)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, _dlse):
+        qb, kb, vb, o, lse, kv_lens, bias = ctx.saved_tensors
+        n_heads, causal, window = ctx.cfg
+        dq, dk, dv = flash_bwd(qb, kb, vb, o, lse, do.to(torch.bfloat16).contiguous(), kv_lens, bias, n_heads,
+                               causal, window)
+        dbias = torch.zeros_like(bias) if bias is not None and ctx.needs_input_grad[4] else None
+        return dq, dk, dv, None, dbias, None, None, None
+
+
 def flash_attention(q, k, v, *, kv_lens=None, causal: bool = True, scale: float | None = None,
                     bias=None, window: int | None = None):
-    """Fused attention over (B, T, H, D) tensors -> (B, Tq, H, D) bf16.
+    """Fused attention over (B, T, H, D) tensors -> (B, Tq, H, D) bf16,
+    differentiable in q, k and v.
 
     - ``kv_lens`` (B,) int: valid key length per row (right padding);
       defaults to the full length.
-    - ``bias``: optional (H, Tq, Tk) additive score bias shared across the
-      batch (MPNet relative positions), added after the scaling.
-    - Only ``causal=False`` without ``window`` is ported.
+    - ``bias``: optional (H, Tq, Tk) -- or (H, 1, Tk), broadcast over the
+      queries (ALiBi's key-only form) -- additive score bias shared across
+      the batch, added after the scaling; its cotangent is zero.
+    - ``window``: optional sliding window (causal only): a query attends to
+      at most ``window`` keys ending at itself.
     """
-    if causal or window is not None:
-        raise NotImplementedError("the causal and sliding-window flash forward are not ported yet")
+    if window is not None:
+        if not causal:
+            raise ValueError("window requires causal=True")
+        window = int(window)
     b, tq, h, d = q.shape
     tk = k.shape[1]
-    if bias is not None and bias.shape[1] == 1 and tq != 1:
-        raise NotImplementedError("the key-only (H, 1, Tk) bias form is not ported yet")
     if scale is None:
         scale = 1.0 / (d ** 0.5)
 
@@ -97,7 +214,8 @@ def flash_attention(q, k, v, *, kv_lens=None, causal: bool = True, scale: float 
         return x.permute(0, 2, 1, 3).reshape(b * h, x.shape[1], d).to(torch.bfloat16).contiguous()
 
     # the softmax scale is folded into q before the bf16 cast, as the
-    # reference does (attention.py:1043): no full-size multiply per block
+    # reference does (attention.py:1043); autograd through the multiply
+    # restores it on dq
     qb = to_bh(q * scale if scale != 1.0 else q)
     if kv_lens is None:
         lens = torch.full((b * h,), tk, dtype=torch.int32, device=q.device)
@@ -105,7 +223,7 @@ def flash_attention(q, k, v, *, kv_lens=None, causal: bool = True, scale: float 
         lens = torch.as_tensor(kv_lens, device=q.device).to(torch.int32).repeat_interleave(h).contiguous()
     if bias is not None:
         bias = bias.to(device=q.device, dtype=torch.float32).contiguous()
-    o, _ = flash_fwd(qb, to_bh(k), to_bh(v), lens, bias, h)
+    o, _ = FlashAttention.apply(qb, to_bh(k), to_bh(v), lens, bias, h, causal, window or 0)
     return o.reshape(b, h, tq, d).permute(0, 2, 1, 3)
 
 

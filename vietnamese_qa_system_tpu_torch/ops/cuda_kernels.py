@@ -146,12 +146,22 @@ TOPK_INT8 = Kernel("matmul_topk_int8", "vqa_matmul_topk", "topk.cu", _TOPK_ARGS,
                    "vietnamese_qa_system_tpu/ops/topk.py:355")
 TOPK_INT8_GLOBAL = Kernel("matmul_topk_int8_global", "vqa_matmul_topk", "topk.cu", _TOPK_ARGS,
                           "vietnamese_qa_system_tpu/ops/topk.py:396")
-FLASH_FWD = Kernel(
-    "flash_attention_fwd", "vqa_flash_fwd", "flash_fwd.cu",
-    # q, k, v, kv_lens, bias, bh, n_heads, tq, tk, hd, o, lse, stream
-    (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
-    "vietnamese_qa_system_tpu/ops/attention.py:51",
-)
+# q, k, v, kv_lens, bias, bias_rows, bh, n_heads, tq, tk, hd, causal, window, o, lse, stream
+_FLASH_FWD_ARGS = (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P)
+FLASH_FWD = Kernel("flash_attention_fwd", "vqa_flash_fwd", "flash_fwd.cu", _FLASH_FWD_ARGS,
+                   "vietnamese_qa_system_tpu/ops/attention.py:51")
+# the same kernel in its causal forms (the training path), counted apart
+FLASH_FWD_CAUSAL = Kernel("flash_attention_fwd_causal", "vqa_flash_fwd", "flash_fwd.cu", _FLASH_FWD_ARGS,
+                          "vietnamese_qa_system_tpu/ops/attention.py:51")
+# q, k, v, dout, lse, dd, kv_lens, bias, bias_rows, bh, n_heads, tq, tk, hd,
+# causal, window, then the outputs and the stream
+_FLASH_BWD_ARGS = (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I)
+FLASH_BWD_DKDV = Kernel("flash_attention_bwd_dkdv", "vqa_flash_bwd_dkdv", "flash_bwd.cu",
+                        _FLASH_BWD_ARGS + (_P, _P, _P),  # dk, dv, stream
+                        "vietnamese_qa_system_tpu/ops/attention.py:410")
+FLASH_BWD_DQ = Kernel("flash_attention_bwd_dq", "vqa_flash_bwd_dq", "flash_bwd.cu",
+                      _FLASH_BWD_ARGS + (_P, _P),  # dq, stream
+                      "vietnamese_qa_system_tpu/ops/attention.py:489")
 W8_MATMUL = Kernel(
     "w8_matmul", "vqa_w8_matmul", "w8_matmul.cu",
     # x, w_q, w_s, M, K, N, kc, splits, part, y, stream
@@ -170,4 +180,5 @@ QUANT_INT8 = Kernel(
     (_P, _I, _I, _I, _P, _P, _P),
     "vietnamese_qa_system_tpu/ops/quant.py:30",
 )
-KERNELS = (TOPK_BF16, TOPK_INT8, TOPK_INT8_GLOBAL, FLASH_FWD, W8_MATMUL, IVF_PROBE, QUANT_INT8)
+KERNELS = (TOPK_BF16, TOPK_INT8, TOPK_INT8_GLOBAL, FLASH_FWD, W8_MATMUL, IVF_PROBE, QUANT_INT8, FLASH_FWD_CAUSAL,
+           FLASH_BWD_DKDV, FLASH_BWD_DQ)

@@ -7,7 +7,10 @@ is read at byte rate and converted to bf16 in registers, the products with
 the bf16 activations run on the tensor cores and are summed in f32 over
 all of K, and the per-output-column scale multiplies once, after the sum.
 On a CPU tensor its plain version :func:`w8_matmul_reference` (dequantize,
-then an f32 product) runs instead.
+then an f32 product) runs instead.  The backward is dx only, in plain
+PyTorch as it is XLA in the JAX package (w8_matmul.py:158-178):
+``dx = (dy * w_s) @ w_q^T``; the frozen int8 codes and their scales get
+no gradient.
 
 ``supports`` is the gate the dense layers route on (models/layers.py); it
 is the JAX package's rule to the letter, because the route decides the
@@ -52,13 +55,35 @@ def _split_k(m: int, k: int, n: int, device) -> tuple[int, int]:
     return kc, -(-k // kc)
 
 
+class _W8Matmul(torch.autograd.Function):
+    """K6 forward; dx = (dy * w_s) @ w_q^T backward (bf16 inputs, f32
+    accumulation), no gradient for the frozen codes and scales."""
+
+    @staticmethod
+    def forward(ctx, x, w_q, w_s, out_dtype):
+        ctx.save_for_backward(w_q, w_s)
+        ctx.x_dtype = x.dtype
+        return _w8_forward(x, w_q, w_s, out_dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        w_q, w_s = ctx.saved_tensors
+        dyf = dy.float() * w_s.float().reshape(1, -1)
+        dx = dyf.to(torch.bfloat16).float() @ w_q.to(torch.bfloat16).float().T
+        return dx.to(ctx.x_dtype), None, None, None
+
+
 def w8_matmul(x, w_q, w_s, *, out_dtype=None):
     """``(x @ w_q) * w_s`` with int8 weights streamed at byte rate.
 
     x (M, K) float (rounded to bf16); w_q (K, N) int8; w_s per-output-
     channel scales of shape (1, N) or (N,).  Returns (M, N) in
-    ``out_dtype`` (default: x.dtype).  K and N must be divisible by 128."""
-    out_dtype = out_dtype or x.dtype
+    ``out_dtype`` (default: x.dtype).  K and N must be divisible by 128.
+    Differentiable in x."""
+    return _W8Matmul.apply(x, w_q, w_s, out_dtype or x.dtype)
+
+
+def _w8_forward(x, w_q, w_s, out_dtype):
     m, kk = x.shape
     n = w_q.shape[1]
     if kk % 128 or n % 128:

@@ -1,0 +1,160 @@
+"""Checkpoint / resume.
+
+Counterpart of ``vietnamese_qa_system_tpu/train/checkpoint.py:25-83,
+207-370``, in the same on-disk layout: one ``step_N/`` directory per
+checkpoint holding ``state.npz`` (the state's leaves as ``leaf_0`` ...
+in the JAX package's flattening order, utils/tree.py), ``dtypes.json``
+(bf16 leaves are stored as f32 and named "bfloat16" there) and
+``meta.json``, written last as the commit marker.  A checkpoint of either
+package restores into the other.  Sharded (per-host) checkpoints are not
+ported yet.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import re
+import shutil
+import threading
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from ..utils.tree import tree_leaves, tree_unflatten
+
+_TORCH_DTYPES = {"float32": torch.float32, "int32": torch.int32, "int8": torch.int8, "int64": torch.int64,
+                 "uint8": torch.uint8, "float16": torch.float16, "bfloat16": torch.bfloat16}
+
+
+def _to_savable(x) -> tuple[np.ndarray, str]:
+    if isinstance(x, torch.Tensor):
+        x = x.detach()
+        if x.dtype == torch.bfloat16:
+            return x.float().cpu().numpy(), "bfloat16"
+        return x.cpu().numpy(), str(x.dtype).removeprefix("torch.")
+    x = np.asarray(x)
+    return x, x.dtype.name
+
+
+def _sidecar(path: str) -> str:
+    return os.path.join(os.path.dirname(path) or ".", "dtypes.json")
+
+
+def save_pytree(path: str, tree) -> None:
+    """The leaves of ``tree`` in the JAX order -> ``path`` (npz) and its
+    ``dtypes.json`` sidecar."""
+    arrays, dtypes = {}, []
+    for i, leaf in enumerate(tree_leaves(tree)):
+        arr, dt = _to_savable(leaf)
+        arrays[f"leaf_{i}"] = arr
+        dtypes.append(dt)
+    np.savez(path, **arrays)
+    with open(_sidecar(path), "w") as f:
+        json.dump(dtypes, f)
+
+
+def load_pytree(path: str, target=None):
+    """Restore into the structure, dtypes and devices of ``target``; with
+    ``target=None`` the flat list of CPU tensors in their saved dtypes."""
+    npz_path = path if path.endswith(".npz") else path + ".npz"
+    with np.load(npz_path) as data:
+        n = len(data.files)
+        arrays = [data[f"leaf_{i}"] for i in range(n)]
+    if target is None:
+        with open(_sidecar(npz_path)) as f:
+            dtypes = json.load(f)
+        if len(dtypes) != n:
+            raise ValueError(f"dtypes.json has {len(dtypes)} entries for {n} leaves")
+        return [torch.from_numpy(a).to(_TORCH_DTYPES[dt]) for a, dt in zip(arrays, dtypes)]
+    t_leaves = tree_leaves(target)
+    if len(t_leaves) != n:
+        raise ValueError(f"checkpoint has {n} leaves but target structure has {len(t_leaves)} -- wrong "
+                         "model/optimizer config for this checkpoint")
+    leaves = []
+    for arr, t in zip(arrays, t_leaves):
+        if tuple(arr.shape) != tuple(t.shape):
+            raise ValueError(f"checkpoint leaf of shape {arr.shape} for a target of shape {tuple(t.shape)}")
+        leaves.append(torch.from_numpy(arr).to(device=t.device, dtype=t.dtype))  # 0-d leaves stay 0-d
+    return tree_unflatten(target, leaves)
+
+
+class CheckpointManager:
+    """``step_N`` directories with latest-checkpoint discovery; meta.json
+    is the commit marker, so a directory without it (a crashed write) is
+    skipped by restore and swept by the next save."""
+
+    def __init__(self, directory: str, keep: int = 3, *, sharded: bool = False):
+        if sharded:
+            raise NotImplementedError("sharded (per-host) checkpoints are not ported yet")
+        self.directory = directory
+        self.keep = keep
+        self._pending: Optional[threading.Thread] = None
+        os.makedirs(directory, exist_ok=True)
+
+    def _step_dirs(self) -> list[tuple[int, str]]:
+        out = []
+        for name in os.listdir(self.directory):
+            m = re.fullmatch(r"step_(\d+)", name)
+            if m and os.path.exists(os.path.join(self.directory, name, "meta.json")):
+                out.append((int(m.group(1)), os.path.join(self.directory, name)))
+        return sorted(out)
+
+    def latest_step(self) -> Optional[int]:
+        self.wait()
+        dirs = self._step_dirs()
+        return dirs[-1][0] if dirs else None
+
+    def save(self, step: int, state, metadata: Optional[dict] = None) -> str:
+        path = os.path.join(self.directory, f"step_{step}")
+        if os.path.isdir(path) and not os.path.exists(os.path.join(path, "meta.json")):
+            shutil.rmtree(path, ignore_errors=True)  # a crashed save of this step
+        os.makedirs(path, exist_ok=True)
+        save_pytree(os.path.join(path, "state.npz"), state)
+        meta: dict[str, Any] = {"step": step}
+        if metadata:
+            meta.update(metadata)
+        with open(os.path.join(path, "meta.json"), "w") as f:
+            json.dump(meta, f)
+        self._gc()
+        return path
+
+    def restore(self, state_like, step: Optional[int] = None):
+        """(state, metadata), or (None, None) when there is no checkpoint."""
+        if step is None:
+            step = self.latest_step()
+        if step is None:
+            return None, None
+        path = os.path.join(self.directory, f"step_{step}")
+        if any(re.fullmatch(r"host_\d+\.layout\.json", f) for f in os.listdir(path)):
+            raise NotImplementedError(f"{path} is a sharded checkpoint; those are not ported yet")
+        state = load_pytree(os.path.join(path, "state.npz"), state_like)
+        with open(os.path.join(path, "meta.json")) as f:
+            meta = json.load(f)
+        return state, meta
+
+    def save_async(self, step: int, state, metadata: Optional[dict] = None) -> threading.Thread:
+        """Snapshot the state to host memory now (the live tensors are
+        updated in place by the next step), write it from a thread; at
+        most one save is in flight."""
+        self.wait()
+        snap = tree_unflatten(state, [leaf.detach().cpu().clone() for leaf in tree_leaves(state)])
+        self._pending = threading.Thread(target=self.save, args=(step, snap, metadata), daemon=True)
+        self._pending.start()
+        return self._pending
+
+    def wait(self) -> None:
+        if self._pending is not None:
+            self._pending.join()
+            self._pending = None
+
+    def _gc(self) -> None:
+        dirs = self._step_dirs()
+        for _, path in dirs[: max(0, len(dirs) - self.keep)]:
+            shutil.rmtree(path, ignore_errors=True)
+        complete = {p for _, p in dirs}
+        for name in os.listdir(self.directory):
+            p = os.path.join(self.directory, name)
+            if re.fullmatch(r"step_(\d+)", name) and p not in complete:
+                shutil.rmtree(p, ignore_errors=True)
