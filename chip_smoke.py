@@ -7,7 +7,10 @@ Run from the root of a checkout, on a machine with one GPU::
 It builds the port's CUDA kernels from ``vietnamese_qa_system_tpu_torch/
 csrc`` (one nvcc per source, all at once), holds each kernel against its
 plain PyTorch version at the shapes of its serving path, times it beside
-its bound and a PyTorch library call, then drives three serving paths once:
+its bound and a PyTorch library call, prints the registers, shared memory
+and blocks per SM of every flash variant (ptxas must report no spills),
+holds the flash forward and backward against their plain versions at the
+edges of their tiles (FLASH_EDGES), then drives three serving paths once:
 
 - retrieval, at the full width of the ``mpnet_class`` encoder (random
   weights from a seed): four 1M-row vector stores, ingest of 2,048
@@ -68,10 +71,34 @@ import urllib.request
 
 SEED = 0
 B, D, N, K, K_RERANK = 256, 768, 1 << 20, 10, 40
-FLASH_B, FLASH_H, FLASH_T, FLASH_D = 16, 12, 512, 64
+# K4's encoder shape: the ingest's batch of 256 passages at max_len 512,
+# mpnet_class's 12 heads of 64
+FLASH_B, FLASH_H, FLASH_T, FLASH_D = 256, 12, 512, 64
 N_PASSAGES = 2048
 FLASH_O_TOL = 2e-2   # bf16 output: a few ulps at |o| < 2
 FLASH_LSE_TOL = 1e-2  # f32 log-sum-exp after bf16 probabilities
+# K4 / K7 at the edges of their tiles (flash_variants prints each variant's
+# BQ and BK): T off the tiles, every head dim, causal rows with kv_len 0, 1
+# and T, a window edge inside a tile, the bidirectional kv_len skip over
+# mixed lengths, both bias forms at every head dim (the causal full-bias
+# forms too), T not a multiple of 4 (the padded rows of the bias, lse and
+# dd); (D, T, causal, window, bias, lens)
+FLASH_EDGES = (
+    (32, 200, True, None, None, "edge"),
+    (64, 1000, True, 100, None, "edge"),
+    (128, 200, True, None, "key", "edge"),
+    (128, 1000, True, 37, "key", "mixed"),
+    (32, 1000, False, None, "full", "mixed"),
+    (64, 200, False, None, "key", "mixed"),
+    (64, 1000, False, None, None, "mixed"),
+    (128, 1000, False, None, "full", "edge"),
+    (32, 201, True, None, "full", "edge"),
+    (64, 203, True, 37, "full", "mixed"),
+    (128, 201, True, None, "full", "mixed"),
+    (64, 510, False, None, "full", "edge"),
+    (128, 1001, True, None, "key", "mixed"),
+    (32, 203, False, None, "key", "edge"),
+)
 ENCODER_COS_TOL = 0.9999
 RERANK_SCORE_TOL = 1e-5  # f32 re-score sums in another order on the host
 # K6 at the PhoGPT-4B decode shapes: M = the bucketed batch, (K, N) of
@@ -237,12 +264,23 @@ def phase_topk(torch, T, quant, gen, report):
         }
 
 
-def phase_flash(torch, A, gen, report, rel_bias_of):
-    """K4 against its plain version at the encoder's shape."""
+def ingest_lens(torch):
+    """kv_lens of the ingest's first batch: the token counts of the first
+    FLASH_B chunks of the passages phase_slice ingests, at max_len FLASH_T."""
+    from vietnamese_qa_system_tpu_torch.data import ByteTokenizer, batch_encode
+    from vietnamese_qa_system_tpu_torch.engine.chunking import chunk_text
+
+    chunks = [c for text in passages(N_PASSAGES, SEED) for c in chunk_text(text)][:FLASH_B]
+    _, mask = batch_encode(ByteTokenizer(), chunks, FLASH_T)
+    return torch.from_numpy(mask).sum(1).to("cuda", torch.int32)
+
+
+def phase_flash(torch, A, gen, report, rel_bias_of, variants):
+    """K4 against its plain version at the encoder's shape in the ingest:
+    its batch, its first batch's kv_lens, the MPNet relative bias."""
     b, h, t, d = FLASH_B, FLASH_H, FLASH_T, FLASH_D
     q, k, v = (torch.randn(b, t, h, d, generator=gen, device="cuda") for _ in range(3))
-    lens = torch.randint(1, t + 1, (b,), generator=gen, device="cuda").to(torch.int32)
-    lens[0], lens[1], lens[-1] = 0, 1, t
+    lens = ingest_lens(torch)
     bias = rel_bias_of(t)[0].contiguous()  # (H, T, T) MPNet relative bias
 
     def to_bh(x):
@@ -258,7 +296,7 @@ def phase_flash(torch, A, gen, report, rel_bias_of):
     print(f"flash o: max abs err {diff.max().item():.6f}, mean {diff.mean().item():.3e}; "
           f"lse: max abs err {lse_diff.max().item():.6f}, mean {lse_diff.mean().item():.3e}")
     check(bool(torch.isfinite(o.float()).all()) and bool(torch.isfinite(lse).all()),
-          "K4 flash: o and lse finite, kv_lens == 0 rows included")
+          f"K4 flash: o and lse finite (kv_lens {int(lens.min())}..{int(lens.max())}, mean {lens.float().mean():.1f})")
     check(diff.max().item() <= FLASH_O_TOL, f"K4 flash B={b} H={h} T={t} D={d}: o max abs err <= {FLASH_O_TOL}")
     check(lse_diff.max().item() <= FLASH_LSE_TOL, f"K4 flash: lse max abs err <= {FLASH_LSE_TOL}")
     # the library yardstick: SDPA with the bias and the key mask folded
@@ -277,6 +315,118 @@ def phase_flash(torch, A, gen, report, rel_bias_of):
         "library_call": "torch.nn.functional.scaled_dot_product_attention, bias + key mask as a bf16 attn_mask",
         **bound(io_bytes, 4 * t * d * h * int(lens.sum()), BF16_OPS_S),  # keys this run's kv_lens admit
     }
+    fwd = report["flash_attention_fwd"]
+    useful = 4 * t * d * h * int(lens.sum())
+    bk, bq = variants[("fwd", d, 0, 1)][4:6]
+    issued = issued_flops(A, lens_bh.tolist(), t, t, d, False, None, bq, bk)
+    print(f"K4 encoder B={b} H={h} T={t} D={d}: kernel {fwd['ms']:.4f} ms, SDPA {fwd['library_ms']:.4f} ms (ratio "
+          f"{fwd['ms'] / fwd['library_ms']:.2f}), plain {fwd['plain_ms']:.3f} ms; useful work "
+          f"{useful / fwd['ms'] / 1e9:.1f} TFLOP/s, issued (tiles the kv_len skip leaves) {issued / 1e9:.2f} GFLOP "
+          f"= {issued / fwd['ms'] / 1e9:.1f} TFLOP/s, a dense kernel's {4 * t * t * d * b * h / 1e9:.2f} GFLOP",
+          flush=True)
+
+
+def flash_variants(torch) -> dict:
+    """Registers, shared memory and blocks per SM of every compiled variant
+    of K4 and K7 (cudaFuncGetAttributes, cudaOccupancyMaxActiveBlocks...),
+    and the ptxas log (-Xptxas -v) of both sources: no spills anywhere.
+    Returns {("fwd", D, causal, bias) | ("bwd", D, 0 dK/dV | 1 dQ, bias):
+    (registers, shared bytes, blocks per SM, local bytes, ...)}."""
+    import ctypes
+
+    from vietnamese_qa_system_tpu_torch.ops import cuda_kernels
+
+    libs = cuda_kernels.library()
+    fwd_info, bwd_info = libs["flash_fwd.cu"].vqa_flash_fwd_info, libs["flash_bwd.cu"].vqa_flash_bwd_info
+    for fn in (fwd_info, bwd_info):
+        fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+        fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 6)()
+    bias_names = {0: "no bias", 1: "full bias", 2: "key-only bias"}
+    rows = {}
+    for hd in (32, 64, 128):
+        for bias in (0, 1, 2):
+            for causal in (0, 1):
+                check(fwd_info(hd, causal, bias, out) == 0, "K4 variant info")
+                rows[("fwd", hd, causal, bias)] = tuple(out)
+                print(f"K4 D={hd} {'causal' if causal else 'bidirectional'} {bias_names[bias]}: {out[0]} registers, "
+                      f"{out[1]} B shared, {out[2]} block(s)/SM, {out[3]} B local, BK {out[4]}, BQ {out[5]}")
+            for which, label in ((0, "K7 dK/dV"), (1, "K7 dQ")):
+                check(bwd_info(hd, bias, which, out) == 0, f"{label} variant info")
+                rows[("bwd", hd, which, bias)] = tuple(out)[:5]
+                print(f"{label} D={hd} {bias_names[bias]}: {out[0]} registers, {out[1]} B shared, {out[2]} block(s)/SM, "
+                      f"{out[3]} B local")
+    for file in ("flash_fwd.cu", "flash_bwd.cu"):
+        with open(cuda_kernels._lib_path(file)[:-3] + ".log") as f:
+            spills = [line.strip() for line in f if "spill" in line]
+        check(spills and all(line.startswith("0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads")
+                             for line in spills), f"{file}: ptxas reports no spills in {len(spills)} functions")
+    check(all(r[3] == 0 and r[2] >= 1 for r in rows.values()), "every K4 / K7 variant: no local memory, fits an SM")
+    # the encoder form's shared memory fits two blocks an SM by 32 bytes
+    check(rows[("fwd", 64, 0, 1)][2] == 2, "K4 encoder form (D 64, bidirectional, full bias): 2 blocks an SM")
+    return rows
+
+
+def edge_lens(torch, kind: str, bh: int, t: int, gen):
+    """kv_lens for the edge checks: 'edge' cycles 0, 1, T (causal rows at
+    each), 'mixed' draws them with 0, 1 and T among them."""
+    if kind == "edge":
+        return torch.tensor([(0, 1, t)[i % 3] for i in range(bh)], dtype=torch.int32, device="cuda")
+    lens = torch.randint(1, t + 1, (bh,), generator=gen, device="cuda").to(torch.int32)
+    lens[0], lens[1], lens[-1] = 0, 1, t
+    return lens
+
+
+def phase_flash_edges(torch, A, gen) -> None:
+    """K4 and K7 against their plain versions at FLASH_EDGES, with the
+    tolerances of the main shapes; K7 must repeat bit for bit."""
+    b, h = 3, 2
+    for d, t, causal, window, bias_kind, lens_kind in FLASH_EDGES:
+        bh = b * h
+        q, k, v, do = (torch.randn(bh, t, d, generator=gen, device="cuda") for _ in range(4))
+        qb, kb, vb = (q * d ** -0.5).to(torch.bfloat16), k.to(torch.bfloat16), v.to(torch.bfloat16)
+        dob = (do * 0.1).to(torch.bfloat16)
+        lens = edge_lens(torch, lens_kind, bh, t, gen)
+        bias = None
+        if bias_kind == "full":
+            bias = torch.randn(h, t, t, generator=gen, device="cuda")
+        elif bias_kind == "key":
+            bias = (torch.arange(t, device="cuda") - t + 1).float()[None, None, :] * torch.tensor(
+                [0.05, 0.2], device="cuda")[:, None, None]
+        label = (f"D={d} T={t} {'causal' if causal else 'bidirectional'} window={window} bias={bias_kind} "
+                 f"kv_lens {lens_kind} {lens.tolist()}")
+        o, lse = A.flash_fwd(qb, kb, vb, lens, bias, h, causal, window)
+        po, plse = A.flash_fwd_plain(qb, kb, vb, lens, bias, h, causal, window)
+        grads = A.flash_bwd(qb, kb, vb, o, lse, dob, lens, bias, h, causal, window)
+        again = A.flash_bwd(qb, kb, vb, o, lse, dob, lens, bias, h, causal, window)
+        plain = A.flash_bwd_plain(qb, kb, vb, o, lse, dob, lens, bias, h, causal, window)
+        torch.cuda.synchronize()
+        o_err = (o.float() - po.float()).abs().max().item()
+        lse_err = (lse - plse).abs().max().item()
+        rels = [(g.float() - p.float()).abs().max().item() / max(p.float().abs().max().item(), 1e-30)
+                for g, p in zip(grads, plain)]
+        finite = all(bool(torch.isfinite(x.float()).all()) for x in (o, lse, *grads))
+        check(finite and o_err <= FLASH_O_TOL and lse_err <= FLASH_LSE_TOL and max(rels) <= FLASH_GRAD_REL_TOL
+              and all(torch.equal(x, y) for x, y in zip(grads, again)),
+              f"K4/K7 edge {label}: o err {o_err:.2e}, lse err {lse_err:.2e}, dq/dk/dv rel err "
+              f"{', '.join(f'{r:.2e}' for r in rels)}; K7 repeats bit for bit")
+
+
+def issued_flops(A, bh_lens, tq: int, tk: int, d: int, causal: bool, window, bq: int, bk: int,
+                 products: int = 2) -> float:
+    """The products a kernel issues: for each consumer warpgroup (64 rows)
+    the key tiles ``key_tile_range`` leaves, ``products`` (64 x bk x d)
+    products each (2 in K4)."""
+    tiles = 0
+    for kv_len in bh_lens:
+        for r0 in range(0, tq, bq):
+            lo, hi = A.key_tile_range(r0, bq, bk, tq, tk, int(kv_len), causal, window)
+            if lo > hi:
+                continue
+            for w0 in range(r0, min(r0 + bq, tq), 64):
+                wlo, whi = A.key_tile_range(w0, 64, bk, tq, tk, int(kv_len), causal, window)
+                tiles += max(0, whi - wlo + 1)
+    return tiles * products * 2.0 * 64 * bk * d
 
 
 def phase_w8(torch, report):
@@ -465,7 +615,7 @@ def phase_slice(torch, pkg, gen):
 
     docstore = DocStore()
     t0 = time.perf_counter()
-    ingest = IngestPipeline(encoder, tok, stores["bf16"], docstore, batch_size=256, max_len=512)
+    ingest = IngestPipeline(encoder, tok, stores["bf16"], docstore, batch_size=FLASH_B, max_len=FLASH_T)
     doc_ids = ingest.add_documents(texts, ["synthetic"] * len(texts))
     torch.cuda.synchronize()
     print(f"ingest: {len(doc_ids)} chunks at max_len 512 in {time.perf_counter() - t0:.2f} s")
@@ -1039,6 +1189,11 @@ def phase_train_kernels(torch, A, gen, report):
               f"{dkdv['ms']:.3f} ms (bound {dkdv['bound_ms']:.4f}, {dkdv['bound_by']}), dQ {dqr['ms']:.3f} ms (bound "
               f"{dqr['bound_ms']:.4f}, {dqr['bound_by']}), plain backward {dkdv['plain_ms']:.3f} ms, SDPA fwd+bwd "
               f"{lib_bwd:.3f} ms", flush=True)
+        sdpa_bwd = lib_bwd - fwd["library_ms"]
+        print(f"K4 causal {label}: {4 * d * pairs / fwd['ms'] / 1e9:.1f} TFLOP/s of useful work, K4 / SDPA forward "
+              f"{fwd['ms'] / fwd['library_ms']:.2f}; K7 (dK/dV + dQ) {dkdv['ms'] + dqr['ms']:.3f} ms, "
+              f"{14 * d * pairs / (dkdv['ms'] + dqr['ms']) / 1e9:.1f} TFLOP/s, / SDPA backward (fwd+bwd - fwd "
+              f"{sdpa_bwd:.3f} ms) {(dkdv['ms'] + dqr['ms']) / sdpa_bwd:.2f}", flush=True)
         if alibi:
             shape = f"BH={bh} (B={b} x H={h}), T={t}, D={d}, causal, MPT key-only ALiBi bias (the train path)"
             report["flash_attention_fwd_causal"] = dict(
@@ -1243,8 +1398,10 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     report: dict = {}
     phase_topk(torch, T, quant, gen, report)
+    variants = flash_variants(torch)
     table = torch.randn(32, FLASH_H, generator=gen, device="cuda") * 0.02
-    phase_flash(torch, A, gen, report, lambda t: relative_attention_bias(table, t, mpnet_class()))
+    phase_flash(torch, A, gen, report, lambda t: relative_attention_bias(table, t, mpnet_class()), variants)
+    phase_flash_edges(torch, A, gen)
     phase_w8(torch, report)
     phase_k8(torch, quant, gen, report)
     retrieval, ctx = phase_slice(torch, pkg, gen)
@@ -1278,6 +1435,11 @@ def main() -> int:
                     quantize_int8=ivf_launches["quantize_int8"],
                     **{name: train_launches[name] for name in ("flash_attention_fwd_causal", "flash_attention_bwd_dkdv",
                                                                "flash_attention_bwd_dq")})
+    # the occupancy of the variants that the main shapes run
+    for name, key in (("flash_attention_fwd", ("fwd", 64, 0, 1)), ("flash_attention_fwd_causal", ("fwd", 128, 1, 2)),
+                      ("flash_attention_bwd_dkdv", ("bwd", 128, 0, 2)), ("flash_attention_bwd_dq", ("bwd", 128, 1, 2))):
+        regs, smem, blocks = variants[key][:3]
+        report[name].update(registers=regs, shared_bytes=smem, blocks_per_sm=blocks)
     kernels = [
         {"name": k.name, "route": k.route, "source": k.source, "replaces": k.replaces,
          "launches": launches[k.name], **report[k.name]}

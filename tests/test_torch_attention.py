@@ -93,3 +93,129 @@ def test_unported_forms_raise():
     assert ta.flash_attention(q, q, q, causal=False, bias=torch.zeros(2, 1, 8)).shape == (1, 8, 2, 16)
     with pytest.raises(ValueError, match="window requires causal"):
         ta.flash_attention(q, q, q, causal=False, window=4)
+
+
+# the kernels' tiles: K4 128 query rows x 128 keys (64 with the full bias),
+# K7 dK/dV 128 keys x 64 queries, dQ 128 rows x 64 keys; 64 is a consumer
+# warpgroup's own rows
+TILES = ((128, 128), (128, 64), (64, 64), (64, 128))
+RANGE_CASES = [(False, None), (True, None), (True, 1), (True, 16), (True, 64), (True, 100)]
+
+
+def _lens(t, seed):
+    """kv_lens at every tile edge, 0, 1, T and a few random ones."""
+    edges = [0, 1, 63, 64, 65, 127, 128, 129, t - 1, t]
+    rand = np.random.default_rng(seed).integers(0, t + 1, 6).tolist()
+    return sorted({x for x in edges + rand if 0 <= x <= t})
+
+
+@pytest.mark.parametrize("causal,window", RANGE_CASES)
+@pytest.mark.parametrize("t", [128, 200])
+def test_key_tile_range_skips_only_tiles_without_kept_keys(causal, window, t):
+    """K4's and dQ's key tiles against the plain mask ``_keep``: a skipped
+    tile holds no key that a row of the query tile keeps; a tile of rows in
+    which some row keeps no key at all (kv_len == 0, or past the window's
+    reach of kv_len) visits every tile in the forward, where such a row
+    averages V over all keys."""
+    lens = _lens(t, t + (window or 0))
+    keep = ta._keep(t, t, torch.tensor(lens), causal, window, "cpu")
+    for bq, bk in TILES:
+        nk = -(-t // bk)
+        for b, kv_len in enumerate(lens):
+            for r0 in range(0, t, bq):
+                rows = keep[b, r0: r0 + bq]
+                fwd = ta.key_tile_range(r0, bq, bk, t, t, kv_len, causal, window)
+                dq = ta.key_tile_range(r0, bq, bk, t, t, kv_len, causal, window, all_if_empty=False)
+                for lo, hi in (fwd, dq):
+                    for tile in range(nk):
+                        if not lo <= tile <= hi:
+                            assert not rows[:, tile * bk: (tile + 1) * bk].any(), (kv_len, r0, bq, bk, tile)
+                if (~rows.any(dim=1)).any():
+                    assert fwd == (0, nk - 1), (kv_len, r0, bq, bk)
+                if kv_len == 0:
+                    assert dq[0] > dq[1], "dQ of a row with no kept key is zero: no tile"
+
+
+@pytest.mark.parametrize("causal,window", RANGE_CASES)
+@pytest.mark.parametrize("t", [128, 200])
+def test_query_tile_range_skips_only_tiles_without_kept_pairs(causal, window, t):
+    """K7 dK/dV's query tiles against ``_keep``: a skipped query tile holds
+    no kept pair with the block's keys; keys at or past kv_len meet none."""
+    lens = _lens(t, 7 * t + (window or 0))
+    keep = ta._keep(t, t, torch.tensor(lens), causal, window, "cpu")
+    for bk, bq in TILES:
+        nq = -(-t // bq)
+        for b, kv_len in enumerate(lens):
+            for k0 in range(0, t, bk):
+                cols = keep[b, :, k0: k0 + bk]
+                lo, hi = ta.query_tile_range(k0, bk, bq, t, t, kv_len, causal, window)
+                for tile in range(nq):
+                    if not lo <= tile <= hi:
+                        assert not cols[tile * bq: (tile + 1) * bq].any(), (kv_len, k0, bk, bq, tile)
+                if k0 >= kv_len:
+                    assert lo > hi
+
+
+@pytest.mark.parametrize("causal,window,with_bias", [(False, None, True), (True, None, False), (True, 24, True)])
+def test_tile_skip_reproduces_the_plain_forward(causal, window, with_bias):
+    """An online softmax over only the key tiles ``key_tile_range`` leaves
+    (the kernel's loop, in f32 here) equals the plain forward, rows with
+    kv_len == 0 and windowed rows that keep no key included."""
+    bh, h, t, d, bq, bk = 6, 2, 200, 32, 64, 32
+    rng = np.random.default_rng(11)
+    qb, kb, vb = (torch.from_numpy(rng.standard_normal((bh, t, d)).astype(np.float32)).bfloat16() for _ in range(3))
+    lens = torch.tensor([0, 1, 37, 64, 150, t], dtype=torch.int32)
+    bias = torch.from_numpy(rng.standard_normal((h, t, t)).astype(np.float32)) if with_bias else None
+    want_o, want_lse = ta.flash_fwd_plain(qb, kb, vb, lens, bias, h, causal, window)
+    s_all = ta._scores(qb, kb, bias, h)
+    keep = ta._keep(t, t, lens, causal, window, "cpu")
+    s_all = torch.where(keep, s_all, ta.NEG_INF)
+    for b in range(bh):
+        for r0 in range(0, t, bq):
+            lo, hi = ta.key_tile_range(r0, bq, bk, t, t, int(lens[b]), causal, window)
+            m = torch.full((min(bq, t - r0), 1), ta.NEG_INF)
+            l = torch.zeros_like(m)
+            acc = torch.zeros(m.shape[0], d)
+            for tile in range(lo, hi + 1):
+                s = s_all[b, r0: r0 + bq, tile * bk: (tile + 1) * bk]
+                m_new = torch.maximum(m, s.amax(dim=1, keepdim=True))
+                alpha = torch.exp(m - m_new)
+                p = torch.exp(s - m_new).bfloat16().float()
+                l = l * alpha + p.sum(dim=1, keepdim=True)
+                acc = acc * alpha + p @ vb[b, tile * bk: (tile + 1) * bk].float()
+                m = m_new
+            got = (acc / l.clamp_min(1e-30)).bfloat16()
+            torch.testing.assert_close(got.float(), want_o[b, r0: r0 + bq].float(), atol=BF16_TOL, rtol=0)
+            torch.testing.assert_close((m + torch.log(l.clamp_min(1e-30))).squeeze(1), want_lse[b, r0: r0 + bq],
+                                       atol=1e-2, rtol=0)
+
+
+def test_tma_operand_rules():
+    """The kernels read q, k, v, the bias, lse and dd by TMA: a misaligned
+    operand is refused with a message before any launch, and the rows of
+    the f32 operands are padded to a multiple of 4 floats (values kept,
+    padding masked as keys past Tk or rows past Tq); the plain CPU path
+    needs neither."""
+    bh, t, d = 2, 9, 32
+    base = torch.zeros(bh * t * d + 1, dtype=torch.bfloat16)
+    q = torch.zeros(bh, t, d, dtype=torch.bfloat16)
+    lens = torch.full((bh,), t, dtype=torch.int32)
+    shifted = base[1:].view(bh, t, d)  # contiguous, 2 bytes past an aligned address
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ta._check(shifted, q, q, lens, None, 1, False, None)
+    with pytest.raises(ValueError, match="head dims 32, 64 and 128"):
+        ta._check(q[..., :16].contiguous(), q[..., :16].contiguous(), q[..., :16].contiguous(), lens, None, 1,
+                  False, None)
+    bias = torch.randn(2, t, t)
+    padded = ta._f32_rows(bias)
+    assert padded.shape == (2, t, 12) and padded.data_ptr() % 16 == 0
+    assert torch.equal(padded[..., :t], bias) and not padded[..., t:].any()
+    lse = torch.randn(bh, t)  # lse and dd rows: 1-D TMA boxes start at 16-byte multiples
+    assert ta._f32_rows(lse).shape == (bh, 12) and torch.equal(ta._f32_rows(lse)[:, :t], lse)
+    aligned = torch.randn(2, 1, 16)
+    assert ta._f32_rows(aligned) is aligned and ta._f32_rows(None) is None
+    # odd T with a full bias on the CPU: the plain path, as the JAX reference
+    qf, kf, vf = _qkv(1, 9, 2, 32, 5)
+    got = _port(qf, kf, vf, bias=bias)
+    assert np.isfinite(got).all() and got.shape == (1, 9, 2, 32)

@@ -1,490 +1,534 @@
-// Flash attention backward (FA2) for Hopper (sm_90a): dQ, dK and dV from
-// the forward's residuals q, k, v and lse, the output cotangent dO and
-// dd = rowsum(dO * O), in every form of the forward kernel (bidirectional
-// or causal, kv_lens, a causal sliding window, a full (H, Tq, Tk) or
-// key-only (H, 1, Tk) additive score bias, whose cotangent is zero).
+// Flash attention backward (FA2 split) for Hopper (sm_90a): dQ, dK and dV
+// from the forward's residuals q, k, v and lse, the output cotangent dO
+// and dd = rowsum(dO * O), in every form of the forward kernel
+// (bidirectional or causal, kv_lens, a causal sliding window, a full
+// (H, Tq, Tk) or key-only (H, 1, Tk) additive score bias, whose cotangent
+// is zero).  dd is plain torch in the wrapper (ops/attention.py), as it is
+// XLA in the JAX package.
 //
 // Replaces the Pallas kernels vietnamese_qa_system_tpu/ops/attention.py
 // `_fa_bwd_fused_kernel`, `_fa_bwd_kv_kernel` and `_fa_bwd_q_kernel` (via
 // `_flash_bwd_impl`).  The three compute one function; the fused TPU kernel
 // keeps full-length (Tk, D) f32 dK/dV accumulators in VMEM, 1 MB at
 // T = 1024, D = 128 -- far past the 227 KB of shared memory a block has --
-// so this port is the split route, written for the card:
+// so this port is the split route, written for the card.
 //
-// - `flash_bwd_dkdv_kernel`: one block of 4 warps per (b*h, 64-key tile),
-//   looping over the 64-query tiles the causal diagonal and the window band
-//   leave (Q, dO, lse and dd double-buffered by cp.async).  Each warp owns
-//   16 keys: it forms S^T = K Q^T and dP^T = V dO^T for them on bf16 WMMA,
-//   recomputes P^T = exp(S^T + bias - lse) under the forward's mask and
-//   dS^T = P^T * (dP^T - dd), and accumulates dV += P^T dO and
-//   dK += dS^T Q in WMMA accumulator fragments (registers) across the loop.
-// - `flash_bwd_dq_kernel`: one block per (b*h, 64-query tile), looping over
-//   the key tiles as the forward does (K and V double-buffered); each warp
-//   owns 16 queries and accumulates dQ += dS K in registers.
+// What bounds it on an H100: 7 products of (64 x 64 x D) per kept tile pair
+// (S and dP in each kernel, then dV, dK, dQ) against q, k, v, dO, dq, dk,
+// dv read or written once -- at the training shape (BH = 96, T = 1024,
+// D = 128, causal) about 90 GFLOP over 176 MB: operations bound it, and
+// the tensor cores reach their rate only through wgmma.
 //
-// Every output element is written by exactly one block and summed in a
-// fixed order: no atomics, so gradients repeat bit for bit from run to
-// run.  The softmax scale is folded into q by the caller (the forward's
-// wrapper), so the kernels see scale 1 and autograd through the pre-scale
-// restores it on dq, as attention.py:1037-1042 does.
-//
-// What bounds it on an H100: 5 products of (64 x 64 x D) per visited tile
-// pair (S and dP twice, once in each kernel, then dV, dK, dQ: 7 in all
-// against the fused kernel's 5) against q, k, v, dO, dq, dk, dv read or
-// written once -- at the training shape (BH = 96, T = 1024, D = 128,
-// causal) about 64 GFLOP over 176 MB: operations, not bytes, bound it.
+// Design (the forward's toolbox, hopper.cuh): blocks of two warpgroups,
+// 255 registers a thread (the dK/dV warpgroups hold 128 accumulator
+// registers at D = 128), fed by TMA through a 2-stage mbarrier ring that
+// the warpgroup freeing a stage second refills (release_stage).
+// - `flash_bwd_dkdv_kernel`: a block per (b*h, 128 keys), 64 keys a
+//   consumer warpgroup; K and V come once, Q, dO, lse and dd (and the full
+//   bias tile) per 64-query tile.  S^T = K Q^T and dP^T = V dO^T are wgmma
+//   products with K and V as shared A operands; P^T = exp(S^T + bias - lse)
+//   under the forward's mask and dS^T = P^T (dP^T - dd) are formed in the
+//   accumulator registers and fed, rounded to bf16, from registers as the
+//   A operands of dV += P^T dO and dK += dS^T Q (dO and Q as MN-major B
+//   operands).  dK and dV stay in registers across the query loop.  Key
+//   tiles at or past kv_len meet no kept pair: such blocks write zeros
+//   without looping.
+// - `flash_bwd_dq_kernel`: a block per (b*h, 128 queries), 64 a consumer
+//   warpgroup; Q and dO come once, K, V (and the bias tile) per 64-key
+//   tile.  S and dP by wgmma, dS in registers, dQ += dS K with dS from
+//   registers and K as the MN-major B operand; dQ in registers.  The key
+//   tiles are the forward's (key_tile_range) less the tiles past kv_len
+//   for every row: a row that keeps no key has P = 0 and dQ = 0.
+// No score tile is staged in shared memory.  Each consumer warpgroup skips
+// the tile pairs that hold no kept pair of its own rows.  Every output
+// element is written by exactly one thread, summed in a fixed order: no
+// atomics, so gradients repeat bit for bit.  The softmax scale is folded
+// into q by the caller, so the kernels see scale 1 and autograd through
+// the pre-scale restores it on dq, as attention.py:1037-1042 does.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <mma.h>
 #include <math.h>
+#include <string.h>
 
-using namespace nvcuda;
+#include "hopper.cuh"
+
+using namespace hopper;
 
 namespace {
 
-constexpr int BQ = 64;
-constexpr int BK = 64;
-constexpr int THREADS = 128;
+constexpr int THREADS = 256;  // two consumer warpgroups
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
-    unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-    int n = valid ? 16 : 0;
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(n));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
-
-template <int HD>
-struct Strides {
-    static constexpr int LDH = HD + 8;   // bf16 row stride of the (64, HD) tiles
-    static constexpr int LDS = 64 + 4;   // f32 row stride of the (64, 64) score tiles
-    static constexpr int LDP = 64 + 8;   // bf16 row stride of the (64, 64) P / dS tiles
-    static constexpr int LDO = HD + 4;   // f32 row stride of the epilogue staging
-    static constexpr size_t TILE = (size_t)64 * LDH * 2;  // one (64, HD) bf16 tile
-    static constexpr size_t SCORES = (size_t)64 * LDS * 4;
-    static constexpr size_t PROBS = (size_t)64 * LDP * 2;
-};
-
-// dK/dV kernel: K and V of the block, 2 stages x (Q, dO), S^T and dP^T
-// (f32), P^T and dS^T (bf16), 2 stages x (lse, dd)
-template <int HD>
-struct KVLayout {
-    using S = Strides<HD>;
-    static constexpr size_t K_OFF = 0;
-    static constexpr size_t V_OFF = K_OFF + S::TILE;
-    static constexpr size_t QD_OFF = V_OFF + S::TILE;
-    static constexpr size_t S_OFF = QD_OFF + 4 * S::TILE;
-    static constexpr size_t DP_OFF = S_OFF + S::SCORES;
-    static constexpr size_t P_OFF = DP_OFF + S::SCORES;
-    static constexpr size_t DS_OFF = P_OFF + S::PROBS;
-    static constexpr size_t R_OFF = DS_OFF + S::PROBS;
-    static constexpr size_t BYTES = R_OFF + 4 * BQ * 4;
-    static_assert((size_t)64 * S::LDO * 4 <= 2 * S::SCORES, "epilogue staging fits in the score tiles");
-};
-
-// dQ kernel: Q and dO of the block, 2 stages x (K, V), S and dP (f32), dS
-// (bf16), lse and dd
-template <int HD>
-struct QLayout {
-    using S = Strides<HD>;
-    static constexpr size_t Q_OFF = 0;
-    static constexpr size_t DO_OFF = Q_OFF + S::TILE;
-    static constexpr size_t KV_OFF = DO_OFF + S::TILE;
-    static constexpr size_t S_OFF = KV_OFF + 4 * S::TILE;
-    static constexpr size_t DP_OFF = S_OFF + S::SCORES;
-    static constexpr size_t DS_OFF = DP_OFF + S::SCORES;
-    static constexpr size_t R_OFF = DS_OFF + S::PROBS;
-    static constexpr size_t BYTES = R_OFF + 2 * BQ * 4;
-    static_assert((size_t)64 * S::LDO * 4 <= 2 * S::SCORES, "epilogue staging fits in the score tiles");
-};
-
-// 64 x HD bf16 tile from a (T, HD) slab; rows at or past `limit` are zeros
-template <int HD>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* __restrict__ src, int row0,
-                                          int limit, int tid) {
-    constexpr int VPR = HD * 2 / 16;  // 16-byte vectors per row
-    for (int idx = tid; idx < 64 * VPR; idx += THREADS) {
-        const int r = idx / VPR, v = idx % VPR;
-        const bool ok = row0 + r < limit;
-        const __nv_bfloat16* g = ok ? src + (size_t)(row0 + r) * HD + v * 8 : src;
-        cp_async16(dst + r * Strides<HD>::LDH + v * 8, g, ok);
-    }
-}
-
-// the forward's mask: is key `key` kept for query `qrow`?
-__device__ __forceinline__ bool kept(int qrow, int key, int len, int tq, int causal, int window) {
-    bool ok = qrow < tq && key < len;
-    if (causal) ok = ok && key <= qrow;
-    if (window > 0) ok = ok && key > qrow - window;
+// the forward's mask for one pair (rows past tq and keys past tk dropped)
+__device__ __forceinline__ bool kept(int qrow, int key, int len, int tq, int tk, int causal, int window) {
+    bool ok = qrow < tq && key < len && key < tk;
+    if (causal) ok = ok && key <= qrow && (window <= 0 || key > qrow - window);
     return ok;
 }
 
-// a (query tile q0, key tile k0) pair needs no mask: every key valid, on or
-// below the diagonal of every query and inside every query's band
-__device__ __forceinline__ bool clean_pair(int q0, int k0, int len, int tq, int tk, int causal, int window) {
-    bool clean = k0 + BK <= len && k0 + BK <= tk && q0 + BQ <= tq;
-    if (causal) clean = clean && k0 + BK - 1 <= q0;
-    if (window > 0) clean = clean && q0 + BQ - 1 - k0 < window;
+// every pair of rows [q0, q0 + nq) x keys [k0, k0 + nk) kept
+__device__ __forceinline__ bool clean_pairs(int q0, int nq, int k0, int nk, int len, int tq, int tk, int causal,
+                                            int window) {
+    bool clean = k0 + nk <= len && k0 + nk <= tk && q0 + nq <= tq;
+    if (causal) clean = clean && k0 + nk - 1 <= q0 && (window <= 0 || q0 + nq - 1 - k0 < window);
     return clean;
 }
 
-// C (16 x 64, f32, row stride ldc) = A (16 x HD rows of `a`, row-major) *
-// B^T where B is 64 x HD row-major (`b`): the 16 x 64 score block of a warp
-template <int HD>
-__device__ __forceinline__ void scores16(const __nv_bfloat16* a, const __nv_bfloat16* b, float* c, int ldc) {
-    constexpr int LDH = Strides<HD>::LDH;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[j], 0.f);
-#pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa;
-        wmma::load_matrix_sync(fa, a + kk * 16, LDH);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-            wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> fb;
-            wmma::load_matrix_sync(fb, b + (j * 16) * LDH + kk * 16, LDH);
-            wmma::mma_sync(acc[j], fa, fb, acc[j]);
-        }
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) wmma::store_matrix_sync(c + j * 16, acc[j], ldc, wmma::mem_row_major);
-}
+template <int HD, int BIAS>
+struct Dkdv {
+    static constexpr int BKB = 128, BQ = 64, STAGES = 2, SWB = HD >= 64 ? 128 : 64;
+    static constexpr uint32_t KV_BYTES = BKB * HD * 2;  // the block's K (and V)
+    static constexpr uint32_t T_BYTES = BQ * HD * 2;    // a Q (or dO) tile
+    static constexpr uint32_t R_BYTES = BQ * 4;         // an lse (or dd) vector
+    static constexpr uint32_t BIAS_BYTES = BIAS == 1 ? BQ * BKB * 4 : 0;
+    static constexpr uint32_t TX_BYTES = 2 * T_BYTES + 2 * R_BYTES + BIAS_BYTES;
+    // a stage: Q, dO, the bias tile, then lse and dd in the last 1 KB
+    static constexpr uint32_t STAGE_BYTES = 2 * T_BYTES + BIAS_BYTES + 1024;
+    static constexpr uint32_t K_OFF = 0, V_OFF = KV_BYTES, ST_OFF = 2 * KV_BYTES,
+                              BAR_OFF = ST_OFF + STAGES * STAGE_BYTES;
+    static constexpr uint32_t SMEM = BAR_OFF + 8 * (1 + STAGES) + 4 * STAGES;
+};
 
-// acc (16 x HD) += A (16 x 64 bf16 rows of `a`, row stride LDP) * B (64 x HD
-// row-major tile `b`)
-template <int HD>
-__device__ __forceinline__ void accumulate16(wmma::fragment<wmma::accumulator, 16, 16, 16, float> (&acc)[HD / 16],
-                                             const __nv_bfloat16* a, const __nv_bfloat16* b) {
-    constexpr int LDH = Strides<HD>::LDH, LDP = Strides<HD>::LDP;
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa;
-        wmma::load_matrix_sync(fa, a + kk * 16, LDP);
-#pragma unroll
-        for (int j = 0; j < HD / 16; ++j) {
-            wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb;
-            wmma::load_matrix_sync(fb, b + (kk * 16) * LDH + j * 16, LDH);
-            wmma::mma_sync(acc[j], fa, fb, acc[j]);
-        }
-    }
-}
+template <int HD, int BIAS>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                      const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+                      const __grid_constant__ CUtensorMap tm_lse, const __grid_constant__ CUtensorMap tm_dd,
+                      const __grid_constant__ CUtensorMap tm_b, const float* __restrict__ bias,
+                      const int* __restrict__ kv_lens, int n_heads, int tq, int tk, int causal, int window,
+                      __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv) {
+    using L = Dkdv<HD, BIAS>;
+    constexpr int BKB = L::BKB, BQ = L::BQ, SWB = L::SWB, S = L::STAGES;
+    extern __shared__ __align__(1024) unsigned char smem_raw[];
+    unsigned char* smem = aligned_smem(smem_raw);
+    uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
+    uint64_t* full = kv_full + 1;
+    uint32_t* released = reinterpret_cast<uint32_t*>(full + S);
 
-// write a warp's 16 x HD accumulator as bf16 rows row0.. (< limit) of `dst`
-// through the warp's rows of the f32 staging area
-template <int HD>
-__device__ __forceinline__ void store16(wmma::fragment<wmma::accumulator, 16, 16, 16, float> (&acc)[HD / 16],
-                                        float* stage, __nv_bfloat16* __restrict__ dst, int row0, int limit,
-                                        int lane) {
-    constexpr int LDO = Strides<HD>::LDO;
-#pragma unroll
-    for (int j = 0; j < HD / 16; ++j) wmma::store_matrix_sync(stage + j * 16, acc[j], LDO, wmma::mem_row_major);
-    __syncwarp();
-    for (int e = lane; e < 16 * HD; e += 32) {
-        const int r = e / HD, c = e % HD;
-        if (row0 + r < limit) dst[(size_t)(row0 + r) * HD + c] = __float2bfloat16(stage[r * LDO + c]);
-    }
-    __syncwarp();
-}
-
-template <int HD>
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_dkdv_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                      const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
-                      const float* __restrict__ lse, const float* __restrict__ dd, const int* __restrict__ kv_lens,
-                      const float* __restrict__ bias, int bias_rows, int n_heads, int tq, int tk, int causal,
-                      int window, __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv) {
-    using L = KVLayout<HD>;
-    using S = Strides<HD>;
-    extern __shared__ __align__(128) unsigned char smem[];
-    __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem + L::K_OFF);
-    __nv_bfloat16* sV = reinterpret_cast<__nv_bfloat16*>(smem + L::V_OFF);
-    __nv_bfloat16* sQD = reinterpret_cast<__nv_bfloat16*>(smem + L::QD_OFF);
-    float* sS = reinterpret_cast<float*>(smem + L::S_OFF);
-    float* sDP = reinterpret_cast<float*>(smem + L::DP_OFF);
-    __nv_bfloat16* sP = reinterpret_cast<__nv_bfloat16*>(smem + L::P_OFF);
-    __nv_bfloat16* sDS = reinterpret_cast<__nv_bfloat16*>(smem + L::DS_OFF);
-    float* sR = reinterpret_cast<float*>(smem + L::R_OFF);  // [stage][lse | dd][BQ]
-    constexpr size_t TILE_ELEMS = S::TILE / 2;
-
-    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-    const int bh = blockIdx.y, k0 = blockIdx.x * BK;
-    const int h = bh % n_heads;
+    const int bh = blockIdx.x, h = bh % n_heads, k0 = blockIdx.y * BKB;
     const int len = kv_lens[bh];
-    const size_t qoff = (size_t)bh * tq * HD, koff = (size_t)bh * tk * HD;
-    const float* bg = bias == nullptr ? nullptr : bias + (size_t)h * bias_rows * tk;
-    const bool key_only = bg != nullptr && bias_rows == 1;
-    const int nq = (tq + BQ - 1) / BQ;
-    // query tiles that see any key of this tile: not wholly above the
-    // diagonal (causal) and not wholly past the band (window)
-    const int i_lo = causal ? k0 / BQ : 0;
-    int i_hi = nq - 1;
-    if (causal && window > 0) i_hi = min(i_hi, (k0 + BK - 1 + window - 1) / BQ);
+    int lo, hi;
+    query_tile_range(k0, BKB, BQ, tq, tk, len, causal, window, lo, hi);
+    const int n_tiles = hi - lo + 1;
 
-    const int kr0 = warp * 16;  // this warp's keys
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> dk_acc[HD / 16], dv_acc[HD / 16];
-#pragma unroll
-    for (int j = 0; j < HD / 16; ++j) {
-        wmma::fill_fragment(dk_acc[j], 0.f);
-        wmma::fill_fragment(dv_acc[j], 0.f);
+    // the loads of the n-th visited query tile into its stage
+    auto issue = [&](int n) {
+        const int i = lo + n, s = n % S;
+        unsigned char* st = smem + L::ST_OFF + s * L::STAGE_BYTES;
+        mbar_expect_tx(&full[s], L::TX_BYTES);
+        tma_tile<HD, SWB>(st, &tm_q, &full[s], BQ, i * BQ, bh);
+        tma_tile<HD, SWB>(st + L::T_BYTES, &tm_do, &full[s], BQ, i * BQ, bh);
+        unsigned char* sr = st + 2 * L::T_BYTES + L::BIAS_BYTES;
+        tma_load_1d(sr, &tm_lse, &full[s], bh * f32_pitch(tq) + i * BQ);
+        tma_load_1d(sr + L::R_BYTES, &tm_dd, &full[s], bh * f32_pitch(tq) + i * BQ);
+        if (BIAS == 1)
+            for (int p = 0; p < BKB / 32; ++p)
+                tma_load_3d(st + 2 * L::T_BYTES + p * BQ * 128, &tm_b, &full[s], k0 + 32 * p, i * BQ, h);
+    };
+
+    if (threadIdx.x == 0) {
+        mbar_init(kv_full, 1);
+        for (int s = 0; s < S; ++s) {
+            mbar_init(&full[s], 1);
+            released[s] = 0;
+        }
+        mbar_fence_init();
     }
-
-    if (k0 < len && i_lo <= i_hi) {
-        load_tile<HD>(sK, k + koff, k0, tk, tid);
-        load_tile<HD>(sV, v + koff, k0, tk, tid);
-        auto prefetch = [&](int i, int stage) {
-            __nv_bfloat16* dst = sQD + stage * 2 * TILE_ELEMS;
-            load_tile<HD>(dst, q + qoff, i * BQ, tq, tid);
-            load_tile<HD>(dst + TILE_ELEMS, dout + qoff, i * BQ, tq, tid);
-            for (int c = tid; c < BQ; c += THREADS) {
-                const int qrow = i * BQ + c;
-                sR[stage * 2 * BQ + c] = qrow < tq ? lse[(size_t)bh * tq + qrow] : 0.f;
-                sR[stage * 2 * BQ + BQ + c] = qrow < tq ? dd[(size_t)bh * tq + qrow] : 0.f;
-            }
-        };
-        prefetch(i_lo, 0);
-        cp_async_commit();
-
-        for (int i = i_lo; i <= i_hi; ++i) {
-            const int stage = (i - i_lo) & 1;
-            if (i < i_hi) {
-                prefetch(i + 1, stage ^ 1);
-                cp_async_commit();
-                cp_async_wait<1>();
-            } else {
-                cp_async_wait<0>();
-            }
-            __syncthreads();
-            const __nv_bfloat16* sQ = sQD + stage * 2 * TILE_ELEMS;
-            const __nv_bfloat16* sDO = sQ + TILE_ELEMS;
-            const float* rl = sR + stage * 2 * BQ;
-
-            // S^T = K Q^T and dP^T = V dO^T for this warp's 16 keys
-            scores16<HD>(sK + kr0 * S::LDH, sQ, sS + kr0 * S::LDS, S::LDS);
-            scores16<HD>(sV + kr0 * S::LDH, sDO, sDP + kr0 * S::LDS, S::LDS);
-            __syncwarp();
-
-            const int q0 = i * BQ;
-            const bool clean = clean_pair(q0, k0, len, tq, tk, causal, window);
-            float lse_c[2], dd_c[2];
+    __syncthreads();
+    if (threadIdx.x == 0 && n_tiles > 0) {
+        mbar_expect_tx(kv_full, 2 * L::KV_BYTES);
+        tma_tile<HD, SWB>(smem + L::K_OFF, &tm_k, kv_full, BKB, k0, bh);
+        tma_tile<HD, SWB>(smem + L::V_OFF, &tm_v, kv_full, BKB, k0, bh);
+        for (int n = 0; n < S && n < n_tiles; ++n) issue(n);
+    }
+    __syncwarp();
+    {
+        const int cw = threadIdx.x / 128, warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+        const int kw0 = k0 + 64 * cw;                   // this warpgroup's first key
+        const int ka = kw0 + warp * 16 + (lane >> 2);   // this thread's keys: ka, ka + 8
+        const int cq = 2 * (lane & 3);
+        int wlo, whi;
+        query_tile_range(kw0, 64, BQ, tq, tk, len, causal, window, wlo, whi);
+        float kbias[2] = {0.f, 0.f};  // the key-only bias of this thread's keys
+        if (BIAS == 2) {
+            const int ldb = f32_pitch(tk);
 #pragma unroll
-            for (int u = 0; u < 2; ++u) {
-                lse_c[u] = rl[lane + 32 * u];
-                dd_c[u] = rl[BQ + lane + 32 * u];
-            }
-#pragma unroll 4
-            for (int r = 0; r < 16; ++r) {
-                const int kr = kr0 + r, key = k0 + kr;
-                const float kb = key_only && key < tk ? bg[key] : 0.f;
+            for (int i = 0; i < 2; ++i) kbias[i] = ka + 8 * i < tk ? bias[(size_t)h * ldb + ka + 8 * i] : 0.f;
+        }
+
+        float acc_dk[HD / 2], acc_dv[HD / 2];
 #pragma unroll
-                for (int u = 0; u < 2; ++u) {
-                    const int c = lane + 32 * u, qrow = q0 + c;
-                    float x = sS[kr * S::LDS + c] + kb;
-                    if (!key_only && bg != nullptr && qrow < tq && key < tk) x += bg[(size_t)qrow * tk + key];
-                    const float p = clean || kept(qrow, key, len, tq, causal, window) ? __expf(x - lse_c[u]) : 0.f;
-                    const float ds = p * (sDP[kr * S::LDS + c] - dd_c[u]);
-                    sP[kr * S::LDP + c] = __float2bfloat16(p);
-                    sDS[kr * S::LDP + c] = __float2bfloat16(ds);
+        for (int i = 0; i < HD / 2; ++i) acc_dk[i] = acc_dv[i] = 0.f;
+
+        if (lo <= hi) mbar_wait(kv_full, 0);
+        for (int it = lo; it <= hi; ++it) {
+            const int n = it - lo, s = n % S;
+            const unsigned char* sQ = smem + L::ST_OFF + s * L::STAGE_BYTES;
+            const unsigned char* sDO = sQ + L::T_BYTES;
+            const float* sB = reinterpret_cast<const float*>(sQ + 2 * L::T_BYTES);
+            const float* sL = reinterpret_cast<const float*>(sQ + 2 * L::T_BYTES + L::BIAS_BYTES);
+            const float* sD = sL + BQ;
+            mbar_wait(&full[s], (n / S) & 1);
+            if (it >= wlo && it <= whi) {
+                // S^T = K Q^T and dP^T = V dO^T for this warpgroup's 64 keys
+                float acc_s[BQ / 2], acc_dp[BQ / 2];
+                wg_fence();
+#pragma unroll
+                for (int kk = 0; kk < HD / 16; ++kk)
+                    wgmma_ss<BQ>(acc_s, desc_k<HD, SWB>(smem + L::K_OFF, BKB, 64 * cw, kk),
+                                 desc_k<HD, SWB>(sQ, BQ, 0, kk), kk > 0);
+#pragma unroll
+                for (int kk = 0; kk < HD / 16; ++kk)
+                    wgmma_ss<BQ>(acc_dp, desc_k<HD, SWB>(smem + L::V_OFF, BKB, 64 * cw, kk),
+                                 desc_k<HD, SWB>(sDO, BQ, 0, kk), kk > 0);
+                wg_commit();
+                wg_wait<0>();
+                fence_regs(acc_s);
+                fence_regs(acc_dp);
+
+                // P^T and dS^T in place: rows are keys, columns queries
+                const int q0 = it * BQ;
+                const bool clean = clean_pairs(q0, BQ, kw0, 64, len, tq, tk, causal, window);
+#pragma unroll
+                for (int j = 0; j < BQ / 8; ++j) {
+                    const int c = 8 * j + cq;
+                    const float2 lse2 = *reinterpret_cast<const float2*>(sL + c);
+                    const float2 dd2 = *reinterpret_cast<const float2*>(sD + c);
+#pragma unroll
+                    for (int i = 0; i < 2; ++i) {
+                        const int key = ka + 8 * i;
+#pragma unroll
+                        for (int u = 0; u < 2; ++u) {
+                            const int e = 4 * j + 2 * i + u;
+                            float x = acc_s[e];
+                            if (BIAS == 2) x += kbias[i];
+                            if (BIAS == 1) x += f32_tile_at(sB, BQ, c + u, key - k0);
+                            const bool keep = clean || kept(q0 + c + u, key, len, tq, tk, causal, window);
+                            const float p = keep ? __expf(x - (u ? lse2.y : lse2.x)) : 0.f;
+                            acc_dp[e] = p * (acc_dp[e] - (u ? dd2.y : dd2.x));
+                            acc_s[e] = p;
+                        }
+                    }
                 }
+
+                // dV += P^T dO, dK += dS^T Q, A operands from registers
+                uint32_t pa[BQ / 16][4], dsa[BQ / 16][4];
+                pack_a<BQ>(acc_s, pa);
+                pack_a<BQ>(acc_dp, dsa);
+                fence_regs(acc_dv);
+                fence_regs(acc_dk);
+                fence_regs(pa);
+                fence_regs(dsa);
+                wg_fence();
+#pragma unroll
+                for (int kk = 0; kk < BQ / 16; ++kk) wgmma_rs<HD>(acc_dv, pa[kk], desc_mn<HD, SWB>(sDO, BQ, kk));
+#pragma unroll
+                for (int kk = 0; kk < BQ / 16; ++kk) wgmma_rs<HD>(acc_dk, dsa[kk], desc_mn<HD, SWB>(sQ, BQ, kk));
+                wg_commit();
+                wg_wait<0>();
+                fence_regs(acc_dv);
+                fence_regs(acc_dk);
+                fence_regs(pa);
+                fence_regs(dsa);
             }
-            __syncwarp();
-
-            // dV += P^T dO, dK += dS^T Q
-            accumulate16<HD>(dv_acc, sP + kr0 * S::LDP, sDO);
-            accumulate16<HD>(dk_acc, sDS + kr0 * S::LDP, sQ);
-            __syncthreads();  // every warp is done with this stage before it is refilled
+            release_stage(&released[s], cw, [&] {
+                if (n + S < n_tiles) issue(n + S);
+            });
         }
+        store_rows<HD>(acc_dk, dk + (size_t)bh * tk * HD, kw0, tk, 1.f, 1.f);
+        store_rows<HD>(acc_dv, dv + (size_t)bh * tk * HD, kw0, tk, 1.f, 1.f);
     }
-
-    float* stage = sS + (size_t)kr0 * S::LDO;  // the score tiles are free now
-    store16<HD>(dk_acc, stage, dk + koff, k0 + kr0, tk, lane);
-    store16<HD>(dv_acc, stage, dv + koff, k0 + kr0, tk, lane);
 }
 
-template <int HD>
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                    const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
-                    const float* __restrict__ lse, const float* __restrict__ dd, const int* __restrict__ kv_lens,
-                    const float* __restrict__ bias, int bias_rows, int n_heads, int tq, int tk, int causal,
-                    int window, __nv_bfloat16* __restrict__ dq) {
-    using L = QLayout<HD>;
-    using S = Strides<HD>;
-    extern __shared__ __align__(128) unsigned char smem[];
-    __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem + L::Q_OFF);
-    __nv_bfloat16* sDO = reinterpret_cast<__nv_bfloat16*>(smem + L::DO_OFF);
-    __nv_bfloat16* sKV = reinterpret_cast<__nv_bfloat16*>(smem + L::KV_OFF);
-    float* sS = reinterpret_cast<float*>(smem + L::S_OFF);
-    float* sDP = reinterpret_cast<float*>(smem + L::DP_OFF);
-    __nv_bfloat16* sDS = reinterpret_cast<__nv_bfloat16*>(smem + L::DS_OFF);
-    float* sR = reinterpret_cast<float*>(smem + L::R_OFF);  // [lse | dd][BQ]
-    constexpr size_t TILE_ELEMS = S::TILE / 2;
+template <int HD, int BIAS>
+struct Dq {
+    static constexpr int BQ = 128, BK = 64, STAGES = 2, SWB = HD >= 64 ? 128 : 64;
+    static constexpr uint32_t Q_BYTES = BQ * HD * 2, KV_BYTES = BK * HD * 2;
+    static constexpr uint32_t BIAS_BYTES = BIAS == 1 ? BQ * BK * 4 : BIAS == 2 ? BK * 4 : 0;
+    static constexpr uint32_t BIAS_SLOT = (BIAS_BYTES + 1023) / 1024 * 1024;
+    static constexpr uint32_t Q_OFF = 0, DO_OFF = Q_BYTES, K_OFF = 2 * Q_BYTES, V_OFF = K_OFF + STAGES * KV_BYTES,
+                              B_OFF = V_OFF + STAGES * KV_BYTES, BAR_OFF = B_OFF + STAGES * BIAS_SLOT;
+    static constexpr uint32_t SMEM = BAR_OFF + 8 * (1 + STAGES) + 4 * STAGES;
+};
 
-    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-    const int bh = blockIdx.y, q0 = blockIdx.x * BQ;
-    const int h = bh % n_heads;
+template <int HD, int BIAS>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                    const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+                    const __grid_constant__ CUtensorMap tm_b, const float* __restrict__ lse,
+                    const float* __restrict__ dd, const int* __restrict__ kv_lens, int n_heads, int tq, int tk,
+                    int causal, int window, __nv_bfloat16* __restrict__ dq) {
+    using L = Dq<HD, BIAS>;
+    constexpr int BQ = L::BQ, BK = L::BK, SWB = L::SWB, S = L::STAGES;
+    extern __shared__ __align__(1024) unsigned char smem_raw[];
+    unsigned char* smem = aligned_smem(smem_raw);
+    uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
+    uint64_t* full = q_full + 1;
+    uint32_t* released = reinterpret_cast<uint32_t*>(full + S);
+
+    const int bh = blockIdx.x, h = bh % n_heads;
+    const int nq = cdiv(tq, BQ);
+    const int q0 = (causal ? nq - 1 - (int)blockIdx.y : (int)blockIdx.y) * BQ;
     const int len = kv_lens[bh];
-    const size_t qoff = (size_t)bh * tq * HD, koff = (size_t)bh * tk * HD;
-    const float* bg = bias == nullptr ? nullptr : bias + (size_t)h * bias_rows * tk;
-    const bool key_only = bg != nullptr && bias_rows == 1;
-    const int nk = (tk + BK - 1) / BK;
-    // the forward's key tiles: none wholly above the diagonal or below the band
-    int t_lo = 0, t_hi = nk - 1;
-    if (causal) {
-        t_hi = min(t_hi, (q0 + BQ - 1) / BK);
-        if (window > 0 && q0 - window + 1 > 0) t_lo = (q0 - window + 1) / BK;
-    }
+    int lo, hi;
+    key_tile_range(q0, BQ, BK, tq, tk, len, causal, window, false, lo, hi);
+    const int n_tiles = hi - lo + 1;
 
-    load_tile<HD>(sQ, q + qoff, q0, tq, tid);
-    load_tile<HD>(sDO, dout + qoff, q0, tq, tid);
-    for (int c = tid; c < BQ; c += THREADS) {
-        const int qrow = q0 + c;
-        sR[c] = qrow < tq ? lse[(size_t)bh * tq + qrow] : 0.f;
-        sR[BQ + c] = qrow < tq ? dd[(size_t)bh * tq + qrow] : 0.f;
-    }
-    load_tile<HD>(sKV, k + koff, t_lo * BK, tk, tid);
-    load_tile<HD>(sKV + TILE_ELEMS, v + koff, t_lo * BK, tk, tid);
-    cp_async_commit();
+    // the loads of the n-th visited key tile into its stage
+    auto issue = [&](int n) {
+        const int t = lo + n, s = n % S;
+        mbar_expect_tx(&full[s], 2 * L::KV_BYTES + L::BIAS_BYTES);
+        tma_tile<HD, SWB>(smem + L::K_OFF + s * L::KV_BYTES, &tm_k, &full[s], BK, t * BK, bh);
+        tma_tile<HD, SWB>(smem + L::V_OFF + s * L::KV_BYTES, &tm_v, &full[s], BK, t * BK, bh);
+        unsigned char* sb = smem + L::B_OFF + s * L::BIAS_SLOT;
+        if (BIAS == 1)
+            for (int p = 0; p < BK / 32; ++p) tma_load_3d(sb + p * BQ * 128, &tm_b, &full[s], t * BK + 32 * p, q0, h);
+        if (BIAS == 2) tma_load_1d(sb, &tm_b, &full[s], h * f32_pitch(tk) + t * BK);
+    };
 
-    const int qr0 = warp * 16;  // this warp's queries
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> dq_acc[HD / 16];
-#pragma unroll
-    for (int j = 0; j < HD / 16; ++j) wmma::fill_fragment(dq_acc[j], 0.f);
-
-    for (int t = t_lo; t <= t_hi; ++t) {
-        const int stage = (t - t_lo) & 1;
-        if (t < t_hi) {
-            __nv_bfloat16* nxt = sKV + (stage ^ 1) * 2 * TILE_ELEMS;
-            load_tile<HD>(nxt, k + koff, (t + 1) * BK, tk, tid);
-            load_tile<HD>(nxt + TILE_ELEMS, v + koff, (t + 1) * BK, tk, tid);
-            cp_async_commit();
-            cp_async_wait<1>();
-        } else {
-            cp_async_wait<0>();
+    if (threadIdx.x == 0) {
+        mbar_init(q_full, 1);
+        for (int s = 0; s < S; ++s) {
+            mbar_init(&full[s], 1);
+            released[s] = 0;
         }
-        __syncthreads();
-        const __nv_bfloat16* sK = sKV + stage * 2 * TILE_ELEMS;
-        const __nv_bfloat16* sV = sK + TILE_ELEMS;
-
-        // S = Q K^T and dP = dO V^T for this warp's 16 queries
-        scores16<HD>(sQ + qr0 * S::LDH, sK, sS + qr0 * S::LDS, S::LDS);
-        scores16<HD>(sDO + qr0 * S::LDH, sV, sDP + qr0 * S::LDS, S::LDS);
-        __syncwarp();
-
-        const int k0 = t * BK;
-        const bool clean = clean_pair(q0, k0, len, tq, tk, causal, window);
-        float kb[2] = {0.f, 0.f};  // the key-only bias of this lane's two keys
-        if (key_only) {
+        mbar_fence_init();
+    }
+    __syncthreads();
+    if (threadIdx.x == 0 && n_tiles > 0) {
+        mbar_expect_tx(q_full, 2 * L::Q_BYTES);
+        tma_tile<HD, SWB>(smem + L::Q_OFF, &tm_q, q_full, BQ, q0, bh);
+        tma_tile<HD, SWB>(smem + L::DO_OFF, &tm_do, q_full, BQ, q0, bh);
+        for (int n = 0; n < S && n < n_tiles; ++n) issue(n);
+    }
+    __syncwarp();
+    {
+        const int cw = threadIdx.x / 128, warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+        const int qw0 = q0 + 64 * cw;
+        const int ra = qw0 + warp * 16 + (lane >> 2);  // this thread's rows: ra, ra + 8
+        const int cq = 2 * (lane & 3);
+        int wlo, whi;
+        key_tile_range(qw0, 64, BK, tq, tk, len, causal, window, false, wlo, whi);
+        float lse_r[2], dd_r[2];
 #pragma unroll
-            for (int u = 0; u < 2; ++u) {
-                const int key = k0 + lane + 32 * u;
-                kb[u] = key < tk ? bg[key] : 0.f;
+        for (int i = 0; i < 2; ++i) {
+            const int row = ra + 8 * i;
+            lse_r[i] = row < tq ? lse[(size_t)bh * f32_pitch(tq) + row] : 0.f;
+            dd_r[i] = row < tq ? dd[(size_t)bh * f32_pitch(tq) + row] : 0.f;
+        }
+
+        float acc_dq[HD / 2];
+#pragma unroll
+        for (int i = 0; i < HD / 2; ++i) acc_dq[i] = 0.f;
+        if (lo <= hi) mbar_wait(q_full, 0);
+        for (int t = lo; t <= hi; ++t) {
+            const int n = t - lo, s = n % S;
+            mbar_wait(&full[s], (n / S) & 1);
+            if (t >= wlo && t <= whi) {
+                const unsigned char* sK = smem + L::K_OFF + s * L::KV_BYTES;
+                const unsigned char* sV = smem + L::V_OFF + s * L::KV_BYTES;
+                const float* sB = reinterpret_cast<const float*>(smem + L::B_OFF + s * L::BIAS_SLOT);
+                // S = Q K^T and dP = dO V^T for this warpgroup's 64 rows
+                float acc_s[BK / 2], acc_dp[BK / 2];
+                wg_fence();
+#pragma unroll
+                for (int kk = 0; kk < HD / 16; ++kk)
+                    wgmma_ss<BK>(acc_s, desc_k<HD, SWB>(smem + L::Q_OFF, BQ, 64 * cw, kk), desc_k<HD, SWB>(sK, BK, 0, kk),
+                                 kk > 0);
+#pragma unroll
+                for (int kk = 0; kk < HD / 16; ++kk)
+                    wgmma_ss<BK>(acc_dp, desc_k<HD, SWB>(smem + L::DO_OFF, BQ, 64 * cw, kk),
+                                 desc_k<HD, SWB>(sV, BK, 0, kk), kk > 0);
+                wg_commit();
+                wg_wait<0>();
+                fence_regs(acc_s);
+                fence_regs(acc_dp);
+
+                const int k0 = t * BK;
+                const bool clean = clean_pairs(qw0, 64, k0, BK, len, tq, tk, causal, window);
+#pragma unroll
+                for (int j = 0; j < BK / 8; ++j) {
+                    const int c = 8 * j + cq;
+                    float2 kb = make_float2(0.f, 0.f);
+                    if (BIAS == 2) kb = *reinterpret_cast<const float2*>(sB + c);
+#pragma unroll
+                    for (int i = 0; i < 2; ++i) {
+                        const int row = ra + 8 * i;
+#pragma unroll
+                        for (int u = 0; u < 2; ++u) {
+                            const int e = 4 * j + 2 * i + u;
+                            float x = acc_s[e];
+                            if (BIAS == 2) x += u ? kb.y : kb.x;
+                            if (BIAS == 1) x += f32_tile_at(sB, BQ, row - q0, c + u);
+                            const bool keep = clean || kept(row, k0 + c + u, len, tq, tk, causal, window);
+                            const float p = keep ? __expf(x - lse_r[i]) : 0.f;
+                            acc_dp[e] = p * (acc_dp[e] - dd_r[i]);
+                        }
+                    }
+                }
+
+                // dQ += dS K, dS from registers, K as the MN-major B operand
+                uint32_t dsa[BK / 16][4];
+                pack_a<BK>(acc_dp, dsa);
+                fence_regs(acc_dq);
+                fence_regs(dsa);
+                wg_fence();
+#pragma unroll
+                for (int kk = 0; kk < BK / 16; ++kk) wgmma_rs<HD>(acc_dq, dsa[kk], desc_mn<HD, SWB>(sK, BK, kk));
+                wg_commit();
+                wg_wait<0>();
+                fence_regs(acc_dq);
+                fence_regs(dsa);
             }
+            release_stage(&released[s], cw, [&] {
+                if (n + S < n_tiles) issue(n + S);
+            });
         }
-#pragma unroll 4
-        for (int r = 0; r < 16; ++r) {
-            const int qr = qr0 + r, qrow = q0 + qr;
-            const float lse_r = sR[qr], dd_r = sR[BQ + qr];
-#pragma unroll
-            for (int u = 0; u < 2; ++u) {
-                const int c = lane + 32 * u, key = k0 + c;
-                float x = sS[qr * S::LDS + c] + kb[u];
-                if (!key_only && bg != nullptr && qrow < tq && key < tk) x += bg[(size_t)qrow * tk + key];
-                const float p = clean || kept(qrow, key, len, tq, causal, window) ? __expf(x - lse_r) : 0.f;
-                sDS[qr * S::LDP + c] = __float2bfloat16(p * (sDP[qr * S::LDS + c] - dd_r));
-            }
-        }
-        __syncwarp();
-
-        // dQ += dS K
-        accumulate16<HD>(dq_acc, sDS + qr0 * S::LDP, sK);
-        __syncthreads();  // every warp is done with this K/V stage
+        store_rows<HD>(acc_dq, dq + (size_t)bh * tq * HD, qw0, tq, 1.f, 1.f);
     }
-    cp_async_wait<0>();
-
-    float* stage = sS + (size_t)qr0 * S::LDO;  // the score tiles are free now
-    store16<HD>(dq_acc, stage, dq + qoff, q0 + qr0, tq, lane);
 }
+
+struct Args {
+    const void *q, *k, *v, *dout;
+    const float *lse, *dd, *bias;
+    const int* lens;
+    int bias_rows, bh, n_heads, tq, tk, causal, window;
+};
+
+template <int HD, int BIAS>
+int launch_dkdv(const Args& a, void* dk, void* dv, cudaStream_t stream) {
+    using L = Dkdv<HD, BIAS>;
+    CUtensorMap mq, mk, mv, mdo, ml, md, mb;
+    memset(&mb, 0, sizeof(mb));
+    const int ldb = f32_pitch(a.tk);
+    bool ok = map_bf16_tiles(&mq, a.q, a.bh, a.tq, HD, L::BQ) && map_bf16_tiles(&mk, a.k, a.bh, a.tk, HD, L::BKB) &&
+              map_bf16_tiles(&mv, a.v, a.bh, a.tk, HD, L::BKB) && map_bf16_tiles(&mdo, a.dout, a.bh, a.tq, HD, L::BQ) &&
+              map_f32_vector(&ml, a.lse, (uint64_t)a.bh * f32_pitch(a.tq), L::BQ) &&
+              map_f32_vector(&md, a.dd, (uint64_t)a.bh * f32_pitch(a.tq), L::BQ);
+    if (BIAS == 1) ok = ok && map_f32_tiles(&mb, a.bias, a.n_heads, a.tq, ldb, L::BQ);
+    if (!ok) return (int)cudaErrorInvalidValue;
+    auto kern = flash_bwd_dkdv_kernel<HD, BIAS>;
+    cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::SMEM);
+    if (err != cudaSuccess) return (int)err;
+    const float* bias = a.bias;
+    const int* lens = a.lens;
+    int n_heads = a.n_heads, tq = a.tq, tk = a.tk, causal = a.causal, window = a.window;
+    void* args[] = {&mq, &mk, &mv, &mdo, &ml, &md, &mb, &bias, &lens, &n_heads, &tq, &tk, &causal, &window, &dk, &dv};
+    return (int)cudaLaunchKernel((const void*)kern, dim3(a.bh, cdiv(a.tk, L::BKB)), dim3(THREADS), args, L::SMEM,
+                                 stream);
+}
+
+template <int HD, int BIAS>
+int launch_dq(const Args& a, void* dq, cudaStream_t stream) {
+    using L = Dq<HD, BIAS>;
+    CUtensorMap mq, mk, mv, mdo, mb;
+    memset(&mb, 0, sizeof(mb));
+    const int ldb = f32_pitch(a.tk);
+    bool ok = map_bf16_tiles(&mq, a.q, a.bh, a.tq, HD, L::BQ) && map_bf16_tiles(&mk, a.k, a.bh, a.tk, HD, L::BK) &&
+              map_bf16_tiles(&mv, a.v, a.bh, a.tk, HD, L::BK) && map_bf16_tiles(&mdo, a.dout, a.bh, a.tq, HD, L::BQ);
+    if (BIAS == 1) ok = ok && map_f32_tiles(&mb, a.bias, a.n_heads, a.tq, ldb, L::BQ);
+    if (BIAS == 2) ok = ok && map_f32_vector(&mb, a.bias, (uint64_t)a.n_heads * ldb, L::BK);
+    if (!ok) return (int)cudaErrorInvalidValue;
+    auto kern = flash_bwd_dq_kernel<HD, BIAS>;
+    cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::SMEM);
+    if (err != cudaSuccess) return (int)err;
+    const float *lse = a.lse, *dd = a.dd;
+    const int* lens = a.lens;
+    int n_heads = a.n_heads, tq = a.tq, tk = a.tk, causal = a.causal, window = a.window;
+    void* args[] = {&mq, &mk, &mv, &mdo, &mb, &lse, &dd, &lens, &n_heads, &tq, &tk, &causal, &window, &dq};
+    return (int)cudaLaunchKernel((const void*)kern, dim3(a.bh, cdiv(a.tq, L::BQ)), dim3(THREADS), args, L::SMEM,
+                                 stream);
+}
+
+template <typename Kern>
+int kernel_info(Kern kern, int smem, int* out) {
+    cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    cudaFuncAttributes attr;
+    if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, (const void*)kern);
+    int blocks = 0;
+    if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kern, THREADS, smem);
+    if (err != cudaSuccess) return (int)err;
+    out[0] = attr.numRegs;
+    out[1] = smem;
+    out[2] = blocks;
+    out[3] = (int)attr.localSizeBytes;
+    return 0;
+}
+
+template <int HD, int BIAS>
+int info(int which, int* out) {
+    if (which == 0) return kernel_info(flash_bwd_dkdv_kernel<HD, BIAS>, (int)Dkdv<HD, BIAS>::SMEM, out);
+    return kernel_info(flash_bwd_dq_kernel<HD, BIAS>, (int)Dq<HD, BIAS>::SMEM, out);
+}
+
+// bias kind: 0 none, 1 full (H, Tq, Tk), 2 key-only (H, 1, Tk)
+int bias_kind(const Args& a) { return a.bias == nullptr ? 0 : a.bias_rows == 1 ? 2 : 1; }
 
 template <int HD>
-int launch_dkdv(const void* q, const void* k, const void* v, const void* dout, const float* lse, const float* dd,
-                const int* lens, const float* bias, int bias_rows, int bh, int n_heads, int tq, int tk, int causal,
-                int window, void* dk, void* dv, cudaStream_t stream) {
-    auto kern = flash_bwd_dkdv_kernel<HD>;
-    const int smem = (int)KVLayout<HD>::BYTES;
-    cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
-    dim3 grid((tk + BK - 1) / BK, bh);
-    using B = __nv_bfloat16;
-    kern<<<grid, THREADS, smem, stream>>>(static_cast<const B*>(q), static_cast<const B*>(k),
-                                          static_cast<const B*>(v), static_cast<const B*>(dout), lse, dd, lens, bias,
-                                          bias_rows, n_heads, tq, tk, causal, window, static_cast<B*>(dk),
-                                          static_cast<B*>(dv));
-    return (int)cudaGetLastError();
+int run(const Args& a, void* dq, void* dk, void* dv, cudaStream_t st) {
+    const int kind = bias_kind(a);
+    if (dq != nullptr) {
+        if (kind == 0) return launch_dq<HD, 0>(a, dq, st);
+        if (kind == 1) return launch_dq<HD, 1>(a, dq, st);
+        return launch_dq<HD, 2>(a, dq, st);
+    }
+    if (kind == 0) return launch_dkdv<HD, 0>(a, dk, dv, st);
+    if (kind == 1) return launch_dkdv<HD, 1>(a, dk, dv, st);
+    return launch_dkdv<HD, 2>(a, dk, dv, st);
 }
 
-template <int HD>
-int launch_dq(const void* q, const void* k, const void* v, const void* dout, const float* lse, const float* dd,
-              const int* lens, const float* bias, int bias_rows, int bh, int n_heads, int tq, int tk, int causal,
-              int window, void* dq, cudaStream_t stream) {
-    auto kern = flash_bwd_dq_kernel<HD>;
-    const int smem = (int)QLayout<HD>::BYTES;
-    cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
-    dim3 grid((tq + BQ - 1) / BQ, bh);
-    using B = __nv_bfloat16;
-    kern<<<grid, THREADS, smem, stream>>>(static_cast<const B*>(q), static_cast<const B*>(k),
-                                          static_cast<const B*>(v), static_cast<const B*>(dout), lse, dd, lens, bias,
-                                          bias_rows, n_heads, tq, tk, causal, window, static_cast<B*>(dq));
-    return (int)cudaGetLastError();
-}
-
-bool valid_args(const void* bias, int bias_rows, int bh, int n_heads, int tq, int tk, int causal, int window) {
-    if (bh < 1 || n_heads < 1 || tq < 1 || tk < 1 || window < 0 || (window > 0 && !causal)) return false;
-    return bias == nullptr || bias_rows == tq || bias_rows == 1;
+int dispatch(const Args& a, int hd, void* dq, void* dk, void* dv, void* stream) {
+    if (a.bh < 1 || a.n_heads < 1 || a.tq < 1 || a.tk < 1 || a.window < 0 || (a.window > 0 && !a.causal))
+        return (int)cudaErrorInvalidValue;
+    if (a.bias != nullptr && a.bias_rows != a.tq && a.bias_rows != 1) return (int)cudaErrorInvalidValue;
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    switch (hd) {
+        case 32: return run<32>(a, dq, dk, dv, st);
+        case 64: return run<64>(a, dq, dk, dv, st);
+        case 128: return run<128>(a, dq, dk, dv, st);
+        default: return (int)cudaErrorInvalidValue;
+    }
 }
 
 }  // namespace
 
 extern "C" {
 
-// q, dout (bh, tq, hd) and k, v (bh, tk, hd) bf16; lse, dd (bh, tq) f32;
-// kv_lens (bh,) int32; bias (n_heads, bias_rows, tk) f32 with bias_rows =
-// tq or 1, or null; causal 0/1; window 0 or > 0 (causal only); dk, dv (bh,
-// tk, hd) bf16.
+// q, dout (bh, tq, hd) and k, v (bh, tk, hd) bf16, 16-byte aligned; lse, dd
+// (bh, ldq) f32 with ldq = tq rounded up to a multiple of 4; kv_lens (bh,) int32; bias (n_heads, bias_rows, ldb) f32 with
+// bias_rows = tq or 1 and ldb = tk rounded up to a multiple of 4, or null;
+// causal 0/1; window 0 or > 0 (causal only); dk, dv (bh, tk, hd) bf16.
 int vqa_flash_bwd_dkdv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
                        const void* dd, const void* kv_lens, const void* bias, int bias_rows, int bh, int n_heads,
                        int tq, int tk, int hd, int causal, int window, void* dk, void* dv, void* stream) {
-    if (!valid_args(bias, bias_rows, bh, n_heads, tq, tk, causal, window)) return (int)cudaErrorInvalidValue;
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
-    const float* ls = static_cast<const float*>(lse);
-    const float* d = static_cast<const float*>(dd);
-    const int* lens = static_cast<const int*>(kv_lens);
-    const float* b = static_cast<const float*>(bias);
-    switch (hd) {
-        case 32: return launch_dkdv<32>(q, k, v, dout, ls, d, lens, b, bias_rows, bh, n_heads, tq, tk, causal, window, dk, dv, st);
-        case 64: return launch_dkdv<64>(q, k, v, dout, ls, d, lens, b, bias_rows, bh, n_heads, tq, tk, causal, window, dk, dv, st);
-        case 128: return launch_dkdv<128>(q, k, v, dout, ls, d, lens, b, bias_rows, bh, n_heads, tq, tk, causal, window, dk, dv, st);
-        default: return (int)cudaErrorInvalidValue;
-    }
+    const Args a{q, k, v, dout, static_cast<const float*>(lse), static_cast<const float*>(dd),
+                 static_cast<const float*>(bias), static_cast<const int*>(kv_lens), bias_rows, bh, n_heads, tq, tk,
+                 causal, window};
+    return dispatch(a, hd, nullptr, dk, dv, stream);
 }
 
 // the same inputs; dq (bh, tq, hd) bf16
 int vqa_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse, const void* dd,
                      const void* kv_lens, const void* bias, int bias_rows, int bh, int n_heads, int tq, int tk,
                      int hd, int causal, int window, void* dq, void* stream) {
-    if (!valid_args(bias, bias_rows, bh, n_heads, tq, tk, causal, window)) return (int)cudaErrorInvalidValue;
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
-    const float* ls = static_cast<const float*>(lse);
-    const float* d = static_cast<const float*>(dd);
-    const int* lens = static_cast<const int*>(kv_lens);
-    const float* b = static_cast<const float*>(bias);
-    switch (hd) {
-        case 32: return launch_dq<32>(q, k, v, dout, ls, d, lens, b, bias_rows, bh, n_heads, tq, tk, causal, window, dq, st);
-        case 64: return launch_dq<64>(q, k, v, dout, ls, d, lens, b, bias_rows, bh, n_heads, tq, tk, causal, window, dq, st);
-        case 128: return launch_dq<128>(q, k, v, dout, ls, d, lens, b, bias_rows, bh, n_heads, tq, tk, causal, window, dq, st);
+    const Args a{q, k, v, dout, static_cast<const float*>(lse), static_cast<const float*>(dd),
+                 static_cast<const float*>(bias), static_cast<const int*>(kv_lens), bias_rows, bh, n_heads, tq, tk,
+                 causal, window};
+    return dispatch(a, hd, dq, nullptr, nullptr, stream);
+}
+
+// out[4] = registers a thread, dynamic shared memory, blocks per SM and local
+// bytes a thread (spills) of kernel `which` (0 dK/dV, 1 dQ) for head dim hd
+// and bias kind 0 none / 1 full / 2 key-only
+int vqa_flash_bwd_info(int hd, int bias, int which, int* out) {
+    switch (hd * 4 + bias) {
+        case 32 * 4 + 0: return info<32, 0>(which, out);
+        case 32 * 4 + 1: return info<32, 1>(which, out);
+        case 32 * 4 + 2: return info<32, 2>(which, out);
+        case 64 * 4 + 0: return info<64, 0>(which, out);
+        case 64 * 4 + 1: return info<64, 1>(which, out);
+        case 64 * 4 + 2: return info<64, 2>(which, out);
+        case 128 * 4 + 0: return info<128, 0>(which, out);
+        case 128 * 4 + 1: return info<128, 1>(which, out);
+        case 128 * 4 + 2: return info<128, 2>(which, out);
         default: return (int)cudaErrorInvalidValue;
     }
 }

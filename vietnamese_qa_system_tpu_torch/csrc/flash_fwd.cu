@@ -12,294 +12,296 @@
 // k < min(kv_len, q + 1) (causal) or k < kv_len, and, with a window, also
 // k > q - window.
 //
-// What bounds it on an H100: at the encoder shape (B*H = 3072, T = 512,
-// D = 64) the two products are 4*BH*T*T*D = 206 GFLOP per layer, but at
-// D = 64 every score also needs an exp, a max, a sum and a bf16 rounding --
-// like the TPU kernel (VPU-bound there) this one is bound by the softmax
-// arithmetic and shared-memory traffic, not by HBM (q, k, v and o are 4
-// bytes per element of (BH, T, D) in all; the f32 bias is read once per
-// query tile, 1 MB per head).  Causal at the training shape (BH = 96,
-// T = 1024, D = 128) skips the tiles above the diagonal: half the products.
+// What bounds it on an H100: q, k, v and o read or written once against
+// the two products, 4 * T * T * D flops per head (half of it causal): at
+// the training shape (BH = 96, T = 1024, D = 128) 101 MB (0.030 ms at the
+// HBM rate) and 26 GFLOP (0.026 ms at the bf16 peak), at the ingest's
+// encoder shape (BH = 3,072, T = 512, D = 64, mixed kv_lens) 824 MB with
+// the bias and lse (0.25 ms) and at most 206 GFLOP (0.21 ms).  The two
+// are close, so the products must run near the tensor cores' rate, which
+// they reach only through wgmma fed from shared memory that TMA fills,
+// with the softmax kept off the products' path.
 //
-// Design: one block of 4 warps per (b*h, 64-query tile); a loop over the
-// 64-key tiles that the causal diagonal and the window band leave (tiles
-// wholly above the diagonal or wholly outside the band are never loaded),
-// with K and V double-buffered by cp.async; S = Q K^T and the P V update on
-// bf16 WMMA with f32 accumulation; running max, sum and the output
-// accumulator in f32.  Each warp owns 16 query rows end to end (its S rows,
-// softmax, P rows and O rows), so only the K/V tiles need block barriers.
-// The accumulator lives in shared memory between key tiles so that the
-// per-row rescale by exp(m_old - m_new) is a plain loop.  Interior tiles
-// (every key valid, on or below the diagonal, inside the band) skip the
-// mask; the diagonal, band-edge and ragged tiles are masked.  A key-only
-// bias is read once per key tile by each lane and broadcast over the
-// query rows.  Masked keys take the reference's finite NEG_INF (-1e30), so
-// a row with kv_len == 0 (the padding rows every encoder batch carries)
-// averages V instead of turning to NaN; keys past Tk take -inf and weigh
-// exactly 0.  The softmax scale is folded into q by the wrapper, as
-// attention.py:1043 does.  As in the TPU kernel, the row sum adds the
-// bf16-rounded probabilities that the P V product uses when D % 128 != 0
-// (its ones-column trick) and the f32 probabilities at D = 128.  Each
-// form (causal or not, no / full / key-only bias) is its own compiled
-// variant, so the encoder's form carries none of the training forms' code.
+// Design (hopper.cuh has the building blocks):
+// - a block per (b*h, 128-query tile) of two warpgroups of 64 query rows
+//   each.  TMA brings Q once and K, V and the bias tile through a 2-stage
+//   ring completed on mbarriers; the warpgroup that frees a stage second
+//   issues its next loads at once (release_stage), so the loads run a
+//   stage ahead of both.  A producer warpgroup with setmaxnreg (24 / 240)
+//   was built first: ptxas held every variant to the 168 registers that
+//   384 threads allow, not giving the consumers setmaxnreg's budget, and
+//   the D = 128 forms spilled; 256 threads have 255 registers each.
+// - S = Q K^T by wgmma from the swizzled shared tiles into registers; the
+//   online softmax in registers: each thread holds two rows' pieces, the
+//   row max is a local max and two quad shuffles, the row sum stays a
+//   per-thread partial until the end; P goes bf16 straight from the S
+//   registers into the A operand of O += P V (wgmma with A from registers,
+//   V as the MN-major B operand).  O stays in registers for the whole key
+//   loop and is rescaled there; no score or output tile touches shared
+//   memory.
+// - key tiles: the causal diagonal and the window band skip whole tiles as
+//   before, and a row with kv_len > 0 stops at ceil(kv_len / BK) -- tiles
+//   past it hold only keys whose weight exp(-1e30 - m) is exactly 0.  A row
+//   that keeps no key at all (kv_len == 0: the padding rows of every
+//   encoder batch) averages V over every key, as the reference's finite
+//   NEG_INF gives, so a block holding such a row visits every tile
+//   (key_tile_range).  Each consumer warpgroup further skips tiles that
+//   hold no kept key of its own 64 rows.  Interior tiles skip the mask.
+// - causal blocks run heaviest first (the query tiles at the bottom of the
+//   diagonal), so the last wave is not one long tile.
+// - the full bias tile (128 x 64 f32) rides the ring, loaded only for
+//   tiles that hold a key below kv_len; the key-only bias is one 128-vector
+//   a tile.  Keys past Tk take -inf; the bias is added before the mask.
+// As in the TPU kernel, the row sum adds the bf16-rounded probabilities
+// that the P V product uses when D % 128 != 0 and the f32 ones at D = 128.
+// The softmax scale is folded into q by the wrapper.  Each form (causal or
+// not, no / full / key-only bias) is its own compiled variant.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <mma.h>
 #include <math.h>
+#include <string.h>
 
-using namespace nvcuda;
+#include "hopper.cuh"
+
+using namespace hopper;
 
 namespace {
 
-constexpr int BQ = 64;
-constexpr int BK = 64;
-constexpr int THREADS = 128;
-constexpr float NEG_INF = -1e30f;
 constexpr unsigned FULL = 0xffffffffu;
+constexpr int THREADS = 256;  // two consumer warpgroups
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
-    unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-    int n = valid ? 16 : 0;
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(n));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
-
-template <int HD>
-struct Layout {
-    static constexpr int LDH = HD + 8;   // bf16 row stride of Q, K, V tiles
-    static constexpr int LDP = BK + 8;   // bf16 row stride of P
-    static constexpr int LDS = BK + 4;   // f32 row stride of S
-    static constexpr int LDO = HD + 4;   // f32 row stride of O
-    static constexpr size_t Q_OFF = 0;
-    static constexpr size_t KV_OFF = Q_OFF + (size_t)BQ * LDH * 2;
-    static constexpr size_t KV_TILE = (size_t)BK * LDH * 2;         // one K or V tile
-    static constexpr size_t S_OFF = KV_OFF + 4 * KV_TILE;           // 2 stages x (K, V)
-    static constexpr size_t P_OFF = S_OFF + (size_t)BQ * LDS * 4;
-    static constexpr size_t O_OFF = P_OFF + (size_t)BQ * LDP * 2;
-    static constexpr size_t A_OFF = O_OFF + (size_t)BQ * LDO * 4;
-    static constexpr size_t BYTES = A_OFF + BQ * 4;
+template <int HD, bool CAUSAL, int BIAS>
+struct Fwd {
+    static constexpr int BQ = 128;                  // two consumer warpgroups of 64 rows
+    static constexpr int BK = BIAS == 1 ? 64 : 128;  // the full bias tile is 4 B an element
+    static constexpr int STAGES = 2;
+    static constexpr int SWB = HD >= 64 ? 128 : 64;  // swizzle span = a panel row's bytes
+    static constexpr uint32_t Q_BYTES = BQ * HD * 2, KV_BYTES = BK * HD * 2;
+    static constexpr uint32_t BIAS_BYTES = BIAS == 1 ? BQ * BK * 4 : BIAS == 2 ? BK * 4 : 0;
+    static constexpr uint32_t BIAS_SLOT = (BIAS_BYTES + 1023) / 1024 * 1024;
+    static constexpr uint32_t Q_OFF = 0, K_OFF = Q_BYTES, V_OFF = K_OFF + STAGES * KV_BYTES,
+                              B_OFF = V_OFF + STAGES * KV_BYTES, BAR_OFF = B_OFF + STAGES * BIAS_SLOT;
+    // mbarriers (Q, then one a stage) and the stages' release counters
+    static constexpr uint32_t SMEM = BAR_OFF + 8 * (1 + STAGES) + 4 * STAGES;
 };
 
-// rows x HD bf16 tile from a (T, HD) slab; rows at or past `limit` are zeros
-template <int HD>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* __restrict__ src, int row0,
-                                          int limit, int tid) {
-    constexpr int VPR = HD * 2 / 16;  // 16-byte vectors per row
-    for (int idx = tid; idx < BK * VPR; idx += THREADS) {
-        const int r = idx / VPR, v = idx % VPR;
-        const bool ok = row0 + r < limit;
-        const __nv_bfloat16* g = ok ? src + (size_t)(row0 + r) * HD + v * 8 : src;
-        cp_async16(dst + r * Layout<HD>::LDH + v * 8, g, ok);
-    }
-}
-
-// The range [lo, hi] of key tiles that a 64-query tile starting at q0 must
-// visit: all of them bidirectionally; causally none wholly above the
-// diagonal and, with a window, none wholly below the band.
-__device__ __forceinline__ void key_tile_range(int q0, int nk, int causal, int window, int& lo, int& hi) {
-    lo = 0;
-    hi = nk - 1;
-    if (causal) {
-        hi = min(hi, (q0 + BQ - 1) / BK);
-        if (window > 0 && q0 - window + 1 > 0) lo = (q0 - window + 1) / BK;
-    }
-}
-
-// The form is compile-time: CAUSAL, and BIAS 0 (none), 1 (full (H, Tq,
-// Tk)) or 2 (key-only (H, 1, Tk)); the window (causal only) is a runtime
-// width, 0 for none.
 template <int HD, bool CAUSAL, int BIAS>
-__global__ void __launch_bounds__(THREADS)
-flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v, const int* __restrict__ kv_lens,
-                 const float* __restrict__ bias, int n_heads, int tq, int tk, int window,
+__global__ void __launch_bounds__(THREADS, 1)
+flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                 const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_b,
+                 const int* __restrict__ kv_lens, int n_heads, int tq, int tk, int window,
                  __nv_bfloat16* __restrict__ o, float* __restrict__ lse) {
-    using L = Layout<HD>;
-    extern __shared__ __align__(128) unsigned char smem[];
-    __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem + L::Q_OFF);
-    __nv_bfloat16* sKV = reinterpret_cast<__nv_bfloat16*>(smem + L::KV_OFF);
-    float* sS = reinterpret_cast<float*>(smem + L::S_OFF);
-    __nv_bfloat16* sP = reinterpret_cast<__nv_bfloat16*>(smem + L::P_OFF);
-    float* sO = reinterpret_cast<float*>(smem + L::O_OFF);
-    float* sAlpha = reinterpret_cast<float*>(smem + L::A_OFF);
-    constexpr size_t KV_ELEMS = L::KV_TILE / 2;
+    using F = Fwd<HD, CAUSAL, BIAS>;
+    constexpr int BQ = F::BQ, BK = F::BK, SWB = F::SWB, S = F::STAGES;
+    extern __shared__ __align__(1024) unsigned char smem_raw[];
+    unsigned char* smem = aligned_smem(smem_raw);
+    uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + F::BAR_OFF);
+    uint64_t* full = q_full + 1;
+    uint32_t* released = reinterpret_cast<uint32_t*>(full + S);
 
-    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-    const int bh = blockIdx.y, q0 = blockIdx.x * BQ;
-    const int h = bh % n_heads;
+    const int bh = blockIdx.x, h = bh % n_heads;
+    const int nq = cdiv(tq, BQ);
+    const int q0 = (CAUSAL ? nq - 1 - (int)blockIdx.y : (int)blockIdx.y) * BQ;
     const int len = kv_lens[bh];
-    const __nv_bfloat16* qg = q + (size_t)bh * tq * HD;
-    const __nv_bfloat16* kg = k + (size_t)bh * tk * HD;
-    const __nv_bfloat16* vg = v + (size_t)bh * tk * HD;
-    // bias rows: tq for the full form, 1 for the key-only form (row 0 for all)
-    const float* bg = BIAS == 0 ? nullptr : bias + (size_t)h * (BIAS == 2 ? 1 : tq) * tk;
-    const int nk = (tk + BK - 1) / BK;
-    int t_lo, t_hi;
-    key_tile_range(q0, nk, CAUSAL, window, t_lo, t_hi);
+    int lo, hi;
+    key_tile_range(q0, BQ, BK, tq, tk, len, CAUSAL, window, true, lo, hi);
+    const int n_tiles = hi - lo + 1;
 
-    load_tile<HD>(sQ, qg, q0, tq, tid);
-    load_tile<HD>(sKV, kg, t_lo * BK, tk, tid);
-    load_tile<HD>(sKV + KV_ELEMS, vg, t_lo * BK, tk, tid);
-    cp_async_commit();
+    // the loads of the n-th visited key tile into its stage
+    auto issue = [&](int n) {
+        const int t = lo + n, s = n % S;
+        const bool with_bias = BIAS != 0 && t * BK < len;
+        mbar_expect_tx(&full[s], 2 * F::KV_BYTES + (with_bias ? F::BIAS_BYTES : 0));
+        tma_tile<HD, SWB>(smem + F::K_OFF + s * F::KV_BYTES, &tm_k, &full[s], BK, t * BK, bh);
+        tma_tile<HD, SWB>(smem + F::V_OFF + s * F::KV_BYTES, &tm_v, &full[s], BK, t * BK, bh);
+        unsigned char* sb = smem + F::B_OFF + s * F::BIAS_SLOT;
+        if (BIAS == 1 && with_bias)
+            for (int p = 0; p < BK / 32; ++p) tma_load_3d(sb + p * BQ * 128, &tm_b, &full[s], t * BK + 32 * p, q0, h);
+        if (BIAS == 2 && with_bias) tma_load_1d(sb, &tm_b, &full[s], h * f32_pitch(tk) + t * BK);
+    };
 
-    const int r0 = warp * 16;  // this warp's query rows
-    for (int e = lane; e < 16 * HD; e += 32) sO[(r0 + e / HD) * L::LDO + e % HD] = 0.f;
-    float m[16], l[16];
-#pragma unroll
-    for (int i = 0; i < 16; ++i) { m[i] = NEG_INF; l[i] = 0.f; }
-
-    for (int t = t_lo; t <= t_hi; ++t) {
-        const int stage = (t - t_lo) & 1;
-        if (t < t_hi) {
-            __nv_bfloat16* nxt = sKV + (stage ^ 1) * 2 * KV_ELEMS;
-            load_tile<HD>(nxt, kg, (t + 1) * BK, tk, tid);
-            load_tile<HD>(nxt + KV_ELEMS, vg, (t + 1) * BK, tk, tid);
-            cp_async_commit();
-            cp_async_wait<1>();
-        } else {
-            cp_async_wait<0>();
+    if (threadIdx.x == 0) {
+        mbar_init(q_full, 1);
+        for (int s = 0; s < S; ++s) {
+            mbar_init(&full[s], 1);
+            released[s] = 0;
         }
-        __syncthreads();
-        const __nv_bfloat16* sK = sKV + stage * 2 * KV_ELEMS;
-        const __nv_bfloat16* sV = sK + KV_ELEMS;
-
-        // S = Q K^T for this warp's 16 rows
-        {
-            wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[BK / 16];
-#pragma unroll
-            for (int j = 0; j < BK / 16; ++j) wmma::fill_fragment(acc[j], 0.f);
-#pragma unroll
-            for (int kk = 0; kk < HD / 16; ++kk) {
-                wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-                wmma::load_matrix_sync(a, sQ + r0 * L::LDH + kk * 16, L::LDH);
-#pragma unroll
-                for (int j = 0; j < BK / 16; ++j) {
-                    wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> b;
-                    wmma::load_matrix_sync(b, sK + (j * 16) * L::LDH + kk * 16, L::LDH);
-                    wmma::mma_sync(acc[j], a, b, acc[j]);
-                }
-            }
-#pragma unroll
-            for (int j = 0; j < BK / 16; ++j)
-                wmma::store_matrix_sync(sS + r0 * L::LDS + j * 16, acc[j], L::LDS, wmma::mem_row_major);
-        }
-        __syncwarp();
-
-        // interior tile: every key valid, on or below the diagonal of every
-        // row of the block and inside every row's band -- no mask needed
-        const int k0 = t * BK;
-        bool clean = k0 + BK <= len && k0 + BK <= tk;
-        if (CAUSAL) clean = clean && k0 + BK - 1 <= q0;
-        if (CAUSAL && window > 0) clean = clean && q0 + BQ - 1 - k0 < window;
-        float kb[2] = {0.f, 0.f};  // the key-only bias of this lane's two keys
-        if (BIAS == 2) {
-#pragma unroll
-            for (int u = 0; u < 2; ++u) {
-                const int key = k0 + lane + 32 * u;
-                kb[u] = key < tk ? bg[key] : 0.f;
-            }
-        }
-
-        // online softmax, one row at a time; each lane holds 2 of the 64 keys
-#pragma unroll
-        for (int i = 0; i < 16; ++i) {
-            const int r = r0 + i, qrow = q0 + r;
-            float s[2];
-#pragma unroll
-            for (int u = 0; u < 2; ++u) {
-                const int c = lane + 32 * u, key = k0 + c;
-                float x = sS[r * L::LDS + c];
-                if (BIAS == 2) x += kb[u];
-                // the full bias is read only for kept keys (padding keys of
-                // encoder rows are many)
-                if (clean) {
-                    if (BIAS == 1 && qrow < tq) x += bg[(size_t)qrow * tk + key];
-                } else {
-                    bool keep = key < len;
-                    if (CAUSAL) keep = keep && key <= qrow;
-                    if (CAUSAL && window > 0) keep = keep && key > qrow - window;
-                    if (key >= tk) x = -INFINITY;
-                    else if (!keep) x = NEG_INF;
-                    else if (BIAS == 1 && qrow < tq) x += bg[(size_t)qrow * tk + key];
-                }
-                s[u] = x;
-            }
-            float mx = fmaxf(s[0], s[1]);
-#pragma unroll
-            for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, off));
-            const float m_new = fmaxf(m[i], mx);
-            float sum = 0.f;
-#pragma unroll
-            for (int u = 0; u < 2; ++u) {
-                const float e = __expf(s[u] - m_new);
-                const __nv_bfloat16 p = __float2bfloat16(e);
-                sP[r * L::LDP + lane + 32 * u] = p;
-                sum += (HD % 128 == 0) ? e : __bfloat162float(p);
-            }
-#pragma unroll
-            for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(FULL, sum, off);
-            const float alpha = __expf(m[i] - m_new);
-            l[i] = l[i] * alpha + sum;
-            m[i] = m_new;
-            if (lane == 0) sAlpha[r] = alpha;
-        }
-        __syncwarp();
-
-        // O = O * alpha + P V
-        for (int e = lane; e < 16 * HD; e += 32) {
-            const int r = r0 + e / HD;
-            sO[r * L::LDO + e % HD] *= sAlpha[r];
-        }
-        __syncwarp();
-        {
-            wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[HD / 16];
-#pragma unroll
-            for (int j = 0; j < HD / 16; ++j)
-                wmma::load_matrix_sync(acc[j], sO + r0 * L::LDO + j * 16, L::LDO, wmma::mem_row_major);
-#pragma unroll
-            for (int kk = 0; kk < BK / 16; ++kk) {
-                wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-                wmma::load_matrix_sync(a, sP + r0 * L::LDP + kk * 16, L::LDP);
-#pragma unroll
-                for (int j = 0; j < HD / 16; ++j) {
-                    wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b;
-                    wmma::load_matrix_sync(b, sV + (kk * 16) * L::LDH + j * 16, L::LDH);
-                    wmma::mma_sync(acc[j], a, b, acc[j]);
-                }
-            }
-#pragma unroll
-            for (int j = 0; j < HD / 16; ++j)
-                wmma::store_matrix_sync(sO + r0 * L::LDO + j * 16, acc[j], L::LDO, wmma::mem_row_major);
-        }
-        __syncthreads();  // every warp is done with this K/V stage
+        mbar_fence_init();
     }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+        mbar_expect_tx(q_full, F::Q_BYTES);
+        tma_tile<HD, SWB>(smem + F::Q_OFF, &tm_q, q_full, BQ, q0, bh);
+        for (int n = 0; n < S && n < n_tiles; ++n) issue(n);
+    }
+    __syncwarp();
+    {
+        const int cw = threadIdx.x / 128, warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+        const int qw0 = q0 + 64 * cw;                      // this warpgroup's first row
+        const int ra = qw0 + warp * 16 + (lane >> 2);      // this thread's rows: ra, ra + 8
+        const int cq = 2 * (lane & 3);                     // its columns in each 8-column chunk
+        int wlo, whi;
+        key_tile_range(qw0, 64, BK, tq, tk, len, CAUSAL, window, true, wlo, whi);
 
+        float acc_o[HD / 2];
 #pragma unroll
-    for (int i = 0; i < 16; ++i) {
-        const int r = r0 + i, qrow = q0 + r;
-        if (qrow >= tq) break;
-        const float denom = fmaxf(l[i], 1e-30f);
-        __nv_bfloat16* og = o + ((size_t)bh * tq + qrow) * HD;
-        for (int d = lane; d < HD; d += 32) og[d] = __float2bfloat16(sO[r * L::LDO + d] / denom);
-        if (lane == 0) lse[(size_t)bh * tq + qrow] = m[i] + logf(denom);
+        for (int i = 0; i < HD / 2; ++i) acc_o[i] = 0.f;
+        float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+        const unsigned char* sQ = smem + F::Q_OFF;
+        mbar_wait(q_full, 0);
+
+        for (int t = lo; t <= hi; ++t) {
+            const int n = t - lo, s = n % S;
+            mbar_wait(&full[s], (n / S) & 1);
+            if (t >= wlo && t <= whi) {
+                const unsigned char* sK = smem + F::K_OFF + s * F::KV_BYTES;
+                const unsigned char* sV = smem + F::V_OFF + s * F::KV_BYTES;
+                const float* sB = reinterpret_cast<const float*>(smem + F::B_OFF + s * F::BIAS_SLOT);
+
+                // S = Q K^T for this warpgroup's 64 rows
+                float acc_s[BK / 2];
+                wg_fence();
+#pragma unroll
+                for (int kk = 0; kk < HD / 16; ++kk)
+                    wgmma_ss<BK>(acc_s, desc_k<HD, SWB>(sQ, BQ, 64 * cw, kk), desc_k<HD, SWB>(sK, BK, 0, kk), kk > 0);
+                wg_commit();
+                wg_wait<0>();
+                fence_regs(acc_s);
+
+                // bias and mask; interior tiles (every key valid, on or below
+                // the diagonal and inside the band of every row) skip the mask
+                const int k0 = t * BK;
+                bool clean = k0 + BK <= len && k0 + BK <= tk;
+                if (CAUSAL) clean = clean && k0 + BK - 1 <= qw0 && (window <= 0 || qw0 + 63 - k0 < window);
+#pragma unroll
+                for (int j = 0; j < BK / 8; ++j) {
+                    const int c = 8 * j + cq;
+                    float2 kb = make_float2(0.f, 0.f);
+                    if (BIAS == 2) kb = *reinterpret_cast<const float2*>(sB + c);
+#pragma unroll
+                    for (int i = 0; i < 2; ++i) {
+                        const int row = ra + 8 * i, lr = row - q0;
+#pragma unroll
+                        for (int u = 0; u < 2; ++u) {
+                            float x = acc_s[4 * j + 2 * i + u];
+                            if (BIAS == 2) x += u ? kb.y : kb.x;
+                            const int key = k0 + c + u;
+                            if (clean) {
+                                if (BIAS == 1) x += f32_tile_at(sB, BQ, lr, c + u);
+                            } else {
+                                bool keep = key < len;
+                                if (CAUSAL) keep = keep && key <= row && (window <= 0 || key > row - window);
+                                if (key >= tk) x = -INFINITY;
+                                else if (!keep) x = NEG_INF;
+                                else if (BIAS == 1) x += f32_tile_at(sB, BQ, lr, c + u);
+                            }
+                            acc_s[4 * j + 2 * i + u] = x;
+                        }
+                    }
+                }
+
+                // online softmax in registers
+                float alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+                for (int i = 0; i < 2; ++i) {
+                    float mx = -INFINITY;
+#pragma unroll
+                    for (int j = 0; j < BK / 8; ++j) mx = fmaxf(mx, fmaxf(acc_s[4 * j + 2 * i], acc_s[4 * j + 2 * i + 1]));
+                    mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 1));
+                    mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 2));
+                    const float m_new = fmaxf(m[i], mx);
+                    alpha[i] = __expf(m[i] - m_new);
+                    m[i] = m_new;
+                }
+#pragma unroll
+                for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+                    for (int i = 0; i < 2; ++i)
+#pragma unroll
+                        for (int u = 0; u < 2; ++u) {
+                            const float e = __expf(acc_s[4 * j + 2 * i + u] - m[i]);
+                            sum[i] += (HD % 128 == 0) ? e : __bfloat162float(__float2bfloat16(e));
+                            acc_s[4 * j + 2 * i + u] = e;
+                        }
+#pragma unroll
+                for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + sum[i];
+#pragma unroll
+                for (int j = 0; j < HD / 8; ++j)
+#pragma unroll
+                    for (int i = 0; i < 2; ++i) {
+                        acc_o[4 * j + 2 * i] *= alpha[i];
+                        acc_o[4 * j + 2 * i + 1] *= alpha[i];
+                    }
+
+                // O += P V, P from registers
+                uint32_t pa[BK / 16][4];
+                pack_a<BK>(acc_s, pa);
+                fence_regs(acc_o);
+                fence_regs(pa);
+                wg_fence();
+#pragma unroll
+                for (int kk = 0; kk < BK / 16; ++kk) wgmma_rs<HD>(acc_o, pa[kk], desc_mn<HD, SWB>(sV, BK, kk));
+                wg_commit();
+                wg_wait<0>();
+                fence_regs(acc_o);
+                fence_regs(pa);
+            }
+            release_stage(&released[s], cw, [&] {
+                if (n + S < n_tiles) issue(n + S);
+            });
+        }
+
+        float inv[2];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+            l[i] += __shfl_xor_sync(FULL, l[i], 1);
+            l[i] += __shfl_xor_sync(FULL, l[i], 2);
+            const float denom = fmaxf(l[i], 1e-30f);
+            inv[i] = 1.f / denom;
+            const int row = ra + 8 * i;
+            if ((lane & 3) == 0 && row < tq) lse[(size_t)bh * tq + row] = m[i] + logf(denom);
+        }
+        store_rows<HD>(acc_o, o + (size_t)bh * tq * HD, qw0, tq, inv[0], inv[1]);
     }
 }
 
 template <int HD, bool CAUSAL, int BIAS>
 int launch_form(const void* q, const void* k, const void* v, const int* kv_lens, const float* bias, int bh,
                 int n_heads, int tq, int tk, int window, void* o, float* lse, cudaStream_t stream) {
+    using F = Fwd<HD, CAUSAL, BIAS>;
+    CUtensorMap mq, mk, mv, mb;
+    memset(&mb, 0, sizeof(mb));
+    const int ldb = f32_pitch(tk);
+    bool ok = map_bf16_tiles(&mq, q, bh, tq, HD, F::BQ) && map_bf16_tiles(&mk, k, bh, tk, HD, F::BK) &&
+              map_bf16_tiles(&mv, v, bh, tk, HD, F::BK);
+    if (BIAS == 1) ok = ok && map_f32_tiles(&mb, bias, n_heads, tq, ldb, F::BQ);
+    if (BIAS == 2) ok = ok && map_f32_vector(&mb, bias, (uint64_t)n_heads * ldb, F::BK);
+    if (!ok) return (int)cudaErrorInvalidValue;
     auto kern = flash_fwd_kernel<HD, CAUSAL, BIAS>;
-    const int smem = (int)Layout<HD>::BYTES;
-    cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)F::SMEM);
     if (err != cudaSuccess) return (int)err;
-    dim3 grid((tq + BQ - 1) / BQ, bh);
-    kern<<<grid, THREADS, smem, stream>>>(static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-                                          static_cast<const __nv_bfloat16*>(v), kv_lens, bias, n_heads, tq, tk,
-                                          window, static_cast<__nv_bfloat16*>(o), lse);
-    return (int)cudaGetLastError();
+    void* args[] = {&mq, &mk, &mv, &mb, &kv_lens, &n_heads, &tq, &tk, &window, &o, &lse};
+    err = cudaLaunchKernel((const void*)kern, dim3(bh, cdiv(tq, F::BQ)), dim3(THREADS), args, F::SMEM, stream);
+    return (int)err;
+}
+
+// registers, shared memory, blocks per SM, local (spill) bytes, BK and BQ of a form
+template <int HD, bool CAUSAL, int BIAS>
+int form_info(int* out) {
+    using F = Fwd<HD, CAUSAL, BIAS>;
+    auto kern = flash_fwd_kernel<HD, CAUSAL, BIAS>;
+    cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)F::SMEM);
+    cudaFuncAttributes attr;
+    if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, (const void*)kern);
+    int blocks = 0;
+    if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kern, THREADS, F::SMEM);
+    if (err != cudaSuccess) return (int)err;
+    out[0] = attr.numRegs;
+    out[1] = (int)F::SMEM;
+    out[2] = blocks;
+    out[3] = (int)attr.localSizeBytes;
+    out[4] = F::BK;
+    out[5] = F::BQ;
+    return 0;
 }
 
 template <int HD, bool CAUSAL>
@@ -318,14 +320,27 @@ int launch_flash(const void* q, const void* k, const void* v, const int* kv_lens
     return launch_bias<HD, false>(q, k, v, kv_lens, bias, bias_rows, bh, n_heads, tq, tk, 0, o, lse, stream);
 }
 
+template <int HD, bool CAUSAL>
+int info_bias(int bias_kind, int* out) {
+    if (bias_kind == 0) return form_info<HD, CAUSAL, 0>(out);
+    if (bias_kind == 2) return form_info<HD, CAUSAL, 2>(out);
+    return form_info<HD, CAUSAL, 1>(out);
+}
+
+template <int HD>
+int info_form(int causal, int bias_kind, int* out) {
+    return causal ? info_bias<HD, true>(bias_kind, out) : info_bias<HD, false>(bias_kind, out);
+}
+
 }  // namespace
 
 extern "C" {
 
-// q (bh, tq, hd), k and v (bh, tk, hd) bf16; kv_lens (bh,) int32; bias
-// (n_heads, bias_rows, tk) f32 with bias_rows = tq (full) or 1 (key-only),
-// or null; causal 0/1; window 0 (none) or > 0 (causal only); o (bh, tq,
-// hd) bf16; lse (bh, tq) f32.
+// q (bh, tq, hd), k and v (bh, tk, hd) bf16, 16-byte aligned; kv_lens (bh,)
+// int32; bias (n_heads, bias_rows, ldb) f32 with bias_rows = tq (full) or 1
+// (key-only) and rows padded to ldb = tk rounded up to a multiple of 4 (TMA
+// strides are 16-byte multiples), or null; causal 0/1; window 0 (none) or
+// > 0 (causal only); o (bh, tq, hd) bf16; lse (bh, tq) f32.
 int vqa_flash_fwd(const void* q, const void* k, const void* v, const void* kv_lens, const void* bias, int bias_rows,
                   int bh, int n_heads, int tq, int tk, int hd, int causal, int window, void* o, void* lse,
                   void* stream) {
@@ -341,6 +356,18 @@ int vqa_flash_fwd(const void* q, const void* k, const void* v, const void* kv_le
         case 64: return launch_flash<64>(q, k, v, lens, b, bias_rows, bh, n_heads, tq, tk, causal, window, o, ls, st);
         case 128:
             return launch_flash<128>(q, k, v, lens, b, bias_rows, bh, n_heads, tq, tk, causal, window, o, ls, st);
+        default: return (int)cudaErrorInvalidValue;
+    }
+}
+
+// out[6] = registers a thread, dynamic shared memory, blocks per SM, local
+// bytes a thread (spills) and the key and query tiles of the form (hd,
+// causal, bias 0 none / 1 full / 2 key-only)
+int vqa_flash_fwd_info(int hd, int causal, int bias_kind, int* out) {
+    switch (hd) {
+        case 32: return info_form<32>(causal, bias_kind, out);
+        case 64: return info_form<64>(causal, bias_kind, out);
+        case 128: return info_form<128>(causal, bias_kind, out);
         default: return (int)cudaErrorInvalidValue;
     }
 }

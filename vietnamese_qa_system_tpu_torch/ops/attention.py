@@ -22,6 +22,14 @@ The forward is also registered as the operator ``vqa_torch::flash_fwd`` so
 that the selective remat policies of models/layers.py can save its outputs
 (``flash_out`` / ``flash_lse`` in the JAX package) instead of re-running the
 kernel in the backward.
+
+The kernels read their operands by TMA: q, k, v, dO and lse must be
+16-byte aligned, and the bias, lse and dd are handed over with their rows
+padded to a multiple of 4 floats (TMA strides and the starts of its 1-D
+boxes are 16-byte multiples).  Which key tiles a query tile visits (and
+which query tiles a key tile meets in the backward) is
+:func:`key_tile_range` / :func:`query_tile_range`, the kernels' rule
+written out so the CPU tests can hold it against the plain mask.
 """
 
 from __future__ import annotations
@@ -44,6 +52,50 @@ def _keep(tq: int, tk: int, kv_lens, causal: bool, window, device):
     if window:
         keep = keep & (keys > qs - window)
     return keep
+
+
+def key_tile_range(r0: int, rows: int, bk: int, tq: int, tk: int, kv_len: int, causal: bool, window,
+                   all_if_empty: bool = True) -> tuple[int, int]:
+    """The key tiles ``[lo, hi]`` (of ``bk`` keys) that query rows ``[r0, r0
+    + rows)`` below ``tq`` visit in K4 (and, with ``all_if_empty=False``, in
+    K7's dQ kernel); ``lo > hi``: none.  A tile is skipped only if it holds
+    no key that any of these rows keeps: tiles wholly past ``kv_len``, above
+    the causal diagonal or below the window band.  A row that keeps no key
+    at all (``kv_len == 0``, or a windowed row at or past ``kv_len + window -
+    1``) averages V over every key in the forward (the finite NEG_INF), so
+    with ``all_if_empty`` such a row makes the range every tile.  The same
+    rule as ``key_tile_range`` in ``csrc/hopper.cuh``."""
+    window = window or 0
+    r1 = min(r0 + rows, tq) - 1
+    if r1 < r0:
+        return 0, -1
+    empty_row = kv_len <= 0 or (causal and window > 0 and r1 >= kv_len + window - 1)
+    if empty_row and all_if_empty:
+        return 0, -(-tk // bk) - 1
+    last = min(kv_len, tk) - 1
+    if causal:
+        last = min(last, r1)
+    if last < 0:
+        return 0, -1
+    lo = (r0 - window + 1) // bk if causal and window > 0 and r0 - window + 1 > 0 else 0
+    return lo, last // bk
+
+
+def query_tile_range(k0: int, keys: int, bq: int, tq: int, tk: int, kv_len: int, causal: bool,
+                     window) -> tuple[int, int]:
+    """The query tiles ``[lo, hi]`` (of ``bq`` rows) that keys ``[k0, k0 +
+    keys)`` meet in a kept pair: K7's dK/dV loop (``lo > hi``: none, the
+    keys' gradients are zero).  ``query_tile_range`` in ``csrc/hopper.cuh``."""
+    window = window or 0
+    k1 = min(k0 + keys, kv_len, tk) - 1
+    if k1 < k0:
+        return 0, -1
+    first, last = (k0 if causal else 0), tq - 1
+    if causal and window > 0:
+        last = min(last, k1 + window - 1)
+    if first > last:
+        return 0, -1
+    return first // bq, last // bq
 
 
 def _scores(qb, kb, bias, n_heads: int):
@@ -78,6 +130,8 @@ def _check(qb, kb, vb, kv_lens, bias, n_heads: int, causal: bool, window) -> int
     for name, t in (("q", qb), ("k", kb), ("v", vb)):
         if t.dtype != torch.bfloat16 or not t.is_contiguous() or t.device != qb.device:
             raise ValueError(f"flash: {name} must be a contiguous bf16 tensor on {qb.device}")
+        if t.data_ptr() % 16:
+            raise ValueError(f"flash: {name} must be 16-byte aligned (the kernels read it by TMA)")
     if kb.shape != (bh, tk, d) or vb.shape != (bh, tk, d):
         raise ValueError(f"flash: k {tuple(kb.shape)} / v {tuple(vb.shape)} do not match q {tuple(qb.shape)}")
     if d not in (32, 64, 128):
@@ -96,6 +150,19 @@ def _check(qb, kb, vb, kv_lens, bias, n_heads: int, causal: bool, window) -> int
     return bias.shape[1]
 
 
+def _f32_rows(x):
+    """An f32 operand as the kernels read it (the bias, lse, dd): rows
+    padded to a multiple of 4 floats, 16-byte aligned (TMA strides,
+    addresses and the starts of its 1-D boxes are 16-byte multiples); the
+    padding lies past Tk (bias) or Tq (lse, dd) and is masked."""
+    if x is None:
+        return None
+    pad = -x.shape[-1] % 4
+    if pad or x.data_ptr() % 16:
+        x = torch.nn.functional.pad(x, (0, pad)).contiguous()
+    return x
+
+
 def flash_fwd(qb, kb, vb, kv_lens, bias, n_heads: int, causal: bool = False, window: int | None = None):
     """K4 on (BH, T, D) bf16 slabs (q pre-scaled), ``kv_lens`` (BH,) int32,
     ``bias`` (H, Tq, Tk) or (H, 1, Tk) f32 or None, ``causal``, ``window``
@@ -103,6 +170,7 @@ def flash_fwd(qb, kb, vb, kv_lens, bias, n_heads: int, causal: bool = False, win
     if not on_card(qb):
         return flash_fwd_plain(qb, kb, vb, kv_lens, bias, n_heads, causal, window)
     bias_rows = _check(qb, kb, vb, kv_lens, bias, n_heads, causal, window)
+    bias = _f32_rows(bias)
     bh, tq, d = qb.shape
     o = torch.empty((bh, tq, d), dtype=torch.bfloat16, device=qb.device)
     lse = torch.empty((bh, tq), dtype=torch.float32, device=qb.device)
@@ -145,7 +213,10 @@ def flash_bwd(qb, kb, vb, o, lse, do, kv_lens, bias, n_heads: int, causal: bool 
                                   ("lse", lse, (bh, tq), torch.float32)):
         if t.shape != shape or t.dtype != dtype or not t.is_contiguous() or t.device != qb.device:
             raise ValueError(f"flash_bwd: {name} must be a contiguous {shape} {dtype} tensor on {qb.device}")
-    dd = (do.float() * o.float()).sum(dim=-1).contiguous()
+        if name != "o" and t.data_ptr() % 16:  # o feeds only dd, in torch
+            raise ValueError(f"flash_bwd: {name} must be 16-byte aligned (the kernels read it by TMA)")
+    bias = _f32_rows(bias)
+    lse, dd = _f32_rows(lse), _f32_rows((do.float() * o.float()).sum(dim=-1))
     dq = torch.empty_like(qb)
     dk = torch.empty_like(kb)
     dv = torch.empty_like(vb)

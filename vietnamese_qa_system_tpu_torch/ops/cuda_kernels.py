@@ -5,10 +5,10 @@ Each source file in ``csrc/`` that a :class:`Kernel` names is compiled by
 interface, loaded through ``ctypes``; the ``nvcc`` processes of all files
 run at once.  The build runs at first
 use, from the sources in the checkout only, into ``csrc/build/`` under
-names keyed on a hash of each source and the flags, so an edited kernel is
-never served from a stale library.  Nothing here runs
-at import time: the CPU tests import every module on a machine without
-``nvcc``.
+names keyed on a hash of each source, the shared headers (``*.cuh``) and
+the flags, so an edited kernel is never served from a stale library.
+Nothing here runs at import time: the CPU tests import every module on a
+machine without ``nvcc``.
 
 Each :class:`Kernel` counts its successful launches, so a run can show that
 its main path went through the kernel and not through a plain version.
@@ -50,9 +50,12 @@ def _nvcc() -> str:
 
 
 def _lib_path(file: str) -> str:
+    """The library of ``file``, keyed on the flags, the source and every
+    header in ``csrc/`` (a header edit rebuilds the sources)."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    with open(os.path.join(CSRC, file), "rb") as f:
-        h.update(f.read())
+    for name in [file] + sorted(n for n in os.listdir(CSRC) if n.endswith(".cuh")):
+        with open(os.path.join(CSRC, name), "rb") as f:
+            h.update(f.read())
     return os.path.join(BUILD_DIR, f"libvqa_{file[:-3]}_{h.hexdigest()[:16]}.so")
 
 
