@@ -8,15 +8,19 @@ It builds the port's CUDA kernels from ``vietnamese_qa_system_tpu_torch/
 csrc`` (one nvcc per source, all at once), holds each kernel against its
 plain PyTorch version at the shapes of its serving path, times it beside
 its bound and a PyTorch library call, prints the registers, shared memory
-and blocks per SM of every flash variant (ptxas must report no spills),
-holds the flash forward and backward against their plain versions at the
-edges of their tiles (FLASH_EDGES), then drives three serving paths once:
+and blocks per SM of every flash variant, of K1's cluster scan and of K6
+(ptxas must report no spills), holds K1 on exact ties across its tiles,
+warpgroups and clusters at every batch and route (TOPK_BATCHES, k 10 and
+256), checks that a K6 call is one kernel launch, holds the flash forward
+and backward against their plain versions at the edges of their tiles
+(FLASH_EDGES), then drives three serving paths once:
 
 - retrieval, at the full width of the ``mpnet_class`` encoder (random
   weights from a seed): four 1M-row vector stores, ingest of 2,048
   synthetic Vietnamese passages at max_len 512 (the flash kernel), an HTTP
   server answering /search and /ingest, and top-k on the three int8 stores
-  held against the plain path;
+  and a rerank of 256 on the bf16 store (K1's tile-scan route) held against
+  the plain path;
 - question answering, at the full width of ``phogpt_4b_class`` (32 layers,
   d 3072, int8c weights drawn on the card from a seed): ``QAPipeline``
   behind HTTP ``/qa`` answering concurrent questions over the retrieval
@@ -107,6 +111,10 @@ W8_ROWS = (1, 8, 16)
 W8_SHAPES = ((3072, 3072), (3072, 12288), (12288, 3072))
 W8_PER_LAYER = {(3072, 3072): 4, (3072, 12288): 1, (12288, 3072): 1}
 W8_REL_TOL = 1e-4  # max abs err / max |plain|: the same exact products summed in another order
+W8_CHECK_ROWS = (64, 256)  # larger batches, checked at the first shape
+K1_SCORE_TOL = 2e-3  # wgmma sums the exact bf16 products in another order than the f32 product
+TOPK_BATCHES = (1, 8, 200, 256, 512)  # 1-, 2- and 4-CTA clusters, and two groups of 256
+RERANK_BATCH = 32  # the Retriever's query batch on the HTTP /search path
 READER_QUESTIONS, READER_PROMPT_LEN, READER_NEW_TOKENS = 8, 512, 32
 # 4 rows x (48 + 15) tokens = 252 rows: the teacher-forced check takes K6 too
 TWIN_LAYERS, TWIN_ROWS, TWIN_PROMPT_LEN, TWIN_NEW_TOKENS = 2, 4, 48, 16
@@ -207,32 +215,123 @@ def rank_recall(q, corpus, ids, k: int) -> float:
     return (counts < k).float().mean().item()
 
 
+def ptxas_report(file: str, function: str) -> str:
+    """The -Xptxas -v lines of one kernel function of a source's build log:
+    its stack frame, spill stores and loads, registers and barriers."""
+    from vietnamese_qa_system_tpu_torch.ops import cuda_kernels
+
+    with open(cuda_kernels._lib_path(file)[:-3] + ".log") as f:
+        lines = f.read().splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and function in line:
+            rest = []
+            for x in lines[i + 1:]:
+                if "Compiling entry function" in x:
+                    break
+                if "bytes stack frame" in x or "Used" in x:
+                    rest.append(x.split("ptxas info    :")[-1].strip())
+            return " / ".join(rest)
+    raise RuntimeError(f"{file}: no ptxas report of {function}")
+
+
+def tie_corpus(torch, T, corpus, valid: int, gen):
+    """``corpus`` with exact ties at the edges of K1's work: rows 16 h at
+    the first row of every cluster's corpus range and the row before it
+    (the ranges of 1-, 2- and 4-CTA clusters), on both sides of every 54th
+    tile edge (tiles alternate between the warpgroups), at valid - 1 and at
+    valid (past valid_n: never a result).  h is +-2^-5, so each tied row
+    scores exactly 12 against q = h in any summation order, far above every
+    random row (|q . r| < 5), and the ties resolve by index alone."""
+    h = (torch.randint(0, 2, (D,), generator=gen, device="cuda") * 2 - 1).to(torch.bfloat16) / 32
+    tiles = -(-valid // 128)
+    rows = {valid - 1, valid}
+    for b in (1, 100, 256):
+        _, clusters = T.cluster_plan(b, K, D, valid, torch.device("cuda"))
+        for c in range(1, clusters):
+            start = c * tiles // clusters * 128
+            rows |= {start - 1, start}
+    step = tiles // 151
+    rows |= {e for j in range(1, 151) for e in (128 * j * step - 1, 128 * j * step)}
+    tied = corpus.clone()
+    tied[sorted(rows)] = 16 * h
+    return tied, h
+
+
 def phase_topk(torch, T, quant, gen, report):
-    """K1-K3 against their plain versions at the serving shape."""
-    q = torch.randn(B, D, generator=gen, device="cuda").to(torch.bfloat16)
+    """K1 (both routes), K2 and K3 against their plain versions at the
+    serving shape; K1 also on exact ties at every batch and k."""
     corpus = torch.randn(N, D, generator=gen, device="cuda").to(torch.bfloat16)
-    s, i = T.topk_bf16(q, corpus, N, K)
-    ps, _ = T.topk_bf16_plain(q, corpus, N, K)
-    torch.cuda.synchronize()
-    rec = rank_recall(q, corpus, i, K)
-    print(f"bf16 top-{K} recall by rank count: {rec:.3f}")
-    check(rec == 1.0, f"K1 bf16 B={B} N={N} k={K}: recall 1.000 by the rank-count rule")
-    err = (s - ps).abs().max().item()
+    for b in (B, 8):
+        q = torch.randn(b, D, generator=gen, device="cuda").to(torch.bfloat16)
+        s, i = T.topk_bf16(q, corpus, N, K)
+        s2, i2 = T.topk_bf16(q, corpus, N, K)
+        ps, _ = T.topk_bf16_plain(q, corpus, N, K)
+        torch.cuda.synchronize()
+        rec, err = rank_recall(q, corpus, i, K), (s - ps).abs().max().item()
+        print(f"K1 bf16 B={b} top-{K} ({T.bf16_route(K, D)} route): recall by rank count {rec:.3f}, scores within "
+              f"{err:.2e} of the plain version", flush=True)
+        check(rec == 1.0 and err <= K1_SCORE_TOL and torch.equal(i, i2) and torch.equal(s, s2),
+              f"K1 bf16 B={b} N={N} k={K}: recall 1.000 by the rank-count rule, scores within {K1_SCORE_TOL} of the "
+              "plain version, repeats bit for bit")
+        ms = cuda_ms(lambda: T.topk_bf16(q, corpus, N, K), 10)
+        lib_ms = cuda_ms(lambda: torch.topk(q @ corpus.T, K), 5)
+        bnd = bound(b * D * 2 + N * D * 2 + b * K * 8, 2 * b * N * D, BF16_OPS_S)
+        print(f"K1 bf16 B={b} N={N} D={D} k={K}: kernel {ms:.4f} ms, library (matmul + topk) {lib_ms:.4f} ms, bound "
+              f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}), {bnd['bound_ms'] / ms:.2f} of the bound", flush=True)
+        if b == B:
+            report["matmul_topk_bf16"] = {
+                "max_abs_err": err, "ms": ms, "plain_ms": cuda_ms(lambda: T.topk_bf16_plain(q, corpus, N, K), 3),
+                "library_ms": lib_ms, "library_call": "composite: torch.matmul (bf16 scores) then torch.topk", **bnd}
+        else:
+            report["matmul_topk_bf16"].update(b8_ms=ms, b8_library_ms=lib_ms, b8_bound_ms=bnd["bound_ms"])
     valid = N - 12345
-    _, iv = T.topk_bf16(q[:64], corpus, valid, K)
+    q = torch.randn(B, D, generator=gen, device="cuda").to(torch.bfloat16)
+    _, iv = T.topk_bf16(q, corpus, valid, K)
     torch.cuda.synchronize()
-    check(int(iv.max()) < valid and rank_recall(q[:64], corpus[:valid], iv, K) == 1.0,
-          f"K1 bf16 valid_n={valid} < N: ids below valid_n, recall 1.000")
-    out_bytes = B * K * 8  # f32 scores + int32 ids
-    report["matmul_topk_bf16"] = {
-        "max_abs_err": err,
-        "ms": cuda_ms(lambda: T.topk_bf16(q, corpus, N, K), 10),
-        "plain_ms": cuda_ms(lambda: T.topk_bf16_plain(q, corpus, N, K), 3),
-        "library_ms": cuda_ms(lambda: torch.topk(q @ corpus.T, K), 5),
+    check(int(iv.max()) < valid and rank_recall(q, corpus[:valid], iv, K) == 1.0,
+          f"K1 bf16 B={B} valid_n={valid} < N: ids below valid_n, recall 1.000")
+    # the tile-scan route at an explicit rerank's k, at the serving path's query batch
+    qr = q[:RERANK_BATCH].contiguous()
+    s, i = T.topk_bf16(qr, corpus, N, T.MAX_K)
+    ps, pi = T.topk_bf16_plain(qr, corpus, N, T.MAX_K)
+    torch.cuda.synchronize()
+    err = (s - ps).abs().max().item()
+    check(T.bf16_route(T.MAX_K, D) == "scan" and err <= K1_SCORE_TOL and rank_recall(qr, corpus, i, T.MAX_K) == 1.0,
+          f"K1 bf16 tile scan B={RERANK_BATCH} k={T.MAX_K}: scores within {K1_SCORE_TOL} of the plain version, "
+          "recall 1.000")
+    report["matmul_topk_bf16_scan"] = {
+        "max_abs_err": err, "ms": cuda_ms(lambda: T.topk_bf16(qr, corpus, N, T.MAX_K), 5),
+        "plain_ms": cuda_ms(lambda: T.topk_bf16_plain(qr, corpus, N, T.MAX_K), 3),
+        "library_ms": cuda_ms(lambda: torch.topk(qr @ corpus.T, T.MAX_K), 5),
         "library_call": "composite: torch.matmul (bf16 scores) then torch.topk",
-        **bound(B * D * 2 + N * D * 2 + out_bytes, 2 * B * N * D, BF16_OPS_S),
+        "shape": f"B {RERANK_BATCH}, k {T.MAX_K}",
+        **bound(RERANK_BATCH * D * 2 + N * D * 2 + RERANK_BATCH * T.MAX_K * 8, 2 * RERANK_BATCH * N * D, BF16_OPS_S),
     }
+
+    # exact ties across tiles, warpgroups and clusters: ids equal the plain version's
+    tied, h = tie_corpus(torch, T, corpus, valid, gen)
     del corpus
+    for b in TOPK_BATCHES:
+        q = (h[None, :] * 2.0 ** -(torch.arange(b, device="cuda")[:, None] % 3)).to(torch.bfloat16)
+        for k in (K, T.MAX_K):
+            s, i = T.topk_bf16(q, tied, valid, k)
+            ps, pi = T.topk_bf16_plain(q, tied, valid, k)
+            torch.cuda.synchronize()
+            check(torch.equal(i, pi) and (s - ps).abs().max().item() == 0.0,
+                  f"K1 ties B={b} k={k} ({T.bf16_route(k, D)} route, {T.cluster_size(b)}-CTA clusters): ids and "
+                  "scores equal the plain version's")
+    del tied
+    info = {c: T.cluster_info(c, K, D) for c in (1, 2, 4)}
+    for c, row in info.items():
+        print(f"K1 cluster scan, {c}-CTA clusters, k={K}, D={D}: {row['registers']} registers, {row['shared_bytes']} B "
+              f"shared, {row['stages']} ring stages, {row['max_clusters']} clusters at once, {row['local_bytes']} B "
+              "local", flush=True)
+    report["matmul_topk_bf16"].update(registers=info[4]["registers"], shared_bytes=info[4]["shared_bytes"],
+                                      stages=info[4]["stages"], clusters_at_once={c: r["max_clusters"]
+                                                                                  for c, r in info.items()})
+    rep = ptxas_report("topk.cu", "topk_cluster_kernel")
+    print(f"K1 cluster scan, ptxas: {rep}", flush=True)
+    check("0 bytes spill stores, 0 bytes spill loads" in rep, "K1 cluster scan: ptxas reports no spills")
 
     base = torch.randn(N, D, generator=gen, device="cuda")
     codes, scales = quant.quantize_int8_reference(base)
@@ -260,7 +359,7 @@ def phase_topk(torch, T, quant, gen, report):
             "plain_ms": cuda_ms(lambda: plain(N, K), 3),
             "library_ms": cuda_ms(library, 5),
             "library_call": "composite: torch._int_mm (int32 scores) then torch.topk",
-            **bound(B * D + N * D + N * n_scale + out_bytes, 2 * B * N * D, INT8_OPS_S),
+            **bound(B * D + N * D + N * n_scale + B * K * 8, 2 * B * N * D, INT8_OPS_S),
         }
 
 
@@ -430,15 +529,26 @@ def issued_flops(A, bh_lens, tq: int, tk: int, d: int, causal: bool, window, bq:
 
 
 def phase_w8(torch, report):
-    """K6 against its plain version at the PhoGPT-4B decode shapes, timed
-    over enough weight copies to stream them from HBM as a decode step
-    does (one layer's weights never stay in L2 across a 32-layer step).
-    Device times come from CUDA graph replays; the host-paced time of the
-    same calls (events around plain launches) is printed beside them."""
+    """K6 against its plain version at the PhoGPT-4B decode shapes (and at
+    M 64 and 256 at the first), timed over enough weight copies to stream
+    them from HBM as a decode step does (one layer's weights never stay in
+    L2 across a 32-layer step).  Device times come from CUDA graph replays;
+    the host-paced time of the same calls (events around plain launches)
+    is printed beside them, and a profiler pass counts one call's kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     from vietnamese_qa_system_tpu_torch.models.quantize import dequantize_weight, quantize_weight
     from vietnamese_qa_system_tpu_torch.ops import w8_matmul as W
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    info = W.kernel_info()
+    print(f"K6 w8_matmul: {info['registers']} registers, {info['shared_bytes']} B shared, {info['blocks_per_sm']} "
+          f"blocks an SM, {info['local_bytes']} B local; grid = {W.resident_slots(0)} resident slots", flush=True)
+    rep = ptxas_report("w8_matmul.cu", "w8_gemm_kernel")
+    print(f"K6 w8_matmul, ptxas: {rep}", flush=True)
+    check("0 bytes spill stores, 0 bytes spill loads" in rep and info["blocks_per_sm"] >= 1,
+          "K6: ptxas reports no spills, the kernel fits an SM")
     layer = dict.fromkeys(("ms", "plain_ms", "library_ms", "bound_ms"), 0.0)
     worst = 0.0
     for k, n in W8_SHAPES:
@@ -447,7 +557,7 @@ def phase_w8(torch, report):
         wqs = [leaf["w_q"].clone() for _ in range(copies)]
         w_bf16 = [dequantize_weight(wq, leaf["w_s"], torch.bfloat16) for wq in wqs]
         ws = leaf["w_s"]
-        for m in W8_ROWS:
+        for m in W8_ROWS + (W8_CHECK_ROWS if (k, n) == W8_SHAPES[0] else ()):
             x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
             y = W.w8_matmul(x, wqs[0], ws, out_dtype=torch.float32)
             again = W.w8_matmul(x, wqs[0], ws, out_dtype=torch.float32)
@@ -455,10 +565,14 @@ def phase_w8(torch, report):
             torch.cuda.synchronize()
             err = (y - ref).abs().max().item()
             rel = err / ref.abs().max().item()
+            plan = W.partition(m, k, n, W.resident_slots(0))
             check(rel <= W8_REL_TOL and torch.equal(y, again),
-                  f"K6 w8_matmul M={m} K={k} N={n}: max abs err {err:.3e} ({rel:.2e} of max |y|) <= {W8_REL_TOL}, "
-                  "repeats bit for bit")
+                  f"K6 w8_matmul M={m} K={k} N={n} ({plan.grid} blocks, {plan.units} units): max abs err {err:.3e} "
+                  f"({rel:.2e} of max |y|) <= {W8_REL_TOL}, repeats bit for bit")
             worst = max(worst, err)
+            if m not in W8_ROWS:
+                continue
+
             def kernel(it=itertools.cycle(wqs)):
                 return W.w8_matmul(x, next(it), ws, out_dtype=torch.float32)
 
@@ -468,19 +582,32 @@ def phase_w8(torch, report):
                 "library_ms": graph_ms(lambda it=itertools.cycle(w_bf16): torch.matmul(x, next(it)), 24),
                 **bound(m * k * 2 + k * n + n * 4 + m * n * 4, 2 * m * k * n, BF16_OPS_S),
             }
-            print(f"K6 M={m:2d} K={k:5d} N={n:5d}: kernel {rows['ms'] * 1e3:7.2f} us (host-paced "
-                  f"{cuda_ms(kernel, 60) * 1e3:6.2f}), plain {rows['plain_ms'] * 1e3:7.2f} us, library (bf16 "
-                  f"weight, twice the bytes) {rows['library_ms'] * 1e3:7.2f} us, bound {rows['bound_ms'] * 1e3:6.2f} "
-                  f"us ({rows['bound_by']})", flush=True)
+            print(f"K6 M={m:2d} K={k:5d} N={n:5d}: kernel {rows['ms'] * 1e3:7.2f} us ({k * n / rows['ms'] / 1e9:.2f} TB/s "
+                  f"of weights, {rows['bound_ms'] / rows['ms']:.2f} of the HBM rate's bound; host-paced "
+                  f"{cuda_ms(kernel, 60) * 1e3:6.2f}), plain {rows['plain_ms'] * 1e3:7.2f} us, library (bf16 weight, "
+                  f"twice the bytes) {rows['library_ms'] * 1e3:7.2f} us, bound {rows['bound_ms'] * 1e3:6.2f} us "
+                  f"({rows['bound_by']})", flush=True)
             if m == 8:
                 for key in layer:
                     layer[key] += W8_PER_LAYER[(k, n)] * rows[key]
         del wqs, w_bf16
+    # one call is one kernel launch (the split-K sum happens inside it)
+    x = torch.randn(8, 3072, generator=gen, device="cuda").to(torch.bfloat16)
+    leaf = quantize_weight(torch.randn(3072, 3072, generator=gen, device="cuda") * 0.02, "int8c")
+    W.w8_matmul(x, leaf["w_q"], leaf["w_s"], out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        W.w8_matmul(x, leaf["w_q"], leaf["w_s"], out_dtype=torch.float32)
+        torch.cuda.synchronize()
+    launched = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    check(len(launched) == 1 and "w8_gemm_kernel" in launched[0],
+          f"K6: one call at M=8 K=3072 N=3072 is one kernel launch (profiler: {launched})")
     report["w8_matmul"] = {
         "max_abs_err": worst, **layer, "bound_by": "bytes",
         "library_call": "composite: torch.matmul of bf16 x with a pre-dequantized bf16 weight (twice the bytes)",
         "shape": "one PhoGPT-4B layer's six calls at M=8: 4x (3072,3072) + (3072,12288) + (12288,3072)",
         "timing": "device time, CUDA graph replay of 24 calls over weight copies larger than L2",
+        **info,
     }
 
 
@@ -661,6 +788,12 @@ def phase_slice(torch, pkg, gen):
             ok = same_ids and torch.equal(s.cpu(), ps)
         check(ok and bool((i[:, 0].cpu() == torch.arange(32)).all()),
               f"{dt} store top-{K} equals the plain path; each query finds its source vector first")
+    # an explicit rerank of MAX_K candidates on the bf16 store (K1's tile-scan route)
+    s, i = stores["bf16"].topk(queries, K, rerank=pkg.MAX_K)
+    ps, pi = on_cpu(stores["bf16"]).topk(queries.cpu(), K, rerank=pkg.MAX_K)
+    check(torch.equal(i.cpu(), pi) and (s.cpu() - ps).abs().max().item() <= RERANK_SCORE_TOL
+          and bool((i[:, 0].cpu() == torch.arange(32)).all()),
+          f"bf16 store top-{K} after a rerank of {pkg.MAX_K} equals the plain path; each query finds its source first")
     launches = {k.name: k.launches for k in pkg.KERNELS}
     ctx = {"encoder": encoder, "tok": tok, "store": stores["bf16"], "docstore": docstore, "texts": texts,
            "doc_ids": doc_ids, "questions": short[12: 12 + READER_QUESTIONS]}
@@ -1406,7 +1539,8 @@ def main() -> int:
     phase_k8(torch, quant, gen, report)
     retrieval, ctx = phase_slice(torch, pkg, gen)
     print("launches in the retrieval run: " + json.dumps(retrieval))
-    for name in ("matmul_topk_bf16", "matmul_topk_int8", "matmul_topk_int8_global", "flash_attention_fwd"):
+    for name in ("matmul_topk_bf16", "matmul_topk_bf16_scan", "matmul_topk_int8", "matmul_topk_int8_global",
+                 "flash_attention_fwd"):
         check(retrieval[name] > 0, f"{name} launched on the retrieval path")
     reader_launches, reader = phase_reader(torch, pkg, ctx)
     for name in ("matmul_topk_bf16", "w8_matmul"):

@@ -32,6 +32,12 @@ CASES = {
     "bidirectional_full_bias": (2, 200, 2, 32, dict(causal=False, bias="full")),
     "causal_kv_lens": (2, 200, 2, 32, dict(causal=True, kv_lens=np.array([200, 70], np.int32))),
     "causal_bias_d64": (2, 128, 2, 64, dict(causal=True, bias="key")),
+    # D = 128 (PhoGPT-4B's head dim), where the reference's row sum keeps the
+    # f32 probabilities while P V takes the bf16 ones
+    "causal_key_only_bias_d128": (1, 200, 2, 128, dict(causal=True, bias="key")),
+    "causal_key_only_bias_d128_t256": (1, 256, 2, 128, dict(causal=True, bias="key")),
+    "bidirectional_full_bias_kv_lens_d128": (2, 200, 2, 128, dict(causal=False, bias="full",
+                                                                  kv_lens=np.array([200, 90], np.int32))),
 }
 
 

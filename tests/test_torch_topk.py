@@ -144,3 +144,44 @@ def test_k_above_kernel_limit_raises():
         tt.matmul_topk(q, torch.zeros(1000, 16), tt.MAX_K + 1)
     s, i = tt.matmul_topk(q, torch.randn(1000, 16), tt.MAX_K)
     assert i.shape == (2, tt.MAX_K) and len(set(i[0].tolist())) == tt.MAX_K
+
+
+@pytest.mark.parametrize("b,ctas", [(1, 1), (8, 1), (64, 1), (65, 2), (128, 2), (129, 4), (200, 4), (256, 4),
+                                    (257, 4), (512, 4)])
+def test_cluster_size_holds_the_query_tiles(b, ctas):
+    """K1's cluster: the power of two of 64-query CTAs that holds the
+    batch, at most 4 (256 queries); larger batches run in groups of 256."""
+    assert tt.cluster_size(b) == ctas
+    assert ctas * 64 >= min(b, 256) and (ctas == 1 or (ctas // 2) * 64 < min(b, 256))
+
+
+# (k, D, route, ring stages): the serving shape, the largest k at D 768,
+# the rerank's k, the widths that leave too little shared memory or do not
+# fill whole 64-column panels
+ROUTE_CASES = [(10, 768, "cluster", 7), (40, 768, "cluster", 5), (60, 768, "cluster", 4), (61, 768, "scan", 3),
+               (64, 768, "scan", 3), (256, 768, "scan", None), (10, 64, "cluster", 8), (64, 512, "cluster", 5),
+               (10, 1024, "cluster", 5), (10, 1536, "scan", 1), (10, 32, "scan", None), (10, 96, "scan", None)]
+
+
+@pytest.mark.parametrize("k,d,route,stages", ROUTE_CASES)
+def test_bf16_route_rule(k, d, route, stages):
+    """The cluster scan where its shared memory (queries, a ring of 4-8
+    16 KB stages, two warpgroups' lists, queues, barriers) fits a block;
+    the tile scan otherwise."""
+    assert tt.bf16_route(k, d) == route
+    if stages is not None:
+        assert tt.cluster_stages(k, d) == stages
+    if route == "cluster":
+        smem = 128 * d + 1024 * k + 8 * 64 * 12 + 8 * 25 + stages * 16384
+        assert 4 <= stages <= 8 and smem <= 232_448 and d % 64 == 0 and k <= tt.CLUSTER_MAX_K
+
+
+@pytest.mark.parametrize("b,k", [(300, 10), (8, 256), (70, 61)])
+def test_bf16_topk_across_routes_and_groups_matches_reference(b, k):
+    """Batches past one cluster's 256 queries and k on the tile-scan route
+    (the CPU runs the plain version of either)."""
+    q, c = _bf16_inputs(b, 1500, 64, 5)
+    ts, ti = tt.matmul_topk(torch.from_numpy(q), torch.from_numpy(c).bfloat16(), k)
+    rs, ri = jt.matmul_topk_reference(jnp.asarray(q), jnp.asarray(c), k)
+    assert _rank_ok(q, c, ti.numpy(), k)
+    np.testing.assert_allclose(ts.numpy(), np.asarray(rs), rtol=1e-5, atol=1e-5)

@@ -168,3 +168,61 @@ def test_kernel_registry_names_its_source_and_the_tpu_kernel(kernel):
     path, line = kernel.replaces.split(":")
     assert path.startswith("vietnamese_qa_system_tpu/")
     assert (root / path).read_text().splitlines()[int(line) - 1].startswith("def _")
+
+
+# The stream-K split of K6 (ops/w8_matmul.py partition, mirrored by
+# csrc/w8_matmul.cu): PhoGPT-4B's decode shapes at M 1-16, the checked
+# larger batches, a call with fewer units than slots, and an odd slot count.
+PARTITION_CASES = [(1, 3072, 3072, 264), (8, 3072, 12288, 264), (16, 12288, 3072, 264), (64, 3072, 3072, 264),
+                   (256, 3072, 12288, 264), (8, 128, 128, 264), (37, 384, 1280, 132), (8, 3072, 3072, 133)]
+
+
+@pytest.mark.parametrize("m,k,n,slots", PARTITION_CASES)
+def test_w8_partition_is_one_wave_covering_every_unit_once(m, k, n, slots):
+    p = tw8.partition(m, k, n, slots)
+    assert p.units == -(-m // 16) * (n // 128) * (k // 64)
+    assert p.grid == min(slots, p.units) <= slots
+    sizes = [len(p.share(b)) for b in range(p.grid)]
+    assert min(sizes) >= 1 and max(sizes) - min(sizes) <= 1  # equal shares to within one unit
+    assert [u for b in range(p.grid) for u in p.share(b)] == list(range(p.units))  # each unit once
+    assert all(p.block_of(u) == b for b in range(p.grid) for u in p.share(b))
+
+
+@pytest.mark.parametrize("m,k,n,slots", PARTITION_CASES)
+def test_w8_partition_sums_each_tile_in_split_order(m, k, n, slots):
+    """Each output tile's segments run in block order over consecutive K
+    chunks that cover its K once, and each segment has a slot of its own."""
+    p = tw8.partition(m, k, n, slots)
+    used = set()
+    for tile in range(p.tiles):
+        segs = p.segments(tile)
+        blocks = [b for b, _ in segs]
+        assert blocks == list(range(blocks[0], blocks[0] + len(blocks)))
+        assert [c for _, chunks in segs for c in chunks] == list(range(p.chunks))
+        for b, _ in segs:
+            assert b + tile not in used and b + tile < p.slots
+            used.add(b + tile)
+
+
+@pytest.mark.parametrize("m,k,n,slots", [(8, 512, 256, 7), (20, 384, 384, 11)])
+def test_w8_partition_partials_add_up_to_the_product(m, k, n, slots):
+    """The kernel's arithmetic replayed on the host: per-segment f32
+    partials of exact products, added in split order, scaled once."""
+    rng = np.random.default_rng(m + k)
+    q, s = _codes(rng, k, n)
+    x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32)).to(torch.bfloat16).float()
+    w = torch.from_numpy(q).float()
+    p = tw8.partition(m, k, n, slots)
+    y = torch.zeros(m, n)
+    col_tiles = n // tw8.COLS_PER_UNIT
+    for tile in range(p.tiles):
+        r0, c0 = tile // col_tiles * tw8.ROWS_PER_UNIT, tile % col_tiles * tw8.COLS_PER_UNIT
+        rows, cols = slice(r0, r0 + tw8.ROWS_PER_UNIT), slice(c0, c0 + tw8.COLS_PER_UNIT)
+        total = None
+        for _, chunks in p.segments(tile):
+            ks = slice(chunks.start * tw8.K_PER_UNIT, chunks.stop * tw8.K_PER_UNIT)
+            part = x[rows, ks] @ w[ks, cols]
+            total = part if total is None else total + part
+        y[rows, cols] = total * torch.from_numpy(s)[cols]
+    ref = tw8.w8_matmul_reference(x.to(torch.bfloat16), torch.from_numpy(q), torch.from_numpy(s), torch.float32)
+    assert (y - ref).abs().max().item() <= REL_TOL * ref.abs().max().item()

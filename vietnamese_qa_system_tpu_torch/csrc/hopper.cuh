@@ -1,7 +1,9 @@
 // Hopper (sm_90a) building blocks of the flash kernels (flash_fwd.cu,
-// flash_bwd.cu): mbarriers, TMA tensor maps and loads, wgmma shared-memory
-// descriptors and the products themselves, and the register layout of a
-// wgmma accumulator.
+// flash_bwd.cu), the bf16 top-k scan (topk.cu) and the w8 GEMM
+// (w8_matmul.cu): mbarriers, TMA tensor maps and loads (multicast across a
+// thread-block cluster too), cluster ranks, barriers and remote mbarrier
+// arrivals, wgmma shared-memory descriptors and the products themselves,
+// and the register layout of a wgmma accumulator.
 //
 // Operand tiles live in shared memory as TMA writes them with a 128-byte
 // (64-byte at head dim 32) swizzle: a (rows, HD) bf16 tile is HD / PW
@@ -107,6 +109,55 @@ __device__ __forceinline__ void tma_load_1d(void* dst, const CUtensorMap* map, u
         : "memory");
 }
 
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1) {
+    asm volatile(
+        "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4}], [%2];\n"
+        ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+        : "memory");
+}
+// one load written to the same shared offset of every CTA of the cluster in
+// `mask`, each completing `bytes` on its own mbarrier at `bar`'s offset
+__device__ __forceinline__ void tma_load_3d_multicast(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1,
+                                                      int c2, uint16_t mask) {
+    asm volatile(
+        "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes.multicast::cluster"
+        " [%0], [%1, {%3, %4, %5}], [%2], %6;\n"
+        ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
+        "h"(mask)
+        : "memory");
+}
+
+// ---- clusters --------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+    uint32_t r;
+    asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+    return r;
+}
+__device__ __forceinline__ uint32_t cluster_ctas() {
+    uint32_t r;
+    asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(r));
+    return r;
+}
+// every thread of every CTA of the cluster: barrier inits before it are seen
+// by the peers, and no CTA leaves while a peer may still write its shared
+// memory or arrive on its barriers
+__device__ __forceinline__ void cluster_sync() {
+    asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::: "memory");
+}
+// arrive once on the mbarrier at `bar`'s offset in CTA `rank` of the
+// cluster (default .release.cta semantics, as CUTLASS's ClusterBarrier: a
+// .release.cluster arrival costs a cluster-wide fence, and a ring stage's
+// release pays it on the critical path)
+__device__ __forceinline__ void mbar_arrive_remote(uint64_t* bar, uint32_t rank) {
+    uint32_t remote;
+    asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(smem_u32(bar)), "r"(rank));
+    asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];\n" ::"r"(remote) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
 // load a (rows, HD) bf16 tile, rows r0.. of slab c2, as HD / PW swizzled panels
 template <int HD, int SWB>
 __device__ __forceinline__ void tma_tile(void* dst, const CUtensorMap* map, uint64_t* bar, int rows, int r0, int c2) {
@@ -162,6 +213,15 @@ inline bool map_bf16_tiles(CUtensorMap* map, const void* base, int slabs, int ro
     const uint32_t box[3] = {(uint32_t)(swb / 2), (uint32_t)box_rows, 1u};
     return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base, 3, n, box,
                       swb == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B);
+}
+
+// a (rows, cols) row-major matrix of `elem`-byte elements, boxes of
+// box_cols x box_rows with a 128-byte swizzle (box_cols * elem = 128)
+inline bool map_2d_swizzled(CUtensorMap* map, CUtensorMapDataType type, int elem, const void* base, int rows, int cols,
+                            int box_rows, int box_cols) {
+    const uint64_t n[2] = {(uint64_t)cols, (uint64_t)rows};
+    const uint32_t box[2] = {(uint32_t)box_cols, (uint32_t)box_rows};
+    return encode_map(map, type, elem, base, 2, n, box, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 // (heads, rows, cols) f32 bias, boxes of 32 columns x box_rows rows, 128-byte swizzle

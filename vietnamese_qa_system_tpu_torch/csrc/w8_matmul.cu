@@ -13,67 +13,87 @@
 // product is a skinny GEMM of ~2*M operations per weight byte, far below
 // the ~295 bf16 operations per byte where the tensor cores become the
 // limit, so the int8 weight bytes over HBM bandwidth are the bound
-// (3072 x 12288 = 37.7 MB -> ~11 us at 3.35 TB/s).  The design streams
-// every weight byte once, coalesced, with enough blocks and loads in
-// flight to cover the card, and keeps the per-byte instruction count low
-// enough that it never becomes the limit: the products run on the tensor
-// cores (mma.sync m16n8k16, bf16 in, f32 accumulate; M is padded to 16
-// rows, whose cost is nil next to the weight stream), and an int8 code
-// becomes bf16 by a byte permute and one f32 subtraction (2^23 + 128 + b
-// is exact in f32) instead of the quarter-rate int-to-float conversion.
+// (3072 x 12288 = 37.7 MB -> ~11 us at 3.35 TB/s; 3072 x 3072 = 9.4 MB ->
+// 2.8 us, where a launch, the first bytes' latency and the tail of a
+// partial wave cost as much as the stream).  The design streams every
+// weight byte once with many bytes in flight on every SM, in one launch
+// whose blocks all start in the first wave:
 //
-// Design:
-// - A block of 8 warps owns 64 output columns, a chunk of K rows (kc, a
-//   multiple of 128, at most 1024) and a tile of 16 rows of x.  Two warps
-//   share the 64 columns (32 each, as four 8-column mma tiles) and four
-//   warps split the chunk's 16-row steps between them.
-// - A thread's B fragments for the four tiles come from four 32-bit loads
-//   (rows 2t, 2t+1, 2t+8, 2t+9 of the step; 4 adjacent columns): tile i's
-//   logical column g is physical column 4g + i of the warp's 32, so each
-//   load of a warp reads whole 32-byte sectors.  Four steps are loaded
-//   before any is used, and the block asks for at most 128 registers a
-//   thread so that two blocks share an SM (on an H100 this beat
-//   double-buffering the loads in one block a SM at every decode shape).
-// - The x tile [16, kc] is staged once into shared memory as bf16 with a
-//   row stride of kc + 8 elements (A fragments read conflict-free).
-// - Too few blocks is the first trap at decode: 3072 columns give only 48
-//   column tiles for 132 SMs, so K is split across blocks (grid y) until
-//   there are about two blocks per SM.  Each block adds its four K-lane
-//   warps through shared memory in a fixed order; the splits then land in
-//   an f32 workspace and a second pass adds them in split order and
-//   applies the scale.  No float atomics anywhere, so a result repeats bit
-//   for bit on the same card.  With one split the first pass applies the
-//   scale and writes y itself.  M > 16 runs more row tiles (grid z).
+// - Work units are (16 rows of x, 128 output columns, 64 rows of K): 8 KB
+//   of weights.  The grid is the resident slots (SMs x blocks an SM, from
+//   the occupancy of this kernel), and block b takes units [b U / G,
+//   (b + 1) U / G) of the U units in (output tile, K chunk) order, so the
+//   shares differ by at most one unit and no partial wave is left
+//   (ops/w8_matmul.py `partition` is the same rule, tested on the CPU).
+// - Each unit's weight tile (64 x 128 int8) and x tile (16 x 64 bf16)
+//   arrive by TMA with the 128-byte swizzle through an 8-stage ring
+//   completed on mbarriers (80 KB in flight a block, two blocks an SM);
+//   the warp that frees a stage last refills it.  The swizzle makes the
+//   fragment reads below conflict-free.
+// - 8 warps: four column groups of 32 columns x two K lanes (alternate
+//   k16 steps).  A thread's B fragments for its four n8 tiles come from
+//   four 32-bit shared loads (rows 2t, 2t+1, 2t+8, 2t+9 of the step, 4
+//   adjacent columns: tile i's column g is physical column 4g + i), an
+//   int8 code becomes bf16 by a byte permute, two logic ops and one bf16
+//   subtraction a pair (bf16_pair), and the products run on the tensor
+//   cores (mma.sync m16n8k16, bf16 in, f32 accumulate; M is padded to 16
+//   rows by TMA's zero fill, whose cost is nil next to the weight stream).
+// - A block accumulates consecutive units of one output tile in registers
+//   (a segment); the K lanes are added in a fixed order.  A segment that
+//   covers the whole K scales and writes y.  Only a share's first and last
+//   segments can be partial, and both wait for the share's end (the first
+//   held in registers), so no ticket stalls the stream: each writes its
+//   unscaled partial to workspace slot b + o (unique: along the walk both
+//   b and the tile o only grow), fences, and takes an integer ticket of
+//   its tile; the block that arrives last adds the tile's partials in
+//   split (K) order, scales once, writes y and sets the ticket back to 0,
+//   so the next call (or a CUDA graph replay) needs no memset.  No float atomics: a result repeats bit for
+//   bit on the same card.  The tickets are one buffer per device: calls
+//   on one stream run one after another (the serving path uses one
+//   stream); two calls in flight on different streams would share them.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include <string.h>
+
+#include "hopper.cuh"
+
+using namespace hopper;
 
 namespace {
 
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
-constexpr int NT = 64;                  // columns per block
-constexpr int GROUP = 32;               // columns per warp (four n8 tiles)
-constexpr int KLANES = WARPS / (NT / GROUP);  // warps splitting a chunk's steps
-constexpr int MT = 16;                  // rows of x per block (the mma's M)
-constexpr int UNROLL = 4;               // 16-row steps loaded before use
-constexpr int KC_MAX = 1024;
-constexpr int KC_STEP = 128;
-constexpr int SMEM_BYTES = MT * (KC_MAX + 8) * 2;  // x tile; reused for the [WARPS][16][32] f32 reduction
-static_assert(WARPS * MT * GROUP * 4 <= SMEM_BYTES, "reduction buffer fits the x tile");
+constexpr int NT = 128;                       // output columns of a unit: one 128-byte weight row
+constexpr int GROUP = 32;                     // columns of a warp (four n8 mma tiles)
+constexpr int NGROUPS = NT / GROUP;
+constexpr int KLANES = WARPS / NGROUPS;       // warps splitting a unit's k16 steps
+constexpr int KU = 64;                        // K rows of a unit
+constexpr int MT = 16;                        // rows of x of a unit (the mma's M)
+constexpr int STAGES = 8;
+constexpr int BATCH = 12;                     // partials loaded at once by a tile's last block
+constexpr uint32_t W_BYTES = KU * NT;         // int8 weight tile
+constexpr uint32_t X_BYTES = MT * KU * 2;     // bf16 x tile
+constexpr uint32_t STAGE_BYTES = W_BYTES + X_BYTES;
+constexpr uint32_t RED_OFF = STAGES * STAGE_BYTES;
+constexpr uint32_t RED_BYTES = 2 * MT * NT * 4;  // two segments' f32 sums
+constexpr uint32_t BAR_OFF = RED_OFF + RED_BYTES;
+constexpr uint32_t SMEM = BAR_OFF + 8 * STAGES + 4 * STAGES + 8;
+static_assert(STAGE_BYTES % 1024 == 0, "every stage starts a 128-byte swizzle atom");
 
-__device__ __forceinline__ uint32_t ldg_stream(const int8_t* p) {
-    return __ldcs(reinterpret_cast<const unsigned int*>(p));
-}
-
-// byte i of `lo` and of `hi` (int8 codes) -> one register of two bf16,
-// lo in the low half: 0x4B0000uu is 2^23 + u as f32, u = code + 128
-__device__ __forceinline__ uint32_t bf16_pair(uint32_t lo, uint32_t hi, int i) {
-    const float a = __uint_as_float(__byte_perm(lo, 0x4B000000u, 0x7440 | i)) - 8388736.f;
-    const float b = __uint_as_float(__byte_perm(hi, 0x4B000000u, 0x7440 | i)) - 8388736.f;
-    __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
-    return *reinterpret_cast<uint32_t*>(&v);
+// byte i of `lo` and of `hi` (int8 codes) -> one register of two bf16, lo
+// in the low half, exactly: a code c is (128 + (c & 127)) - (128 + (c &
+// 128)), both terms bf16 (0x4300 | bits: 128 + bits) and their difference
+// an integer of at most 8 bits -- a byte permute, two logic ops and one
+// bf16x2 subtraction per two codes
+// (c43 holds 0x43004300 in a register: lop3 takes one immediate, so each
+// (p & mask) | 0x43004300 is then one instruction)
+__device__ __forceinline__ uint32_t bf16_pair(uint32_t lo, uint32_t hi, int i, uint32_t c43) {
+    const uint32_t p = __byte_perm(lo, hi, (uint32_t)(i | (i << 4) | ((4 + i) << 8) | ((4 + i) << 12)));
+    uint32_t a, b;
+    asm("lop3.b32 %0, %1, 0x007F007F, %2, 0xEA;\n" : "=r"(a) : "r"(p), "r"(c43));  // (p & 0x7F007F) | c43
+    asm("lop3.b32 %0, %1, 0x00800080, %2, 0xEA;\n" : "=r"(b) : "r"(p), "r"(c43));
+    const __nv_bfloat162 d =
+        __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&a), *reinterpret_cast<const __nv_bfloat162*>(&b));
+    return *reinterpret_cast<const uint32_t*>(&d);
 }
 
 __device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3,
@@ -85,134 +105,279 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0, uint32_t a1
         : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
-// grid (N / 64, splits, ceil(M / 16)).  `direct`: one split, so the scale
-// is applied here and `out` is y (M, N); otherwise `out` is the
-// (splits, M, N) workspace of unscaled partial sums.
-__global__ void __launch_bounds__(THREADS, 2)
-w8_gemm_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ wq, const float* __restrict__ ws,
-               int M, int K, int N, int kc, float* __restrict__ out, int direct) {
-    __shared__ __align__(16) unsigned char smem[SMEM_BYTES];
+// the offset of byte c of row r of a tile of 128-byte rows that TMA wrote
+// with the 128-byte swizzle (16-byte chunk index XOR r % 8)
+__device__ __forceinline__ uint32_t swizzled(int r, int c) {
+    return (uint32_t)(r * 128 + ((((c >> 4) ^ r) & 7) << 4) + (c & 15));
+}
+__device__ __forceinline__ uint32_t word(const unsigned char* base, uint32_t off) {
+    return *reinterpret_cast<const uint32_t*>(base + off);
+}
 
-    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-    const int g = lane >> 2, t = lane & 3;        // mma fragment coordinates
-    const int grp = warp % (NT / GROUP), klane = warp / (NT / GROUP);
-    const int col0 = blockIdx.x * NT;
-    const int k0 = blockIdx.y * kc;
-    const int rows = min(K, k0 + kc) - k0;        // a multiple of 128
-    const int m0 = blockIdx.z * MT;
-    const int xs_ld = rows + 8;                   // (rows + 8) / 2 words = 4 mod 32: conflict-free A reads
-
-    __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem);
-    const int vpr = rows / 8;                     // 16-byte vectors per x row
-    for (int idx = tid; idx < MT * vpr; idx += THREADS) {
-        const int r = idx / vpr, v = idx - r * vpr;
-        uint4 val = make_uint4(0u, 0u, 0u, 0u);
-        if (m0 + r < M) val = *reinterpret_cast<const uint4*>(x + (size_t)(m0 + r) * K + k0 + v * 8);
-        *reinterpret_cast<uint4*>(xs + r * xs_ld + v * 8) = val;
-    }
-    __syncthreads();
-
-    float c[4][4];
+__device__ __forceinline__ void zero(float (&c)[4][4]) {
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
         for (int j = 0; j < 4; ++j) c[i][j] = 0.f;
-
-    const int steps = rows / 16;
-    const int8_t* wbase = wq + (size_t)(k0 + 2 * t) * N + col0 + grp * GROUP + 4 * g;
-    for (int s0 = klane; s0 < steps; s0 += KLANES * UNROLL) {
-        uint32_t w[UNROLL][4];
+}
+__device__ __forceinline__ void copy(float (&d)[4][4], const float (&c)[4][4]) {
 #pragma unroll
-        for (int u = 0; u < UNROLL; ++u) {
-            const int s = s0 + u * KLANES;
-            if (s < steps) {
-                const int8_t* p = wbase + (size_t)s * 16 * N;
-                w[u][0] = ldg_stream(p);
-                w[u][1] = ldg_stream(p + N);
-                w[u][2] = ldg_stream(p + 8 * (size_t)N);
-                w[u][3] = ldg_stream(p + 9 * (size_t)N);
-            }
-        }
+    for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int u = 0; u < UNROLL; ++u) {
-            const int s = s0 + u * KLANES;
-            if (s < steps) {
-                const __nv_bfloat16* xa = xs + g * xs_ld + s * 16 + 2 * t;
-                const uint32_t a0 = *reinterpret_cast<const uint32_t*>(xa);
-                const uint32_t a1 = *reinterpret_cast<const uint32_t*>(xa + 8 * xs_ld);
-                const uint32_t a2 = *reinterpret_cast<const uint32_t*>(xa + 8);
-                const uint32_t a3 = *reinterpret_cast<const uint32_t*>(xa + 8 * xs_ld + 8);
-                const uint32_t r0 = w[u][0] ^ 0x80808080u, r1 = w[u][1] ^ 0x80808080u;
-                const uint32_t r8 = w[u][2] ^ 0x80808080u, r9 = w[u][3] ^ 0x80808080u;
-#pragma unroll
-                for (int i = 0; i < 4; ++i) mma_bf16(c[i], a0, a1, a2, a3, bf16_pair(r0, r1, i), bf16_pair(r8, r9, i));
-            }
-        }
-    }
-
-    __syncthreads();  // every thread is done with the x tile
-    float* red = reinterpret_cast<float*>(smem);  // [WARPS][16][32]: rows x the warp's physical columns
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        const int col = 8 * t + i;  // logical columns 2t, 2t+1 of tile i are physical 8t+i, 8t+4+i
-        red[(warp * MT + g) * GROUP + col] = c[i][0];
-        red[(warp * MT + g) * GROUP + col + 4] = c[i][1];
-        red[(warp * MT + g + 8) * GROUP + col] = c[i][2];
-        red[(warp * MT + g + 8) * GROUP + col + 4] = c[i][3];
-    }
-    __syncthreads();
-    for (int o = tid; o < MT * NT; o += THREADS) {
-        const int r = o / NT, cc = o - r * NT;
-        const int gr = cc / GROUP, cl = cc - gr * GROUP;
-        const int gm = m0 + r, gn = col0 + cc;
-        if (gm >= M) continue;
-        float s = red[(gr * MT + r) * GROUP + cl];  // warp klane 0 of the group
-#pragma unroll
-        for (int kl = 1; kl < KLANES; ++kl) s += red[((kl * (NT / GROUP) + gr) * MT + r) * GROUP + cl];
-        if (direct) out[(size_t)gm * N + gn] = s * ws[gn];
-        else out[((size_t)blockIdx.y * M + gm) * N + gn] = s;
-    }
+        for (int j = 0; j < 4; ++j) d[i][j] = c[i][j];
 }
 
-// y[i] = (sum over splits, in split order) * w_s[column]
-__global__ void w8_reduce_kernel(const float* __restrict__ part, const float* __restrict__ ws, int splits, int M,
-                                 int N, float* __restrict__ y) {
-    const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-    const size_t mn = (size_t)M * N;
-    if (i >= mn) return;
-    float s = part[i];
-    for (int j = 1; j < splits; ++j) s += part[(size_t)j * mn + i];
-    y[i] = s * ws[i % N];
+__device__ __forceinline__ int ticket_add(int* ticket) {
+    int old;
+    asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], 1;\n" : "=r"(old) : "l"(ticket) : "memory");
+    return old;
+}
+
+// the block whose share holds unit u (ops/w8_matmul.py Partition.block_of)
+__device__ __forceinline__ int block_of(int u, int units, int grid) {
+    return (int)(((long long)(u + 1) * grid - 1) / units);
+}
+
+// grid = the resident slots (at most the units); part holds grid + tiles - 1
+// slots of MT x NT f32; tickets one int per output tile, zero between calls.
+__global__ void __launch_bounds__(THREADS, 2)
+w8_gemm_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtensorMap tm_w,
+               const float* __restrict__ ws, int M, int K, int N, float* __restrict__ part,
+               int* __restrict__ tickets, float* __restrict__ y) {
+    extern __shared__ __align__(1024) unsigned char smem_raw[];
+    unsigned char* smem = aligned_smem(smem_raw);
+    uint64_t* full = reinterpret_cast<uint64_t*>(smem + BAR_OFF);
+    uint32_t* released = reinterpret_cast<uint32_t*>(full + STAGES);
+    int* last = reinterpret_cast<int*>(released + STAGES);
+    float* red = reinterpret_cast<float*>(smem + RED_OFF);
+
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int g = lane >> 2, t = lane & 3;         // mma fragment coordinates
+    const int grp = warp % NGROUPS, kl = warp / NGROUPS;
+    const int chunks = K / KU, col_tiles = N / NT;
+    const int units = cdiv(M, MT) * col_tiles * chunks;  // < 2^31 (the host checks)
+    const int grid = gridDim.x, b = blockIdx.x;
+    const int u0 = (int)((long long)b * units / grid);
+    const int n_units = (int)((long long)(b + 1) * units / grid) - u0;
+
+    // the loads of the block's i-th unit into its stage
+    auto issue = [&](int i) {
+        const int u = u0 + i, o = u / chunks, ch = u - o * chunks;
+        unsigned char* st = smem + (i % STAGES) * STAGE_BYTES;
+        mbar_expect_tx(&full[i % STAGES], STAGE_BYTES);
+        tma_load_2d(st, &tm_w, &full[i % STAGES], (o % col_tiles) * NT, ch * KU);
+        tma_load_2d(st + W_BYTES, &tm_x, &full[i % STAGES], ch * KU, (o / col_tiles) * MT);
+    };
+    if (tid == 0) {
+        for (int s = 0; s < STAGES; ++s) {
+            mbar_init(&full[s], 1);
+            released[s] = 0;
+        }
+        mbar_fence_init();
+    }
+    __syncthreads();
+    if (tid == 0)
+        for (int i = 0; i < STAGES && i < n_units; ++i) issue(i);
+
+    float c[4][4], cf[4][4];  // this segment's sums; the block's first segment, held to the end
+    zero(c);
+    zero(cf);
+    int o_first = -1, o_last = -1;  // the output tiles of the block's partial segments
+
+    // the K lanes of a segment's sums into dst (MT x NT f32): lane 0 + lane 1
+    auto lanes_to = [&](const float (&cc)[4][4], float* dst) {
+        if (kl == 1) {
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+                const int col = grp * GROUP + 8 * t + q;  // logical columns 2t, 2t+1 of tile q: physical 8t+q, 8t+4+q
+                dst[g * NT + col] = cc[q][0];
+                dst[g * NT + col + 4] = cc[q][1];
+                dst[(g + 8) * NT + col] = cc[q][2];
+                dst[(g + 8) * NT + col + 4] = cc[q][3];
+            }
+        }
+        __syncthreads();
+        if (kl == 0) {
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+                const int col = grp * GROUP + 8 * t + q;
+                dst[g * NT + col] = cc[q][0] + dst[g * NT + col];
+                dst[g * NT + col + 4] = cc[q][1] + dst[g * NT + col + 4];
+                dst[(g + 8) * NT + col] = cc[q][2] + dst[(g + 8) * NT + col];
+                dst[(g + 8) * NT + col + 4] = cc[q][3] + dst[(g + 8) * NT + col + 4];
+            }
+        }
+        __syncthreads();
+    };
+    // y rows of output tile o = sums * w_s, from 4 floats at a time
+    auto store_y = [&](int o, int e, float4 v) {
+        const int col = (o % col_tiles) * NT + 4 * (e % (NT / 4));
+        const float4 sc = *reinterpret_cast<const float4*>(ws + col);
+        *reinterpret_cast<float4*>(y + (size_t)((o / col_tiles) * MT + e / (NT / 4)) * N + col) =
+            make_float4(v.x * sc.x, v.y * sc.y, v.z * sc.z, v.w * sc.w);
+    };
+    // float4s of output tile o's rows below M
+    auto vecs_of = [&](int o) { return min(MT, M - (o / col_tiles) * MT) * (NT / 4); };
+
+    // This thread's fragment words, as byte offsets from a stage (the same in
+    // every stage: stages start swizzle atoms): the weight rows 2t, 2t+1,
+    // 2t+8, 2t+9 of its k16 steps kl + 2h (h adds 32 rows) at its 4 columns,
+    // and the x words of its rows g (g + 8 adds 8 rows) at columns 2t and
+    // 2t + 8 of k16 step kl + 2h.
+    uint32_t w_off[4], x_off[KU / 16 / KLANES][2];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+        const int r = kl * 16 + 2 * t + (e & 1) + 8 * (e >> 1);
+        w_off[e] = swizzled(r, grp * GROUP + 4 * g);
+    }
+#pragma unroll
+    for (int h = 0; h < KU / 16 / KLANES; ++h)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) x_off[h][j] = W_BYTES + swizzled(g, (h * KLANES + kl) * 32 + 16 * j + 4 * t);
+    uint32_t c43;
+    asm volatile("mov.b32 %0, 0x43004300;\n" : "=r"(c43));
+
+    // the unit's output tile and K chunk, and the chunk where this segment began
+    int o = u0 / chunks, ch = u0 - o * chunks, seg_lo = ch;
+    for (int i = 0; i < n_units; ++i, ++ch) {
+        const int s = i % STAGES;
+        mbar_wait(&full[s], (i / STAGES) & 1);
+        const unsigned char* st = smem + s * STAGE_BYTES;
+#pragma unroll
+        for (int h = 0; h < KU / 16 / KLANES; ++h) {
+            const uint32_t a0 = word(st, x_off[h][0]), a1 = word(st, x_off[h][0] + 1024);
+            const uint32_t a2 = word(st, x_off[h][1]), a3 = word(st, x_off[h][1] + 1024);
+            const uint32_t r0 = word(st, w_off[0] + h * 4096), r1 = word(st, w_off[1] + h * 4096);
+            const uint32_t r8 = word(st, w_off[2] + h * 4096), r9 = word(st, w_off[3] + h * 4096);
+#pragma unroll
+            for (int q = 0; q < 4; ++q)
+                mma_bf16(c[q], a0, a1, a2, a3, bf16_pair(r0, r1, q, c43), bf16_pair(r8, r9, q, c43));
+        }
+        __syncwarp();
+        if (lane == 0 && atomicAdd(&released[s], 1u) % WARPS == WARPS - 1 && i + STAGES < n_units) issue(i + STAGES);
+        if (i + 1 < n_units && ch + 1 < chunks) continue;  // the segment goes on
+
+        // the segment of tile o ends
+        if (seg_lo == 0 && ch + 1 == chunks) {  // the whole K of tile o in this block: scale and write y
+            lanes_to(c, red);
+            for (int e = tid; e < vecs_of(o); e += THREADS) store_y(o, e, reinterpret_cast<const float4*>(red)[e]);
+            __syncthreads();  // red is free again
+        } else if (i + 1 < n_units) {  // the block's first segment: a tile's tail
+            o_first = o;
+            copy(cf, c);
+        } else {
+            o_last = o;
+        }
+        if (i + 1 < n_units) {  // the next segment begins a tile
+            zero(c);
+            ++o;
+            ch = -1;
+            seg_lo = 0;
+        }
+    }
+
+    // The partial segments, at the end so that no ticket stalls the stream:
+    // each writes its unscaled sums to slot b + o and takes a ticket of o;
+    // the tile's last arriver adds its slots in split order and writes y.
+    if (o_first < 0 && o_last < 0) return;
+    const int pend[2] = {o_first, o_last};
+    if (o_first >= 0) lanes_to(cf, red);
+    if (o_last >= 0) lanes_to(c, red + MT * NT);
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+        if (pend[j] < 0) continue;
+        float4* slot = reinterpret_cast<float4*>(part + (size_t)(b + pend[j]) * MT * NT);
+        for (int e = tid; e < vecs_of(pend[j]); e += THREADS)
+            slot[e] = reinterpret_cast<const float4*>(red + j * MT * NT)[e];
+    }
+    __syncthreads();
+    if ((tid & 31) == 0 && tid < 64) {  // one thread a tile, both tickets at once
+        const int j = tid >> 5, o = pend[j];
+        last[j] = 0;
+        if (o >= 0) {
+            const int nseg = block_of((o + 1) * chunks - 1, units, grid) - block_of(o * chunks, units, grid) + 1;
+            // acq_rel: the block's partials (ordered before it by the barrier)
+            // reach the device first, and the last arriver's reads of the
+            // others' come after it
+            last[j] = ticket_add(&tickets[o]) == nseg - 1;
+        }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+        if (!last[j]) continue;  // every partial of tile pend[j] is written: add them in split order
+        const int o = pend[j];
+        const int first = block_of(o * chunks, units, grid);
+        const int nseg = block_of((o + 1) * chunks - 1, units, grid) - first + 1;
+        const float4* slots = reinterpret_cast<const float4*>(part + (size_t)(first + o) * MT * NT);
+        for (int e = tid; e < vecs_of(o); e += THREADS) {
+            float4 acc = __ldcg(slots + e);
+            for (int j0 = 1; j0 < nseg; j0 += BATCH) {  // BATCH loads in flight, then the adds in order
+                float4 v[BATCH];
+#pragma unroll
+                for (int q = 0; q < BATCH; ++q)
+                    if (j0 + q < nseg) v[q] = __ldcg(slots + (size_t)(j0 + q) * (MT * NT / 4) + e);
+#pragma unroll
+                for (int q = 0; q < BATCH; ++q)
+                    if (j0 + q < nseg) {
+                        acc.x += v[q].x;
+                        acc.y += v[q].y;
+                        acc.z += v[q].z;
+                        acc.w += v[q].w;
+                    }
+            }
+            store_y(o, e, acc);
+        }
+        if (tid == 0) tickets[o] = 0;
+    }
 }
 
 }  // namespace
 
 extern "C" {
 
-// x (M, K) bf16, 16-byte aligned; w_q (K, N) int8, row-major, 4-byte
-// aligned; w_s (N,) f32; y (M, N) f32.  K and N divisible by 128; kc a
-// multiple of 128 in [128, 1024] and splits == ceil(K / kc); part holds
-// splits * M * N f32 when splits > 1.
-int vqa_w8_matmul(const void* x, const void* wq, const void* ws, int M, int K, int N, int kc, int splits, void* part,
-                  void* y, void* stream) {
-    if (M < 1 || K < KC_STEP || N < 128 || K % KC_STEP != 0 || N % 128 != 0 || kc < KC_STEP || kc > KC_MAX ||
-        kc % KC_STEP != 0 || splits != (K + kc - 1) / kc || (splits > 1 && part == nullptr) ||
-        (M + MT - 1) / MT > 65535 || reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
-        reinterpret_cast<uintptr_t>(wq) % 4 != 0)
+// x (M, K) bf16, w_q (K, N) int8 row-major, y (M, N) f32, each 16-byte
+// aligned; w_s (N,) f32; K and N divisible by 128; grid in [1, units];
+// part holds (grid + tiles - 1) * 16 * 128 f32 and tickets `tiles` zeroed
+// ints, tiles = ceil(M / 16) * N / 128 (ops/w8_matmul.py partition).
+int vqa_w8_matmul(const void* x, const void* wq, const void* ws, int M, int K, int N, int grid, void* part,
+                  void* tickets, void* y, void* stream) {
+    const long long units = (long long)cdiv(M, MT) * (N / NT) * (K / KU);
+    if (units >= (1LL << 31) || M < 1 || K < 128 || N < 128 || K % 128 != 0 || N % 128 != 0 || grid < 1 || grid > units ||
+        part == nullptr || tickets == nullptr || reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
+        reinterpret_cast<uintptr_t>(wq) % 16 != 0 || reinterpret_cast<uintptr_t>(y) % 16 != 0)
         return (int)cudaErrorInvalidValue;
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
-    const bool direct = splits == 1;
-    auto* yf = static_cast<float*>(y);
-    auto* pf = static_cast<float*>(part);
-    const auto* s = static_cast<const float*>(ws);
-    dim3 grid(N / NT, splits, (M + MT - 1) / MT);
-    w8_gemm_kernel<<<grid, THREADS, 0, st>>>(static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(wq), s,
-                                             M, K, N, kc, direct ? yf : pf, direct ? 1 : 0);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess || direct) return (int)err;
-    const size_t mn = (size_t)M * N;
-    w8_reduce_kernel<<<(unsigned)((mn + 255) / 256), 256, 0, st>>>(pf, s, splits, M, N, yf);
-    return (int)cudaGetLastError();
+    CUtensorMap mx, mw;
+    if (!map_2d_swizzled(&mx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, M, K, MT, KU) ||
+        !map_2d_swizzled(&mw, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, wq, K, N, KU, NT))
+        return (int)cudaErrorInvalidValue;
+    // once a process (one device): the attribute call costs host time on every decode call
+    static const cudaError_t attr =
+        cudaFuncSetAttribute(w8_gemm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM);
+    if (attr != cudaSuccess) return (int)attr;
+    const float* s = static_cast<const float*>(ws);
+    float* pf = static_cast<float*>(part);
+    int* tk = static_cast<int*>(tickets);
+    float* yf = static_cast<float*>(y);
+    void* args[] = {&mx, &mw, &s, &M, &K, &N, &pf, &tk, &yf};
+    return (int)cudaLaunchKernel((const void*)w8_gemm_kernel, dim3(grid), dim3(THREADS), args, SMEM,
+                                 static_cast<cudaStream_t>(stream));
+}
+
+// out[4] = blocks an SM, registers a thread, dynamic shared memory, local
+// (spill) bytes a thread
+int vqa_w8_info(int* out) {
+    cudaError_t err = cudaFuncSetAttribute(w8_gemm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM);
+    cudaFuncAttributes attr;
+    if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, (const void*)w8_gemm_kernel);
+    int blocks = 0;
+    if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, w8_gemm_kernel, THREADS, SMEM);
+    if (err != cudaSuccess) return (int)err;
+    out[0] = blocks;
+    out[1] = attr.numRegs;
+    out[2] = (int)SMEM;
+    out[3] = (int)attr.localSizeBytes;
+    return 0;
 }
 
 }  // extern "C"

@@ -140,11 +140,17 @@ class Kernel:
             self.launches += 1
 
 
-# kind, q, corpus, scales, B, D, valid_n, k, splits, cand_s, cand_i, out_s,
+# K1's cluster scan: q, corpus, B, D, valid_n, k, cluster CTAs, clusters,
+# cand_s, cand_i, out_s, out_i, stream
+TOPK_BF16 = Kernel("matmul_topk_bf16", "vqa_topk_bf16_cluster", "topk.cu",
+                   (_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P),
+                   "vietnamese_qa_system_tpu/ops/topk.py:336")
+# the tile scan (K2, K3, and K1 where the cluster scan does not fit): kind,
+# q, corpus, scales, B, D, valid_n, k, splits, cand_s, cand_i, out_s,
 # out_i, stream
 _TOPK_ARGS = (_I, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P)
-TOPK_BF16 = Kernel("matmul_topk_bf16", "vqa_matmul_topk", "topk.cu", _TOPK_ARGS,
-                   "vietnamese_qa_system_tpu/ops/topk.py:336")
+TOPK_BF16_SCAN = Kernel("matmul_topk_bf16_scan", "vqa_matmul_topk", "topk.cu", _TOPK_ARGS,
+                        "vietnamese_qa_system_tpu/ops/topk.py:448")
 TOPK_INT8 = Kernel("matmul_topk_int8", "vqa_matmul_topk", "topk.cu", _TOPK_ARGS,
                    "vietnamese_qa_system_tpu/ops/topk.py:355")
 TOPK_INT8_GLOBAL = Kernel("matmul_topk_int8_global", "vqa_matmul_topk", "topk.cu", _TOPK_ARGS,
@@ -167,8 +173,8 @@ FLASH_BWD_DQ = Kernel("flash_attention_bwd_dq", "vqa_flash_bwd_dq", "flash_bwd.c
                       "vietnamese_qa_system_tpu/ops/attention.py:489")
 W8_MATMUL = Kernel(
     "w8_matmul", "vqa_w8_matmul", "w8_matmul.cu",
-    # x, w_q, w_s, M, K, N, kc, splits, part, y, stream
-    (_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
+    # x, w_q, w_s, M, K, N, grid, part, tickets, y, stream
+    (_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P),
     "vietnamese_qa_system_tpu/ops/w8_matmul.py:45",
 )
 IVF_PROBE = Kernel(
@@ -184,4 +190,18 @@ QUANT_INT8 = Kernel(
     "vietnamese_qa_system_tpu/ops/quant.py:30",
 )
 KERNELS = (TOPK_BF16, TOPK_INT8, TOPK_INT8_GLOBAL, FLASH_FWD, W8_MATMUL, IVF_PROBE, QUANT_INT8, FLASH_FWD_CAUSAL,
-           FLASH_BWD_DKDV, FLASH_BWD_DQ)
+           FLASH_BWD_DKDV, FLASH_BWD_DQ, TOPK_BF16_SCAN)
+
+
+def query(file: str, symbol: str, *args: int) -> list[int]:
+    """Call a kernel library's ``int fn(int..., int* out)`` resource query
+    (occupancy, registers, shared memory) on the current device; returns
+    ``out``.  Not a launch: no counter moves."""
+    out = (ctypes.c_int * 8)()
+    fn = getattr(library()[file], symbol)
+    fn.argtypes = [_I] * len(args) + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    err = fn(*args, out)
+    if err != 0:
+        raise RuntimeError(f"{symbol}{args}: CUDA error {err}")
+    return list(out)

@@ -14,6 +14,14 @@ Every mode is exact (``fast``, ``turbo`` and ``exact`` are validated for API
 parity): the TPU's lossy lane-bucket selection existed only because of how
 its vector unit selects.  Ties resolve to the lowest index everywhere.
 
+K1 takes one of two kernels by a pure shape rule (:func:`bf16_route`): the
+cluster scan (TMA multicast of the corpus across a cluster of 1-4 CTAs,
+wgmma products, selection from registers) wherever its shared memory
+fits -- D % 64 == 0, k <= 64 and at least 4 ring stages beside the
+queries and the lists, which at D 768 is k <= 60 -- and the tile scan
+of K2/K3 (``matmul_topk_bf16_scan``) otherwise, e.g. the k <= 256 of an
+explicit bf16 rerank.
+
 On a CPU tensor each kernel's plain PyTorch version runs instead; the plain
 versions also serve as the references the kernels are checked against on
 the card.  The int8 ``mode="exact"`` path is plain PyTorch on every device:
@@ -23,15 +31,78 @@ in the JAX package too it is XLA (topk.py:703-722), not a kernel -- a full
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
-from .cuda_kernels import TOPK_BF16, TOPK_INT8, TOPK_INT8_GLOBAL, on_card, stream_of
+from .cuda_kernels import TOPK_BF16, TOPK_BF16_SCAN, TOPK_INT8, TOPK_INT8_GLOBAL, on_card, query, stream_of
 from .quant import div127
 
 # Largest k of the kernels (one shared-memory list per query of the block).
 MAX_K = 256
 _SPLIT_ROWS = 128  # corpus rows per kernel tile (csrc/topk.cu NB)
 _QUERY_TILE = 64   # queries per kernel block (csrc/topk.cu QB)
+
+# K1's cluster scan (csrc/topk.cu namespace clus): 64 queries a CTA, at
+# most 4 CTAs (256 queries) a cluster, 128-row corpus tiles in 64-column
+# panels of 16 KB through a ring of 4-8 stages, two warpgroups' lists of
+# k entries for each query, 8 winner queues of 64 entries
+CLUSTER_MAX_CTAS = 4
+CLUSTER_MAX_K = 64
+_CLUSTER_PANEL = 64
+_CLUSTER_STAGE_BYTES = 128 * 64 * 2
+_CLUSTER_STAGES = (4, 8)
+_SMEM_LIMIT = 232_448  # shared memory of an H100 block
+
+
+def cluster_size(b: int) -> int:
+    """CTAs of a cluster for a batch of b queries: the power of two that
+    holds its 64-query tiles, at most 4 (more queries are more groups of
+    256)."""
+    tiles = min(CLUSTER_MAX_CTAS, -(-b // _QUERY_TILE))
+    return 1 << (tiles - 1).bit_length()
+
+
+def cluster_stages(k: int, d: int) -> int:
+    """Ring stages of the cluster scan beside the (64, d) queries, two
+    warpgroups' (64, k) lists, the queues and the barriers (csrc/topk.cu
+    clus::stages_for)."""
+    fixed = 128 * d + 1024 * k + 8 * 64 * 12 + 8 * (1 + 3 * _CLUSTER_STAGES[1])
+    return min(_CLUSTER_STAGES[1], (_SMEM_LIMIT - fixed) // _CLUSTER_STAGE_BYTES)
+
+
+def bf16_route(k: int, d: int) -> str:
+    """K1's kernel for top-k at feature width d: ``"cluster"`` where the
+    cluster scan's shared memory holds at least 4 ring stages (d a
+    multiple of 64, k <= 64), else ``"scan"`` (the tile scan)."""
+    ok = d >= _CLUSTER_PANEL and d % _CLUSTER_PANEL == 0 and k <= CLUSTER_MAX_K
+    return "cluster" if ok and cluster_stages(k, d) >= _CLUSTER_STAGES[0] else "scan"
+
+
+@functools.lru_cache(maxsize=None)
+def _cluster_capacity(device_index: int, ctas: int, k: int, d: int) -> int:
+    """Clusters of ``ctas`` CTAs the card holds at once at this shape."""
+    with torch.cuda.device(device_index):
+        n = cluster_info(ctas, k, d)["max_clusters"]
+    if n < 1:
+        raise RuntimeError(f"matmul_topk_bf16: no cluster of {ctas} CTAs fits the card (k={k}, D={d})")
+    return n
+
+
+def cluster_info(ctas: int, k: int, d: int) -> dict:
+    """The cluster scan's occupancy and resources on the current device."""
+    n, regs, smem, local, stages = query(TOPK_BF16.file, "vqa_topk_cluster_info", ctas, k, d)[:5]
+    return {"max_clusters": n, "registers": regs, "shared_bytes": smem, "local_bytes": local, "stages": stages}
+
+
+def cluster_plan(b: int, k: int, d: int, valid_n: int, device) -> tuple[int, int]:
+    """(CTAs a cluster, clusters) of a cluster-scan call: as many clusters
+    as the card holds at once, each with a contiguous range of the
+    ceil(valid_n / 128) corpus tiles (cluster c of G takes tiles
+    [c T / G, (c + 1) T / G))."""
+    ctas = cluster_size(b)
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return ctas, min(_cluster_capacity(index, ctas, k, d), -(-valid_n // 128))
 
 
 def _topk_rows(scores: torch.Tensor, k: int):
@@ -79,7 +150,7 @@ def topk_int8_global_plain(q_i8, corpus, valid_n: int, k: int):
 # ---------------------------------------------------------------------------
 
 
-def _scan_cuda(kernel, kind: int, q, corpus, scales, valid_n: int, k: int):
+def _check_operands(q, corpus):
     b, d = q.shape
     if not (q.is_contiguous() and corpus.is_contiguous()):
         raise ValueError("matmul_topk kernels need contiguous queries and corpus")
@@ -87,6 +158,30 @@ def _scan_cuda(kernel, kind: int, q, corpus, scales, valid_n: int, k: int):
         raise ValueError(f"corpus {tuple(corpus.shape)} on {corpus.device} does not match queries {tuple(q.shape)} on {q.device}")
     if d % 16:
         raise ValueError(f"matmul_topk kernels need D % 16 == 0, got D={d}")
+
+
+def _cluster_cuda(q, corpus, valid_n: int, k: int):
+    """K1's cluster scan, then the merge of its per-(cluster, warpgroup) lists."""
+    _check_operands(q, corpus)
+    if corpus.data_ptr() % 16:
+        raise ValueError("matmul_topk_bf16 needs a 16-byte aligned corpus (TMA)")
+    if q.data_ptr() % 16:
+        q = q.clone()
+    b, d = q.shape
+    ctas, clusters = cluster_plan(b, k, d, valid_n, q.device)
+    dev = q.device
+    cand_s = torch.empty((b, 2 * clusters, k), dtype=torch.float32, device=dev)
+    cand_i = torch.empty((b, 2 * clusters, k), dtype=torch.int32, device=dev)
+    out_s = torch.empty((b, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((b, k), dtype=torch.int32, device=dev)
+    TOPK_BF16.launch(q.data_ptr(), corpus.data_ptr(), b, d, valid_n, k, ctas, clusters, cand_s.data_ptr(),
+                     cand_i.data_ptr(), out_s.data_ptr(), out_i.data_ptr(), stream_of(q))
+    return out_s, out_i
+
+
+def _scan_cuda(kernel, kind: int, q, corpus, scales, valid_n: int, k: int):
+    _check_operands(q, corpus)
+    b, d = q.shape
     if kind != 0 and d > 1024:
         raise ValueError(f"int8 kernels need D <= 1024 (exact f32 scores), got D={d}")
     if scales is not None and (scales.dtype != torch.float32 or not scales.is_contiguous()
@@ -113,7 +208,9 @@ def topk_bf16(q, corpus, valid_n: int, k: int):
     if on_card(q):
         if q.dtype != torch.bfloat16 or corpus.dtype != torch.bfloat16:
             raise ValueError("matmul_topk_bf16 needs bf16 queries and corpus")
-        return _scan_cuda(TOPK_BF16, 0, q, corpus, None, valid_n, k)
+        if bf16_route(k, q.shape[1]) == "cluster":
+            return _cluster_cuda(q, corpus, valid_n, k)
+        return _scan_cuda(TOPK_BF16_SCAN, 0, q, corpus, None, valid_n, k)
     return topk_bf16_plain(q, corpus, valid_n, k)
 
 
