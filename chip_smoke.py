@@ -7,11 +7,15 @@ Run from the root of a checkout, on a machine with one GPU::
 It builds the port's CUDA kernels from ``vietnamese_qa_system_tpu_torch/
 csrc`` (one nvcc per source, all at once), holds each kernel against its
 plain PyTorch version at the shapes of its serving path, times it beside
-its bound and a PyTorch library call, prints the registers, shared memory
-and blocks per SM of every flash variant, of K1's cluster scan and of K6
-(ptxas must report no spills), holds K1 on exact ties across its tiles,
-warpgroups and clusters at every batch and route (TOPK_BATCHES, k 10 and
-256), checks that a K6 call is one kernel launch, holds the flash forward
+its bound and a PyTorch library call (the cluster scans also with their
+scan and merge apart), prints the registers, shared memory and blocks per
+SM of every flash variant, of every form of the K1 / K2 cluster scan and
+of K6 (ptxas must report no spills), holds K1 on exact ties across its
+tiles, warpgroups and clusters at every batch, form and route
+(TOPK_BATCHES x TIE_KS) and K2 on repeated rows (INT8_BATCHES x INT8_KS),
+runs the tile scans through their route (SCAN_D), holds K1 and K2 at the
+edges of the cluster forms (TOPK_EDGES), checks that a K6 call
+is one kernel launch, holds the flash forward
 and backward against their plain versions at the edges of their tiles
 (FLASH_EDGES), then drives three serving paths once:
 
@@ -19,8 +23,8 @@ and backward against their plain versions at the edges of their tiles
   weights from a seed): four 1M-row vector stores, ingest of 2,048
   synthetic Vietnamese passages at max_len 512 (the flash kernel), an HTTP
   server answering /search and /ingest, and top-k on the three int8 stores
-  and a rerank of 256 on the bf16 store (K1's tile-scan route) held against
-  the plain path;
+  and a rerank of 256 on the bf16 store (K1's pool form) held against the
+  plain path;
 - question answering, at the full width of ``phogpt_4b_class`` (32 layers,
   d 3072, int8c weights drawn on the card from a seed): ``QAPipeline``
   behind HTTP ``/qa`` answering concurrent questions over the retrieval
@@ -113,7 +117,16 @@ W8_PER_LAYER = {(3072, 3072): 4, (3072, 12288): 1, (12288, 3072): 1}
 W8_REL_TOL = 1e-4  # max abs err / max |plain|: the same exact products summed in another order
 W8_CHECK_ROWS = (64, 256)  # larger batches, checked at the first shape
 K1_SCORE_TOL = 2e-3  # wgmma sums the exact bf16 products in another order than the f32 product
-TOPK_BATCHES = (1, 8, 200, 256, 512)  # 1-, 2- and 4-CTA clusters, and two groups of 256
+TOPK_BATCHES = (1, 8, 32, 200, 256, 512)  # 1-, 2- and 4-CTA clusters, and two groups of 256
+TIE_KS = (K, 61, 100, 256)  # K1's list form, and its pool form past it
+INT8_BATCHES, INT8_KS = (1, 8, 256, 512), (K, K_RERANK, 256)  # K2: list form at 10 and 40, pool form at 256
+SCAN_D = 720  # a width off the cluster scan's 64-column panels: the tile scans' route
+# K1 / K2 at the edges of the cluster scan's forms: one bf16 panel and a
+# half-empty int8 one (D 64), an int8 panel and a half (D 192), the widest
+# int8 (D 1024); corpora of a few tiles (fewer clusters than the card
+# holds, too few published maxima for a floor) and valid_n = 256 = k;
+# batches of 3 and 300 (two groups of 256); (D, N, valid_n)
+TOPK_EDGES = ((64, 200_000, 199_923), (192, 3_000, 256), (1024, 300, 256))
 RERANK_BATCH = 32  # the Retriever's query batch on the HTTP /search path
 READER_QUESTIONS, READER_PROMPT_LEN, READER_NEW_TOKENS = 8, 512, 32
 # 4 rows x (48 + 15) tokens = 252 rows: the teacher-forced check takes K6 too
@@ -211,8 +224,10 @@ def rank_recall(q, corpus, ids, k: int) -> float:
 
     scores = q.float() @ corpus.float().T
     picked = torch.gather(scores, 1, ids.long())
-    counts = torch.stack([(scores > picked[:, j: j + 1]).sum(1) for j in range(k)], 1)
-    return (counts < k).float().mean().item()
+    ranked = torch.sort(scores, dim=1).values
+    del scores
+    higher = ranked.shape[1] - torch.searchsorted(ranked, picked.contiguous(), right=True)
+    return (higher < k).sum().item() / higher.numel()  # counted exactly: a CUDA mean multiplies by 1 / n
 
 
 def ptxas_report(file: str, function: str) -> str:
@@ -257,9 +272,54 @@ def tie_corpus(torch, T, corpus, valid: int, gen):
     return tied, h
 
 
+def cluster_times(torch, T, kernel, q, corpus, scales, n: int, k: int, route: str) -> dict:
+    """A cluster-scan call's device time, and its scan and merge apart (the
+    same scratch: the scan's candidates feed the merge)."""
+    _, _, scratch = T._cluster_cuda(kernel, q, corpus, scales, n, k, route)
+    scan = cuda_ms(lambda: T._cluster_cuda(kernel, q, corpus, scales, n, k, route, what=1, scratch=scratch), 10)
+    merge = cuda_ms(lambda: T._cluster_cuda(kernel, q, corpus, scales, n, k, route, what=2, scratch=scratch), 10)
+    total = cuda_ms(lambda: T._cluster_cuda(kernel, q, corpus, scales, n, k, route, scratch=scratch), 10)
+    return {"ms": total, "scan_ms": scan, "merge_ms": merge}
+
+
+def repeated_codes(torch, quant, gen, n: int, distinct: int):
+    """An int8 corpus of n rows drawn from `distinct` rows, with their
+    scales: integer scores tie across every copy of a row."""
+    base = torch.randn(distinct, D, generator=gen, device="cuda")
+    codes, scales = quant.quantize_int8_reference(base)
+    pick = torch.randint(0, distinct, (n,), generator=gen, device="cuda")
+    return codes[pick].contiguous(), scales[pick].contiguous()
+
+
+def cluster_resources(torch, T, report) -> None:
+    """Registers, shared memory, ring stages and clusters at once of every
+    cluster-scan form at D 768, and no ptxas spill in any of them."""
+    # (kernel, int8, k, whether its report row times this form)
+    for name, int8, k, timed in (("matmul_topk_bf16", False, K, True), ("matmul_topk_bf16_large", False, T.MAX_K, True),
+                                 ("matmul_topk_int8", True, K, True), ("matmul_topk_int8", True, K_RERANK, False),
+                                 ("matmul_topk_int8", True, T.MAX_K, False)):
+        info = {c: T.cluster_info(c, k, D, int8=int8) for c in (1, 2, 4)}
+        for c, row in info.items():
+            print(f"{name} ({row['form']} form), {c}-CTA clusters, k={k}, D={D}: {row['registers']} registers, "
+                  f"{row['shared_bytes']} B shared, {row['stages']} ring stages, {row['max_clusters']} clusters at once, "
+                  f"{row['local_bytes']} B local", flush=True)
+        if not timed:
+            continue
+        report[name].update(
+            registers=info[4]["registers"], shared_bytes=info[4]["shared_bytes"], stages=info[4]["stages"],
+            clusters_at_once={c: r["max_clusters"] for c, r in info.items()})
+    # every instantiation: element type x (pool form, lists of 4 and 16 entries a lane)
+    for elem in ("4Bf16", "2S8"):
+        for kq in (0, 4, 16):
+            rep = ptxas_report("topk.cu", f"topk_cluster_kernelINS0_{elem}ELi{kq}E")
+            print(f"cluster scan <{elem[1:]}, KQ={kq}>, ptxas: {rep}", flush=True)
+            check("0 bytes spill stores, 0 bytes spill loads" in rep, f"cluster scan <{elem[1:]}, KQ={kq}>: no ptxas spills")
+
+
 def phase_topk(torch, T, quant, gen, report):
-    """K1 (both routes), K2 and K3 against their plain versions at the
-    serving shape; K1 also on exact ties at every batch and k."""
+    """K1 (list, pool and tile-scan routes), K2 (list and pool forms, and
+    its tile scan) and K3 against their plain versions at the serving
+    shape; K1 on exact ties and K2 on repeated rows at every batch and k."""
     corpus = torch.randn(N, D, generator=gen, device="cuda").to(torch.bfloat16)
     for b in (B, 8):
         q = torch.randn(b, D, generator=gen, device="cuda").to(torch.bfloat16)
@@ -273,94 +333,194 @@ def phase_topk(torch, T, quant, gen, report):
         check(rec == 1.0 and err <= K1_SCORE_TOL and torch.equal(i, i2) and torch.equal(s, s2),
               f"K1 bf16 B={b} N={N} k={K}: recall 1.000 by the rank-count rule, scores within {K1_SCORE_TOL} of the "
               "plain version, repeats bit for bit")
-        ms = cuda_ms(lambda: T.topk_bf16(q, corpus, N, K), 10)
+        t = cluster_times(torch, T, T.TOPK_BF16, q, corpus, None, N, K, "cluster")
         lib_ms = cuda_ms(lambda: torch.topk(q @ corpus.T, K), 5)
         bnd = bound(b * D * 2 + N * D * 2 + b * K * 8, 2 * b * N * D, BF16_OPS_S)
-        print(f"K1 bf16 B={b} N={N} D={D} k={K}: kernel {ms:.4f} ms, library (matmul + topk) {lib_ms:.4f} ms, bound "
-              f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}), {bnd['bound_ms'] / ms:.2f} of the bound", flush=True)
+        print(f"K1 bf16 B={b} N={N} D={D} k={K}: kernel {t['ms']:.4f} ms (scan {t['scan_ms']:.4f}, merge "
+              f"{t['merge_ms']:.4f}), library (matmul + topk) {lib_ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms "
+              f"({bnd['bound_by']}), {bnd['bound_ms'] / t['ms']:.2f} of the bound", flush=True)
         if b == B:
             report["matmul_topk_bf16"] = {
-                "max_abs_err": err, "ms": ms, "plain_ms": cuda_ms(lambda: T.topk_bf16_plain(q, corpus, N, K), 3),
+                "max_abs_err": err, **t, "plain_ms": cuda_ms(lambda: T.topk_bf16_plain(q, corpus, N, K), 3),
                 "library_ms": lib_ms, "library_call": "composite: torch.matmul (bf16 scores) then torch.topk", **bnd}
         else:
-            report["matmul_topk_bf16"].update(b8_ms=ms, b8_library_ms=lib_ms, b8_bound_ms=bnd["bound_ms"])
+            report["matmul_topk_bf16"].update(b8_ms=t["ms"], b8_library_ms=lib_ms, b8_bound_ms=bnd["bound_ms"])
     valid = N - 12345
     q = torch.randn(B, D, generator=gen, device="cuda").to(torch.bfloat16)
     _, iv = T.topk_bf16(q, corpus, valid, K)
     torch.cuda.synchronize()
     check(int(iv.max()) < valid and rank_recall(q, corpus[:valid], iv, K) == 1.0,
           f"K1 bf16 B={B} valid_n={valid} < N: ids below valid_n, recall 1.000")
-    # the tile-scan route at an explicit rerank's k, at the serving path's query batch
+
+    # K1's pool form at an explicit rerank's k, at the serving path's query
+    # batch; the tile scan timed at the same shape (called directly: the
+    # route sends it only what no cluster form fits)
     qr = q[:RERANK_BATCH].contiguous()
     s, i = T.topk_bf16(qr, corpus, N, T.MAX_K)
+    s2, i2 = T.topk_bf16(qr, corpus, N, T.MAX_K)
     ps, pi = T.topk_bf16_plain(qr, corpus, N, T.MAX_K)
     torch.cuda.synchronize()
     err = (s - ps).abs().max().item()
-    check(T.bf16_route(T.MAX_K, D) == "scan" and err <= K1_SCORE_TOL and rank_recall(qr, corpus, i, T.MAX_K) == 1.0,
-          f"K1 bf16 tile scan B={RERANK_BATCH} k={T.MAX_K}: scores within {K1_SCORE_TOL} of the plain version, "
-          "recall 1.000")
+    check(T.bf16_route(T.MAX_K, D) == "large" and T.bf16_route(100, D) == "large" and err <= K1_SCORE_TOL
+          and rank_recall(qr, corpus, i, T.MAX_K) == 1.0 and torch.equal(i, i2) and torch.equal(s, s2),
+          f"K1 bf16 pool form B={RERANK_BATCH} k={T.MAX_K}: scores within {K1_SCORE_TOL} of the plain version, "
+          "recall 1.000, repeats bit for bit")
+    t = cluster_times(torch, T, T.TOPK_BF16_LARGE, qr, corpus, None, N, T.MAX_K, "large")
+    lib_ms = cuda_ms(lambda: torch.topk(qr @ corpus.T, T.MAX_K), 5)
+    bnd = bound(RERANK_BATCH * D * 2 + N * D * 2 + RERANK_BATCH * T.MAX_K * 8, 2 * RERANK_BATCH * N * D, BF16_OPS_S)
+    report["matmul_topk_bf16_large"] = {
+        "max_abs_err": err, **t, "plain_ms": cuda_ms(lambda: T.topk_bf16_plain(qr, corpus, N, T.MAX_K), 3),
+        "library_ms": lib_ms, "library_call": "composite: torch.matmul (bf16 scores) then torch.topk",
+        "shape": f"B {RERANK_BATCH}, k {T.MAX_K}", **bnd}
+    print(f"K1 bf16 pool form B={RERANK_BATCH} k={T.MAX_K}: kernel {t['ms']:.4f} ms (scan {t['scan_ms']:.4f}, merge "
+          f"{t['merge_ms']:.4f}), library {lib_ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms", flush=True)
+    for b, k in ((RERANK_BATCH, 100), (B, T.MAX_K)):
+        qb = q[:b].contiguous()
+        t = cluster_times(torch, T, T.TOPK_BF16_LARGE, qb, corpus, None, N, k, "large")
+        lib = cuda_ms(lambda: torch.topk(qb @ corpus.T, k), 5)
+        print(f"K1 bf16 pool form B={b} k={k} ({T.cluster_size(b)}-CTA clusters): kernel {t['ms']:.4f} ms (scan "
+              f"{t['scan_ms']:.4f}, merge {t['merge_ms']:.4f}), library {lib:.4f} ms", flush=True)
+        report["matmul_topk_bf16_large"][f"b{b}_k{k}_ms"] = t["ms"]
+        report["matmul_topk_bf16_large"][f"b{b}_k{k}_library_ms"] = lib
+    s, i = T._scan_cuda(T.TOPK_BF16_SCAN, 0, qr, corpus, None, N, T.MAX_K)
+    torch.cuda.synchronize()
     report["matmul_topk_bf16_scan"] = {
-        "max_abs_err": err, "ms": cuda_ms(lambda: T.topk_bf16(qr, corpus, N, T.MAX_K), 5),
-        "plain_ms": cuda_ms(lambda: T.topk_bf16_plain(qr, corpus, N, T.MAX_K), 3),
-        "library_ms": cuda_ms(lambda: torch.topk(qr @ corpus.T, T.MAX_K), 5),
+        "max_abs_err": (s - ps).abs().max().item(), "ms": cuda_ms(lambda: T._scan_cuda(
+            T.TOPK_BF16_SCAN, 0, qr, corpus, None, N, T.MAX_K), 3),
+        "plain_ms": report["matmul_topk_bf16_large"]["plain_ms"], "library_ms": lib_ms,
         "library_call": "composite: torch.matmul (bf16 scores) then torch.topk",
-        "shape": f"B {RERANK_BATCH}, k {T.MAX_K}",
-        **bound(RERANK_BATCH * D * 2 + N * D * 2 + RERANK_BATCH * T.MAX_K * 8, 2 * RERANK_BATCH * N * D, BF16_OPS_S),
-    }
+        "shape": f"B {RERANK_BATCH}, k {T.MAX_K}, called directly", **bnd}
+    check(rank_recall(qr, corpus, i, T.MAX_K) == 1.0 and report["matmul_topk_bf16_scan"]["max_abs_err"] <= K1_SCORE_TOL,
+          f"K1 tile scan B={RERANK_BATCH} k={T.MAX_K} (called directly): recall 1.000, scores within {K1_SCORE_TOL}")
 
     # exact ties across tiles, warpgroups and clusters: ids equal the plain version's
     tied, h = tie_corpus(torch, T, corpus, valid, gen)
     del corpus
     for b in TOPK_BATCHES:
         q = (h[None, :] * 2.0 ** -(torch.arange(b, device="cuda")[:, None] % 3)).to(torch.bfloat16)
-        for k in (K, T.MAX_K):
+        for k in TIE_KS:
             s, i = T.topk_bf16(q, tied, valid, k)
+            s2, i2 = T.topk_bf16(q, tied, valid, k)
             ps, pi = T.topk_bf16_plain(q, tied, valid, k)
             torch.cuda.synchronize()
-            check(torch.equal(i, pi) and (s - ps).abs().max().item() == 0.0,
+            check(torch.equal(i, pi) and (s - ps).abs().max().item() == 0.0 and torch.equal(i, i2)
+                  and torch.equal(s, s2) and rank_recall(q, tied[:valid], i, k) == 1.0,
                   f"K1 ties B={b} k={k} ({T.bf16_route(k, D)} route, {T.cluster_size(b)}-CTA clusters): ids and "
-                  "scores equal the plain version's")
+                  "scores equal the plain version's, recall 1.000, repeats bit for bit")
     del tied
-    info = {c: T.cluster_info(c, K, D) for c in (1, 2, 4)}
-    for c, row in info.items():
-        print(f"K1 cluster scan, {c}-CTA clusters, k={K}, D={D}: {row['registers']} registers, {row['shared_bytes']} B "
-              f"shared, {row['stages']} ring stages, {row['max_clusters']} clusters at once, {row['local_bytes']} B "
-              "local", flush=True)
-    report["matmul_topk_bf16"].update(registers=info[4]["registers"], shared_bytes=info[4]["shared_bytes"],
-                                      stages=info[4]["stages"], clusters_at_once={c: r["max_clusters"]
-                                                                                  for c, r in info.items()})
-    rep = ptxas_report("topk.cu", "topk_cluster_kernel")
-    print(f"K1 cluster scan, ptxas: {rep}", flush=True)
-    check("0 bytes spill stores, 0 bytes spill loads" in rep, "K1 cluster scan: ptxas reports no spills")
 
     base = torch.randn(N, D, generator=gen, device="cuda")
     codes, scales = quant.quantize_int8_reference(base)
     gcodes, _ = quant.quantize_int8_global(base)
     del base
-    q_i8, _ = T.quantize_queries(torch.randn(B, D, generator=gen, device="cuda"))
-    for name, kern, plain, library, n_scale in (
-        ("matmul_topk_int8", lambda n, k: T.topk_int8(q_i8, codes, scales, n, k),
-         lambda n, k: T.topk_int8_plain(q_i8, codes, scales, n, k),
-         lambda: torch.topk(torch._int_mm(q_i8, codes.T).float() * scales, K), 4),
-        ("matmul_topk_int8_global", lambda n, k: T.topk_int8_global(q_i8, gcodes, n, k),
-         lambda n, k: T.topk_int8_global_plain(q_i8, gcodes, n, k),
-         lambda: torch.topk(torch._int_mm(q_i8, gcodes.T), K), 0),
-    ):
-        worst = 0.0
-        for n, k in ((N, K), (N, K_RERANK), (N - 777, K)):
-            (s, i), (ps, pi) = kern(n, k), plain(n, k)
+    q_i8, _ = T.quantize_queries(torch.randn(max(INT8_BATCHES), D, generator=gen, device="cuda"))
+    worst = 0.0
+    for b in INT8_BATCHES:
+        qb = q_i8[:b].contiguous()
+        for n in (N, N - 777):
+            for k in INT8_KS:
+                (s, i), (ps, pi) = T.topk_int8(qb, codes, scales, n, k), T.topk_int8_plain(qb, codes, scales, n, k)
+                torch.cuda.synchronize()
+                check(torch.equal(i, pi) and torch.equal(s, ps),
+                      f"matmul_topk_int8 B={b} valid_n={n} k={k} ({T.int8_route(k, D)} form, "
+                      f"{T.cluster_size(b)}-CTA clusters): ids and scores equal the plain version exactly")
+                worst = max(worst, (s - ps).abs().max().item())
+    rcodes, rscales = repeated_codes(torch, quant, gen, N, 4096)
+    for b in INT8_BATCHES:
+        qb = q_i8[:b].contiguous()
+        for k in INT8_KS:
+            (s, i), (ps, pi) = T.topk_int8(qb, rcodes, rscales, N - 777, k), T.topk_int8_plain(qb, rcodes, rscales,
+                                                                                                N - 777, k)
             torch.cuda.synchronize()
             check(torch.equal(i, pi) and torch.equal(s, ps),
-                  f"{name} valid_n={n} k={k}: ids and scores equal the plain version exactly")
-            worst = max(worst, (s - ps).abs().max().item())
-        report[name] = {
-            "max_abs_err": worst,
-            "ms": cuda_ms(lambda: kern(N, K), 10),
-            "plain_ms": cuda_ms(lambda: plain(N, K), 3),
-            "library_ms": cuda_ms(library, 5),
-            "library_call": "composite: torch._int_mm (int32 scores) then torch.topk",
-            **bound(B * D + N * D + N * n_scale + B * K * 8, 2 * B * N * D, INT8_OPS_S),
-        }
+                  f"matmul_topk_int8 on repeated rows B={b} k={k}: ids and scores equal the plain version exactly")
+    del rcodes, rscales
+    q8 = q_i8[:B].contiguous()
+    t = cluster_times(torch, T, T.TOPK_INT8, q8, codes, scales, N, K, "cluster")
+    report["matmul_topk_int8"] = {
+        "max_abs_err": worst, **t, "plain_ms": cuda_ms(lambda: T.topk_int8_plain(q8, codes, scales, N, K), 3),
+        "library_ms": cuda_ms(lambda: torch.topk(torch._int_mm(q8, codes.T).float() * scales, K), 5),
+        "library_call": "composite: torch._int_mm (int32 scores) then torch.topk",
+        **bound(B * D + N * D + N * 4 + B * K * 8, 2 * B * N * D, INT8_OPS_S)}
+    r = report["matmul_topk_int8"]
+    print(f"K2 int8 B={B} k={K}: kernel {r['ms']:.4f} ms (scan {r['scan_ms']:.4f}, merge {r['merge_ms']:.4f}), "
+          f"library {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms", flush=True)
+    for b, k in ((8, K), (B, K_RERANK), (B, T.MAX_K)):
+        qb = q_i8[:b].contiguous()
+        t = cluster_times(torch, T, T.TOPK_INT8, qb, codes, scales, N, k, T.int8_route(k, D))
+        qp = qb if b > 16 else torch.cat([qb, qb.new_zeros(32 - b, D)])  # _int_mm takes more than 16 rows
+        lib = cuda_ms(lambda: torch.topk(torch._int_mm(qp, codes.T).float() * scales, k), 5)
+        print(f"K2 int8 B={b} k={k} ({T.int8_route(k, D)} form): kernel {t['ms']:.4f} ms (scan {t['scan_ms']:.4f}, "
+              f"merge {t['merge_ms']:.4f}), library {lib:.4f} ms", flush=True)
+        r[f"b{b}_k{k}_ms"] = t["ms"]
+        r[f"b{b}_k{k}_library_ms"] = lib
+    worst = 0.0
+    for n, k in ((N, K), (N, K_RERANK), (N - 777, K)):
+        (s, i), (ps, pi) = T.topk_int8_global(q8, gcodes, n, k), T.topk_int8_global_plain(q8, gcodes, n, k)
+        torch.cuda.synchronize()
+        check(torch.equal(i, pi) and torch.equal(s, ps),
+              f"matmul_topk_int8_global valid_n={n} k={k}: ids and scores equal the plain version exactly")
+        worst = max(worst, (s - ps).abs().max().item())
+    report["matmul_topk_int8_global"] = {
+        "max_abs_err": worst,
+        "ms": cuda_ms(lambda: T.topk_int8_global(q8, gcodes, N, K), 10),
+        "plain_ms": cuda_ms(lambda: T.topk_int8_global_plain(q8, gcodes, N, K), 3),
+        "library_ms": cuda_ms(lambda: torch.topk(torch._int_mm(q8, gcodes.T), K), 5),
+        "library_call": "composite: torch._int_mm (int32 scores) then torch.topk",
+        **bound(B * D + N * D + B * K * 8, 2 * B * N * D, INT8_OPS_S),
+    }
+    del codes, scales, gcodes
+
+    # the tile scans of K1 and K2 through their route: a width off the
+    # 64-column panels
+    bcorpus = torch.randn(N, SCAN_D, generator=gen, device="cuda").to(torch.bfloat16)
+    qb = torch.randn(RERANK_BATCH, SCAN_D, generator=gen, device="cuda").to(torch.bfloat16)
+    s, i = T.topk_bf16(qb, bcorpus, N - 777, K)
+    ps, _ = T.topk_bf16_plain(qb, bcorpus, N - 777, K)
+    torch.cuda.synchronize()
+    check(T.bf16_route(K, SCAN_D) == "scan" and (s - ps).abs().max().item() <= K1_SCORE_TOL
+          and rank_recall(qb, bcorpus[:N - 777], i, K) == 1.0,
+          f"K1 tile scan route D={SCAN_D} B={RERANK_BATCH} k={K}: recall 1.000, scores within {K1_SCORE_TOL}")
+    del bcorpus
+    base = torch.randn(N, SCAN_D, generator=gen, device="cuda")
+    codes, scales = quant.quantize_int8_reference(base)
+    del base
+    q8, _ = T.quantize_queries(torch.randn(B, SCAN_D, generator=gen, device="cuda"))
+    worst = 0.0
+    for n, k in ((N, K), (N - 777, K_RERANK)):
+        (s, i), (ps, pi) = T.topk_int8(q8, codes, scales, n, k), T.topk_int8_plain(q8, codes, scales, n, k)
+        torch.cuda.synchronize()
+        check(T.int8_route(k, SCAN_D) == "scan" and torch.equal(i, pi) and torch.equal(s, ps),
+              f"matmul_topk_int8 tile scan route D={SCAN_D} valid_n={n} k={k}: ids and scores equal the plain version")
+        worst = max(worst, (s - ps).abs().max().item())
+    report["matmul_topk_int8_scan"] = {
+        "max_abs_err": worst, "ms": cuda_ms(lambda: T.topk_int8(q8, codes, scales, N, K), 5),
+        "plain_ms": cuda_ms(lambda: T.topk_int8_plain(q8, codes, scales, N, K), 3),
+        "library_ms": cuda_ms(lambda: torch.topk(torch._int_mm(q8, codes.T).float() * scales, K), 5),
+        "library_call": "composite: torch._int_mm (int32 scores) then torch.topk", "shape": f"B {B}, D {SCAN_D}, k {K}",
+        **bound(B * SCAN_D + N * SCAN_D + N * 4 + B * K * 8, 2 * B * N * SCAN_D, INT8_OPS_S)}
+    del codes, scales
+    cluster_resources(torch, T, report)
+
+
+def phase_topk_edges(torch, T, quant, gen) -> None:
+    """K1 and K2 against their plain versions at TOPK_EDGES, every form."""
+    for d, n, valid in TOPK_EDGES:
+        corpus = torch.randn(n, d, generator=gen, device="cuda").to(torch.bfloat16)
+        codes, scales = quant.quantize_int8_reference(torch.randn(n, d, generator=gen, device="cuda"))
+        for b in (3, 300):
+            qf = torch.randn(b, d, generator=gen, device="cuda")
+            q, (q8, _) = qf.to(torch.bfloat16), T.quantize_queries(qf)
+            for k in (K, 61, 256):
+                s, i = T.topk_bf16(q, corpus, valid, k)
+                ps, _ = T.topk_bf16_plain(q, corpus, valid, k)
+                (s8, i8), (ps8, pi8) = T.topk_int8(q8, codes, scales, valid, k), T.topk_int8_plain(q8, codes, scales,
+                                                                                                   valid, k)
+                torch.cuda.synchronize()
+                check((s - ps).abs().max().item() <= K1_SCORE_TOL and rank_recall(q, corpus[:valid], i, k) == 1.0
+                      and torch.equal(i8, pi8) and torch.equal(s8, ps8),
+                      f"K1 / K2 edge D={d} N={n} valid_n={valid} B={b} k={k} ({T.bf16_route(k, d)} / "
+                      f"{T.int8_route(k, d)}): K1 recall 1.000 and scores within {K1_SCORE_TOL}, K2 equal")
 
 
 def ingest_lens(torch):
@@ -788,7 +948,7 @@ def phase_slice(torch, pkg, gen):
             ok = same_ids and torch.equal(s.cpu(), ps)
         check(ok and bool((i[:, 0].cpu() == torch.arange(32)).all()),
               f"{dt} store top-{K} equals the plain path; each query finds its source vector first")
-    # an explicit rerank of MAX_K candidates on the bf16 store (K1's tile-scan route)
+    # an explicit rerank of MAX_K candidates on the bf16 store (K1's pool form)
     s, i = stores["bf16"].topk(queries, K, rerank=pkg.MAX_K)
     ps, pi = on_cpu(stores["bf16"]).topk(queries.cpu(), K, rerank=pkg.MAX_K)
     check(torch.equal(i.cpu(), pi) and (s.cpu() - ps).abs().max().item() <= RERANK_SCORE_TOL
@@ -1531,6 +1691,7 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     report: dict = {}
     phase_topk(torch, T, quant, gen, report)
+    phase_topk_edges(torch, T, quant, gen)
     variants = flash_variants(torch)
     table = torch.randn(32, FLASH_H, generator=gen, device="cuda") * 0.02
     phase_flash(torch, A, gen, report, lambda t: relative_attention_bias(table, t, mpnet_class()), variants)
@@ -1539,7 +1700,7 @@ def main() -> int:
     phase_k8(torch, quant, gen, report)
     retrieval, ctx = phase_slice(torch, pkg, gen)
     print("launches in the retrieval run: " + json.dumps(retrieval))
-    for name in ("matmul_topk_bf16", "matmul_topk_bf16_scan", "matmul_topk_int8", "matmul_topk_int8_global",
+    for name in ("matmul_topk_bf16", "matmul_topk_bf16_large", "matmul_topk_int8", "matmul_topk_int8_global",
                  "flash_attention_fwd"):
         check(retrieval[name] > 0, f"{name} launched on the retrieval path")
     reader_launches, reader = phase_reader(torch, pkg, ctx)

@@ -155,31 +155,169 @@ def test_cluster_size_holds_the_query_tiles(b, ctas):
     assert ctas * 64 >= min(b, 256) and (ctas == 1 or (ctas // 2) * 64 < min(b, 256))
 
 
-# (k, D, route, ring stages): the serving shape, the largest k at D 768,
-# the rerank's k, the widths that leave too little shared memory or do not
-# fill whole 64-column panels
-ROUTE_CASES = [(10, 768, "cluster", 7), (40, 768, "cluster", 5), (60, 768, "cluster", 4), (61, 768, "scan", 3),
-               (64, 768, "scan", 3), (256, 768, "scan", None), (10, 64, "cluster", 8), (64, 512, "cluster", 5),
-               (10, 1024, "cluster", 5), (10, 1536, "scan", 1), (10, 32, "scan", None), (10, 96, "scan", None)]
+# (k, D, route, ring stages of the form the route picks): the serving
+# shape, the largest list k at D 768, the k past it and the rerank's k
+# (the pool form), the widths that leave too little shared memory or do
+# not fill whole 64-column panels
+ROUTE_CASES = [(10, 768, "cluster", 7), (40, 768, "cluster", 5), (60, 768, "cluster", 4), (61, 768, "large", 7),
+               (64, 768, "large", 7), (256, 768, "large", 7), (10, 64, "cluster", 8), (64, 512, "cluster", 5),
+               (10, 1024, "cluster", 5), (10, 1536, "scan", 1), (10, 32, "scan", None), (10, 96, "scan", None),
+               (100, 768, "large", 7), (256, 1024, "large", 5), (256, 1536, "scan", None)]
+_FIXED = 8 * 25  # the barriers
+
+
+def _smem(k, d, stages, *, int8=False, pools=False):
+    """The cluster scan's shared memory: queries, the ring (K2: and each
+    stage's 512 B of scales), the lists and queues (int8 at k > 16: and
+    the floors' state) or the floors' state alone (pools: rows' counts, thresholds,
+    floors, 8 published maxima, histograms), the barriers."""
+    queries = 64 * 128 * -(-d * (1 if int8 else 2) // 128)
+    floors = 2 * 64 * (16 + 4 * 8) + 8 * 256 * 4
+    select = floors if pools else 1024 * k + 8 * 64 * 12 + (floors if int8 and k > 16 else 0)
+    return queries + select + _FIXED + stages * (16384 + (512 if int8 else 0))
 
 
 @pytest.mark.parametrize("k,d,route,stages", ROUTE_CASES)
 def test_bf16_route_rule(k, d, route, stages):
-    """The cluster scan where its shared memory (queries, a ring of 4-8
-    16 KB stages, two warpgroups' lists, queues, barriers) fits a block;
-    the tile scan otherwise."""
+    """The list form where its shared memory (queries, a ring of 4-8 16 KB
+    stages, two warpgroups' lists, queues, barriers) fits a block; the pool
+    form where the ring fits beside the queries alone; the tile scan
+    otherwise."""
     assert tt.bf16_route(k, d) == route
     if stages is not None:
-        assert tt.cluster_stages(k, d) == stages
+        assert tt.cluster_stages(k, d, pools=route == "large") == stages
+    if route != "scan":
+        assert 4 <= stages <= 8 and _smem(k, d, stages, pools=route == "large") <= 232_448 and d % 64 == 0
+        assert _smem(k, d, stages + 1, pools=route == "large") > 232_448 or stages == 8
     if route == "cluster":
-        smem = 128 * d + 1024 * k + 8 * 64 * 12 + 8 * 25 + stages * 16384
-        assert 4 <= stages <= 8 and smem <= 232_448 and d % 64 == 0 and k <= tt.CLUSTER_MAX_K
+        assert k <= tt.CLUSTER_MAX_K
+    if route == "large":  # the list form would not leave 4 stages
+        assert k > tt.CLUSTER_MAX_K or tt.cluster_stages(k, d) < 4
+
+
+# K2's route: int8 panels of 128 columns (the queries take d bytes a row),
+# 512 B of scales a stage, the lists' floors; D <= 1024 (exact f32
+# scores), D % 64 == 0
+INT8_ROUTE_CASES = [(10, 768, "cluster", 8), (40, 768, "cluster", 7), (64, 768, "cluster", 5), (65, 768, "large", 8),
+                    (100, 768, "large", 8), (256, 768, "large", 8), (10, 64, "cluster", 8), (64, 1024, "cluster", 4),
+                    (256, 1024, "large", 8), (10, 1088, "scan", None), (10, 720, "scan", None), (256, 96, "scan", None)]
+
+
+@pytest.mark.parametrize("k,d,route,stages", INT8_ROUTE_CASES)
+def test_int8_route_rule(k, d, route, stages):
+    assert tt.int8_route(k, d) == route
+    if route != "scan":
+        assert tt.cluster_stages(k, d, int8=True, pools=route == "large") == stages
+        assert 4 <= stages <= 8 and _smem(k, d, stages, int8=True, pools=route == "large") <= 232_448
+        assert _smem(k, d, stages + 1, int8=True, pools=route == "large") > 232_448 or stages == 8
+    # int8_res's auto-rerank of 4 k at the default k 10 takes the list form
+    assert tt.int8_route(40, 768) == "cluster"
+
+
+def test_routes_follow_k_at_the_serving_width():
+    assert [tt.bf16_route(k, 768) for k in (1, 60, 61, 100, 256)] == ["cluster"] * 2 + ["large"] * 3
+    assert [tt.int8_route(k, 768) for k in (1, 64, 65, 256)] == ["cluster"] * 2 + ["large"] * 2
+
+
+def test_merge_key_orders_like_beats():
+    """Ascending keys = (score desc, index asc), on scores with many ties,
+    signed zeros and infinities."""
+    rng = np.random.default_rng(7)
+    s = rng.choice(np.array([-np.inf, -2.5, -1.0, -0.0, 0.0, 1e-30, 1.0, 3.0, np.inf], np.float32), 500)
+    i = rng.permutation(500).astype(np.int32)
+    key = tt.merge_key(torch.from_numpy(s), torch.from_numpy(i))
+    by_key = torch.argsort(key).numpy()
+    by_rule = np.lexsort((i, -s))  # -(-0.0) == -(+0.0): signed zeros tie, then the index decides
+    np.testing.assert_array_equal(by_key, by_rule)
+
+
+def test_merge_key_ranks_signed_zeros_equal():
+    k = lambda s, i: int(tt.merge_key(torch.tensor([s], dtype=torch.float32), torch.tensor([i]))[0])
+    assert k(-0.0, 4) == k(0.0, 4)
+    assert k(0.0, 3) < k(-0.0, 5) and k(-0.0, 3) < k(0.0, 5)
+    assert k(1e-38, 9) < k(0.0, 0) < k(-1e-38, 0)
+    # the padding of a short candidate list ranks after every real entry
+    assert k(float("-inf"), 2 ** 31 - 2) < k(float("-inf"), 2 ** 31 - 1)
+    assert k(3.0, 2 ** 31 - 2) < k(3.0, 2 ** 31 - 1)
+
+
+def _radix_select(keys, k):
+    """The merge's selection (csrc/topk.cu topk_merge_kernel and
+    keep_best), in Python over unsigned 64-bit keys: 8-bit digits from the
+    top, a histogram of the keys still tied with the prefix each pass,
+    stopping once every key of the chosen bin is kept; returns the keys at
+    or below the prefix."""
+    prefix, need, shift = 0, k, 56
+    for p in range(8):
+        shift = 56 - 8 * p
+        live = [x for x in keys if p == 0 or x >> (shift + 8) == prefix]
+        hist = np.bincount([(x >> shift) & 255 for x in live], minlength=256)
+        run = np.cumsum(hist)
+        b = int(np.searchsorted(run, need))  # the first bin whose running count reaches need
+        before = int(run[b] - hist[b])
+        prefix, need = (prefix << 8) | b, need - before
+        if hist[b] == need:
+            break
+    return [x for x in keys if x >> shift <= prefix]
+
+
+@pytest.mark.parametrize("k", [1, 10, 100, 256])
+def test_merge_radix_select_keeps_exactly_the_k_best(k):
+    """Candidates as the merge sees them: per-part lists padded with
+    (-inf, INT_MAX), integer scores that tie often, signed zeros."""
+    rng = np.random.default_rng(k)
+    m = 4 * 256
+    s = rng.integers(-3, 4, m).astype(np.float32)
+    s[rng.random(m) < 0.1] = -0.0
+    i = rng.permutation(m).astype(np.int32)
+    s[-40:], i[-40:] = -np.inf, 2 ** 31 - 1
+    keys = [int(x) + (1 << 63) for x in tt.merge_key(torch.from_numpy(s), torch.from_numpy(i))]
+    kept = _radix_select(keys, k)
+    assert len(kept) == k and sorted(kept) == sorted(keys)[:k]
+
+
+def _tied_bf16(b, n, d, seed):
+    """Entries in {-1, 0, 1} / 2: every product and sum is exact in f32, and
+    scores tie in large groups, so ids must agree exactly."""
+    rng = np.random.default_rng(seed)
+    q = (rng.integers(-1, 2, (b, d)) / 2).astype(np.float32)
+    c = (rng.integers(-1, 2, (n, d)) / 2).astype(np.float32)
+    return q, c
+
+
+@pytest.mark.parametrize("k", [100, 256])
+def test_bf16_large_k_matches_jax_exact_and_reference_on_ties(k):
+    q, c = _tied_bf16(5, 1100, 64, k)
+    ts, ti = tt.matmul_topk(torch.from_numpy(q), torch.from_numpy(c).bfloat16(), k, valid_n=1000)
+    js, ji = jt.matmul_topk(jnp.asarray(q), jnp.asarray(c, jnp.bfloat16), k, mode="exact", tile_n=256, valid_n=1000)
+    rs, ri = jt.matmul_topk_reference(jnp.asarray(q), jnp.asarray(c), k, valid_n=1000)
+    for ids, scores in ((ji, js), (ri, rs)):
+        np.testing.assert_array_equal(ti.numpy(), np.asarray(ids))
+        np.testing.assert_array_equal(ts.numpy(), np.asarray(scores))
+    assert ti.max().item() < 1000
+
+
+@pytest.mark.parametrize("k", [100, 256])
+@pytest.mark.parametrize("valid_n", [None, 1777])
+def test_int8_large_k_equals_jax_exact_on_repeated_rows(k, valid_n):
+    """int8 codes with per-row scales where whole rows repeat: integer
+    scores tie across rows, and ids and scores equal the JAX exact mode."""
+    rng = np.random.default_rng(k)
+    base = rng.standard_normal((300, 64)).astype(np.float32)
+    x = base[rng.integers(0, 300, 2048)]
+    codes, scales = jq.quantize_int8_reference(jnp.asarray(x))
+    q = rng.standard_normal((6, 64)).astype(np.float32)
+    ts, ti = tt.matmul_topk(torch.from_numpy(q), torch.from_numpy(np.asarray(codes)), k,
+                            corpus_scales=torch.from_numpy(np.asarray(scales)), valid_n=valid_n)
+    js, ji = jt.matmul_topk(jnp.asarray(q), codes, k, corpus_scales=scales, valid_n=valid_n, mode="exact")
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
 
 
 @pytest.mark.parametrize("b,k", [(300, 10), (8, 256), (70, 61)])
 def test_bf16_topk_across_routes_and_groups_matches_reference(b, k):
-    """Batches past one cluster's 256 queries and k on the tile-scan route
-    (the CPU runs the plain version of either)."""
+    """Batches past one cluster's 256 queries and k on the list and pool
+    forms (the CPU runs the plain version of each)."""
     q, c = _bf16_inputs(b, 1500, 64, 5)
     ts, ti = tt.matmul_topk(torch.from_numpy(q), torch.from_numpy(c).bfloat16(), k)
     rs, ri = jt.matmul_topk_reference(jnp.asarray(q), jnp.asarray(c), k)

@@ -1,5 +1,5 @@
 // Hopper (sm_90a) building blocks of the flash kernels (flash_fwd.cu,
-// flash_bwd.cu), the bf16 top-k scan (topk.cu) and the w8 GEMM
+// flash_bwd.cu), the bf16 and int8 top-k scans (topk.cu) and the w8 GEMM
 // (w8_matmul.cu): mbarriers, TMA tensor maps and loads (multicast across a
 // thread-block cluster too), cluster ranks, barriers and remote mbarrier
 // arrivals, wgmma shared-memory descriptors and the products themselves,
@@ -215,6 +215,14 @@ inline bool map_bf16_tiles(CUtensorMap* map, const void* base, int slabs, int ro
                       swb == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B);
 }
 
+// (rows, cols) int8, boxes of 128 columns x box_rows rows, 128-byte
+// swizzle: the byte layout of map_bf16_tiles's 64-column panels
+inline bool map_s8_tiles(CUtensorMap* map, const void* base, int rows, int cols, int box_rows) {
+    const uint64_t n[3] = {(uint64_t)cols, (uint64_t)rows, 1u};
+    const uint32_t box[3] = {128u, (uint32_t)box_rows, 1u};
+    return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, base, 3, n, box, CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
 // a (rows, cols) row-major matrix of `elem`-byte elements, boxes of
 // box_cols x box_rows with a 128-byte swizzle (box_cols * elem = 128)
 inline bool map_2d_swizzled(CUtensorMap* map, CUtensorMapDataType type, int elem, const void* base, int rows, int cols,
@@ -300,6 +308,11 @@ __device__ __forceinline__ void fence_regs(float (&r)[R]) {
     for (int i = 0; i < R; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
 template <int R>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[R]) {
+#pragma unroll
+    for (int i = 0; i < R; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+template <int R>
 __device__ __forceinline__ void fence_regs(uint32_t (&r)[R][4]) {
 #pragma unroll
     for (int i = 0; i < R; ++i)
@@ -345,6 +358,31 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint6
           "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
           "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
           "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (64 x 128 s32) {+}= A (64 x 32 s8, smem desc) * B (32 x 128 s8, K-major smem
+// desc): 8-bit products take K-major operands only; the accumulator layout
+// is the f32 one above
+__device__ __forceinline__ void wgmma_ss_s8_n128(uint32_t (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+        "}, %64, %65, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+          "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+          "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+          "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+          "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+          "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+          "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+          "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
         : "l"(da), "l"(db), "r"(scale_d));
 }
 
