@@ -9,12 +9,13 @@ csrc`` (one nvcc per source, all at once), holds each kernel against its
 plain PyTorch version at the shapes of its serving path, times it beside
 its bound and a PyTorch library call (the cluster scans also with their
 scan and merge apart), prints the registers, shared memory and blocks per
-SM of every flash variant, of every form of the K1 / K2 cluster scan and
-of K6 (ptxas must report no spills), holds K1 on exact ties across its
+SM of every flash variant, of every form of the K1 / K2 / K3 cluster scan
+and of K6 (ptxas must report no spills), holds K1 on exact ties across its
 tiles, warpgroups and clusters at every batch, form and route
-(TOPK_BATCHES x TIE_KS) and K2 on repeated rows (INT8_BATCHES x INT8_KS),
-runs the tile scans through their route (SCAN_D), holds K1 and K2 at the
-edges of the cluster forms (TOPK_EDGES), checks that a K6 call
+(TOPK_BATCHES x TIE_KS), K2 on repeated rows (INT8_BATCHES x INT8_KS) and
+K3 at TOPK_BATCHES x INT8_KS on random, repeated and tie-heavy low-range
+codes, runs the tile scans through their route (SCAN_D), holds K1, K2 and
+K3 at the edges of the cluster forms (TOPK_EDGES), checks that a K6 call
 is one kernel launch, holds the flash forward
 and backward against their plain versions at the edges of their tiles
 (FLASH_EDGES), then drives three serving paths once:
@@ -119,7 +120,7 @@ W8_CHECK_ROWS = (64, 256)  # larger batches, checked at the first shape
 K1_SCORE_TOL = 2e-3  # wgmma sums the exact bf16 products in another order than the f32 product
 TOPK_BATCHES = (1, 8, 32, 200, 256, 512)  # 1-, 2- and 4-CTA clusters, and two groups of 256
 TIE_KS = (K, 61, 100, 256)  # K1's list form, and its pool form past it
-INT8_BATCHES, INT8_KS = (1, 8, 256, 512), (K, K_RERANK, 256)  # K2: list form at 10 and 40, pool form at 256
+INT8_BATCHES, INT8_KS = (1, 8, 256, 512), (K, K_RERANK, 256)  # K2, K3: list form at 10 and 40, pool form at 256
 SCAN_D = 720  # a width off the cluster scan's 64-column panels: the tile scans' route
 # K1 / K2 at the edges of the cluster scan's forms: one bf16 panel and a
 # half-empty int8 one (D 64), an int8 panel and a half (D 192), the widest
@@ -232,7 +233,8 @@ def rank_recall(q, corpus, ids, k: int) -> float:
 
 def ptxas_report(file: str, function: str) -> str:
     """The -Xptxas -v lines of one kernel function of a source's build log:
-    its stack frame, spill stores and loads, registers and barriers."""
+    its stack frame, spill stores and loads, registers and barriers, and
+    whether ptxas serialized its wgmma (info C7515)."""
     from vietnamese_qa_system_tpu_torch.ops import cuda_kernels
 
     with open(cuda_kernels._lib_path(file)[:-3] + ".log") as f:
@@ -245,6 +247,8 @@ def ptxas_report(file: str, function: str) -> str:
                     break
                 if "bytes stack frame" in x or "Used" in x:
                     rest.append(x.split("ptxas info    :")[-1].strip())
+            if any("C7515" in x and function in x for x in lines):
+                rest.append("wgmma serialized (C7515)")
             return " / ".join(rest)
     raise RuntimeError(f"{file}: no ptxas report of {function}")
 
@@ -283,22 +287,40 @@ def cluster_times(torch, T, kernel, q, corpus, scales, n: int, k: int, route: st
 
 
 def repeated_codes(torch, quant, gen, n: int, distinct: int):
-    """An int8 corpus of n rows drawn from `distinct` rows, with their
-    scales: integer scores tie across every copy of a row."""
+    """An int8 corpus of n rows drawn from `distinct` rows: their codes
+    with row scales (K2), and their codes under one global scale (K3).
+    Integer scores tie across every copy of a row."""
     base = torch.randn(distinct, D, generator=gen, device="cuda")
     codes, scales = quant.quantize_int8_reference(base)
+    gcodes, _ = quant.quantize_int8_global(base)
     pick = torch.randint(0, distinct, (n,), generator=gen, device="cuda")
-    return codes[pick].contiguous(), scales[pick].contiguous()
+    return codes[pick].contiguous(), scales[pick].contiguous(), gcodes[pick].contiguous()
+
+
+def low_range_codes(torch, gen, n: int, b: int):
+    """A tie-heavy K3 input: corpus codes in {-1, 0, 1}, and query codes of
+    +-127 on 6, 8, 10 or 12 features (by row), 0 elsewhere.  A raw score is
+    127 x an integer of at most 12, so dozens to thousands of the n rows tie
+    at the k-th score."""
+    codes = torch.randint(-1, 2, (n, D), generator=gen, device="cuda", dtype=torch.int8)
+    keys = torch.rand(b, D, generator=gen, device="cuda")
+    m = 6 + 2 * (torch.arange(b, device="cuda") % 4)
+    cut = keys.sort(dim=1).values.gather(1, (m - 1)[:, None])
+    signs = torch.randint(0, 2, (b, D), generator=gen, device="cuda") * 2 - 1
+    return codes, ((keys <= cut) * signs * 127).to(torch.int8)
 
 
 def cluster_resources(torch, T, report) -> None:
     """Registers, shared memory, ring stages and clusters at once of every
     cluster-scan form at D 768, and no ptxas spill in any of them."""
-    # (kernel, int8, k, whether its report row times this form)
-    for name, int8, k, timed in (("matmul_topk_bf16", False, K, True), ("matmul_topk_bf16_large", False, T.MAX_K, True),
-                                 ("matmul_topk_int8", True, K, True), ("matmul_topk_int8", True, K_RERANK, False),
-                                 ("matmul_topk_int8", True, T.MAX_K, False)):
-        info = {c: T.cluster_info(c, k, D, int8=int8) for c in (1, 2, 4)}
+    # (kernel, element form, k, whether its report row times this form)
+    for name, elem, k, timed in (("matmul_topk_bf16", "bf16", K, True), ("matmul_topk_bf16_large", "bf16", T.MAX_K, True),
+                                 ("matmul_topk_int8", "int8", K, True), ("matmul_topk_int8", "int8", K_RERANK, False),
+                                 ("matmul_topk_int8", "int8", T.MAX_K, False),
+                                 ("matmul_topk_int8_global", "int8_global", K, True),
+                                 ("matmul_topk_int8_global", "int8_global", K_RERANK, False),
+                                 ("matmul_topk_int8_global", "int8_global", T.MAX_K, False)):
+        info = {c: T.cluster_info(c, k, D, elem=elem) for c in (1, 2, 4)}
         for c, row in info.items():
             print(f"{name} ({row['form']} form), {c}-CTA clusters, k={k}, D={D}: {row['registers']} registers, "
                   f"{row['shared_bytes']} B shared, {row['stages']} ring stages, {row['max_clusters']} clusters at once, "
@@ -308,18 +330,23 @@ def cluster_resources(torch, T, report) -> None:
         report[name].update(
             registers=info[4]["registers"], shared_bytes=info[4]["shared_bytes"], stages=info[4]["stages"],
             clusters_at_once={c: r["max_clusters"] for c, r in info.items()})
-    # every instantiation: element type x (pool form, lists of 4 and 16 entries a lane)
-    for elem in ("4Bf16", "2S8"):
+    # every instantiation: element type x (pool form, lists of 4 and 16
+    # entries a lane); K3 reads its sums where each score is read, so
+    # nothing but the wgmma writes its accumulators
+    for elem in ("4Bf16", "2S8", "5S8Raw"):
         for kq in (0, 4, 16):
             rep = ptxas_report("topk.cu", f"topk_cluster_kernelINS0_{elem}ELi{kq}E")
             print(f"cluster scan <{elem[1:]}, KQ={kq}>, ptxas: {rep}", flush=True)
-            check("0 bytes spill stores, 0 bytes spill loads" in rep, f"cluster scan <{elem[1:]}, KQ={kq}>: no ptxas spills")
+            check("0 bytes spill stores, 0 bytes spill loads" in rep and (elem != "5S8Raw" or "C7515" not in rep),
+                  f"cluster scan <{elem[1:]}, KQ={kq}>: no ptxas spills" + (", wgmma not serialized" if elem == "5S8Raw"
+                                                                           else ""))
 
 
 def phase_topk(torch, T, quant, gen, report):
-    """K1 (list, pool and tile-scan routes), K2 (list and pool forms, and
-    its tile scan) and K3 against their plain versions at the serving
-    shape; K1 on exact ties and K2 on repeated rows at every batch and k."""
+    """K1 (list, pool and tile-scan routes), K2 and K3 (list and pool forms,
+    and their tile scans) against their plain versions at the serving
+    shape; K1 on exact ties, K2 on repeated rows and K3 on repeated rows and
+    a tie-heavy low-range corpus at every batch and k."""
     corpus = torch.randn(N, D, generator=gen, device="cuda").to(torch.bfloat16)
     for b in (B, 8):
         q = torch.randn(b, D, generator=gen, device="cuda").to(torch.bfloat16)
@@ -425,7 +452,7 @@ def phase_topk(torch, T, quant, gen, report):
                       f"matmul_topk_int8 B={b} valid_n={n} k={k} ({T.int8_route(k, D)} form, "
                       f"{T.cluster_size(b)}-CTA clusters): ids and scores equal the plain version exactly")
                 worst = max(worst, (s - ps).abs().max().item())
-    rcodes, rscales = repeated_codes(torch, quant, gen, N, 4096)
+    rcodes, rscales, rgcodes = repeated_codes(torch, quant, gen, N, 4096)
     for b in INT8_BATCHES:
         qb = q_i8[:b].contiguous()
         for k in INT8_KS:
@@ -435,6 +462,8 @@ def phase_topk(torch, T, quant, gen, report):
             check(torch.equal(i, pi) and torch.equal(s, ps),
                   f"matmul_topk_int8 on repeated rows B={b} k={k}: ids and scores equal the plain version exactly")
     del rcodes, rscales
+    phase_k3(torch, T, q_i8, gcodes, rgcodes, gen, report)
+    del rgcodes
     q8 = q_i8[:B].contiguous()
     t = cluster_times(torch, T, T.TOPK_INT8, q8, codes, scales, N, K, "cluster")
     report["matmul_topk_int8"] = {
@@ -454,21 +483,6 @@ def phase_topk(torch, T, quant, gen, report):
               f"merge {t['merge_ms']:.4f}), library {lib:.4f} ms", flush=True)
         r[f"b{b}_k{k}_ms"] = t["ms"]
         r[f"b{b}_k{k}_library_ms"] = lib
-    worst = 0.0
-    for n, k in ((N, K), (N, K_RERANK), (N - 777, K)):
-        (s, i), (ps, pi) = T.topk_int8_global(q8, gcodes, n, k), T.topk_int8_global_plain(q8, gcodes, n, k)
-        torch.cuda.synchronize()
-        check(torch.equal(i, pi) and torch.equal(s, ps),
-              f"matmul_topk_int8_global valid_n={n} k={k}: ids and scores equal the plain version exactly")
-        worst = max(worst, (s - ps).abs().max().item())
-    report["matmul_topk_int8_global"] = {
-        "max_abs_err": worst,
-        "ms": cuda_ms(lambda: T.topk_int8_global(q8, gcodes, N, K), 10),
-        "plain_ms": cuda_ms(lambda: T.topk_int8_global_plain(q8, gcodes, N, K), 3),
-        "library_ms": cuda_ms(lambda: torch.topk(torch._int_mm(q8, gcodes.T), K), 5),
-        "library_call": "composite: torch._int_mm (int32 scores) then torch.topk",
-        **bound(B * D + N * D + B * K * 8, 2 * B * N * D, INT8_OPS_S),
-    }
     del codes, scales, gcodes
 
     # the tile scans of K1 and K2 through their route: a width off the
@@ -484,6 +498,7 @@ def phase_topk(torch, T, quant, gen, report):
     del bcorpus
     base = torch.randn(N, SCAN_D, generator=gen, device="cuda")
     codes, scales = quant.quantize_int8_reference(base)
+    gcodes, _ = quant.quantize_int8_global(base)
     del base
     q8, _ = T.quantize_queries(torch.randn(B, SCAN_D, generator=gen, device="cuda"))
     worst = 0.0
@@ -499,15 +514,104 @@ def phase_topk(torch, T, quant, gen, report):
         "library_ms": cuda_ms(lambda: torch.topk(torch._int_mm(q8, codes.T).float() * scales, K), 5),
         "library_call": "composite: torch._int_mm (int32 scores) then torch.topk", "shape": f"B {B}, D {SCAN_D}, k {K}",
         **bound(B * SCAN_D + N * SCAN_D + N * 4 + B * K * 8, 2 * B * N * SCAN_D, INT8_OPS_S)}
-    del codes, scales
+    worst = 0.0
+    for n, k in ((N, K), (N - 777, K_RERANK)):
+        (s, i), (ps, pi) = T.topk_int8_global(q8, gcodes, n, k), T.topk_int8_global_plain(q8, gcodes, n, k)
+        torch.cuda.synchronize()
+        check(T.int8_global_route(k, SCAN_D) == "scan" and torch.equal(i, pi) and torch.equal(s, ps),
+              f"matmul_topk_int8_global tile scan route D={SCAN_D} valid_n={n} k={k}: ids and scores equal the plain "
+              "version")
+        worst = max(worst, (s - ps).abs().max().item())
+    report["matmul_topk_int8_global_scan"] = {
+        "max_abs_err": worst, "ms": cuda_ms(lambda: T.topk_int8_global(q8, gcodes, N, K), 5),
+        "plain_ms": cuda_ms(lambda: T.topk_int8_global_plain(q8, gcodes, N, K), 3),
+        "library_ms": cuda_ms(lambda: torch.topk(torch._int_mm(q8, gcodes.T), K), 5),
+        "library_call": "composite: torch._int_mm (int32 scores) then torch.topk", "shape": f"B {B}, D {SCAN_D}, k {K}",
+        **bound(B * SCAN_D + N * SCAN_D + B * K * 8, 2 * B * N * SCAN_D, INT8_OPS_S)}
+    del codes, scales, gcodes
     cluster_resources(torch, T, report)
 
 
+def phase_k3(torch, T, q_i8, gcodes, rgcodes, gen, report) -> None:
+    """K3 (int8 codes under one global scale, selected on the raw sums)
+    against its plain version, ids and scores equal: at TOPK_BATCHES x
+    INT8_KS x valid_n N and N - 777 on random codes, on repeated rows and
+    on a tie-heavy low-range corpus; then its times at the serving shape
+    (list form), at B 8, at k 40 and k 256 (pool form), and the tile scan
+    at B 256, k 10 (called directly: the route sends it only what no
+    cluster form takes)."""
+    worst = 0.0
+    for b in TOPK_BATCHES:
+        qb = q_i8[:b].contiguous()
+        for n in (N, N - 777):
+            for k in INT8_KS:
+                (s, i), (ps, pi) = T.topk_int8_global(qb, gcodes, n, k), T.topk_int8_global_plain(qb, gcodes, n, k)
+                torch.cuda.synchronize()
+                check(torch.equal(i, pi) and torch.equal(s, ps),
+                      f"matmul_topk_int8_global B={b} valid_n={n} k={k} ({T.int8_global_route(k, D)} form, "
+                      f"{T.cluster_size(b)}-CTA clusters): ids and scores equal the plain version exactly")
+                worst = max(worst, (s - ps).abs().max().item())
+        for k in INT8_KS:
+            (s, i), (ps, pi) = (T.topk_int8_global(qb, rgcodes, N - 777, k),
+                                T.topk_int8_global_plain(qb, rgcodes, N - 777, k))
+            torch.cuda.synchronize()
+            check(torch.equal(i, pi) and torch.equal(s, ps),
+                  f"matmul_topk_int8_global on repeated rows B={b} k={k}: ids and scores equal the plain version")
+    lcodes, lq = low_range_codes(torch, gen, N, max(TOPK_BATCHES))
+    for b in TOPK_BATCHES:
+        qb = lq[:b].contiguous()
+        for k in INT8_KS:
+            (s, i), (ps, pi) = T.topk_int8_global(qb, lcodes, N - 777, k), T.topk_int8_global_plain(qb, lcodes,
+                                                                                                     N - 777, k)
+            torch.cuda.synchronize()
+            ties = ""
+            if b == RERANK_BATCH:
+                tied = (T._int8_raw(qb, lcodes, N - 777) == ps[:, -1:]).sum(1)
+                ties = f", {int(tied.min())}-{int(tied.max())} rows tie at the k-th score"
+            check(torch.equal(i, pi) and torch.equal(s, ps),
+                  f"matmul_topk_int8_global on low-range codes B={b} k={k}{ties}: ids and scores equal the plain "
+                  "version exactly")
+    del lcodes, lq
+
+    q8 = q_i8[:B].contiguous()
+    t = cluster_times(torch, T, T.TOPK_INT8_GLOBAL, q8, gcodes, None, N, K, "cluster")
+    s, i = T._scan_cuda(T.TOPK_INT8_GLOBAL_SCAN, T.ELEMS["int8_global"], q8, gcodes, None, N, K)
+    ps, pi = T.topk_int8_global_plain(q8, gcodes, N, K)
+    torch.cuda.synchronize()
+    check(torch.equal(i, pi) and torch.equal(s, ps),
+          f"K3 tile scan B={B} k={K} (called directly): ids and scores equal the plain version")
+    report["matmul_topk_int8_global"] = {
+        "max_abs_err": worst, **t, "plain_ms": cuda_ms(lambda: T.topk_int8_global_plain(q8, gcodes, N, K), 3),
+        "library_ms": cuda_ms(lambda: torch.topk(torch._int_mm(q8, gcodes.T), K), 5),
+        "library_call": "composite: torch._int_mm (int32 scores) then torch.topk",
+        "tile_scan_ms": cuda_ms(lambda: T._scan_cuda(T.TOPK_INT8_GLOBAL_SCAN, T.ELEMS["int8_global"], q8, gcodes,
+                                                     None, N, K), 5),
+        **bound(B * D + N * D + B * K * 8, 2 * B * N * D, INT8_OPS_S)}
+    r = report["matmul_topk_int8_global"]
+    print(f"K3 int8_global B={B} k={K}: kernel {r['ms']:.4f} ms (scan {r['scan_ms']:.4f}, merge {r['merge_ms']:.4f}), "
+          f"library {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
+          f"{r['bound_ms'] / r['ms']:.2f} of the bound; the tile scan {r['tile_scan_ms']:.4f} ms", flush=True)
+    for b, k in ((8, K), (B, K_RERANK), (RERANK_BATCH, T.MAX_K), (B, T.MAX_K)):
+        qb = q_i8[:b].contiguous()
+        route = T.int8_global_route(k, D)
+        t = cluster_times(torch, T, T.TOPK_INT8_GLOBAL, qb, gcodes, None, N, k, route)
+        qp = qb if b > 16 else torch.cat([qb, qb.new_zeros(32 - b, D)])  # _int_mm takes more than 16 rows
+        lib = cuda_ms(lambda: torch.topk(torch._int_mm(qp, gcodes.T), k), 5)
+        bnd = bound(b * D + N * D + b * k * 8, 2 * b * N * D, INT8_OPS_S)
+        print(f"K3 int8_global B={b} k={k} ({route} form, {T.cluster_size(b)}-CTA clusters): kernel {t['ms']:.4f} ms "
+              f"(scan {t['scan_ms']:.4f}, merge {t['merge_ms']:.4f}), library {lib:.4f} ms, bound "
+              f"{bnd['bound_ms']:.4f} ms", flush=True)
+        r.update({f"b{b}_k{k}_ms": t["ms"], f"b{b}_k{k}_scan_ms": t["scan_ms"], f"b{b}_k{k}_merge_ms": t["merge_ms"],
+                  f"b{b}_k{k}_library_ms": lib, f"b{b}_k{k}_bound_ms": bnd["bound_ms"]})
+
+
 def phase_topk_edges(torch, T, quant, gen) -> None:
-    """K1 and K2 against their plain versions at TOPK_EDGES, every form."""
+    """K1, K2 and K3 against their plain versions at TOPK_EDGES, every form."""
     for d, n, valid in TOPK_EDGES:
         corpus = torch.randn(n, d, generator=gen, device="cuda").to(torch.bfloat16)
-        codes, scales = quant.quantize_int8_reference(torch.randn(n, d, generator=gen, device="cuda"))
+        base = torch.randn(n, d, generator=gen, device="cuda")
+        codes, scales = quant.quantize_int8_reference(base)
+        gcodes, _ = quant.quantize_int8_global(base)
         for b in (3, 300):
             qf = torch.randn(b, d, generator=gen, device="cuda")
             q, (q8, _) = qf.to(torch.bfloat16), T.quantize_queries(qf)
@@ -516,11 +620,14 @@ def phase_topk_edges(torch, T, quant, gen) -> None:
                 ps, _ = T.topk_bf16_plain(q, corpus, valid, k)
                 (s8, i8), (ps8, pi8) = T.topk_int8(q8, codes, scales, valid, k), T.topk_int8_plain(q8, codes, scales,
                                                                                                    valid, k)
+                (sg, ig), (psg, pig) = T.topk_int8_global(q8, gcodes, valid, k), T.topk_int8_global_plain(q8, gcodes,
+                                                                                                          valid, k)
                 torch.cuda.synchronize()
                 check((s - ps).abs().max().item() <= K1_SCORE_TOL and rank_recall(q, corpus[:valid], i, k) == 1.0
-                      and torch.equal(i8, pi8) and torch.equal(s8, ps8),
-                      f"K1 / K2 edge D={d} N={n} valid_n={valid} B={b} k={k} ({T.bf16_route(k, d)} / "
-                      f"{T.int8_route(k, d)}): K1 recall 1.000 and scores within {K1_SCORE_TOL}, K2 equal")
+                      and torch.equal(i8, pi8) and torch.equal(s8, ps8) and torch.equal(ig, pig) and torch.equal(sg, psg),
+                      f"K1 / K2 / K3 edge D={d} N={n} valid_n={valid} B={b} k={k} ({T.bf16_route(k, d)} / "
+                      f"{T.int8_route(k, d)} / {T.int8_global_route(k, d)}): K1 recall 1.000 and scores within "
+                      f"{K1_SCORE_TOL}, K2 and K3 equal")
 
 
 def ingest_lens(torch):

@@ -7,8 +7,8 @@ Run from the root of a checkout, on a machine with one NVIDIA GPU::
 It compiles copies of ``csrc/topk.cu`` with one part of the cluster scan's
 selection taken out (``-DABLATION=n``, into the gitignored
 ``csrc/build/ablations/``), loads each in place of the built library, and
-times K1 and K2 at the shapes of PERF.md section 6 (1M x 768 corpus drawn
-from a seed).  The parts:
+times K1, K2 and K3 at the shapes of PERF.md section 6 (1M x 768 corpus
+drawn from a seed).  The parts:
 
 - ``full``: the kernels as they ship;
 - ``no selection``: no tile is selected (the stream, the products, the
@@ -16,9 +16,14 @@ from a seed).  The parts:
 - ``no pool stores``: the pool form appends no entry (its counts still
   grow, so its selects still run), what its global stores cost;
 - ``no floors``: no floor is read from the published maxima, the pool form
-  and K2's lists at k > 16 as they would run without it.
+  and the int8 lists at k > 16 as they would run without it;
+- ``K3 in place``: K3 converts its s32 sums to f32 in place after the
+  products, as K2's epilogue does (ptxas then serializes the wgmma),
+  instead of where each score is read: the other epilogue design.  Its
+  results are right; only K3's times differ.
 
-A variant's results are wrong by construction: only its times are read.
+A variant's results are wrong by construction (but for ``K3 in place``):
+only its times are read.
 Prints the card's name and power limit, one line per variant and, last,
 one JSON object of the times in ms.
 """
@@ -31,13 +36,14 @@ import os
 import subprocess
 import sys
 
-VARIANTS = {0: "full", 1: "no selection", 3: "no pool stores", 5: "no floors"}
+VARIANTS = {0: "full", 1: "no selection", 3: "no pool stores", 5: "no floors", 6: "K3 in place"}
 # (text in csrc/topk.cu, its replacement): each takes one part out under its ABLATION value
 EDITS = (
     ("            if (!active) continue;\n            if constexpr (FORM == LISTS) {",
      "            if (!active) continue;\n            if (ABLATION == 1) continue;\n            if constexpr (FORM == LISTS) {"),
     ("if (m[i] != 0u) {", "if (ABLATION != 3 && m[i] != 0u) {"),
     ("        auto refresh = [&](int r) {\n", "        auto refresh = [&](int r) {\n            if (ABLATION == 5) return;\n"),
+    ("constexpr bool RAW_AT_READ = E::EL == EL_S8_RAW;", "constexpr bool RAW_AT_READ = ABLATION != 6 && E::EL == EL_S8_RAW;"),
 )
 
 
@@ -101,6 +107,7 @@ def main() -> int:
     corpus = torch.randn(n, d, generator=gen, device="cuda").to(torch.bfloat16)
     base = torch.randn(n, d, generator=gen, device="cuda")
     codes, scales = quant.quantize_int8_reference(base)
+    gcodes, _ = quant.quantize_int8_global(base)
     del base
     qb = torch.randn(256, d, generator=gen, device="cuda").to(torch.bfloat16)
     qi, _ = T.quantize_queries(torch.randn(256, d, generator=gen, device="cuda"))
@@ -112,6 +119,10 @@ def main() -> int:
         "K2 B256 k10 (lists)": lambda: T.topk_int8(qi, codes, scales, n, 10),
         "K2 B256 k40 (lists, floor)": lambda: T.topk_int8(qi, codes, scales, n, 40),
         "K2 B256 k256 (pool form)": lambda: T.topk_int8(qi, codes, scales, n, 256),
+        "K3 B256 k10 (lists)": lambda: T.topk_int8_global(qi, gcodes, n, 10),
+        "K3 B8 k10 (lists)": lambda: T.topk_int8_global(qi[:8], gcodes, n, 10),
+        "K3 B256 k40 (lists, floor)": lambda: T.topk_int8_global(qi, gcodes, n, 40),
+        "K3 B32 k256 (pool form)": lambda: T.topk_int8_global(qi[:32], gcodes, n, 256),
     }
     times = {}
     for v, name in VARIANTS.items():

@@ -1,5 +1,5 @@
 """Parity of the port's fused matmul + top-k (plain CPU path of kernels
-K1-K3) with the JAX package.
+K1-K3) with the JAX package, and the cluster scan's shape rules.
 
 - bf16: ids pass bench.py's rank-count rule against f32 scores, like the
   JAX exact mode and reference; scores agree within 1e-5 relative.
@@ -166,15 +166,17 @@ ROUTE_CASES = [(10, 768, "cluster", 7), (40, 768, "cluster", 5), (60, 768, "clus
 _FIXED = 8 * 25  # the barriers
 
 
-def _smem(k, d, stages, *, int8=False, pools=False):
+def _smem(k, d, stages, *, int8=False, pools=False, scales=None):
     """The cluster scan's shared memory: queries, the ring (K2: and each
-    stage's 512 B of scales), the lists and queues (int8 at k > 16: and
-    the floors' state) or the floors' state alone (pools: rows' counts, thresholds,
-    floors, 8 published maxima, histograms), the barriers."""
+    stage's 512 B of scales; K3 none), the lists and queues (int8 at k >
+    16: and the floors' state) or the floors' state alone (pools: rows'
+    counts, thresholds, floors, 8 published maxima, histograms), the
+    barriers."""
+    scales = int8 if scales is None else scales
     queries = 64 * 128 * -(-d * (1 if int8 else 2) // 128)
     floors = 2 * 64 * (16 + 4 * 8) + 8 * 256 * 4
     select = floors if pools else 1024 * k + 8 * 64 * 12 + (floors if int8 and k > 16 else 0)
-    return queries + select + _FIXED + stages * (16384 + (512 if int8 else 0))
+    return queries + select + _FIXED + stages * (16384 + (512 if scales else 0))
 
 
 @pytest.mark.parametrize("k,d,route,stages", ROUTE_CASES)
@@ -207,7 +209,7 @@ INT8_ROUTE_CASES = [(10, 768, "cluster", 8), (40, 768, "cluster", 7), (64, 768, 
 def test_int8_route_rule(k, d, route, stages):
     assert tt.int8_route(k, d) == route
     if route != "scan":
-        assert tt.cluster_stages(k, d, int8=True, pools=route == "large") == stages
+        assert tt.cluster_stages(k, d, elem="int8", pools=route == "large") == stages
         assert 4 <= stages <= 8 and _smem(k, d, stages, int8=True, pools=route == "large") <= 232_448
         assert _smem(k, d, stages + 1, int8=True, pools=route == "large") > 232_448 or stages == 8
     # int8_res's auto-rerank of 4 k at the default k 10 takes the list form
@@ -217,6 +219,79 @@ def test_int8_route_rule(k, d, route, stages):
 def test_routes_follow_k_at_the_serving_width():
     assert [tt.bf16_route(k, 768) for k in (1, 60, 61, 100, 256)] == ["cluster"] * 2 + ["large"] * 3
     assert [tt.int8_route(k, 768) for k in (1, 64, 65, 256)] == ["cluster"] * 2 + ["large"] * 2
+
+
+# K3's route: K2's rule over 16 KB stages (no row scales), so the same
+# selection state leaves room for one more stage at some shapes: (k, D,
+# route, K3's stages, K2's stages)
+INT8_GLOBAL_ROUTE_CASES = [(10, 768, "cluster", 8, 8), (40, 768, "cluster", 7, 7), (44, 768, "cluster", 7, 6),
+                           (60, 768, "cluster", 6, 5), (64, 768, "cluster", 5, 5), (65, 768, "large", 8, 8),
+                           (256, 768, "large", 8, 8), (10, 64, "cluster", 8, 8), (28, 1024, "cluster", 7, 6),
+                           (61, 1024, "cluster", 5, 4), (64, 1024, "cluster", 4, 4), (256, 1024, "large", 8, 8),
+                           (10, 1088, "scan", None, None), (10, 720, "scan", None, None),
+                           (256, 96, "scan", None, None), (10, 32, "scan", None, None)]
+
+
+@pytest.mark.parametrize("k,d,route,stages,int8_stages", INT8_GLOBAL_ROUTE_CASES)
+def test_int8_global_route_rule(k, d, route, stages, int8_stages):
+    assert tt.int8_global_route(k, d) == route == tt.int8_route(k, d)
+    if route == "scan":
+        return
+    pools = route == "large"
+    assert tt.cluster_stages(k, d, elem="int8_global", pools=pools) == stages
+    assert tt.cluster_stages(k, d, elem="int8", pools=pools) == int8_stages
+    assert 4 <= stages <= 8 and _smem(k, d, stages, int8=True, pools=pools, scales=False) <= 232_448
+    assert _smem(k, d, stages + 1, int8=True, pools=pools, scales=False) > 232_448 or stages == 8
+
+
+@pytest.mark.parametrize("k", [1, 10, 16, 17, 40, 64, 100, 256])
+def test_floors_follow_the_element_form(k):
+    """The pools always publish maxima for a floor; the lists of the int8
+    forms (K2 and K3) only past 16 entries; bf16's lists never."""
+    for pools in (False, True):
+        assert tt._has_floors(k, "bf16", pools) is pools
+        assert tt._has_floors(k, "int8", pools) == tt._has_floors(k, "int8_global", pools) == (pools or k > 16)
+    with pytest.raises(ValueError, match="element form"):
+        tt._has_floors(k, "int4", False)
+
+
+def test_cluster_info_and_capacity_are_keyed_on_the_element_form(monkeypatch):
+    """The resource query gets each form's own code (K1 0, K2 1, K3 2), and
+    the occupancy cache holds K2 and K3 apart."""
+    asked = []
+
+    def fake_query(file, symbol, *args):
+        asked.append((file, symbol) + args)
+        return [30 + args[0], 130, 200_000, 0, 8, 1, 0, 0]
+
+    monkeypatch.setattr(tt, "query", fake_query)
+    infos = {elem: tt.cluster_info(4, 10, 768, elem=elem) for elem in ("bf16", "int8", "int8_global")}
+    assert [a[2] for a in asked] == [0, 1, 2]
+    assert all(a[:2] == ("topk.cu", "vqa_topk_cluster_info") and a[3:] == (4, 10, 768) for a in asked)
+    assert {e: i["max_clusters"] for e, i in infos.items()} == {"bf16": 30, "int8": 31, "int8_global": 32}
+    assert infos["int8_global"]["form"] == "cluster"
+    tt._cluster_capacity.cache_clear()
+    try:
+        assert tt._cluster_capacity(-1, "int8", 4, 10, 768) == 31
+        assert tt._cluster_capacity(-1, "int8_global", 4, 10, 768) == 32
+        assert tt._cluster_capacity(-1, "int8", 4, 10, 768) == 31  # cached
+    finally:
+        tt._cluster_capacity.cache_clear()
+    assert [a[2] for a in asked] == [0, 1, 2, 1, 2]
+
+
+@pytest.mark.parametrize("kernel,dtype,scales", [("TOPK_INT8", torch.int8, False),
+                                                 ("TOPK_INT8_GLOBAL", torch.int8, True),
+                                                 ("TOPK_INT8_GLOBAL", torch.bfloat16, False),
+                                                 ("TOPK_BF16", torch.int8, False)])
+def test_cluster_scan_refuses_another_element_form(kernel, dtype, scales):
+    """K2's kernel never runs without row scales, nor K3's with them, nor
+    any on queries of another type: the call raises before any launch."""
+    q = torch.zeros(4, 64, dtype=dtype)
+    corpus = torch.zeros(256, 64, dtype=dtype)
+    s = torch.ones(256) if scales else None
+    with pytest.raises(ValueError, match="takes"):
+        tt._cluster_cuda(getattr(tt, kernel), q, corpus, s, 256, 10, "cluster")
 
 
 def test_merge_key_orders_like_beats():
@@ -312,6 +387,46 @@ def test_int8_large_k_equals_jax_exact_on_repeated_rows(k, valid_n):
     js, ji = jt.matmul_topk(jnp.asarray(q), codes, k, corpus_scales=scales, valid_n=valid_n, mode="exact")
     np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
     np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+
+
+def _global_inputs(corpus, valid_n, seed):
+    """int8 codes with one global scale, tie-heavy by construction:
+    ``repeated`` -- 2,048 rows drawn from 300 distinct ones (quantized by
+    the JAX package), so each row's raw score ties with its copies;
+    ``low_range`` -- codes in {-1, 0, 1} against queries of 2 or 3 equal
+    nonzero entries, so raw scores take at most 7 values and dozens to
+    hundreds of rows tie at the k-th."""
+    rng = np.random.default_rng(seed)
+    if corpus == "repeated":
+        base = rng.standard_normal((300, 64)).astype(np.float32)
+        codes, scale = jq.quantize_int8_global(jnp.asarray(base[rng.integers(0, 300, 2048)]))
+        return rng.standard_normal((6, 64)).astype(np.float32), np.asarray(codes), np.asarray(scale)
+    codes = rng.integers(-1, 2, (2048, 64)).astype(np.int8)
+    q = np.zeros((6, 64), np.float32)
+    for r in range(6):
+        q[r, rng.choice(64, 2 + r % 2, replace=False)] = rng.choice([-1.0, 1.0], 2 + r % 2)
+    return q, codes, np.float32(0.0123)
+
+
+@pytest.mark.parametrize("corpus", ["repeated", "low_range"])
+@pytest.mark.parametrize("k", [10, 40, 100, 256])
+@pytest.mark.parametrize("valid_n", [None, 2048 - 777])
+def test_int8_global_equals_jax_exact_on_tied_rows(corpus, k, valid_n):
+    """K3 (one global scale: selection on the raw sums) on corpora where
+    raw scores tie across many rows: ids and scores equal the JAX exact
+    mode, ties going to the lowest index."""
+    q, codes, scale = _global_inputs(corpus, valid_n, k)
+    ts, ti = tt.matmul_topk(torch.from_numpy(q), torch.from_numpy(codes), k,
+                            corpus_scales=torch.tensor(scale), valid_n=valid_n)
+    js, ji = jt.matmul_topk(jnp.asarray(q), jnp.asarray(codes), k, corpus_scales=jnp.asarray(scale),
+                            valid_n=valid_n, mode="exact")
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+    if corpus == "low_range":  # the tie-heavy case it is meant to be
+        q_i8, _ = tt.quantize_queries(torch.from_numpy(q))
+        s_raw, _ = tt.topk_int8_global_plain(q_i8, torch.from_numpy(codes), valid_n or 2048, k)
+        raw = q_i8.float() @ torch.from_numpy(codes[:valid_n]).float().T
+        assert ((raw == s_raw[:, -1:]).sum(1) >= 40).all()
 
 
 @pytest.mark.parametrize("b,k", [(300, 10), (8, 256), (70, 61)])

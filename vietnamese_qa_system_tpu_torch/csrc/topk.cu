@@ -10,14 +10,17 @@
 // 0.8 GB (int8) of corpus, about 256 operations per byte -- next to the
 // card's bf16 ridge (~295 op/byte), so both the tensor cores and HBM matter
 // (0.41 ms of products at the bf16 peak, 0.47 ms of bytes; int8 0.20 ms of
-// products, 0.24 ms of bytes).  Selection is cheap by comparison once a
+// products, 0.24 ms of bytes: 0.241 ms for K3, which reads no row scales).  Selection is cheap by comparison once a
 // per-query threshold filters the scores: on random data only ~k*ln(N/k)
 // scores per query ever pass it.
 //
-// Two scans and one merge live here.  ops/topk.py bf16_route / int8_route
-// pick the scan by a pure rule of (k, D), which clus::form_for recomputes.
+// Two scans and one merge live here.  ops/topk.py bf16_route / int8_route /
+// int8_global_route pick the scan by a pure rule of (k, D), which
+// clus::form_for recomputes.
 //
-// The cluster scan (K1 and K2, topk_cluster_kernel<Elem, KQ>):
+// The cluster scan (K1-K3, topk_cluster_kernel<Elem, KQ>, one template over
+// three element forms: Bf16, S8 -- int8 with row scales -- and S8Raw --
+// int8 selected on its raw sums):
 // - A cluster of C = 1, 2 or 4 CTAs (the power of two that holds the
 //   batch's 64-query tiles, at most 256 queries; more queries are more
 //   groups in grid y) splits the query axis: each CTA loads its 64 queries
@@ -34,13 +37,16 @@
 //   remote arrivals.  The corpus map's row extent is valid_n: TMA fills
 //   rows past it with zeros and the selection masks them.  K2's 128 row
 //   scales of a tile (512 B) land by a 1-D TMA on the stage of the tile's
-//   last panel.
+//   last panel; K3's stages hold the panel alone.
 // - Two consumer warpgroups take alternate tiles: S = Q C^T (64 x 128) by
 //   wgmma from the swizzled panels, accumulated in registers (bf16 -> f32,
-//   or s8 -> s32 for K2, whose epilogue turns a tile's raw sums in place
-//   into __int2float_rn(raw) * scale[row] -- the plain version's f32
-//   product, as |raw| < 2^24 at D <= 1024), so one warpgroup's selection
-//   overlaps the other's products.  A stage goes back as soon as its
+//   or s8 -> s32 for K2 and K3), so one warpgroup's selection overlaps the
+//   other's products.  K2's epilogue turns a tile's raw sums in place into
+//   __int2float_rn(raw) * scale[row] -- the plain version's f32 product,
+//   as |raw| < 2^24 at D <= 1024; K3 selects on __int2float_rn(raw),
+//   converted where each score is read (a write to the accumulators would
+//   serialize the wgmma, and K3 holds no scales that a later read would
+//   keep live).  A stage goes back as soon as its
 //   products (and scales) are read: a 4-CTA cluster keeps one ring's bytes
 //   in flight, so its stream is latency-bound, and a landed stage that
 //   waits for its consumer is lost throughput.
@@ -72,8 +78,8 @@
 //   query (lists), or the best k of its pool at or above the floor,
 //   packed per query behind an atomic count (pools).
 
-// The tile scan (K3, and K1 / K2 where neither cluster form fits, e.g.
-// D % 64 != 0: topk_scan_kernel, the first design of this file):
+// The tile scan (K1-K3 where neither cluster form fits, e.g. D % 64 != 0:
+// topk_scan_kernel, the first design of this file):
 // - Grid (query tiles of QB=64, corpus splits).  Each block streams its
 //   corpus range in NB=128-row tiles; the 64x128 score tile is a WMMA
 //   (bf16 -> f32 or int8 -> int32) product accumulated over the feature
@@ -128,7 +134,12 @@ constexpr int WARPS_N = WARPS / WARPS_M;
 constexpr int FM = QB / WARPS_M / 16;  // 16x16 fragments per warp
 constexpr int FN = NB / WARPS_N / 16;
 
-enum Epilogue { EPI_F32 = 0, EPI_ROW_SCALE = 1, EPI_RAW = 2 };
+// Element forms, the codes of both entry points' first argument: the
+// tile scan's epilogue and the cluster scan's element type.  K1: bf16
+// queries and corpus, f32 scores; K2: int8 codes, scores raw * scale[row];
+// K3: int8 codes, scores the raw sums (one global scale, applied by the
+// caller to the (B, k) output).
+enum Elem { EL_BF16 = 0, EL_S8 = 1, EL_S8_RAW = 2 };
 
 template <typename T> struct Acc;
 template <> struct Acc<__nv_bfloat16> { using type = float; };
@@ -315,7 +326,7 @@ topk_scan_kernel(const T* __restrict__ q, const T* __restrict__ c, const float* 
             for (int j = 0; j < FN; ++j)
                 wmma::store_matrix_sync(sAcc + ((wm * FM + i) * 16) * LDS + (wn * FN + j) * 16, acc[i][j], LDS,
                                         wmma::mem_row_major);
-        if (EPI == EPI_ROW_SCALE && tid < NB) sScale[tid] = (n0 + tid < n_end) ? scales[n0 + tid] : 0.f;
+        if (EPI == EL_S8 && tid < NB) sScale[tid] = (n0 + tid < n_end) ? scales[n0 + tid] : 0.f;
         __syncthreads();
         for (int r = warp; r < QB && q0 + r < B; r += WARPS) {
             float* ls = sLs + r * k;
@@ -325,7 +336,7 @@ topk_scan_kernel(const T* __restrict__ q, const T* __restrict__ c, const float* 
 #pragma unroll
             for (int j = 0; j < NB / 32; ++j) {
                 const int col = j * 32 + lane;
-                if (EPI == EPI_ROW_SCALE) sc[j] = (float)sAcc[r * LDS + col] * sScale[col];
+                if (EPI == EL_S8) sc[j] = (float)sAcc[r * LDS + col] * sScale[col];
                 else sc[j] = (float)sAcc[r * LDS + col];  // int32 -> f32 exact: |raw| < 2^24 for D <= 1024
                 any |= (n0 + col < n_end) && beats(sc[j], n0 + col, ls[k - 1], li[k - 1]);
             }
@@ -479,7 +490,7 @@ topk_merge_kernel(const float* __restrict__ cand_s, const int* __restrict__ cand
 }
 
 
-// ---- the cluster scan (K1, K2) ------------------------------------------------
+// ---- the cluster scan (K1-K3) -------------------------------------------------
 
 namespace clus {
 
@@ -503,53 +514,62 @@ constexpr int MAX_SLOTS = 8;                            // pool form: published 
 constexpr long long SMEM_LIMIT = 232448;                // an H100 block's shared memory
 enum Form { NONE = 0, LISTS = 1, POOLS = 2 };
 
-__host__ __device__ constexpr int panels(int d, int elem) { return (d * elem + ROW_BYTES - 1) / ROW_BYTES; }
-__host__ __device__ constexpr uint32_t stage_bytes(int elem) { return STAGE_BYTES + (elem == 1 ? SCALE_BYTES : 0); }
+// `el` below is an element form (Elem); `bytes` bytes an element
+__host__ __device__ constexpr int elem_bytes(int el) { return el == EL_BF16 ? 2 : 1; }
+__host__ __device__ constexpr int panels(int d, int bytes) { return (d * bytes + ROW_BYTES - 1) / ROW_BYTES; }
+__host__ __device__ constexpr uint32_t stage_bytes(int el) { return STAGE_BYTES + (el == EL_S8 ? SCALE_BYTES : 0); }
 __host__ __device__ constexpr long long floor_bytes() { return 2LL * QROWS * (16 + 4 * MAX_SLOTS) + CWARPS * BINS * 4; }
-__host__ __device__ constexpr bool has_floors(int k, int form, int elem) { return form == POOLS || (elem == 1 && k > 16); }
-__host__ __device__ constexpr long long select_bytes(int k, int form, int elem) {
-    return (form == POOLS ? 0 : 1024LL * k + CWARPS * QW * 12) + (has_floors(k, form, elem) ? floor_bytes() : 0);
+// the pools always; the int8 forms' lists of more than 16 entries
+__host__ __device__ constexpr bool has_floors(int k, int form, int el) { return form == POOLS || (el != EL_BF16 && k > 16); }
+__host__ __device__ constexpr long long select_bytes(int k, int form, int el) {
+    return (form == POOLS ? 0 : 1024LL * k + CWARPS * QW * 12) + (has_floors(k, form, el) ? floor_bytes() : 0);
 }
 
 // Shared memory: Q panels | ring | K2's scales (a tile's a stage) | the
 // selection's state -- lists: 2 warpgroups x 64 rows x k, f32 scores then
-// int32 ids, and queues (8 warps x QW scores, ids, rows), then (K2 at
-// k > 16) the floors' state; pools: the floors' state -- the rows' counts, threshold
+// int32 ids, and queues (8 warps x QW scores, ids, rows), then (K2 and K3
+// at k > 16) the floors' state; pools: the floors' state -- the rows' counts, threshold
 // scores and ids, floors (2 x 64 each), published maxima (2 x 64 x
 // MAX_SLOTS) and a histogram of BINS a warp | mbarriers (Q, 2 x MAX_STAGES full: one set a warpgroup,
 // MAX_STAGES empty).  ops/topk.py cluster_stages mirrors these numbers.
-__host__ __device__ constexpr long long fixed_bytes(int k, int d, int elem, int form) {
-    return (long long)QPANEL_BYTES * panels(d, elem) + select_bytes(k, form, elem) + 8 * (1 + 3 * MAX_STAGES);
+__host__ __device__ constexpr long long fixed_bytes(int k, int d, int el, int form) {
+    return (long long)QPANEL_BYTES * panels(d, elem_bytes(el)) + select_bytes(k, form, el) + 8 * (1 + 3 * MAX_STAGES);
 }
-__host__ __device__ inline int stages_for(int k, int d, int elem, int form) {
-    const long long s = (SMEM_LIMIT - fixed_bytes(k, d, elem, form)) / stage_bytes(elem);
+__host__ __device__ inline int stages_for(int k, int d, int el, int form) {
+    const long long s = (SMEM_LIMIT - fixed_bytes(k, d, el, form)) / stage_bytes(el);
     return s > MAX_STAGES ? MAX_STAGES : (int)s;
 }
-inline uint32_t smem_for(int k, int d, int elem, int form) {
-    return (uint32_t)(fixed_bytes(k, d, elem, form) + (long long)stages_for(k, d, elem, form) * stage_bytes(elem));
+inline uint32_t smem_for(int k, int d, int el, int form) {
+    return (uint32_t)(fixed_bytes(k, d, el, form) + (long long)stages_for(k, d, el, form) * stage_bytes(el));
 }
-// The form that runs top-k at width d (ops/topk.py bf16_route / int8_route):
-// lists where they leave MIN_STAGES ring stages, else pools where those
-// do, else none (the tile scan).  int8 needs D <= 1024 (exact f32 scores).
-inline int form_for(int k, int d, int elem) {
-    if (d < 64 || d % 64 != 0 || k < 1 || k > MAX_K || (elem == 1 && d > 1024)) return NONE;
-    if (k <= LIST_K && stages_for(k, d, elem, LISTS) >= MIN_STAGES) return LISTS;
-    return stages_for(k, d, elem, POOLS) >= MIN_STAGES ? POOLS : NONE;
+// The form that runs top-k at width d (ops/topk.py bf16_route / int8_route
+// / int8_global_route): lists where they leave MIN_STAGES ring stages, else
+// pools where those do, else none (the tile scan).  int8 needs D <= 1024
+// (exact f32 scores).
+inline int form_for(int k, int d, int el) {
+    if (el < EL_BF16 || el > EL_S8_RAW || d < 64 || d % 64 != 0 || k < 1 || k > MAX_K || (el != EL_BF16 && d > 1024))
+        return NONE;
+    if (k <= LIST_K && stages_for(k, d, el, LISTS) >= MIN_STAGES) return LISTS;
+    return stages_for(k, d, el, POOLS) >= MIN_STAGES ? POOLS : NONE;
 }
 
 struct Bf16 {
-    static constexpr int ELEM = 2;
+    static constexpr int EL = EL_BF16, ELEM = 2;
     using Acc = float;
     static __device__ __forceinline__ void mma(float (&d)[64], uint64_t a, uint64_t b, int scale_d) {
         hopper::wgmma_ss_n128(d, a, b, scale_d);
     }
 };
 struct S8 {
-    static constexpr int ELEM = 1;
+    static constexpr int EL = EL_S8, ELEM = 1;
     using Acc = uint32_t;  // s32 sums, then (after the epilogue) the f32 scores' bits
     static __device__ __forceinline__ void mma(uint32_t (&d)[64], uint64_t a, uint64_t b, int scale_d) {
         hopper::wgmma_ss_s8_n128(d, a, b, scale_d);
     }
+};
+// K3: S8's products, no scales; the accumulators keep the s32 sums
+struct S8Raw : S8 {
+    static constexpr int EL = EL_S8_RAW;
 };
 
 // Every lane of the warp: of the n entries at (ss, si) that score at or
@@ -663,7 +683,8 @@ __device__ __forceinline__ uint32_t kth_largest(const uint32_t* keys, int n, int
     return ~prefix;
 }
 
-// E: the element type (Bf16: K1; S8: K2, scores raw * scale[row]).
+// E: the element type (Bf16: K1; S8: K2, scores raw * scale[row]; S8Raw:
+// K3, scores raw).
 // KQ > 0: the list form, k <= 4 KQ list entries a lane of a quad holds;
 // KQ == 0: the pool form: pool_s / pool_i hold B x 2 clusters x CAP
 // entries, glob (zeroed) B x CAP published keys and then B candidate counts.
@@ -673,11 +694,14 @@ topk_cluster_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_const
                     const __grid_constant__ CUtensorMap tm_s, int B, int D, int valid_n, int k, int stages,
                     float* __restrict__ pool_s, int* __restrict__ pool_i, uint32_t* __restrict__ glob,
                     float* __restrict__ cand_s, int* __restrict__ cand_i) {
-    constexpr bool SCALED = E::ELEM == 1;
+    constexpr bool SCALED = E::EL == EL_S8;
+    // K3 converts its s32 sums where each score is read; K2 in place, by
+    // its epilogue (see there)
+    constexpr bool RAW_AT_READ = E::EL == EL_S8_RAW;
     constexpr int FORM = KQ > 0 ? LISTS : POOLS;
-    // K2's lists of more than 16 entries take a floor too (at k <= 16 it
-    // measured slower; bf16's k <= 60 lists have no room for it)
-    constexpr bool FLOORS = FORM == POOLS || (SCALED && KQ > 4);
+    // the int8 lists of more than 16 entries take a floor too (at k <= 16
+    // it measured slower for K2; bf16's k <= 60 lists have no room for it)
+    constexpr bool FLOORS = FORM == POOLS || (E::ELEM == 1 && KQ > 4);
     constexpr int COLS = ROW_BYTES / E::ELEM;  // feature columns a panel
     using Acc = typename E::Acc;
     extern __shared__ __align__(1024) unsigned char smem_raw[];
@@ -686,8 +710,8 @@ topk_cluster_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_const
     unsigned char* sQ = smem;
     unsigned char* ring = smem + P * QPANEL_BYTES;
     float* scl = reinterpret_cast<float*>(ring + S * STAGE_BYTES);  // K2: stage s's scales at s * TILE
-    unsigned char* sel = ring + S * stage_bytes(E::ELEM);
-    uint64_t* q_full = reinterpret_cast<uint64_t*>(sel + select_bytes(k, FORM, E::ELEM));
+    unsigned char* sel = ring + S * stage_bytes(E::EL);
+    uint64_t* q_full = reinterpret_cast<uint64_t*>(sel + select_bytes(k, FORM, E::EL));
     // a stage's loads for warpgroup w's tiles complete on full[w * MAX_STAGES
     // + s]: the two warpgroups take alternate tiles, so one barrier would
     // let a warpgroup wait on a phase two ahead of the barrier's, which its
@@ -801,9 +825,10 @@ topk_cluster_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_const
         uint32_t phases = 0;  // bit s: the parity of this warpgroup's next wait on stage s
         // Element e = 4j + 2i + u of a tile's scores is (row row_a + 8i,
         // column sel_cb + 8j + u); K2's accumulators hold the f32 scores'
-        // bits once its epilogue has run.
+        // bits once its epilogue has run, K3's the s32 sums (exact in f32).
         auto score = [&](int e) -> float {
-            if constexpr (SCALED) return __uint_as_float(acc[e]);
+            if constexpr (RAW_AT_READ) return __int2float_rn((int)acc[e]);
+            else if constexpr (E::ELEM == 1) return __uint_as_float(acc[e]);
             else return acc[e];
         };
 
@@ -823,13 +848,22 @@ topk_cluster_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_const
             if (lane == 0 && key) cfl[r] = fmaxf(cfl[r], key_score(~key));
             __syncwarp();
         };
-        // the max of this thread's 32 scores of each of its rows
+        // the max of this thread's 32 scores of each of its rows (K3: of
+        // the sums, converted once)
         auto row_max = [&](float (&mx)[2]) {
 #pragma unroll
             for (int i = 0; i < 2; ++i) {
-                mx[i] = score(2 * i);
+                if constexpr (RAW_AT_READ) {
+                    int m = (int)acc[2 * i];
 #pragma unroll
-                for (int j = 0; j < 16; ++j) mx[i] = fmaxf(mx[i], fmaxf(score(4 * j + 2 * i), score(4 * j + 2 * i + 1)));
+                    for (int j = 0; j < 16; ++j) m = max(m, max((int)acc[4 * j + 2 * i], (int)acc[4 * j + 2 * i + 1]));
+                    mx[i] = __int2float_rn(m);
+                } else {
+                    mx[i] = score(2 * i);
+#pragma unroll
+                    for (int j = 0; j < 16; ++j)
+                        mx[i] = fmaxf(mx[i], fmaxf(score(4 * j + 2 * i), score(4 * j + 2 * i + 1)));
+                }
             }
         };
         // Each row's max over the tile's valid rows goes to its published
@@ -1071,19 +1105,21 @@ topk_cluster_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_const
                 hopper::wg_commit();
             }
             const int last = lt * P + P - 1;
-            if constexpr (SCALED) {
+            if constexpr (E::ELEM == 1 && !RAW_AT_READ) {
                 // K2's epilogue, before the stage with the scales goes back:
                 // raw sums -> f32 scores in place.  ptxas then serializes the
                 // wgmma (C7515: a non-wgmma write to an accumulator), which
                 // measured cheaper than converting where a score is read
                 // (that kept 64 more values live, and spilled): the int8
-                // products are a small part of the ring-bound stream.
+                // products are a small part of the ring-bound stream.  K3
+                // reads its sums as they are (RAW_AT_READ), with no scales
+                // to keep live.
                 hopper::wg_wait<0>();
                 hopper::fence_regs(acc);
                 const float* sc = scl + (last % S) * TILE + 2 * (lane & 3);
 #pragma unroll
                 for (int j = 0; j < 16; ++j) {
-                    const float2 v = *reinterpret_cast<const float2*>(sc + 8 * j);
+                    const float2 v = SCALED ? *reinterpret_cast<const float2*>(sc + 8 * j) : make_float2(1.f, 1.f);
 #pragma unroll
                     for (int i = 0; i < 2; ++i) {
                         acc[4 * j + 2 * i] = __float_as_uint(__int2float_rn((int)acc[4 * j + 2 * i]) * v.x);
@@ -1148,31 +1184,32 @@ inline const void* kernel_of(int form, int k) {
     if (form == POOLS) return (const void*)topk_cluster_kernel<E, 0>;
     return k <= 16 ? (const void*)topk_cluster_kernel<E, 4> : (const void*)topk_cluster_kernel<E, LIST_K / 4>;
 }
-inline const void* kernel_for(int elem, int form, int k) {
-    return elem == 1 ? kernel_of<S8>(form, k) : kernel_of<Bf16>(form, k);
+// (form_for has checked el)
+inline const void* kernel_for(int el, int form, int k) {
+    return el == EL_S8 ? kernel_of<S8>(form, k) : el == EL_S8_RAW ? kernel_of<S8Raw>(form, k) : kernel_of<Bf16>(form, k);
 }
 
 // what: 1 the scan, 2 the merge, 3 both
-int launch(int elem, const void* q, const void* c, const float* scales, int B, int D, int valid_n, int k, int form,
+int launch(int el, const void* q, const void* c, const float* scales, int B, int D, int valid_n, int k, int form,
            int C, int clusters, float* pool_s, int* pool_i, uint32_t* glob, float* cand_s, int* cand_i, float* out_s,
            int* out_i, int what, cudaStream_t st) {
-    if (form == NONE || form != form_for(k, D, elem) || !(C == 1 || C == 2 || C == 4) || B < 1 || valid_n < k ||
-        clusters < 1 || 2 * clusters > CAP || (elem == 1 && scales == nullptr) ||
-        (form == POOLS && (pool_s == nullptr || pool_i == nullptr)) || (has_floors(k, form, elem) && glob == nullptr))
+    if (form == NONE || form != form_for(k, D, el) || !(C == 1 || C == 2 || C == 4) || B < 1 || valid_n < k ||
+        clusters < 1 || 2 * clusters > CAP || (el == EL_S8 && scales == nullptr) ||
+        (form == POOLS && (pool_s == nullptr || pool_i == nullptr)) || (has_floors(k, form, el) && glob == nullptr))
         return (int)cudaErrorInvalidValue;
     cudaError_t err = cudaSuccess;
     if (what & 1) {
-        int S = stages_for(k, D, elem, form);
-        const uint32_t smem = smem_for(k, D, elem, form);
+        int S = stages_for(k, D, el, form);
+        const uint32_t smem = smem_for(k, D, el, form);
         CUtensorMap mq, mc, ms;
-        const bool ok = elem == 1 ? hopper::map_s8_tiles(&mq, q, B, D, QROWS) &&
-                                        hopper::map_s8_tiles(&mc, c, valid_n, D, TILE / C) &&
-                                        hopper::map_f32_vector(&ms, scales, (uint64_t)valid_n, TILE)
-                                  : hopper::map_bf16_tiles(&mq, q, 1, B, D, QROWS) &&
-                                        hopper::map_bf16_tiles(&mc, c, 1, valid_n, D, TILE / C);
+        const bool ok = el == EL_BF16 ? hopper::map_bf16_tiles(&mq, q, 1, B, D, QROWS) &&
+                                            hopper::map_bf16_tiles(&mc, c, 1, valid_n, D, TILE / C)
+                                      : hopper::map_s8_tiles(&mq, q, B, D, QROWS) &&
+                                            hopper::map_s8_tiles(&mc, c, valid_n, D, TILE / C) &&
+                                            (el != EL_S8 || hopper::map_f32_vector(&ms, scales, (uint64_t)valid_n, TILE));
         if (!ok) return (int)cudaErrorInvalidValue;
-        if (elem != 1) ms = mc;  // not read
-        const void* kern = kernel_for(elem, form, k);
+        if (el != EL_S8) ms = mc;  // not read
+        const void* kern = kernel_for(el, form, k);
         err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
         if (err != cudaSuccess) return (int)err;
         cudaLaunchAttribute attr;
@@ -1213,9 +1250,9 @@ int launch_topk(const void* q, const void* c, const float* scales, int B, int D,
 
 extern "C" {
 
-// The tile scan.  kind: 0 = bf16 corpus (K1), 1 = int8 + per-row scales
-// (K2), 2 = int8 raw (K3).  cand_s / cand_i hold B * splits * k entries of
-// scratch.
+// The tile scan.  kind (Elem): 0 = bf16 corpus (K1), 1 = int8 + per-row
+// scales (K2), 2 = int8 raw (K3).  cand_s / cand_i hold B * splits * k
+// entries of scratch.
 int vqa_matmul_topk(int kind, const void* q, const void* c, const void* scales, int B, int D, int valid_n,
                     int k, int splits, void* cand_s, void* cand_i, void* out_s, void* out_i, void* stream) {
     if (k < 1 || k > MAX_K || valid_n < 1 || splits < 1 || D < 16 || D % 16 != 0) return (int)cudaErrorInvalidValue;
@@ -1226,25 +1263,26 @@ int vqa_matmul_topk(int kind, const void* q, const void* c, const void* scales, 
     int* oi = static_cast<int*>(out_i);
     const float* sc = static_cast<const float*>(scales);
     switch (kind) {
-        case 0: return launch_topk<__nv_bfloat16, EPI_F32>(q, c, sc, B, D, valid_n, k, splits, cs, ci, os, oi, st);
-        case 1: return launch_topk<signed char, EPI_ROW_SCALE>(q, c, sc, B, D, valid_n, k, splits, cs, ci, os, oi, st);
-        case 2: return launch_topk<signed char, EPI_RAW>(q, c, sc, B, D, valid_n, k, splits, cs, ci, os, oi, st);
+        case EL_BF16: return launch_topk<__nv_bfloat16, EL_BF16>(q, c, sc, B, D, valid_n, k, splits, cs, ci, os, oi, st);
+        case EL_S8: return launch_topk<signed char, EL_S8>(q, c, sc, B, D, valid_n, k, splits, cs, ci, os, oi, st);
+        case EL_S8_RAW: return launch_topk<signed char, EL_S8_RAW>(q, c, sc, B, D, valid_n, k, splits, cs, ci, os, oi, st);
         default: return (int)cudaErrorInvalidValue;
     }
 }
 
-// The cluster scan, then the merge.  elem: 2 = bf16 q (B, D) and corpus
-// (K1), 1 = int8 codes with f32 row scales (K2), all 16-byte aligned; form:
-// clus::form_for(k, D, elem), 1 lists or 2 pools; C CTAs a cluster (1, 2,
+// The cluster scan, then the merge.  el (Elem): 0 = bf16 q (B, D) and
+// corpus (K1), 1 = int8 codes with f32 row scales (K2), 2 = int8 codes
+// selected on their raw sums (K3; scales not read), all 16-byte aligned;
+// form: clus::form_for(k, D, el), 1 lists or 2 pools; C CTAs a cluster (1, 2,
 // 4), `clusters` clusters a group of 256 queries.  Pool form: pool_s /
 // pool_i hold B * 2 * clusters * 512 entries of scratch, glob B * 513
 // zeroed words (the scan's published maxima, then its candidate counts).
 // cand_s / cand_i hold B * 2 * clusters * k.  what: 1 the scan, 2 the
 // merge, 3 both.
-int vqa_topk_cluster(int elem, const void* q, const void* c, const void* scales, int B, int D, int valid_n, int k,
+int vqa_topk_cluster(int el, const void* q, const void* c, const void* scales, int B, int D, int valid_n, int k,
                      int form, int C, int clusters, void* pool_s, void* pool_i, void* glob, void* cand_s,
                      void* cand_i, void* out_s, void* out_i, int what, void* stream) {
-    return clus::launch(elem, q, c, static_cast<const float*>(scales), B, D, valid_n, k, form, C, clusters,
+    return clus::launch(el, q, c, static_cast<const float*>(scales), B, D, valid_n, k, form, C, clusters,
                         static_cast<float*>(pool_s), static_cast<int*>(pool_i), static_cast<uint32_t*>(glob),
                         static_cast<float*>(cand_s),
                         static_cast<int*>(cand_i), static_cast<float*>(out_s), static_cast<int*>(out_i), what,
@@ -1253,12 +1291,12 @@ int vqa_topk_cluster(int elem, const void* q, const void* c, const void* scales,
 
 // out[6] = clusters of C CTAs the card holds at once, registers a thread,
 // dynamic shared memory, local (spill) bytes a thread, ring stages, form
-// of the kernel that runs (elem, k, D)
-int vqa_topk_cluster_info(int elem, int C, int k, int D, int* out) {
-    const int form = clus::form_for(k, D, elem);
+// of the kernel that runs (el, k, D)
+int vqa_topk_cluster_info(int el, int C, int k, int D, int* out) {
+    const int form = clus::form_for(k, D, el);
     if (form == clus::NONE || !(C == 1 || C == 2 || C == 4)) return (int)cudaErrorInvalidValue;
-    const uint32_t smem = clus::smem_for(k, D, elem, form);
-    const void* kern = clus::kernel_for(elem, form, k);
+    const uint32_t smem = clus::smem_for(k, D, el, form);
+    const void* kern = clus::kernel_for(el, form, k);
     cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     cudaFuncAttributes attr;
     if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kern);
@@ -1271,7 +1309,7 @@ int vqa_topk_cluster_info(int elem, int C, int k, int D, int* out) {
     out[1] = attr.numRegs;
     out[2] = (int)smem;
     out[3] = (int)attr.localSizeBytes;
-    out[4] = clus::stages_for(k, D, elem, form);
+    out[4] = clus::stages_for(k, D, el, form);
     out[5] = form;
     return 0;
 }

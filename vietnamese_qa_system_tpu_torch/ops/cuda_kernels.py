@@ -140,10 +140,10 @@ class Kernel:
             self.launches += 1
 
 
-# K1's and K2's cluster scan: elem, q, corpus, scales, B, D, valid_n, k,
-# form, cluster CTAs, clusters, pool_s, pool_i, glob, cand_s, cand_i,
-# out_s, out_i, what, stream; counted apart by route (K1's list and pool
-# forms)
+# The cluster scan of K1-K3: element form, q, corpus, scales, B, D,
+# valid_n, k, form, cluster CTAs, clusters, pool_s, pool_i, glob, cand_s,
+# cand_i, out_s, out_i, what, stream; counted apart by element form and
+# route (K1's list and pool forms; K2's and K3's both forms)
 _CLUSTER_ARGS = (_I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P)
 TOPK_BF16 = Kernel("matmul_topk_bf16", "vqa_topk_cluster", "topk.cu", _CLUSTER_ARGS,
                    "vietnamese_qa_system_tpu/ops/topk.py:336")
@@ -151,16 +151,17 @@ TOPK_BF16_LARGE = Kernel("matmul_topk_bf16_large", "vqa_topk_cluster", "topk.cu"
                          "vietnamese_qa_system_tpu/ops/topk.py:448")
 TOPK_INT8 = Kernel("matmul_topk_int8", "vqa_topk_cluster", "topk.cu", _CLUSTER_ARGS,
                    "vietnamese_qa_system_tpu/ops/topk.py:355")
-# the tile scan (K3, and K1 / K2 where no cluster form fits): kind, q,
-# corpus, scales, B, D, valid_n, k, splits, cand_s, cand_i, out_s, out_i,
-# stream
+TOPK_INT8_GLOBAL = Kernel("matmul_topk_int8_global", "vqa_topk_cluster", "topk.cu", _CLUSTER_ARGS,
+                          "vietnamese_qa_system_tpu/ops/topk.py:396")
+# the tile scan (K1-K3 where no cluster form fits): kind, q, corpus,
+# scales, B, D, valid_n, k, splits, cand_s, cand_i, out_s, out_i, stream
 _TOPK_ARGS = (_I, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P)
 TOPK_BF16_SCAN = Kernel("matmul_topk_bf16_scan", "vqa_matmul_topk", "topk.cu", _TOPK_ARGS,
                         "vietnamese_qa_system_tpu/ops/topk.py:448")
 TOPK_INT8_SCAN = Kernel("matmul_topk_int8_scan", "vqa_matmul_topk", "topk.cu", _TOPK_ARGS,
                         "vietnamese_qa_system_tpu/ops/topk.py:355")
-TOPK_INT8_GLOBAL = Kernel("matmul_topk_int8_global", "vqa_matmul_topk", "topk.cu", _TOPK_ARGS,
-                          "vietnamese_qa_system_tpu/ops/topk.py:396")
+TOPK_INT8_GLOBAL_SCAN = Kernel("matmul_topk_int8_global_scan", "vqa_matmul_topk", "topk.cu", _TOPK_ARGS,
+                               "vietnamese_qa_system_tpu/ops/topk.py:396")
 # q, k, v, kv_lens, bias, bias_rows, bh, n_heads, tq, tk, hd, causal, window, o, lse, stream
 _FLASH_FWD_ARGS = (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P)
 FLASH_FWD = Kernel("flash_attention_fwd", "vqa_flash_fwd", "flash_fwd.cu", _FLASH_FWD_ARGS,
@@ -196,7 +197,7 @@ QUANT_INT8 = Kernel(
     "vietnamese_qa_system_tpu/ops/quant.py:30",
 )
 KERNELS = (TOPK_BF16, TOPK_INT8, TOPK_INT8_GLOBAL, FLASH_FWD, W8_MATMUL, IVF_PROBE, QUANT_INT8, FLASH_FWD_CAUSAL,
-           FLASH_BWD_DKDV, FLASH_BWD_DQ, TOPK_BF16_SCAN, TOPK_BF16_LARGE, TOPK_INT8_SCAN)
+           FLASH_BWD_DKDV, FLASH_BWD_DQ, TOPK_BF16_SCAN, TOPK_BF16_LARGE, TOPK_INT8_SCAN, TOPK_INT8_GLOBAL_SCAN)
 
 
 def query(file: str, symbol: str, *args: int) -> list[int]:

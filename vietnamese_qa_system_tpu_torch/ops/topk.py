@@ -14,16 +14,17 @@ Every mode is exact (``fast``, ``turbo`` and ``exact`` are validated for API
 parity): the TPU's lossy lane-bucket selection existed only because of how
 its vector unit selects.  Ties resolve to the lowest index everywhere.
 
-K1 and K2 take one of three kernel forms by a pure shape rule
-(:func:`bf16_route`, :func:`int8_route`): the cluster scan (TMA multicast
-of the corpus across a cluster of 1-4 CTAs, wgmma products, selection from
-registers) with sorted lists in shared memory (``"cluster"``: k <= 64 where
-at least 4 ring stages fit beside the queries and the lists, k <= 60 for
-bf16 at D 768); the same scan with per-query pools in global scratch
+Each takes one of three kernel forms by a pure shape rule
+(:func:`bf16_route`, :func:`int8_route`, :func:`int8_global_route`): the
+cluster scan (TMA multicast of the corpus across a cluster of 1-4 CTAs,
+wgmma products, selection from registers; one template over the three
+element forms) with sorted lists in shared memory (``"cluster"``: k <= 64
+where at least 4 ring stages fit beside the queries and the lists, k <= 60
+for bf16 at D 768); the same scan with per-query pools in global scratch
 (``"large"``: k <= 256, e.g. an explicit rerank or ``int8_res``'s 4 k);
-and the tile scan (``"scan"``) where neither fits, e.g. D % 64 != 0.  K3
-stays on the tile scan.  Every form ends in one merge, a radix select of
-the k-th candidate key (:func:`merge_key`) a query.
+and the tile scan (``"scan"``) where neither fits, e.g. D % 64 != 0.
+Every form ends in one merge, a radix select of the k-th candidate key
+(:func:`merge_key`) a query.
 
 On a CPU tensor each kernel's plain PyTorch version runs instead; the plain
 versions also serve as the references the kernels are checked against on
@@ -38,8 +39,8 @@ import functools
 
 import torch
 
-from .cuda_kernels import (TOPK_BF16, TOPK_BF16_LARGE, TOPK_BF16_SCAN, TOPK_INT8, TOPK_INT8_GLOBAL, TOPK_INT8_SCAN,
-                           on_card, query, stream_of)
+from .cuda_kernels import (TOPK_BF16, TOPK_BF16_LARGE, TOPK_BF16_SCAN, TOPK_INT8, TOPK_INT8_GLOBAL,
+                           TOPK_INT8_GLOBAL_SCAN, TOPK_INT8_SCAN, on_card, query, stream_of)
 from .quant import div127
 
 # Largest k of the kernels (the pools' and the tile scan's lists).
@@ -50,12 +51,12 @@ _QUERY_TILE = 64   # queries per kernel block (csrc/topk.cu QB)
 # The cluster scan (csrc/topk.cu namespace clus): 64 queries a CTA, at most
 # 4 CTAs (256 queries) a cluster, 128-row corpus tiles in panels of 128-byte
 # rows (64 bf16 or 128 int8 columns, 16 KB) through a ring of 4-8 stages
-# (K2: and a tile's 512 B of row scales a stage), then the selection's
-# state: two warpgroups' (64, k) lists and 8 winner queues of 64 entries
-# (lists; int8 at k > 16 also the floors' state), or the floors' state
-# alone -- 2 x 64 rows' counts, thresholds, floors and 8 published maxima,
-# and 8 histograms of 256 bins (pools, whose POOL_CAP-entry pools live in
-# global scratch)
+# (K2: and a tile's 512 B of row scales a stage; K3 reads none), then the
+# selection's state: two warpgroups' (64, k) lists and 8 winner queues of
+# 64 entries (lists; int8 at k > 16 also the floors' state), or the
+# floors' state alone -- 2 x 64 rows' counts, thresholds, floors and 8
+# published maxima, and 8 histograms of 256 bins (pools, whose
+# POOL_CAP-entry pools live in global scratch)
 CLUSTER_MAX_CTAS = 4
 CLUSTER_MAX_K = 64   # the list form's largest k
 POOL_CAP = 512
@@ -66,6 +67,9 @@ _SCALE_BYTES = 128 * 4
 _CLUSTER_STAGES = (4, 8)
 _SMEM_LIMIT = 232_448  # shared memory of an H100 block
 _FORMS = {"cluster": 1, "large": 2}
+# the element forms (csrc/topk.cu Elem): K1 bf16, K2 int8 with row scales,
+# K3 int8 selected on its raw sums
+ELEMS = {"bf16": 0, "int8": 1, "int8_global": 2}
 
 
 def cluster_size(b: int) -> int:
@@ -76,30 +80,38 @@ def cluster_size(b: int) -> int:
     return 1 << (tiles - 1).bit_length()
 
 
-def cluster_stages(k: int, d: int, *, int8: bool = False, pools: bool = False) -> int:
+def _elem_code(elem: str) -> int:
+    if elem not in ELEMS:
+        raise ValueError(f"element form must be one of {sorted(ELEMS)}, got {elem!r}")
+    return ELEMS[elem]
+
+
+def cluster_stages(k: int, d: int, *, elem: str = "bf16", pools: bool = False) -> int:
     """Ring stages of the cluster scan beside the (64, d) queries, the
     selection's state (lists, for int8 at k > 16 with their floors; or
-    pools) and the barriers (csrc/topk.cu clus::stages_for)."""
-    panels = -(-d * (1 if int8 else 2) // _ROW_BYTES)
-    floors = 2 * 64 * (16 + 4 * _POOL_SLOTS) + 8 * 256 * 4  # the pools' and K2's lists' floors
-    select = floors if pools else 1024 * k + 8 * 64 * 12 + (floors if _has_floors(k, int8, pools) else 0)
+    pools) and the barriers (csrc/topk.cu clus::stages_for): 16 KB a stage,
+    and 512 B more for K2's row scales."""
+    panels = -(-d * (2 if _elem_code(elem) == ELEMS["bf16"] else 1) // _ROW_BYTES)
+    floors = 2 * 64 * (16 + 4 * _POOL_SLOTS) + 8 * 256 * 4  # the pools' and the int8 lists' floors
+    select = floors if pools else 1024 * k + 8 * 64 * 12 + (floors if _has_floors(k, elem, pools) else 0)
     fixed = 64 * _ROW_BYTES * panels + select + 8 * (1 + 3 * _CLUSTER_STAGES[1])
-    stage = _STAGE_BYTES + (_SCALE_BYTES if int8 else 0)
+    stage = _STAGE_BYTES + (_SCALE_BYTES if elem == "int8" else 0)
     return min(_CLUSTER_STAGES[1], (_SMEM_LIMIT - fixed) // stage)
 
 
-def _has_floors(k: int, int8: bool, pools: bool) -> bool:
+def _has_floors(k: int, elem: str, pools: bool) -> bool:
     """Whether the form publishes per-split maxima for a floor: the pools,
-    and K2's lists of more than 16 entries (csrc/topk.cu has_floors)."""
-    return pools or (int8 and k > 16)
+    and the int8 forms' lists of more than 16 entries (csrc/topk.cu
+    has_floors)."""
+    return pools or (_elem_code(elem) != ELEMS["bf16"] and k > 16)
 
 
-def _route(k: int, d: int, int8: bool) -> str:
-    if d < 64 or d % 64 or not 1 <= k <= MAX_K or (int8 and d > 1024):
+def _route(k: int, d: int, elem: str) -> str:
+    if d < 64 or d % 64 or not 1 <= k <= MAX_K or (_elem_code(elem) != ELEMS["bf16"] and d > 1024):
         return "scan"
-    if k <= CLUSTER_MAX_K and cluster_stages(k, d, int8=int8) >= _CLUSTER_STAGES[0]:
+    if k <= CLUSTER_MAX_K and cluster_stages(k, d, elem=elem) >= _CLUSTER_STAGES[0]:
         return "cluster"
-    return "large" if cluster_stages(k, d, int8=int8, pools=True) >= _CLUSTER_STAGES[0] else "scan"
+    return "large" if cluster_stages(k, d, elem=elem, pools=True) >= _CLUSTER_STAGES[0] else "scan"
 
 
 def bf16_route(k: int, d: int) -> str:
@@ -107,13 +119,19 @@ def bf16_route(k: int, d: int) -> str:
     form) where d is a multiple of 64, k <= 64 and its shared memory holds
     at least 4 ring stages; else ``"large"`` (the pool form) where k <= 256
     and at least 4 stages fit beside the queries; else ``"scan"``."""
-    return _route(k, d, False)
+    return _route(k, d, "bf16")
 
 
 def int8_route(k: int, d: int) -> str:
     """K2's kernel, by the rule of :func:`bf16_route` over int8 panels
     (queries of d bytes a row, 512 B of scales a stage) and d <= 1024."""
-    return _route(k, d, True)
+    return _route(k, d, "int8")
+
+
+def int8_global_route(k: int, d: int) -> str:
+    """K3's kernel, by the rule of :func:`int8_route` over 16 KB stages
+    (no scales): as many ring stages as the shared memory left holds."""
+    return _route(k, d, "int8_global")
 
 
 def merge_key(scores: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
@@ -127,32 +145,32 @@ def merge_key(scores: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=None)
-def _cluster_capacity(device_index: int, int8: bool, ctas: int, k: int, d: int) -> int:
+def _cluster_capacity(device_index: int, elem: str, ctas: int, k: int, d: int) -> int:
     """Clusters of ``ctas`` CTAs the card holds at once at this shape."""
     with torch.cuda.device(device_index):
-        n = cluster_info(ctas, k, d, int8=int8)["max_clusters"]
+        n = cluster_info(ctas, k, d, elem=elem)["max_clusters"]
     if n < 1:
-        raise RuntimeError(f"matmul_topk: no cluster of {ctas} CTAs fits the card (k={k}, D={d}, int8={int8})")
+        raise RuntimeError(f"matmul_topk: no cluster of {ctas} CTAs fits the card (k={k}, D={d}, {elem})")
     return n
 
 
-def cluster_info(ctas: int, k: int, d: int, *, int8: bool = False) -> dict:
+def cluster_info(ctas: int, k: int, d: int, *, elem: str = "bf16") -> dict:
     """The cluster scan's occupancy and resources on the current device, in
-    the form that runs (k, d)."""
-    n, regs, smem, local, stages, form = query(TOPK_BF16.file, "vqa_topk_cluster_info", 1 if int8 else 2,
+    the form that runs (k, d) for the element form ``elem``."""
+    n, regs, smem, local, stages, form = query(TOPK_BF16.file, "vqa_topk_cluster_info", _elem_code(elem),
                                                ctas, k, d)[:6]
     return {"max_clusters": n, "registers": regs, "shared_bytes": smem, "local_bytes": local, "stages": stages,
             "form": {v: r for r, v in _FORMS.items()}[form]}
 
 
-def cluster_plan(b: int, k: int, d: int, valid_n: int, device, *, int8: bool = False) -> tuple[int, int]:
+def cluster_plan(b: int, k: int, d: int, valid_n: int, device, *, elem: str = "bf16") -> tuple[int, int]:
     """(CTAs a cluster, clusters) of a cluster-scan call: as many clusters
     as the card holds at once, each with a contiguous range of the
     ceil(valid_n / 128) corpus tiles (cluster c of G takes tiles
     [c T / G, (c + 1) T / G))."""
     ctas = cluster_size(b)
     index = device.index if device.index is not None else torch.cuda.current_device()
-    return ctas, min(_cluster_capacity(index, int8, ctas, k, d), -(-valid_n // 128))
+    return ctas, min(_cluster_capacity(index, elem, ctas, k, d), -(-valid_n // 128))
 
 
 def _topk_rows(scores: torch.Tensor, k: int):
@@ -210,21 +228,29 @@ def _check_operands(q, corpus):
         raise ValueError(f"matmul_topk kernels need D % 16 == 0, got D={d}")
 
 
+# each cluster-scan kernel's element form
+_CLUSTER_ELEM = {TOPK_BF16: "bf16", TOPK_BF16_LARGE: "bf16", TOPK_INT8: "int8", TOPK_INT8_GLOBAL: "int8_global"}
+
+
 def _cluster_cuda(kernel, q, corpus, scales, valid_n: int, k: int, route: str, *, what: int = 3, scratch=None):
-    """The cluster scan in the form of ``route``, then the merge of its
-    per-(cluster, warpgroup) candidates; returns (scores, ids, scratch).
-    ``what`` 1 / 2 runs the scan / the merge alone over ``scratch`` (the
-    timing of the two apart)."""
+    """The cluster scan in the form of ``route`` and the element form of
+    ``kernel``, then the merge of its per-(cluster, warpgroup) candidates;
+    returns (scores, ids, scratch).  ``what`` 1 / 2 runs the scan / the
+    merge alone over ``scratch`` (the timing of the two apart)."""
+    elem = _CLUSTER_ELEM[kernel]
+    if q.dtype != (torch.bfloat16 if elem == "bf16" else torch.int8) or (scales is not None) != (elem == "int8"):
+        raise ValueError(f"{kernel.name} takes {'bf16' if elem == 'bf16' else 'int8'} queries and "
+                         f"{'row scales' if elem == 'int8' else 'no scales'}, got {q.dtype} and "
+                         f"{'scales' if scales is not None else 'none'}")
     _check_operands(q, corpus)
-    int8 = q.dtype == torch.int8
     if corpus.data_ptr() % 16 or (scales is not None and scales.data_ptr() % 16):
         raise ValueError("matmul_topk's cluster scan needs a 16-byte aligned corpus and scales (TMA)")
     if q.data_ptr() % 16:
         q = q.clone()
     b, d = q.shape
-    ctas, clusters = cluster_plan(b, k, d, valid_n, q.device, int8=int8)
+    ctas, clusters = cluster_plan(b, k, d, valid_n, q.device, elem=elem)
     pools = route == "large"
-    floors = _has_floors(k, int8, pools)  # the published maxima (and the pools' candidate counts) start at zero
+    floors = _has_floors(k, elem, pools)  # the published maxima (and the pools' candidate counts) start at zero
     if scratch is None:
         dev = q.device
         pool = (b, 2 * clusters, POOL_CAP) if pools else (0,)
@@ -236,7 +262,7 @@ def _cluster_cuda(kernel, q, corpus, scales, valid_n: int, k: int, route: str, *
     elif floors and what & 1:
         scratch[2].zero_()
     ptrs = [t.data_ptr() if t.numel() else None for t in scratch]
-    kernel.launch(1 if int8 else 2, q.data_ptr(), corpus.data_ptr(), None if scales is None else scales.data_ptr(),
+    kernel.launch(ELEMS[elem], q.data_ptr(), corpus.data_ptr(), None if scales is None else scales.data_ptr(),
                   b, d, valid_n, k, _FORMS[route], ctas, clusters, *ptrs, what, stream_of(q))
     return scratch[5], scratch[6], scratch
 
@@ -276,7 +302,7 @@ def topk_bf16(q, corpus, valid_n: int, k: int):
             raise ValueError("matmul_topk_bf16 needs bf16 queries and corpus")
         route = bf16_route(k, q.shape[1])
         if route == "scan":
-            return _scan_cuda(TOPK_BF16_SCAN, 0, q, corpus, None, valid_n, k)
+            return _scan_cuda(TOPK_BF16_SCAN, ELEMS["bf16"], q, corpus, None, valid_n, k)
         kernel = TOPK_BF16 if route == "cluster" else TOPK_BF16_LARGE
         return _cluster_cuda(kernel, q, corpus, None, valid_n, k, route)[:2]
     return topk_bf16_plain(q, corpus, valid_n, k)
@@ -288,8 +314,10 @@ def topk_int8(q_i8, corpus, scales, valid_n: int, k: int):
         if q_i8.dtype != torch.int8 or corpus.dtype != torch.int8:
             raise ValueError("matmul_topk_int8 needs int8 queries and corpus")
         route = int8_route(k, q_i8.shape[1])
+        if scales is None:
+            raise ValueError("matmul_topk_int8 needs the corpus row scales")
         if route == "scan":
-            return _scan_cuda(TOPK_INT8_SCAN, 1, q_i8, corpus, scales, valid_n, k)
+            return _scan_cuda(TOPK_INT8_SCAN, ELEMS["int8"], q_i8, corpus, scales, valid_n, k)
         _check_scales(scales, corpus)
         return _cluster_cuda(TOPK_INT8, q_i8, corpus, scales, valid_n, k, route)[:2]
     return topk_int8_plain(q_i8, corpus, scales, valid_n, k)
@@ -300,7 +328,10 @@ def topk_int8_global(q_i8, corpus, valid_n: int, k: int):
     if on_card(q_i8):
         if q_i8.dtype != torch.int8 or corpus.dtype != torch.int8:
             raise ValueError("matmul_topk_int8_global needs int8 queries and corpus")
-        return _scan_cuda(TOPK_INT8_GLOBAL, 2, q_i8, corpus, None, valid_n, k)
+        route = int8_global_route(k, q_i8.shape[1])
+        if route == "scan":
+            return _scan_cuda(TOPK_INT8_GLOBAL_SCAN, ELEMS["int8_global"], q_i8, corpus, None, valid_n, k)
+        return _cluster_cuda(TOPK_INT8_GLOBAL, q_i8, corpus, None, valid_n, k, route)[:2]
     return topk_int8_global_plain(q_i8, corpus, valid_n, k)
 
 
