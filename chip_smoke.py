@@ -18,22 +18,38 @@ codes, runs the tile scans through their route (SCAN_D), holds K1, K2 and
 K3 at the edges of the cluster forms (TOPK_EDGES), checks that a K6 call
 is one kernel launch, holds the flash forward
 and backward against their plain versions at the edges of their tiles
-(FLASH_EDGES), then drives three serving paths once:
+(FLASH_EDGES), then drives its serving paths once:
 
 - retrieval, at the full width of the ``mpnet_class`` encoder (random
-  weights from a seed): four 1M-row vector stores, ingest of 2,048
-  synthetic Vietnamese passages at max_len 512 (the flash kernel), an HTTP
-  server answering /search and /ingest, and top-k on the three int8 stores
-  and a rerank of 256 on the bf16 store (K1's pool form) held against the
-  plain path;
+  weights from a seed, written as an HF MPNet directory by this script's
+  own name map and safetensors writer, and loaded back through the CLI's
+  ``--encoder DIR`` path: tensors and embeddings bit-equal): four 1M-row
+  vector stores, ingest of 2,048 synthetic Vietnamese passages at max_len
+  512 (the flash kernel) with a BM25 index, an HTTP server answering
+  /search and /ingest, and top-k on the three int8 stores and a rerank of
+  256 on the bf16 store (K1's pool form) held against the plain path;
+- hybrid BM25 + dense retrieval over the bf16 and the int8_res store:
+  12 concurrent HTTP /search at k 10 and weight 0.5, their dense
+  candidates (K1 at m 40; K2 at 160, then the residual rerank) held
+  against the plain versions on the same query vectors, and their fused
+  results against a host recomputation (``fuse_scores`` over the plain
+  candidates and the Python scorer's BM25), the native scorer (``csrc/bm25.cpp``, g++) shown
+  to answer them, /ingest then a keyword-only query, the shutdown save of
+  bm25.json, /search p50 / p99 hybrid against dense-only, and BM25 ms per
+  query, native against Python, at 100,000 passages;
 - question answering, at the full width of ``phogpt_4b_class`` (32 layers,
-  d 3072, int8c weights drawn on the card from a seed): ``QAPipeline``
-  behind HTTP ``/qa`` answering concurrent questions over the retrieval
-  path's 1M-row bf16 store, every decode-step dense layer through the w8
-  GEMM kernel; a torch.profiler trace of the decode loop says where a
-  step's time goes; then a two-layer twin of the same weights decodes greedily
-  on the card and on the host (plain path), held to agree by logits and
-  by the top-2 margin rule;
+  d 3072): drawn bf16 weights written as a PhoGPT-4B MPT directory
+  (MosaicML config.json, sharded bf16 safetensors) and loaded through
+  ``serve --reader-params DIR --reader-size phogpt4b --reader-quantize
+  int8c`` (int8c codes and scales bit-equal to the script's own
+  quantization of the same values, the process's peak RSS below the f32
+  model's bytes); ``QAPipeline`` behind HTTP ``/qa`` answering concurrent
+  questions over the retrieval path's 1M-row bf16 store, every
+  decode-step dense layer through the w8 GEMM kernel, answers and greedy
+  tokens equal to the reference reader's; a torch.profiler trace of the
+  decode loop says where a step's time goes; then a two-layer twin of the
+  same weights decodes greedily on the card and on the host (plain path),
+  held to agree by logits and by the top-2 margin rule;
 - IVF retrieval at the repo's IVF configuration: a clustered 1,048,576 x
   768 corpus drawn on the card (2,048 unit-norm centres, noise of total
   norm 0.35, rows normalised; the retrieval path's 2,048 passage
@@ -70,7 +86,9 @@ import copy
 import dataclasses
 import itertools
 import json
+import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -119,8 +137,11 @@ W8_REL_TOL = 1e-4  # max abs err / max |plain|: the same exact products summed i
 W8_CHECK_ROWS = (64, 256)  # larger batches, checked at the first shape
 K1_SCORE_TOL = 2e-3  # wgmma sums the exact bf16 products in another order than the f32 product
 TOPK_BATCHES = (1, 8, 32, 200, 256, 512)  # 1-, 2- and 4-CTA clusters, and two groups of 256
-TIE_KS = (K, 61, 100, 256)  # K1's list form, and its pool form past it
-INT8_BATCHES, INT8_KS = (1, 8, 256, 512), (K, K_RERANK, 256)  # K2, K3: list form at 10 and 40, pool form at 256
+# K1's list form at 10 and at hybrid's 40 dense candidates, and its pool
+# form past it; K2 / K3's list form at 10 and 40, pool form at 160 (the
+# int8_res rerank's candidates under hybrid's 40) and 256
+TIE_KS = (K, K_RERANK, 61, 100, 256)
+INT8_BATCHES, INT8_KS = (1, 8, 256, 512), (K, K_RERANK, 4 * K_RERANK, 256)
 SCAN_D = 720  # a width off the cluster scan's 64-column panels: the tile scans' route
 # K1 / K2 at the edges of the cluster scan's forms: one bf16 panel and a
 # half-empty int8 one (D 64), an int8 panel and a half (D 192), the widest
@@ -149,10 +170,67 @@ IVF_RECALL_FLOOR = 0.9
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_T = 3, 8, 1024
 FLASH_GRAD_REL_TOL = 2e-2
 TWIN_T, TWIN_LOSS_TOL, TWIN_GRAD_REL_TOL = 128, 1e-3, 5e-2
+# hybrid retrieval: 12 concurrent /search at k 10 and weight 0.5 over the
+# ingested passages; served scores are rounded to 6 decimals (HYBRID_TOL);
+# the BM25 timing index; /search latency rounds for p50 / p99
+HYBRID_K, HYBRID_WEIGHT, HYBRID_QUERIES, HYBRID_TOL = 10, 0.5, 12, 1e-6
+BM25_PASSAGES, BM25_TIMED_QUERIES, LATENCY_ROUNDS = 100_000, 12, 5
+# the PhoGPT-4B import: sharded bf16 safetensors of 4 layers a shard; the
+# process's resident set while loading must stay below the f32 model's bytes
+PHOGPT_LAYERS_PER_SHARD = 4
 # H100 SXM5 data sheet (dense, 700 W): HBM 3.35 TB/s, 989 TFLOP/s bf16,
 # 1,979 TOP/s int8 on the tensor cores, 67 TFLOP/s f32 on the CUDA cores
 HBM_BYTES_S, BF16_OPS_S, INT8_OPS_S, F32_OPS_S = 3.35e12, 989e12, 1979e12, 67e12
 L2_BYTES = 50 << 20
+
+
+SAFETENSORS_CODES = {"torch.float32": "F32", "torch.bfloat16": "BF16"}
+
+
+def safetensors_header(entries: list) -> bytes:
+    """The 8-byte length and JSON header of a safetensors file holding
+    ``entries`` [(name, dtype, shape)] in that order (a writer of this
+    script's own, independent of the port's reader)."""
+    header, offset = {}, 0
+    for name, dtype, shape in entries:
+        n = (2 if str(dtype) == "torch.bfloat16" else 4) * math.prod(shape)
+        header[name] = {"dtype": SAFETENSORS_CODES[str(dtype)], "shape": list(shape), "data_offsets": [offset, offset + n]}
+        offset += n
+    raw = json.dumps(header, separators=(",", ":")).encode()
+    raw += b" " * (-len(raw) % 8)
+    return len(raw).to_bytes(8, "little") + raw
+
+
+def write_tensor(f, t) -> None:
+    """A tensor's bytes, little-endian, row-major."""
+    import torch
+
+    f.write(memoryview(t.detach().cpu().contiguous().view(torch.uint8).numpy()))
+
+
+def rss_bytes() -> int:
+    with open("/proc/self/status") as f:
+        return next(int(line.split()[1]) * 1024 for line in f if line.startswith("VmRSS:"))
+
+
+class RssPeak:
+    """The largest resident set of this process while the block runs,
+    sampled every 10 ms."""
+
+    def __enter__(self):
+        self.peak, self._stop = rss_bytes(), threading.Event()
+        self._thread = threading.Thread(target=self._sample, daemon=True)
+        self._thread.start()
+        return self
+
+    def _sample(self):
+        while not self._stop.wait(0.01):
+            self.peak = max(self.peak, rss_bytes())
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, rss_bytes())
 
 
 def check(cond: bool, what: str) -> None:
@@ -967,17 +1045,90 @@ def ask_all(url: str, path: str, payloads: list[dict]) -> list:
     return answers
 
 
+MPNET_CONFIG = {  # paraphrase-mpnet-base-v2's config.json, the fields that shape the model
+    "architectures": ["MPNetModel"], "model_type": "mpnet", "vocab_size": 30527, "hidden_size": 768,
+    "num_hidden_layers": 12, "num_attention_heads": 12, "intermediate_size": 3072, "hidden_act": "gelu",
+    "max_position_embeddings": 514, "layer_norm_eps": 1e-05, "relative_attention_num_buckets": 32, "pad_token_id": 1,
+    "bos_token_id": 0, "eos_token_id": 2, "initializer_range": 0.02, "hidden_dropout_prob": 0.1,
+    "attention_probs_dropout_prob": 0.1,
+}
+
+
+def mpnet_names(n_layers: int) -> dict:
+    """The port's encoder tensor name -> (HF MPNetModel name, transposed)."""
+    names = {"tok_embed": ("embeddings.word_embeddings.weight", False),
+             "pos_embed": ("embeddings.position_embeddings.weight", False),
+             "emb_ln.scale": ("embeddings.LayerNorm.weight", False), "emb_ln.bias": ("embeddings.LayerNorm.bias", False),
+             "rel_bias": ("encoder.relative_attention_bias.weight", False)}
+    for i in range(n_layers):
+        hf = f"encoder.layer.{i}."
+        for ours, theirs in (("attn.wq", "attention.attn.q"), ("attn.wk", "attention.attn.k"),
+                             ("attn.wv", "attention.attn.v"), ("attn.wo", "attention.attn.o"),
+                             ("mlp.wi", "intermediate.dense"), ("mlp.wo", "output.dense")):
+            names[f"blocks.{i}.{ours}.w"] = (hf + theirs + ".weight", True)
+            names[f"blocks.{i}.{ours}.b"] = (hf + theirs + ".bias", False)
+        for ours, theirs in (("ln1", "attention.LayerNorm"), ("ln2", "output.LayerNorm")):
+            names[f"blocks.{i}.{ours}.scale"] = (hf + theirs + ".weight", False)
+            names[f"blocks.{i}.{ours}.bias"] = (hf + theirs + ".bias", False)
+    return names
+
+
+def write_mpnet_dir(encoder, out_dir: str) -> None:
+    """``encoder`` as an HF MPNet directory: config.json and one f32
+    model.safetensors."""
+    state = encoder.state_dict()
+    names = mpnet_names(encoder.cfg.n_layers)
+    check(sorted(names) == sorted(state), "the smoke's MPNet name map covers the encoder")
+    tensors = [(hf, state[ours].T if t else state[ours]) for ours, (hf, t) in names.items()]
+    with open(os.path.join(out_dir, "config.json"), "w") as f:
+        json.dump(MPNET_CONFIG, f, indent=2)
+    with open(os.path.join(out_dir, "model.safetensors"), "wb") as f:
+        f.write(safetensors_header([(name, t.dtype, tuple(t.shape)) for name, t in tensors]))
+        for _, t in tensors:
+            write_tensor(f, t)
+
+
+def phase_hf_encoder(torch, drawn, tok, texts):
+    """The drawn mpnet_class encoder written as an HF MPNet directory and
+    loaded through the CLI's encoder path; returns the imported encoder."""
+    from vietnamese_qa_system_tpu_torch.cli.main import _encoder
+    from vietnamese_qa_system_tpu_torch.data import batch_encode
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mpnet_") as d:
+        write_mpnet_dir(drawn, d)
+        size = os.path.getsize(os.path.join(d, "model.safetensors"))
+        t0 = time.perf_counter()
+        with RssPeak() as rss:
+            encoder = _encoder(d, SEED, "cuda")
+            torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    print(f"HF encoder import: mpnet directory ({size / 1e6:.1f} MB f32 safetensors) loaded through the CLI's "
+          f"--encoder path in {load_s:.2f} s, process peak RSS while loading {rss.peak / 1e9:.2f} GB", flush=True)
+    check(encoder.cfg == drawn.cfg, "the imported encoder's ModelConfig (from config.json) equals mpnet_class()")
+    same = all(torch.equal(a, b) for a, b in zip(encoder.state_dict().values(), drawn.state_dict().values()))
+    check(same and list(encoder.state_dict()) == list(drawn.state_dict()),
+          "imported encoder tensors equal the drawn encoder's, bit for bit")
+    with torch.inference_mode():
+        ids, mask = batch_encode(tok, texts[:FLASH_B], FLASH_T)
+        ids, mask = torch.from_numpy(ids).cuda().long(), torch.from_numpy(mask).cuda().long()
+        same = torch.equal(encoder.sentence_embed(ids, mask), drawn.sentence_embed(ids, mask))
+    check(same, f"imported encoder's embeddings of {FLASH_B} passages at max_len {FLASH_T} equal the drawn one's, "
+                "bit for bit")
+    return encoder
+
+
 def phase_slice(torch, pkg, gen):
     """The retrieval serving path once, end to end, with the launch
     counters reset; returns the launches and what the QA path reuses."""
     from vietnamese_qa_system_tpu_torch.core import make_generator
     from vietnamese_qa_system_tpu_torch.data import ByteTokenizer, batch_encode
-    from vietnamese_qa_system_tpu_torch.engine import DocStore, IngestPipeline, Retriever, ServingApp, VectorStore
+    from vietnamese_qa_system_tpu_torch.engine import (BM25Index, DocStore, IngestPipeline, Retriever, ServingApp,
+                                                       VectorStore)
     from vietnamese_qa_system_tpu_torch.models import init_encoder, mpnet_class
     from vietnamese_qa_system_tpu_torch.ops.cuda_kernels import FLASH_FWD
 
     cfg = mpnet_class()
-    encoder = init_encoder(cfg, make_generator(SEED), device="cuda")
+    drawn = init_encoder(cfg, make_generator(SEED), device="cuda")
     tok = ByteTokenizer()
     texts = passages(N_PASSAGES, SEED)
 
@@ -985,13 +1136,16 @@ def phase_slice(torch, pkg, gen):
     # host, same weights, on a few passages
     with torch.inference_mode():
         ids, mask = batch_encode(tok, texts[:4] + [""], 512)
-        gpu = encoder.sentence_embed(torch.from_numpy(ids).cuda().long(), torch.from_numpy(mask).cuda().long())
-        host = copy.deepcopy(encoder).cpu().sentence_embed(torch.from_numpy(ids).long(), torch.from_numpy(mask).long())
+        gpu = drawn.sentence_embed(torch.from_numpy(ids).cuda().long(), torch.from_numpy(mask).cuda().long())
+        host = copy.deepcopy(drawn).cpu().sentence_embed(torch.from_numpy(ids).long(), torch.from_numpy(mask).long())
     cos = (gpu.cpu()[:4] * host[:4]).sum(1)
     print(f"encoder T=512 card vs host plain path: min cos {cos.min().item():.6f}")
     check(bool(torch.isfinite(gpu).all()) and gpu.shape == (5, cfg.d_model),
           "mpnet_class sentence_embed: finite (5, 768) output")
     check(cos.min().item() >= ENCODER_COS_TOL, f"encoder on the card agrees with the plain path: cos >= {ENCODER_COS_TOL}")
+    # the rest of the path serves the encoder imported from an HF directory
+    encoder = phase_hf_encoder(torch, drawn, tok, texts)
+    del drawn
 
     for kern in pkg.KERNELS:
         kern.launches = 0
@@ -1008,17 +1162,21 @@ def phase_slice(torch, pkg, gen):
     check(all(st.size == filled for st in stores.values()), f"four 1M-capacity stores filled with {filled} unit vectors")
 
     docstore = DocStore()
+    lexical = BM25Index()
     t0 = time.perf_counter()
-    ingest = IngestPipeline(encoder, tok, stores["bf16"], docstore, batch_size=FLASH_B, max_len=FLASH_T)
+    ingest = IngestPipeline(encoder, tok, stores["bf16"], docstore, batch_size=FLASH_B, max_len=FLASH_T,
+                            lexical=lexical)
     doc_ids = ingest.add_documents(texts, ["synthetic"] * len(texts))
     torch.cuda.synchronize()
-    print(f"ingest: {len(doc_ids)} chunks at max_len 512 in {time.perf_counter() - t0:.2f} s")
-    check(len(doc_ids) == N_PASSAGES and FLASH_FWD.launches > 0,
-          f"ingest of {N_PASSAGES} passages ran the flash kernel ({FLASH_FWD.launches} launches)")
+    print(f"ingest (with a BM25 index): {len(doc_ids)} chunks at max_len 512 in {time.perf_counter() - t0:.2f} s")
+    k4_launches = N_PASSAGES // FLASH_B * cfg.n_layers
+    check(len(doc_ids) == N_PASSAGES and FLASH_FWD.launches == k4_launches and lexical.n_docs == N_PASSAGES,
+          f"ingest of {N_PASSAGES} passages ran the flash kernel {FLASH_FWD.launches} times ({N_PASSAGES // FLASH_B} "
+          f"batches x {cfg.n_layers} layers) and indexed them for BM25")
 
     retriever = Retriever(encoder, tok, stores["bf16"], docstore, max_len=128, query_batch=32)
     app = ServingApp(retriever, ingest=IngestPipeline(encoder, tok, stores["bf16"], docstore, batch_size=32,
-                                                      max_len=128), k=5, max_batch=32)
+                                                      max_len=128, lexical=lexical), k=5, max_batch=32)
     url, stop = serve(app)
     # queries: passages whose tokens fit max_len 128, so the query and the
     # ingested passage see the same tokens
@@ -1063,32 +1221,405 @@ def phase_slice(torch, pkg, gen):
           f"bf16 store top-{K} after a rerank of {pkg.MAX_K} equals the plain path; each query finds its source first")
     launches = {k.name: k.launches for k in pkg.KERNELS}
     ctx = {"encoder": encoder, "tok": tok, "store": stores["bf16"], "docstore": docstore, "texts": texts,
-           "doc_ids": doc_ids, "questions": short[12: 12 + READER_QUESTIONS]}
+           "doc_ids": doc_ids, "questions": short[12: 12 + READER_QUESTIONS], "lexical": lexical,
+           "res_store": stores["int8_res"]}
     return launches, ctx
 
 
-def phase_reader(torch, pkg, ctx):
-    """The QA serving path once at PhoGPT-4B width (int8c, random weights
-    from the seed), with the launch counters reset; returns its launches,
-    the reader and a batch of its prompts."""
-    from vietnamese_qa_system_tpu_torch.core import make_generator
-    from vietnamese_qa_system_tpu_torch.data import batch_encode
-    from vietnamese_qa_system_tpu_torch.engine import QAPipeline, Retriever, ServingApp
-    from vietnamese_qa_system_tpu_torch.models import init_causal_lm, phogpt_4b_class
-    from vietnamese_qa_system_tpu_torch.models import generate as G
+def plain_candidates(torch, T, store, qvecs, m: int):
+    """The store's top-m (scores, ids) of ``qvecs`` through the plain
+    versions on the card: K1's over a bf16 store; over int8_res, K2's at
+    the store's 4m scan candidates, then the store's exact re-score with
+    the residual."""
+    import numpy as np
+
+    q = torch.as_tensor(np.asarray(qvecs), device="cuda").float()
+    if store.dtype == "bf16":
+        s, i = T.topk_bf16_plain(q.to(torch.bfloat16), store.vectors, store.size, m)
+    else:
+        q_i8, _ = T.quantize_queries(q)
+        _, slots = T.topk_int8_plain(q_i8, store.vectors, store.scales, store.size, min(4 * m, T.MAX_K))
+        slots = slots.long()
+        rs = (torch.einsum("bd,bkd->bk", q, store.vectors[slots].float()) * store.scales[slots]
+              + torch.einsum("bd,bkd->bk", q, store.res_vectors[slots].float()) * store.res_scales[slots])
+        s, pos = torch.sort(rs, dim=1, descending=True, stable=True)
+        s, i = s[:, :m], torch.gather(slots, 1, pos[:, :m])
+    return s.cpu().numpy(), i.cpu().numpy()
+
+
+def host_fused(store, python_bm25, query: str, qvec, dense_s, dense_i, k: int) -> list:
+    """The fused top-k recomputed on the host: ``fuse_scores`` over the
+    given dense candidates and the Python scorer's BM25 candidates, exact
+    dense scores of the BM25-only ones from the stored rows."""
+    from vietnamese_qa_system_tpu_torch.engine import fuse_scores
+
+    dense = {int(g): max(float(sc), 0.0) for g, sc in zip(dense_i, dense_s) if g >= 0}
+    sparse = dict(python_bm25.search(query, k=len(dense_s)))
+    fused = fuse_scores(dense, sparse, HYBRID_WEIGHT)
+    missing = [g for g in sparse if g not in dense]
+    if missing:
+        for g, sc in zip(missing, store.get_vectors(missing) @ qvec):
+            fused[g] = HYBRID_WEIGHT * max(float(sc), 0.0) + (1 - HYBRID_WEIGHT) * sparse[g]
+    return sorted(fused.items(), key=lambda kv: -kv[1])[:k]
+
+
+def same_ranking(ids: list, scores: list, want_ids: list, want_scores: list, tol: float) -> bool:
+    """Scores equal within ``tol`` position by position; ids equal except
+    where a score within ``tol`` of theirs makes the order a tie (sums in
+    another order, equal scores kept in another order)."""
+    if len(ids) != len(want_ids) or any(abs(a - b) > tol for a, b in zip(scores, want_scores)):
+        return False
+    for j, (a, b) in enumerate(zip(ids, want_ids)):
+        if a != b:
+            tied = [i for i, sc in enumerate(want_scores) if abs(sc - want_scores[j]) <= tol]
+            if b not in [ids[i] for i in tied] and abs(want_scores[j] - want_scores[-1]) > tol:
+                return False
+    return True
+
+
+def percentile(values: list, q: float) -> float:
+    v = sorted(values)
+    return v[min(len(v) - 1, int(round(q * (len(v) - 1))))]
+
+
+def timed_search(url: str, payloads: list) -> list:
+    """Each request's wall ms, all sent at once."""
+    out = [0.0] * len(payloads)
+
+    def ask(j):
+        t0 = time.perf_counter()
+        post(url + "/search", payloads[j])
+        out[j] = (time.perf_counter() - t0) * 1e3
+
+    threads = [threading.Thread(target=ask, args=(j,)) for j in range(len(payloads))]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=600)
+    return out
+
+
+def phase_bm25_timing(torch) -> dict:
+    """BM25 ms per query, native scorer against the Python loop, over an
+    index of BM25_PASSAGES synthetic passages."""
+    from vietnamese_qa_system_tpu_torch.engine import BM25Index
+
+    big = passages(BM25_PASSAGES, SEED + 7)
+    idx = BM25Index()
+    t0 = time.perf_counter()
+    idx.add(list(range(len(big))), big)
+    add_s = time.perf_counter() - t0
+    import numpy as np
+
+    rng = np.random.default_rng(SEED)
+    queries = [" ".join(big[j].split()[2:7]) for j in rng.choice(len(big), BM25_TIMED_QUERIES, replace=False)]
+    t0 = time.perf_counter()
+    idx.scores(queries[0])  # freezes the posting arrays
+    freeze_s = time.perf_counter() - t0
+    python = copy.copy(idx)
+    python.native, python.scored = False, {"native": 0, "python": 0}
+    times = {}
+    for name, index in (("native", idx), ("python", python)):
+        ms = []
+        for q in queries:
+            t0 = time.perf_counter()
+            index.scores(q)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        times[name] = sorted(ms)[len(ms) // 2]
+    a, b = idx.scores(queries[1]), python.scores(queries[1])
+    check(set(a) == set(b) and all(abs(a[g] - b[g]) <= 1e-9 * abs(b[g]) for g in b),
+          f"native BM25 scores equal the Python loop's within rtol 1e-9 at {len(big)} passages")
+    postings = sum(len(p) for p in idx.postings.values())
+    with open("/proc/cpuinfo") as f:
+        cpu = next((line.split(":", 1)[1].strip() for line in f if line.startswith("model name")), "not given")
+    print(f"BM25 over {len(big)} passages ({postings} postings; add {add_s:.2f} s, freeze {freeze_s:.2f} s; host CPU "
+          f"model name {cpu!r} in /proc/cpuinfo, {os.cpu_count()} cores): median ms per query over {len(queries)} queries: native "
+          f"{times['native']:.3f}, Python {times['python']:.3f}", flush=True)
+    return times
+
+
+def phase_hybrid(torch, pkg, ctx):
+    """Hybrid BM25 + dense retrieval served over HTTP at weight 0.5, over
+    the bf16 store and the int8_res store (the ingested passages written
+    into it through the ingest's write half), with the launch counters
+    reset; returns the launches."""
+    import numpy as np
+
+    from vietnamese_qa_system_tpu_torch.engine import BM25Index, DocStore, IngestPipeline, Retriever, ServingApp
+    from vietnamese_qa_system_tpu_torch.engine import lexical as L
+    from vietnamese_qa_system_tpu_torch.ops import topk as T
+
+    lib = L.native_bm25()
+    check(lib is not None and os.path.exists(L.bm25_lib_path()) and L.bm25_lib_path().startswith(
+        os.path.join(L.CSRC, "build")), f"native BM25 scorer built by g++ from csrc/bm25.cpp: {L.bm25_lib_path()}")
+    encoder, tok, texts, doc_ids = ctx["encoder"], ctx["tok"], ctx["texts"], ctx["doc_ids"]
+    for kern in pkg.KERNELS:
+        kern.launches = 0
+    res_lexical = BM25Index()
+    res_ingest = IngestPipeline(encoder, tok, ctx["res_store"], DocStore(), batch_size=32, max_len=128,
+                                lexical=res_lexical)
+    ids = res_ingest.index_vectors(ctx["store"].get_vectors(doc_ids), texts, ["synthetic"] * len(texts))
+    check(ids.tolist() == doc_ids.tolist() and res_lexical.n_docs == len(texts),
+          f"int8_res store and its BM25 index took the {len(texts)} passages under the same ids")
+    rng = np.random.default_rng(SEED + 3)
+    picks = rng.choice(len(texts), HYBRID_QUERIES, replace=False)
+    # keyword queries: a passage's number (a term no other passage holds) and a few of its words
+    queries = [" ".join(texts[i].split()[2:7]) for i in picks]
+    for name, store, lexical, docstore, ingest in (
+            ("bf16", ctx["store"], ctx["lexical"], ctx["docstore"], None), ("int8_res", ctx["res_store"], res_lexical,
+                                                                              res_ingest.docstore, res_ingest)):
+        retriever = Retriever(encoder, tok, store, docstore, max_len=128, query_batch=32, lexical=lexical,
+                              hybrid_weight=HYBRID_WEIGHT)
+        served_dense, pending = {}, []
+        dense_of, hybrid_of = retriever._dense_candidates, retriever._hybrid_search
+
+        def dense(qvecs, m, dense_of=dense_of, pending=pending):
+            out = dense_of(qvecs, m)
+            pending.append(out)
+            return out
+
+        def hybrid(qs, qvecs, k, fetch_docs, hybrid_of=hybrid_of, pending=pending, served_dense=served_dense):
+            out = hybrid_of(qs, qvecs, k, fetch_docs)
+            ds, di = pending.pop()
+            for r, q in enumerate(qs):
+                served_dense[q] = (qvecs[r], ds[r], di[r])
+            return out
+
+        retriever._dense_candidates, retriever._hybrid_search = dense, hybrid
+        ingest = ingest or IngestPipeline(encoder, tok, store, docstore, batch_size=32, max_len=128, lexical=lexical)
+        app = ServingApp(retriever, ingest=ingest, k=HYBRID_K, max_batch=32)
+        native_before = lexical.scored["native"]
+        url, stop = serve(app)
+        try:
+            answers = ask_all(url, "/search", [{"query": q, "k": HYBRID_K} for q in queries])
+            # the served dense candidates against the plain versions on the same query vectors
+            qv = np.stack([served_dense[q][0] for q in queries])
+            m = len(served_dense[queries[0]][1])
+            ps, pi = plain_candidates(torch, T, store, qv, m)
+            tol = K1_SCORE_TOL if name == "bf16" else RERANK_SCORE_TOL
+            err = max(float(np.abs(served_dense[q][1] - ps[r]).max()) for r, q in enumerate(queries))
+            ranked = [len(set(served_dense[q][2].tolist())) == m and same_ranking(
+                served_dense[q][2].tolist(), served_dense[q][1].tolist(), pi[r].tolist(), ps[r].tolist(), tol)
+                for r, q in enumerate(queries)]
+            same = sum(int((served_dense[q][2] == pi[r]).sum()) for r, q in enumerate(queries))
+            rec = 1.0
+            if name == "bf16":  # each served id a true top-m member by the plain f32 scores
+                rec = rank_recall(torch.as_tensor(qv, device="cuda").to(torch.bfloat16), store.vectors[:store.size],
+                                  torch.as_tensor(np.stack([served_dense[q][2] for q in queries]), device="cuda"), m)
+            print(f"hybrid dense candidates ({name} store, m {m}): scores within {err:.2e} of the plain version's, "
+                  f"ids equal at {same}/{m * len(queries)} positions, recall by rank count {rec:.3f}", flush=True)
+            check(all(ranked) and rec == 1.0,
+                  f"{sum(ranked)}/{len(queries)} hybrid queries' dense candidates ({name} store, m {m}) equal the "
+                  f"plain version's: scores within {tol}, ids equal except within a tie of {tol}, no id twice"
+                  + (", recall 1.000 by the rank-count rule" if name == "bf16" else ""))
+            python = copy.copy(lexical)
+            python.native, python.scored = False, {"native": 0, "python": 0}
+            # fused over the plain candidates: scores differ by the weight times the candidates' difference
+            fused_tol = HYBRID_TOL + HYBRID_WEIGHT * err
+            good = [a is not None and same_ranking(
+                [x["id"] for x in a["results"]], [x["score"] for x in a["results"]],
+                *zip(*host_fused(store, python, q, qv[r], ps[r], pi[r], HYBRID_K)), fused_tol)
+                for r, (q, a) in enumerate(zip(queries, answers))]
+            check(all(good), f"{sum(good)}/{len(queries)} concurrent hybrid /search answers ({name} store, k "
+                             f"{HYBRID_K}, weight {HYBRID_WEIGHT}) equal the host recomputation (fuse_scores over the "
+                             f"plain candidates and the Python scorer's BM25) within {fused_tol:.2e}")
+            native = lexical.scored["native"] - native_before
+            check(native >= len(queries) and lexical.scored["python"] == 0,
+                  f"the native scorer answered the hybrid queries ({native} native, 0 Python)")
+            hits = sum(int(doc_ids[i]) in [r["id"] for r in a["results"]] for i, a in zip(picks, answers))
+            check(hits == len(queries), f"hybrid /search over the {name} store: {hits}/{len(queries)} keyword queries "
+                                        f"find their passage in the top {HYBRID_K}")
+            if name == "bf16":
+                new = post(f"{url}/ingest", {"texts": ["Bài viết mới về zirconium và quasar ở Hà Nội."]})
+                top = post(f"{url}/search", {"query": "zirconium quasar", "k": 3})["results"]
+                check(top[0]["id"] == new["ids"][0] and "zirconium" in top[0]["doc"],
+                      "after /ingest a keyword-only hybrid query finds the new passage first")
+                lat = {}
+                for label, weight in (("hybrid", HYBRID_WEIGHT), ("dense-only", 1.0)):
+                    retriever.hybrid_weight = weight
+                    found = ask_all(url, "/search", [{"query": q, "k": HYBRID_K} for q in queries])
+                    hits = sum(int(doc_ids[i]) in [r["id"] for r in a["results"]] for i, a in zip(picks, found))
+                    print(f"{label} /search: {hits}/{len(queries)} keyword queries find their passage in the top "
+                          f"{HYBRID_K}", flush=True)
+                    timed_search(url, [{"query": q, "k": HYBRID_K} for q in queries])  # warm
+                    ms = [t for _ in range(LATENCY_ROUNDS)
+                          for t in timed_search(url, [{"query": q, "k": HYBRID_K} for q in queries])]
+                    lat[label] = (percentile(ms, 0.5), percentile(ms, 0.99))
+                print(f"/search latency, {HYBRID_QUERIES} concurrent, {LATENCY_ROUNDS} rounds, k {HYBRID_K}, bf16 "
+                      f"store of {store.size} rows: hybrid p50 {lat['hybrid'][0]:.2f} ms p99 {lat['hybrid'][1]:.2f} "
+                      f"ms; dense-only p50 {lat['dense-only'][0]:.2f} ms p99 {lat['dense-only'][1]:.2f} ms", flush=True)
+        finally:
+            stop()
+        if name == "bf16":
+            check(app.dirty, "the /ingest left the app dirty")
+            with tempfile.TemporaryDirectory(prefix="chip_smoke_bm25_") as d:
+                path = os.path.join(d, "bm25.json")
+                lexical.save(path)  # serve's shutdown save
+                back = BM25Index.load(path)
+            check(back.n_docs == lexical.n_docs and all(back.scores(q) == lexical.scores(q) for q in queries),
+                  f"the shutdown save wrote bm25.json ({back.n_docs} docs); it reloads to the same scores")
+    return {k.name: k.launches for k in pkg.KERNELS}
+
+
+def phogpt_config(cfg) -> dict:
+    """vinai/PhoGPT-4B's MosaicML config.json layout at ``cfg``'s sizes:
+    nested attn_config, no tie_word_embeddings key (MPT ties its head)."""
+    return {
+        "architectures": ["MPTForCausalLM"], "model_type": "mpt", "d_model": cfg.d_model, "n_heads": cfg.n_heads,
+        "n_layers": cfg.n_layers, "expansion_ratio": cfg.d_ff // cfg.d_model, "max_seq_len": cfg.max_seq_len,
+        "vocab_size": cfg.vocab_size, "no_bias": True, "norm_type": "low_precision_layernorm", "learned_pos_emb": True,
+        "logit_scale": None, "emb_pdrop": 0.0, "resid_pdrop": 0.0, "embedding_fraction": 1.0, "init_device": "cpu",
+        "torch_dtype": "bfloat16", "use_cache": False, "verbose": 0, "ffn_config": {"ffn_type": "mptmlp"},
+        "attn_config": {"alibi": True, "alibi_bias_max": 8, "attn_impl": "flash", "attn_pdrop": 0.0,
+                        "attn_type": "multihead_attention", "attn_uses_sequence_id": False, "clip_qkv": None,
+                        "prefix_lm": False, "qk_ln": False, "softmax_scale": None},
+    }
+
+
+def mpt_layer_shapes(cfg, i: int) -> list:
+    """(HF MPT name, shape) of layer i's tensors, in file order."""
+    d, f = cfg.d_model, cfg.d_ff
+    pre = f"transformer.blocks.{i}."
+    return [(pre + "norm_1.weight", (d,)), (pre + "attn.Wqkv.weight", (3 * d, d)), (pre + "attn.out_proj.weight", (d, d)),
+            (pre + "norm_2.weight", (d,)), (pre + "ffn.up_proj.weight", (f, d)), (pre + "ffn.down_proj.weight", (d, f))]
+
+
+def draw_mpt_layer(torch, cfg, i: int, gen) -> dict:
+    """Layer i in the HF MPT layout, drawn on the card and rounded to bf16:
+    dense weights U(-1/sqrt(d_in), 1/sqrt(d_in)), norm scales 1 + N(0, 0.1^2)."""
+    out = {}
+    for name, shape in mpt_layer_shapes(cfg, i):
+        if len(shape) == 1:
+            t = 1.0 + 0.1 * torch.randn(shape, generator=gen, device="cuda")
+        else:
+            t = (torch.rand(shape, generator=gen, device="cuda") * 2 - 1) / shape[1] ** 0.5
+        out[name] = t.to(torch.bfloat16)
+    return out
+
+
+def mpt_to_port(torch, hf: dict, cfg, i: int) -> dict:
+    """Layer i's HF MPT tensors -> the port's names, f32, int8c dense
+    weights quantized by models/quantize.py (the smoke's own map: Wqkv rows
+    are q, k, v in turn; Linear weights are (out, in); MPT norms have no
+    bias)."""
+    from vietnamese_qa_system_tpu_torch.models import quantize_weight
+
+    d, pre = cfg.d_model, f"transformer.blocks.{i}."
+    wqkv = hf[pre + "attn.Wqkv.weight"].float()
+    dense = {"attn.wq": wqkv[:d].T, "attn.wk": wqkv[d:2 * d].T, "attn.wv": wqkv[2 * d:].T,
+             "attn.wo": hf[pre + "attn.out_proj.weight"].float().T, "mlp.wi": hf[pre + "ffn.up_proj.weight"].float().T,
+             "mlp.wo": hf[pre + "ffn.down_proj.weight"].float().T}
+    out = {}
+    for name, w in dense.items():
+        leaf = quantize_weight(w, "int8c")
+        out[f"blocks.{i}.{name}.w_q"], out[f"blocks.{i}.{name}.w_s"] = leaf["w_q"], leaf["w_s"]
+    for ours, theirs in (("ln1", "norm_1"), ("ln2", "norm_2")):
+        out[f"blocks.{i}.{ours}.scale"] = hf[pre + theirs + ".weight"].float()
+        out[f"blocks.{i}.{ours}.bias"] = torch.zeros(d, device="cuda")
+    return out
+
+
+def write_phogpt_dir(torch, cfg, out_dir: str, gen):
+    """A PhoGPT-4B-size MPT directory of drawn weights (MosaicML config.json,
+    sharded bf16 safetensors behind model.safetensors.index.json, tied
+    head: no lm_head.weight), written layer by layer; returns the
+    reference reader built from the same bf16 values, int8c."""
+    from vietnamese_qa_system_tpu_torch.models import causal_from_state_dict
+
+    with open(os.path.join(out_dir, "config.json"), "w") as f:
+        json.dump(phogpt_config(cfg), f, indent=2)
+    n_shards = -(-cfg.n_layers // PHOGPT_LAYERS_PER_SHARD)
+    weight_map, ref, total = {}, {}, 0
+    for shard in range(n_shards):
+        file = f"model-{shard + 1:05d}-of-{n_shards:05d}.safetensors"
+        layers = range(shard * PHOGPT_LAYERS_PER_SHARD, min((shard + 1) * PHOGPT_LAYERS_PER_SHARD, cfg.n_layers))
+        entries = [(n, sh) for i in layers for n, sh in mpt_layer_shapes(cfg, i)]
+        if shard == 0:
+            entries = [("transformer.wte.weight", (cfg.vocab_size, cfg.d_model)),
+                       ("transformer.norm_f.weight", (cfg.d_model,))] + entries
+        with open(os.path.join(out_dir, file), "wb") as f:
+            f.write(safetensors_header([(n, torch.bfloat16, sh) for n, sh in entries]))
+            if shard == 0:
+                wte = (0.02 * torch.randn(cfg.vocab_size, cfg.d_model, generator=gen, device="cuda")).to(torch.bfloat16)
+                norm_f = (1.0 + 0.1 * torch.randn(cfg.d_model, generator=gen, device="cuda")).to(torch.bfloat16)
+                for t in (wte, norm_f):
+                    write_tensor(f, t)
+                ref.update({"tok_embed": wte.float(), "ln_f.scale": norm_f.float(),
+                            "ln_f.bias": torch.zeros(cfg.d_model, device="cuda")})
+            for i in layers:
+                hf = draw_mpt_layer(torch, cfg, i, gen)
+                for name, _ in mpt_layer_shapes(cfg, i):
+                    write_tensor(f, hf[name])
+                ref.update(mpt_to_port(torch, hf, cfg, i))
+        weight_map.update({n: file for n, _ in entries})
+        total += os.path.getsize(os.path.join(out_dir, file))
+    with open(os.path.join(out_dir, "model.safetensors.index.json"), "w") as f:
+        json.dump({"metadata": {"total_size": total}, "weight_map": weight_map}, f)
+    return causal_from_state_dict(ref, cfg), total, n_shards
+
+
+def phase_hf_reader(torch, tok):
+    """A PhoGPT-4B-size MPT directory of drawn bf16 weights, loaded through
+    ``serve --reader-params DIR --reader-size phogpt4b --reader-quantize
+    int8c``; returns the imported reader and the reference reader built
+    from the same bf16 values."""
+    from vietnamese_qa_system_tpu_torch.cli.main import _reader, build_parser
+    from vietnamese_qa_system_tpu_torch.models import phogpt_4b_class
 
     cfg = phogpt_4b_class()
-    t0 = time.perf_counter()
-    reader = init_causal_lm(cfg, make_generator(SEED + 1, "cuda"), quantize="int8c")
-    torch.cuda.synchronize()
+    d = tempfile.mkdtemp(prefix="chip_smoke_phogpt_")
+    try:
+        free = shutil.disk_usage(d).free
+        t0 = time.perf_counter()
+        reference, total, n_shards = write_phogpt_dir(torch, cfg, d, torch.Generator(device="cuda").manual_seed(SEED + 1))
+        torch.cuda.synchronize()
+        write_s = time.perf_counter() - t0
+        args = build_parser().parse_args(["serve", "--index", d, "--db", ":memory:", "--reader-size", "phogpt4b",
+                                          "--reader-params", d, "--reader-quantize", "int8c"])
+        before = rss_bytes()
+        t0 = time.perf_counter()
+        with RssPeak() as rss:
+            reader = _reader(args.reader_size, tok, args.seed + 1, "cuda", args.reader_quantize, args.reader_params)
+            torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    n_params = sum(math.prod(sh) for i in range(cfg.n_layers) for _, sh in mpt_layer_shapes(cfg, i)) + \
+        cfg.vocab_size * cfg.d_model + cfg.d_model
+    f32_bytes = 4 * n_params
     n_bytes = sum(t.numel() * t.element_size() for t in reader.state_dict().values())
-    print(f"reader phogpt_4b_class: {cfg.n_layers} layers, d {cfg.d_model}, d_ff {cfg.d_ff}, {cfg.n_heads} heads, "
-          f"int8c, {n_bytes / 1e9:.2f} GB on the card, drawn and quantized in {time.perf_counter() - t0:.1f} s",
-          flush=True)
+    print(f"HF reader import: PhoGPT-4B-size MPT directory ({cfg.n_layers} layers, d {cfg.d_model}, {cfg.n_heads} "
+          f"heads, vocab {cfg.vocab_size}; {n_params / 1e9:.3f}B parameters) written as {n_shards} bf16 safetensors "
+          f"shards ({total / 1e9:.2f} GB; {free / 1e9:.0f} GB free) in {write_s:.1f} s; loaded through serve "
+          f"--reader-params --reader-size phogpt4b --reader-quantize int8c in {load_s:.1f} s ({n_bytes / 1e9:.2f} GB "
+          f"on the card); process RSS {before / 1e9:.2f} GB before, peak {rss.peak / 1e9:.2f} GB while loading (the "
+          f"f32 model: {f32_bytes / 1e9:.2f} GB)", flush=True)
+    check(rss.peak < f32_bytes, f"peak RSS while loading {rss.peak / 1e9:.2f} GB < the f32 model's {f32_bytes / 1e9:.2f} GB")
+    got, want = reader.state_dict(), reference.state_dict()
+    same = list(got) == list(want) and all(got[k].dtype == want[k].dtype and torch.equal(got[k], want[k]) for k in want)
+    check(same, "imported int8c codes and scales (and every other tensor) equal quantizing the same bf16 values with "
+                "models/quantize.py, bit for bit")
+    return reader, reference
+
+
+def phase_reader(torch, pkg, ctx):
+    """The QA serving path once at PhoGPT-4B width over a reader imported
+    from an HF directory (int8c), with the launch counters reset; returns
+    its launches and the reader."""
+    from vietnamese_qa_system_tpu_torch.data import batch_encode
+    from vietnamese_qa_system_tpu_torch.engine import QAPipeline, Retriever, ServingApp
+    from vietnamese_qa_system_tpu_torch.models import generate as G
+
     tok, texts = ctx["tok"], ctx["texts"]
+    reader, reference = phase_hf_reader(torch, tok)
+    cfg = reader.cfg
     retriever = Retriever(ctx["encoder"], tok, ctx["store"], ctx["docstore"], max_len=128, query_batch=16)
     qa = QAPipeline(retriever, reader, tok, k=3, max_prompt_len=READER_PROMPT_LEN, max_new_tokens=READER_NEW_TOKENS)
-    app = ServingApp(retriever, qa, k=3, max_batch=16, max_wait_s=0.2)
+    # one batch of every question, so the reference answers the same batch
+    batches = []
+    retrieve = qa.retrieve
+    qa.retrieve = lambda qs: batches.append(list(qs)) or retrieve(qs)
+    app = ServingApp(retriever, qa, k=3, max_batch=16, max_wait_s=2.0)
     url, stop = serve(app)
     questions = [texts[i] for i in ctx["questions"]]
     try:
@@ -1112,18 +1643,31 @@ def phase_reader(torch, pkg, ctx):
     check(stats["requests"] == len(questions) and launches["w8_matmul"] == per_call * stats["batches"],
           f"K6 launched {per_call} times (6 x {cfg.n_layers} layers x {READER_NEW_TOKENS} steps) per generate call, "
           f"{stats['batches']} call(s); the prefill ({READER_PROMPT_LEN}-token rows) took the dequantize route")
+    # the reference reader (the same bf16 values quantized by the smoke)
+    # answers the served batch, in the served order
+    check(len(batches) == 1, f"the {len(questions)} concurrent /qa requests were served as one batch ({len(batches)})")
+    ref_qa = QAPipeline(retriever, reference, tok, k=3, max_prompt_len=READER_PROMPT_LEN,
+                        max_new_tokens=READER_NEW_TOKENS)
+    ref = {q: a.answer for q, a in zip(batches[0], ref_qa.answer(batches[0]))}
+    same = [a["answer"] == ref[q] for q, a in zip(questions, answers)]
+    check(all(same), f"{sum(same)}/{len(questions)} /qa answers of the imported reader equal the reference reader's")
 
     # prefill seconds and decode tokens/s of the same prompts in one batch
     prompts, _ = qa.retrieve(questions)
     ids, mask = batch_encode(tok, prompts, READER_PROMPT_LEN, pad_side="left")
     timings = {}
     torch.cuda.reset_peak_memory_stats()
-    G.generate(reader, torch.from_numpy(ids).cuda(), torch.from_numpy(mask).cuda(),
-               max_new_tokens=READER_NEW_TOKENS, eos_id=tok.eos_id, timings=timings)
+    out = G.generate(reader, torch.from_numpy(ids).cuda(), torch.from_numpy(mask).cuda(),
+                     max_new_tokens=READER_NEW_TOKENS, eos_id=tok.eos_id, timings=timings)
     tps = len(prompts) * READER_NEW_TOKENS / timings["decode_s"]
     print(f"reader B={len(prompts)} T={READER_PROMPT_LEN}: prefill {timings['prefill_s']:.3f} s, decode "
           f"{READER_NEW_TOKENS} steps in {timings['decode_s']:.3f} s = {tps:.1f} tokens/s, peak memory "
-          f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB", flush=True)
+          f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB (the reference reader held as well)", flush=True)
+    ref_out = G.generate(reference, torch.from_numpy(ids).cuda(), torch.from_numpy(mask).cuda(),
+                         max_new_tokens=READER_NEW_TOKENS, eos_id=tok.eos_id)
+    check(torch.equal(out, ref_out), f"greedy tokens of the imported reader equal the reference reader's "
+                                     f"({len(prompts)} prompts x {READER_NEW_TOKENS} new tokens)")
+    del reference, ref_qa
     trace_decode(torch, reader, torch.from_numpy(ids).cuda(), torch.from_numpy(mask).cuda(), tok.eos_id,
                  timings["decode_s"] / READER_NEW_TOKENS)
     return launches, reader
@@ -1810,6 +2354,11 @@ def main() -> int:
     for name in ("matmul_topk_bf16", "matmul_topk_bf16_large", "matmul_topk_int8", "matmul_topk_int8_global",
                  "flash_attention_fwd"):
         check(retrieval[name] > 0, f"{name} launched on the retrieval path")
+    hybrid = phase_hybrid(torch, pkg, ctx)
+    print("launches in the hybrid run: " + json.dumps(hybrid))
+    for name in ("matmul_topk_bf16", "matmul_topk_int8", "quantize_int8"):
+        check(hybrid[name] > 0, f"{name} launched on the hybrid path")
+    phase_bm25_timing(torch)
     reader_launches, reader = phase_reader(torch, pkg, ctx)
     for name in ("matmul_topk_bf16", "w8_matmul"):
         check(reader_launches[name] > 0, f"{name} launched on the QA path")

@@ -254,7 +254,7 @@ def test_chunking_and_docstore_copies(tmp_path):
 # ------------------------------------------------------------------- CLI
 
 
-def test_cli_ingest_and_refusals(tmp_path, monkeypatch):
+def test_cli_ingest_and_refusals(tmp_path, monkeypatch, capsys):
     docs = tmp_path / "docs.jsonl"
     docs.write_text("\n".join(json.dumps({"doc": p}, ensure_ascii=False) for p in PASSAGES[:8]), encoding="utf-8")
     idx, db = str(tmp_path / "idx"), str(tmp_path / "db.sqlite")
@@ -262,9 +262,16 @@ def test_cli_ingest_and_refusals(tmp_path, monkeypatch):
                           "--capacity", "1024", "--dtype", "int8", "--batch-size", "8", "--max-len", "32"]) == 0
     assert VectorStore.load(idx, device="cpu").size == 8
     serve = ["serve", "--index", idx, "--db", db, "--device", "cpu"]
-    (tmp_path / "idx" / "bm25.json").write_text("{}")
-    with pytest.raises(NotImplementedError, match="hybrid"):
-        cli(serve)
+    # --hybrid writes bm25.json beside the store, and serve then fuses it
+    hyb, hdb = str(tmp_path / "hyb"), str(tmp_path / "hyb.sqlite")
+    assert cli(["ingest", "--inputs", str(docs), "--index", hyb, "--db", hdb, "--device", "cpu", "--capacity", "64",
+                "--batch-size", "8", "--max-len", "32", "--hybrid"]) == 0
+    assert os.path.exists(os.path.join(hyb, "bm25.json"))
+    queries = iter([PASSAGES[3], ""])
+    monkeypatch.setattr("builtins.input", lambda prompt="": next(queries))
+    assert cli(["serve", "--index", hyb, "--db", hdb, "--device", "cpu", "--max-len", "32"]) == 0
+    out = capsys.readouterr().out
+    assert "hybrid retrieval on (weight 0.5)" in out and "1. [3] " in out
     # an IVF index serves; a flat dir is no --ivf-index
     ivf = str(tmp_path / "ivf")
     assert cli(["build-ivf", "--index", idx, "--out", ivf, "--clusters", "8", "--kmeans-iters", "1",
@@ -277,8 +284,6 @@ def test_cli_ingest_and_refusals(tmp_path, monkeypatch):
     assert cli(["serve", "--index", ivf, "--db", db, "--device", "cpu", "--hybrid-weight", "1.0"]) == 0
     with pytest.raises(SystemExit, match="not an IVF directory"):
         cli(serve + ["--hybrid-weight", "1.0", "--ivf-index", idx])
-    with pytest.raises(NotImplementedError, match="hybrid"):
-        cli(["ingest", "--inputs", str(docs), "--index", idx, "--db", db, "--device", "cpu", "--hybrid"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             cli(["serve", "--index", idx, "--db", db, "--hybrid-weight", "1.0"])

@@ -9,6 +9,7 @@ holds the token streams by the margin rule)."""
 
 import dataclasses
 import json
+import os
 import random
 import threading
 import urllib.error
@@ -185,16 +186,30 @@ def test_cli_chat_and_serve_reader(tmp_path, monkeypatch, capsys):
     out = capsys.readouterr().out
     assert "answer> " in out and DOCS[2][:40] in out
 
-    for extra, what in ((["--reader-params", "x.npz"], "--reader-params"),
-                        (["--reader-strategy", "tp"], "--reader-strategy"),
+    # --reader-params and chat --init-params load a flat .npz of the parameter tree
+    from vietnamese_qa_system_tpu_torch.core import make_generator
+    from vietnamese_qa_system_tpu_torch.models import config as tcfg
+    from vietnamese_qa_system_tpu_torch.models import init_causal_lm
+    from vietnamese_qa_system_tpu_torch.train.checkpoint import save_pytree
+    from vietnamese_qa_system_tpu_torch.train.trainer import params_tree
+
+    weights = str(tmp_path / "reader" / "params.npz")
+    os.makedirs(os.path.dirname(weights))
+    save_pytree(weights, params_tree(init_causal_lm(tcfg.tiny_test("causal"), make_generator(5))))
+    _feed(monkeypatch, [DOCS[2], ""])
+    assert cli(serve + ["--reader-size", "tiny", "--reader-params", weights, "--max-new-tokens", "3"]) == 0
+    _feed(monkeypatch, ["Xin chào", ""])
+    assert cli(["chat", "--init-params", weights, "--max-len", "64", "--max-new-tokens", "3", "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert out.count(f"reader weights loaded from {weights}") == 2 and "RANDOM" not in out and "model> " in out
+    for extra, what in ((["--reader-strategy", "tp"], "--reader-strategy"),
                         (["--continuous-slots", "4"], "--continuous-slots"),
                         (["--speculative", "ngram"], "--speculative"),
                         (["--reader-draft-size", "tiny"], "--reader-draft-size"),
                         (["--reader-size", "tiny", "--reader-quantize", "nf4"], "nf4")):
         with pytest.raises(NotImplementedError, match=what):
             cli(serve + extra)
-    for extra, what in ((["--init-params", "x"], "--init-params"), (["--draft-size", "tiny"], "--draft-size"),
-                        (["--draft-params", "d"], "--draft-params")):
+    for extra, what in ((["--draft-size", "tiny"], "--draft-size"), (["--draft-params", "d"], "--draft-params")):
         with pytest.raises(NotImplementedError, match=what):
             cli(["chat", "--device", "cpu", *extra])
     # seq2seq readers and beam search have no flag in the port: argparse rejects them

@@ -17,17 +17,32 @@ Counterpart of ``vietnamese_qa_system_tpu/cli/main.py:26-436`` and
     python -m vietnamese_qa_system_tpu_torch.cli chat --model-size phogpt4b \\
         --quantize int8c
 
-Each takes ``--device`` (default ``cuda``; a missing GPU raises).  The
-reader answers, and ``train`` starts, with random weights drawn from
-``--seed`` on the device, layer by layer (quantized as each layer is
-made).  ``train`` refuses what is not ported yet: seq2seq models,
-``--init-params``, strategies other than dp, meshes, host offload, sharded
-checkpoints, nf4 bases, the once / once_folded dequant placements,
-generative eval, profiler traces and hub pushes.  Hybrid BM25 retrieval,
-sharded indexes, HF weight directories, reader checkpoints, nf4 weights,
-speculative decoding and draft models, sharded readers and the continuous
-engine behind ``/generate`` are not ported yet and raise where the JAX CLI
-would use them; seq2seq readers and beam search have no flag yet.
+    python -m vietnamese_qa_system_tpu_torch.cli ingest --inputs docs.jsonl \\
+        --index idx --db docs.sqlite --encoder /path/to/hf-mpnet-dir --hybrid
+    python -m vietnamese_qa_system_tpu_torch.cli serve --index idx \\
+        --db docs.sqlite --encoder /path/to/hf-mpnet-dir --hybrid-weight 0.5 \\
+        --reader-size phogpt4b --reader-params /path/to/hf-phogpt-dir \\
+        --reader-quantize int8c
+
+Each takes ``--device`` (default ``cuda``; a missing GPU raises).
+``--encoder`` takes a preset or a local Hugging Face BERT / MPNet
+directory (the model's configuration then comes from its config.json).
+``serve --reader-params``, ``chat --init-params`` and ``train
+--init-params`` load a local Hugging Face causal-LM directory (streamed
+onto the device a layer at a time, quantized as each layer is complete), a
+checkpoint directory (``step_N/state.npz`` of either package's trainer)
+or a flat ``.npz``; the preset's configuration is the model's, and weights
+that do not fit it raise.  Without them the reader answers, and ``train``
+starts, with random weights drawn from ``--seed`` on the device.  ``ingest
+--hybrid`` keeps a BM25 term index (``bm25.json``) beside the store, and
+``serve`` fuses it with the dense scores when ``--hybrid-weight`` is below
+1.  ``train`` refuses what is not ported yet: seq2seq models, strategies
+other than dp, meshes, host offload, sharded checkpoints, nf4 bases, the
+once / once_folded dequant placements, generative eval, profiler traces
+and hub pushes.  Sharded indexes, nf4 weights, speculative decoding and
+draft models, sharded readers and the continuous engine behind
+``/generate`` are not ported yet and raise where the JAX CLI would use
+them; seq2seq readers and beam search have no flag yet.
 """
 
 from __future__ import annotations
@@ -46,22 +61,118 @@ READERS = ("tiny", "gpt125m", "gptneo125m", "pythia410m", "llama1b", "qwen2-05b"
 
 
 def _encoder(spec: str, seed: int, device):
+    """An encoder by preset name (random weights from ``seed``) or from a
+    local HF BERT / MPNet directory, whose config.json gives the model's
+    configuration (cli/main.py:535-553)."""
     from ..core.device import make_generator
-    from ..models import init_encoder, minilm_class, mpnet_class, tiny_test
+    from ..models import encoder_from_hf, init_encoder, minilm_class, mpnet_class, tiny_test
 
     if os.path.isdir(spec):
-        raise NotImplementedError(
-            f"loading HF encoder weights ({spec}) is not ported yet; use a preset: {', '.join(ENCODERS)}"
-        )
+        return encoder_from_hf(spec, device=device)
     presets = {"tiny": lambda: tiny_test("encoder"), "minilm": minilm_class, "mpnet": mpnet_class}
     if spec not in presets:
         raise SystemExit(f"unknown encoder {spec!r}: use one of {', '.join(ENCODERS)}")
     return init_encoder(presets[spec](), make_generator(seed), device=device)
 
 
-def _reader(size: str, tok, seed: int, device, quantize: Optional[str]):
-    """A causal reader with random weights drawn on ``device`` from
-    ``seed``, quantized layer by layer as it is made."""
+def load_converted_params(path: str, cfg, device, quantize: Optional[str] = None):
+    """A :class:`CausalLM` of configuration ``cfg`` from a local HF
+    causal-LM directory (config.json; dispatched as ``load_causal_auto``
+    does, streamed onto ``device`` and quantized layer by layer), a
+    checkpoint directory (``step_N/state.npz`` of either package's trainer:
+    its "params" subtree, with a trained LoRA adapter merged into it) or a
+    flat ``.npz`` of the parameter tree (cli/main.py:472-511).  Weights
+    that do not fill ``cfg``'s model raise."""
+    import numpy as np
+
+    from ..models import causal_from_hf, causal_from_leaves, quantize_dense_tree
+    from ..train.checkpoint import CheckpointManager
+
+    if os.path.isdir(path) and os.path.exists(os.path.join(path, "config.json")):
+        with open(os.path.join(path, "config.json")) as f:
+            model_type = json.load(f).get("model_type")
+        if model_type in ("t5", "mt5", "longt5"):
+            raise NotImplementedError(f"{path}: seq2seq ({model_type}) weights are not ported yet")
+        return causal_from_hf(path, cfg, device=device, quantize=quantize)
+    if not os.path.isdir(path):
+        npz = path if path.endswith(".npz") else path + ".npz"
+        with np.load(npz) as data:
+            arrays = [data[f"leaf_{i}"] for i in range(len(data.files))]
+        model = causal_from_leaves(arrays, cfg, device=device)
+    else:
+        step = CheckpointManager(path).latest_step()
+        if step is None:
+            raise FileNotFoundError(f"no checkpoints under {path}")
+        model = _trainer_params(os.path.join(path, f"step_{step}"), cfg, device)
+    if quantize:
+        quantize_dense_tree(model, quantize)
+    return model
+
+
+def _trainer_params(step_dir: str, cfg, device):
+    """The model of a trainer checkpoint: its state {"adapter",
+    "opt_state", "params", "step"} flattens in sorted key order, so the
+    parameters are the leaves before the step and a LoRA adapter's are the
+    first.  The LoRA configuration (r, alpha, targets) is read from the
+    TrainConfig that both packages' trainers write into meta.json, and the
+    adapter is merged into the weights (W + alpha / r * A @ B)."""
+    import ast
+    import re
+
+    import numpy as np
+    import torch
+
+    from ..models import LoraConfig, causal_from_leaves, clear_lora, init_lora, merge_lora
+    from ..models.params import _leaf_names
+    from ..utils.tree import tree_leaves, tree_unflatten
+
+    npz = os.path.join(step_dir, "state.npz")
+    with open(os.path.join(step_dir, "meta.json")) as f:
+        config = json.load(f).get("config", "")
+    base = re.search(r"quantize_base=('[^']*'|None)", config)
+    if base and base.group(1) != "None":
+        raise ValueError(f"{npz}: a checkpoint of a quantized base (quantize_base={base.group(1)}) holds int8 base "
+                         "weights, which do not load as a model; train on a float base to serve the result")
+    lora = None
+    if "lora=LoraConfig(" in config:
+        m = re.search(r"lora=LoraConfig\(r=(\d+), alpha=([^,]+), targets=(\([^)]*\)|\[[^\]]*\])\)", config)
+        if m is None:
+            raise ValueError(f"{step_dir}/meta.json: cannot read the LoRA configuration of {config!r}")
+        lora = LoraConfig(r=int(m.group(1)), alpha=ast.literal_eval(m.group(2)),
+                          targets=tuple(ast.literal_eval(m.group(3))))
+    with np.load(npz) as data:
+        arrays = [data[f"leaf_{i}"] for i in range(len(data.files))]
+    n, model = len(arrays), None
+    for count in (len(_leaf_names(cfg, False)), len(_leaf_names(cfg, True))):
+        if count < n and np.asarray(arrays[-1]).ndim == 0:
+            try:
+                model = causal_from_leaves(arrays[n - 1 - count: n - 1], cfg, device=device)
+                break
+            except ValueError:
+                continue
+    if model is None:
+        raise ValueError(f"{npz}: its {n} leaves hold no trainer state of this model's parameters")
+    if lora is not None:
+        like = init_lora(torch.Generator().manual_seed(0), model, lora)
+        leaves = []
+        for arr, t in zip(arrays, tree_leaves(like)):
+            if tuple(arr.shape) != tuple(t.shape):
+                raise ValueError(f"{npz}: an adapter leaf of shape {arr.shape} where the LoRA adapter of {lora} "
+                                 f"has {tuple(t.shape)}")
+            leaves.append(torch.as_tensor(np.asarray(arr, np.float32), device=model.tok_embed.device))
+        merge_lora(model, tree_unflatten(like, leaves), lora)
+        for mod in model.modules():
+            if getattr(mod, "w_merged", None) is not None:
+                mod.w = torch.nn.Parameter(mod.w_merged, requires_grad=False)
+        clear_lora(model)
+        print(f"merged the checkpoint's LoRA adapter (r={lora.r}, alpha={lora.alpha}) into its weights", flush=True)
+    return model
+
+
+def _reader(size: str, tok, seed: int, device, quantize: Optional[str], params: Optional[str] = None):
+    """A causal reader of preset ``size``: loaded from ``params``
+    (:func:`load_converted_params`), else with random weights drawn on
+    ``device`` from ``seed``; quantized layer by layer as it is made."""
     import dataclasses
 
     from ..core.device import make_generator
@@ -76,8 +187,12 @@ def _reader(size: str, tok, seed: int, device, quantize: Optional[str]):
     cfg = presets[size]()
     if tok.vocab_size > cfg.vocab_size:
         cfg = dataclasses.replace(cfg, vocab_size=tok.vocab_size)
-    print("(no reader checkpoint: answering with RANDOM weights)", flush=True)
-    model = init_causal_lm(cfg, make_generator(seed, device), quantize=quantize)
+    if params:
+        model = load_converted_params(params, cfg, device, quantize)
+        print(f"reader weights loaded from {params}", flush=True)
+    else:
+        print("(no reader checkpoint: answering with RANDOM weights)", flush=True)
+        model = init_causal_lm(cfg, make_generator(seed, device), quantize=quantize)
     if quantize:
         print(f"reader decodes over a {quantize} base", flush=True)
     return model
@@ -130,7 +245,7 @@ def cmd_train(args) -> int:
     from ..train import TrainConfig, Trainer, perplexity_eval
 
     _refuse(args, {
-        "--init-params": ("init_params", None), "--mesh": ("mesh", None),
+        "--mesh": ("mesh", None),
         "--sharded-checkpoint": ("sharded_checkpoint", False), "--do-generative-eval": ("do_generative_eval", False),
         "--push-to-hub": ("push_to_hub", None),
     })
@@ -178,7 +293,8 @@ def cmd_train(args) -> int:
         steps_per_epoch = max((total_tokens // args.max_len) // args.batch_size, 1)
     else:
         steps_per_epoch = max(len(train_examples) // args.batch_size, 1)
-    trainer = Trainer(cfg, total_steps=args.max_steps or steps_per_epoch * args.epochs, device=args.device)
+    init = load_converted_params(args.init_params, model, args.device) if args.init_params else None
+    trainer = Trainer(cfg, params=init, total_steps=args.max_steps or steps_per_epoch * args.epochs, device=args.device)
 
     def train_batches(epoch: int):
         return dl.batches(train_examples, epoch=epoch)
@@ -213,7 +329,8 @@ def _add_train_args(p: argparse.ArgumentParser) -> None:
     g.add_argument("--remat-policy", default=None, choices=["full", "dots", "proj_bf16", "none"],
                    help="per-layer remat: full = recompute the layer, dots = save the products and the flash "
                         "outputs, proj_bf16 = save the projections rounded to bf16, none = no remat")
-    g.add_argument("--init-params", help="checkpoint or converted weights to start from (not ported yet)")
+    g.add_argument("--init-params", help="weights to start from: a local HF causal-LM directory, a checkpoint "
+                                         "directory or a flat .npz")
     g = p.add_argument_group("lora")
     g.add_argument("--use-lora", action="store_true")
     g.add_argument("--lora-r", type=int, default=8)
@@ -297,10 +414,8 @@ def _load_rows(path: str) -> list:
 
 def cmd_ingest(args) -> int:
     from ..core.device import resolve_device
-    from ..engine import DocStore, IngestPipeline, VectorStore
+    from ..engine import BM25Index, DocStore, IngestPipeline, VectorStore
 
-    if args.hybrid:
-        raise NotImplementedError("hybrid BM25 retrieval (--hybrid) is not ported yet")
     if args.shards != 1:
         raise NotImplementedError("a sharded store (--shards > 1) is not ported yet")
     device = resolve_device(args.device)
@@ -311,13 +426,21 @@ def cmd_ingest(args) -> int:
     else:
         store = VectorStore(args.capacity, encoder.cfg.d_model, dtype=args.dtype, device=device)
     docstore = DocStore(args.db)
-    pipe = IngestPipeline(encoder, tok, store, docstore, batch_size=args.batch_size, max_len=args.max_len)
+    lexical = None
+    bm25_path = os.path.join(args.index, "bm25.json")
+    if args.hybrid:
+        lexical = BM25Index.load(bm25_path) if os.path.exists(bm25_path) else BM25Index()
+    pipe = IngestPipeline(encoder, tok, store, docstore, batch_size=args.batch_size, max_len=args.max_len,
+                          lexical=lexical)
     for path in args.inputs:
         rows = _load_rows(path)
         docs = [r[args.text_field] if isinstance(r, dict) else str(r) for r in rows]
         ids = pipe.add_documents(docs, [path] * len(docs), chunk_size=args.chunk_size)
         print(f"{path}: ingested {len(ids)} chunks (store size {store.size})")
     store.save(args.index)
+    if lexical is not None:
+        lexical.save(bm25_path)
+        print(f"bm25 term index saved ({lexical.n_docs} docs)")
     print(f"index saved -> {args.index}; docs in {args.db}")
     return 0
 
@@ -371,22 +494,12 @@ def _serving_index(args, device, query_batch: int):
     return store
 
 
-def _check_ported_index(args) -> None:
-    """Refuse, loudly, what the JAX CLI would turn on but the port lacks."""
-    if args.hybrid_weight < 1.0 and os.path.exists(os.path.join(args.index, "bm25.json")):
-        raise NotImplementedError(
-            f"{args.index} has a bm25.json and --hybrid-weight {args.hybrid_weight} < 1 would turn on "
-            "hybrid retrieval, which is not ported yet; pass --hybrid-weight 1.0 for dense-only search"
-        )
-
-
 def cmd_serve(args) -> int:
     from ..core.device import resolve_device
-    from ..engine import DocStore, IngestPipeline, QAPipeline, Retriever, ServingApp, VectorStore, make_server
+    from ..engine import BM25Index, DocStore, IngestPipeline, QAPipeline, Retriever, ServingApp, VectorStore, make_server
 
-    _check_ported_index(args)
     _refuse(args, {
-        "--reader-params": ("reader_params", None), "--reader-strategy": ("reader_strategy", None),
+        "--reader-strategy": ("reader_strategy", None),
         "--continuous-slots": ("continuous_slots", 0), "--reader-draft-size": ("reader_draft_size", None),
         "--reader-draft-params": ("reader_draft_params", None), f"--speculative {args.speculative}": ("speculative", "none"),
     })
@@ -400,11 +513,16 @@ def cmd_serve(args) -> int:
     # build-time headroom; --capacity N leaves room for POST /ingest
     store = _serving_index(args, device, qbatch)
     docstore = DocStore(args.db)
-    retriever = Retriever(encoder, tok, store, docstore, max_len=args.max_len, mode=args.search_mode,
-                          query_batch=qbatch)
+    lexical = None
+    bm25_path = os.path.join(args.index, "bm25.json")
+    if args.hybrid_weight < 1.0 and os.path.exists(bm25_path):
+        lexical = BM25Index.load(bm25_path)
+        print(f"hybrid retrieval on (weight {args.hybrid_weight})", flush=True)
+    retriever = Retriever(encoder, tok, store, docstore, max_len=args.max_len, lexical=lexical,
+                          hybrid_weight=args.hybrid_weight, mode=args.search_mode, query_batch=qbatch)
     qa = None
     if args.reader_size:
-        reader = _reader(args.reader_size, tok, args.seed + 1, device, args.reader_quantize)
+        reader = _reader(args.reader_size, tok, args.seed + 1, device, args.reader_quantize, args.reader_params)
         qa = QAPipeline(retriever, reader, tok, k=args.k, min_score=args.min_score,
                         max_new_tokens=args.max_new_tokens)
     if args.port is None:
@@ -427,7 +545,8 @@ def cmd_serve(args) -> int:
                 print(f"  {rank + 1}. [{r.id}] score={r.score:.3f} {doc}")
         return 0
 
-    ingest = IngestPipeline(encoder, tok, store, docstore, batch_size=args.max_batch, max_len=args.max_len)
+    ingest = IngestPipeline(encoder, tok, store, docstore, batch_size=args.max_batch, max_len=args.max_len,
+                            lexical=lexical)
     app = ServingApp(retriever, qa, ingest=ingest, k=args.k, max_k=args.max_k, max_batch=args.max_batch,
                      max_wait_s=args.batch_wait_ms / 1000.0)
     httpd = make_server(app, host=args.host, port=args.port)
@@ -454,6 +573,8 @@ def cmd_serve(args) -> int:
         # --index is only ever rewritten with a flat store
         if app.dirty and isinstance(store, VectorStore):
             store.save(args.index)
+            if lexical is not None:
+                lexical.save(bm25_path)
             print(f"index persisted -> {args.index} ({store.size} vectors)")
     return 0
 
@@ -467,12 +588,12 @@ def cmd_chat(args) -> int:
     from ..models import GenerationConfig, generate_with_config
 
     _refuse(args, {
-        "--init-params": ("init_params", None), "--draft-size": ("draft_size", None),
+        "--draft-size": ("draft_size", None),
         "--draft-params": ("draft_params", None),
     })
     device = resolve_device(args.device)
     tok = _tokenizer(args.tokenizer)
-    model = _reader(args.model_size, tok, args.seed, device, args.quantize)
+    model = _reader(args.model_size, tok, args.seed, device, args.quantize, args.init_params)
     gen = GenerationConfig(max_new_tokens=args.max_new_tokens, temperature=args.temperature)
     print("chat REPL — empty line quits", flush=True)
     while True:
@@ -505,7 +626,8 @@ def build_parser() -> argparse.ArgumentParser:
     pi.add_argument("--text-field", default="doc")
     pi.add_argument("--index", required=True)
     pi.add_argument("--db", required=True)
-    pi.add_argument("--encoder", default="tiny", help="preset: tiny | minilm | mpnet")
+    pi.add_argument("--encoder", default="tiny", help="preset (tiny | minilm | mpnet) or a local HF BERT / MPNet "
+                                                     "directory")
     pi.add_argument("--tokenizer", default="byte")
     pi.add_argument("--capacity", type=int, default=1 << 20)
     pi.add_argument("--dtype", default="bf16", choices=["bf16", "int8", "int8_global", "int8_res"],
@@ -515,7 +637,7 @@ def build_parser() -> argparse.ArgumentParser:
     pi.add_argument("--chunk-size", type=int, default=512)
     pi.add_argument("--batch-size", type=int, default=256)
     pi.add_argument("--max-len", type=int, default=128)
-    pi.add_argument("--hybrid", action="store_true", help="BM25 term index (not ported yet)")
+    pi.add_argument("--hybrid", action="store_true", help="also build a BM25 term index (bm25.json in --index)")
     pi.add_argument("--seed", type=int, default=42)
     pi.add_argument("--device", default="cuda")
     pi.set_defaults(fn=cmd_ingest)
@@ -543,7 +665,8 @@ def build_parser() -> argparse.ArgumentParser:
     ps.add_argument("--capacity", type=int, default=0,
                     help="index capacity at serve time: 0 = shrink to the stored corpus; larger leaves "
                          "headroom for POST /ingest")
-    ps.add_argument("--encoder", default="tiny", help="preset: tiny | minilm | mpnet")
+    ps.add_argument("--encoder", default="tiny", help="preset (tiny | minilm | mpnet) or a local HF BERT / MPNet "
+                                                     "directory")
     ps.add_argument("--tokenizer", default="byte")
     ps.add_argument("--k", type=int, default=5)
     ps.add_argument("--max-len", type=int, default=128)
@@ -556,13 +679,13 @@ def build_parser() -> argparse.ArgumentParser:
     ps.add_argument("--batch-wait-ms", type=float, default=5.0,
                     help="how long a batch waits for co-riders after its first request")
     ps.add_argument("--hybrid-weight", type=float, default=0.5,
-                    help="dense weight in hybrid fusion; hybrid is not ported yet, so an index with a "
-                         "bm25.json needs 1.0")
+                    help="dense weight in hybrid fusion; below 1 an index with a bm25.json (ingest --hybrid) "
+                         "serves hybrid BM25 + dense retrieval")
     ps.add_argument("--search-mode", default="fast", choices=["fast", "turbo"],
                     help="kept for parity with the JAX CLI: every mode of the port is exact")
     ps.add_argument("--reader-size", default=None, choices=READERS,
-                    help="enable full QA (/qa): retrieve + generate with a causal reader LM (random weights "
-                         "from --seed)")
+                    help="enable full QA (/qa): retrieve + generate with a causal reader LM of this preset "
+                         "(weights from --reader-params, else random from --seed)")
     ps.add_argument("--reader-quantize", choices=["int8", "int8c", "nf4", "nf4-dq"], default=None,
                     help="quantize the reader's dense weights for decode; int8c (one scale per output channel) "
                          "decodes through the w8 GEMM kernel (K6); nf4 is not ported yet")
@@ -571,7 +694,8 @@ def build_parser() -> argparse.ArgumentParser:
     ps.add_argument("--max-new-tokens", type=int, default=128, help="completion budget of each /qa answer")
     ps.add_argument("--speculative", choices=["none", "ngram", "draft"], default="none",
                     help="speculative decoding for the reader (only none is ported)")
-    ps.add_argument("--reader-params", default=None, help="reader checkpoint (not ported yet)")
+    ps.add_argument("--reader-params", default=None,
+                    help="reader weights: a local HF causal-LM directory, a checkpoint directory or a flat .npz")
     ps.add_argument("--reader-strategy", choices=["tp", "fsdp_tp"], default=None,
                     help="shard the reader over several GPUs (not ported yet)")
     ps.add_argument("--reader-draft-size", default=None, help="draft model preset (not ported yet)")
@@ -589,7 +713,8 @@ def build_parser() -> argparse.ArgumentParser:
     pc.add_argument("--temperature", type=float, default=0.0)
     pc.add_argument("--quantize", choices=["int8", "int8c", "nf4", "nf4-dq"], default=None,
                     help="quantize dense weights for decode; int8c decodes through the w8 GEMM kernel (K6)")
-    pc.add_argument("--init-params", default=None, help="model checkpoint (not ported yet)")
+    pc.add_argument("--init-params", default=None,
+                    help="model weights: a local HF causal-LM directory, a checkpoint directory or a flat .npz")
     pc.add_argument("--draft-size", default=None, help="draft model preset (not ported yet)")
     pc.add_argument("--draft-params", default=None, help="draft model checkpoint (not ported yet)")
     pc.add_argument("--seed", type=int, default=42)

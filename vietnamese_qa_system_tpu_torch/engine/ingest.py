@@ -2,7 +2,7 @@
 
 Counterpart of ``vietnamese_qa_system_tpu/engine/ingest.py``: texts -> host
 tokenize (fixed shapes) -> encoder forward on the device -> unit vectors ->
-vector store + doc store.  Hybrid BM25 is not ported yet.
+vector store + doc store (+ the BM25 term index of hybrid retrieval).
 """
 
 from __future__ import annotations
@@ -47,13 +47,14 @@ def embed_batches(encoder, tokenizer, texts: Sequence[str], batch_size: int, max
 
 class IngestPipeline:
     def __init__(self, encoder, tokenizer, store: VectorStore, docstore: Optional[DocStore] = None, *,
-                 batch_size: int = 256, max_len: int = 128):
+                 batch_size: int = 256, max_len: int = 128, lexical=None):
         self.encoder = encoder
         self.tok = tokenizer
         self.store = store
         self.docstore = docstore
         self.batch_size = batch_size
         self.max_len = max_len
+        self.lexical = lexical  # a BM25Index over the same global ids, or None
 
     def embed_texts(self, texts: Sequence[str]) -> np.ndarray:
         return embed_batches(self.encoder, self.tok, texts, self.batch_size, self.max_len)
@@ -90,6 +91,8 @@ class IngestPipeline:
         assigned = self.store.add(vecs)
         if not np.array_equal(assigned, ids):
             raise RuntimeError("vector store assigned unexpected ids")
+        if self.lexical is not None:
+            self.lexical.add(ids, list(texts))
         return ids
 
     def add_documents(self, documents: Sequence[str], sources: Optional[Sequence[str]] = None, *,

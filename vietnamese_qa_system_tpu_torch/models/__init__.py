@@ -4,7 +4,8 @@ from .config import (ModelConfig, bloom_560m_class, gpt_125m_class, gpt_neo_125m
 from .encoder import SentenceEncoder, init_encoder, relative_attention_bias
 from .generate import GenerationConfig, generate_with_config
 from .lora import LoraConfig, clear_lora, count_params, init_lora, merge_lora
-from .params import adapter_from_jax, adapter_to_jax, causal_from_jax, causal_from_state_dict, encoder_from_jax
+from .params import (adapter_from_jax, adapter_to_jax, causal_from_hf, causal_from_jax, causal_from_leaves,
+                     causal_from_state_dict, encoder_from_hf, encoder_from_jax)
 from .quantize import dequantize_weight, quantize_dense_tree, quantize_weight
 
 __all__ = [
@@ -16,11 +17,14 @@ __all__ = [
     "adapter_from_jax",
     "adapter_to_jax",
     "bloom_560m_class",
+    "causal_from_hf",
     "causal_from_jax",
+    "causal_from_leaves",
     "causal_from_state_dict",
     "clear_lora",
     "count_params",
     "dequantize_weight",
+    "encoder_from_hf",
     "encoder_from_jax",
     "generate_with_config",
     "gpt_125m_class",

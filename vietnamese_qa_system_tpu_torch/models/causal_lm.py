@@ -77,7 +77,7 @@ def make_cache(cfg: ModelConfig, b: int, total_len: int, device) -> list[dict]:
 
 def _block(cfg: ModelConfig, device) -> Block:
     return Block(cfg.d_model, cfg.n_heads, cfg.d_ff, cfg.norm_eps, n_kv_heads=cfg.n_kv_heads, norm=cfg.norm,
-                 gated_mlp=cfg.mlp_gated, use_bias=cfg.attention_bias, device=device)
+                 gated_mlp=cfg.mlp_gated, use_bias=cfg.attention_bias, head_dim=cfg.head_dim, device=device)
 
 
 class CausalLM(nn.Module):

@@ -1,0 +1,690 @@
+"""Import of local Hugging Face checkpoints: the causal families (GPT-NeoX,
+GPT-Neo, GPT-2, Llama / Mistral, Qwen2, Gemma, BLOOM, MPT) and the
+BERT / MPNet encoders.
+
+Counterpart of the import half of
+``vietnamese_qa_system_tpu/models/convert_hf.py``: the ``*_config``
+functions, the converters (which map an HF state dict onto the JAX
+package's parameter tree, here with f32 tensors for leaves; one
+:class:`Family` each, applied by :func:`convert`) and the
+``load_causal_auto`` / ``load_encoder_auto`` dispatch on ``model_type``.
+The per-family ``convert_*`` / ``load_*`` wrappers, the export half
+(``to_*_state_dict``, ``export_*``) and the T5 / mBART importers are not
+ported.
+
+Nothing here imports ``transformers``.  A directory is read by
+:mod:`.hf_io`, and the ``*_config`` functions take :func:`hf_config`, a view
+of ``config.json`` that answers every attribute the way the transformers
+config class of its ``model_type`` would: the keys of the file, then the
+class's defaults, with the class's attribute aliases and the fields its
+constructor derives (GPT-Neo's ``attention_layers``, Qwen2's
+``sliding_window``, MPT's nested ``attn_config``, ...).
+
+Each converter is written per layer (``_<family>_layer``) and for the
+rest of the tree (``_<family>_rest``), so ``models/params.py`` can stream
+a multi-billion-parameter checkpoint onto the card one layer at a time.
+Weights may carry their class's prefix or not (``gpt_neox.``,
+``transformer.``, ``model.``, ``bert.``, ``mpnet.``); a tied head needs no
+``lm_head`` tensor; a missing weight raises ``KeyError`` naming it.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import types
+from typing import Callable, Mapping, NamedTuple, Optional
+
+import torch
+
+from .config import ModelConfig
+from .hf_io import Checkpoint, read_config
+
+# ---------------------------------------------------------------------------
+# config.json as the transformers config class would read it
+# ---------------------------------------------------------------------------
+
+# PretrainedConfig's own defaults of the attributes the *_config functions read
+_BASE = {"tie_word_embeddings": True, "pad_token_id": None}
+# each class's constructor defaults (transformers 4.57) of those attributes
+_DEFAULTS = {
+    "bert": dict(vocab_size=30522, hidden_size=768, num_hidden_layers=12, num_attention_heads=12,
+                 intermediate_size=3072, max_position_embeddings=512, layer_norm_eps=1e-12, pad_token_id=0),
+    "mpnet": dict(vocab_size=30527, hidden_size=768, num_hidden_layers=12, num_attention_heads=12,
+                  intermediate_size=3072, max_position_embeddings=512, layer_norm_eps=1e-12,
+                  relative_attention_num_buckets=32, pad_token_id=1),
+    "gpt_neox": dict(vocab_size=50432, hidden_size=6144, num_hidden_layers=44, num_attention_heads=64,
+                     intermediate_size=24576, rotary_pct=0.25, rotary_emb_base=10000, max_position_embeddings=2048,
+                     layer_norm_eps=1e-5, tie_word_embeddings=False, use_parallel_residual=True),
+    "gpt_neo": dict(vocab_size=50257, max_position_embeddings=2048, hidden_size=2048, num_layers=24,
+                    attention_types=[[["global", "local"], 12]], num_heads=16, intermediate_size=None,
+                    window_size=256, layer_norm_epsilon=1e-5),
+    "gpt2": dict(vocab_size=50257, n_positions=1024, n_embd=768, n_layer=12, n_head=12, n_inner=None,
+                 layer_norm_epsilon=1e-5),
+    "llama": dict(vocab_size=32000, hidden_size=4096, intermediate_size=11008, num_hidden_layers=32,
+                  num_attention_heads=32, num_key_value_heads=None, max_position_embeddings=2048, rms_norm_eps=1e-6,
+                  tie_word_embeddings=False, rope_theta=10000.0, attention_bias=False, head_dim=None),
+    "mistral": dict(vocab_size=32000, hidden_size=4096, intermediate_size=14336, num_hidden_layers=32,
+                    num_attention_heads=32, num_key_value_heads=8, head_dim=None, max_position_embeddings=4096 * 32,
+                    rms_norm_eps=1e-6, tie_word_embeddings=False, rope_theta=10000.0, sliding_window=4096),
+    "qwen2": dict(vocab_size=151936, hidden_size=4096, intermediate_size=22016, num_hidden_layers=32,
+                  num_attention_heads=32, num_key_value_heads=32, max_position_embeddings=32768, rms_norm_eps=1e-6,
+                  tie_word_embeddings=False, rope_theta=10000.0, use_sliding_window=False, sliding_window=4096,
+                  max_window_layers=28),
+    "gemma": dict(vocab_size=256000, hidden_size=3072, intermediate_size=24576, num_hidden_layers=28,
+                  num_attention_heads=16, num_key_value_heads=16, head_dim=256, max_position_embeddings=8192,
+                  rms_norm_eps=1e-6, pad_token_id=0, tie_word_embeddings=True, rope_theta=10000.0,
+                  attention_bias=False),
+    "bloom": dict(vocab_size=250880, hidden_size=64, n_layer=2, n_head=8, layer_norm_epsilon=1e-5,
+                  apply_residual_connection_post_layernorm=False),
+    "mpt": dict(d_model=2048, n_heads=16, n_layers=24, expansion_ratio=4, max_seq_len=2048, vocab_size=50368,
+                layer_norm_epsilon=1e-5, no_bias=True, attn_config=None),
+}
+# MptAttentionConfig's defaults
+_MPT_ATTN = dict(attn_type="multihead_attention", attn_pdrop=0, attn_impl="torch", clip_qkv=None, softmax_scale=None,
+                 prefix_lm=False, qk_ln=False, attn_uses_sequence_id=False, alibi=True, alibi_bias_max=8)
+# each class's attribute_map: the standard name -> the name it stores
+_ALIASES = {
+    "gpt_neo": {"num_attention_heads": "num_heads", "num_hidden_layers": "num_layers"},
+    "gpt2": {"hidden_size": "n_embd", "max_position_embeddings": "n_positions", "num_attention_heads": "n_head",
+             "num_hidden_layers": "n_layer"},
+    "bloom": {"num_hidden_layers": "n_layer", "num_attention_heads": "n_head"},
+    "mpt": {"num_attention_heads": "n_heads", "hidden_size": "d_model", "num_hidden_layers": "n_layers"},
+}
+
+
+class _ConfigView(types.SimpleNamespace):
+    """Attribute access with the class's aliases (``getattr`` and
+    ``hasattr`` see exactly the attributes the class would have)."""
+
+    def __getattribute__(self, name):
+        aliases = object.__getattribute__(self, "__dict__").get("_aliases", {})
+        return object.__getattribute__(self, aliases.get(name, name))
+
+
+def _expand_attention_types(attention_types) -> list:
+    """GPTNeoConfig.expand_attention_types_params."""
+    out = []
+    for kinds, repeat in attention_types:
+        for _ in range(repeat):
+            out.extend(kinds)
+    return out
+
+
+def hf_config(source) -> _ConfigView:
+    """A model directory's ``config.json`` (or that dict) as the
+    transformers config class of its ``model_type`` reads it; an unknown
+    or missing ``model_type`` keeps the file's keys only."""
+    raw = read_config(source) if isinstance(source, str) else dict(source)
+    model_type = raw.get("model_type", "")
+    aliases = _ALIASES.get(model_type, {})
+    values = dict(_BASE, **_DEFAULTS.get(model_type, {}))
+    for key, value in raw.items():
+        values[aliases.get(key, key)] = value
+    if model_type == "bloom" and raw.get("n_embed") is not None:
+        values["hidden_size"] = raw["n_embed"]
+    if model_type in ("llama", "mistral", "qwen2") and values.get("num_key_value_heads") is None:
+        values["num_key_value_heads"] = values["num_attention_heads"]
+    if model_type == "llama" and values.get("head_dim") is None:
+        values["head_dim"] = values["hidden_size"] // values["num_attention_heads"]
+    if model_type == "qwen2" and not values["use_sliding_window"]:
+        values["sliding_window"] = None
+    if model_type == "gpt_neo":
+        values["attention_layers"] = _expand_attention_types(values["attention_types"])
+        if len(values["attention_layers"]) != values["num_layers"]:
+            raise ValueError(f"GPT-Neo attention_types give {len(values['attention_layers'])} layers for "
+                             f"num_layers={values['num_layers']}")
+    if model_type == "mpt":
+        values["attn_config"] = types.SimpleNamespace(**dict(_MPT_ATTN, **(values["attn_config"] or {})))
+    values["_aliases"] = aliases
+    return _ConfigView(**values)
+
+
+# ---------------------------------------------------------------------------
+# weights by name, with the family's prefixes
+# ---------------------------------------------------------------------------
+
+
+class _Weights:
+    """``w(name)``: the tensor ``name`` (or ``name`` with the family's
+    prefixes added or removed) as f32 on ``device``; ``w.has(name)``."""
+
+    def __init__(self, state: Mapping, prefixes: tuple = (), device=None, root: str = ""):
+        self.state = state
+        self.prefixes = prefixes
+        self.device = device
+        self.root = root
+
+    def _key(self, name: str) -> Optional[str]:
+        candidates = [name]
+        for p in self.prefixes:
+            candidates.append(name[len(p):] if name.startswith(p) else p + name)
+        return next((self.root + k for k in candidates if self.root + k in self.state), None)
+
+    def has(self, name: str) -> bool:
+        return self._key(name) is not None
+
+    def __call__(self, name: str) -> torch.Tensor:
+        key = self._key(name)
+        if key is None:
+            raise KeyError(f"missing weight {name!r} in state dict")
+        t = self.state[key]
+        if self.device is not None:
+            t = t.to(self.device)
+        return t.detach().float()
+
+
+def _linear(w: _Weights, name: str, bias: bool = True) -> dict:
+    """An HF Linear (out, in) -> {"w" (in, out)[, "b"]}."""
+    p = {"w": w(name + ".weight").T.contiguous()}
+    if bias:
+        p["b"] = w(name + ".bias")
+    return p
+
+
+def _ln(w: _Weights, name: str) -> dict:
+    return {"scale": w(name + ".weight"), "bias": w(name + ".bias")}
+
+
+def _fused_heads(w_qkv: torch.Tensor, b_qkv: torch.Tensor, h: int, dh: int, d: int) -> dict:
+    """A fused QKV packed head-interleaved ((H, 3, Dh) rows: GPT-NeoX,
+    BLOOM) -> head-major q / k / v projections."""
+    w = w_qkv.reshape(h, 3, dh, d)
+    b = b_qkv.reshape(h, 3, dh)
+    return {name: {"w": w[:, j].reshape(h * dh, d).T.contiguous(), "b": b[:, j].reshape(h * dh).contiguous()}
+            for j, name in enumerate(("wq", "wk", "wv"))}
+
+
+# ---------------------------------------------------------------------------
+# GPT-NeoX (pythia)
+# ---------------------------------------------------------------------------
+
+
+def neox_config(hf_cfg) -> ModelConfig:
+    """GPT-NeoX config -> ModelConfig."""
+    return ModelConfig(
+        arch="causal",
+        vocab_size=hf_cfg.vocab_size,
+        d_model=hf_cfg.hidden_size,
+        n_heads=hf_cfg.num_attention_heads,
+        n_layers=hf_cfg.num_hidden_layers,
+        d_ff=hf_cfg.intermediate_size,
+        max_seq_len=hf_cfg.max_position_embeddings,
+        rope_theta=float(getattr(hf_cfg, "rotary_emb_base", 10000.0)),
+        rope_pct=float(getattr(hf_cfg, "rotary_pct", 1.0)),
+        parallel_residual=bool(getattr(hf_cfg, "use_parallel_residual", True)),
+        tie_embeddings=bool(getattr(hf_cfg, "tie_word_embeddings", False)),
+        norm_eps=float(getattr(hf_cfg, "layer_norm_eps", 1e-5)),
+    )
+
+
+def _neox_layer(w: _Weights, cfg: ModelConfig, i: int) -> dict:
+    pre = f"gpt_neox.layers.{i}."
+    attn = _fused_heads(w(pre + "attention.query_key_value.weight"), w(pre + "attention.query_key_value.bias"),
+                        cfg.n_heads, cfg.head_dim, cfg.d_model)
+    attn["wo"] = _linear(w, pre + "attention.dense")
+    return {
+        "ln1": _ln(w, pre + "input_layernorm"),
+        "attn": attn,
+        "ln2": _ln(w, pre + "post_attention_layernorm"),
+        "mlp": {"wi": _linear(w, pre + "mlp.dense_h_to_4h"), "wo": _linear(w, pre + "mlp.dense_4h_to_h")},
+    }
+
+
+def _neox_rest(w: _Weights, cfg: ModelConfig) -> dict:
+    params = {"tok_embed": w("gpt_neox.embed_in.weight"), "ln_f": _ln(w, "gpt_neox.final_layer_norm")}
+    if not cfg.tie_embeddings:
+        params["lm_head"] = {"w": w("embed_out.weight").T.contiguous()}
+    return params
+
+
+# ---------------------------------------------------------------------------
+# GPT-Neo and GPT-2
+# ---------------------------------------------------------------------------
+
+
+def gpt_neo_config(hf_cfg) -> ModelConfig:
+    """GPT-Neo config -> ModelConfig: learned positions, no attention
+    scaling, per-layer global/local attention, gelu_new, tied head."""
+    return ModelConfig(
+        arch="causal",
+        vocab_size=hf_cfg.vocab_size,
+        d_model=hf_cfg.hidden_size,
+        n_heads=hf_cfg.num_heads,
+        n_layers=hf_cfg.num_layers,
+        d_ff=getattr(hf_cfg, "intermediate_size", None) or 4 * hf_cfg.hidden_size,
+        max_seq_len=hf_cfg.max_position_embeddings,
+        positional="learned",
+        norm_eps=float(getattr(hf_cfg, "layer_norm_epsilon", 1e-5)),
+        tie_embeddings=bool(getattr(hf_cfg, "tie_word_embeddings", True)),
+        attention_scale=1.0,
+        attention_layers=tuple(hf_cfg.attention_layers),
+        attention_window=int(getattr(hf_cfg, "window_size", 256)),
+        activation="gelu_new",
+    )
+
+
+def _gpt_neo_layer(w: _Weights, cfg: ModelConfig, i: int) -> dict:
+    pre = f"h.{i}."
+    return {
+        "ln1": _ln(w, pre + "ln_1"),
+        "attn": {
+            "wq": _linear(w, pre + "attn.attention.q_proj", bias=False),
+            "wk": _linear(w, pre + "attn.attention.k_proj", bias=False),
+            "wv": _linear(w, pre + "attn.attention.v_proj", bias=False),
+            "wo": _linear(w, pre + "attn.attention.out_proj"),
+        },
+        "ln2": _ln(w, pre + "ln_2"),
+        "mlp": {"wi": _linear(w, pre + "mlp.c_fc"), "wo": _linear(w, pre + "mlp.c_proj")},
+    }
+
+
+def _learned_rest(w: _Weights, cfg: ModelConfig) -> dict:
+    return {"tok_embed": w("wte.weight"), "pos_embed": w("wpe.weight"), "ln_f": _ln(w, "ln_f")}
+
+
+def gpt2_config(hf_cfg) -> ModelConfig:
+    """GPT-2 config -> ModelConfig (learned positions, scaled attention,
+    gelu_new, tied head)."""
+    return ModelConfig(
+        arch="causal",
+        vocab_size=hf_cfg.vocab_size,
+        d_model=hf_cfg.n_embd,
+        n_heads=hf_cfg.n_head,
+        n_layers=hf_cfg.n_layer,
+        d_ff=getattr(hf_cfg, "n_inner", None) or 4 * hf_cfg.n_embd,
+        max_seq_len=hf_cfg.n_positions,
+        positional="learned",
+        norm_eps=float(getattr(hf_cfg, "layer_norm_epsilon", 1e-5)),
+        tie_embeddings=True,
+        activation="gelu_new",
+    )
+
+
+def _gpt2_layer(w: _Weights, cfg: ModelConfig, i: int) -> dict:
+    """GPT-2 blocks use Conv1D weights stored (in, out) -- no transpose --
+    and a fused c_attn whose output columns are [q | k | v]."""
+    d = cfg.d_model
+    pre = f"h.{i}."
+
+    def conv1d(name):
+        return {"w": w(name + ".weight"), "b": w(name + ".bias")}
+
+    w_qkv = w(pre + "attn.c_attn.weight")  # (D, 3D)
+    b_qkv = w(pre + "attn.c_attn.bias")
+    attn = {name: {"w": w_qkv[:, j * d:(j + 1) * d].contiguous(), "b": b_qkv[j * d:(j + 1) * d].contiguous()}
+            for j, name in enumerate(("wq", "wk", "wv"))}
+    attn["wo"] = conv1d(pre + "attn.c_proj")
+    return {
+        "ln1": _ln(w, pre + "ln_1"),
+        "attn": attn,
+        "ln2": _ln(w, pre + "ln_2"),
+        "mlp": {"wi": conv1d(pre + "mlp.c_fc"), "wo": conv1d(pre + "mlp.c_proj")},
+    }
+
+
+# ---------------------------------------------------------------------------
+# Llama, Mistral, Qwen2, Gemma
+# ---------------------------------------------------------------------------
+
+
+def llama_config(hf_cfg) -> ModelConfig:
+    """Llama config (Mistral-style configs too) -> ModelConfig: RMSNorm,
+    SwiGLU, GQA, full-dim RoPE, bias-free projections.  A bare
+    ``sliding_window`` with no Qwen2-style ``use_sliding_window`` gate
+    (Mistral) makes every layer local: the flash kernel's window form."""
+    n_heads = hf_cfg.num_attention_heads
+    n_kv = int(getattr(hf_cfg, "num_key_value_heads", n_heads))
+    window = getattr(hf_cfg, "sliding_window", None)
+    local = window is not None and not hasattr(hf_cfg, "use_sliding_window")
+    return ModelConfig(
+        arch="causal",
+        vocab_size=hf_cfg.vocab_size,
+        d_model=hf_cfg.hidden_size,
+        n_heads=n_heads,
+        n_layers=hf_cfg.num_hidden_layers,
+        d_ff=hf_cfg.intermediate_size,
+        max_seq_len=hf_cfg.max_position_embeddings,
+        rope_theta=float(getattr(hf_cfg, "rope_theta", 10000.0)),
+        norm="rmsnorm",
+        norm_eps=float(getattr(hf_cfg, "rms_norm_eps", 1e-6)),
+        tie_embeddings=bool(getattr(hf_cfg, "tie_word_embeddings", False)),
+        n_kv_heads=None if n_kv == n_heads else n_kv,
+        mlp_gated=True,
+        attention_bias=bool(getattr(hf_cfg, "attention_bias", False)),
+        attention_layers=("local",) * hf_cfg.num_hidden_layers if local else None,
+        attention_window=int(window) if local else 256,
+    )
+
+
+def qwen2_config(hf_cfg) -> ModelConfig:
+    """Qwen2 config -> ModelConfig: the llama layout with q/k/v-only
+    projection biases; sliding windows only on layers >= max_window_layers."""
+    base = llama_config(hf_cfg)
+    extra = {}
+    if bool(getattr(hf_cfg, "use_sliding_window", False)) and getattr(hf_cfg, "sliding_window", None):
+        mwl = int(getattr(hf_cfg, "max_window_layers", hf_cfg.num_hidden_layers))
+        extra["attention_layers"] = tuple("global" if i < mwl else "local" for i in range(hf_cfg.num_hidden_layers))
+        extra["attention_window"] = int(hf_cfg.sliding_window)
+    return dataclasses.replace(base, attention_bias="qkv", **extra)
+
+
+def gemma_config(hf_cfg) -> ModelConfig:
+    """Gemma config -> ModelConfig: the llama layout plus a GeGLU (tanh)
+    gate, sqrt(d_model) embedding scaling, an explicit head_dim, and
+    (1 + weight) RMSNorms folded into the imported scales."""
+    base = llama_config(hf_cfg)
+    head_dim = int(getattr(hf_cfg, "head_dim", None) or hf_cfg.hidden_size // hf_cfg.num_attention_heads)
+    return dataclasses.replace(
+        base,
+        activation="gelu_new",
+        scale_embedding=True,
+        tie_embeddings=bool(getattr(hf_cfg, "tie_word_embeddings", True)),
+        d_kv=head_dim if head_dim * hf_cfg.num_attention_heads != hf_cfg.hidden_size else None,
+    )
+
+
+def _llama_layer(w: _Weights, cfg: ModelConfig, i: int) -> dict:
+    """HF llama RoPE uses the same half-split rotate convention as the
+    port's ``apply_rope``, so q/k import untouched."""
+    pre = f"layers.{i}."
+
+    def lin(name):
+        return _linear(w, name, bias=w.has(name + ".bias"))
+
+    return {
+        "ln1": {"scale": w(pre + "input_layernorm.weight")},
+        "attn": {"wq": lin(pre + "self_attn.q_proj"), "wk": lin(pre + "self_attn.k_proj"),
+                 "wv": lin(pre + "self_attn.v_proj"), "wo": lin(pre + "self_attn.o_proj")},
+        "ln2": {"scale": w(pre + "post_attention_layernorm.weight")},
+        "mlp": {"wg": lin(pre + "mlp.gate_proj"), "wi": lin(pre + "mlp.up_proj"), "wo": lin(pre + "mlp.down_proj")},
+    }
+
+
+def _llama_rest(w: _Weights, cfg: ModelConfig) -> dict:
+    params = {"tok_embed": w("embed_tokens.weight"), "ln_f": {"scale": w("norm.weight")}}
+    if not cfg.tie_embeddings:
+        params["lm_head"] = {"w": w("lm_head.weight").T.contiguous()}
+    return params
+
+
+def _gemma_layer(w: _Weights, cfg: ModelConfig, i: int) -> dict:
+    """GemmaRMSNorm computes x_hat * (1 + weight): folded into the scale."""
+    blk = _llama_layer(w, cfg, i)
+    for name in ("ln1", "ln2"):
+        blk[name]["scale"] = blk[name]["scale"] + 1.0
+    return blk
+
+
+def _gemma_rest(w: _Weights, cfg: ModelConfig) -> dict:
+    params = _llama_rest(w, cfg)
+    params["ln_f"]["scale"] = params["ln_f"]["scale"] + 1.0
+    return params
+
+
+# ---------------------------------------------------------------------------
+# BLOOM and MPT (ALiBi)
+# ---------------------------------------------------------------------------
+
+
+def bloom_config(hf_cfg) -> ModelConfig:
+    """BLOOM config -> ModelConfig (the bloomz / vietcuna family)."""
+    if getattr(hf_cfg, "apply_residual_connection_post_layernorm", False):
+        raise ValueError("apply_residual_connection_post_layernorm BLOOM variants are not supported (no released "
+                         "checkpoint uses it)")
+    return ModelConfig(
+        arch="causal",
+        vocab_size=hf_cfg.vocab_size,
+        d_model=hf_cfg.hidden_size,
+        n_heads=hf_cfg.n_head,
+        n_layers=hf_cfg.n_layer,
+        d_ff=4 * hf_cfg.hidden_size,
+        max_seq_len=int(getattr(hf_cfg, "seq_length", 2048)),
+        positional="alibi",
+        embed_layernorm=True,
+        tie_embeddings=True,
+        norm_eps=float(getattr(hf_cfg, "layer_norm_epsilon", 1e-5)),
+        activation="gelu_new",  # BloomGelu is the tanh approximation
+    )
+
+
+def _bloom_layer(w: _Weights, cfg: ModelConfig, i: int) -> dict:
+    """The fused query_key_value rows are head-interleaved (H, 3, Dh), as
+    GPT-NeoX packs them."""
+    pre = f"transformer.h.{i}."
+    attn = _fused_heads(w(pre + "self_attention.query_key_value.weight"),
+                        w(pre + "self_attention.query_key_value.bias"), cfg.n_heads, cfg.head_dim, cfg.d_model)
+    attn["wo"] = _linear(w, pre + "self_attention.dense")
+    return {
+        "ln1": _ln(w, pre + "input_layernorm"),
+        "attn": attn,
+        "ln2": _ln(w, pre + "post_attention_layernorm"),
+        "mlp": {"wi": _linear(w, pre + "mlp.dense_h_to_4h"), "wo": _linear(w, pre + "mlp.dense_4h_to_h")},
+    }
+
+
+def _bloom_rest(w: _Weights, cfg: ModelConfig) -> dict:
+    return {"tok_embed": w("transformer.word_embeddings.weight"),
+            "emb_ln": _ln(w, "transformer.word_embeddings_layernorm"), "ln_f": _ln(w, "transformer.ln_f")}
+
+
+def mpt_config(hf_cfg) -> ModelConfig:
+    """MPT config -> ModelConfig (MosaicML MPT: vinai/PhoGPT-4B is
+    ``model_type: mpt``): pre-LN with bias-free LayerNorms, a fused
+    bias-free Wqkv, MPT-variant ALiBi slopes, optional ``clip_qkv`` and an
+    exact-GELU 4x MLP."""
+    attn = hf_cfg.attn_config
+    if not getattr(attn, "alibi", True):
+        raise ValueError("non-ALiBi MPT configs are not supported (transformers' native MptModel is ALiBi-only "
+                         "as well)")
+    if getattr(attn, "qk_ln", False):
+        raise ValueError("qk_ln MPT variants require trust_remote_code in transformers too (native MptAttention "
+                         "has no q/k LayerNorm) -- unsupported")
+    scale = getattr(attn, "softmax_scale", None)
+    return ModelConfig(
+        arch="causal",
+        vocab_size=hf_cfg.vocab_size,
+        d_model=hf_cfg.d_model,
+        n_heads=hf_cfg.n_heads,
+        n_layers=hf_cfg.n_layers,
+        d_ff=int(hf_cfg.expansion_ratio * hf_cfg.d_model),
+        max_seq_len=int(hf_cfg.max_seq_len),
+        positional="alibi",
+        alibi_mode="mpt",
+        alibi_bias_max=float(getattr(attn, "alibi_bias_max", 8)),
+        clip_qkv=float(attn.clip_qkv) if getattr(attn, "clip_qkv", None) else None,
+        attention_scale=float(scale) if scale is not None else None,
+        tie_embeddings=bool(getattr(hf_cfg, "tie_word_embeddings", True)),
+        attention_bias=not bool(getattr(hf_cfg, "no_bias", True)),
+        norm_eps=float(getattr(hf_cfg, "layer_norm_epsilon", 1e-5)),
+        activation="gelu",  # MptMLP uses nn.GELU(approximate="none")
+    )
+
+
+def _mpt_ln(w: _Weights, name: str, d: int) -> dict:
+    """MPT LayerNorms carry no bias on the Hub: zeros keep the tree a
+    mean-subtracting LayerNorm."""
+    bias = w(name + ".bias") if w.has(name + ".bias") else torch.zeros(d, device=w.device)
+    return {"scale": w(name + ".weight"), "bias": bias}
+
+
+def _mpt_layer(w: _Weights, cfg: ModelConfig, i: int) -> dict:
+    """The fused Wqkv rows are feature-major (q = rows [0, d), k = [d, 2d),
+    v = [2d, 3d)), unlike BLOOM's head-interleaved packing."""
+    d = cfg.d_model
+    pre = f"transformer.blocks.{i}."
+
+    def lin(name):
+        return _linear(w, name, bias=w.has(name + ".bias"))
+
+    wqkv = w(pre + "attn.Wqkv.weight")  # (3d, d) rows = out features
+    attn = {name: {"w": wqkv[j * d:(j + 1) * d].T.contiguous()} for j, name in enumerate(("wq", "wk", "wv"))}
+    if w.has(pre + "attn.Wqkv.bias"):
+        bqkv = w(pre + "attn.Wqkv.bias")
+        for j, name in enumerate(("wq", "wk", "wv")):
+            attn[name]["b"] = bqkv[j * d:(j + 1) * d].contiguous()
+    attn["wo"] = lin(pre + "attn.out_proj")
+    return {
+        "ln1": _mpt_ln(w, pre + "norm_1", d),
+        "attn": attn,
+        "ln2": _mpt_ln(w, pre + "norm_2", d),
+        "mlp": {"wi": lin(pre + "ffn.up_proj"), "wo": lin(pre + "ffn.down_proj")},
+    }
+
+
+def _mpt_rest(w: _Weights, cfg: ModelConfig) -> dict:
+    params = {"tok_embed": w("transformer.wte.weight"), "ln_f": _mpt_ln(w, "transformer.norm_f", cfg.d_model)}
+    if not cfg.tie_embeddings:
+        params["lm_head"] = {"w": w("lm_head.weight").T.contiguous()}
+    return params
+
+
+# ---------------------------------------------------------------------------
+# BERT and MPNet encoders
+# ---------------------------------------------------------------------------
+
+
+def bert_config(hf_cfg) -> ModelConfig:
+    """BERT config -> ModelConfig (post-LN, BERT embeddings): the
+    BERT-architecture sentence encoders such as MiniLM."""
+    return ModelConfig(
+        arch="encoder",
+        vocab_size=hf_cfg.vocab_size,
+        d_model=hf_cfg.hidden_size,
+        n_heads=hf_cfg.num_attention_heads,
+        n_layers=hf_cfg.num_hidden_layers,
+        d_ff=hf_cfg.intermediate_size,
+        max_seq_len=hf_cfg.max_position_embeddings,
+        positional="learned",
+        norm_eps=float(getattr(hf_cfg, "layer_norm_eps", 1e-12)),
+        norm_position="post",
+        bert_embeddings=True,
+        use_flash_attention=True,
+        activations_bf16=True,
+    )
+
+
+def _bert_layer(w: _Weights, cfg: ModelConfig, i: int) -> dict:
+    pre = f"encoder.layer.{i}."
+    return {
+        "attn": {"wq": _linear(w, pre + "attention.self.query"), "wk": _linear(w, pre + "attention.self.key"),
+                 "wv": _linear(w, pre + "attention.self.value"), "wo": _linear(w, pre + "attention.output.dense")},
+        "ln1": _ln(w, pre + "attention.output.LayerNorm"),
+        "mlp": {"wi": _linear(w, pre + "intermediate.dense"), "wo": _linear(w, pre + "output.dense")},
+        "ln2": _ln(w, pre + "output.LayerNorm"),
+    }
+
+
+def _bert_rest(w: _Weights, cfg: ModelConfig) -> dict:
+    return {"tok_embed": w("embeddings.word_embeddings.weight"), "pos_embed": w("embeddings.position_embeddings.weight"),
+            "type_embed": w("embeddings.token_type_embeddings.weight"), "emb_ln": _ln(w, "embeddings.LayerNorm")}
+
+
+def mpnet_config(hf_cfg) -> ModelConfig:
+    """MPNet config -> ModelConfig (post-LN, embedding LN, RoBERTa position
+    offset, shared bucketed relative attention bias)."""
+    return ModelConfig(
+        arch="encoder",
+        vocab_size=hf_cfg.vocab_size,
+        d_model=hf_cfg.hidden_size,
+        n_heads=hf_cfg.num_attention_heads,
+        n_layers=hf_cfg.num_hidden_layers,
+        d_ff=hf_cfg.intermediate_size,
+        max_seq_len=hf_cfg.max_position_embeddings,
+        positional="learned",
+        norm_eps=float(getattr(hf_cfg, "layer_norm_eps", 1e-5)),
+        norm_position="post",
+        embed_layernorm=True,
+        position_offset=int(getattr(hf_cfg, "pad_token_id", 1)) + 1,
+        relative_attention_buckets=int(getattr(hf_cfg, "relative_attention_num_buckets", 32)),
+        use_flash_attention=True,
+        activations_bf16=True,
+    )
+
+
+def _mpnet_layer(w: _Weights, cfg: ModelConfig, i: int) -> dict:
+    pre = f"encoder.layer.{i}."
+    return {
+        "attn": {"wq": _linear(w, pre + "attention.attn.q"), "wk": _linear(w, pre + "attention.attn.k"),
+                 "wv": _linear(w, pre + "attention.attn.v"), "wo": _linear(w, pre + "attention.attn.o")},
+        "ln1": _ln(w, pre + "attention.LayerNorm"),
+        "mlp": {"wi": _linear(w, pre + "intermediate.dense"), "wo": _linear(w, pre + "output.dense")},
+        "ln2": _ln(w, pre + "output.LayerNorm"),
+    }
+
+
+def _mpnet_rest(w: _Weights, cfg: ModelConfig) -> dict:
+    return {"tok_embed": w("embeddings.word_embeddings.weight"), "pos_embed": w("embeddings.position_embeddings.weight"),
+            "emb_ln": _ln(w, "embeddings.LayerNorm"), "rel_bias": w("encoder.relative_attention_bias.weight")}
+
+
+# ---------------------------------------------------------------------------
+# dispatch
+# ---------------------------------------------------------------------------
+
+
+class Family(NamedTuple):
+    config: Callable  # config view -> ModelConfig
+    layer: Callable  # (weights, cfg, i) -> the i-th block of the tree
+    rest: Callable  # (weights, cfg) -> the tree without its blocks
+    prefixes: tuple  # key prefixes a file may carry or lack
+    no_bias: tuple = ()  # dense layers of a block that the files hold without a bias
+
+
+FAMILIES = {
+    "gpt_neox": Family(neox_config, _neox_layer, _neox_rest, ("gpt_neox.",)),
+    "gpt_neo": Family(gpt_neo_config, _gpt_neo_layer, _learned_rest, ("transformer.",),
+                      ("attn.wq", "attn.wk", "attn.wv")),
+    "gpt2": Family(gpt2_config, _gpt2_layer, _learned_rest, ("transformer.",)),
+    "llama": Family(llama_config, _llama_layer, _llama_rest, ("model.",)),
+    "mistral": Family(llama_config, _llama_layer, _llama_rest, ("model.",)),
+    "qwen2": Family(qwen2_config, _llama_layer, _llama_rest, ("model.",)),
+    "gemma": Family(gemma_config, _gemma_layer, _gemma_rest, ("model.",)),
+    "bloom": Family(bloom_config, _bloom_layer, _bloom_rest, ("transformer.",)),
+    "mpt": Family(mpt_config, _mpt_layer, _mpt_rest, ("transformer.",)),
+    "bert": Family(bert_config, _bert_layer, _bert_rest, ("bert.",)),
+    "mpnet": Family(mpnet_config, _mpnet_layer, _mpnet_rest, ("mpnet.",)),
+}
+ENCODER_TYPES = ("bert", "mpnet")
+
+
+def causal_family(model_type: str) -> Family:
+    """``load_causal_auto``'s dispatch: anything it does not name loads as
+    GPT-NeoX."""
+    return FAMILIES.get(model_type if model_type in FAMILIES and model_type not in ENCODER_TYPES else "gpt_neox")
+
+
+def encoder_family(model_type: str) -> Family:
+    """``load_encoder_auto``'s dispatch: MPNet, else BERT."""
+    return FAMILIES["mpnet" if model_type == "mpnet" else "bert"]
+
+
+def weights(state: Mapping, family: Family, prefix: str = "", device=None) -> _Weights:
+    """The tensors of ``state`` (under ``prefix``) as the family's
+    converters read them, as f32 on ``device`` (default: where they are)."""
+    return _Weights(state, family.prefixes, device, prefix)
+
+
+def convert(state: Mapping, cfg: ModelConfig, family: Family, prefix: str = "") -> dict:
+    """A whole HF state dict -> the JAX package's parameter tree (f32
+    tensors)."""
+    w = weights(state, family, prefix)
+    return dict(family.rest(w, cfg), blocks=[family.layer(w, cfg, i) for i in range(cfg.n_layers)])
+
+
+def load_causal_auto(model_dir: str, device="cuda", quantize: Optional[str] = None):
+    """Local HF causal-LM directory -> :class:`CausalLM` of the file's
+    configuration (``.cfg``), dispatching on ``model_type``
+    (:func:`causal_family`): ``models.params.causal_from_hf``, which
+    streams it onto ``device`` a tensor at a time."""
+    from .params import causal_from_hf
+
+    return causal_from_hf(model_dir, device=device, quantize=quantize)
+
+
+def load_encoder_auto(model_dir: str):
+    """Local HF encoder directory -> (parameter tree, ModelConfig): MPNet
+    or BERT by ``model_type``."""
+    family = encoder_family(read_config(model_dir).get("model_type", ""))
+    cfg = family.config(hf_config(model_dir))
+    with Checkpoint(model_dir) as state:
+        return convert(state, cfg, family), cfg

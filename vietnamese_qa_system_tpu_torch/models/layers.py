@@ -268,17 +268,19 @@ def alibi_bias(n_heads: int, n_keys: int, mode: str = "bloom", bias_max: float =
 
 class Attention(nn.Module):
     """``qkv_bias`` / ``o_bias``: the JAX ``use_bias`` True (both), False
-    (neither) or "qkv" (q/k/v only).  ``kv_dim`` < d_model is grouped-query
-    attention."""
+    (neither) or "qkv" (q/k/v only).  ``kv_dim`` < ``q_dim`` is grouped-query
+    attention; ``q_dim`` (default d_model) is heads x head_dim where the
+    head dim is decoupled from d_model (Gemma's ``d_kv``)."""
 
-    def __init__(self, d_model: int, *, kv_dim: int | None = None, qkv_bias: bool = True, o_bias: bool = True,
-                 device=None):
+    def __init__(self, d_model: int, *, q_dim: int | None = None, kv_dim: int | None = None, qkv_bias: bool = True,
+                 o_bias: bool = True, device=None):
         super().__init__()
-        kv_dim = kv_dim or d_model
-        self.wq = Dense(d_model, d_model, use_bias=qkv_bias, device=device)
+        q_dim = q_dim or d_model
+        kv_dim = kv_dim or q_dim
+        self.wq = Dense(d_model, q_dim, use_bias=qkv_bias, device=device)
         self.wk = Dense(d_model, kv_dim, use_bias=qkv_bias, device=device)
         self.wv = Dense(d_model, kv_dim, use_bias=qkv_bias, device=device)
-        self.wo = Dense(d_model, d_model, use_bias=o_bias, device=device)
+        self.wo = Dense(q_dim, d_model, use_bias=o_bias, device=device)
 
     def forward(self, x, *, n_heads: int, mask=None, flash=None, bias=None, scale=None, n_kv_heads=None,
                 rope=None, positions=None, cache=None, cache_index=None, clip=None):
@@ -350,15 +352,17 @@ class MLP(nn.Module):
 
 class Block(nn.Module):
     def __init__(self, d_model: int, n_heads: int, d_ff: int, eps: float, *, n_kv_heads: int | None = None,
-                 norm: str = "layernorm", gated_mlp: bool = False, use_bias: bool | str = True, device=None):
+                 norm: str = "layernorm", gated_mlp: bool = False, use_bias: bool | str = True,
+                 head_dim: int | None = None, device=None):
         super().__init__()
         self.n_heads = n_heads
         self.n_kv_heads = n_kv_heads
         rms = norm == "rmsnorm"
-        kv_dim = None if n_kv_heads is None else d_model // n_heads * n_kv_heads
+        head_dim = head_dim or d_model // n_heads
+        kv_dim = None if n_kv_heads is None else head_dim * n_kv_heads
         self.ln1 = LayerNorm(d_model, eps, bias=not rms, device=device)
-        self.attn = Attention(d_model, kv_dim=kv_dim, qkv_bias=use_bias in (True, "qkv"), o_bias=use_bias is True,
-                              device=device)
+        self.attn = Attention(d_model, q_dim=head_dim * n_heads, kv_dim=kv_dim, qkv_bias=use_bias in (True, "qkv"),
+                              o_bias=use_bias is True, device=device)
         self.ln2 = LayerNorm(d_model, eps, bias=not rms, device=device)
         self.mlp = MLP(d_model, d_ff, gated=gated_mlp, use_bias=use_bias is True, device=device)
 

@@ -1,7 +1,11 @@
-"""Carry JAX parameter trees (numpy leaves) into the port's modules, and
-LoRA adapters both ways."""
+"""Carry parameters into the port's modules: JAX parameter trees (numpy
+leaves), flat leaf lists of checkpoints, local Hugging Face directories
+(streamed onto the device one layer at a time), and LoRA adapters both
+ways."""
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -12,6 +16,7 @@ from .causal_lm import CausalLM, unstack_blocks
 from .config import ModelConfig
 from .encoder import SentenceEncoder
 from .layers import Dense
+from .quantize import quantize_weight
 
 
 def _flatten(tree, prefix: str, out: dict) -> dict:
@@ -42,13 +47,17 @@ def encoder_from_jax(params, cfg: ModelConfig, device="cuda") -> SentenceEncoder
     return model.eval().requires_grad_(False)
 
 
-def causal_from_state_dict(state: dict, cfg: ModelConfig) -> CausalLM:
+def causal_from_state_dict(state: dict, cfg: ModelConfig, *, no_bias=()) -> CausalLM:
     """A :class:`CausalLM` over the tensors of ``state`` (``state_dict``
     names; quantized layers as ``.w_q`` / ``.w_s``), used as they are, on
     their device.  Every tensor the module expects must be present, and
-    nothing else."""
+    nothing else.  ``no_bias`` names the dense layers of each block that
+    the weights' layout holds without a bias (GPT-Neo's ``attn.wq``,
+    ``attn.wk``, ``attn.wv``); those are built without one."""
     model = CausalLM(cfg, device="meta")
     for name, mod in model.named_modules():
+        if isinstance(mod, Dense) and name.startswith("blocks.") and name.split(".", 2)[2] in no_bias:
+            mod.b = None
         if isinstance(mod, Dense) and f"{name}.w_q" in state:
             mod.set_quantized(torch.empty_like(state[f"{name}.w_q"], device="meta"),
                               torch.empty_like(state[f"{name}.w_s"], device="meta"))
@@ -56,11 +65,13 @@ def causal_from_state_dict(state: dict, cfg: ModelConfig) -> CausalLM:
     return model.eval().requires_grad_(False)
 
 
-def causal_from_jax(params, cfg: ModelConfig, device="cuda") -> CausalLM:
+def causal_from_jax(params, cfg: ModelConfig, device="cuda", *, no_bias=()) -> CausalLM:
     """A JAX causal-LM pytree (numpy leaves; list-form or scan-stacked
     blocks) -> :class:`CausalLM`.  Float leaves load as f32; quantized
     ``int8`` / ``int8c`` leaves ``{w_q, w_s[, b]}`` are carried bit for bit
-    (int8 codes, f32 scales)."""
+    (int8 codes, f32 scales).  ``no_bias`` as in
+    :func:`causal_from_state_dict` (the JAX import of a GPT-Neo directory
+    has no q/k/v biases)."""
     device = resolve_device(device)
     flat = {}
     for name, leaf in _flatten(unstack_blocks(params, cfg.n_layers), "", {}).items():
@@ -71,7 +82,113 @@ def causal_from_jax(params, cfg: ModelConfig, device="cuda") -> CausalLM:
             raise NotImplementedError(f"{name}: double-quantized (nf4-dq) leaves are not ported yet")
         flat[name] = torch.from_numpy(np.array(leaf, dtype=leaf.dtype if leaf.dtype == np.int8 else np.float32))
         flat[name] = flat[name].to(device)
-    return causal_from_state_dict(flat, cfg)
+    return causal_from_state_dict(flat, cfg, no_bias=no_bias)
+
+
+def _quantize_layer(flat: dict, mode: str) -> dict:
+    """Every dense weight (``....w``) of one layer's flat tree -> its
+    ``w_q`` / ``w_s`` leaves, as ``quantize_dense_tree`` makes them."""
+    out = {}
+    for name, t in flat.items():
+        if name.endswith(".w"):
+            leaf = quantize_weight(t, mode)
+            out[name + "_q"], out[name + "_s"] = leaf["w_q"], leaf["w_s"]
+        else:
+            out[name] = t
+    return out
+
+
+# configuration fields that choose how the model runs, not what it computes
+# from its weights: a preset may set them whatever the file says
+RUNTIME_FIELDS = ("use_flash_attention", "scan_layers", "remat_policy", "dropout_rate", "activations_bf16")
+
+
+def causal_from_hf(model_dir: str, cfg: ModelConfig | None = None, *, device="cuda",
+                   quantize: str | None = None) -> CausalLM:
+    """A local HF causal-LM directory -> :class:`CausalLM` on ``device``,
+    streamed: each tensor is read from the file, moved to the device and
+    converted there, one layer at a time, and with ``quantize`` ("int8" or
+    "int8c") each layer is quantized as soon as it is complete, as
+    ``init_causal_lm(..., quantize=)`` does for drawn weights.  The host
+    never holds more than one tensor of the checkpoint.
+
+    ``cfg`` (default: the file's own) is the model's configuration.  It
+    must equal the file's in every field but :data:`RUNTIME_FIELDS`, else
+    this raises naming the fields that differ."""
+    from .convert_hf import causal_family, hf_config, weights
+    from .hf_io import Checkpoint
+
+    device = resolve_device(device)
+    view = hf_config(model_dir)
+    family = causal_family(getattr(view, "model_type", ""))
+    file_cfg = family.config(view)
+    cfg = cfg or file_cfg
+    want, got = dataclasses.asdict(cfg), dataclasses.asdict(file_cfg)
+    differ = [f"{k} {want[k]!r} (model) != {got[k]!r} (file)" for k in want
+              if k not in RUNTIME_FIELDS and want[k] != got[k]]
+    if differ:
+        raise ValueError(f"{model_dir} holds another model than the configuration asked for: " + "; ".join(differ))
+    with Checkpoint(model_dir) as ckpt:
+        w = weights(ckpt, family, device=device)
+        state = _flatten(family.rest(w, file_cfg), "", {})
+        for i in range(cfg.n_layers):
+            layer = _flatten(family.layer(w, file_cfg, i), f"blocks.{i}.", {})
+            state.update(_quantize_layer(layer, quantize) if quantize else layer)
+    return causal_from_state_dict(state, cfg, no_bias=family.no_bias)
+
+
+def encoder_from_hf(model_dir: str, device="cuda") -> SentenceEncoder:
+    """A local HF BERT or MPNet directory -> :class:`SentenceEncoder`, with
+    the configuration the file gives (``.cfg``)."""
+    from .convert_hf import load_encoder_auto
+
+    params, cfg = load_encoder_auto(model_dir)
+    return encoder_from_jax(params, cfg, device=device)
+
+
+def _leaf_names(cfg: ModelConfig, stacked: bool) -> list:
+    """The names of a float causal tree's leaves in the JAX order; with
+    ``stacked`` the block leaves are one scan-stacked (L, ...) leaf each,
+    named with ``*`` for the layer."""
+    tree = nest({name: name for name in CausalLM(cfg, device="meta").state_dict()})
+    if stacked:
+        rest = [name.split(".", 2)[2] for name in tree_leaves(tree["blocks"][0])]
+        tree["blocks"] = nest({r: "blocks.*." + r for r in rest})
+    return tree_leaves(tree)
+
+
+def causal_from_leaves(arrays: list, cfg: ModelConfig, device="cuda") -> CausalLM:
+    """A float causal tree's leaves in the JAX order (list-form or
+    scan-stacked blocks, as a checkpoint or ``save_pytree`` stores them)
+    -> :class:`CausalLM`.  A leaf count or shape that does not fit
+    ``cfg``'s model raises."""
+    device = resolve_device(device)
+    meta = CausalLM(cfg, device="meta").state_dict()
+
+    def state_for(names) -> dict:
+        state = {}
+        for name, arr in zip(names, arrays):
+            t = torch.as_tensor(np.asarray(arr, np.float32))
+            parts = [(name.replace("*", str(i)), t[i]) for i in range(cfg.n_layers)] if "*" in name else [(name, t)]
+            for key, leaf in parts:
+                if tuple(leaf.shape) != tuple(meta[key].shape):
+                    raise ValueError(f"{key}: a leaf of shape {tuple(leaf.shape)} for a parameter of shape "
+                                     f"{tuple(meta[key].shape)}")
+                state[key] = leaf
+        return state
+
+    forms = [names for names in (_leaf_names(cfg, False), _leaf_names(cfg, True)) if len(names) == len(arrays)]
+    if not forms:
+        raise ValueError(f"{len(arrays)} leaves do not make a float causal model of this configuration "
+                         f"({len(_leaf_names(cfg, False))} leaves, or {len(_leaf_names(cfg, True))} scan-stacked)")
+    try:
+        state = state_for(forms[0])
+    except ValueError:
+        if len(forms) == 1:
+            raise
+        state = state_for(forms[1])  # one layer: both forms have the same leaf count
+    state = {k: v.to(device) for k, v in state.items()}
+    return causal_from_state_dict(state, cfg)
 
 
 def adapter_from_jax(adapter, device="cuda") -> dict:

@@ -45,7 +45,7 @@ def quantize_weight(w: torch.Tensor, mode: str = "int8c", block: int = 64) -> di
         raise NotImplementedError(f"{mode} quantization is not ported yet (it comes with training)")
     if mode not in MODES:
         raise ValueError(f"mode must be int8, int8c, nf4 or nf4-dq, got {mode!r}")
-    w = w.float()
+    w = w.float().contiguous()  # a transposed view would give strided codes, which K6 refuses
     d_in, d_out = w.shape
     block = d_in if mode == "int8c" else _pick_block(d_in, block)
     nb = d_in // block
