@@ -50,6 +50,21 @@ and backward against their plain versions at the edges of their tiles
   decode loop says where a step's time goes; then a two-layer twin of the
   same weights decodes greedily on the card and on the host (plain path),
   held to agree by logits and by the top-2 margin rule;
+- raw completions over the same reader: the continuous-batching engine
+  that ``serve --continuous-slots 8 --gen-total 1024 --gen-chunk-steps 16
+  --prefix-cache-mb 512`` builds, behind HTTP ``/generate``: 23
+  concurrent requests (slots freed and reused, one run to the cache end,
+  a prefix-cache hit) and one over the largest bucket (400), every greedy
+  stream held to a B=1 ``generate()`` by the margin rule, again with
+  sampled co-riders; tokens/s, time to first token, inter-token latency,
+  occupancy and accepted drafts; a traced speculative and plain chunk,
+  and the speculative chunk again with its M 72 projections on the
+  dequantize route; an int8 KV engine against
+  ``generate(kv_dtype="int8")`` with its peak memory under twice its int8
+  cache; chunked prefill in 128-token pieces.  K6 runs every decode
+  projection (M 8 plain, 72 speculative) and every prefill at a bucket up
+  to 256 rows (M 32-256); each (M, K, N) of the burst must be one that
+  phase_w8 held against the plain version;
 - IVF retrieval at the repo's IVF configuration: a clustered 1,048,576 x
   768 corpus drawn on the card (2,048 unit-norm centres, noise of total
   norm 0.35, rows normalised; the retrieval path's 2,048 passage
@@ -130,11 +145,14 @@ ENCODER_COS_TOL = 0.9999
 RERANK_SCORE_TOL = 1e-5  # f32 re-score sums in another order on the host
 # K6 at the PhoGPT-4B decode shapes: M = the bucketed batch, (K, N) of
 # wq/wk/wv/wo, the MLP up and the MLP down projections
-W8_ROWS = (1, 8, 16)
+# M 72: the continuous engine's speculative chunk, 8 slots x (8 drafts + 1)
+W8_ROWS = (1, 8, 16, 72)
 W8_SHAPES = ((3072, 3072), (3072, 12288), (12288, 3072))
 W8_PER_LAYER = {(3072, 3072): 4, (3072, 12288): 1, (12288, 3072): 1}
 W8_REL_TOL = 1e-4  # max abs err / max |plain|: the same exact products summed in another order
-W8_CHECK_ROWS = (64, 256)  # larger batches, checked at the first shape
+# the engine's B=1 prefills at buckets 32-256 (and its prefix-extension and
+# chunked-prefill pieces) take K6 at these rows: checked at every shape
+W8_CHECK_ROWS = (32, 64, 128, 256)
 K1_SCORE_TOL = 2e-3  # wgmma sums the exact bf16 products in another order than the f32 product
 TOPK_BATCHES = (1, 8, 32, 200, 256, 512)  # 1-, 2- and 4-CTA clusters, and two groups of 256
 # K1's list form at 10 and at hybrid's 40 dense candidates, and its pool
@@ -154,6 +172,16 @@ READER_QUESTIONS, READER_PROMPT_LEN, READER_NEW_TOKENS = 8, 512, 32
 # 4 rows x (48 + 15) tokens = 252 rows: the teacher-forced check takes K6 too
 TWIN_LAYERS, TWIN_ROWS, TWIN_PROMPT_LEN, TWIN_NEW_TOKENS = 2, 4, 48, 16
 TRACE_STEPS = 8  # decode steps in the profiler trace of the QA path
+# /generate as `serve --continuous-slots 8 --gen-total 1024 --gen-chunk-steps 16
+# --prefix-cache-mb 512` builds it (default buckets 32-512, --gen-speculative
+# ngram): 20 drawn requests, the 256-token prefix two requests share (its
+# extension sent once it is answered), one prompt of 500 tokens budgeted
+# past the cache end, one over the largest bucket (400)
+ENGINE_FLAGS = ("--continuous-slots", "8", "--gen-total", "1024", "--gen-chunk-steps", "16", "--prefix-cache-mb", "512")
+ENGINE_DRAWN, ENGINE_PROMPT, ENGINE_NEW = 20, (16, 500), (16, 96)
+ENGINE_SHARED, ENGINE_LONG, ENGINE_OVER = 256, 500, 600
+ENGINE_SAMPLED = {"temperature": 0.8, "top_k": 40, "top_p": 0.9}  # every third request of the second burst
+ENGINE_INT8_REQUESTS, ENGINE_PREFILL_CHUNK, ENGINE_SIDE_NEW = 4, 128, 32
 TWIN_LOGIT_TOL = 5e-2  # |logits| ~ 1-5; bf16-rounded inputs flip where card and host differ by an ulp
 # the IVF path: clustered corpus (probe_ivf.py's 2,048 centres and sigma),
 # the repo's IVF configuration, the probe-score batches, the latency sweep
@@ -874,10 +902,11 @@ def issued_flops(A, bh_lens, tq: int, tk: int, d: int, causal: bool, window, bq:
 
 
 def phase_w8(torch, report):
-    """K6 against its plain version at the PhoGPT-4B decode shapes (and at
-    M 64 and 256 at the first), timed over enough weight copies to stream
-    them from HBM as a decode step does (one layer's weights never stay in
-    L2 across a 32-layer step).  Device times come from CUDA graph replays;
+    """K6 against its plain version at the PhoGPT-4B shapes, at the decode
+    rows (W8_ROWS) and at the engine's prefill rows (W8_CHECK_ROWS).  The
+    decode rows are timed over enough weight copies to stream them from HBM
+    as a decode step does (one layer's weights never stay in L2 across a
+    32-layer step).  Device times come from CUDA graph replays;
     the host-paced time of the same calls (events around plain launches)
     is printed beside them, and a profiler pass counts one call's kernels."""
     from torch.autograd import DeviceType
@@ -895,6 +924,7 @@ def phase_w8(torch, report):
     check("0 bytes spill stores, 0 bytes spill loads" in rep and info["blocks_per_sm"] >= 1,
           "K6: ptxas reports no spills, the kernel fits an SM")
     layer = dict.fromkeys(("ms", "plain_ms", "library_ms", "bound_ms"), 0.0)
+    spec_layer = dict.fromkeys(layer, 0.0)
     worst = 0.0
     for k, n in W8_SHAPES:
         leaf = quantize_weight(torch.randn(k, n, generator=gen, device="cuda") * 0.02, "int8c")
@@ -902,7 +932,7 @@ def phase_w8(torch, report):
         wqs = [leaf["w_q"].clone() for _ in range(copies)]
         w_bf16 = [dequantize_weight(wq, leaf["w_s"], torch.bfloat16) for wq in wqs]
         ws = leaf["w_s"]
-        for m in W8_ROWS + (W8_CHECK_ROWS if (k, n) == W8_SHAPES[0] else ()):
+        for m in W8_ROWS + W8_CHECK_ROWS:
             x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
             y = W.w8_matmul(x, wqs[0], ws, out_dtype=torch.float32)
             again = W.w8_matmul(x, wqs[0], ws, out_dtype=torch.float32)
@@ -932,9 +962,10 @@ def phase_w8(torch, report):
                   f"{cuda_ms(kernel, 60) * 1e3:6.2f}), plain {rows['plain_ms'] * 1e3:7.2f} us, library (bf16 weight, "
                   f"twice the bytes) {rows['library_ms'] * 1e3:7.2f} us, bound {rows['bound_ms'] * 1e3:6.2f} us "
                   f"({rows['bound_by']})", flush=True)
-            if m == 8:
-                for key in layer:
-                    layer[key] += W8_PER_LAYER[(k, n)] * rows[key]
+            for rows_m, acc in ((8, layer), (72, spec_layer)):
+                if m == rows_m:
+                    for key in acc:
+                        acc[key] += W8_PER_LAYER[(k, n)] * rows[key]
         del wqs, w_bf16
     # one call is one kernel launch (the split-K sum happens inside it)
     x = torch.randn(8, 3072, generator=gen, device="cuda").to(torch.bfloat16)
@@ -947,8 +978,13 @@ def phase_w8(torch, report):
     launched = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
     check(len(launched) == 1 and "w8_gemm_kernel" in launched[0],
           f"K6: one call at M=8 K=3072 N=3072 is one kernel launch (profiler: {launched})")
+    print(f"K6, one PhoGPT-4B layer's six calls: M=8 kernel {layer['ms'] * 1e3:.2f} us (bound "
+          f"{layer['bound_ms'] * 1e3:.2f}); M=72 (the engine's speculative chunk) kernel {spec_layer['ms'] * 1e3:.2f} "
+          f"us, plain {spec_layer['plain_ms'] * 1e3:.2f}, library {spec_layer['library_ms'] * 1e3:.2f}, bound "
+          f"{spec_layer['bound_ms'] * 1e3:.2f}", flush=True)
     report["w8_matmul"] = {
         "max_abs_err": worst, **layer, "bound_by": "bytes",
+        "m72_layer": spec_layer,
         "library_call": "composite: torch.matmul of bf16 x with a pre-dequantized bf16 weight (twice the bytes)",
         "shape": "one PhoGPT-4B layer's six calls at M=8: 4x (3072,3072) + (3072,12288) + (12288,3072)",
         "timing": "device time, CUDA graph replay of 24 calls over weight copies larger than L2",
@@ -1683,7 +1719,7 @@ def trace_decode(torch, reader, ids, mask, eos_id, step_s):
                lambda: G.generate(reader, ids, mask, max_new_tokens=TRACE_STEPS, eos_id=eos_id, timings={}))
 
 
-def trace_span(torch, label: str, span: str, n: int, step_s: float, run) -> None:
+def trace_span(torch, label: str, span: str, n: int, step_s: float, run) -> float | None:
     """Where a step's time goes: a torch.profiler trace of ``run``, whose
     ``span`` (a record_function region) holds ``n`` steps, gives the
     device's busy time a step (the union of its kernels), that time by the
@@ -1691,7 +1727,8 @@ def trace_span(torch, label: str, span: str, n: int, step_s: float, run) -> None
     name: those launch through ctypes, inside no aten call), and the host's
     operator calls, kernel launches and synchronisations a step (with their
     callers).  The idle share compares the busy time with ``step_s``, the
-    wall time of a step of an untraced run (the profiler slows the host)."""
+    wall time of a step of an untraced run (the profiler slows the host).
+    Returns the busy ms a step, None where the trace did not measure it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1754,6 +1791,7 @@ def trace_span(torch, label: str, span: str, n: int, step_s: float, run) -> None
         print(f"  device a step, kernels of {key}: {us / 1e3 / n:.3f} ms", flush=True)
     for key, count in sorted(sync_callers.items(), key=lambda kv: -kv[1]):
         print(f"  host a step, {key}: {count / n:.1f}", flush=True)
+    return round(busy_ms, 3)
 
 
 def phase_twin(torch, reader):
@@ -1798,6 +1836,292 @@ def phase_twin(torch, reader):
           f"smallest top-2 margin {margin.min().item():.3e}, tokens compared up to steps {first_tie}", flush=True)
     check(err <= TWIN_LOGIT_TOL, f"twin greedy logits on the card agree with the host plain path within {TWIN_LOGIT_TOL}")
     check(agree, "twin greedy tokens agree with the host until the first top-2 margin below the tolerance")
+
+
+def engine_text(rng, n: int) -> str:
+    """n bytes of lower-case ASCII words: n tokens of the byte tokenizer."""
+    return "".join(rng.choice(list("abcdefghijklmnopqrstuvwxyz     "), n))
+
+
+def bucket_of(buckets, n: int) -> int:
+    return min(b for b in buckets if b >= n)
+
+
+def greedy_reference(torch, reader, ids: list, width: int, n_new: int, eos_id, kv_dtype="bf16") -> list:
+    """A B=1 greedy ``generate()`` of ``ids`` left-padded to ``width``, its
+    first ``n_new`` tokens, cut after the first eos."""
+    from vietnamese_qa_system_tpu_torch.models import generate as G
+
+    x = torch.zeros((1, width), dtype=torch.int32)
+    m = torch.zeros((1, width), dtype=torch.int32)
+    x[0, width - len(ids):] = torch.tensor(ids, dtype=torch.int32)
+    m[0, width - len(ids):] = 1
+    out = G.generate(reader, x.cuda(), m.cuda(), max_new_tokens=n_new, eos_id=eos_id, kv_dtype=kv_dtype)
+    out = out[0, width:].tolist()
+    return out[: out.index(eos_id) + 1] if eos_id in out else out
+
+
+def margin_rule(torch, reader, ids: list, got: list, want: list, kv_dtype="bf16") -> tuple[bool, int]:
+    """``got`` equals the reference ``want`` until the first step whose top-2
+    logit margin (the reader teacher-forced on ``want`` through a KV cache
+    of ``kv_dtype``, as a prefill) is below TWIN_LOGIT_TOL; returns (agree,
+    steps compared)."""
+    from vietnamese_qa_system_tpu_torch.models import make_cache
+
+    if got == want:
+        return True, len(want)
+    n = len(ids) + len(want) - 1
+    seq = torch.tensor([ids + want[:-1]], device="cuda")
+    mask = torch.tril(torch.ones((1, n, n), dtype=torch.bool, device="cuda"))
+    with torch.inference_mode():
+        logits = reader(seq, mask, positions=torch.arange(n, device="cuda")[None],
+                        cache=make_cache(reader.cfg, 1, n, "cuda", kv_dtype), cache_index=0)
+        top2 = torch.topk(logits[0, len(ids) - 1:].float(), 2, dim=-1).values
+    ties = torch.nonzero(top2[:, 0] - top2[:, 1] < TWIN_LOGIT_TOL).flatten().tolist()
+    until = ties[0] if ties else len(want)
+    return got[:until] == want[:until], until
+
+
+def engine_burst(url: str, payloads: list, after: dict) -> list:
+    """POST every payload at once, one thread each; payload ``j`` in
+    ``after`` waits for payload ``after[j]``'s answer first.  Returns each
+    answer, or the HTTP error code."""
+    import urllib.error
+
+    answers = [None] * len(payloads)
+    done = [threading.Event() for _ in payloads]
+
+    def ask(j):
+        try:
+            if j in after:
+                done[after[j]].wait(600)
+            answers[j] = post(url + "/generate", payloads[j])
+        except urllib.error.HTTPError as exc:
+            answers[j] = exc.code
+        finally:
+            done[j].set()
+
+    threads = [threading.Thread(target=ask, args=(j,)) for j in range(len(payloads))]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=900)
+    return answers
+
+
+def phase_engine(torch, pkg, reader, ctx):
+    """The continuous-batching engine at PhoGPT-4B width, as ``serve
+    --continuous-slots`` builds it behind HTTP ``/generate``: a burst of
+    concurrent requests (slot reuse, a slot run to the cache end, a prefix
+    hit, a 400), every greedy stream held to a B=1 ``generate()`` by the
+    margin rule; a second burst with sampled co-riders; a traced chunk; an
+    int8 KV engine against ``generate(kv_dtype="int8")`` with the slab kept
+    folded; chunked prefill.  Returns the launches of the first burst."""
+    import numpy as np
+
+    from vietnamese_qa_system_tpu_torch.cli.main import build_parser, continuous_engine
+    from vietnamese_qa_system_tpu_torch.engine import ContinuousEngine, Retriever, ServingApp
+    from vietnamese_qa_system_tpu_torch.models import decode_engine as de
+    from vietnamese_qa_system_tpu_torch.models import layers as L
+
+    t_phase = time.perf_counter()
+    card = gpu_name_and_power()
+    tok = ctx["tok"]
+    cfg = reader.cfg
+    rng = np.random.default_rng(SEED + 10)
+    args = build_parser().parse_args(["serve", "--index", "-", "--db", ":memory:", "--reader-size", "phogpt4b",
+                                      "--reader-quantize", "int8c", "--port", "0", *ENGINE_FLAGS])
+    engine = continuous_engine(args, reader, tok, "cuda")
+    buckets = engine.buckets
+    check(engine.speculative and buckets == [32, 64, 128, 256, 512] and engine.total == 1024,
+          "serve's /generate engine: 8 slots x 1024, buckets 32-512, n-gram speculation on by default")
+    retriever = Retriever(ctx["encoder"], tok, ctx["store"], ctx["docstore"], max_len=128, query_batch=16)
+    app = ServingApp(retriever, gen=engine, tokenizer=tok, k=3, max_batch=16)
+    # each request's token times, by its prompt (the stream callback of submit)
+    marks: dict = {}
+    submit = engine.submit
+
+    def timed_submit(ids, max_new=None, stream=None, **kw):
+        t0, stamps = time.perf_counter(), []
+        fut = submit(ids, max_new, stream=lambda tok_id: stamps.append(time.perf_counter()), **kw)
+        marks[tuple(ids)] = (t0, stamps)
+        return fut
+
+    engine.submit = timed_submit
+    shared = engine_text(rng, ENGINE_SHARED)
+    payloads = [{"prompt": engine_text(rng, int(rng.integers(*ENGINE_PROMPT, endpoint=True))),
+                 "max_new_tokens": int(rng.integers(*ENGINE_NEW, endpoint=True))} for _ in range(ENGINE_DRAWN)]
+    payloads += [{"prompt": shared, "max_new_tokens": 24},
+                 {"prompt": shared + engine_text(rng, 100), "max_new_tokens": 24},
+                 {"prompt": engine_text(rng, ENGINE_LONG), "max_new_tokens": 600},
+                 {"prompt": engine_text(rng, ENGINE_OVER), "max_new_tokens": 16}]
+    after = {ENGINE_DRAWN + 1: ENGINE_DRAWN}  # the extension waits for the prefix's answer
+    long_j, over_j = ENGINE_DRAWN + 2, ENGINE_DRAWN + 3
+    # K6's calls in the burst by (rows, K, N): a tally beside its launch
+    # counter, to split the launches into decode and prefill rows
+    k6_calls: dict = {}
+    real_w8 = L.w8_matmul
+
+    def tallied_w8(x, w_q, *a, **kw):
+        key = (x.shape[0], *w_q.shape)
+        k6_calls[key] = k6_calls.get(key, 0) + 1
+        return real_w8(x, w_q, *a, **kw)
+
+    url, stop = serve(app)
+    try:
+        for kern in pkg.KERNELS:
+            kern.launches = 0
+        L.w8_matmul = tallied_w8
+        try:
+            t0 = time.perf_counter()
+            answers = engine_burst(url, payloads, after)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            L.w8_matmul = real_w8
+        launches = {k.name: k.launches for k in pkg.KERNELS}
+        decode_calls = sum(c for (m, _, _), c in k6_calls.items() if m in (8, 72))
+        rows = sorted({m for m, _, _ in k6_calls})
+        print(f"/generate K6 launches: {launches['w8_matmul']}; decode {decode_calls} (M 8 plain, M 72 speculative), "
+              f"prefill {sum(k6_calls.values()) - decode_calls} (B=1 prompts at buckets <= 256, prefix-extension "
+              f"and chunked-prefill pieces); rows seen {rows}; by (M, K, N): {sorted(k6_calls.items())}", flush=True)
+        check(sum(k6_calls.values()) == launches["w8_matmul"]
+              and all(m in W8_ROWS + W8_CHECK_ROWS and (k, n) in W8_SHAPES for m, k, n in k6_calls),
+              "every K6 launch of the /generate burst is at a (M, K, N) that phase_w8 held against the plain version")
+        with urllib.request.urlopen(f"{url}/healthz", timeout=60) as resp:
+            stats1 = json.loads(resp.read())["stats"]["generate"]
+        valid = [j for j in range(len(payloads)) if j != over_j]
+        check(answers[over_j] == 400 and all(isinstance(answers[j], dict) for j in valid),
+              f"{len(valid)} concurrent /generate answered 200, the {ENGINE_OVER}-token prompt 400")
+        ids = {j: tok.encode(payloads[j]["prompt"]) for j in valid}
+        outs = {j: answers[j]["ids"] for j in valid}
+        check(len(outs[long_j]) == 1 + engine.total - len(ids[long_j]),
+              f"the {ENGINE_LONG}-token prompt ran its slot to the cache end: {len(outs[long_j])} tokens")
+        check(stats1["prefix_hits"] >= 1, f"the shared {ENGINE_SHARED}-token prefix hit the prefix cache "
+                                          f"({stats1['prefix_hits']} hits, {stats1['prefix_tokens_reused']} tokens)")
+        tokens = sum(len(o) for o in outs.values())
+        ttft = [(stamps[0] - t_in) * 1e3 for t_in, stamps in marks.values() if stamps]
+        itl = [(stamps[-1] - stamps[0]) / (len(stamps) - 1) * 1e3 for _, stamps in marks.values() if len(stamps) > 1]
+        print(f"/generate ({card}): {len(valid)} concurrent requests, {tokens} tokens in {wall:.2f} s = "
+              f"{tokens / wall:.1f} tokens/s aggregate; time to first token p50 {percentile(ttft, 0.5):.1f} ms, p99 "
+              f"{percentile(ttft, 0.99):.1f} ms; inter-token latency p50 {percentile(itl, 0.5):.2f} ms (a request's "
+              f"(last - first) / (n - 1)); mean occupancy {stats1['avg_occupancy']} of 8 slots, {stats1['chunks']} "
+              f"chunks ({stats1['spec_chunks']} speculative, {stats1['drafted_accepted']} drafts accepted), "
+              f"{stats1['prefills']} prefills, {stats1['prefix_hits']} prefix hits", flush=True)
+
+        # every greedy stream against a B=1 generate() at its bucket width
+        t_ref = time.perf_counter()
+        refs = {j: greedy_reference(torch, reader, ids[j], bucket_of(buckets, len(ids[j])), len(outs[j]), tok.eos_id)
+                for j in valid}
+        agree = {j: margin_rule(torch, reader, ids[j], outs[j], refs[j]) for j in valid}
+        same = sum(outs[j] == refs[j] for j in valid)
+        print(f"/generate greedy streams against B=1 generate() ({time.perf_counter() - t_ref:.1f} s): {same} of "
+              f"{len(valid)} equal token for token; the rest compared up to the first near-tie: "
+              f"{[(len(refs[j]), agree[j][1]) for j in valid if outs[j] != refs[j]]}", flush=True)
+        check(all(a for a, _ in agree.values()), f"{len(valid)} greedy /generate streams equal B=1 generate() by "
+                                                 f"the margin rule ({TWIN_LOGIT_TOL})")
+
+        # the same prompts again, every third sampled: those chunks run plain
+        marks.clear()
+        second = [dict(payloads[j], **(ENGINE_SAMPLED if i % 3 == 2 else {})) for i, j in enumerate(valid)]
+        answers2 = engine_burst(url, second, {valid.index(k): valid.index(v) for k, v in after.items()})
+        with urllib.request.urlopen(f"{url}/healthz", timeout=60) as resp:
+            stats2 = json.loads(resp.read())["stats"]["generate"]
+        ok = True
+        for i, j in enumerate(valid):
+            got = answers2[i]["ids"] if isinstance(answers2[i], dict) else None
+            if got is None:
+                ok = False
+            elif i % 3 == 2:
+                ok &= 1 <= len(got) <= payloads[j]["max_new_tokens"] and all(0 <= t < cfg.vocab_size for t in got)
+            else:
+                ok &= margin_rule(torch, reader, ids[j], got, refs[j])[0]
+        plain = (stats2["chunks"] - stats2["spec_chunks"]) - (stats1["chunks"] - stats1["spec_chunks"])
+        check(ok and plain > 0, f"with {len(valid) // 3} sampled co-riders ({plain} plain chunks): the greedy streams "
+                                f"still equal generate(), the sampled ones are well-formed")
+    finally:
+        stop()
+    del engine, app
+
+    # one traced chunk of each kind, 8 live slots, on this thread
+    state = de.make_decode_state(cfg, 8, 1024, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    for slot, j in enumerate(valid[:8]):
+        width = bucket_of(buckets, len(ids[j]))
+        x = np.zeros((1, width), np.int32)
+        x[0, : len(ids[j])] = ids[j]
+        m = (np.arange(width) < len(ids[j]))[None].astype(np.int32)
+        kv, first, n = de.prefill(reader, x, m, gen, 0.0, 0, 1.0, sampled=False)
+        de.insert(state, kv, x, m, first, n, slot, 0.0, 0, 1.0)
+    # the speculative chunk once more with K6 refused above 64 rows, so that
+    # its M 72 projections take the dequantize route (a transient bf16
+    # weight, multiplied in f32): the engine's other route at M 72
+    real_supports = L.w8_supports
+    busy = {}
+    for label, run, supports in (
+            ("speculative, 4 steps of 8 x 9 rows", lambda: de.decode_chunk_spec(reader, state), real_supports),
+            ("speculative, M 72 on the dequantize route", lambda: de.decode_chunk_spec(reader, state),
+             lambda m, k, n: m <= 64 and real_supports(m, k, n)),
+            ("plain, 16 steps of 8 rows",
+             lambda: de.decode_chunk(reader, state, gen, sampled=False, n_steps=16), real_supports)):
+        L.w8_supports = supports
+        try:
+            run()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            chunk_s = time.perf_counter() - t0
+            busy[label] = (chunk_s * 1e3, trace_span(
+                torch, f"engine chunk trace ({label}; {card}; untraced {chunk_s * 1e3:.1f} ms a chunk)",
+                "engine.chunk", 1, chunk_s, run))
+        finally:
+            L.w8_supports = real_supports
+    (k6_wall, k6_busy), (dq_wall, dq_busy) = busy["speculative, 4 steps of 8 x 9 rows"], \
+        busy["speculative, M 72 on the dequantize route"]
+    print(f"speculative chunk ({card}): M 72 through K6 device busy {k6_busy or 'not measured'} ms (untraced "
+          f"{k6_wall:.1f}); through the dequantize route {dq_busy or 'not measured'} ms (untraced {dq_wall:.1f})",
+          flush=True)
+    del state
+
+    # int8 KV: the streams of generate(kv_dtype="int8"), the slab never dequantized
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    eng8 = ContinuousEngine(reader, cfg, n_slots=8, total=1024, eos_id=tok.eos_id, kv_dtype="int8", device="cuda")
+    try:
+        slab = sum(t.numel() * t.element_size() for layer in eng8._state["cache"] for t in layer.values())
+        picks = valid[:ENGINE_INT8_REQUESTS]
+        futs = [eng8.submit(ids[j], ENGINE_SIDE_NEW) for j in picks]
+        got8 = [f.result(timeout=600)["ids"] for f in futs]
+        torch.cuda.synchronize()
+        extra = torch.cuda.max_memory_allocated() - base
+    finally:
+        eng8.close()
+    del eng8
+    ok = all(margin_rule(torch, reader, ids[j], g, greedy_reference(torch, reader, ids[j], bucket_of(buckets, len(ids[j])),
+                                                                     len(g), tok.eos_id, "int8"), "int8")[0]
+             for j, g in zip(picks, got8))
+    print(f"int8 KV engine: {len(picks)} requests; cache {slab / 1e9:.3f} GB (bf16: {2 * slab / (1 + 4 / cfg.head_dim) / 1e9:.3f}); "
+          f"peak allocation above the weights {extra / 1e9:.3f} GB ({card})", flush=True)
+    check(ok, f"{len(picks)} int8 KV engine streams equal B=1 generate(kv_dtype='int8') by the margin rule")
+    check(extra < 2 * slab, f"the int8 pass allocated {extra / 1e9:.3f} GB above the weights, under twice its int8 "
+                            f"cache ({2 * slab / 1e9:.3f} GB): the slab was never dequantized whole")
+
+    # chunked prefill of the 500-token prompt in 128-token pieces
+    engc = ContinuousEngine(reader, cfg, n_slots=8, total=1024, eos_id=tok.eos_id,
+                            prefill_chunk=ENGINE_PREFILL_CHUNK, device="cuda")
+    try:
+        got = engc.generate_ids(ids[long_j], ENGINE_SIDE_NEW, timeout=600)
+        pieces = engc.snapshot_stats()["prefill_pieces"]
+    finally:
+        engc.close()
+    agree_c = margin_rule(torch, reader, ids[long_j], got, refs[long_j][:len(got)])[0]
+    check(agree_c and pieces == -(-len(ids[long_j]) // ENGINE_PREFILL_CHUNK),
+          f"prefill_chunk={ENGINE_PREFILL_CHUNK}: the {len(ids[long_j])}-token prompt admitted in {pieces} pieces, "
+          "its stream equal to generate() by the margin rule")
+    print(f"/generate phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
 
 
 def clustered(torch, n: int, gen):
@@ -2363,6 +2687,9 @@ def main() -> int:
     for name in ("matmul_topk_bf16", "w8_matmul"):
         check(reader_launches[name] > 0, f"{name} launched on the QA path")
     phase_twin(torch, reader)
+    engine_launches = phase_engine(torch, pkg, reader, ctx)
+    print("launches in the /generate run: " + json.dumps(engine_launches))
+    check(engine_launches["w8_matmul"] > 0, "w8_matmul launched on the /generate path")
     del reader
     torch.cuda.empty_cache()
     ivf_launches, ivfs = phase_ivf(torch, pkg, ctx, gen)
@@ -2382,7 +2709,8 @@ def main() -> int:
         phase_cli_train(torch, logdir)
         torch.cuda.empty_cache()
         phase_train_twin(torch, logdir)
-    launches = dict(retrieval, w8_matmul=reader_launches["w8_matmul"], ivf_probe_scores=ivf_launches["ivf_probe_scores"],
+    launches = dict(retrieval, w8_matmul=reader_launches["w8_matmul"] + engine_launches["w8_matmul"],
+                    ivf_probe_scores=ivf_launches["ivf_probe_scores"],
                     quantize_int8=ivf_launches["quantize_int8"],
                     **{name: train_launches[name] for name in ("flash_attention_fwd_causal", "flash_attention_bwd_dkdv",
                                                                "flash_attention_bwd_dq")})

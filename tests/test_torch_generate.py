@@ -146,10 +146,12 @@ def test_generate_with_config_refuses_what_is_not_ported():
     _, _, port = _reader("tiny")
     ids, mask = _prompts(6, b=1, t=8)
     args = (port, torch.from_numpy(ids), torch.from_numpy(mask))
-    for gen in (GenerationConfig(num_beams=2), GenerationConfig(speculative="ngram"),
-                GenerationConfig(kv_dtype="int8")):
+    for gen in (GenerationConfig(num_beams=2), GenerationConfig(speculative="ngram")):
         with pytest.raises(NotImplementedError, match="not ported"):
             tg.generate_with_config(*args, gen)
+    # the int8 KV cache is ported: it runs as generate(kv_dtype="int8") (test_torch_kv_quant.py)
+    assert torch.equal(tg.generate_with_config(*args, GenerationConfig(max_new_tokens=3, kv_dtype="int8")),
+                       tg.generate(*args, max_new_tokens=3, kv_dtype="int8"))
     for gen in (GenerationConfig(speculative="medusa"), GenerationConfig(forced_bos_token_id=3),
                 GenerationConfig(num_beams=2, no_repeat_ngram_size=2), GenerationConfig(kv_dtype="fp8")):
         with pytest.raises(ValueError):

@@ -128,9 +128,10 @@ def test_http_qa(both):
         with pytest.raises(urllib.error.HTTPError) as err:
             _post(f"{url}/qa", {"question": " "})
         assert err.value.code == 400
+        # no engine configured (serve without --continuous-slots): 400, as in the JAX package
         with pytest.raises(urllib.error.HTTPError) as err:
             _post(f"{url}/generate", {"prompt": "x"})
-        assert err.value.code == 501
+        assert err.value.code == 400
     finally:
         httpd.shutdown()
         httpd.server_close()
@@ -202,8 +203,11 @@ def test_cli_chat_and_serve_reader(tmp_path, monkeypatch, capsys):
     assert cli(["chat", "--init-params", weights, "--max-len", "64", "--max-new-tokens", "3", "--device", "cpu"]) == 0
     out = capsys.readouterr().out
     assert out.count(f"reader weights loaded from {weights}") == 2 and "RANDOM" not in out and "model> " in out
+    # --continuous-slots builds the engine (behind --port: test_torch_continuous.py); adapters stay refused
+    with pytest.raises(SystemExit, match="needs a reader"):
+        cli(serve + ["--port", "0", "--continuous-slots", "4"])
     for extra, what in ((["--reader-strategy", "tp"], "--reader-strategy"),
-                        (["--continuous-slots", "4"], "--continuous-slots"),
+                        (["--continuous-slots", "4", "--adapter", "vi=a.npz"], "--adapter"),
                         (["--speculative", "ngram"], "--speculative"),
                         (["--reader-draft-size", "tiny"], "--reader-draft-size"),
                         (["--reader-size", "tiny", "--reader-quantize", "nf4"], "nf4")):

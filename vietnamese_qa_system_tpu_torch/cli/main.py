@@ -36,12 +36,17 @@ that do not fit it raise.  Without them the reader answers, and ``train``
 starts, with random weights drawn from ``--seed`` on the device.  ``ingest
 --hybrid`` keeps a BM25 term index (``bm25.json``) beside the store, and
 ``serve`` fuses it with the dense scores when ``--hybrid-weight`` is below
-1.  ``train`` refuses what is not ported yet: seq2seq models, strategies
+1.  ``serve --port --reader-size ... --continuous-slots N`` adds ``POST
+/generate``: raw completions through the continuous-batching engine
+(``--gen-total``, ``--gen-chunk-steps``, ``--prefix-cache-mb``,
+``--gen-speculative``, ``--draft-tokens``, ``--draft-ngram``, ``--kv-quant``,
+``--prefill-chunk``; ``--max-new-tokens`` is the default budget of /qa and
+/generate alike).  ``train`` refuses what is not ported yet: seq2seq models, strategies
 other than dp, meshes, host offload, sharded checkpoints, nf4 bases, the
 once / once_folded dequant placements, generative eval, profiler traces
-and hub pushes.  Sharded indexes, nf4 weights, speculative decoding and
-draft models, sharded readers and the continuous engine behind
-``/generate`` are not ported yet and raise where the JAX CLI would use
+and hub pushes.  Sharded indexes, nf4 weights, speculative decoding of /qa
+and draft models, sharded readers and LoRA adapters on /generate
+(``--adapter``) are not ported yet and raise where the JAX CLI would use
 them; seq2seq readers and beam search have no flag yet.
 """
 
@@ -494,14 +499,30 @@ def _serving_index(args, device, query_batch: int):
     return store
 
 
+def continuous_engine(args, reader, tok, device):
+    """The engine behind ``serve``'s ``/generate``, from its flags
+    (cli/main.py:808-865 of the JAX package)."""
+    from ..engine import ContinuousEngine
+
+    engine = ContinuousEngine(
+        reader, reader.cfg, n_slots=args.continuous_slots, total=min(reader.cfg.max_seq_len, args.gen_total),
+        chunk_steps=args.gen_chunk_steps, eos_id=tok.eos_id, default_max_new=args.max_new_tokens,
+        prefix_cache_mb=args.prefix_cache_mb, speculative=args.gen_speculative, draft_tokens=args.draft_tokens,
+        draft_ngram=args.draft_ngram, kv_dtype=args.kv_quant, prefill_chunk=args.prefill_chunk, device=device,
+    )
+    print(f"/generate: continuous batching, {args.continuous_slots} slots x {engine.total} cache, buckets "
+          f"{engine.buckets}, chunk {args.gen_chunk_steps}", flush=True)
+    return engine
+
+
 def cmd_serve(args) -> int:
     from ..core.device import resolve_device
     from ..engine import BM25Index, DocStore, IngestPipeline, QAPipeline, Retriever, ServingApp, VectorStore, make_server
 
     _refuse(args, {
-        "--reader-strategy": ("reader_strategy", None),
-        "--continuous-slots": ("continuous_slots", 0), "--reader-draft-size": ("reader_draft_size", None),
+        "--reader-strategy": ("reader_strategy", None), "--reader-draft-size": ("reader_draft_size", None),
         "--reader-draft-params": ("reader_draft_params", None), f"--speculative {args.speculative}": ("speculative", "none"),
+        "--adapter": ("adapter", None),
     })
     device = resolve_device(args.device)
     encoder = _encoder(args.encoder, args.seed, device)
@@ -547,13 +568,19 @@ def cmd_serve(args) -> int:
 
     ingest = IngestPipeline(encoder, tok, store, docstore, batch_size=args.max_batch, max_len=args.max_len,
                             lexical=lexical)
-    app = ServingApp(retriever, qa, ingest=ingest, k=args.k, max_k=args.max_k, max_batch=args.max_batch,
-                     max_wait_s=args.batch_wait_ms / 1000.0)
+    gen_engine = None
+    if args.continuous_slots > 0:
+        # raw LM completions: requests join the always-running slot scheduler
+        if qa is None:
+            raise SystemExit("--continuous-slots needs a reader (--reader-size)")
+        gen_engine = continuous_engine(args, reader, tok, device)
+    app = ServingApp(retriever, qa, ingest=ingest, gen=gen_engine, tokenizer=tok if gen_engine is not None else None,
+                     k=args.k, max_k=args.max_k, max_batch=args.max_batch, max_wait_s=args.batch_wait_ms / 1000.0)
     httpd = make_server(app, host=args.host, port=args.port)
     print(
         f"serving {store.size} vectors on http://{httpd.server_address[0]}:{httpd.server_address[1]} "
         f"(max_batch={args.max_batch}, wait={args.batch_wait_ms}ms; endpoints: /healthz /search /ingest"
-        f"{' /qa' if qa else ''})",
+        f"{' /qa' if qa else ''}{' /generate' if gen_engine is not None else ''})",
         flush=True,
     )
 
@@ -691,7 +718,8 @@ def build_parser() -> argparse.ArgumentParser:
                          "decodes through the w8 GEMM kernel (K6); nf4 is not ported yet")
     ps.add_argument("--min-score", type=float, default=0.2,
                     help="retrieval score below which /qa refuses instead of answering")
-    ps.add_argument("--max-new-tokens", type=int, default=128, help="completion budget of each /qa answer")
+    ps.add_argument("--max-new-tokens", type=int, default=128,
+                    help="completion budget of each /qa answer, and the default one of /generate")
     ps.add_argument("--speculative", choices=["none", "ngram", "draft"], default="none",
                     help="speculative decoding for the reader (only none is ported)")
     ps.add_argument("--reader-params", default=None,
@@ -701,7 +729,28 @@ def build_parser() -> argparse.ArgumentParser:
     ps.add_argument("--reader-draft-size", default=None, help="draft model preset (not ported yet)")
     ps.add_argument("--reader-draft-params", default=None, help="draft model checkpoint (not ported yet)")
     ps.add_argument("--continuous-slots", type=int, default=0,
-                    help="POST /generate via continuous batching (not ported yet)")
+                    help="enable POST /generate via continuous batching with this many decode slots (needs "
+                         "--reader-size and --port; 0 = off)")
+    ps.add_argument("--gen-total", type=int, default=1024,
+                    help="per-slot KV cache length for /generate (capped at the reader's max_seq_len)")
+    ps.add_argument("--gen-chunk-steps", type=int, default=16,
+                    help="decode steps per dispatch between host harvests on /generate")
+    ps.add_argument("--prefix-cache-mb", type=float, default=0.0,
+                    help="keep prompt KV on the device and prefill only the suffix of later /generate prompts "
+                         "that share a prefix; 0 = off")
+    ps.add_argument("--gen-speculative", choices=["off", "ngram"], default="ngram",
+                    help="prompt-lookup speculative decoding inside the continuous engine (while every request "
+                         "is greedy; a sampled one sends the batch to plain chunks)")
+    ps.add_argument("--draft-tokens", type=int, default=8, help="drafted tokens per speculative step")
+    ps.add_argument("--draft-ngram", type=int, default=3, help="n-gram length of the prompt-lookup draft")
+    ps.add_argument("--kv-quant", choices=["bf16", "int8"], default="bf16",
+                    help="KV-cache storage for /generate: int8 codes with per-(token, head) scales folded into "
+                         "the attention (streams match generate(kv_dtype='int8'))")
+    ps.add_argument("--prefill-chunk", type=int, default=0,
+                    help="admit long /generate prompts in pieces of this many tokens (a prompt bucket; 0 = "
+                         "whole-prompt prefill): live requests keep decoding between pieces")
+    ps.add_argument("--adapter", action="append", default=None, metavar="NAME=PATH",
+                    help="LoRA adapters on /generate (not ported yet)")
     ps.add_argument("--device", default="cuda")
     ps.set_defaults(fn=cmd_serve)
 

@@ -1,4 +1,5 @@
 from .chunking import chunk_text
+from .continuous import ContinuousEngine
 from .docstore import DocStore
 from .ingest import IngestPipeline
 from .lexical import BM25Index, fuse_scores
@@ -10,6 +11,7 @@ from .store import VectorStore
 
 __all__ = [
     "BM25Index",
+    "ContinuousEngine",
     "DocStore",
     "DualRetriever",
     "IVFIndex",

@@ -16,9 +16,11 @@ Endpoints (JSON over stdlib http.server):
 - ``POST /ingest`` {"texts": [str, ...], "sources": [str, ...]?} ->
   {"ids": [...]} -- online index growth (when built with an
   IngestPipeline).
-
-``/generate`` needs the continuous-batching engine, which is not ported
-yet: it answers 501.
+- ``POST /generate`` {"prompt": str, "max_new_tokens": int?,
+  "temperature": float?, "top_k": int?, "top_p": float?} -> {"text",
+  "ids", "n_new"} -- raw completions through the continuous-batching
+  engine (engine/continuous.py; when built with a ``gen`` engine and a
+  tokenizer, else 400).
 """
 
 from __future__ import annotations
@@ -123,7 +125,8 @@ class MicroBatcher:
 
 class ServingApp:
     """Request routing + batching over a Retriever (and an optional
-    QAPipeline reader and IngestPipeline for online growth)."""
+    QAPipeline reader, IngestPipeline for online growth and
+    ContinuousEngine for /generate, which the app closes with itself)."""
 
     def __init__(
         self,
@@ -131,6 +134,8 @@ class ServingApp:
         qa=None,
         *,
         ingest=None,
+        gen=None,
+        tokenizer=None,
         k: int = 10,
         max_k: Optional[int] = None,
         max_batch: int = 32,
@@ -141,6 +146,10 @@ class ServingApp:
         self.retriever = retriever
         self.qa = qa
         self.ingest = ingest
+        self.gen = gen
+        self.tokenizer = tokenizer
+        if gen is not None and tokenizer is None:
+            raise ValueError("a gen engine needs a tokenizer")
         self.k = k
         # every dispatch runs top-k at this one value and slices per request
         self.max_k = max(k, max_k or k)
@@ -247,10 +256,31 @@ class ServingApp:
         self.dirty = True
         return {"ids": [int(i) for i in ids], "index_size": self.retriever.store.size}
 
+    def generate(self, prompt: str, max_new_tokens=None, *, temperature=None, top_k=None, top_p=None,
+                 adapter=None) -> dict:
+        if self.gen is None:
+            raise LookupError("no generation engine configured (serve --continuous-slots)")
+        if max_new_tokens is not None and (isinstance(max_new_tokens, bool) or not isinstance(max_new_tokens, int)
+                                           or not (1 <= max_new_tokens <= 4096)):
+            raise ValueError(f"'max_new_tokens' must be an int in [1, 4096], got {max_new_tokens!r}")
+        if adapter is not None and not isinstance(adapter, str):
+            raise ValueError(f"'adapter' must be a string, got {adapter!r}")
+        ids = self.tokenizer.encode(prompt)
+        # submit validates before queueing: a prompt over the largest
+        # bucket or bad sampling knobs fail this request alone (400)
+        out = self._timed("generate", self.gen.submit(ids, max_new_tokens, temperature=temperature, top_k=top_k,
+                                                      top_p=top_p, adapter=adapter))["ids"]
+        eos = getattr(self.tokenizer, "eos_id", None)
+        text_ids = [t for t in out if t != eos] if eos is not None else out
+        return {"text": self.tokenizer.decode(text_ids), "ids": [int(t) for t in out], "n_new": len(out)}
+
     def health(self) -> dict:
         stats = {"search": dict(self._search_batcher.stats)}
         if self._qa_batcher is not None:
             stats["qa"] = dict(self._qa_batcher.stats)
+        if self.gen is not None:
+            stats["generate"] = self.gen.snapshot_stats()
+            stats["generate"]["adapters"] = self.gen.adapter_names
         with self._lat_lock:
             snapshot = {k: list(v) for k, v in self._latencies.items()}
         for endpoint, lat in snapshot.items():
@@ -267,6 +297,7 @@ class ServingApp:
             "index_size": self.retriever.store.size,
             "qa": self.qa is not None,
             "ingest": self.ingest is not None,
+            "generate": self.gen is not None,
             "stats": stats,
         }
 
@@ -274,6 +305,8 @@ class ServingApp:
         self._search_batcher.close()
         if self._qa_batcher is not None:
             self._qa_batcher.close()
+        if self.gen is not None:
+            self.gen.close()
 
 
 def make_server(app: ServingApp, host: str = "127.0.0.1", port: int = 0):
@@ -354,8 +387,13 @@ def make_server(app: ServingApp, host: str = "127.0.0.1", port: int = 0):
                         return
                     self._reply(200, app.answer(question))
                 elif self.path == "/generate":
-                    self._reply(501, {"error": "/generate needs the continuous-batching engine, which is not "
-                                               "ported yet"})
+                    prompt = req.get("prompt")
+                    if not isinstance(prompt, str) or not prompt:
+                        self._reply(400, {"error": "missing 'prompt'"})
+                        return
+                    self._reply(200, app.generate(prompt, req.get("max_new_tokens"),
+                                                  temperature=req.get("temperature"), top_k=req.get("top_k"),
+                                                  top_p=req.get("top_p"), adapter=req.get("adapter")))
                 elif self.path == "/ingest":
                     texts = req.get("texts")
                     if not isinstance(texts, list) or not all(

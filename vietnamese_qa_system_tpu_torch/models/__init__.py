@@ -1,3 +1,4 @@
+from . import decode_engine
 from .causal_lm import CausalLM, init_causal_lm, loss_fn, make_cache, unstack_blocks
 from .config import (ModelConfig, bloom_560m_class, gpt_125m_class, gpt_neo_125m, llama_1b_class, minilm_class,
                      mpnet_class, phogpt_4b_class, pythia_410m_class, qwen2_05b_class, tiny_test)
@@ -23,6 +24,7 @@ __all__ = [
     "causal_from_state_dict",
     "clear_lora",
     "count_params",
+    "decode_engine",
     "dequantize_weight",
     "encoder_from_hf",
     "encoder_from_jax",

@@ -64,15 +64,26 @@ def _window_mask(q_slots, k_slots, window: int):
     return (q_slots[..., :, None] - k_slots[None, :]) < window
 
 
-def make_cache(cfg: ModelConfig, b: int, total_len: int, device) -> list[dict]:
-    """One bf16 {"k", "v"} (B, total_len, kv heads, head_dim) buffer per
-    layer (GQA stores only the kv heads)."""
+def make_cache(cfg: ModelConfig, b: int, total_len: int, device, kv_dtype: str = "bf16") -> list[dict]:
+    """One {"k", "v"} (B, total_len, kv heads, head_dim) buffer per layer
+    (GQA stores only the kv heads), as generate.py:267 ``_make_cache``
+    builds it: bf16, or with ``kv_dtype="int8"`` int8 codes plus f32
+    scales "k_s", "v_s" (B, total_len, kv heads, 1) (layers.kv_quantize)."""
+    if kv_dtype not in ("bf16", "int8"):
+        raise ValueError(f"kv_dtype must be bf16|int8, got {kv_dtype!r}")
     shape = (b, total_len, cfg.kv_heads, cfg.head_dim)
-    return [
-        {"k": torch.zeros(shape, dtype=torch.bfloat16, device=device),
-         "v": torch.zeros(shape, dtype=torch.bfloat16, device=device)}
-        for _ in range(cfg.n_layers)
-    ]
+
+    def layer():
+        if kv_dtype == "int8":
+            scales = shape[:-1] + (1,)
+            return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                    "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                    "k_s": torch.zeros(scales, dtype=torch.float32, device=device),
+                    "v_s": torch.zeros(scales, dtype=torch.float32, device=device)}
+        return {"k": torch.zeros(shape, dtype=torch.bfloat16, device=device),
+                "v": torch.zeros(shape, dtype=torch.bfloat16, device=device)}
+
+    return [layer() for _ in range(cfg.n_layers)]
 
 
 def _block(cfg: ModelConfig, device) -> Block:
@@ -106,9 +117,11 @@ class CausalLM(nn.Module):
     def hidden_states(self, ids, attn_mask=None, *, positions=None, cache=None, cache_index=None):
         """ids (B, T) -> final-norm hidden states (B, T, D) f32.
 
-        With ``cache`` (:func:`make_cache`) the mask covers the cache length,
-        (B, T, L) bool, and the new keys and values are written into the
-        cache in place at slot ``cache_index``."""
+        With ``cache`` (:func:`make_cache`) the mask (B, T, L) bool covers
+        the attended cache columns, and the new keys and values are written
+        into the cache in place at slot ``cache_index``: an int, or a (B,)
+        tensor of per-row cursors (causal_lm.py:270-311; the ALiBi bias
+        and the local-window mask are then in cache-slot space per row)."""
         cfg = self.cfg
         b, t = ids.shape
         dev = ids.device
@@ -157,12 +170,14 @@ class CausalLM(nn.Module):
         else:
             # decode: keys live in the cache; ALiBi uses cache-SLOT positions
             # (a per-row padding shift of every key is a softmax row constant)
-            cache_len = cache[0]["k"].shape[1]
+            cache_len = attn_mask.shape[-1]
             bias = alibi_bias(cfg.n_heads, cache_len, cfg.alibi_mode, cfg.alibi_bias_max, dev) if alibi else None
             mask = attn_mask
             local_mask = None
             if has_local:
-                q_slots = cache_index + torch.arange(t, device=dev)
+                steps = torch.arange(t, device=dev)
+                q_slots = (cache_index[:, None] + steps if isinstance(cache_index, torch.Tensor)
+                           else cache_index + steps)
                 local_mask = mask & _window_mask(q_slots, torch.arange(cache_len, device=dev),
                                                  cfg.attention_window)
         remat = cache is None and cfg.scan_layers and cfg.remat_policy != "none"

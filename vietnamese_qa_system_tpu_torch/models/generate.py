@@ -2,16 +2,18 @@
 
 Counterpart of the causal greedy/sampled path of
 ``vietnamese_qa_system_tpu/models/generate.py``: ``GenerationConfig``,
-``generate_with_config``, ``generate`` and its logit processors.  Prompts
-are LEFT-padded to a fixed length, the cache is one fixed (B, prompt +
-max_new, kv heads, Dh) bf16 buffer per layer (written in place), and the
+``generate_with_config``, ``generate`` and its logit processors, and the
+prompt-lookup drafter ``_ngram_draft`` that the continuous engine's
+speculative chunk uses.  Prompts are LEFT-padded to a fixed length, the
+cache is one fixed (B, prompt + max_new, kv heads, Dh) buffer per layer,
+bf16 or (``kv_dtype="int8"``) int8 codes with scales, written in place; the
 decode loop is a plain Python loop of ``max_new_tokens`` steps that runs
 exactly the steps of the JAX ``lax.scan`` (the last step's forward
 included).  Positions are logical (pads excluded) via a cumsum of the mask.
 Sampling draws from an explicit ``torch.Generator`` on the model's device:
 the same distribution as the JAX package, other random numbers.
 
-Beam search, speculative decoding, the int8 KV cache and seq2seq readers
+Beam search, speculative decoding in ``generate`` and seq2seq readers
 are not ported yet and raise.
 """
 
@@ -64,21 +66,20 @@ def generate_with_config(model: CausalLM, ids, attn_mask, gen: GenerationConfig,
     if (gen.forced_bos_token_id is not None or gen.forced_eos_token_id is not None) and cfg.arch != "seq2seq":
         raise ValueError("forced_bos/eos_token_id are seq2seq conventions (mBART language forcing); "
                          "causal prompts carry their own start")
+    if gen.kv_dtype != "bf16" and (cfg.arch == "seq2seq" or gen.num_beams > 1 or gen.speculative != "none"):
+        raise ValueError("kv_dtype='int8' is supported on the causal greedy/sampled path only (num_beams=1, "
+                         "speculative='none'); the continuous engine carries its own int8 speculative path")
     if cfg.arch == "seq2seq":
         raise NotImplementedError("seq2seq generation is not ported yet")
     if gen.speculative != "none":
         raise NotImplementedError(f"speculative decoding (speculative={gen.speculative!r}) is not ported yet")
     if gen.num_beams > 1:
         raise NotImplementedError("beam search (num_beams > 1) is not ported yet")
-    if gen.kv_dtype != "bf16":
-        if gen.kv_dtype != "int8":
-            raise ValueError(f"kv_dtype must be bf16|int8, got {gen.kv_dtype!r}")
-        raise NotImplementedError("the int8 KV cache (kv_dtype='int8') is not ported yet")
     generator = torch.Generator(device=model.device).manual_seed(gen.seed)
     return generate(
         model, ids, attn_mask, max_new_tokens=gen.max_new_tokens, temperature=gen.temperature, top_k=gen.top_k,
         top_p=gen.top_p, repetition_penalty=gen.repetition_penalty, min_new_tokens=gen.min_new_tokens,
-        no_repeat_ngram_size=gen.no_repeat_ngram_size, eos_id=eos_id, generator=generator,
+        no_repeat_ngram_size=gen.no_repeat_ngram_size, eos_id=eos_id, generator=generator, kv_dtype=gen.kv_dtype,
     )
 
 
@@ -122,6 +123,31 @@ def _sample_logits(logits, generator, *, temperature, top_k, top_p):
     return torch.argmax(logits - torch.log(-torch.log(u)), dim=-1).to(torch.int32)
 
 
+def _ngram_draft(seq_buf, cur_end, pad_start, gamma: int, ngram: int):
+    """Prompt-lookup drafting (generate.py:475): the ``gamma`` tokens that
+    followed the most recent earlier occurrence of the stream's last
+    ``ngram`` tokens, read as a continuation of period ``dist`` (so a
+    match near the end wraps instead of running past the decided stream);
+    with no match, the last token repeated.
+
+    seq_buf (B, L) int; cur_end (B,) exclusive end of the decided stream;
+    pad_start (B,) first real token.  Returns (B, gamma) drafts (garbage
+    without a match: the verifier rejects them)."""
+    b, length = seq_buf.shape
+    dev = seq_buf.device
+    rows = torch.arange(b, device=dev)[:, None]
+    tail_idx = (cur_end[:, None] - ngram + torch.arange(ngram, device=dev)[None, :]).clamp(0, length - 1)
+    tail = seq_buf[rows, tail_idx]
+    win = torch.stack([seq_buf[:, q: length - ngram + 1 + q] for q in range(ngram)], dim=-1)
+    p_idx = torch.arange(length - ngram + 1, device=dev)[None, :]
+    ok = ((win == tail[:, None, :]).all(dim=-1) & (p_idx >= pad_start[:, None])
+          & (p_idx + ngram < cur_end[:, None]))
+    best = torch.where(ok, p_idx, -1).amax(dim=1)
+    dist = torch.where(best >= 0, cur_end - ngram - best, torch.ones_like(cur_end))
+    d_idx = ((cur_end - dist)[:, None] + torch.arange(gamma, device=dev)[None, :] % dist[:, None]).clamp(0, length - 1)
+    return seq_buf[rows, d_idx]
+
+
 def _ngram_ban(seq_buf, cur_end: int, pad_start, n: int, vocab: int):
     """(B, V) mask of tokens that would complete an n-gram already present
     in the left-padded sequence ``seq_buf[:, :cur_end]`` (HF semantics);
@@ -143,14 +169,16 @@ def _ngram_ban(seq_buf, cur_end: int, pad_start, n: int, vocab: int):
 def generate(model: CausalLM, ids, attn_mask, *, max_new_tokens: int = 32, temperature: float = 0.0,
              top_k: int = 0, top_p: float = 1.0, repetition_penalty: float = 1.0, min_new_tokens: int = 0,
              no_repeat_ngram_size: int = 0, eos_id: int | None = None, generator: torch.Generator | None = None,
-             timings: dict | None = None):
+             timings: dict | None = None, kv_dtype: str = "bf16"):
     """Greedy (temperature 0) or sampled decode of LEFT-padded prompts.
 
     ids / attn_mask (B, T) on the model's device.  Returns (B, T + max_new)
     int32 ids; finished rows are padded with eos after their first eos.
     ``repetition_penalty`` / ``min_new_tokens`` / ``no_repeat_ngram_size``
-    follow HF semantics.  ``timings`` (a dict) receives ``prefill_s`` and
-    ``decode_s``, each ended by a device synchronisation."""
+    follow HF semantics.  ``kv_dtype="int8"`` quantizes the KV cache
+    (layers.kv_quantize); the continuous engine's int8 streams are held
+    to it.  ``timings`` (a dict) receives ``prefill_s`` and ``decode_s``,
+    each ended by a device synchronisation."""
     cfg = model.cfg
     dev = model.device
     ids = torch.as_tensor(ids, device=dev).to(torch.int32)
@@ -167,7 +195,7 @@ def generate(model: CausalLM, ids, attn_mask, *, max_new_tokens: int = 32, tempe
     t0 = time.perf_counter()
     positions = (torch.cumsum(attn_mask, dim=1) - 1).clamp_min(0).long()
     n_prompt = attn_mask.sum(dim=1)
-    cache = make_cache(cfg, b, total, dev)
+    cache = make_cache(cfg, b, total, dev, kv_dtype)
     # prefill: causal over the prompt, keys limited to the prompt's slots
     j = torch.arange(total, device=dev)[None, None, :]
     key_valid = torch.cat([attn_mask.bool(), torch.zeros((b, max_new_tokens), dtype=torch.bool, device=dev)], dim=1)
@@ -207,7 +235,7 @@ def generate(model: CausalLM, ids, attn_mask, *, max_new_tokens: int = 32, tempe
                 logits = torch.where(vocab_ids == eos_id, NEG_INF, logits)
             tok = _sample_logits(logits, generator, temperature=temperature, top_k=top_k, top_p=top_p)
             if eos_id is not None:
-                tok = torch.where(done, torch.tensor(eos_id, dtype=torch.int32, device=dev), tok)
+                tok = torch.where(done, torch.full((), eos_id, dtype=torch.int32, device=dev), tok)
                 done = done | (tok == eos_id)
             if needs_seen:
                 seen[torch.arange(b, device=dev), tok.long()] = True

@@ -4,10 +4,12 @@
 Counterpart of ``vietnamese_qa_system_tpu/models/layers.py``: ``Dense``
 (float, or int8 / int8c leaves, with LoRA factors attached by
 models/lora.py), ``LayerNorm`` (RMSNorm when it has no bias), RoPE (partial
-rotary), ALiBi slopes and the key-only bias, ``Attention`` (bf16 KV cache
-at a scalar ``cache_index``, GQA, ``clip_qkv``, the masked-softmax path,
-and the flash path: the encoder's bidirectional form and the causal LM's
-causal / sliding-window forms, differentiable through kernels K4 and K7),
+rotary), ALiBi slopes and the key-only bias, ``kv_quantize`` /
+``kv_dequantize`` (the int8 KV cache), ``Attention`` (a bf16 or int8 KV
+cache written at a scalar ``cache_index`` or at per-row cursors, GQA,
+``clip_qkv``, the masked-softmax path, and the flash path: the encoder's
+bidirectional form and the causal LM's causal / sliding-window forms,
+differentiable through kernels K4 and K7),
 ``MLP`` (plain or gated), ``Block`` (pre-LN, post-LN, parallel residual),
 ``remat_wrap`` (the remat policies, through ``torch.utils.checkpoint``),
 ``causal_mask`` and ``padding_mask``.
@@ -36,6 +38,7 @@ from torch import nn
 from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from ..ops.attention import flash_attention
+from ..ops.quant import div127
 from ..ops.w8_matmul import supports as w8_supports
 from ..ops.w8_matmul import w8_matmul
 
@@ -239,20 +242,22 @@ def alibi_slopes(n_heads: int, mode: str = "bloom", bias_max: float = 8.0, devic
     """Per-head ALiBi slopes (f32).  ``"bloom"``: HF ``build_alibi_tensor``
     (closest lower power of two, extended by odd terms); ``"mpt"``: HF
     ``build_mpt_alibi_tensor`` (next higher power of two, odd-index terms
-    ahead of the even ones, truncated)."""
+    ahead of the even ones, truncated).  Computed on the host and copied
+    without waiting for the device: a decode step builds them every call."""
     if mode == "mpt":
         n2 = 2 ** math.ceil(math.log2(n_heads))
         slopes = [2.0 ** (-bias_max * i / n2) for i in range(1, n2 + 1)]
         if n2 != n_heads:
             slopes = (slopes[1::2] + slopes[0::2])[:n_heads]
-        return torch.tensor(slopes, dtype=torch.float32, device=device)
-    closest = 2 ** math.floor(math.log2(n_heads))
-    base = 2.0 ** (-(2.0 ** -(math.log2(closest) - 3)))
-    slopes = [base ** i for i in range(1, closest + 1)]
-    if closest != n_heads:
-        extra_base = 2.0 ** (-(2.0 ** -(math.log2(2 * closest) - 3)))
-        slopes += [extra_base ** i for i in range(1, 2 * (n_heads - closest) + 1, 2)]
-    return torch.tensor(slopes, dtype=torch.float32, device=device)
+    else:
+        closest = 2 ** math.floor(math.log2(n_heads))
+        base = 2.0 ** (-(2.0 ** -(math.log2(closest) - 3)))
+        slopes = [base ** i for i in range(1, closest + 1)]
+        if closest != n_heads:
+            extra_base = 2.0 ** (-(2.0 ** -(math.log2(2 * closest) - 3)))
+            slopes += [extra_base ** i for i in range(1, 2 * (n_heads - closest) + 1, 2)]
+    host = torch.tensor(slopes, dtype=torch.float32)
+    return host if device is None else host.to(device, non_blocking=True)
 
 
 def alibi_bias(n_heads: int, n_keys: int, mode: str = "bloom", bias_max: float = 8.0, device=None):
@@ -261,6 +266,30 @@ def alibi_bias(n_heads: int, n_keys: int, mode: str = "bloom", bias_max: float =
     slopes = alibi_slopes(n_heads, mode, bias_max, device)
     k = torch.arange(n_keys, dtype=torch.float32, device=device)
     return slopes[None, :, None, None] * k[None, None, None, :]
+
+
+# ---------------------------------------------------------- KV quantization
+
+# absmax scales below this are clamped (all-zero K/V rows: pad columns, a
+# fresh cache), so no code divides by zero (layers.py:316)
+KV_SCALE_EPS = 1e-8
+
+
+def kv_quantize(x):
+    """Per-(token, head) symmetric int8 quantization of a K/V slab
+    (layers.py:319): ``x`` (..., T, H, D) -> (codes int8, scales f32
+    (..., T, H, 1)) with ``codes * scales ~ x``.  ``absmax / 127`` is a
+    true division on every device (``div127``) and the codes round half to
+    even, as the JAX function does; the scales keep a trailing singleton,
+    so every cache leaf has its token axis at -3."""
+    x = x.float()
+    s = div127(x.abs().amax(dim=-1, keepdim=True)).clamp_min(KV_SCALE_EPS)
+    return torch.round(x / s).to(torch.int8), s
+
+
+def kv_dequantize(codes, scales, dtype=torch.float32):
+    """Inverse of :func:`kv_quantize` (exact given the stored scales)."""
+    return (codes.float() * scales).to(dtype)
 
 
 # ---------------------------------------------------------------- attention
@@ -287,9 +316,20 @@ class Attention(nn.Module):
         """``mask`` (B|1, Tq, Tk) bool, True = attend; ``bias`` (1, H, Tq|1,
         Tk) added after the scaling; ``flash`` = {"kv_lens", "causal",
         "window"} takes the fused kernels (no cache; the bias reaches them
-        as (H, Tq|1, Tk)).  ``cache`` {"k", "v"} (B, L, kv heads,
-        Dh) bf16 is written IN PLACE at slot ``cache_index`` and attention
-        then runs over all of it."""
+        as (H, Tq|1, Tk)).
+
+        ``cache`` {"k", "v"} (B, L, kv heads, Dh) bf16, or int8 codes with
+        f32 scales "k_s", "v_s" (B, L, kv heads, 1) (:func:`kv_quantize`),
+        is written IN PLACE: at slots ``cache_index + arange(t)`` for a
+        scalar ``cache_index``, or at ``cache_index[b] + arange(t)`` for a
+        (B,) tensor of per-row cursors (layers.py:455-467).  Attention then
+        runs over the first ``mask.shape[-1]`` cache columns.  Per-row
+        slots past the buffer's end clamp to its last column, so a buffer
+        one column wider than the mask (the decode state's guard column)
+        takes the writes that JAX drops as out of bounds, and no query
+        ever attends them.  An int8 cache is never dequantized: the
+        products run on its codes and the scales fold into the logits and
+        the probabilities (layers.py:486-494, :537-547)."""
         b, t, _ = x.shape
         kv_h = n_kv_heads or n_heads
 
@@ -304,15 +344,35 @@ class Attention(nn.Module):
             cos, sin = rope
             q = apply_rope(q, cos, sin, positions)
             k = apply_rope(k, cos, sin, positions)
+        k_fold = v_fold = None
         if cache is not None:
-            cache["k"][:, cache_index: cache_index + t] = k.to(cache["k"].dtype)
-            cache["v"][:, cache_index: cache_index + t] = v.to(cache["v"].dtype)
-            k, v = cache["k"], cache["v"]
+            quant = "k_s" in cache
+            if quant:
+                (k_w, k_s), (v_w, v_s) = kv_quantize(k), kv_quantize(v)
+                new = {"k": k_w, "v": v_w, "k_s": k_s, "v_s": v_s}
+            else:
+                new = {"k": k, "v": v}
+            if isinstance(cache_index, torch.Tensor):
+                width = cache["k"].shape[1]
+                rows = torch.arange(b, device=x.device)[:, None]
+                slots = (cache_index[:, None] + torch.arange(t, device=x.device)).clamp_max(width - 1)
+                for name, val in new.items():
+                    cache[name][rows, slots] = val.to(cache[name].dtype)
+            else:
+                for name, val in new.items():
+                    cache[name][:, cache_index: cache_index + t] = val.to(cache[name].dtype)
+            n_keys = cache["k"].shape[1] if mask is None else mask.shape[-1]
+            k, v = cache["k"][:, :n_keys], cache["v"][:, :n_keys]
+            if quant:
+                k_fold, v_fold = cache["k_s"][:, :n_keys], cache["v_s"][:, :n_keys]
         if kv_h != n_heads:
             # repeat after the cache write: query head h reads kv head h // rep
             rep = n_heads // kv_h
             k = k.repeat_interleave(rep, dim=2)
             v = v.repeat_interleave(rep, dim=2)
+            if k_fold is not None:
+                k_fold = k_fold.repeat_interleave(rep, dim=2)
+                v_fold = v_fold.repeat_interleave(rep, dim=2)
         if flash is not None and cache is None:
             out = flash_attention(
                 q, k, v, kv_lens=flash.get("kv_lens"), causal=flash.get("causal", True),
@@ -322,11 +382,15 @@ class Attention(nn.Module):
         if scale is None:
             scale = 1.0 / float(q.shape[-1]) ** 0.5
         logits = torch.einsum("bqhd,bkhd->bhqk", _bf16(q), _bf16(k)) * scale
+        if k_fold is not None:
+            logits = logits * k_fold[..., 0].transpose(1, 2)[:, :, None, :]
         if bias is not None:
             logits = logits + bias
         if mask is not None:
             logits = torch.where(mask[:, None, :, :], logits, NEG_INF)
         probs = torch.softmax(logits, dim=-1)
+        if v_fold is not None:
+            probs = probs * v_fold[..., 0].transpose(1, 2)[:, :, None, :]
         out = torch.einsum("bhqk,bkhd->bqhd", _bf16(probs), _bf16(v))
         return self.wo(out.reshape(b, t, -1))
 

@@ -23,8 +23,11 @@ def div127(x: torch.Tensor) -> torch.Tensor:
     """``x / 127`` as a true division on every device.  PyTorch's CUDA
     division by a Python scalar multiplies by its reciprocal, which is one
     ulp off the JAX package's scales for some values; a 0-d tensor on the
-    same device takes the plain division kernel."""
-    return x / torch.tensor(127.0, dtype=x.dtype, device=x.device)
+    same device takes the plain division kernel.  ``torch.full`` makes it
+    on the device (``torch.tensor`` would copy it from the host and wait
+    for the device: a synchronisation in every decode step of an int8 KV
+    cache)."""
+    return x / torch.full((), 127.0, dtype=x.dtype, device=x.device)
 
 
 def quantize_int8_reference(x: torch.Tensor):
