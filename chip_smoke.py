@@ -151,8 +151,12 @@ W8_SHAPES = ((3072, 3072), (3072, 12288), (12288, 3072))
 W8_PER_LAYER = {(3072, 3072): 4, (3072, 12288): 1, (12288, 3072): 1}
 W8_REL_TOL = 1e-4  # max abs err / max |plain|: the same exact products summed in another order
 # the engine's B=1 prefills at buckets 32-256 (and its prefix-extension and
-# chunked-prefill pieces) take K6 at these rows: checked at every shape
+# chunked-prefill pieces) take K6 at these rows: checked and timed at every shape
 W8_CHECK_ROWS = (32, 64, 128, 256)
+W8_LAYER_ROWS = (8, 72, 128, 256)  # a layer's six calls summed: /qa decode, the speculative chunk, prefills
+# K6 off the main shapes: a unit's second weight box past N (N % 256 == 128
+# at <= 72 rows), a lone row, rows off every bucket, one unit of K
+W8_EDGES = ((1, 128, 384), (37, 384, 640), (72, 128, 128), (100, 256, 384), (200, 384, 1152), (256, 128, 128))
 K1_SCORE_TOL = 2e-3  # wgmma sums the exact bf16 products in another order than the f32 product
 TOPK_BATCHES = (1, 8, 32, 200, 256, 512)  # 1-, 2- and 4-CTA clusters, and two groups of 256
 # K1's list form at 10 and at hybrid's 40 dense candidates, and its pool
@@ -340,7 +344,7 @@ def rank_recall(q, corpus, ids, k: int) -> float:
 def ptxas_report(file: str, function: str) -> str:
     """The -Xptxas -v lines of one kernel function of a source's build log:
     its stack frame, spill stores and loads, registers and barriers, and
-    whether ptxas serialized its wgmma (info C7515)."""
+    whether ptxas serialized its wgmma (info C7515 or C7518)."""
     from vietnamese_qa_system_tpu_torch.ops import cuda_kernels
 
     with open(cuda_kernels._lib_path(file)[:-3] + ".log") as f:
@@ -353,8 +357,9 @@ def ptxas_report(file: str, function: str) -> str:
                     break
                 if "bytes stack frame" in x or "Used" in x:
                     rest.append(x.split("ptxas info    :")[-1].strip())
-            if any("C7515" in x and function in x for x in lines):
-                rest.append("wgmma serialized (C7515)")
+            for code in ("C7515", "C7518"):
+                if any(code in x and function in x for x in lines):
+                    rest.append(f"wgmma serialized ({code})")
             return " / ".join(rest)
     raise RuntimeError(f"{file}: no ptxas report of {function}")
 
@@ -903,12 +908,13 @@ def issued_flops(A, bh_lens, tq: int, tk: int, d: int, causal: bool, window, bq:
 
 def phase_w8(torch, report):
     """K6 against its plain version at the PhoGPT-4B shapes, at the decode
-    rows (W8_ROWS) and at the engine's prefill rows (W8_CHECK_ROWS).  The
-    decode rows are timed over enough weight copies to stream them from HBM
-    as a decode step does (one layer's weights never stay in L2 across a
-    32-layer step).  Device times come from CUDA graph replays;
-    the host-paced time of the same calls (events around plain launches)
-    is printed beside them, and a profiler pass counts one call's kernels."""
+    rows (W8_ROWS) and at the engine's prefill rows (W8_CHECK_ROWS), and at
+    the edge shapes W8_EDGES.  Every row is timed over enough weight copies
+    to stream them from HBM as a forward does (one layer's weights never
+    stay in L2 across 32 layers).  Device times come from CUDA graph
+    replays; the host-paced time of the same calls (events around plain
+    launches) is printed beside them, and a profiler pass counts one
+    call's kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -916,16 +922,33 @@ def phase_w8(torch, report):
     from vietnamese_qa_system_tpu_torch.ops import w8_matmul as W
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
-    info = W.kernel_info()
-    print(f"K6 w8_matmul: {info['registers']} registers, {info['shared_bytes']} B shared, {info['blocks_per_sm']} "
-          f"blocks an SM, {info['local_bytes']} B local; grid = {W.resident_slots(0)} resident slots", flush=True)
-    rep = ptxas_report("w8_matmul.cu", "w8_gemm_kernel")
-    print(f"K6 w8_matmul, ptxas: {rep}", flush=True)
-    check("0 bytes spill stores, 0 bytes spill loads" in rep and info["blocks_per_sm"] >= 1,
-          "K6: ptxas reports no spills, the kernel fits an SM")
-    layer = dict.fromkeys(("ms", "plain_ms", "library_ms", "bound_ms"), 0.0)
-    spec_layer = dict.fromkeys(layer, 0.0)
+    instances = {}
+    for mp in W.ROW_BUCKETS:
+        info = W.kernel_info(mp)
+        rep = ptxas_report("w8_matmul.cu", f"w8_gemm_kernelILi{mp}E")
+        print(f"K6 w8_matmul, {mp} rows: {info['threads']} threads, {info['cols']} columns a unit, {info['stages']} "
+              f"stages, {info['registers']} registers, {info['shared_bytes']} B shared, {info['blocks_per_sm']} blocks "
+              f"an SM, {info['local_bytes']} B local; ptxas: {rep}", flush=True)
+        check("0 bytes spill stores, 0 bytes spill loads" in rep and "serialized" not in rep and info["local_bytes"] == 0
+              and info["blocks_per_sm"] >= 1,
+              f"K6, {mp} rows: ptxas reports no spills and no serialized wgmma, the kernel fits an SM")
+        instances[mp] = info
+    layers = {m: dict.fromkeys(("ms", "plain_ms", "library_ms", "bound_ms"), 0.0) for m in W8_LAYER_ROWS}
     worst = 0.0
+
+    def held(m, k, n, x, w_q, w_s):
+        y = W.w8_matmul(x, w_q, w_s, out_dtype=torch.float32)
+        again = W.w8_matmul(x, w_q, w_s, out_dtype=torch.float32)
+        ref = W.w8_matmul_reference(x, w_q, w_s, torch.float32)
+        torch.cuda.synchronize()
+        err = (y - ref).abs().max().item()
+        rel = err / ref.abs().max().item()
+        plan = W.partition(m, k, n, W.resident_slots(0, W.padded_rows(m)))
+        check(rel <= W8_REL_TOL and torch.equal(y, again),
+              f"K6 w8_matmul M={m} K={k} N={n} ({plan.rows}-row instance, {plan.grid} blocks, {plan.units} units of "
+              f"{plan.cols} columns): max abs err {err:.3e} ({rel:.2e} of max |y|) <= {W8_REL_TOL}, repeats bit for bit")
+        return err
+
     for k, n in W8_SHAPES:
         leaf = quantize_weight(torch.randn(k, n, generator=gen, device="cuda") * 0.02, "int8c")
         copies = max(2, -(-3 * L2_BYTES // (k * n)))
@@ -934,19 +957,7 @@ def phase_w8(torch, report):
         ws = leaf["w_s"]
         for m in W8_ROWS + W8_CHECK_ROWS:
             x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
-            y = W.w8_matmul(x, wqs[0], ws, out_dtype=torch.float32)
-            again = W.w8_matmul(x, wqs[0], ws, out_dtype=torch.float32)
-            ref = W.w8_matmul_reference(x, wqs[0], ws, torch.float32)
-            torch.cuda.synchronize()
-            err = (y - ref).abs().max().item()
-            rel = err / ref.abs().max().item()
-            plan = W.partition(m, k, n, W.resident_slots(0))
-            check(rel <= W8_REL_TOL and torch.equal(y, again),
-                  f"K6 w8_matmul M={m} K={k} N={n} ({plan.grid} blocks, {plan.units} units): max abs err {err:.3e} "
-                  f"({rel:.2e} of max |y|) <= {W8_REL_TOL}, repeats bit for bit")
-            worst = max(worst, err)
-            if m not in W8_ROWS:
-                continue
+            worst = max(worst, held(m, k, n, x, wqs[0], ws))
 
             def kernel(it=itertools.cycle(wqs)):
                 return W.w8_matmul(x, next(it), ws, out_dtype=torch.float32)
@@ -957,38 +968,42 @@ def phase_w8(torch, report):
                 "library_ms": graph_ms(lambda it=itertools.cycle(w_bf16): torch.matmul(x, next(it)), 24),
                 **bound(m * k * 2 + k * n + n * 4 + m * n * 4, 2 * m * k * n, BF16_OPS_S),
             }
-            print(f"K6 M={m:2d} K={k:5d} N={n:5d}: kernel {rows['ms'] * 1e3:7.2f} us ({k * n / rows['ms'] / 1e9:.2f} TB/s "
-                  f"of weights, {rows['bound_ms'] / rows['ms']:.2f} of the HBM rate's bound; host-paced "
-                  f"{cuda_ms(kernel, 60) * 1e3:6.2f}), plain {rows['plain_ms'] * 1e3:7.2f} us, library (bf16 weight, "
+            print(f"K6 M={m:3d} K={k:5d} N={n:5d}: kernel {rows['ms'] * 1e3:7.2f} us ({k * n / rows['ms'] / 1e9:.2f} TB/s "
+                  f"of weights, {rows['bound_ms'] / rows['ms']:.2f} of the bound; host-paced "
+                  f"{cuda_ms(kernel, 60) * 1e3:6.2f}), plain {rows['plain_ms'] * 1e3:8.2f} us, library (bf16 weight, "
                   f"twice the bytes) {rows['library_ms'] * 1e3:7.2f} us, bound {rows['bound_ms'] * 1e3:6.2f} us "
                   f"({rows['bound_by']})", flush=True)
-            for rows_m, acc in ((8, layer), (72, spec_layer)):
-                if m == rows_m:
-                    for key in acc:
-                        acc[key] += W8_PER_LAYER[(k, n)] * rows[key]
+            if m in layers:
+                for key in layers[m]:
+                    layers[m][key] += W8_PER_LAYER[(k, n)] * rows[key]
         del wqs, w_bf16
+    for m, k, n in W8_EDGES:
+        leaf = quantize_weight(torch.randn(k, n, generator=gen, device="cuda") * 0.02, "int8c")
+        x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
+        worst = max(worst, held(m, k, n, x, leaf["w_q"], leaf["w_s"]))
     # one call is one kernel launch (the split-K sum happens inside it)
-    x = torch.randn(8, 3072, generator=gen, device="cuda").to(torch.bfloat16)
     leaf = quantize_weight(torch.randn(3072, 3072, generator=gen, device="cuda") * 0.02, "int8c")
-    W.w8_matmul(x, leaf["w_q"], leaf["w_s"], out_dtype=torch.float32)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    for m in (8, 72):
+        x = torch.randn(m, 3072, generator=gen, device="cuda").to(torch.bfloat16)
         W.w8_matmul(x, leaf["w_q"], leaf["w_s"], out_dtype=torch.float32)
         torch.cuda.synchronize()
-    launched = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
-    check(len(launched) == 1 and "w8_gemm_kernel" in launched[0],
-          f"K6: one call at M=8 K=3072 N=3072 is one kernel launch (profiler: {launched})")
-    print(f"K6, one PhoGPT-4B layer's six calls: M=8 kernel {layer['ms'] * 1e3:.2f} us (bound "
-          f"{layer['bound_ms'] * 1e3:.2f}); M=72 (the engine's speculative chunk) kernel {spec_layer['ms'] * 1e3:.2f} "
-          f"us, plain {spec_layer['plain_ms'] * 1e3:.2f}, library {spec_layer['library_ms'] * 1e3:.2f}, bound "
-          f"{spec_layer['bound_ms'] * 1e3:.2f}", flush=True)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            W.w8_matmul(x, leaf["w_q"], leaf["w_s"], out_dtype=torch.float32)
+            torch.cuda.synchronize()
+        launched = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+        check(len(launched) == 1 and "w8_gemm_kernel" in launched[0],
+              f"K6: one call at M={m} K=3072 N=3072 is one kernel launch (profiler: {launched})")
+    for m, acc in layers.items():
+        print(f"K6, one PhoGPT-4B layer's six calls at M={m}: kernel {acc['ms'] * 1e3:.2f} us, plain "
+              f"{acc['plain_ms'] * 1e3:.2f}, library {acc['library_ms'] * 1e3:.2f}, bound {acc['bound_ms'] * 1e3:.2f}",
+              flush=True)
     report["w8_matmul"] = {
-        "max_abs_err": worst, **layer, "bound_by": "bytes",
-        "m72_layer": spec_layer,
+        "max_abs_err": worst, **layers[8], "bound_by": "bytes",
+        "m72_layer": layers[72], "m128_layer": layers[128], "m256_layer": layers[256],
         "library_call": "composite: torch.matmul of bf16 x with a pre-dequantized bf16 weight (twice the bytes)",
         "shape": "one PhoGPT-4B layer's six calls at M=8: 4x (3072,3072) + (3072,12288) + (12288,3072)",
         "timing": "device time, CUDA graph replay of 24 calls over weight copies larger than L2",
-        **info,
+        **instances[8], "instances": {str(mp): info for mp, info in instances.items()},
     }
 
 
@@ -1719,7 +1734,7 @@ def trace_decode(torch, reader, ids, mask, eos_id, step_s):
                lambda: G.generate(reader, ids, mask, max_new_tokens=TRACE_STEPS, eos_id=eos_id, timings={}))
 
 
-def trace_span(torch, label: str, span: str, n: int, step_s: float, run) -> float | None:
+def trace_span(torch, label: str, span: str, n: int, step_s: float, run) -> dict | None:
     """Where a step's time goes: a torch.profiler trace of ``run``, whose
     ``span`` (a record_function region) holds ``n`` steps, gives the
     device's busy time a step (the union of its kernels), that time by the
@@ -1728,7 +1743,9 @@ def trace_span(torch, label: str, span: str, n: int, step_s: float, run) -> floa
     operator calls, kernel launches and synchronisations a step (with their
     callers).  The idle share compares the busy time with ``step_s``, the
     wall time of a step of an untraced run (the profiler slows the host).
-    Returns the busy ms a step, None where the trace did not measure it."""
+    Returns the busy ms a step, the host's synchronisations in the span and
+    the device ms a step by caller, None where the trace did not measure
+    them."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1791,7 +1808,8 @@ def trace_span(torch, label: str, span: str, n: int, step_s: float, run) -> floa
         print(f"  device a step, kernels of {key}: {us / 1e3 / n:.3f} ms", flush=True)
     for key, count in sorted(sync_callers.items(), key=lambda kv: -kv[1]):
         print(f"  host a step, {key}: {count / n:.1f}", flush=True)
-    return round(busy_ms, 3)
+    return {"busy_ms": round(busy_ms, 3), "syncs": syncs,
+            "ms_by_caller": {key: us / 1e3 / n for key, us in by_caller.items()}}
 
 
 def phase_twin(torch, reader):
@@ -2077,11 +2095,17 @@ def phase_engine(torch, pkg, reader, ctx):
                 "engine.chunk", 1, chunk_s, run))
         finally:
             L.w8_supports = real_supports
-    (k6_wall, k6_busy), (dq_wall, dq_busy) = busy["speculative, 4 steps of 8 x 9 rows"], \
+    (k6_wall, k6_trace), (dq_wall, dq_trace) = busy["speculative, 4 steps of 8 x 9 rows"], \
         busy["speculative, M 72 on the dequantize route"]
-    print(f"speculative chunk ({card}): M 72 through K6 device busy {k6_busy or 'not measured'} ms (untraced "
-          f"{k6_wall:.1f}); through the dequantize route {dq_busy or 'not measured'} ms (untraced {dq_wall:.1f})",
-          flush=True)
+    plain_trace = busy["plain, 16 steps of 8 rows"][1]
+    check(k6_trace is not None and plain_trace is not None and k6_trace["syncs"] == 0 and plain_trace["syncs"] == 0,
+          "no host synchronisation inside a traced speculative or plain chunk (profiler: "
+          f"{None if k6_trace is None else k6_trace['syncs']} / {None if plain_trace is None else plain_trace['syncs']})")
+    k6_ms = sum(ms for key, ms in k6_trace["ms_by_caller"].items() if "w8_gemm_kernel" in key)
+    print(f"speculative chunk ({card}): M 72 through K6 device busy {k6_trace['busy_ms']} ms, of which K6 "
+          f"{k6_ms:.1f} ms ({k6_ms / k6_trace['busy_ms']:.1%}; the stream-K kernel of 16-row tiles it replaced: "
+          f"134.6 ms busy, K6 35.2, PERF.md) (untraced {k6_wall:.1f}); through the dequantize route "
+          f"{dq_trace['busy_ms'] if dq_trace else 'not measured'} ms (untraced {dq_wall:.1f})", flush=True)
     del state
 
     # int8 KV: the streams of generate(kv_dtype="int8"), the slab never dequantized

@@ -1,14 +1,15 @@
-"""The port's w8 GEMM (kernel K6's plain version), its route gate and the
-int8 / int8c weight quantization against the JAX package.
+"""The port's w8 GEMM (kernel K6's plain version and the pure-Python rules
+its CUDA kernel mirrors), its route gate and the int8 / int8c weight
+quantization against the JAX package.
 
-Tolerances: the plain version dequantizes before an f32 product while the
-JAX kernel (interpret mode) folds the scale after the K sum; both sum f32
-products of the same bf16 activations and int8 codes, so they differ by
-f32 rounding only: max abs error <= 1e-5 of max |y|.  Codes and scales are
-compared bit for bit.
+Tolerances: the plain version and the JAX kernel (interpret mode) both sum
+f32 products of the same bf16 activations and int8 codes over all of K and
+scale after the sum, in another order: max abs error <= 1e-5 of max |y|.
+Codes and scales are compared bit for bit.
 """
 
 import dataclasses
+import re
 from pathlib import Path
 
 import jax
@@ -41,7 +42,8 @@ def _codes(rng, k, n):
     return q, s
 
 
-@pytest.mark.parametrize("m,k,n", [(8, 512, 640), (1, 256, 128), (37, 384, 1280), (256, 128, 256)])
+@pytest.mark.parametrize("m,k,n", [(8, 512, 640), (1, 256, 128), (37, 384, 1280), (256, 128, 256), (72, 384, 768),
+                                   (256, 512, 1024)])
 def test_plain_matches_jax_kernel_and_reference(m, k, n):
     rng = np.random.default_rng(m + k + n)
     q, s = _codes(rng, k, n)
@@ -171,16 +173,20 @@ def test_kernel_registry_names_its_source_and_the_tpu_kernel(kernel):
 
 
 # The stream-K split of K6 (ops/w8_matmul.py partition, mirrored by
-# csrc/w8_matmul.cu): PhoGPT-4B's decode shapes at M 1-16, the checked
-# larger batches, a call with fewer units than slots, and an odd slot count.
+# csrc/w8_matmul.cu): PhoGPT-4B's decode shapes at M 1-16, the engine's
+# speculative M 72, prefill rows 64-256, a call with fewer units than
+# slots, odd rows and an odd slot count.
 PARTITION_CASES = [(1, 3072, 3072, 264), (8, 3072, 12288, 264), (16, 12288, 3072, 264), (64, 3072, 3072, 264),
-                   (256, 3072, 12288, 264), (8, 128, 128, 264), (37, 384, 1280, 132), (8, 3072, 3072, 133)]
+                   (256, 3072, 12288, 264), (8, 128, 128, 264), (37, 384, 1280, 132), (8, 3072, 3072, 133),
+                   (72, 3072, 12288, 132), (128, 12288, 3072, 132)]
 
 
 @pytest.mark.parametrize("m,k,n,slots", PARTITION_CASES)
 def test_w8_partition_is_one_wave_covering_every_unit_once(m, k, n, slots):
+    """A unit spans every row: each weight tile is one unit, read once."""
     p = tw8.partition(m, k, n, slots)
-    assert p.units == -(-m // 16) * (n // 128) * (k // 64)
+    assert p.rows == tw8.padded_rows(m) >= m and p.cols == 64 * tw8.warpgroups(p.rows)
+    assert p.units == -(-n // p.cols) * (k // 64) and p.tiles * p.cols >= n
     assert p.grid == min(slots, p.units) <= slots
     sizes = [len(p.share(b)) for b in range(p.grid)]
     assert min(sizes) >= 1 and max(sizes) - min(sizes) <= 1  # equal shares to within one unit
@@ -204,25 +210,107 @@ def test_w8_partition_sums_each_tile_in_split_order(m, k, n, slots):
             used.add(b + tile)
 
 
-@pytest.mark.parametrize("m,k,n,slots", [(8, 512, 256, 7), (20, 384, 384, 11)])
+@pytest.mark.parametrize("m,k,n,slots", PARTITION_CASES)
+def test_w8_reducers_end_their_shares_in_the_tile_and_split_it_once(m, k, n, slots):
+    """A split tile's reducers are the blocks whose shares end in it (at
+    least one; only the tile's last block may run past it), and their
+    slices cover the tile's float4s once, in order."""
+    p = tw8.partition(m, k, n, slots)
+    vecs = m * p.cols // 4
+    for tile in range(p.tiles):
+        segs = p.segments(tile)
+        red = p.reducers(tile)
+        if len(segs) == 1:
+            continue  # one block holds the whole K: it writes y itself
+        assert 1 <= len(red) and red.start == segs[0][0]
+        for b, _ in segs:
+            ends_inside = p.share(b).stop <= (tile + 1) * p.chunks
+            assert (b in red) == ends_inside
+            assert ends_inside or b == segs[-1][0]
+        sliced = [f for kk in range(len(red)) for f in p.slice_of(kk, len(red), vecs)]
+        assert sliced == list(range(vecs))
+
+
+@pytest.mark.parametrize("m", [1, 8, 9, 16, 17, 33, 64, 65, 72, 73, 128, 129, 200, 256])
+def test_w8_row_buckets_are_the_kernels(m):
+    """The padded rows pick an instance the kernel is built for (its
+    W8_BUCKETS list), at most 255 rows of zeros; 4 warpgroups (256
+    columns a unit) up to 72 rows, 2 (128) above."""
+    src = (Path(__file__).resolve().parent.parent / "vietnamese_qa_system_tpu_torch/csrc/w8_matmul.cu").read_text()
+    built = src.split("#define W8_BUCKETS(X)", 1)[1].splitlines()[0]
+    assert tuple(int(b) for b in re.findall(r"X\((\d+)\)", built)) == tw8.ROW_BUCKETS
+    mp = tw8.padded_rows(m)
+    assert mp >= m and mp in tw8.ROW_BUCKETS and all(b < m for b in tw8.ROW_BUCKETS if b < mp)
+    assert tw8.cols_per_unit(mp) == (256 if mp <= 72 else 128)
+    with pytest.raises(ValueError, match="at most 256"):
+        tw8.padded_rows(257)
+
+
+@pytest.mark.parametrize("mp", [8, 72, 256])
+def test_w8_fragment_columns_replay_the_swap_ab_product(mp):
+    """The fragment map, replayed on the host: each thread's wgmma A
+    fragments (rows 16 w + g + 8 h, K rows 2t, 2t + 1 (+8) of a k16 step)
+    filled from its two weight columns, B = x^T, D = A B, and each
+    accumulator element (register 4 j + 2 h + e: x row 8 j + 2 t + e)
+    written to y at the same column -- the product of the unit, every
+    column held by one lane quad, a thread's two columns adjacent (one
+    16-bit load, one float2 store)."""
+    cols = tw8.fragment_columns(mp)
+    quads = [c for tid, pair in enumerate(cols) if tid % 4 == 0 for c in pair]  # lanes 4g .. 4g + 3 share columns
+    assert sorted(quads) == list(range(tw8.cols_per_unit(mp))) and all(cols[tid] == cols[tid - tid % 4]
+                                                                        for tid in range(len(cols)))
+    assert all(c1 == c0 + 1 and c0 % 2 == 0 for c0, c1 in cols)
+    rng = np.random.default_rng(mp)
+    w = rng.integers(-127, 128, (16, tw8.cols_per_unit(mp))).astype(np.float64)  # one k16 step
+    x = rng.standard_normal((mp, 16))
+    y = np.zeros((mp, w.shape[1]))
+    for wg in range(tw8.warpgroups(mp)):
+        a = np.zeros((64, 16))  # the warpgroup's A: 64 rows (weight columns) x 16 K
+        for tid in range(128 * wg, 128 * (wg + 1)):
+            w_, lane = tid // 32 % 4, tid % 32
+            g, t = lane // 4, lane % 4
+            for h in range(2):
+                for kk in (2 * t, 2 * t + 1, 2 * t + 8, 2 * t + 9):
+                    a[16 * w_ + g + 8 * h, kk] = w[kk, cols[tid][h]]
+        d = a @ x.T  # (64, mp): the wgmma accumulator
+        for tid in range(128 * wg, 128 * (wg + 1)):
+            w_, lane = tid // 32 % 4, tid % 32
+            g, t = lane // 4, lane % 4
+            for j in range(mp // 8):
+                for h in range(2):
+                    for e in range(2):
+                        y[8 * j + 2 * t + e, cols[tid][h]] = d[16 * w_ + g + 8 * h, 8 * j + 2 * t + e]
+    np.testing.assert_allclose(y, x @ w, rtol=1e-12, atol=1e-9)
+
+
+@pytest.mark.parametrize("m,k,n,slots", [(8, 512, 256, 7), (20, 384, 384, 11), (72, 384, 512, 5), (100, 256, 640, 9)])
 def test_w8_partition_partials_add_up_to_the_product(m, k, n, slots):
     """The kernel's arithmetic replayed on the host: per-segment f32
-    partials of exact products, added in split order, scaled once."""
+    partials of exact products over all rows, each reducer's float4s added
+    over the slots in split order, scaled once."""
     rng = np.random.default_rng(m + k)
     q, s = _codes(rng, k, n)
     x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32)).to(torch.bfloat16).float()
     w = torch.from_numpy(q).float()
     p = tw8.partition(m, k, n, slots)
     y = torch.zeros(m, n)
-    col_tiles = n // tw8.COLS_PER_UNIT
     for tile in range(p.tiles):
-        r0, c0 = tile // col_tiles * tw8.ROWS_PER_UNIT, tile % col_tiles * tw8.COLS_PER_UNIT
-        rows, cols = slice(r0, r0 + tw8.ROWS_PER_UNIT), slice(c0, c0 + tw8.COLS_PER_UNIT)
-        total = None
+        c0 = tile * p.cols
+        cols = slice(c0, min(c0 + p.cols, n))
+        parts = []
         for _, chunks in p.segments(tile):
             ks = slice(chunks.start * tw8.K_PER_UNIT, chunks.stop * tw8.K_PER_UNIT)
-            part = x[rows, ks] @ w[ks, cols]
-            total = part if total is None else total + part
-        y[rows, cols] = total * torch.from_numpy(s)[cols]
+            part = torch.zeros(m, p.cols)
+            part[:, : cols.stop - c0] = x[:, ks] @ w[ks, cols]
+            parts.append(part.reshape(-1, 4))  # the slot row by row, in float4s
+        red = p.reducers(tile)
+        total = torch.zeros_like(parts[0])
+        for kk in range(len(red)):
+            f = list(p.slice_of(kk, len(red), m * p.cols // 4))
+            acc = parts[0][f]
+            for part in parts[1:]:
+                acc = acc + part[f]
+            total[f] = acc
+        y[:, cols] = total.reshape(m, p.cols)[:, : cols.stop - c0] * torch.from_numpy(s)[cols]
     ref = tw8.w8_matmul_reference(x.to(torch.bfloat16), torch.from_numpy(q), torch.from_numpy(s), torch.float32)
     assert (y - ref).abs().max().item() <= REL_TOL * ref.abs().max().item()

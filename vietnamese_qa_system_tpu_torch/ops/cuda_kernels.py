@@ -180,8 +180,8 @@ FLASH_BWD_DQ = Kernel("flash_attention_bwd_dq", "vqa_flash_bwd_dq", "flash_bwd.c
                       "vietnamese_qa_system_tpu/ops/attention.py:489")
 W8_MATMUL = Kernel(
     "w8_matmul", "vqa_w8_matmul", "w8_matmul.cu",
-    # x, w_q, w_s, M, K, N, grid, part, tickets, y, stream
-    (_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P),
+    # x, w_q, w_s, M, K, N, padded rows, grid, part, tickets, y, stream
+    (_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P),
     "vietnamese_qa_system_tpu/ops/w8_matmul.py:45",
 )
 IVF_PROBE = Kernel(
