@@ -65,6 +65,18 @@ and backward against their plain versions at the edges of their tiles
   projection (M 8 plain, 72 speculative) and every prefill at a bucket up
   to 256 rows (M 32-256); each (M, K, N) of the burst must be one that
   phase_w8 held against the plain version;
+- the reader's other decode strategies over the same reader and the QA
+  questions: /qa as ``serve`` builds it by default (``--speculative
+  ngram``: prompt-lookup drafts verified 9 tokens a row at a time, K6 at
+  M 72, and M 9 for one question alone), draft-model speculation with
+  serve's ``--speculative draft --reader-draft-size gpt125m`` draft, and
+  W 4 beams (K6 at M 32), each held to plain greedy decode by the margin
+  rule (beams: W 1 against greedy, W 4 against the whole-cache reorder
+  of the JAX package and greedy's log-probability over the batch);
+  passes, accepted drafts, tokens/s, the beam step and its reorder's
+  share, traced verify passes (one synchronisation each) and beam steps
+  (none); then sampled speculation of both drafters against the
+  enumerated marginals of a 1-layer V 13 model;
 - IVF retrieval at the repo's IVF configuration: a clustered 1,048,576 x
   768 corpus drawn on the card (2,048 unit-norm centres, noise of total
   norm 0.35, rows normalised; the retrieval path's 2,048 passage
@@ -83,7 +95,9 @@ and backward against their plain versions at the edges of their tiles
   ``Trainer.fit`` steps of global batch 8 at T = 1024 through K4 and K7 in
   every layer, a profiler trace of one step, ``cli train`` in-process over
   the repo's sample file, and a two-layer twin trained on the card and on
-  the host (plain versions) and resumed from a checkpoint.
+  the host (plain versions) and resumed from a checkpoint, and the twin's
+  ``cli train --do-eval --do-generative-eval --num-beams 2`` (predictions
+  file and gen_tokens_per_s).
 
 Each path resets the kernels' launch counters just before it runs and
 reads them just after; every kernel of the path must have launched.
@@ -97,8 +111,10 @@ visible.  Imports neither jax nor the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
+import glob
 import itertools
 import json
 import math
@@ -151,8 +167,10 @@ W8_SHAPES = ((3072, 3072), (3072, 12288), (12288, 3072))
 W8_PER_LAYER = {(3072, 3072): 4, (3072, 12288): 1, (12288, 3072): 1}
 W8_REL_TOL = 1e-4  # max abs err / max |plain|: the same exact products summed in another order
 # the engine's B=1 prefills at buckets 32-256 (and its prefix-extension and
-# chunked-prefill pieces) take K6 at these rows: checked and timed at every shape
-W8_CHECK_ROWS = (32, 64, 128, 256)
+# chunked-prefill pieces) take K6 at these rows, and so do the verify window
+# of one /qa question (9 = 1 x (8 drafts + 1)), of a /qa bucket of 4 (36) and
+# W 4 beams at the /qa batch of 8 (32): checked and timed at every shape
+W8_CHECK_ROWS = (9, 32, 36, 64, 128, 256)
 W8_LAYER_ROWS = (8, 72, 128, 256)  # a layer's six calls summed: /qa decode, the speculative chunk, prefills
 # K6 off the main shapes: a unit's second weight box past N (N % 256 == 128
 # at <= 72 rows), a lone row, rows off every bucket, one unit of K
@@ -187,6 +205,13 @@ ENGINE_SHARED, ENGINE_LONG, ENGINE_OVER = 256, 500, 600
 ENGINE_SAMPLED = {"temperature": 0.8, "top_k": 40, "top_p": 0.9}  # every third request of the second burst
 ENGINE_INT8_REQUESTS, ENGINE_PREFILL_CHUNK, ENGINE_SIDE_NEW = 4, 128, 32
 TWIN_LOGIT_TOL = 5e-2  # |logits| ~ 1-5; bf16-rounded inputs flip where card and host differ by an ulp
+# the reader's other decode strategies over the QA phase's batch: W 4 beams
+# (and W 1 against greedy), a draft model of this preset widened to the
+# reader's vocabulary
+BEAM_WIDTH, DRAFT_PRESET = 4, "gpt125m"
+# sampled speculation against the enumerated marginals of a 1-layer V 13
+# model (tests/test_speculative.py:192, :387); TV noise at N 4,096 is ~0.03
+SAMPLED_V, SAMPLED_ROWS, SAMPLED_TV_TOL = 13, 4096, 0.08
 # the IVF path: clustered corpus (probe_ivf.py's 2,048 centres and sigma),
 # the repo's IVF configuration, the probe-score batches, the latency sweep
 IVF_CENTRES, IVF_SIGMA, IVF_QUERIES, IVF_NPROBE = 2048, 0.35, 32, 8
@@ -202,6 +227,7 @@ IVF_RECALL_FLOOR = 0.9
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_T = 3, 8, 1024
 FLASH_GRAD_REL_TOL = 2e-2
 TWIN_T, TWIN_LOSS_TOL, TWIN_GRAD_REL_TOL = 128, 1e-3, 5e-2
+TWIN_EVAL_EXAMPLES = 8  # the twin's cli train decodes this many eval prompts with W 2 beams
 # hybrid retrieval: 12 concurrent /search at k 10 and weight 0.5 over the
 # ingested passages; served scores are rounded to 6 decimals (HYBRID_TOL);
 # the BM25 timing index; /search latency rounds for p50 / p99
@@ -1879,25 +1905,60 @@ def greedy_reference(torch, reader, ids: list, width: int, n_new: int, eos_id, k
     return out[: out.index(eos_id) + 1] if eos_id in out else out
 
 
+def teacher_forced(torch, reader, ids: list, new: list, kv_dtype="bf16"):
+    """The reader's f32 logits (len(new), V) that chose each of ``new``
+    after the prompt ``ids``: one prefill of ``ids + new[:-1]`` through a KV
+    cache of ``kv_dtype``."""
+    from vietnamese_qa_system_tpu_torch.models import make_cache
+
+    n = len(ids) + len(new) - 1
+    seq = torch.tensor([ids + new[:-1]], device="cuda")
+    mask = torch.tril(torch.ones((1, n, n), dtype=torch.bool, device="cuda"))
+    with torch.inference_mode():
+        logits = reader(seq, mask, positions=torch.arange(n, device="cuda")[None],
+                        cache=make_cache(reader.cfg, 1, n, "cuda", kv_dtype), cache_index=0)
+    return logits[0, len(ids) - 1:].float()
+
+
 def margin_rule(torch, reader, ids: list, got: list, want: list, kv_dtype="bf16") -> tuple[bool, int]:
     """``got`` equals the reference ``want`` until the first step whose top-2
     logit margin (the reader teacher-forced on ``want`` through a KV cache
     of ``kv_dtype``, as a prefill) is below TWIN_LOGIT_TOL; returns (agree,
     steps compared)."""
-    from vietnamese_qa_system_tpu_torch.models import make_cache
-
     if got == want:
         return True, len(want)
-    n = len(ids) + len(want) - 1
-    seq = torch.tensor([ids + want[:-1]], device="cuda")
-    mask = torch.tril(torch.ones((1, n, n), dtype=torch.bool, device="cuda"))
-    with torch.inference_mode():
-        logits = reader(seq, mask, positions=torch.arange(n, device="cuda")[None],
-                        cache=make_cache(reader.cfg, 1, n, "cuda", kv_dtype), cache_index=0)
-        top2 = torch.topk(logits[0, len(ids) - 1:].float(), 2, dim=-1).values
+    top2 = torch.topk(teacher_forced(torch, reader, ids, want, kv_dtype), 2, dim=-1).values
     ties = torch.nonzero(top2[:, 0] - top2[:, 1] < TWIN_LOGIT_TOL).flatten().tolist()
     until = ties[0] if ties else len(want)
     return got[:until] == want[:until], until
+
+
+@contextlib.contextmanager
+def k6_tally(L):
+    """K6's calls by (rows, K, N) while the block runs: a tally beside its
+    launch counter, through a wrapper of ``layers.w8_matmul``."""
+    calls: dict = {}
+    real = L.w8_matmul
+
+    def tallied(x, w_q, *a, **kw):
+        key = (x.shape[0], *w_q.shape)
+        calls[key] = calls.get(key, 0) + 1
+        return real(x, w_q, *a, **kw)
+
+    L.w8_matmul = tallied
+    try:
+        yield calls
+    finally:
+        L.w8_matmul = real
+
+
+def check_k6_rows(calls: dict, launches: int, path: str) -> None:
+    """Every K6 launch of ``path`` at a (M, K, N) that phase_w8 checked."""
+    print(f"{path}: K6 launches {launches}; rows seen {sorted({m for m, _, _ in calls})}; by (M, K, N): "
+          f"{sorted(calls.items())}", flush=True)
+    check(launches > 0 and sum(calls.values()) == launches
+          and all(m in W8_ROWS + W8_CHECK_ROWS and (k, n) in W8_SHAPES for m, k, n in calls),
+          f"K6 launched on {path}, every launch at a (M, K, N) that phase_w8 held against the plain version")
 
 
 def engine_burst(url: str, payloads: list, after: dict) -> list:
@@ -1975,28 +2036,16 @@ def phase_engine(torch, pkg, reader, ctx):
                  {"prompt": engine_text(rng, ENGINE_OVER), "max_new_tokens": 16}]
     after = {ENGINE_DRAWN + 1: ENGINE_DRAWN}  # the extension waits for the prefix's answer
     long_j, over_j = ENGINE_DRAWN + 2, ENGINE_DRAWN + 3
-    # K6's calls in the burst by (rows, K, N): a tally beside its launch
-    # counter, to split the launches into decode and prefill rows
-    k6_calls: dict = {}
-    real_w8 = L.w8_matmul
-
-    def tallied_w8(x, w_q, *a, **kw):
-        key = (x.shape[0], *w_q.shape)
-        k6_calls[key] = k6_calls.get(key, 0) + 1
-        return real_w8(x, w_q, *a, **kw)
-
     url, stop = serve(app)
     try:
         for kern in pkg.KERNELS:
             kern.launches = 0
-        L.w8_matmul = tallied_w8
-        try:
+        # K6's calls by (rows, K, N), to split the launches into decode and prefill rows
+        with k6_tally(L) as k6_calls:
             t0 = time.perf_counter()
             answers = engine_burst(url, payloads, after)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        finally:
-            L.w8_matmul = real_w8
         launches = {k.name: k.launches for k in pkg.KERNELS}
         decode_calls = sum(c for (m, _, _), c in k6_calls.items() if m in (8, 72))
         rows = sorted({m for m, _, _ in k6_calls})
@@ -2146,6 +2195,286 @@ def phase_engine(torch, pkg, reader, ctx):
           "its stream equal to generate() by the margin rule")
     print(f"/generate phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
     return launches
+
+
+def batch_rows(ids, mask, out, eos_id) -> list:
+    """Each row of a left-padded batch as (its real prompt, its new tokens
+    up to the first eos), lists on the host."""
+    t = ids.shape[1]
+    ids, mask, out = ids.cpu(), mask.cpu(), out.cpu()
+    rows = []
+    for r in range(ids.shape[0]):
+        new = out[r, t:].tolist()
+        rows.append((ids[r][mask[r].bool()].tolist(), new[: new.index(eos_id) + 1] if eos_id in new else new))
+    return rows
+
+
+def batch_margin_rule(torch, reader, ids, mask, got, want, eos_id) -> tuple[bool, int, list]:
+    """Each row of ``got`` against ``want`` by :func:`margin_rule`; returns
+    (every row agrees, rows equal token for token, (tokens, steps compared)
+    of the others)."""
+    rows_got, rows_want = batch_rows(ids, mask, got, eos_id), batch_rows(ids, mask, want, eos_id)
+    agree, equal, others = True, 0, []
+    for (prompt, g), (_, w) in zip(rows_got, rows_want):
+        ok, until = margin_rule(torch, reader, prompt, g, w)
+        agree &= ok
+        equal += g == w
+        if g != w:
+            others.append((len(w), until))
+    return agree, equal, others
+
+
+def seq_logprob(torch, reader, prompt: list, new: list) -> float:
+    """The reader's log-probability of ``new`` after ``prompt`` (a teacher-
+    forced prefill)."""
+    logp = torch.log_softmax(teacher_forced(torch, reader, prompt, new), dim=-1)
+    return logp.gather(-1, torch.tensor(new, device="cuda")[:, None]).sum().item()
+
+
+def phase_decode_strategies(torch, pkg, reader, ctx) -> int:
+    """The reader's other decode strategies at PhoGPT-4B width over the QA
+    phase's questions (512-token prompts, 32 new tokens):
+
+    - /qa as ``serve`` builds it by default: ``QAPipeline(speculative=
+      "ngram")`` behind ``ServingApp``, 8 concurrent questions and then one
+      alone, every answer the decode of the prompt-lookup tokens, held to
+      plain greedy decode of the same batch by the margin rule; passes,
+      accepted drafts and tokens/s beside the plain decode; a traced run
+      (at most one synchronisation a verify pass);
+    - draft-model speculation with serve's ``--speculative draft
+      --reader-draft-size gpt125m`` draft (random weights, widened to the
+      reader's vocabulary), held to plain greedy the same way;
+    - ``generate_with_config(num_beams=4)``: the same beams with the whole
+      cache reordered every step (the JAX package's way), a higher sequence
+      log-probability than greedy's over the batch (printed by row), W 1
+      equal to greedy by the margin rule, the step time and the share of
+      its cache reorder, a traced run.
+
+    K6's calls on each path are tallied by shape.  Returns K6's launches
+    on the three paths (each counted from zero)."""
+    from vietnamese_qa_system_tpu_torch.cli.main import _draft, build_parser
+    from vietnamese_qa_system_tpu_torch.engine import QAPipeline, Retriever, ServingApp
+    from vietnamese_qa_system_tpu_torch.models import GenerationConfig, make_cache
+    from vietnamese_qa_system_tpu_torch.models import generate as G
+    from vietnamese_qa_system_tpu_torch.models import layers as L
+
+    t_phase = time.perf_counter()
+    card = gpu_name_and_power()
+    tok, texts = ctx["tok"], ctx["texts"]
+    eos, n_new = tok.eos_id, READER_NEW_TOKENS
+    serve_args = ["serve", "--index", "-", "--db", ":memory:", "--reader-size", "phogpt4b", "--reader-quantize",
+                  "int8c"]
+    args = build_parser().parse_args(serve_args)
+    check(args.speculative == "ngram" and (args.draft_tokens, args.draft_ngram) == (8, 3),
+          "serve decodes /qa with prompt-lookup speculation by default (--speculative ngram, 8 drafts, 3-grams)")
+    gamma = args.draft_tokens
+    retriever = Retriever(ctx["encoder"], tok, ctx["store"], ctx["docstore"], max_len=128, query_batch=16)
+    qa = QAPipeline(retriever, reader, tok, k=3, max_prompt_len=READER_PROMPT_LEN, max_new_tokens=n_new,
+                    speculative=args.speculative, draft_tokens=gamma, draft_ngram=args.draft_ngram)
+    batches, calls = [], []
+    retrieve, real_spec = qa.retrieve, G.generate_speculative
+    qa.retrieve = lambda qs: batches.append(list(qs)) or retrieve(qs)
+
+    def recorded(model, ids, mask, **kw):
+        out, stats = real_spec(model, ids, mask, return_stats=True, **kw)
+        calls.append((ids, mask, out, stats))
+        return out
+
+    app = ServingApp(retriever, qa, k=3, max_batch=16, max_wait_s=2.0)
+    url, stop = serve(app)
+    questions = [texts[i] for i in ctx["questions"]]
+    G.generate_speculative = recorded
+    try:
+        for kern in pkg.KERNELS:
+            kern.launches = 0
+        with k6_tally(L) as k6_spec:
+            t0 = time.perf_counter()
+            answers = ask_all(url, "/qa", [{"question": q} for q in questions])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            single = ask_all(url, "/qa", [{"question": questions[0]}])[0]
+            torch.cuda.synchronize()
+        spec_launches = {k.name: k.launches for k in pkg.KERNELS}
+    finally:
+        G.generate_speculative = real_spec
+        stop()
+    check(len(batches) == 2 and len(batches[0]) == len(questions) and len(calls) == 2,
+          f"the {len(questions)} concurrent /qa requests were served as one speculative batch, the single one as "
+          f"another ({[len(b) for b in batches]})")
+    good = [a is not None and not a["refused"] and a["contexts"][:1] == [q] for q, a in zip(questions, answers)]
+    check(all(good) and single is not None and not single["refused"],
+          f"{sum(good)}/{len(questions)} speculative /qa answers (200) carry their own passage as contexts[0]")
+    ids, mask, out, stats = calls[0]
+    t = ids.shape[1]
+    served = {q: a["answer"] for q, a in zip(questions, answers)}
+    decoded = [tok.decode([x for x in row if x not in (tok.pad_id, eos)]).strip() for row in out[:, t:].tolist()]
+    check(all(served[q] == d for q, d in zip(batches[0], decoded)) and single["answer"] == tok.decode(
+        [x for x in calls[1][2][0, calls[1][0].shape[1]:].tolist() if x not in (tok.pad_id, eos)]).strip(),
+        "every /qa answer is the decode of its generate_speculative tokens")
+    check_k6_rows(k6_spec, spec_launches["w8_matmul"], "the speculative /qa path (verify windows at M 8 x 9 = 72 "
+                                                       "and 1 x 9)")
+    check(spec_launches["matmul_topk_bf16"] > 0, "matmul_topk_bf16 launched on the speculative /qa path")
+    plain_t, spec_t = {}, {}
+    plain = G.generate(reader, ids, mask, max_new_tokens=n_new, eos_id=eos, timings=plain_t)
+    again, again_stats = G.generate_speculative(reader, ids, mask, max_new_tokens=n_new, eos_id=eos,
+                                                draft_tokens=gamma, draft_ngram=args.draft_ngram, return_stats=True,
+                                                timings=spec_t)
+    agree, equal, others = batch_margin_rule(torch, reader, ids, mask, out, plain, eos)
+    b = ids.shape[0]
+    print(f"speculative /qa ({card}): {len(questions)} concurrent questions in {wall:.2f} s; B={b} T={t}: "
+          f"{stats['iterations']} verify passes of {b} x {gamma + 1} rows for {n_new} tokens a row, "
+          f"{stats['drafted_accepted']} drafts accepted ({stats['drafted_accepted'] / (b * (n_new - 1)):.1%} of "
+          f"the tokens after the first); decode {spec_t['decode_s'] * 1e3:.1f} ms = "
+          f"{b * n_new / spec_t['decode_s']:.1f} tokens/s against plain decode {plain_t['decode_s'] * 1e3:.1f} ms = "
+          f"{b * n_new / plain_t['decode_s']:.1f} tokens/s (prefill {spec_t['prefill_s'] * 1e3:.1f} / "
+          f"{plain_t['prefill_s'] * 1e3:.1f} ms); {equal} of {b} rows equal plain greedy token for token, the "
+          f"rest compared up to the first near-tie: {others}", flush=True)
+    check(agree, f"{b} speculative /qa token streams equal plain greedy decode of the batch by the margin rule "
+                 f"({TWIN_LOGIT_TOL})")
+    check(torch.equal(again, out) and again_stats == stats, "a second speculative decode of the batch repeats the "
+                                                          "served tokens and stats")
+    traced = []
+    span = trace_span(
+        torch, f"speculative verify trace (B={b}, {gamma + 1}-token windows, {card})", "generate.speculative",
+        stats["iterations"], spec_t["decode_s"] / stats["iterations"],
+        lambda: traced.append(G.generate_speculative(reader, ids, mask, max_new_tokens=n_new, eos_id=eos,
+                                                     draft_tokens=gamma, draft_ngram=args.draft_ngram,
+                                                     return_stats=True, timings={})[1]))
+    check(span is not None and span["syncs"] <= traced[0]["iterations"] + 1,
+          f"one host synchronisation a traced verify pass, the loop's exit test ({None if span is None else span['syncs']}"
+          f" over {traced[0]['iterations']} passes and the test that ends the loop)")
+
+    # draft-model speculation with serve's --speculative draft model
+    dargs = build_parser().parse_args(serve_args + ["--speculative", "draft", "--reader-draft-size", DRAFT_PRESET])
+    draft = _draft(dargs.reader_draft_size, reader.cfg.vocab_size, dargs.seed + 7, "cuda", dargs.reader_draft_params,
+                   "--reader-draft-params")
+    check(draft.cfg.vocab_size == reader.cfg.vocab_size and draft.cfg.d_model == 768,
+          f"the {DRAFT_PRESET} draft is widened to the reader's {reader.cfg.vocab_size} tokens")
+    draft_t = {}
+    for kern in pkg.KERNELS:
+        kern.launches = 0
+    with k6_tally(L) as k6_draft:
+        out_d, stats_d = G.generate_speculative_draft(reader, draft, ids, mask, max_new_tokens=n_new, eos_id=eos,
+                                                      draft_tokens=gamma, return_stats=True, timings=draft_t)
+        torch.cuda.synchronize()
+    draft_launches = {k.name: k.launches for k in pkg.KERNELS}
+    agree, equal, others = batch_margin_rule(torch, reader, ids, mask, out_d, plain, eos)
+    print(f"draft speculation ({DRAFT_PRESET}-class draft, random weights, {card}): {stats_d['iterations']} verify "
+          f"passes for {n_new} tokens a row, {stats_d['drafted_accepted']} drafts accepted; decode "
+          f"{draft_t['decode_s'] * 1e3:.1f} ms = {b * n_new / draft_t['decode_s']:.1f} tokens/s; {equal} of {b} rows "
+          f"equal plain greedy, the rest up to the first near-tie: {others}", flush=True)
+    check(agree, f"{b} draft-model speculative streams equal plain greedy decode by the margin rule")
+    check_k6_rows(k6_draft, draft_launches["w8_matmul"], "the draft-model path (the reader's verify windows)")
+    del draft
+
+    # W 4 beams through generate_with_config
+    for kern in pkg.KERNELS:
+        kern.launches = 0
+    with k6_tally(L) as k6_beam:
+        beams = G.generate_with_config(reader, ids, mask, GenerationConfig(max_new_tokens=n_new, num_beams=BEAM_WIDTH))
+        beam1 = G.generate_with_config(reader, ids, mask, GenerationConfig(max_new_tokens=n_new, num_beams=1))
+        w1 = G.beam_search(reader, ids, mask, max_new_tokens=n_new, num_beams=1, eos_id=eos)
+        torch.cuda.synchronize()
+    beam_launches = {k.name: k.launches for k in pkg.KERNELS}
+    greedy = G.generate(reader, ids, mask, max_new_tokens=n_new)
+    check(torch.equal(beam1, greedy), "generate_with_config(num_beams=1) is greedy decode")
+    agree, equal, others = batch_margin_rule(torch, reader, ids, mask, w1, plain, eos)
+    check(agree, f"W 1 beam search equals greedy decode by the margin rule ({equal} of {b} rows token for token, "
+                 f"the rest up to the first near-tie: {others})")
+    # the whole cache reordered every step, as the JAX package's
+    # _reorder_cache does, must give the same beams as the port's reorder
+    # of the generated slots alone
+    real_reorder = G._reorder_cache
+    G._reorder_cache = lambda cache, idx, cols=None: real_reorder(cache, idx)
+    try:
+        whole = G.generate_with_config(reader, ids, mask, GenerationConfig(max_new_tokens=n_new, num_beams=BEAM_WIDTH))
+    finally:
+        G._reorder_cache = real_reorder
+    check(torch.equal(whole, beams), f"W {BEAM_WIDTH} beams with the whole cache reordered every step (the JAX "
+                                     "package's way) equal the port's, which reorders the generated slots alone")
+    lp = [(seq_logprob(torch, reader, p, g), seq_logprob(torch, reader, p, w))
+          for (p, g), (_, w) in zip(batch_rows(ids, mask, greedy, None), batch_rows(ids, mask, beams, None))]
+    print(f"beams W {BEAM_WIDTH} ({card}): sequence log-probabilities (greedy, best beam) by row: "
+          f"{[(round(g, 3), round(w, 3)) for g, w in lp]}; the beam's higher on {sum(w > g for g, w in lp)} of {b} "
+          f"rows (a width-{BEAM_WIDTH} beam may prune greedy's path: not a property of beam search)", flush=True)
+    check(sum(w for _, w in lp) > sum(g for g, _ in lp),
+          f"W {BEAM_WIDTH} beams score a higher sequence log-probability than greedy over the batch")
+    check_k6_rows(k6_beam, beam_launches["w8_matmul"], f"the beam path (B x W = {b} x {BEAM_WIDTH} rows, W 1 at {b})")
+    beam_t = {}
+    G.beam_search(reader, ids, mask, max_new_tokens=n_new, num_beams=BEAM_WIDTH, timings=beam_t)
+    step_ms = beam_t["decode_s"] / n_new * 1e3
+    cache = make_cache(reader.cfg, b * BEAM_WIDTH, t + n_new, "cuda")
+    cache_bytes = sum(x.numel() * x.element_size() for layer in cache for x in layer.values())
+    idx = torch.randperm(b * BEAM_WIDTH, device="cuda")
+    cols_ms = cuda_ms(lambda: G._reorder_cache(cache, idx, slice(t, t + n_new // 2)), 5)
+    full_ms = cuda_ms(lambda: G._reorder_cache(cache, idx), 3)
+    del cache
+    print(f"beams W {BEAM_WIDTH} at B={b} T={t} ({card}): prefill and expansion {beam_t['prefill_s'] * 1e3:.1f} ms; a "
+          f"step {step_ms:.3f} ms (selection over {BEAM_WIDTH} x {reader.cfg.vocab_size} candidates, the cache reorder, "
+          f"a forward at M {b * BEAM_WIDTH}); the reorder of the generated slots as the port does it ({n_new // 2} "
+          f"slots, the mean step) {cols_ms:.3f} ms = {cols_ms / step_ms:.1%} of a step; the whole cache's reorder, "
+          f"as the JAX package's _reorder_cache does it every step: {full_ms:.3f} ms ({2 * cache_bytes / 1e9:.2f} GB "
+          f"read and written, bound {2 * cache_bytes / HBM_BYTES_S * 1e3:.3f} ms) = {full_ms / step_ms:.1%} of a "
+          f"step", flush=True)
+    span = trace_span(torch, f"beam step trace (B={b} x W {BEAM_WIDTH}, {card})", "beam.decode", TRACE_STEPS,
+                      step_ms / 1e3, lambda: G.beam_search(reader, ids, mask, max_new_tokens=TRACE_STEPS + 1,
+                                                           num_beams=BEAM_WIDTH, timings={}))
+    check(span is not None and span["syncs"] == 0, "no host synchronisation inside a traced beam decode")
+    print(f"decode strategies phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return spec_launches["w8_matmul"] + draft_launches["w8_matmul"] + beam_launches["w8_matmul"]
+
+
+def phase_spec_sampled(torch) -> None:
+    """Sampled speculation on the card: prompt lookup and a different draft
+    model draw SAMPLED_ROWS rows of a 1-layer V 13 model, whose produced
+    positions must follow the exactly enumerated marginals, as plain
+    sampled ``generate`` (the control) does."""
+    import numpy as np
+
+    from vietnamese_qa_system_tpu_torch.models import ModelConfig, init_causal_lm
+    from vietnamese_qa_system_tpu_torch.models import generate as G
+
+    v = SAMPLED_V
+    cfg = ModelConfig(arch="causal", vocab_size=v, d_model=16, n_heads=2, n_layers=1, d_ff=32, max_seq_len=64)
+    model = init_causal_lm(cfg, torch.Generator(device="cuda").manual_seed(SEED + 20))
+    draft = init_causal_lm(dataclasses.replace(cfg, d_model=8, n_heads=1, d_ff=16),
+                           torch.Generator(device="cuda").manual_seed(SEED + 21))
+    prompt = np.random.default_rng(SEED).integers(0, v, (1, 6)).astype(np.int32)
+
+    def dist_after(prefix):
+        x = torch.from_numpy(prefix).to("cuda")
+        with torch.inference_mode():
+            lg = model(x.long(), torch.ones_like(x))[:, -1].double()
+        return torch.softmax(lg, dim=-1).cpu().numpy()
+
+    p0 = dist_after(prompt)[0]
+    p1 = dist_after(np.concatenate([np.tile(prompt, (v, 1)), np.arange(v)[:, None]], axis=1).astype(np.int32))
+    pairs = np.stack(np.meshgrid(np.arange(v), np.arange(v), indexing="ij"), -1).reshape(-1, 2)
+    p2 = dist_after(np.concatenate([np.tile(prompt, (v * v, 1)), pairs], axis=1).astype(np.int32)).reshape(v, v, v)
+    exact = [p0, p0 @ p1, np.einsum("i,ij,ijk->k", p0, p1, p2)]
+    ids = torch.from_numpy(np.tile(prompt, (SAMPLED_ROWS, 1))).to("cuda")
+    mask = torch.ones_like(ids)
+
+    def gen(seed):
+        return torch.Generator(device="cuda").manual_seed(SEED + seed)
+
+    runs = {
+        "prompt lookup": G.generate_speculative(model, ids, mask, max_new_tokens=4, draft_tokens=3, draft_ngram=2,
+                                                temperature=1.0, generator=gen(22)),
+        "draft model": G.generate_speculative_draft(model, draft, ids, mask, max_new_tokens=3, draft_tokens=2,
+                                                    temperature=1.0, generator=gen(23)),
+        "plain control": G.generate(model, ids, mask, max_new_tokens=4, temperature=1.0, generator=gen(24)),
+    }
+    tvs = {}
+    for name, out in runs.items():
+        toks = out[:, 6:].cpu().numpy()
+        tvs[name] = [0.5 * float(np.abs(np.bincount(toks[:, pos], minlength=v) / SAMPLED_ROWS - exact[pos]).sum())
+                     for pos in range(min(3, toks.shape[1]))]
+    print(f"sampled speculation (V {v}, {SAMPLED_ROWS} rows): TV to the exact marginals by position: "
+          f"{ {k: [round(x, 4) for x in tv] for k, tv in tvs.items()} }", flush=True)
+    check(all(x < SAMPLED_TV_TOL for tv in tvs.values() for x in tv),
+          f"sampled prompt-lookup and draft-model speculation draw the exact marginals (TV < {SAMPLED_TV_TOL}), as "
+          f"plain sampling does")
 
 
 def clustered(torch, n: int, gen):
@@ -2664,6 +2993,30 @@ def phase_train_twin(torch, logdir: str) -> None:
           f"uninterrupted run (state bit-equal: {same})", flush=True)
     check(same, "checkpoint -> resume -> next step on the card equals the uninterrupted run's step, bit for bit")
 
+    # generative eval: cli train of the twin with --do-eval --do-generative-eval --num-beams 2
+    from vietnamese_qa_system_tpu_torch.cli.main import main as cli_main
+
+    cfg_path = os.path.join(logdir, "twin_config.json")
+    with open(cfg_path, "w") as f:
+        f.write(cfg.to_json())
+    sample = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples", "sample_instruct.jsonl")
+    argv = ["train", "--model-config", cfg_path, "--use-lora", "--quantize-base", "int8", "--train-files", sample,
+            "--eval-files", sample, "--max-examples", str(TWIN_EVAL_EXAMPLES), "--max-steps", "1", "--batch-size",
+            "4", "--log-every", "1", "--log-dir", logdir, "--run-name", "twin_gen", "--do-eval",
+            "--do-generative-eval", "--num-beams", "2", "--max-new-tokens", str(TWIN_NEW_TOKENS)]
+    t0 = time.perf_counter()
+    rc = cli_main(argv)
+    wall = time.perf_counter() - t0
+    preds = sorted(glob.glob(os.path.join(logdir, "predictions", "log_dir_e0_twin_gen_*.txt")))
+    with open(os.path.join(logdir, "twin_gen.jsonl")) as f:
+        evals = [r for r in map(json.loads, f) if "eval_gen_tokens_per_s" in r]
+    n_pred = open(preds[0]).read().count("### prediction:") if len(preds) == 1 else 0
+    print(f"twin cli train --do-eval --do-generative-eval --num-beams 2: exit {rc} in {wall:.1f} s; {len(preds)} "
+          f"predictions file(s) with {n_pred} predictions; logged {evals}", flush=True)
+    check(rc == 0 and n_pred == TWIN_EVAL_EXAMPLES and len(evals) == 1 and evals[0]["eval_gen_tokens_per_s"] > 0,
+          f"cli train --do-generative-eval --num-beams 2 wrote {TWIN_EVAL_EXAMPLES} predictions and logged "
+          "gen_tokens_per_s")
+
 
 def main() -> int:
     import torch
@@ -2714,7 +3067,9 @@ def main() -> int:
     engine_launches = phase_engine(torch, pkg, reader, ctx)
     print("launches in the /generate run: " + json.dumps(engine_launches))
     check(engine_launches["w8_matmul"] > 0, "w8_matmul launched on the /generate path")
+    strategies_w8 = phase_decode_strategies(torch, pkg, reader, ctx)
     del reader
+    phase_spec_sampled(torch)
     torch.cuda.empty_cache()
     ivf_launches, ivfs = phase_ivf(torch, pkg, ctx, gen)
     del ctx
@@ -2733,7 +3088,7 @@ def main() -> int:
         phase_cli_train(torch, logdir)
         torch.cuda.empty_cache()
         phase_train_twin(torch, logdir)
-    launches = dict(retrieval, w8_matmul=reader_launches["w8_matmul"] + engine_launches["w8_matmul"],
+    launches = dict(retrieval, w8_matmul=reader_launches["w8_matmul"] + engine_launches["w8_matmul"] + strategies_w8,
                     ivf_probe_scores=ivf_launches["ivf_probe_scores"],
                     quantize_int8=ivf_launches["quantize_int8"],
                     **{name: train_launches[name] for name in ("flash_attention_fwd_causal", "flash_attention_bwd_dkdv",

@@ -1,7 +1,7 @@
 """The port's generation against the JAX package: greedy ``generate`` on
 carried weights (float and int8c, tiny and a phogpt-kind reader), the
 logit processors, the HF-style decode options, the sampler's marginals,
-and what ``generate_with_config`` still refuses.
+and what ``generate_with_config`` dispatches and refuses.
 
 Greedy streams are compared by the margin rule: tokens must agree until
 the first step whose top-2 logit margin (JAX logits, teacher-forced on the
@@ -146,8 +146,18 @@ def test_generate_with_config_refuses_what_is_not_ported():
     _, _, port = _reader("tiny")
     ids, mask = _prompts(6, b=1, t=8)
     args = (port, torch.from_numpy(ids), torch.from_numpy(mask))
-    for gen in (GenerationConfig(num_beams=2), GenerationConfig(speculative="ngram")):
-        with pytest.raises(NotImplementedError, match="not ported"):
+    # beams and both speculative modes are ported: they dispatch to their decode loops
+    assert torch.equal(tg.generate_with_config(*args, GenerationConfig(max_new_tokens=4, num_beams=2), eos_id=2),
+                       tg.beam_search(*args, max_new_tokens=4, num_beams=2, eos_id=2))
+    plain = tg.generate(*args, max_new_tokens=5, eos_id=2)
+    assert torch.equal(tg.generate_with_config(*args, GenerationConfig(max_new_tokens=5, speculative="ngram"),
+                                               eos_id=2), plain)
+    assert torch.equal(tg.generate_with_config(*args, GenerationConfig(max_new_tokens=5, speculative="draft"),
+                                               eos_id=2, draft=port), plain)
+    for gen in (GenerationConfig(speculative="draft"), GenerationConfig(speculative="ngram", num_beams=2),
+                GenerationConfig(speculative="ngram", repetition_penalty=1.2),
+                GenerationConfig(speculative="ngram", min_new_tokens=2)):
+        with pytest.raises(ValueError):
             tg.generate_with_config(*args, gen)
     # the int8 KV cache is ported: it runs as generate(kv_dtype="int8") (test_torch_kv_quant.py)
     assert torch.equal(tg.generate_with_config(*args, GenerationConfig(max_new_tokens=3, kv_dtype="int8")),

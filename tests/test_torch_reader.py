@@ -14,6 +14,7 @@ import random
 import threading
 import urllib.error
 import urllib.request
+from types import SimpleNamespace
 
 import jax
 import numpy as np
@@ -33,6 +34,7 @@ from vietnamese_qa_system_tpu.models import encoder as je
 from vietnamese_qa_system_tpu.models import quantize_dense_tree as jquant
 from vietnamese_qa_system_tpu.models import tiny_test
 from vietnamese_qa_system_tpu_torch.cli import main as cli
+from vietnamese_qa_system_tpu_torch.cli.main import build_parser
 from vietnamese_qa_system_tpu_torch.data import schemas as tschemas
 from vietnamese_qa_system_tpu_torch.data import templates as ttemplates
 from vietnamese_qa_system_tpu_torch.data.tokenizer import ByteTokenizer
@@ -88,9 +90,19 @@ def test_answers_match_jax(both, min_score):
 
 
 def test_qa_refuses_unported_readers(both):
-    _, (retr, reader, _) = both
-    with pytest.raises(NotImplementedError, match="speculative"):
-        QAPipeline(retr, reader, ByteTokenizer(), speculative="ngram")
+    """Speculative /qa is ported: prompt-lookup and draft-model answers equal
+    the JAX pipeline's speculative answers and the port's plain ones.  A
+    seq2seq reader still raises."""
+    (jretr, jparams, jcfg), (retr, reader, _) = both
+    kw = dict(k=2, max_prompt_len=256, max_new_tokens=6, seed=7)
+    want = [a.answer for a in JQAPipeline(jretr, jparams, jcfg, jtok.ByteTokenizer(), speculative="ngram",
+                                          **kw).answer(QUESTIONS)]
+    assert [a.answer for a in QAPipeline(retr, reader, ByteTokenizer(), **kw).answer(QUESTIONS)] == want
+    for spec, draft in (("ngram", None), ("draft", reader)):
+        qa = QAPipeline(retr, reader, ByteTokenizer(), speculative=spec, draft=draft, draft_tokens=3, **kw)
+        assert qa.speculative == spec and [a.answer for a in qa.answer(QUESTIONS)] == want
+    with pytest.raises(NotImplementedError, match="not ported"):
+        QAPipeline(retr, SimpleNamespace(cfg=SimpleNamespace(arch="seq2seq")), ByteTokenizer())
 
 
 def _post(url, payload):
@@ -208,16 +220,31 @@ def test_cli_chat_and_serve_reader(tmp_path, monkeypatch, capsys):
         cli(serve + ["--port", "0", "--continuous-slots", "4"])
     for extra, what in ((["--reader-strategy", "tp"], "--reader-strategy"),
                         (["--continuous-slots", "4", "--adapter", "vi=a.npz"], "--adapter"),
-                        (["--speculative", "ngram"], "--speculative"),
-                        (["--reader-draft-size", "tiny"], "--reader-draft-size"),
                         (["--reader-size", "tiny", "--reader-quantize", "nf4"], "nf4")):
         with pytest.raises(NotImplementedError, match=what):
             cli(serve + extra)
-    for extra, what in ((["--draft-size", "tiny"], "--draft-size"), (["--draft-params", "d"], "--draft-params")):
-        with pytest.raises(NotImplementedError, match=what):
-            cli(["chat", "--device", "cpu", *extra])
-    # seq2seq readers and beam search have no flag in the port: argparse rejects them
+    # speculation, draft models and beams take the JAX CLI's flags and defaults
+    args = build_parser().parse_args(serve)
+    assert (args.speculative, args.reader_draft_size, args.reader_draft_params) == ("ngram", "tiny", None)
+    args = build_parser().parse_args(["chat"])
+    assert (args.speculative, args.num_beams, args.draft_tokens, args.draft_ngram, args.draft_size,
+            args.draft_params) == ("ngram", 1, 8, 3, "tiny", None)
+    _feed(monkeypatch, [DOCS[2], ""])
+    assert cli(serve + ["--reader-size", "tiny", "--speculative", "draft", "--reader-draft-size", "tiny",
+                        "--max-new-tokens", "3"]) == 0
+    _feed(monkeypatch, [DOCS[2], ""])
+    assert cli(serve + ["--reader-size", "tiny", "--speculative", "draft", "--reader-draft-params", weights,
+                        "--max-new-tokens", "3"]) == 0
+    out = capsys.readouterr().out
+    assert out.count("(no --reader-draft-params: drafting with RANDOM weights)") == 1 and out.count("answer> ") == 2
+    for extra in (["--draft-size", "tiny", "--speculative", "draft"], ["--draft-params", weights, "--speculative",
+                                                                      "draft"], ["--num-beams", "2"]):
+        _feed(monkeypatch, ["Xin chào", ""])
+        assert cli(["chat", "--device", "cpu", "--max-len", "64", "--max-new-tokens", "3", *extra]) == 0
+    out = capsys.readouterr().out
+    assert out.count("(no --draft-params: drafting with RANDOM weights)") == 1 and out.count("model> ") == 3
+    # seq2seq readers have no flag in the port: argparse rejects them
     for argv in (serve + ["--reader-size", "mt5small"], ["chat", "--model-size", "mt5small"],
-                 ["chat", "--num-beams", "2"], ["chat", "--arch", "seq2seq"]):
+                 ["chat", "--arch", "seq2seq"], ["chat", "--draft-size", "phogpt4b"]):
         with pytest.raises(SystemExit):
             cli(argv)

@@ -41,13 +41,19 @@ starts, with random weights drawn from ``--seed`` on the device.  ``ingest
 (``--gen-total``, ``--gen-chunk-steps``, ``--prefix-cache-mb``,
 ``--gen-speculative``, ``--draft-tokens``, ``--draft-ngram``, ``--kv-quant``,
 ``--prefill-chunk``; ``--max-new-tokens`` is the default budget of /qa and
-/generate alike).  ``train`` refuses what is not ported yet: seq2seq models, strategies
-other than dp, meshes, host offload, sharded checkpoints, nf4 bases, the
-once / once_folded dequant placements, generative eval, profiler traces
-and hub pushes.  Sharded indexes, nf4 weights, speculative decoding of /qa
-and draft models, sharded readers and LoRA adapters on /generate
-(``--adapter``) are not ported yet and raise where the JAX CLI would use
-them; seq2seq readers and beam search have no flag yet.
+/generate alike).  ``serve`` decodes /qa with prompt-lookup speculation by
+default (``--speculative ngram``; ``draft`` takes a draft model of
+``--reader-draft-size``, weights from ``--reader-draft-params`` else random
+from the seed), and ``chat`` takes ``--num-beams``, ``--speculative`` and
+``--draft-*`` with the JAX CLI's defaults.  ``train --do-eval
+--do-generative-eval`` decodes the eval prompts by the generation group
+(``--max-new-tokens`` ... ``--num-beams``, ``--speculative``) and logs the
+predictions.  ``train`` refuses what is not ported yet: seq2seq models,
+strategies other than dp, meshes, host offload, sharded checkpoints, nf4
+bases, the once / once_folded dequant placements, profiler traces and hub
+pushes.  Sharded indexes, nf4 weights, sharded readers and LoRA adapters
+on /generate (``--adapter``) are not ported yet and raise where the JAX
+CLI would use them; seq2seq readers have no flag yet.
 """
 
 from __future__ import annotations
@@ -63,6 +69,19 @@ from typing import Optional
 ENCODERS = ("tiny", "minilm", "mpnet")
 # presets of the causal readers (cli/main.py:171-182, :710-720)
 READERS = ("tiny", "gpt125m", "gptneo125m", "pythia410m", "llama1b", "qwen2-05b", "bloom560m", "phogpt4b")
+# presets of the draft models of --speculative draft (cli/main.py:1259-1262)
+DRAFTS = ("tiny", "gpt125m", "gptneo125m", "pythia410m", "qwen2-05b", "bloom560m")
+
+
+def _causal_preset(size: str):
+    """The ModelConfig of a causal preset name."""
+    from ..models import config as mcfg
+
+    return {
+        "tiny": lambda: mcfg.tiny_test("causal"), "gpt125m": mcfg.gpt_125m_class, "gptneo125m": mcfg.gpt_neo_125m,
+        "pythia410m": mcfg.pythia_410m_class, "llama1b": mcfg.llama_1b_class, "qwen2-05b": mcfg.qwen2_05b_class,
+        "bloom560m": mcfg.bloom_560m_class, "phogpt4b": mcfg.phogpt_4b_class,
+    }[size]()
 
 
 def _encoder(spec: str, seed: int, device):
@@ -181,15 +200,9 @@ def _reader(size: str, tok, seed: int, device, quantize: Optional[str], params: 
     import dataclasses
 
     from ..core.device import make_generator
-    from ..models import config as mcfg
     from ..models import init_causal_lm
 
-    presets = {
-        "tiny": lambda: mcfg.tiny_test("causal"), "gpt125m": mcfg.gpt_125m_class, "gptneo125m": mcfg.gpt_neo_125m,
-        "pythia410m": mcfg.pythia_410m_class, "llama1b": mcfg.llama_1b_class, "qwen2-05b": mcfg.qwen2_05b_class,
-        "bloom560m": mcfg.bloom_560m_class, "phogpt4b": mcfg.phogpt_4b_class,
-    }
-    cfg = presets[size]()
+    cfg = _causal_preset(size)
     if tok.vocab_size > cfg.vocab_size:
         cfg = dataclasses.replace(cfg, vocab_size=tok.vocab_size)
     if params:
@@ -201,6 +214,24 @@ def _reader(size: str, tok, seed: int, device, quantize: Optional[str], params: 
     if quantize:
         print(f"reader decodes over a {quantize} base", flush=True)
     return model
+
+
+def _draft(size: str, vocab_size: int, seed: int, device, params: Optional[str], flag: str):
+    """The draft model of ``--speculative draft``: preset ``size`` widened
+    to the reader's vocabulary (the one hard invariant), loaded from
+    ``params`` or drawn from ``seed`` (cli/main.py:769-785, :985-1007)."""
+    import dataclasses
+
+    from ..core.device import make_generator
+    from ..models import init_causal_lm
+
+    cfg = _causal_preset(size)
+    if cfg.vocab_size != vocab_size:
+        cfg = dataclasses.replace(cfg, vocab_size=vocab_size)
+    if params:
+        return load_converted_params(params, cfg, device)
+    print(f"(no {flag}: drafting with RANDOM weights)", flush=True)
+    return init_causal_lm(cfg, make_generator(seed, device))
 
 
 def _train_config(args):
@@ -215,14 +246,10 @@ def _train_config(args):
     if args.model_config:
         with open(args.model_config) as f:
             cfg = mcfg.ModelConfig.from_json(f.read())
+    elif args.model_size in READERS:
+        cfg = _causal_preset(args.model_size)
     else:
-        presets = {
-            "tiny": lambda: mcfg.tiny_test("causal"), "gpt125m": mcfg.gpt_125m_class,
-            "gptneo125m": mcfg.gpt_neo_125m, "pythia410m": mcfg.pythia_410m_class, "llama1b": mcfg.llama_1b_class,
-            "qwen2-05b": mcfg.qwen2_05b_class, "bloom560m": mcfg.bloom_560m_class, "phogpt4b": mcfg.phogpt_4b_class,
-            "mt5small": mcfg.mt5_small_class, "seq2seq-small": mcfg.seq2seq_native_small,
-        }
-        cfg = presets[args.model_size]()
+        cfg = {"mt5small": mcfg.mt5_small_class, "seq2seq-small": mcfg.seq2seq_native_small}[args.model_size]()
     if args.scan_layers:
         if cfg.arch != "causal" or cfg.attention_layers is not None:
             raise SystemExit("--scan-layers requires a homogeneous causal model")
@@ -246,12 +273,11 @@ def cmd_train(args) -> int:
     import dataclasses
 
     from ..data import IGNORE_INDEX, QADataLoader
-    from ..models import LoraConfig
-    from ..train import TrainConfig, Trainer, perplexity_eval
+    from ..models import GenerationConfig, LoraConfig
+    from ..train import TrainConfig, Trainer, generative_eval, perplexity_eval
 
     _refuse(args, {
-        "--mesh": ("mesh", None),
-        "--sharded-checkpoint": ("sharded_checkpoint", False), "--do-generative-eval": ("do_generative_eval", False),
+        "--mesh": ("mesh", None), "--sharded-checkpoint": ("sharded_checkpoint", False),
         "--push-to-hub": ("push_to_hub", None),
     })
     model = _train_config(args)
@@ -305,7 +331,23 @@ def cmd_train(args) -> int:
         return dl.batches(train_examples, epoch=epoch)
 
     def eval_fn(state, epoch):
-        metrics = perplexity_eval(trainer.merged_params(), model, dl.batches(eval_examples, shuffle=False))
+        params = trainer.merged_params()
+        metrics = perplexity_eval(params, model, dl.batches(eval_examples, shuffle=False))
+        if args.do_generative_eval:
+            # speculation where the JAX CLI takes it (cli/main.py:371-378):
+            # no beams, penalties, n-gram bans or minimum length
+            plain = (args.num_beams == 1 and args.repetition_penalty == 1.0 and args.no_repeat_ngram_size == 0
+                     and args.min_new_tokens == 0)
+            gen = GenerationConfig(
+                max_new_tokens=args.max_new_tokens, temperature=args.temperature, top_k=args.top_k, top_p=args.top_p,
+                repetition_penalty=args.repetition_penalty, no_repeat_ngram_size=args.no_repeat_ngram_size,
+                min_new_tokens=args.min_new_tokens, num_beams=args.num_beams, length_penalty=args.length_penalty,
+                seed=args.seed, speculative=args.speculative if plain else "none", draft_tokens=args.draft_tokens,
+                draft_ngram=args.draft_ngram)
+            gm = generative_eval(params, model, tok, _gen_batches(eval_examples, tok, args.batch_size),
+                                 gen_config=gen, log_dir=os.path.join(args.log_dir, "predictions"), epoch=epoch,
+                                 run_name=args.run_name or "model")
+            metrics["gen_tokens_per_s"] = gm["gen_tokens_per_s"]
         print(f"eval @ epoch {epoch}: {metrics}", flush=True)
         return metrics
 
@@ -320,6 +362,26 @@ def cmd_train(args) -> int:
         save_pytree(adapter_path, trainer.state["adapter"])
         print(f"adapter saved -> {adapter_path} (r={args.lora_r}, alpha={args.lora_alpha})", flush=True)
     return 0
+
+
+def _gen_batches(examples, tok, batch_size: int):
+    """LEFT-padded prompt-only batches of the eval examples for generative
+    eval (cli/main.py:439-470): each example's prompt is its tokens before
+    the first supervised label; the short last batch is kept."""
+    import numpy as np
+
+    from ..data import IGNORE_INDEX
+
+    for i in range(0, len(examples), batch_size):
+        group = examples[i: i + batch_size]
+        prompts = [ex["input_ids"][:sum(1 for lab in ex["labels"] if lab == IGNORE_INDEX)] for ex in group]
+        width = max(max(len(p) for p in prompts), 1)
+        ids = np.full((len(group), width), tok.pad_id, np.int32)
+        mask = np.zeros((len(group), width), np.int32)
+        for r, pr in enumerate(prompts):
+            ids[r, width - len(pr):] = pr
+            mask[r, width - len(pr):] = 1
+        yield {"input_ids": ids, "attention_mask": mask}
 
 
 def _add_train_args(p: argparse.ArgumentParser) -> None:
@@ -387,7 +449,23 @@ def _add_train_args(p: argparse.ArgumentParser) -> None:
     g.add_argument("--seed", type=int, default=42)
     g = p.add_argument_group("evaluation")
     g.add_argument("--do-eval", action="store_true", help="perplexity over --eval-files after each epoch")
-    g.add_argument("--do-generative-eval", action="store_true", help="not ported yet")
+    g.add_argument("--do-generative-eval", action="store_true",
+                   help="with --do-eval: also decode the eval prompts and log the predictions under "
+                        "<log-dir>/predictions")
+    g.add_argument("--max-new-tokens", type=int, default=64)
+    g.add_argument("--temperature", type=float, default=0.0)
+    g.add_argument("--top-k", type=int, default=0)
+    g.add_argument("--top-p", type=float, default=1.0)
+    g.add_argument("--repetition-penalty", type=float, default=1.0)
+    g.add_argument("--no-repeat-ngram-size", type=int, default=0)
+    g.add_argument("--min-new-tokens", type=int, default=0)
+    g.add_argument("--num-beams", type=int, default=1)
+    g.add_argument("--length-penalty", type=float, default=1.0)
+    g.add_argument("--speculative", choices=["none", "ngram"], default="none",
+                   help="prompt-lookup speculative decoding for generative eval (greedy: the same tokens; sampled: "
+                        "the same distribution); taken without beams, penalties, n-gram bans or a minimum length")
+    g.add_argument("--draft-tokens", type=int, default=8)
+    g.add_argument("--draft-ngram", type=int, default=3)
     g.add_argument("--print-samples", type=int, default=0, help="decode and print N training examples first")
     g.add_argument("--profile-steps", type=int, default=0, help="device traces (not ported yet)")
     p.add_argument("--device", default="cuda")
@@ -519,11 +597,7 @@ def cmd_serve(args) -> int:
     from ..core.device import resolve_device
     from ..engine import BM25Index, DocStore, IngestPipeline, QAPipeline, Retriever, ServingApp, VectorStore, make_server
 
-    _refuse(args, {
-        "--reader-strategy": ("reader_strategy", None), "--reader-draft-size": ("reader_draft_size", None),
-        "--reader-draft-params": ("reader_draft_params", None), f"--speculative {args.speculative}": ("speculative", "none"),
-        "--adapter": ("adapter", None),
-    })
+    _refuse(args, {"--reader-strategy": ("reader_strategy", None), "--adapter": ("adapter", None)})
     device = resolve_device(args.device)
     encoder = _encoder(args.encoder, args.seed, device)
     tok = _tokenizer(args.tokenizer)
@@ -544,8 +618,13 @@ def cmd_serve(args) -> int:
     qa = None
     if args.reader_size:
         reader = _reader(args.reader_size, tok, args.seed + 1, device, args.reader_quantize, args.reader_params)
+        draft = None
+        if args.speculative == "draft":
+            draft = _draft(args.reader_draft_size, reader.cfg.vocab_size, args.seed + 7, device,
+                           args.reader_draft_params, "--reader-draft-params")
         qa = QAPipeline(retriever, reader, tok, k=args.k, min_score=args.min_score,
-                        max_new_tokens=args.max_new_tokens)
+                        max_new_tokens=args.max_new_tokens, speculative=args.speculative,
+                        draft_tokens=args.draft_tokens, draft_ngram=args.draft_ngram, draft=draft)
     if args.port is None:
         print(f"index: {store.size} vectors; type a query (empty line quits)")
         while True:
@@ -614,14 +693,18 @@ def cmd_chat(args) -> int:
     from ..data import QUESTION_PREFIX, RESPONSE_PREFIX, batch_encode
     from ..models import GenerationConfig, generate_with_config
 
-    _refuse(args, {
-        "--draft-size": ("draft_size", None),
-        "--draft-params": ("draft_params", None),
-    })
     device = resolve_device(args.device)
     tok = _tokenizer(args.tokenizer)
     model = _reader(args.model_size, tok, args.seed, device, args.quantize, args.init_params)
-    gen = GenerationConfig(max_new_tokens=args.max_new_tokens, temperature=args.temperature)
+    # speculation decodes causal readers without beams (cli/main.py:979-1032)
+    use_spec = args.speculative != "none" and args.num_beams == 1
+    draft = None
+    if use_spec and args.speculative == "draft":
+        draft = _draft(args.draft_size, model.cfg.vocab_size, args.seed + 7, device, args.draft_params,
+                       "--draft-params")
+    gen = GenerationConfig(max_new_tokens=args.max_new_tokens, temperature=args.temperature, num_beams=args.num_beams,
+                           speculative=args.speculative if use_spec else "none", draft_tokens=args.draft_tokens,
+                           draft_ngram=args.draft_ngram)
     print("chat REPL — empty line quits", flush=True)
     while True:
         try:
@@ -633,7 +716,7 @@ def cmd_chat(args) -> int:
         prompt = f"{QUESTION_PREFIX}\n{text}\n\n{RESPONSE_PREFIX}\n"
         ids, mask = batch_encode(tok, [prompt], args.max_len, pad_side="left")
         out = generate_with_config(model, torch.from_numpy(ids).to(device), torch.from_numpy(mask).to(device),
-                                   gen, eos_id=tok.eos_id)
+                                   gen, eos_id=tok.eos_id, draft=draft)
         new_tokens = out[0, ids.shape[1]:].tolist()
         print(f"model> {tok.decode([t for t in new_tokens if t not in (tok.pad_id, tok.eos_id)])}", flush=True)
     return 0
@@ -720,14 +803,17 @@ def build_parser() -> argparse.ArgumentParser:
                     help="retrieval score below which /qa refuses instead of answering")
     ps.add_argument("--max-new-tokens", type=int, default=128,
                     help="completion budget of each /qa answer, and the default one of /generate")
-    ps.add_argument("--speculative", choices=["none", "ngram", "draft"], default="none",
-                    help="speculative decoding for the reader (only none is ported)")
+    ps.add_argument("--speculative", choices=["none", "ngram", "draft"], default="ngram",
+                    help="speculative decoding of /qa: ngram = prompt lookup (RAG answers quote their contexts, so "
+                         "drafts hit often), draft = a small draft model (--reader-draft-size / -params)")
     ps.add_argument("--reader-params", default=None,
                     help="reader weights: a local HF causal-LM directory, a checkpoint directory or a flat .npz")
     ps.add_argument("--reader-strategy", choices=["tp", "fsdp_tp"], default=None,
                     help="shard the reader over several GPUs (not ported yet)")
-    ps.add_argument("--reader-draft-size", default=None, help="draft model preset (not ported yet)")
-    ps.add_argument("--reader-draft-params", default=None, help="draft model checkpoint (not ported yet)")
+    ps.add_argument("--reader-draft-size", default="tiny", choices=DRAFTS,
+                    help="draft model preset for --speculative draft")
+    ps.add_argument("--reader-draft-params", default=None,
+                    help="draft model weights: a local HF causal-LM directory, a checkpoint directory or a flat .npz")
     ps.add_argument("--continuous-slots", type=int, default=0,
                     help="enable POST /generate via continuous batching with this many decode slots (needs "
                          "--reader-size and --port; 0 = off)")
@@ -741,8 +827,10 @@ def build_parser() -> argparse.ArgumentParser:
     ps.add_argument("--gen-speculative", choices=["off", "ngram"], default="ngram",
                     help="prompt-lookup speculative decoding inside the continuous engine (while every request "
                          "is greedy; a sampled one sends the batch to plain chunks)")
-    ps.add_argument("--draft-tokens", type=int, default=8, help="drafted tokens per speculative step")
-    ps.add_argument("--draft-ngram", type=int, default=3, help="n-gram length of the prompt-lookup draft")
+    ps.add_argument("--draft-tokens", type=int, default=8,
+                    help="drafted tokens per speculative step (/qa and /generate)")
+    ps.add_argument("--draft-ngram", type=int, default=3,
+                    help="n-gram length of the prompt-lookup draft (/qa and /generate)")
     ps.add_argument("--kv-quant", choices=["bf16", "int8"], default="bf16",
                     help="KV-cache storage for /generate: int8 codes with per-(token, head) scales folded into "
                          "the attention (streams match generate(kv_dtype='int8'))")
@@ -760,12 +848,20 @@ def build_parser() -> argparse.ArgumentParser:
     pc.add_argument("--max-len", type=int, default=256)
     pc.add_argument("--max-new-tokens", type=int, default=128)
     pc.add_argument("--temperature", type=float, default=0.0)
+    pc.add_argument("--num-beams", type=int, default=1)
     pc.add_argument("--quantize", choices=["int8", "int8c", "nf4", "nf4-dq"], default=None,
                     help="quantize dense weights for decode; int8c decodes through the w8 GEMM kernel (K6)")
     pc.add_argument("--init-params", default=None,
                     help="model weights: a local HF causal-LM directory, a checkpoint directory or a flat .npz")
-    pc.add_argument("--draft-size", default=None, help="draft model preset (not ported yet)")
-    pc.add_argument("--draft-params", default=None, help="draft model checkpoint (not ported yet)")
+    pc.add_argument("--speculative", choices=["none", "ngram", "draft"], default="ngram",
+                    help="speculative decoding: ngram = prompt lookup, draft = a small draft model (--draft-size / "
+                         "--draft-params); greedy gives the same tokens, sampling the same distribution; without "
+                         "beams only")
+    pc.add_argument("--draft-tokens", type=int, default=8)
+    pc.add_argument("--draft-ngram", type=int, default=3)
+    pc.add_argument("--draft-size", default="tiny", choices=DRAFTS, help="draft model preset for --speculative draft")
+    pc.add_argument("--draft-params", default=None,
+                    help="draft model weights: a local HF causal-LM directory, a checkpoint directory or a flat .npz")
     pc.add_argument("--seed", type=int, default=42)
     pc.add_argument("--device", default="cuda")
     pc.set_defaults(fn=cmd_chat)

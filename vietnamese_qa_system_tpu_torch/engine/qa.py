@@ -2,12 +2,13 @@
 
 Counterpart of ``vietnamese_qa_system_tpu/engine/qa.py`` for causal
 readers: batched retrieval, prompt assembly with the template bank's
-``[CTX i]`` format, KV-cache batch generation (models/generate.py), and a
-score threshold below which a question gets a refusal.  The same seeded
-``random.Random`` picks the templates in the same order as the JAX
-pipeline, so both render the same prompts and refusals.
+``[CTX i]`` format, KV-cache batch generation (models/generate.py), plain
+or speculative, and a score threshold below which a question gets a
+refusal.  The same seeded ``random.Random`` picks the templates in the
+same order as the JAX pipeline, so both render the same prompts and
+refusals.
 
-Seq2seq readers and speculative decoding are not ported yet and raise.
+Seq2seq readers are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -36,15 +37,21 @@ class QAAnswer:
 
 class QAPipeline:
     """``reader`` is a :class:`~..models.causal_lm.CausalLM` (its ``cfg``
-    and device come with it)."""
+    and device come with it).  ``speculative`` ("none", "ngram" or "draft",
+    with the draft model as ``draft``), ``draft_tokens`` and
+    ``draft_ngram`` choose the decode as ``GenerationConfig`` does: RAG
+    answers quote the retrieved passages, so prompt-lookup drafts hit
+    where the pipeline spends its decode time (engine/qa.py:54-78)."""
 
     def __init__(self, retriever: Retriever, reader, reader_tokenizer, *, k: int = 3, min_score: float = 0.2,
                  max_prompt_len: int = 512, max_new_tokens: int = 128, temperature: float = 0.0, seed: int = 0,
-                 speculative: str = "none"):
+                 speculative: str = "none", draft_tokens: int = 8, draft_ngram: int = 3, draft=None):
         if reader.cfg.arch != "causal":
             raise NotImplementedError(f"{reader.cfg.arch} readers are not ported yet")
-        if speculative != "none":
-            raise NotImplementedError(f"speculative decoding (speculative={speculative!r}) is not ported yet")
+        self.speculative = speculative
+        self.draft_tokens = draft_tokens
+        self.draft_ngram = draft_ngram
+        self.draft = draft
         self.retriever = retriever
         self.reader = reader
         self.tok = reader_tokenizer
@@ -95,8 +102,10 @@ class QAPipeline:
         dev = self.reader.device
         out = generate_with_config(
             self.reader, torch.from_numpy(ids).to(dev), torch.from_numpy(mask).to(dev),
-            GenerationConfig(max_new_tokens=self.max_new_tokens, temperature=self.temperature),
-            eos_id=self.tok.eos_id,
+            GenerationConfig(max_new_tokens=self.max_new_tokens, temperature=self.temperature,
+                             speculative=self.speculative, draft_tokens=self.draft_tokens,
+                             draft_ngram=self.draft_ngram),
+            eos_id=self.tok.eos_id, draft=self.draft,
         ).cpu().numpy()
         for row, i in enumerate(live):
             new_tokens = out[row, ids.shape[1]:]

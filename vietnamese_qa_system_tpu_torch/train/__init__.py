@@ -1,8 +1,8 @@
 """Training: the train step and Trainer, optimizers, checkpoints,
-perplexity."""
+perplexity and generative eval."""
 
 from .checkpoint import CheckpointManager, load_pytree, save_pytree
-from .evaluate import perplexity_eval
+from .evaluate import generative_eval, perplexity_eval
 from .optim import dequantize_blockwise, make_optimizer, make_schedule, quantize_blockwise
 from .trainer import TrainConfig, Trainer, make_train_step, params_tree
 
@@ -11,6 +11,7 @@ __all__ = [
     "TrainConfig",
     "Trainer",
     "dequantize_blockwise",
+    "generative_eval",
     "load_pytree",
     "make_optimizer",
     "make_schedule",
