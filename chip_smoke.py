@@ -97,7 +97,30 @@ and backward against their plain versions at the edges of their tiles
   the repo's sample file, and a two-layer twin trained on the card and on
   the host (plain versions) and resumed from a checkpoint, and the twin's
   ``cli train --do-eval --do-generative-eval --num-beams 2`` (predictions
-  file and gen_tokens_per_s).
+  file and gen_tokens_per_s);
+- multi-LoRA ``/generate`` over the int8c reader, after the /generate
+  phase: three r 8 adapters written as ``adapter.npz`` and served through
+  ``serve --continuous-slots 8 --adapter a=... --adapter b=... --adapter
+  c=...``, 24 concurrent requests (six each for the base and each adapter,
+  one sampled), every greedy stream held to a B=1 ``generate()`` under its
+  adapter by the margin rule, two adapters on one prompt (different
+  streams, no shared prefix-cache entry), an unknown adapter 400,
+  ``/healthz``, and a speculative chunk with the bank traced beside the
+  same chunk without it (no host synchronisation; K6 under the bank);
+- nf4 and nf4-dq readers of the QA phase's drawn bf16 weights (``serve
+  --reader-params DIR --reader-quantize nf4|nf4-dq``): codes equal to
+  quantizing the same values, 8 concurrent ``/qa`` (K1; no K6), prefill
+  and decode rates, the weights' bytes beside int8c and bf16, the first
+  decode step's logits against the float reader's, a traced decode step
+  and the dequantization's share of it;
+- QLoRA over an nf4-dq base at PhoGPT-4B width (global batch 8 x 1,024):
+  two steps with each dequant placement (fused, once, once_folded; K4 and
+  K7) from the same base and initial adapter, their first losses held
+  together, the fused run again with ``host_offload="all"`` (the same
+  losses), step s, device busy ms and peak memory per placement; then the
+  2-layer twin's ``cli train --profile-steps 1 --sharded-checkpoint`` (a
+  trace with CUDA kernel events, ``host_0`` files) resumed from its
+  checkpoint.
 
 Each path resets the kernels' launch counters just before it runs and
 reads them just after; every kernel of the path must have launched.
@@ -228,6 +251,23 @@ TRAIN_STEPS, TRAIN_BATCH, TRAIN_T = 3, 8, 1024
 FLASH_GRAD_REL_TOL = 2e-2
 TWIN_T, TWIN_LOSS_TOL, TWIN_GRAD_REL_TOL = 128, 1e-3, 5e-2
 TWIN_EVAL_EXAMPLES = 8  # the twin's cli train decodes this many eval prompts with W 2 beams
+# multi-LoRA /generate: three r 8 / alpha 16 adapters over the default
+# targets (serve's --adapter-r / --adapter-alpha defaults) with B drawn
+# N(0, ADAPTER_B_STD^2) (init_lora's B = 0 would equal the base); six
+# requests each for the base and the three adapters, 16-500 prompt tokens,
+# 16-48 new ones
+ADAPTER_NAMES, ADAPTER_B_STD, ADAPTER_PER, ADAPTER_NEW = ("a", "b", "c"), 0.05, 6, (16, 48)
+ADAPTER_SHARED = 300  # the prompt adapters a and b both get; a's extension of it hits a's entry alone
+ADAPTER_CACHE_MB = 8192  # above the burst's 24 prompt KVs (<= 201 MB each at bucket 512)
+# nf4 readers of the QA phase's drawn bf16 weights: the first decode
+# step's logits against the float reader's, relative to its max |logit|
+# (tests/test_quantize_base.py:250-268 bounds nf4 by 0.35)
+NF4_MODES, NF4_LOGIT_REL_TOL = ("nf4", "nf4-dq"), 0.35
+# QLoRA over an nf4-dq base at PhoGPT-4B width (the train phase's batch):
+# each dequant placement's first loss against fused's (same data, same
+# initial adapter, whose B = 0: the same forward), and host_offload="all"
+# against the device run (the same operations)
+QLORA_STEPS, QLORA_LOSS_RTOL, QLORA_OFFLOAD_RTOL = 2, 1e-4, 1e-5
 # hybrid retrieval: 12 concurrent /search at k 10 and weight 0.5 over the
 # ingested passages; served scores are rounded to 6 decimals (HYBRID_TOL);
 # the BM25 timing index; /search latency rounds for p50 / p99
@@ -1574,11 +1614,11 @@ def draw_mpt_layer(torch, cfg, i: int, gen) -> dict:
     return out
 
 
-def mpt_to_port(torch, hf: dict, cfg, i: int) -> dict:
-    """Layer i's HF MPT tensors -> the port's names, f32, int8c dense
-    weights quantized by models/quantize.py (the smoke's own map: Wqkv rows
-    are q, k, v in turn; Linear weights are (out, in); MPT norms have no
-    bias)."""
+def mpt_to_port(torch, hf: dict, cfg, i: int, quantize="int8c") -> dict:
+    """Layer i's HF MPT tensors -> the port's names, f32, dense weights
+    quantized by models/quantize.py in mode ``quantize`` (None: kept f32)
+    (the smoke's own map: Wqkv rows are q, k, v in turn; Linear weights
+    are (out, in); MPT norms have no bias)."""
     from vietnamese_qa_system_tpu_torch.models import quantize_weight
 
     d, pre = cfg.d_model, f"transformer.blocks.{i}."
@@ -1588,19 +1628,20 @@ def mpt_to_port(torch, hf: dict, cfg, i: int) -> dict:
              "mlp.wo": hf[pre + "ffn.down_proj.weight"].float().T}
     out = {}
     for name, w in dense.items():
-        leaf = quantize_weight(w, "int8c")
-        out[f"blocks.{i}.{name}.w_q"], out[f"blocks.{i}.{name}.w_s"] = leaf["w_q"], leaf["w_s"]
+        leaf = {"w": w.contiguous()} if quantize is None else quantize_weight(w, quantize)
+        out.update({f"blocks.{i}.{name}.{key}": t for key, t in leaf.items()})
     for ours, theirs in (("ln1", "norm_1"), ("ln2", "norm_2")):
         out[f"blocks.{i}.{ours}.scale"] = hf[pre + theirs + ".weight"].float()
         out[f"blocks.{i}.{ours}.bias"] = torch.zeros(d, device="cuda")
     return out
 
 
-def write_phogpt_dir(torch, cfg, out_dir: str, gen):
+def write_phogpt_dir(torch, cfg, out_dir: str, gen, quantize="int8c"):
     """A PhoGPT-4B-size MPT directory of drawn weights (MosaicML config.json,
     sharded bf16 safetensors behind model.safetensors.index.json, tied
     head: no lm_head.weight), written layer by layer; returns the
-    reference reader built from the same bf16 values, int8c."""
+    reference reader built from the same bf16 values, in mode ``quantize``
+    (None: the float reader)."""
     from vietnamese_qa_system_tpu_torch.models import causal_from_state_dict
 
     with open(os.path.join(out_dir, "config.json"), "w") as f:
@@ -1627,7 +1668,7 @@ def write_phogpt_dir(torch, cfg, out_dir: str, gen):
                 hf = draw_mpt_layer(torch, cfg, i, gen)
                 for name, _ in mpt_layer_shapes(cfg, i):
                     write_tensor(f, hf[name])
-                ref.update(mpt_to_port(torch, hf, cfg, i))
+                ref.update(mpt_to_port(torch, hf, cfg, i, quantize))
         weight_map.update({n: file for n, _ in entries})
         total += os.path.getsize(os.path.join(out_dir, file))
     with open(os.path.join(out_dir, "model.safetensors.index.json"), "w") as f:
@@ -1769,9 +1810,9 @@ def trace_span(torch, label: str, span: str, n: int, step_s: float, run) -> dict
     operator calls, kernel launches and synchronisations a step (with their
     callers).  The idle share compares the busy time with ``step_s``, the
     wall time of a step of an untraced run (the profiler slows the host).
-    Returns the busy ms a step, the host's synchronisations in the span and
-    the device ms a step by caller, None where the trace did not measure
-    them."""
+    Returns the busy ms a step, the idle share, the host's top-level aten
+    calls a step and synchronisations in the span, and the device ms a step
+    by caller, None where the trace did not measure them."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1834,8 +1875,27 @@ def trace_span(torch, label: str, span: str, n: int, step_s: float, run) -> dict
         print(f"  device a step, kernels of {key}: {us / 1e3 / n:.3f} ms", flush=True)
     for key, count in sorted(sync_callers.items(), key=lambda kv: -kv[1]):
         print(f"  host a step, {key}: {count / n:.1f}", flush=True)
-    return {"busy_ms": round(busy_ms, 3), "syncs": syncs,
-            "ms_by_caller": {key: us / 1e3 / n for key, us in by_caller.items()}}
+    return {"busy_ms": round(busy_ms, 3), "idle": round(1 - busy_ms / step_ms, 3), "ops": round(ops / n),
+            "syncs": syncs, "ms_by_caller": {key: us / 1e3 / n for key, us in by_caller.items()}}
+
+
+def device_busy_ms(torch, run) -> float:
+    """The device's busy ms over ``run``: the union of its kernels' time
+    ranges in a torch.profiler trace of the device alone.  Without the
+    host's operators a QLoRA step (~90,000 aten calls) traces in seconds,
+    where ``trace_span``'s attribution takes tens of them."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    busy, reach = 0.0, float("-inf")
+    for start, end in sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                             if e.device_type == DeviceType.CUDA):
+        busy += max(0.0, end - max(start, reach))
+        reach = max(reach, end)
+    return busy / 1e3
 
 
 def phase_twin(torch, reader):
@@ -3018,6 +3078,439 @@ def phase_train_twin(torch, logdir: str) -> None:
           "gen_tokens_per_s")
 
 
+def under_adapter(torch, reader, bank, ix: int):
+    """The context that runs ``reader`` under bank adapter ``ix`` (0, the
+    base: no factors), as a B=1 reference of the engine's streams."""
+    from vietnamese_qa_system_tpu_torch.models import select_adapters
+    from vietnamese_qa_system_tpu_torch.models import layers as L
+
+    return L.row_adapters(select_adapters(reader, bank, ix)) if ix else contextlib.nullcontext()
+
+
+def phase_adapters(torch, pkg, reader, ctx):
+    """Multi-LoRA serving at PhoGPT-4B width: three adapters written as
+    ``adapter.npz`` and loaded through ``serve --continuous-slots 8
+    --adapter a=... --adapter b=... --adapter c=...`` over the int8c reader
+    (serve's default n-gram speculation), 24 concurrent ``/generate``
+    requests (six each for the base and the three adapters; one sampled;
+    adapters a and b on one prompt, a's extension of it after), every
+    greedy stream held to a B=1 ``generate()`` under its adapter by the
+    margin rule, the same-prompt streams apart and keyed apart in the
+    prefix cache, an unknown adapter 400, ``/healthz``; a speculative chunk
+    with the bank traced beside the same chunk without it (no host
+    synchronisation).  Returns the burst's launches."""
+    import numpy as np
+
+    from vietnamese_qa_system_tpu_torch.cli.main import build_parser, continuous_engine
+    from vietnamese_qa_system_tpu_torch.engine import Retriever, ServingApp
+    from vietnamese_qa_system_tpu_torch.models import LoraConfig, init_lora
+    from vietnamese_qa_system_tpu_torch.models import decode_engine as de
+    from vietnamese_qa_system_tpu_torch.models import layers as L
+    from vietnamese_qa_system_tpu_torch.train.checkpoint import save_pytree
+    from vietnamese_qa_system_tpu_torch.utils.tree import flatten_paths, tree_leaves
+
+    t_phase = time.perf_counter()
+    card = gpu_name_and_power()
+    tok, cfg = ctx["tok"], reader.cfg
+    rng = np.random.default_rng(SEED + 20)
+    d = tempfile.mkdtemp(prefix="chip_smoke_adapters_")
+    try:
+        flags = []
+        for i, name in enumerate(ADAPTER_NAMES):
+            gen = torch.Generator(device="cuda").manual_seed(SEED + 30 + i)
+            adapter = init_lora(gen, reader, LoraConfig())
+            with torch.no_grad():
+                for path, leaf in flatten_paths(adapter).items():
+                    if path.endswith(".b"):
+                        leaf.normal_(0.0, ADAPTER_B_STD, generator=gen)
+            os.makedirs(os.path.join(d, name))
+            save_pytree(os.path.join(d, name, "adapter.npz"), adapter)
+            flags += ["--adapter", f"{name}={os.path.join(d, name, 'adapter.npz')}"]
+        # a prefix cache that holds every prompt of the burst: no entry is evicted before it is looked up
+        args = build_parser().parse_args(["serve", "--index", "-", "--db", ":memory:", "--reader-size", "phogpt4b",
+                                          "--reader-quantize", "int8c", "--port", "0", *ENGINE_FLAGS,
+                                          "--prefix-cache-mb", str(ADAPTER_CACHE_MB), *flags])
+        t0 = time.perf_counter()
+        engine = continuous_engine(args, reader, tok, "cuda")
+        load_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    bank, index, buckets = engine._bank, engine._adapter_idx, engine.buckets
+    bank_gb = sum(t.numel() * t.element_size() for t in tree_leaves(bank)) / 1e9
+    check(engine.adapter_names == list(ADAPTER_NAMES) and engine.speculative,
+          f"serve --adapter loaded {engine.adapter_names} into one bank ({bank_gb:.3f} GB, index 0 the base) in "
+          f"{load_s:.1f} s; n-gram speculation on by default")
+    retriever = Retriever(ctx["encoder"], tok, ctx["store"], ctx["docstore"], max_len=128, query_batch=16)
+    app = ServingApp(retriever, gen=engine, tokenizer=tok, k=3, max_batch=16)
+    marks: dict = {}
+    submit = engine.submit
+
+    def timed_submit(ids, max_new=None, stream=None, **kw):
+        t0, stamps = time.perf_counter(), []
+        fut = submit(ids, max_new, stream=lambda tok_id: stamps.append(time.perf_counter()), **kw)
+        marks[(tuple(ids), kw.get("adapter"))] = (t0, stamps)
+        return fut
+
+    engine.submit = timed_submit
+    names = [None] * ADAPTER_PER + [n for n in ADAPTER_NAMES for _ in range(ADAPTER_PER)]
+    payloads = []
+    for name in names:
+        p = {"prompt": engine_text(rng, int(rng.integers(*ENGINE_PROMPT, endpoint=True))),
+             "max_new_tokens": int(rng.integers(*ADAPTER_NEW, endpoint=True))}
+        payloads.append(p if name is None else dict(p, adapter=name))
+    # a and b on one prompt (b after a's answer), then a's extension of it
+    ja, jb = ADAPTER_PER, 2 * ADAPTER_PER
+    ja2 = ja + 1
+    shared = engine_text(rng, ADAPTER_SHARED)
+    payloads[ja]["prompt"] = payloads[jb]["prompt"] = shared
+    payloads[ja2]["prompt"] = shared + engine_text(rng, 60)
+    after = {jb: ja, ja2: jb}
+    sampled = ADAPTER_PER - 1  # a base request
+    payloads[sampled].update(ENGINE_SAMPLED)
+    url, stop = serve(app)
+    try:
+        for kern in pkg.KERNELS:
+            kern.launches = 0
+        t0 = time.perf_counter()
+        answers = engine_burst(url, payloads, after)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k.name: k.launches for k in pkg.KERNELS}
+        import urllib.error
+
+        try:
+            post(url + "/generate", {"prompt": "xin chao", "adapter": "zz"})
+            unknown = 200
+        except urllib.error.HTTPError as exc:
+            unknown = (exc.code, json.loads(exc.read())["error"])
+        with urllib.request.urlopen(f"{url}/healthz", timeout=60) as resp:
+            stats = json.loads(resp.read())["stats"]["generate"]
+    finally:
+        stop()
+    check(all(isinstance(a, dict) for a in answers), f"{len(payloads)} concurrent /generate under "
+                                                     f"{ADAPTER_PER} x (base, a, b, c) answered 200")
+    check(unknown != 200 and unknown[0] == 400 and "unknown adapter 'zz'" in unknown[1],
+          f"an unknown adapter answers 400 ({unknown})")
+    check(stats["adapters"] == list(ADAPTER_NAMES), f"/healthz lists generate.adapters {stats['adapters']}")
+    ids = [tok.encode(p["prompt"]) for p in payloads]
+    outs = [a["ids"] for a in answers]
+    check(outs[ja] != outs[jb], "adapters a and b continue the same prompt differently")
+    check(stats["prefix_hits"] == 1, f"the prefix cache is keyed by adapter: b's copy of a's prompt took no hit, a's "
+                                     f"extension took a's entry ({stats['prefix_hits']} hit(s))")
+    tokens = sum(len(o) for o in outs)
+    ttft = [(stamps[0] - t_in) * 1e3 for t_in, stamps in marks.values() if stamps]
+    print(f"/generate with adapters ({card}): {len(payloads)} concurrent requests, {tokens} tokens in {wall:.2f} s = "
+          f"{tokens / wall:.1f} tokens/s aggregate; time to first token p50 {percentile(ttft, 0.5):.1f} ms, p99 "
+          f"{percentile(ttft, 0.99):.1f} ms; mean occupancy {stats['avg_occupancy']} of 8 slots, {stats['chunks']} "
+          f"chunks ({stats['spec_chunks']} speculative, {stats['drafted_accepted']} drafts accepted), "
+          f"{stats['prefills']} prefills; K6 launches {launches['w8_matmul']}", flush=True)
+    t_ref = time.perf_counter()
+    agree, refs = {}, {}
+    for j, (name, got) in enumerate(zip(names, outs)):
+        if j == sampled:
+            continue
+        with under_adapter(torch, reader, bank, index.get(name, 0)):
+            refs[j] = greedy_reference(torch, reader, ids[j], bucket_of(buckets, len(ids[j])), len(got), tok.eos_id)
+            agree[j] = margin_rule(torch, reader, ids[j], got, refs[j])
+    same = sum(outs[j] == refs[j] for j in refs)
+    print(f"/generate adapter streams against B=1 generate() under each adapter ({time.perf_counter() - t_ref:.1f} "
+          f"s): {same} of {len(agree)} equal token for token; the rest (request, steps compared up to the first "
+          f"near-tie): {[(j, agree[j][1]) for j in refs if outs[j] != refs[j]]}", flush=True)
+    check(all(a for a, _ in agree.values()), f"{len(agree)} greedy streams equal B=1 generate() under their "
+                                             f"adapter by the margin rule ({TWIN_LOGIT_TOL})")
+    got = outs[sampled]
+    check(1 <= len(got) <= payloads[sampled]["max_new_tokens"] and all(0 <= t < cfg.vocab_size for t in got),
+          "the sampled request is well-formed")
+    del engine, app
+
+    # one speculative chunk of 8 slots under bank indices 0-3, traced with
+    # the bank and without it, from the same state
+    state = de.make_decode_state(cfg, 8, 1024, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    for slot in range(8):
+        j = slot * 3
+        width = bucket_of(buckets, len(ids[j]))
+        x = np.zeros((1, width), np.int32)
+        x[0, : len(ids[j])] = ids[j]
+        m = (np.arange(width) < len(ids[j]))[None].astype(np.int32)
+        aix = [slot % (len(ADAPTER_NAMES) + 1)]
+        kv, first, n = de.prefill(reader, x, m, gen, 0.0, 0, 1.0, sampled=False, bank=bank, adapter=aix)
+        de.insert(state, kv, x, m, first, n, slot, 0.0, 0, 1.0, adapter=aix)
+    traces = {}
+    for label, bk in (("no bank", None), ("bank of 3", bank)):
+        def run():
+            return de.decode_chunk_spec(reader, state, bank=bk)
+
+        run()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        chunk_s = time.perf_counter() - t0
+        traces[label] = (chunk_s * 1e3, trace_span(
+            torch, f"engine chunk trace (speculative, 4 steps of 8 x 9 rows, {label}; {card}; untraced "
+                   f"{chunk_s * 1e3:.1f} ms a chunk)", "engine.chunk", 1, chunk_s, run))
+    (plain_ms, plain), (bank_ms, banked) = traces["no bank"], traces["bank of 3"]
+    check(banked is not None and banked["syncs"] == 0,
+          f"no host synchronisation inside a traced speculative chunk with the bank "
+          f"({None if banked is None else banked['syncs']})")
+    print(f"adapter bank, speculative chunk ({card}): device busy {banked['busy_ms']} ms (no bank "
+          f"{plain['busy_ms'] if plain else 'not measured'}), untraced {bank_ms:.1f} ms ({plain_ms:.1f}), idle share "
+          f"{banked['idle']} ({plain['idle'] if plain else '-'}), {banked['ops']} top-level aten calls "
+          f"({plain['ops'] if plain else '-'})", flush=True)
+    print(f"adapters phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
+
+
+def first_step_logits(torch, model, ids, mask, nxt):
+    """f32 logits (B, V) at the last prompt position and at one cached
+    decode step of ``nxt`` (B,), as ``generate`` runs a left-padded batch."""
+    from vietnamese_qa_system_tpu_torch.models import make_cache
+
+    b, t = ids.shape
+    key_valid = torch.cat([mask.bool(), torch.zeros((b, 1), dtype=torch.bool, device=ids.device)], dim=1)
+    positions = (torch.cumsum(mask, dim=1) - 1).clamp_min(0).long()
+    cols = torch.arange(t + 1, device=ids.device)
+    prefill_mask = (cols[None, None, :] <= cols[:t][None, :, None]) & key_valid[:, None, :]
+    step_mask = key_valid[:, None, :] | (cols == t)[None, None, :]
+    cache = make_cache(model.cfg, b, t + 1, "cuda")
+    with torch.inference_mode():
+        l0 = model(ids.long(), prefill_mask, positions=positions, cache=cache, cache_index=0)[:, -1]
+        l1 = model(nxt.long()[:, None], step_mask, positions=mask.sum(1, keepdim=True).long(), cache=cache,
+                   cache_index=t)[:, 0]
+    return l0.float(), l1.float()
+
+
+def phase_nf4(torch, pkg, ctx, int8c_bytes: int):
+    """``serve --reader-quantize nf4`` and ``nf4-dq`` over the QA phase's
+    drawn bf16 weights (the same seed, rewritten as a PhoGPT-4B MPT
+    directory and imported through ``--reader-params``): codes equal to
+    quantizing the same values, 8 concurrent ``/qa`` at 512-token prompts
+    (the retrieval's K1; no K6: nf4 codes dequantize at each matmul), prefill
+    s and decode tokens/s, the weights' bytes beside int8c and bf16, the
+    first decode step's logits against the float reader's, a traced decode
+    step and the dequantization's share of it.  Returns the /qa runs'
+    launches."""
+    import numpy as np
+
+    from vietnamese_qa_system_tpu_torch.cli.main import _reader, build_parser
+    from vietnamese_qa_system_tpu_torch.data import batch_encode
+    from vietnamese_qa_system_tpu_torch.engine import QAPipeline, Retriever, ServingApp
+    from vietnamese_qa_system_tpu_torch.models import phogpt_4b_class, quantize_weight, tree_bytes
+    from vietnamese_qa_system_tpu_torch.models import generate as G
+    from vietnamese_qa_system_tpu_torch.models import layers as L
+
+    t_phase = time.perf_counter()
+    card = gpu_name_and_power()
+    tok, texts = ctx["tok"], ctx["texts"]
+    cfg = phogpt_4b_class()
+    readers = {}
+    d = tempfile.mkdtemp(prefix="chip_smoke_phogpt_nf4_")
+    try:
+        reference, total, _ = write_phogpt_dir(torch, cfg, d, torch.Generator(device="cuda").manual_seed(SEED + 1),
+                                               quantize=None)
+        for mode in NF4_MODES:
+            args = build_parser().parse_args(["serve", "--index", d, "--db", ":memory:", "--reader-size", "phogpt4b",
+                                              "--reader-params", d, "--reader-quantize", mode])
+            t0 = time.perf_counter()
+            readers[mode] = _reader(args.reader_size, tok, args.seed + 1, "cuda", args.reader_quantize,
+                                    args.reader_params)
+            torch.cuda.synchronize()
+            print(f"{mode} reader imported through serve --reader-params --reader-quantize {mode} in "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    dense_names = [n for n, m in reference.named_modules() if isinstance(m, L.Dense) and m.w is not None]
+    float_dense = sum(reference.get_submodule(n).w.numel() for n in dense_names)
+    bf16_bytes = 2 * sum(t.numel() for t in reference.state_dict().values())
+    retriever = Retriever(ctx["encoder"], tok, ctx["store"], ctx["docstore"], max_len=128, query_batch=16)
+    questions = [texts[i] for i in ctx["questions"]]
+    launches = {k.name: 0 for k in pkg.KERNELS}
+    for mode, reader in readers.items():
+        leaf_ok = all(torch.equal(getattr(reader.get_submodule(n), key), val)
+                      for n in dense_names[:6] + dense_names[-6:]
+                      for key, val in quantize_weight(reference.get_submodule(n).w, mode).items())
+        check(leaf_ok, f"{mode}: imported codes and scales of the first and last layers equal quantizing the same "
+                       f"bf16 values with models/quantize.py, bit for bit")
+        dense = [m for m in reader.modules() if isinstance(m, L.Dense) and m.w_q is not None]
+        w_bytes = sum(t.numel() * t.element_size() for m in dense for t in (m.w_q, m.w_s, m.s_q, m.s_s, m.s_m)
+                      if t is not None)
+        code_bytes = sum(m.w_q.numel() for m in dense)
+        qa = QAPipeline(retriever, reader, tok, k=3, max_prompt_len=READER_PROMPT_LEN,
+                        max_new_tokens=READER_NEW_TOKENS)
+        app = ServingApp(retriever, qa, k=3, max_batch=16, max_wait_s=2.0)
+        url, stop = serve(app)
+        try:
+            for kern in pkg.KERNELS:
+                kern.launches = 0
+            t0 = time.perf_counter()
+            answers = ask_all(url, "/qa", [{"question": q} for q in questions])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            run = {k.name: k.launches for k in pkg.KERNELS}
+        finally:
+            stop()
+        good = [a is not None and not a["refused"] and a["contexts"][:1] == [q] and isinstance(a["answer"], str)
+                for q, a in zip(questions, answers)]
+        check(all(good), f"{mode}: {sum(good)}/{len(questions)} HTTP /qa answers carry their own passage")
+        check(run["matmul_topk_bf16"] > 0 and run["w8_matmul"] == 0,
+              f"{mode} /qa: K1 launched {run['matmul_topk_bf16']} times (retrieval); K6 none (nf4 codes never "
+              f"reach it)")
+        for name, n in run.items():
+            launches[name] += n
+        prompts, _ = qa.retrieve(questions)
+        ids, mask = (torch.from_numpy(a).cuda() for a in batch_encode(tok, prompts, READER_PROMPT_LEN,
+                                                                       pad_side="left"))
+        timings = {}
+        torch.cuda.reset_peak_memory_stats()
+        G.generate(reader, ids, mask, max_new_tokens=READER_NEW_TOKENS, eos_id=tok.eos_id, timings=timings)
+        tps = len(prompts) * READER_NEW_TOKENS / timings["decode_s"]
+        f0, f1 = first_step_logits(torch, reference, ids, mask, torch.zeros(ids.shape[0], dtype=torch.int32,
+                                                                           device="cuda"))
+        nxt = f0.argmax(-1).to(torch.int32)
+        f0, f1 = first_step_logits(torch, reference, ids, mask, nxt)
+        q0, q1 = first_step_logits(torch, reader, ids, mask, nxt)
+        rel = [((q - f).abs().max() / f.abs().max()).item() for q, f in ((q0, f0), (q1, f1))]
+        print(f"{mode} reader ({card}): /qa {len(questions)} concurrent in {wall:.2f} s; B={len(prompts)} "
+              f"T={READER_PROMPT_LEN}: prefill {timings['prefill_s']:.3f} s, decode {READER_NEW_TOKENS} steps in "
+              f"{timings['decode_s']:.3f} s = {tps:.1f} tokens/s; dense weights {w_bytes / 1e9:.3f} GB ({code_bytes / 1e9:.3f} "
+              f"codes + {(w_bytes - code_bytes) / 1e9:.3f} scales; {8 * w_bytes / float_dense:.3f} bits a weight), "
+              f"whole model {tree_bytes(reader) / 1e9:.3f} GB against int8c {int8c_bytes / 1e9:.3f} and bf16 "
+              f"{bf16_bytes / 1e9:.3f}; logits max |nf4 - float| / max |float|: last prompt position {rel[0]:.4f}, "
+              f"first decode step {rel[1]:.4f}", flush=True)
+        check(max(rel) <= NF4_LOGIT_REL_TOL, f"{mode}: the first decode step's logits within {NF4_LOGIT_REL_TOL} "
+                                             f"(relative) of the float reader's")
+        step_s = timings["decode_s"] / READER_NEW_TOKENS
+        trace = trace_span(torch, f"{mode} decode trace ({TRACE_STEPS} steps, B={ids.shape[0]}, {card})",
+                           "generate.decode", TRACE_STEPS, step_s,
+                           lambda: G.generate(reader, ids, mask, max_new_tokens=TRACE_STEPS, eos_id=tok.eos_id,
+                                              timings={}))
+        def dequantize_all():
+            for m in dense:
+                m.dequantized()
+
+        deq_ms = cuda_ms(dequantize_all, 3)
+        print(f"{mode} dequantization of every dense weight to bf16 (once a decode step): {deq_ms:.3f} ms = "
+              f"{deq_ms / trace['busy_ms'] if trace else float('nan'):.1%} of a step's device busy "
+              f"{trace['busy_ms'] if trace else 'not measured'} ms", flush=True)
+        del qa, app
+    del readers, reference
+    print(f"nf4 phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
+
+
+def phase_qlora(torch, pkg, logdir: str):
+    """QLoRA at PhoGPT-4B width over an nf4-dq base (drawn on the card
+    layer by layer; LoRA r 8 on the default targets; proj_bf16; adamw;
+    global batch 8 x 1,024, grad_accum 2): QLORA_STEPS steps with each
+    dequant placement (fused, once, once_folded) from the same base and
+    initial adapter, then fused with host_offload="all"; step s, device
+    busy ms (``device_busy_ms``; host staging included with offload) and
+    peak memory per placement; then the 2-layer twin through
+    ``cli train --profile-steps 1 --sharded-checkpoint`` and a resume from
+    that checkpoint.  Returns the fused run's launches."""
+    import numpy as np
+
+    from vietnamese_qa_system_tpu_torch.cli.main import main as cli_main
+    from vietnamese_qa_system_tpu_torch.models import LoraConfig, phogpt_4b_class
+    from vietnamese_qa_system_tpu_torch.train import TrainConfig, Trainer
+
+    t_phase = time.perf_counter()
+    card = gpu_name_and_power()
+    cfg = dataclasses.replace(phogpt_4b_class(), remat_policy="proj_bf16")
+    rng = np.random.default_rng(SEED + 40)
+    batches = [train_batch(rng, TRAIN_BATCH, TRAIN_T, cfg.vocab_size) for _ in range(QLORA_STEPS)]
+    model, runs, launches = None, {}, None
+    for placement, offload in (("fused", None), ("once", None), ("once_folded", None), ("fused", "all")):
+        label = placement + ("" if offload is None else f", host_offload={offload}")
+        tcfg = TrainConfig(model=cfg, lora=LoraConfig(r=8, alpha=16), quantize_base="nf4-dq", optimizer="adamw",
+                           lr=2e-4, grad_accum=2, log_every=1, log_dir=logdir, seed=SEED + 11,
+                           run_name=f"qlora_{placement}_{offload}", qlora_dequant=placement, host_offload=offload)
+        t0 = time.perf_counter()
+        trainer = Trainer(tcfg, params=model, total_steps=QLORA_STEPS + 1, device="cuda")
+        torch.cuda.synchronize()
+        if model is None:
+            model = trainer.model
+            print(f"qlora phogpt_4b_class: nf4-dq base drawn in {time.perf_counter() - t0:.1f} s", flush=True)
+        marks, peaks = [], []
+
+        def factory():
+            for bt in batches:
+                torch.cuda.synchronize()
+                marks.append(time.perf_counter())
+                if len(marks) > 1:
+                    peaks.append(torch.cuda.max_memory_allocated())
+                torch.cuda.reset_peak_memory_stats()
+                yield bt
+
+        first = launches is None
+        if first:
+            for kern in pkg.KERNELS:
+                kern.launches = 0
+        trainer.fit(factory, max_steps=QLORA_STEPS)
+        torch.cuda.synchronize()
+        if first:
+            launches = {k.name: k.launches for k in pkg.KERNELS}
+        marks.append(time.perf_counter())
+        peaks.append(torch.cuda.max_memory_allocated())
+        with open(os.path.join(logdir, f"qlora_{placement}_{offload}.jsonl")) as f:
+            losses = [json.loads(line)["loss"] for line in f]
+        step_s = [b - a for a, b in zip(marks, marks[1:])]
+        dev_batch = trainer._device_batch(batches[-1])
+        busy = device_busy_ms(torch, lambda: trainer._run_step(trainer.state, dev_batch))
+        runs[label] = (losses, step_s, peaks, busy)
+        print(f"qlora {label} ({card}): losses {losses}, step s {[round(x, 3) for x in step_s]}, peak memory "
+              f"{[round(p / 1e9, 2) for p in peaks]} GB; a traced step's device busy {busy:.1f} ms (idle share "
+              f"{1 - busy / 1e3 / float(np.median(step_s)):.3f} of the untraced median step)", flush=True)
+        check(len(losses) == QLORA_STEPS and all(np.isfinite(losses)), f"qlora {label}: finite losses")
+        del trainer
+        torch.cuda.empty_cache()
+    fused = runs["fused"][0]
+    for label in ("once", "once_folded"):
+        got = runs[label][0]
+        check(abs(got[0] - fused[0]) <= QLORA_LOSS_RTOL * abs(fused[0]),
+              f"qlora {label}: first loss {got[0]:.6f} within {QLORA_LOSS_RTOL} (relative) of fused's {fused[0]:.6f}")
+    off = runs["fused, host_offload=all"]
+    check(all(abs(a - b) <= QLORA_OFFLOAD_RTOL * abs(b) for a, b in zip(off[0], fused)),
+          f"host_offload=all: losses {off[0]} equal the device run's {fused} within {QLORA_OFFLOAD_RTOL}")
+    print(f"host_offload=all ({card}): step s {[round(x, 3) for x in off[1]]} against the device run's "
+          f"{[round(x, 3) for x in runs['fused'][1]]}", flush=True)
+    for name in ("flash_attention_fwd_causal", "flash_attention_bwd_dkdv", "flash_attention_bwd_dq"):
+        check(launches[name] > 0, f"{name} launched {launches[name]} times in the nf4-dq QLoRA run")
+    del model
+    torch.cuda.empty_cache()
+
+    # the 2-layer twin: a profiler trace and a sharded checkpoint through cli train, then a resume from it
+    twin = dataclasses.replace(cfg, n_layers=TWIN_LAYERS)
+    cfg_path = os.path.join(logdir, "qlora_twin.json")
+    with open(cfg_path, "w") as f:
+        f.write(twin.to_json())
+    prof, ck = os.path.join(logdir, "qlora_prof"), os.path.join(logdir, "qlora_ckpt")
+    sample = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples", "sample_instruct.jsonl")
+    argv = ["train", "--model-config", cfg_path, "--use-lora", "--quantize-base", "nf4-dq", "--qlora-dequant", "once",
+            "--host-offload", "all", "--train-files", sample, "--batch-size", "4", "--log-every", "1", "--log-dir",
+            logdir, "--sharded-checkpoint", "--checkpoint-dir", ck, "--save-every-steps", "1"]
+    rc = cli_main(argv + ["--max-steps", "2", "--run-name", "qlora_twin", "--profile-steps", "1", "--profile-dir", prof])
+    traces = glob.glob(os.path.join(prof, "trace_*.json"))
+    kernels = 0
+    if len(traces) == 1:
+        with open(traces[0]) as f:
+            kernels = sum(1 for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel")
+    step2 = sorted(os.listdir(os.path.join(ck, "step_2"))) if os.path.isdir(os.path.join(ck, "step_2")) else []
+    rc2 = cli_main(argv + ["--max-steps", "3", "--resume", "--run-name", "qlora_twin_resumed"])
+    with open(os.path.join(logdir, "qlora_twin_resumed.jsonl")) as f:
+        resumed = [json.loads(line)["step"] for line in f]
+    print(f"qlora twin cli train --qlora-dequant once --host-offload all --profile-steps 1 --sharded-checkpoint: exit "
+          f"{rc}; {len(traces)} trace file(s) with {kernels} CUDA kernel events; step_2 holds {step2}; resumed: exit "
+          f"{rc2}, logged steps {resumed}", flush=True)
+    check(rc == 0 and len(traces) == 1 and kernels > 0, "cli train --profile-steps 1 wrote one trace with CUDA "
+                                                        "kernel events")
+    check(step2 == ["host_0.layout.json", "host_0.npz", "meta.json"] and rc2 == 0 and resumed == [3],
+          "the sharded checkpoint (host_0) resumed: step 3 trained from step 2")
+    print(f"qlora phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -3030,13 +3523,13 @@ def main() -> int:
     from vietnamese_qa_system_tpu_torch.ops import cuda_kernels, quant
     from vietnamese_qa_system_tpu_torch.ops import ivf_probe as P
     from vietnamese_qa_system_tpu_torch.ops import topk as T
-    from vietnamese_qa_system_tpu_torch.models import mpnet_class, relative_attention_bias
+    from vietnamese_qa_system_tpu_torch.models import mpnet_class, relative_attention_bias, tree_bytes
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(gpu_name_and_power(), flush=True)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     cuda_kernels.library()
     print(f"kernels built from csrc/ in {time.perf_counter() - t0:.1f} s", flush=True)
 
@@ -3067,8 +3560,16 @@ def main() -> int:
     engine_launches = phase_engine(torch, pkg, reader, ctx)
     print("launches in the /generate run: " + json.dumps(engine_launches))
     check(engine_launches["w8_matmul"] > 0, "w8_matmul launched on the /generate path")
+    adapter_launches = phase_adapters(torch, pkg, reader, ctx)
+    print("launches in the /generate run with adapters: " + json.dumps(adapter_launches))
+    check(adapter_launches["w8_matmul"] > 0, "w8_matmul launched on the /generate path with the adapter bank")
     strategies_w8 = phase_decode_strategies(torch, pkg, reader, ctx)
+    int8c_bytes = tree_bytes(reader)
     del reader
+    torch.cuda.empty_cache()
+    nf4_launches = phase_nf4(torch, pkg, ctx, int8c_bytes)
+    print("launches in the nf4 /qa runs: " + json.dumps(nf4_launches))
+    check(nf4_launches["matmul_topk_bf16"] > 0, "matmul_topk_bf16 launched on the nf4 /qa path")
     phase_spec_sampled(torch)
     torch.cuda.empty_cache()
     ivf_launches, ivfs = phase_ivf(torch, pkg, ctx, gen)
@@ -3088,11 +3589,15 @@ def main() -> int:
         phase_cli_train(torch, logdir)
         torch.cuda.empty_cache()
         phase_train_twin(torch, logdir)
-    launches = dict(retrieval, w8_matmul=reader_launches["w8_matmul"] + engine_launches["w8_matmul"] + strategies_w8,
+        torch.cuda.empty_cache()
+        qlora_launches = phase_qlora(torch, pkg, logdir)
+    print("launches in the nf4-dq QLoRA run: " + json.dumps(qlora_launches))
+    launches = dict(retrieval, w8_matmul=reader_launches["w8_matmul"] + engine_launches["w8_matmul"] + strategies_w8
+                    + adapter_launches["w8_matmul"],
                     ivf_probe_scores=ivf_launches["ivf_probe_scores"],
                     quantize_int8=ivf_launches["quantize_int8"],
-                    **{name: train_launches[name] for name in ("flash_attention_fwd_causal", "flash_attention_bwd_dkdv",
-                                                               "flash_attention_bwd_dq")})
+                    **{name: train_launches[name] + qlora_launches[name]
+                       for name in ("flash_attention_fwd_causal", "flash_attention_bwd_dkdv", "flash_attention_bwd_dq")})
     # the occupancy of the variants that the main shapes run
     for name, key in (("flash_attention_fwd", ("fwd", 64, 0, 1)), ("flash_attention_fwd_causal", ("fwd", 128, 1, 2)),
                       ("flash_attention_bwd_dkdv", ("bwd", 128, 0, 2)), ("flash_attention_bwd_dq", ("bwd", 128, 1, 2))):
@@ -3103,6 +3608,7 @@ def main() -> int:
          "launches": launches[k.name], **report[k.name]}
         for k in pkg.KERNELS
     ]
+    print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                               "count": torch.cuda.device_count()}}))

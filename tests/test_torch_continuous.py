@@ -42,7 +42,7 @@ from vietnamese_qa_system_tpu.models import generate as jg
 from vietnamese_qa_system_tpu_torch.data.tokenizer import ByteTokenizer
 from vietnamese_qa_system_tpu_torch.engine import ContinuousEngine, ServingApp, make_server
 from vietnamese_qa_system_tpu_torch.engine.continuous import _validate_sampling
-from vietnamese_qa_system_tpu_torch.models import ModelConfig, causal_from_jax
+from vietnamese_qa_system_tpu_torch.models import LoraConfig, ModelConfig, causal_from_jax, init_lora
 from vietnamese_qa_system_tpu_torch.models import decode_engine as tde
 
 torch.set_num_threads(2)
@@ -144,7 +144,8 @@ def _layers(jcache):
 
 
 def _assert_state_equal(port, jstate, total):
-    for name in ("toks", "cursor", "pos", "key_valid", "done", "last_tok", "active", "temp", "top_k", "top_p"):
+    for name in ("toks", "cursor", "pos", "key_valid", "done", "last_tok", "active", "temp", "top_k", "top_p",
+                 "adapter"):
         np.testing.assert_array_equal(port[name].numpy(), np.asarray(jstate[name]), err_msg=name)
     for layer, jlayer in zip(port["cache"], _layers(jstate["cache"])):
         for name, leaf in layer.items():
@@ -168,7 +169,7 @@ def test_decode_functions_match_jax(models, family, kv_dtype):
     params, cfg, port = model
     total, n_slots = 40, 3
     jstate = jde.make_decode_state(cfg, n_slots, total, kv_dtype=kv_dtype, stacked=jlm.blocks_stacked(params))
-    state = tde.state_from_numpy(_jstate_np(jstate))
+    state = tde.state_from_numpy(_jstate_np(jstate), device="cpu")
     assert state["cache"][0]["k"].shape[1] == total + 1  # the guard column
     _assert_state_equal(state, jstate, total)
     rng = np.random.default_rng(11)
@@ -301,8 +302,10 @@ def test_engine_validation(models, engines):
                      (dict(kv_dtype="fp8"), "kv_dtype"), (dict(speculative="draft"), "speculative")):
         with pytest.raises(ValueError, match=frag):
             ContinuousEngine(port, port.cfg, device="cpu", **{"total": 64, **kw})
-    with pytest.raises(NotImplementedError, match="not ported"):
-        ContinuousEngine(port, port.cfg, device="cpu", adapters={"vi": {}})
+    # an adapter bank of two ranks (tests/test_torch_multilora.py holds the served banks)
+    ranks = {name: init_lora(torch.Generator().manual_seed(r), port, LoraConfig(r=r)) for name, r in (("a", 4), ("b", 8))}
+    with pytest.raises(ValueError, match="shapes differ"):
+        ContinuousEngine(port, port.cfg, device="cpu", adapters=ranks)
     with pytest.raises(NotImplementedError, match="not ported"):
         ContinuousEngine(port, dataclasses.replace(port.cfg, arch="seq2seq"), device="cpu")
     if not torch.cuda.is_available():

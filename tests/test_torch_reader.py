@@ -215,14 +215,17 @@ def test_cli_chat_and_serve_reader(tmp_path, monkeypatch, capsys):
     assert cli(["chat", "--init-params", weights, "--max-len", "64", "--max-new-tokens", "3", "--device", "cpu"]) == 0
     out = capsys.readouterr().out
     assert out.count(f"reader weights loaded from {weights}") == 2 and "RANDOM" not in out and "model> " in out
-    # --continuous-slots builds the engine (behind --port: test_torch_continuous.py); adapters stay refused
+    # --continuous-slots builds the engine (behind --port: test_torch_continuous.py, with --adapter:
+    # test_torch_multilora.py); an --adapter without NAME=PATH raises before the server starts
     with pytest.raises(SystemExit, match="needs a reader"):
         cli(serve + ["--port", "0", "--continuous-slots", "4"])
-    for extra, what in ((["--reader-strategy", "tp"], "--reader-strategy"),
-                        (["--continuous-slots", "4", "--adapter", "vi=a.npz"], "--adapter"),
-                        (["--reader-size", "tiny", "--reader-quantize", "nf4"], "nf4")):
-        with pytest.raises(NotImplementedError, match=what):
-            cli(serve + extra)
+    with pytest.raises(SystemExit, match="NAME=PATH"):
+        cli(serve + ["--port", "0", "--reader-size", "tiny", "--continuous-slots", "4", "--adapter", "vi"])
+    with pytest.raises(NotImplementedError, match="--reader-strategy"):
+        cli(serve + ["--reader-strategy", "tp"])
+    _feed(monkeypatch, [DOCS[2], ""])  # an nf4 reader answers in the REPL
+    assert cli(serve + ["--reader-size", "tiny", "--reader-quantize", "nf4"]) == 0
+    assert "reader decodes over a nf4 base" in capsys.readouterr().out
     # speculation, draft models and beams take the JAX CLI's flags and defaults
     args = build_parser().parse_args(serve)
     assert (args.speculative, args.reader_draft_size, args.reader_draft_params) == ("ngram", "tiny", None)

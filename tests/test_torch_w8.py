@@ -90,9 +90,11 @@ def test_quantize_weight_bit_identical(mode, d_in, block):
 
 
 def test_nf4_is_not_ported():
-    for mode in ("nf4", "nf4-dq"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            tq.quantize_weight(torch.zeros(64, 8), mode)
+    # nf4 and nf4-dq are ported now (tests/test_torch_nf4.py holds them to
+    # the JAX package): their leaves' layouts, and an unknown mode raising
+    for mode, keys in (("nf4", {"w_q", "w_s"}), ("nf4-dq", {"w_q", "s_q", "s_s", "s_m"})):
+        leaf = tq.quantize_weight(torch.zeros(64, 8), mode)
+        assert set(leaf) == keys and leaf["w_q"].dtype == torch.uint8 and leaf["w_q"].shape == (32, 8)
     with pytest.raises(ValueError, match="mode"):
         tq.quantize_weight(torch.zeros(64, 8), "int4")
 

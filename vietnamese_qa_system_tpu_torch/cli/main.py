@@ -4,9 +4,13 @@
 Counterpart of ``vietnamese_qa_system_tpu/cli/main.py:26-436`` and
 ``:535-1044``::
 
-    python -m vietnamese_qa_system_tpu_torch.cli train --model-size phogpt4b \
-        --use-lora --quantize-base int8 --remat-policy proj_bf16 \
+    python -m vietnamese_qa_system_tpu_torch.cli train --model-size phogpt4b \\
+        --use-lora --quantize-base int8 --remat-policy proj_bf16 \\
         --train-files examples/sample_instruct.jsonl --max-steps 2
+    python -m vietnamese_qa_system_tpu_torch.cli train --model-size phogpt4b \\
+        --use-lora --quantize-base nf4-dq --qlora-dequant once \\
+        --host-offload all --profile-steps 1 --sharded-checkpoint \\
+        --checkpoint-dir ckpt --train-files examples/sample_instruct.jsonl
 
     python -m vietnamese_qa_system_tpu_torch.cli ingest --inputs docs.jsonl \\
         --index idx --db docs.sqlite --encoder mpnet --dtype int8_global
@@ -23,6 +27,10 @@ Counterpart of ``vietnamese_qa_system_tpu/cli/main.py:26-436`` and
         --db docs.sqlite --encoder /path/to/hf-mpnet-dir --hybrid-weight 0.5 \\
         --reader-size phogpt4b --reader-params /path/to/hf-phogpt-dir \\
         --reader-quantize int8c
+    python -m vietnamese_qa_system_tpu_torch.cli serve --index idx \\
+        --db docs.sqlite --port 8080 --reader-size phogpt4b \\
+        --reader-quantize nf4 --continuous-slots 8 \\
+        --adapter vi=ckpt_vi/adapter.npz --adapter law=ckpt_law/adapter.npz
 
 Each takes ``--device`` (default ``cuda``; a missing GPU raises).
 ``--encoder`` takes a preset or a local Hugging Face BERT / MPNet
@@ -48,12 +56,20 @@ from the seed), and ``chat`` takes ``--num-beams``, ``--speculative`` and
 ``--draft-*`` with the JAX CLI's defaults.  ``train --do-eval
 --do-generative-eval`` decodes the eval prompts by the generation group
 (``--max-new-tokens`` ... ``--num-beams``, ``--speculative``) and logs the
-predictions.  ``train`` refuses what is not ported yet: seq2seq models,
-strategies other than dp, meshes, host offload, sharded checkpoints, nf4
-bases, the once / once_folded dequant placements, profiler traces and hub
-pushes.  Sharded indexes, nf4 weights, sharded readers and LoRA adapters
-on /generate (``--adapter``) are not ported yet and raise where the JAX
-CLI would use them; seq2seq readers have no flag yet.
+predictions.  ``train --quantize-base int8|nf4|nf4-dq`` trains LoRA over a
+quantized base, dequantized where ``--qlora-dequant`` says; ``--host-offload``
+keeps the optimizer state and / or the parameters in host memory between
+steps; ``--profile-steps N`` writes a torch.profiler trace of the first N
+steps to ``--profile-dir``; ``--sharded-checkpoint`` writes the per-host
+checkpoint layout.  ``serve --reader-quantize`` and ``chat --quantize``
+take int8, int8c, nf4 or nf4-dq; ``serve --adapter NAME=PATH``
+(repeatable; ``--adapter-r``, ``--adapter-alpha``, ``--adapter-targets``)
+serves LoRA adapters (``adapter.npz`` of either package's ``train
+--use-lora --checkpoint-dir``) over the shared reader on ``/generate``.
+``train`` refuses what is not ported yet: seq2seq models, strategies other
+than dp, meshes and hub pushes.  Sharded indexes and sharded readers are
+not ported yet and raise where the JAX CLI would use them; seq2seq readers
+have no flag yet.
 """
 
 from __future__ import annotations
@@ -155,8 +171,9 @@ def _trainer_params(step_dir: str, cfg, device):
         config = json.load(f).get("config", "")
     base = re.search(r"quantize_base=('[^']*'|None)", config)
     if base and base.group(1) != "None":
-        raise ValueError(f"{npz}: a checkpoint of a quantized base (quantize_base={base.group(1)}) holds int8 base "
-                         "weights, which do not load as a model; train on a float base to serve the result")
+        raise ValueError(f"{npz}: a checkpoint of a quantized base (quantize_base={base.group(1)}) holds quantized "
+                         "base weights, which do not load as a model; train on a float base to serve the result, or "
+                         "serve its adapter.npz with serve --adapter")
     lora = None
     if "lora=LoraConfig(" in config:
         m = re.search(r"lora=LoraConfig\(r=(\d+), alpha=([^,]+), targets=(\([^)]*\)|\[[^\]]*\])\)", config)
@@ -276,10 +293,7 @@ def cmd_train(args) -> int:
     from ..models import GenerationConfig, LoraConfig
     from ..train import TrainConfig, Trainer, generative_eval, perplexity_eval
 
-    _refuse(args, {
-        "--mesh": ("mesh", None), "--sharded-checkpoint": ("sharded_checkpoint", False),
-        "--push-to-hub": ("push_to_hub", None),
-    })
+    _refuse(args, {"--mesh": ("mesh", None), "--push-to-hub": ("push_to_hub", None)})
     model = _train_config(args)
     tok = _tokenizer(args.tokenizer)
     if tok.vocab_size > model.vocab_size:
@@ -291,11 +305,12 @@ def cmd_train(args) -> int:
         model=model, lora=lora, optimizer=args.optimizer, lr=args.lr, weight_decay=args.weight_decay,
         max_grad_norm=args.max_grad_norm, schedule=args.lr_scheduler, warmup_steps=args.warmup_steps,
         epochs=args.epochs, grad_accum=args.grad_accum, strategy=args.strategy, host_offload=args.host_offload,
-        checkpoint_dir=args.checkpoint_dir, save_every_steps=args.save_every_steps,
+        checkpoint_dir=args.checkpoint_dir, sharded_checkpoint=args.sharded_checkpoint,
+        save_every_steps=args.save_every_steps,
         save_every_seconds=args.save_every_seconds, async_checkpoint=args.async_checkpoint, resume=args.resume,
         quantize_base=args.quantize_base, qlora_dequant=args.qlora_dequant, seed=args.seed,
         log_every=args.log_every, log_dir=args.log_dir, report_to=args.report_to, run_name=args.run_name,
-        remat=args.remat, profile_steps=args.profile_steps,
+        remat=args.remat, profile_steps=args.profile_steps, profile_dir=args.profile_dir,
     )
     dl = QADataLoader(tok, task="causal", max_len=args.max_len, batch_size=args.batch_size, seed=args.seed,
                       pack=args.pack)
@@ -404,9 +419,12 @@ def _add_train_args(p: argparse.ArgumentParser) -> None:
     g.add_argument("--lora-alpha", type=int, default=16)
     g.add_argument("--lora-targets", nargs="*", default=None)
     g.add_argument("--quantize-base", choices=["int8", "nf4", "nf4-dq"], default=None,
-                   help="quantize the frozen base for LoRA training (nf4 / nf4-dq are not ported yet)")
+                   help="quantize the frozen base for LoRA training: int8 blockwise, nf4 (two 4-bit codes a byte), "
+                        "nf4-dq (nf4 with double-quantized scales)")
     g.add_argument("--qlora-dequant", choices=["fused", "once", "once_folded"], default="fused",
-                   help="dequant placement: at each matmul (fused); once / once_folded are not ported yet")
+                   help="dequant placement: at each matmul (fused), or the whole base to bf16 once per microbatch "
+                        "before the forward with the LoRA factors applied lazily (once) or folded into the "
+                        "weights (once_folded: a full-size weight gradient per layer in the backward)")
     g = p.add_argument_group("optimization")
     g.add_argument("--optimizer", default="adamw", choices=["adamw", "lion", "adamw8bit", "lion8bit"])
     g.add_argument("--lr", type=float, default=2e-4)
@@ -420,7 +438,9 @@ def _add_train_args(p: argparse.ArgumentParser) -> None:
     g.add_argument("--grad-accum", type=int, default=1)
     g.add_argument("--remat", action="store_true", help="rematerialize the loss (gradient checkpointing)")
     g = p.add_argument_group("distribution")
-    g.add_argument("--host-offload", choices=["optimizer", "params", "all"], default=None, help="not ported yet")
+    g.add_argument("--host-offload", choices=["optimizer", "params", "all"], default=None,
+                   help="keep the optimizer state and / or the parameters in (pinned) host memory, staged through "
+                        "the device around each step")
     g.add_argument("--strategy", default="dp", choices=["dp", "zero2", "fsdp", "tp", "fsdp_tp"],
                    help="only dp (one device) is ported")
     g.add_argument("--mesh", default=None, help="mesh axes as json (not ported yet)")
@@ -435,7 +455,9 @@ def _add_train_args(p: argparse.ArgumentParser) -> None:
     g.add_argument("--tokenizer", default="byte", help='"byte" or a local HF tokenizer path')
     g = p.add_argument_group("checkpoint / logging")
     g.add_argument("--checkpoint-dir", default=None)
-    g.add_argument("--sharded-checkpoint", action="store_true", help="not ported yet")
+    g.add_argument("--sharded-checkpoint", action="store_true",
+                   help="the per-host checkpoint layout (host_0.npz + host_0.layout.json); restore reads either "
+                        "layout, and directories the JAX package wrote from several hosts")
     g.add_argument("--save-every-steps", type=int, default=None)
     g.add_argument("--save-every-seconds", type=float, default=None)
     g.add_argument("--async-checkpoint", action="store_true", help="write checkpoints from a background thread")
@@ -467,7 +489,9 @@ def _add_train_args(p: argparse.ArgumentParser) -> None:
     g.add_argument("--draft-tokens", type=int, default=8)
     g.add_argument("--draft-ngram", type=int, default=3)
     g.add_argument("--print-samples", type=int, default=0, help="decode and print N training examples first")
-    g.add_argument("--profile-steps", type=int, default=0, help="device traces (not ported yet)")
+    g.add_argument("--profile-steps", type=int, default=0,
+                   help="write a torch.profiler trace (host operators and GPU kernels) of the first N steps")
+    g.add_argument("--profile-dir", default="runs/profile", help="where --profile-steps writes its trace")
     p.add_argument("--device", default="cuda")
 
 
@@ -579,14 +603,29 @@ def _serving_index(args, device, query_batch: int):
 
 def continuous_engine(args, reader, tok, device):
     """The engine behind ``serve``'s ``/generate``, from its flags
-    (cli/main.py:808-865 of the JAX package)."""
+    (cli/main.py:808-865 of the JAX package), with the ``--adapter``
+    NAME=PATH adapters (``adapter.npz`` files of either package's ``train
+    --use-lora --checkpoint-dir``) in its bank."""
     from ..engine import ContinuousEngine
+    from ..models import LoraConfig, load_adapter
 
+    adapters = lcfg = None
+    if args.adapter:
+        lcfg = LoraConfig(r=args.adapter_r, alpha=args.adapter_alpha,
+                          targets=tuple(args.adapter_targets) if args.adapter_targets else LoraConfig.targets)
+        adapters = {}
+        for spec in args.adapter:
+            name, _, path = spec.partition("=")
+            if not name or not path:
+                raise SystemExit(f"--adapter expects NAME=PATH, got {spec!r}")
+            adapters[name] = load_adapter(path, reader, lcfg)
+        print(f"adapters loaded: {sorted(adapters)} (r={lcfg.r}, alpha={lcfg.alpha})", flush=True)
     engine = ContinuousEngine(
         reader, reader.cfg, n_slots=args.continuous_slots, total=min(reader.cfg.max_seq_len, args.gen_total),
         chunk_steps=args.gen_chunk_steps, eos_id=tok.eos_id, default_max_new=args.max_new_tokens,
         prefix_cache_mb=args.prefix_cache_mb, speculative=args.gen_speculative, draft_tokens=args.draft_tokens,
         draft_ngram=args.draft_ngram, kv_dtype=args.kv_quant, prefill_chunk=args.prefill_chunk, device=device,
+        adapters=adapters, lora_config=lcfg,
     )
     print(f"/generate: continuous batching, {args.continuous_slots} slots x {engine.total} cache, buckets "
           f"{engine.buckets}, chunk {args.gen_chunk_steps}", flush=True)
@@ -597,7 +636,7 @@ def cmd_serve(args) -> int:
     from ..core.device import resolve_device
     from ..engine import BM25Index, DocStore, IngestPipeline, QAPipeline, Retriever, ServingApp, VectorStore, make_server
 
-    _refuse(args, {"--reader-strategy": ("reader_strategy", None), "--adapter": ("adapter", None)})
+    _refuse(args, {"--reader-strategy": ("reader_strategy", None)})
     device = resolve_device(args.device)
     encoder = _encoder(args.encoder, args.seed, device)
     tok = _tokenizer(args.tokenizer)
@@ -798,7 +837,8 @@ def build_parser() -> argparse.ArgumentParser:
                          "(weights from --reader-params, else random from --seed)")
     ps.add_argument("--reader-quantize", choices=["int8", "int8c", "nf4", "nf4-dq"], default=None,
                     help="quantize the reader's dense weights for decode; int8c (one scale per output channel) "
-                         "decodes through the w8 GEMM kernel (K6); nf4 is not ported yet")
+                         "decodes through the w8 GEMM kernel (K6); int8, nf4 and nf4-dq are dequantized at each "
+                         "matmul")
     ps.add_argument("--min-score", type=float, default=0.2,
                     help="retrieval score below which /qa refuses instead of answering")
     ps.add_argument("--max-new-tokens", type=int, default=128,
@@ -838,7 +878,11 @@ def build_parser() -> argparse.ArgumentParser:
                     help="admit long /generate prompts in pieces of this many tokens (a prompt bucket; 0 = "
                          "whole-prompt prefill): live requests keep decoding between pieces")
     ps.add_argument("--adapter", action="append", default=None, metavar="NAME=PATH",
-                    help="LoRA adapters on /generate (not ported yet)")
+                    help="serve a LoRA adapter.npz (from train --use-lora --checkpoint-dir) under NAME on /generate; "
+                         "repeatable: every adapter shares the reader's weights (multi-LoRA serving)")
+    ps.add_argument("--adapter-r", type=int, default=8)
+    ps.add_argument("--adapter-alpha", type=int, default=16)
+    ps.add_argument("--adapter-targets", nargs="*", default=None)
     ps.add_argument("--device", default="cuda")
     ps.set_defaults(fn=cmd_serve)
 
@@ -850,7 +894,8 @@ def build_parser() -> argparse.ArgumentParser:
     pc.add_argument("--temperature", type=float, default=0.0)
     pc.add_argument("--num-beams", type=int, default=1)
     pc.add_argument("--quantize", choices=["int8", "int8c", "nf4", "nf4-dq"], default=None,
-                    help="quantize dense weights for decode; int8c decodes through the w8 GEMM kernel (K6)")
+                    help="quantize dense weights for decode; int8c decodes through the w8 GEMM kernel (K6); int8, "
+                         "nf4 and nf4-dq are dequantized at each matmul")
     pc.add_argument("--init-params", default=None,
                     help="model weights: a local HF causal-LM directory, a checkpoint directory or a flat .npz")
     pc.add_argument("--speculative", choices=["none", "ngram", "draft"], default="ngram",

@@ -20,7 +20,12 @@ its prompt, however requests interleave (tests/test_torch_continuous.py
 holds it to the JAX engine).  Sampled requests draw from the engine's
 ``torch.Generator``: the JAX engine's distributions, other numbers.
 
-Multi-LoRA adapter banks and seq2seq readers are not ported yet and raise.
+Multi-LoRA serving (continuous.py:266-280): ``adapters`` {name: adapter
+tree} over the shared base are stacked into one bank (index 0 the base
+model); a request names its adapter in :meth:`submit`, its slot keeps the
+bank index, and each chunk runs every slot under its own adapter.  The
+prefix cache is keyed by (tokens, adapter index), so adapters never share
+prompt KV.  Seq2seq readers are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -37,6 +42,7 @@ import torch
 from ..core.device import resolve_device
 from ..models import decode_engine as de
 from ..models.decode_engine import TOPK_CAP
+from ..models.lora import LoraConfig, stack_adapters
 
 
 @dataclass
@@ -54,6 +60,7 @@ class _Request:
     pending_first: object = None
     # first chunk index whose emissions belong to this request
     start_chunk: int = -1
+    adapter_ix: int = 0  # LoRA bank index (0 = the base model)
 
 
 def _validate_sampling(temperature, top_k, top_p) -> None:
@@ -88,10 +95,11 @@ class _Fetch:
 
 class _PrefixCache:
     """Host-managed LRU of device-resident prompt-KV prefixes
-    (continuous.py:94), keyed by the prompt's token tuple.  ``lookup``
-    returns the longest stored entry that is a strict prefix of the new
-    prompt (capped at len - 1, so at least one suffix token runs); eviction
-    is LRU by the entries' tensor bytes."""
+    (continuous.py:94), keyed by the prompt's token tuple and adapter index
+    (an adapter changes K/V, so adapters never share entries).  ``lookup``
+    returns the longest stored entry of the same adapter that is a strict
+    prefix of the new prompt (capped at len - 1, so at least one suffix
+    token runs); eviction is LRU by the entries' tensor bytes."""
 
     def __init__(self, max_bytes: int):
         self.max_bytes = int(max_bytes)
@@ -103,9 +111,11 @@ class _PrefixCache:
     def _nbytes(kv) -> int:
         return sum(leaf.numel() * leaf.element_size() for layer in kv for leaf in layer.values())
 
-    def lookup(self, ids: Sequence[int]):
+    def lookup(self, ids: Sequence[int], adapter_ix: int = 0):
         best, best_p = None, 0
-        for toks, ent in self._entries.items():
+        for (toks, aix), ent in self._entries.items():
+            if aix != adapter_ix:
+                continue
             p_eff = min(len(toks), len(ids) - 1)
             if p_eff <= best_p:
                 continue
@@ -117,8 +127,8 @@ class _PrefixCache:
             return best, best_p
         return None
 
-    def store(self, ids: Sequence[int], kv) -> None:
-        key = tuple(ids)
+    def store(self, ids: Sequence[int], kv, adapter_ix: int = 0) -> None:
+        key = (tuple(ids), adapter_ix)
         if key in self._entries or self.max_bytes <= 0:
             return
         nb = self._nbytes(kv)
@@ -142,8 +152,11 @@ class ContinuousEngine:
     ``total`` cache columns per slot; prompts are right-padded to the
     smallest bucket that fits, so a request's headroom is ``total -
     len(prompt)``.  Sampling knobs are engine defaults, overridable per
-    request in :meth:`submit`; greedy by default.  ``device`` defaults to
-    the card (a missing GPU raises); tests pass ``"cpu"``."""
+    request in :meth:`submit`; greedy by default.  ``adapters`` {name:
+    adapter tree} (LoRA fine-tunes of this base, made under
+    ``lora_config``, default ``LoraConfig()``) are served by name.
+    ``device`` defaults to the card (a missing GPU raises); tests pass
+    ``"cpu"``."""
 
     def __init__(
         self,
@@ -177,8 +190,6 @@ class ContinuousEngine:
             raise NotImplementedError("continuous seq2seq serving is not ported yet")
         if cfg.arch != "causal":
             raise ValueError(f"ContinuousEngine serves causal or seq2seq LMs, got arch={cfg.arch!r}")
-        if adapters or lora_config is not None:
-            raise NotImplementedError("multi-LoRA adapter banks (adapters=) are not ported yet")
         if model.device.type != resolve_device(device).type:
             raise ValueError(f"the model is on {model.device}, the engine on {device}")
         self.device = model.device
@@ -204,6 +215,13 @@ class ContinuousEngine:
         self.sampling = dict(temperature=temperature, top_k=top_k, top_p=top_p)
         _validate_sampling(temperature, top_k, top_p)
         self.default_max_new = int(default_max_new)
+        # the bank of every adapter, index 0 the zero adapter (the base)
+        self._bank = None
+        self._adapter_idx: dict[str, int] = {}
+        if adapters:
+            names = list(adapters)
+            self._bank = stack_adapters([adapters[n] for n in names], lora_config or LoraConfig())
+            self._adapter_idx = {n: i + 1 for i, n in enumerate(names)}
         if speculative not in ("off", "none", "ngram"):
             raise ValueError(f"speculative must be off|ngram, got {speculative!r}")
         self.speculative = speculative == "ngram"
@@ -246,15 +264,20 @@ class ContinuousEngine:
         """Queue a prompt; the Future resolves to ``{"ids": [generated...],
         "n_prompt": int}`` (generated ids only, the first eos included when
         hit).  ``temperature`` / ``top_k`` / ``top_p`` override the engine's
-        defaults for this request; ``stream`` receives each token as its
-        chunk is harvested."""
+        defaults for this request; ``adapter`` names one of the engine's
+        adapters (None: the base model); ``stream`` receives each token as
+        its chunk is harvested."""
         s = self.sampling
         temperature = s["temperature"] if temperature is None else temperature
         top_k = s["top_k"] if top_k is None else top_k
         top_p = s["top_p"] if top_p is None else top_p
         _validate_sampling(temperature, top_k, top_p)
+        adapter_ix = 0
         if adapter is not None:
-            raise ValueError(f"unknown adapter {adapter!r}; available: (none configured)")
+            if adapter not in self._adapter_idx:
+                raise ValueError(f"unknown adapter {adapter!r}; available: "
+                                 f"{sorted(self._adapter_idx) or '(none configured)'}")
+            adapter_ix = self._adapter_idx[adapter]
         ids = [int(t) for t in prompt_ids]
         if not ids:
             raise ValueError("empty prompt")
@@ -265,7 +288,7 @@ class ContinuousEngine:
         if max_new < 1:
             raise ValueError(f"max_new_tokens must be >= 1, got {max_new}")
         req = _Request(ids=ids, max_new=max_new, future=Future(), stream=stream, temperature=float(temperature),
-                       top_k=int(top_k), top_p=float(top_p))
+                       top_k=int(top_k), top_p=float(top_p), adapter_ix=adapter_ix)
         with self._lock:
             if self._stop:
                 raise RuntimeError("engine is closed")
@@ -374,9 +397,13 @@ class ContinuousEngine:
         req.start_chunk = self._chunk_idx
         # decode headroom: each emitted token takes one cache column
         req.remaining = min(req.max_new - 1, self.total - len(req.ids))
-        de.insert(self._state, kv, ids, mask, first, n_prompt, slot, *samp)
+        de.insert(self._state, kv, ids, mask, first, n_prompt, slot, *samp, adapter=self._aix(req))
         with self._lock:
             self._by_slot[slot] = req
+
+    def _aix(self, req: _Request):
+        """The request's bank index for the decode functions (None without a bank)."""
+        return None if self._bank is None else [req.adapter_ix]
 
     def _piece(self, ids: Sequence[int], width: int):
         """(1, width) right-padded ids and mask of ``ids``."""
@@ -393,7 +420,7 @@ class ContinuousEngine:
         req = m["req"]
         n = len(req.ids)
         if m["kv"] is None and self._pcache is not None:
-            hit = self._pcache.lookup(req.ids)
+            hit = self._pcache.lookup(req.ids, req.adapter_ix)
             if hit is not None:
                 ent, p = hit
                 m["kv"] = de.crop_kv(ent["kv"], self._bucket(p))
@@ -405,11 +432,13 @@ class ContinuousEngine:
         sampled = req.temperature > 0
         if m["kv"] is None:
             kv, first, n_done = de.prefill(self.model, piece_ids, piece_mask, self._generator, *m["samp"],
-                                           kv_dtype=self.kv_dtype, sampled=sampled)
+                                           kv_dtype=self.kv_dtype, sampled=sampled, bank=self._bank,
+                                           adapter=self._aix(req))
             self.stats["prefills"] += 1
         else:
             kv, first, n_done = de.prefill_extend(self.model, m["kv"], [m["done"]], piece_ids, piece_mask,
-                                                  self._generator, *m["samp"], sampled=sampled)
+                                                  self._generator, *m["samp"], sampled=sampled, bank=self._bank,
+                                                  adapter=self._aix(req))
         m["done"] += take
         self.stats["prefill_pieces"] += 1
         m["kv"] = de.crop_kv(kv, self._bucket(m["done"]))
@@ -428,12 +457,12 @@ class ContinuousEngine:
         n = len(req.ids)
         b = self._bucket(n)
         sampled = req.temperature > 0
-        hit = self._pcache.lookup(req.ids) if self._pcache is not None else None
+        hit = self._pcache.lookup(req.ids, req.adapter_ix) if self._pcache is not None else None
         if hit is not None:
             ent, p = hit
             sfx_ids, sfx_mask = self._piece(req.ids[p:], self._bucket(n - p))
             kv, first, n_total = de.prefill_extend(self.model, ent["kv"], [p], sfx_ids, sfx_mask, self._generator,
-                                                   *samp, sampled=sampled)
+                                                   *samp, sampled=sampled, bank=self._bank, adapter=self._aix(req))
             self.stats["prefix_hits"] += 1
             self.stats["prefix_tokens_reused"] += p
             # back to the bucket grid: only bucket widths reach the slots
@@ -443,7 +472,7 @@ class ContinuousEngine:
             return kv, first, n_total, ids, mask
         ids, mask = self._piece(req.ids, b)
         kv, first, n_prompt = de.prefill(self.model, ids, mask, self._generator, *samp, kv_dtype=self.kv_dtype,
-                                         sampled=sampled)
+                                         sampled=sampled, bank=self._bank, adapter=self._aix(req))
         self.stats["prefills"] += 1
         self._store_kv(req, kv)
         return kv, first, n_prompt, ids, mask
@@ -455,7 +484,7 @@ class ContinuousEngine:
         b = self._bucket(len(req.ids))
         if kv[0]["k"].shape[1] != b:
             kv = de.crop_kv(kv, b)
-        self._pcache.store(req.ids, kv)
+        self._pcache.store(req.ids, kv, req.adapter_ix)
 
     def _dispatch_chunk(self):
         """Enqueue one decode chunk and start its tokens' copy to the host.
@@ -468,10 +497,10 @@ class ContinuousEngine:
         if self.speculative and not sampled:
             self.stats["spec_chunks"] += 1
             vals, counts = de.decode_chunk_spec(self.model, self._state, n_steps=self.spec_steps, eos_id=self.eos_id,
-                                                gamma=self.draft_tokens, ngram=self.draft_ngram)
+                                                gamma=self.draft_tokens, ngram=self.draft_ngram, bank=self._bank)
             return "spec", _Fetch(vals, counts)
         toks = de.decode_chunk(self.model, self._state, self._generator, n_steps=self.chunk_steps,
-                               eos_id=self.eos_id, sampled=sampled)
+                               eos_id=self.eos_id, sampled=sampled, bank=self._bank)
         return "plain", _Fetch(toks)
 
     def _harvest(self, chunk_idx: int, payload) -> None:
@@ -538,8 +567,8 @@ class ContinuousEngine:
 
     @property
     def adapter_names(self) -> list[str]:
-        """The adapters /generate may name: none, until adapter banks are ported."""
-        return []
+        """The adapters /generate may name."""
+        return sorted(self._adapter_idx)
 
     def generate_ids(self, prompt_ids: Sequence[int], max_new_tokens: Optional[int] = None,
                      timeout: float = 300.0) -> list[int]:

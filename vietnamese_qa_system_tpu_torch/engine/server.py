@@ -17,10 +17,12 @@ Endpoints (JSON over stdlib http.server):
   {"ids": [...]} -- online index growth (when built with an
   IngestPipeline).
 - ``POST /generate`` {"prompt": str, "max_new_tokens": int?,
-  "temperature": float?, "top_k": int?, "top_p": float?} -> {"text",
-  "ids", "n_new"} -- raw completions through the continuous-batching
-  engine (engine/continuous.py; when built with a ``gen`` engine and a
-  tokenizer, else 400).
+  "temperature": float?, "top_k": int?, "top_p": float?, "adapter": str?}
+  -> {"text", "ids", "n_new"} -- raw completions through the
+  continuous-batching engine (engine/continuous.py; when built with a
+  ``gen`` engine and a tokenizer, else 400), under the named LoRA adapter
+  of its bank (a non-string or unknown name answers 400; ``/healthz``
+  lists them under ``generate.adapters``).
 """
 
 from __future__ import annotations

@@ -246,8 +246,8 @@ def init_causal_lm(cfg: ModelConfig, generator: torch.Generator, *, quantize: st
     """Random weights with the JAX ``init_causal_lm`` distributions:
     embeddings N(0, 0.02^2), dense weights U(-1/sqrt(d_in), 1/sqrt(d_in)),
     zero biases, unit norm scales.  Drawn from ``generator`` on its own
-    device, layer by layer; with ``quantize`` ("int8" or "int8c") each
-    layer is quantized as soon as it is made, so a multi-billion-parameter
+    device, layer by layer; with ``quantize`` (a mode of models/quantize.py)
+    each layer is quantized as soon as it is made, so a multi-billion-parameter
     reader never holds more than one float layer.  Every parameter comes
     back frozen (``requires_grad`` False); a trainer unfreezes what it
     trains."""

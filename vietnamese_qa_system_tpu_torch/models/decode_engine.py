@@ -14,6 +14,12 @@ cache, driven by the host scheduler in engine/continuous.py.
 - :func:`decode_chunk` advances every slot ``n_steps`` tokens;
   :func:`decode_chunk_spec` runs greedy prompt-lookup speculation per slot.
 
+Multi-LoRA serving: with an adapter ``bank`` (models/lora.py
+``stack_adapters``) every function runs each row under its own adapter,
+the state's ``adapter`` column (bank index, 0 the base model) in the
+decode chunks.  A chunk gathers the bank's per-row factors once, on the
+device, from that column: the host reads nothing back for it.
+
 The JAX functions return a new state; these update the state's tensors in
 place (one device) and return only their outputs.  Per-slot progress lives
 in per-row cursors and a per-slot ``key_valid`` mask, so every step of a
@@ -34,11 +40,16 @@ seq2seq functions (:622-835) are not ported yet.
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 
+from ..core.device import resolve_device
 from .causal_lm import CausalLM, make_cache
 from .generate import NEG_INF, _ngram_draft, _sample_logits
+from .layers import row_adapters
+from .lora import select_adapters
 
 # per-request top_k is clamped to this (decode_engine.py:53)
 TOPK_CAP = 64
@@ -82,8 +93,7 @@ def make_decode_state(cfg, n_slots: int, total: int, *, kv_dtype: str = "bf16", 
     """A fresh all-slots-free decode state (decode_engine.py:117): the
     fields of the JAX state with its shapes, on ``device``, except that
     each cache buffer has ``total + 1`` columns (the guard column, see the
-    module docstring) and that there is no ``adapter`` column (no adapter
-    banks are ported).  ``total`` must not exceed ``cfg.max_seq_len``."""
+    module docstring).  ``total`` must not exceed ``cfg.max_seq_len``."""
     if total > cfg.max_seq_len:
         raise ValueError(f"total={total} exceeds cfg.max_seq_len={cfg.max_seq_len}")
 
@@ -101,22 +111,24 @@ def make_decode_state(cfg, n_slots: int, total: int, *, kv_dtype: str = "bf16", 
         "temp": zeros((n_slots,), torch.float32),
         "top_k": zeros((n_slots,), torch.int32),
         "top_p": torch.ones((n_slots,), dtype=torch.float32, device=device),
+        # each slot's index into the LoRA bank (0 = the base model; read
+        # only when a bank is passed)
+        "adapter": zeros((n_slots,), torch.int32),
         # decided tokens by position; toks[s, cursor[s]] == last_tok[s]
         "toks": zeros((n_slots, total), torch.int32),
     }
 
 
-def state_from_numpy(jstate: dict, device="cpu") -> dict:
+def state_from_numpy(jstate: dict, device="cuda") -> dict:
     """A JAX decode state (numpy leaves; its cache a list of per-layer
-    dicts or scan-stacked with a leading layer axis) -> the port's, with
-    the guard column appended to every cache buffer and the ``adapter``
-    column left out (the state counterpart of models/params.py
-    ``causal_from_jax``)."""
+    dicts or scan-stacked with a leading layer axis) -> the port's on
+    ``device``, with the guard column appended to every cache buffer (the
+    state counterpart of models/params.py ``causal_from_jax``)."""
+    device = resolve_device(device)
     cache = jstate["cache"]
     if isinstance(cache, dict):
         cache = [{name: leaf[i] for name, leaf in cache.items()} for i in range(len(cache["k"]))]
-    out = {name: torch.from_numpy(np.array(leaf)).to(device) for name, leaf in jstate.items()
-           if name not in ("cache", "adapter")}
+    out = {name: torch.from_numpy(np.array(leaf)).to(device) for name, leaf in jstate.items() if name != "cache"}
     out["cache"] = []
     for layer in cache:
         bufs = {}
@@ -144,6 +156,17 @@ def _sampling(temp, top_k, top_p, device):
             _on(device, top_p, torch.float32).reshape(-1))
 
 
+def _adapters(model: CausalLM, bank, idx):
+    """The context that runs ``model``'s rows under the bank's adapters at
+    ``idx`` (a (B,) device tensor, or host values), or nothing without a
+    bank."""
+    if bank is None:
+        return contextlib.nullcontext()
+    if not isinstance(idx, torch.Tensor):
+        idx = _on(model.device, idx, torch.long).reshape(-1)
+    return row_adapters(select_adapters(model, bank, idx.long()))
+
+
 def _last_logits(model: CausalLM, h, n_valid):
     """Logits at each row's last real position (n_valid - 1)."""
     idx = (n_valid.long() - 1)[:, None, None].expand(-1, 1, h.shape[-1])
@@ -152,13 +175,14 @@ def _last_logits(model: CausalLM, h, n_valid):
 
 @torch.inference_mode()
 def prefill(model: CausalLM, ids, attn_mask, generator, temp, top_k, top_p, *, sampled: bool,
-            kv_dtype: str = "bf16"):
+            kv_dtype: str = "bf16", bank=None, adapter=None):
     """Run RIGHT-padded prompts (B, T) and sample their first tokens
     (decode_engine.py:162).  Right padding puts every token's cache slot
     at its position, which prefix reuse and the slot-space families
     (ALiBi, local windows) need.  Returns ``(kv, first_tok (B,),
     n_prompt (B,))``: ``kv`` the per-layer prompt KV of width T for
-    :func:`insert`.  ``sampled`` as in :func:`_sample_dynamic`."""
+    :func:`insert`.  ``sampled`` as in :func:`_sample_dynamic`; ``bank``
+    and ``adapter`` (B,) run each prompt under its bank adapter."""
     dev = model.device
     ids = _on(dev, ids, torch.long)
     attn_mask = _on(dev, attn_mask, torch.int32)
@@ -167,21 +191,22 @@ def prefill(model: CausalLM, ids, attn_mask, generator, temp, top_k, top_p, *, s
     cache = make_cache(model.cfg, b, t, dev, kv_dtype)
     j = torch.arange(t, device=dev)
     mask = (j[None, None, :] <= j[None, :, None]) & attn_mask[:, None, :].bool()
-    h = model.hidden_states(ids, mask, positions=positions, cache=cache, cache_index=0)
     n_prompt = attn_mask.sum(dim=1).to(torch.int32)
-    first = _sample_dynamic(_last_logits(model, h, n_prompt), generator, *_sampling(temp, top_k, top_p, dev),
-                            sampled=sampled)
+    with _adapters(model, bank, adapter):
+        h = model.hidden_states(ids, mask, positions=positions, cache=cache, cache_index=0)
+        last = _last_logits(model, h, n_prompt)
+    first = _sample_dynamic(last, generator, *_sampling(temp, top_k, top_p, dev), sampled=sampled)
     return cache, first, n_prompt
 
 
 @torch.inference_mode()
 def prefill_extend(model: CausalLM, prefix_kv, prefix_len, ids, attn_mask, generator, temp, top_k, top_p, *,
-                   sampled: bool):
+                   sampled: bool, bank=None, adapter=None):
     """Prefill only the SUFFIX (1, S) of a prompt whose first
     ``prefix_len`` (1,) tokens have KV in ``prefix_kv`` (width P, a bucket;
     decode_engine.py:221).  The suffix is written at the per-row cursor
     ``prefix_len``, so the result stays hole-free.  Returns ``(kv of width
-    P + S, first_tok, n_total)``."""
+    P + S, first_tok, n_total)``.  ``bank`` / ``adapter`` as in :func:`prefill`."""
     dev = model.device
     ids = _on(dev, ids, torch.long)
     attn_mask = _on(dev, attn_mask, torch.int32)
@@ -195,9 +220,10 @@ def prefill_extend(model: CausalLM, prefix_kv, prefix_len, ids, attn_mask, gener
     # causal across the boundary: suffix query q sees slots <= p + q
     mask = (torch.arange(w, device=dev)[None, None, :]
             <= (p[:, None, None] + torch.arange(s, device=dev)[None, :, None]))
-    h = model.hidden_states(ids, mask, positions=positions, cache=cache, cache_index=p)
-    first = _sample_dynamic(_last_logits(model, h, n_sfx), generator, *_sampling(temp, top_k, top_p, dev),
-                            sampled=sampled)
+    with _adapters(model, bank, adapter):
+        h = model.hidden_states(ids, mask, positions=positions, cache=cache, cache_index=p)
+        last = _last_logits(model, h, n_sfx)
+    first = _sample_dynamic(last, generator, *_sampling(temp, top_k, top_p, dev), sampled=sampled)
     return cache, first, p + n_sfx
 
 
@@ -215,13 +241,15 @@ def crop_kv(kv, width: int):
 
 
 @torch.inference_mode()
-def insert(state: dict, kv, ids, attn_mask, first_tok, n_prompt, slot: int, temp, top_k, top_p) -> None:
+def insert(state: dict, kv, ids, attn_mask, first_tok, n_prompt, slot: int, temp, top_k, top_p,
+           adapter=None) -> None:
     """Install a prefilled B=1 request into slot ``slot``
     (decode_engine.py:322): its prompt KV at columns [0, T), its key mask,
     cursor and position at the true prompt length, its sampling knobs, and
     its prompt and pending first token in ``toks``.  Every field of the row
     is rewritten, so nothing of the previous occupant stays reachable.
-    ``first_tok`` and ``n_prompt`` stay on the device."""
+    ``first_tok`` and ``n_prompt`` stay on the device; ``adapter`` (1,) is
+    the request's bank index (the column keeps its value without one)."""
     dev = state["toks"].device
     ids = _on(dev, ids, torch.int32)
     attn_mask = _on(dev, attn_mask, torch.int32)
@@ -239,6 +267,8 @@ def insert(state: dict, kv, ids, attn_mask, first_tok, n_prompt, slot: int, temp
     state["done"][slot] = False
     for name, val in zip(("temp", "top_k", "top_p"), _sampling(temp, top_k, top_p, dev)):
         state[name][slot] = val.reshape(())
+    if adapter is not None:
+        state["adapter"][slot] = _on(dev, adapter, torch.int32).reshape(())
     row = state["toks"][slot]
     row.zero_()
     row[:t] = ids[0] * attn_mask[0].to(torch.int32)
@@ -264,11 +294,12 @@ def _set_columns(buf, cols, vals, ok):
 
 @torch.inference_mode()
 def decode_chunk(model: CausalLM, state: dict, generator, *, sampled: bool, n_steps: int = 8,
-                 eos_id: int | None = None):
+                 eos_id: int | None = None, bank=None):
     """Advance every live slot ``n_steps`` tokens (decode_engine.py:405).
     Returns the (n_slots, n_steps) int32 tokens emitted, on the device;
     emissions after a slot's eos, and from free slots, are eos (0 when
-    ``eos_id`` is None).  ``sampled`` as in :func:`_sample_dynamic`.
+    ``eos_id`` is None).  ``sampled`` as in :func:`_sample_dynamic`; with
+    ``bank`` each slot decodes under the adapter of its ``adapter`` column.
 
     A row that must not advance (done, free, or at the cache end) still
     writes its token's K/V at ``cursor``: its ``key_valid`` bit stays down,
@@ -277,7 +308,8 @@ def decode_chunk(model: CausalLM, state: dict, generator, *, sampled: bool, n_st
     total = st["key_valid"].shape[1]
     fill = torch.full((), 0 if eos_id is None else eos_id, dtype=torch.int32, device=st["toks"].device)
     out = []
-    with torch.profiler.record_function("engine.chunk"):  # a named span for torch.profiler traces
+    # a named span for torch.profiler traces
+    with torch.profiler.record_function("engine.chunk"), _adapters(model, bank, st["adapter"]):
         for _ in range(n_steps):
             out.append(_plain_step(model, st, generator, total, fill, eos_id, sampled))
     return torch.stack(out, dim=1)
@@ -305,21 +337,22 @@ def _plain_step(model, st, generator, total, fill, eos_id, sampled):
 
 @torch.inference_mode()
 def decode_chunk_spec(model: CausalLM, state: dict, *, n_steps: int = 4, eos_id: int | None = None,
-                      gamma: int = 8, ngram: int = 3):
+                      gamma: int = 8, ngram: int = 3, bank=None):
     """Greedy speculative chunk (decode_engine.py:480): each of the
     ``n_steps`` iterations drafts ``gamma`` tokens per slot by n-gram
     lookup over the slot's own stream, verifies the window in one forward
     at the per-slot cursors, and accepts the longest holding prefix plus
     the model's bonus token.  Returns ``(vals (n_slots, n_steps,
     gamma + 1), counts (n_slots, n_steps))`` on the device: the host reads
-    ``vals[s, j, :counts[s, j]]`` in order."""
+    ``vals[s, j, :counts[s, j]]`` in order.  ``bank`` as in
+    :func:`decode_chunk`."""
     st = state
     total = st["key_valid"].shape[1]
     dev = st["toks"].device
     jw = torch.arange(gamma + 1, device=dev)[None, :]
     jj = torch.arange(total, device=dev)[None, None, :]
     all_vals, all_counts = [], []
-    with torch.profiler.record_function("engine.chunk"):
+    with torch.profiler.record_function("engine.chunk"), _adapters(model, bank, st["adapter"]):
         for _ in range(n_steps):
             vals, counts = _spec_step(model, st, total, jw, jj, gamma, ngram, eos_id)
             all_vals.append(vals)

@@ -2,9 +2,9 @@
 ``nn.Module``s.
 
 Counterpart of ``vietnamese_qa_system_tpu/models/layers.py``: ``Dense``
-(float, or int8 / int8c leaves, with LoRA factors attached by
-models/lora.py), ``LayerNorm`` (RMSNorm when it has no bias), RoPE (partial
-rotary), ALiBi slopes and the key-only bias, ``kv_quantize`` /
+(float, or int8 / int8c / nf4 / nf4-dq leaves, with LoRA factors attached
+by models/lora.py, per row for an adapter bank), ``LayerNorm`` (RMSNorm
+when it has no bias), RoPE (partial rotary), ALiBi slopes and the key-only bias, ``kv_quantize`` /
 ``kv_dequantize`` (the int8 KV cache), ``Attention`` (a bf16 or int8 KV
 cache written at a scalar ``cache_index`` or at per-row cursors, GQA,
 ``clip_qkv``, the masked-softmax path, and the flash path: the encoder's
@@ -28,6 +28,7 @@ matmul of bf16-rounded inputs on every device (an exact emulation of
 
 from __future__ import annotations
 
+import contextlib
 import contextvars
 import functools
 import math
@@ -134,48 +135,124 @@ def _bf16(x: torch.Tensor) -> torch.Tensor:
     return x.to(COMPUTE_DTYPE).float()
 
 
-def dequantize_weight(w_q: torch.Tensor, w_s: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
-    """Reconstruct the (d_in, d_out) weight of an int8 leaf: codes ``w_q``
-    (d_in, d_out) times the f32 scales ``w_s`` (nb, d_out) of each block of
-    d_in / nb input rows."""
-    d_in, d_out = w_q.shape
-    nb = w_s.shape[0]
-    w = w_q.float().reshape(nb, d_in // nb, d_out) * w_s[:, None, :]
+# 16-level normal-float codebook of nf4 (quantize.py:34-58 of the JAX
+# package): quantiles of a standard normal renormalized to [-1, 1]
+NF4_LEVELS = (
+    -1.0, -0.6961928009986877, -0.5250730514526367, -0.39491748809814453, -0.28444138169288635,
+    -0.18477343022823334, -0.09105003625154495, 0.0, 0.07958029955625534, 0.16093020141124725,
+    0.24611230194568634, 0.33791524171829224, 0.44070982933044434, 0.5626170039176941, 0.7229568362236023, 1.0,
+)
+
+
+@functools.lru_cache(maxsize=None)
+def _nf4_levels(device: str) -> torch.Tensor:
+    """:data:`NF4_LEVELS` as an f32 tensor on ``device``, made once per
+    device (a host copy at every dequantization would stall a decode
+    step); never written to."""
+    return torch.tensor(NF4_LEVELS, dtype=torch.float32).to(device)
+
+
+def dequantize_weight(w_q: torch.Tensor, w_s: torch.Tensor | None, dtype=torch.bfloat16, *, s_q=None, s_s=None,
+                      s_m=None) -> torch.Tensor:
+    """Reconstruct the (d_in, d_out) weight of a quantized leaf
+    (quantize.py:207-238): int8 codes ``w_q`` (d_in, d_out), or packed nf4
+    codes (uint8 (d_in / 2, d_out), even row in the low nibble) looked up
+    in :data:`NF4_LEVELS`, times the f32 scales of each block of d_in / nb
+    input rows: ``w_s`` (nb, d_out), or nf4-dq's absmax plane ``s_q * s_s
+    + s_m`` (quantize.py:_leaf_scales)."""
+    s = w_s if w_s is not None else s_q.float() * s_s + s_m
+    nb, d_out = s.shape
+    if w_q.dtype == torch.uint8:
+        codes = torch.stack([w_q & 0xF, w_q >> 4], dim=1).reshape(2 * w_q.shape[0], d_out)
+        w = _nf4_levels(str(w_q.device))[codes.long()]
+    else:
+        w = w_q.float()
+    d_in = w.shape[0]
+    w = w.reshape(nb, d_in // nb, d_out) * s[:, None, :]
     return w.reshape(d_in, d_out).to(dtype)
 
 
+# per-row LoRA factors of an adapter bank (models/lora.py select_adapters):
+# {Dense: (a (B, d_in, r), b (B, r, d_out))}, set by ``row_adapters`` for
+# the thread that runs the forward, so a model shared by several serving
+# threads carries each one's factors apart
+_ROW_LORA = contextvars.ContextVar("row_lora", default=None)
+
+
+@contextlib.contextmanager
+def row_adapters(factors: dict):
+    """Apply ``factors`` ({Dense: (a, b)}) in every forward this thread
+    runs inside the block; they take the place of factors attached by
+    ``merge_lora``."""
+    tok = _ROW_LORA.set(factors)
+    try:
+        yield
+    finally:
+        _ROW_LORA.reset(tok)
+
+
+_QUANT_KEYS = ("w_q", "w_s", "s_q", "s_s", "s_m")
+
+
 class Dense(nn.Module):
-    """``x @ w (+ b)``.  A quantized layer (models/quantize.py) holds the
-    int8 codes ``w_q`` (d_in, d_out) and the f32 scales ``w_s`` (nb, d_out)
-    in place of ``w``; they are buffers, frozen under autograd.
+    """``x @ w (+ b)``.  A quantized layer (models/quantize.py) holds codes
+    ``w_q`` in place of ``w`` -- int8 (d_in, d_out), or two nf4 codes a
+    byte, uint8 (d_in / 2, d_out) -- and the f32 scales ``w_s`` (nb,
+    d_out), or for nf4-dq their int8 codes ``s_q`` (nb, d_out) with one f32
+    offset ``s_m`` and step ``s_s`` (nb, 1) a block row; all are buffers,
+    frozen under autograd, and dequantized at the point of use, except
+    that int8c (one scale row) runs kernel K6 at the row counts it takes.
 
     LoRA (models/lora.py ``merge_lora``): on a quantized layer the factors
     ``lora_a`` (d_in, r) and ``lora_b`` (r, d_out, carrying alpha/r) apply
     lazily, ``y += (x @ A) @ B`` in bf16 with f32 accumulation; on a float
-    layer ``w_merged`` = W + scale * A @ B stands in for ``w``.  Both are
-    plain attributes, set per forward by the train step."""
+    layer ``w_merged`` = W + scale * A @ B stands in for ``w``.  An adapter
+    bank's per-row factors (a (B, d_in, r), b (B, r, d_out); set by
+    :func:`row_adapters`) apply lazily on either base, each batch row its
+    own.  ``w_dequant`` (quantize.py ``dequantize_tree``, the trainer's
+    "once" placements) is a float weight that stands in for the codes;
+    with ``lora_folded`` it holds the attached factors too, which then do
+    not apply again.  These are plain attributes, set per forward by
+    their callers."""
 
     def __init__(self, d_in: int, d_out: int, *, use_bias: bool = True, device=None):
         super().__init__()
         self.w = nn.Parameter(torch.empty(d_in, d_out, device=device))
-        self.register_buffer("w_q", None)
-        self.register_buffer("w_s", None)
+        for key in _QUANT_KEYS:
+            self.register_buffer(key, None)
         self.b = nn.Parameter(torch.empty(d_out, device=device)) if use_bias else None
-        self.lora_a = self.lora_b = self.w_merged = None
+        self.lora_a = self.lora_b = self.w_merged = self.w_dequant = None
+        self.lora_folded = False
 
-    def set_quantized(self, w_q: torch.Tensor, w_s: torch.Tensor) -> None:
-        """Replace the float weight by int8 codes and their scales."""
+    def set_quantized(self, w_q: torch.Tensor, w_s: torch.Tensor | None = None, *, s_q=None, s_s=None,
+                      s_m=None) -> None:
+        """Replace the float weight by codes and their scales."""
         self.w = None
-        self.w_q = w_q
-        self.w_s = w_s
+        self.w_q, self.w_s, self.s_q, self.s_s, self.s_m = w_q, w_s, s_q, s_s, s_m
+
+    @property
+    def shape(self) -> tuple[int, int]:
+        """(d_in, d_out), whatever the leaf's storage (quantize.py:dense_shape)."""
+        if self.w_q is None:
+            return tuple(self.w.shape)
+        if self.w_q.dtype == torch.uint8:
+            return 2 * self.w_q.shape[0], self.w_q.shape[1]
+        return tuple(self.w_q.shape)
+
+    def dequantized(self, dtype=torch.bfloat16) -> torch.Tensor:
+        """The weight of a quantized layer, reconstructed in ``dtype``."""
+        return dequantize_weight(self.w_q, self.w_s, dtype, s_q=self.s_q, s_s=self.s_s, s_m=self.s_m)
 
     def forward(self, x):
-        if self.w_q is None:
+        if self.w_dequant is not None:
+            y = _matmul(x, self.w_dequant)
+        elif self.w_q is None:
             y = _matmul(x, self.w if self.w_merged is None else self.w_merged)
         else:
-            d_in, d_out = self.w_q.shape
+            d_in, d_out = self.shape
             rows = x.numel() // d_in
-            if self.w_s.shape[0] == 1 and w8_supports(rows, d_in, d_out):
+            if (self.w_q.dtype == torch.int8 and self.w_s is not None and self.w_s.shape[0] == 1
+                    and w8_supports(rows, d_in, d_out)):
                 # int8c at decode row counts: kernel K6 streams the int8
                 # weight and folds the column scale after the K sum
                 y = w8_matmul(x.reshape(rows, d_in).to(COMPUTE_DTYPE), self.w_q, self.w_s,
@@ -183,11 +260,22 @@ class Dense(nn.Module):
                 y = y.reshape(*x.shape[:-1], d_out)
             else:
                 # dequantize at the point of use: a transient bf16 weight
-                y = _matmul(x, dequantize_weight(self.w_q, self.w_s, COMPUTE_DTYPE))
+                y = _matmul(x, self.dequantized(COMPUTE_DTYPE))
         if self.b is not None:
             y = y + self.b
-        if self.lora_a is not None:
-            y = y + _matmul(_matmul(x, self.lora_a), self.lora_b)
+        lora_a, lora_b = (None, None) if self.lora_folded else (self.lora_a, self.lora_b)
+        rows = _ROW_LORA.get()
+        if rows is not None and self in rows:
+            lora_a, lora_b = rows[self]
+        if lora_a is not None:
+            if lora_a.dim() == 3:
+                # per-row factors: one rank-r correction a batch row, as
+                # f32 products of bf16-rounded inputs (layers.py:161-177)
+                xb = _bf16(x).reshape(x.shape[0], -1, x.shape[-1])
+                xa = torch.bmm(xb, _bf16(lora_a))
+                y = y + torch.bmm(_bf16(xa), _bf16(lora_b)).reshape(*x.shape[:-1], -1)
+            else:
+                y = y + _matmul(_matmul(x, lora_a), lora_b)
         return _maybe_tag_proj(y)
 
 

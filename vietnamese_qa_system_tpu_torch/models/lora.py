@@ -10,8 +10,14 @@ lazily (``y += (x @ A) @ (scale * B)``), a float base the merged weight
 ``W + scale * A @ B`` (f32, cast back to W's type).  Gradients reach the
 adapter through whatever the attached tensors were made from, and the base
 never trains (a quantized base's codes are buffers; a float base is used
-detached).  ``stack_adapters`` and ``select_adapters`` (multi-LoRA
-serving) are not ported yet.
+detached).
+
+Multi-LoRA serving (lora.py:145-234): ``stack_adapters`` stacks same-shaped
+adapters into a bank (index 0 the zero adapter, ``b`` pre-scaled by
+alpha / r) and ``select_adapters`` gathers per-row factors from it at a
+(B,) index for ``layers.row_adapters``; ``load_adapter`` reads the
+``adapter.npz`` that either package's ``train --use-lora
+--checkpoint-dir`` writes.
 """
 
 from __future__ import annotations
@@ -22,7 +28,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from ..utils.tree import flatten_paths, nest, tree_leaves
+from ..utils.tree import flatten_paths, nest, tree_leaves, tree_map
 from .layers import Dense
 
 # the dense leaves eligible for adaptation: q/k/v/o and the MLP in/out
@@ -45,10 +51,6 @@ def _targets(model: nn.Module, cfg: LoraConfig) -> dict[str, Dense]:
             if isinstance(mod, Dense) and name.split(".")[-1] in cfg.targets}
 
 
-def _shape(dense: Dense) -> tuple[int, int]:
-    return tuple((dense.w if dense.w_q is None else dense.w_q).shape)
-
-
 def init_lora(generator: torch.Generator, model: nn.Module, cfg: LoraConfig) -> dict:
     """An adapter for every targeted dense layer of ``model`` (float or
     quantized): A ~ N(0, 1/r^2) drawn from ``generator`` (on its device),
@@ -56,7 +58,7 @@ def init_lora(generator: torch.Generator, model: nn.Module, cfg: LoraConfig) -> 
     and require grad."""
     flat = {}
     for name, dense in sorted(_targets(model, cfg).items()):
-        d_in, d_out = _shape(dense)
+        d_in, d_out = dense.shape
         dev = generator.device
         a = torch.randn(d_in, cfg.r, generator=generator, device=dev) / cfg.r
         flat[f"{name}.a"] = a.requires_grad_(True)
@@ -82,9 +84,56 @@ def merge_lora(model: nn.Module, adapter: dict, cfg: LoraConfig) -> nn.Module:
 
 
 def clear_lora(model: nn.Module) -> None:
+    """Take off what ``merge_lora`` and ``quantize.dequantize_tree`` attached."""
     for mod in model.modules():
         if isinstance(mod, Dense):
-            mod.lora_a = mod.lora_b = mod.w_merged = None
+            mod.lora_a = mod.lora_b = mod.w_merged = mod.w_dequant = None
+            mod.lora_folded = False
+
+
+def stack_adapters(adapters: Sequence[dict], cfg: LoraConfig) -> dict:
+    """Stack same-shaped adapters into a serving bank: every ``a`` / ``b``
+    leaf gains a leading adapter axis, index 0 is a zero adapter (the base
+    model: a request without an adapter costs one rank-r product instead
+    of a branch) and ``b`` is pre-scaled by alpha / r.  Adapters that
+    target other layers, or another rank, raise ValueError.  The bank's
+    leaves are detached, on the adapters' device."""
+    if not adapters:
+        raise ValueError("stack_adapters needs at least one adapter")
+    flats = [flatten_paths(ad) for ad in adapters]
+    if any(sorted(f) != sorted(flats[0]) for f in flats[1:]):
+        raise ValueError("adapters target different leaves (same base + same LoraConfig.targets required)")
+    bank = {}
+    for path in flats[0]:
+        leaves = [f[path].detach().float() for f in flats]
+        if any(leaf.shape != leaves[0].shape for leaf in leaves[1:]):
+            raise ValueError(f"adapter leaf shapes differ: {[tuple(leaf.shape) for leaf in leaves]} "
+                             "(same rank r required)")
+        stacked = torch.stack([torch.zeros_like(leaves[0]), *leaves])
+        bank[path] = stacked * cfg.scale if path.endswith(".b") else stacked
+    return nest(bank)
+
+
+def select_adapters(model: nn.Module, bank: dict, idx) -> dict:
+    """Per-row factors of ``bank`` at ``idx`` for ``model``'s dense layers:
+    {Dense: (a (B, d_in, r), b (B, r, d_out))} for a (B,) index tensor,
+    (d_in, r) / (r, d_out) for a scalar one; apply them with
+    ``layers.row_adapters``.  The gather runs on the bank's device and
+    reads nothing back to the host."""
+    flat = flatten_paths(bank)
+    return {model.get_submodule(name): (flat[f"{name}.a"][idx], flat[f"{name}.b"][idx])
+            for name in sorted({path.rsplit(".", 1)[0] for path in flat})}
+
+
+def load_adapter(path: str, model: nn.Module, cfg: LoraConfig) -> dict:
+    """The adapter tree in ``path`` (an ``adapter.npz`` of either package's
+    trainer, leaves in the JAX order) for ``model``'s targeted layers
+    under ``cfg``, f32 on the model's device.  A file that holds another
+    adapter (leaf count or shapes) raises ValueError."""
+    from ..train.checkpoint import load_pytree
+
+    like = init_lora(torch.Generator().manual_seed(0), model, cfg)
+    return tree_map(lambda t: t.detach().to(model.device), load_pytree(path, like))
 
 
 def count_params(tree) -> int:

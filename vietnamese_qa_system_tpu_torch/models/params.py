@@ -15,6 +15,7 @@ from ..utils.tree import flatten_paths, nest, tree_leaves
 from .causal_lm import CausalLM, unstack_blocks
 from .config import ModelConfig
 from .encoder import SentenceEncoder
+from .layers import _QUANT_KEYS as QUANT_KEYS
 from .layers import Dense
 from .quantize import quantize_weight
 
@@ -49,7 +50,8 @@ def encoder_from_jax(params, cfg: ModelConfig, device="cuda") -> SentenceEncoder
 
 def causal_from_state_dict(state: dict, cfg: ModelConfig, *, no_bias=()) -> CausalLM:
     """A :class:`CausalLM` over the tensors of ``state`` (``state_dict``
-    names; quantized layers as ``.w_q`` / ``.w_s``), used as they are, on
+    names; quantized layers as ``.w_q`` with ``.w_s``, or nf4-dq's ``.s_q``,
+    ``.s_s`` and ``.s_m``), used as they are, on
     their device.  Every tensor the module expects must be present, and
     nothing else.  ``no_bias`` names the dense layers of each block that
     the weights' layout holds without a bias (GPT-Neo's ``attn.wq``,
@@ -59,8 +61,8 @@ def causal_from_state_dict(state: dict, cfg: ModelConfig, *, no_bias=()) -> Caus
         if isinstance(mod, Dense) and name.startswith("blocks.") and name.split(".", 2)[2] in no_bias:
             mod.b = None
         if isinstance(mod, Dense) and f"{name}.w_q" in state:
-            mod.set_quantized(torch.empty_like(state[f"{name}.w_q"], device="meta"),
-                              torch.empty_like(state[f"{name}.w_s"], device="meta"))
+            mod.set_quantized(**{key: torch.empty_like(state[f"{name}.{key}"], device="meta")
+                                 for key in QUANT_KEYS if f"{name}.{key}" in state})
     model.load_state_dict(state, strict=True, assign=True)
     return model.eval().requires_grad_(False)
 
@@ -68,31 +70,28 @@ def causal_from_state_dict(state: dict, cfg: ModelConfig, *, no_bias=()) -> Caus
 def causal_from_jax(params, cfg: ModelConfig, device="cuda", *, no_bias=()) -> CausalLM:
     """A JAX causal-LM pytree (numpy leaves; list-form or scan-stacked
     blocks) -> :class:`CausalLM`.  Float leaves load as f32; quantized
-    ``int8`` / ``int8c`` leaves ``{w_q, w_s[, b]}`` are carried bit for bit
-    (int8 codes, f32 scales).  ``no_bias`` as in
+    leaves are carried bit for bit: ``int8`` / ``int8c`` ``{w_q, w_s[,
+    b]}`` (int8 codes, f32 scales), ``nf4`` (uint8 packed codes, f32
+    scales) and ``nf4-dq`` ``{w_q, s_q, s_s, s_m[, b]}`` (int8 scale codes).  ``no_bias`` as in
     :func:`causal_from_state_dict` (the JAX import of a GPT-Neo directory
     has no q/k/v biases)."""
     device = resolve_device(device)
     flat = {}
     for name, leaf in _flatten(unstack_blocks(params, cfg.n_layers), "", {}).items():
         leaf = np.asarray(leaf)
-        if name.endswith(".w_q") and leaf.dtype != np.int8:
-            raise NotImplementedError(f"{name}: {leaf.dtype} codes (nf4) are not ported yet; int8 and int8c are")
-        if name.endswith((".s_q", ".s_s", ".s_m")):
-            raise NotImplementedError(f"{name}: double-quantized (nf4-dq) leaves are not ported yet")
-        flat[name] = torch.from_numpy(np.array(leaf, dtype=leaf.dtype if leaf.dtype == np.int8 else np.float32))
-        flat[name] = flat[name].to(device)
+        kept = leaf.dtype in (np.int8, np.uint8)  # codes
+        flat[name] = torch.from_numpy(np.array(leaf, dtype=leaf.dtype if kept else np.float32)).to(device)
     return causal_from_state_dict(flat, cfg, no_bias=no_bias)
 
 
 def _quantize_layer(flat: dict, mode: str) -> dict:
     """Every dense weight (``....w``) of one layer's flat tree -> its
-    ``w_q`` / ``w_s`` leaves, as ``quantize_dense_tree`` makes them."""
+    quantized leaves (``w_q`` with ``w_s``, or nf4-dq's ``s_q``, ``s_s``,
+    ``s_m``), as ``quantize_dense_tree`` makes them."""
     out = {}
     for name, t in flat.items():
         if name.endswith(".w"):
-            leaf = quantize_weight(t, mode)
-            out[name + "_q"], out[name + "_s"] = leaf["w_q"], leaf["w_s"]
+            out.update({name[:-1] + key: leaf for key, leaf in quantize_weight(t, mode).items()})
         else:
             out[name] = t
     return out
@@ -107,8 +106,8 @@ def causal_from_hf(model_dir: str, cfg: ModelConfig | None = None, *, device="cu
                    quantize: str | None = None) -> CausalLM:
     """A local HF causal-LM directory -> :class:`CausalLM` on ``device``,
     streamed: each tensor is read from the file, moved to the device and
-    converted there, one layer at a time, and with ``quantize`` ("int8" or
-    "int8c") each layer is quantized as soon as it is complete, as
+    converted there, one layer at a time, and with ``quantize`` (a mode of
+    models/quantize.py) each layer is quantized as soon as it is complete, as
     ``init_causal_lm(..., quantize=)`` does for drawn weights.  The host
     never holds more than one tensor of the checkpoint.
 

@@ -6,8 +6,15 @@ checkpoint holding ``state.npz`` (the state's leaves as ``leaf_0`` ...
 in the JAX package's flattening order, utils/tree.py), ``dtypes.json``
 (bf16 leaves are stored as f32 and named "bfloat16" there) and
 ``meta.json``, written last as the commit marker.  A checkpoint of either
-package restores into the other.  Sharded (per-host) checkpoints are not
-ported yet.
+package restores into the other.
+
+Sharded checkpoints (checkpoint.py:87-208) use the JAX package's per-host
+layout: ``host_{h}.npz`` holds array ``l{i}_s{j}`` for shard ``j`` of leaf
+``i``, and ``host_{h}.layout.json`` maps each to its leaf, global shape,
+dtype and slice.  The port runs one process on one device, so it writes
+``host_0`` with every leaf whole; ``restore`` detects the format and
+reassembles a directory that the JAX package wrote from several hosts,
+raising on a leaf that no host file holds or that the files do not fill.
 """
 
 from __future__ import annotations
@@ -55,6 +62,10 @@ def save_pytree(path: str, tree) -> None:
         json.dump(dtypes, f)
 
 
+def _restore_leaf(arr: np.ndarray, like: torch.Tensor) -> torch.Tensor:
+    return torch.from_numpy(arr).to(device=like.device, dtype=like.dtype)  # 0-d leaves stay 0-d
+
+
 def load_pytree(path: str, target=None):
     """Restore into the structure, dtypes and devices of ``target``; with
     ``target=None`` the flat list of CPU tensors in their saved dtypes."""
@@ -76,18 +87,79 @@ def load_pytree(path: str, target=None):
     for arr, t in zip(arrays, t_leaves):
         if tuple(arr.shape) != tuple(t.shape):
             raise ValueError(f"checkpoint leaf of shape {arr.shape} for a target of shape {tuple(t.shape)}")
-        leaves.append(torch.from_numpy(arr).to(device=t.device, dtype=t.dtype))  # 0-d leaves stay 0-d
+        leaves.append(_restore_leaf(arr, t))
+    return tree_unflatten(target, leaves)
+
+
+def save_pytree_sharded(directory: str, tree, *, host_id: int = 0) -> None:
+    """Write ``{directory}/host_{host_id}.npz`` and its
+    ``host_{host_id}.layout.json`` (checkpoint.py:121-153): every leaf of
+    ``tree`` whole, as one shard spanning its shape."""
+    os.makedirs(directory, exist_ok=True)
+    leaves = tree_leaves(tree)
+    arrays, layout = {}, []
+    for i, leaf in enumerate(leaves):
+        arr, dt = _to_savable(leaf)
+        key = f"l{i}_s0"
+        arrays[key] = arr
+        layout.append({"leaf": i, "key": key, "shape": list(arr.shape), "dtype": dt,
+                       "index": [[0, int(d)] for d in arr.shape]})
+    np.savez(os.path.join(directory, f"host_{host_id}.npz"), **arrays)
+    with open(os.path.join(directory, f"host_{host_id}.layout.json"), "w") as f:
+        json.dump({"n_leaves": len(leaves), "entries": layout}, f)
+
+
+def _host_layouts(directory: str) -> list[str]:
+    return sorted(f for f in os.listdir(directory) if re.fullmatch(r"host_\d+\.layout\.json", f))
+
+
+def load_pytree_sharded(directory: str, target):
+    """Reassemble every host file's shards into ``target``'s structure,
+    dtypes and devices (checkpoint.py:156-200).  A leaf that no host file
+    holds, or whose shards do not fill it (a host file is missing), raises
+    ValueError."""
+    host_files = _host_layouts(directory)
+    if not host_files:
+        raise FileNotFoundError(f"no host shard files under {directory}")
+    t_leaves = tree_leaves(target)
+    buffers: dict[int, np.ndarray] = {}
+    filled: dict[int, int] = {}
+    for name in host_files:
+        with open(os.path.join(directory, name)) as f:
+            layout = json.load(f)
+        if layout["n_leaves"] != len(t_leaves):
+            raise ValueError(f"checkpoint has {layout['n_leaves']} leaves but target has {len(t_leaves)}")
+        with np.load(os.path.join(directory, name.replace(".layout.json", ".npz"))) as data:
+            for e in layout["entries"]:
+                i = e["leaf"]
+                if i not in buffers:
+                    buffers[i] = np.empty(e["shape"], np.float32 if e["dtype"] == "bfloat16" else e["dtype"])
+                    filled[i] = 0
+                shard = data[e["key"]]
+                buffers[i][tuple(slice(a, b) for a, b in e["index"])] = shard
+                filled[i] += int(shard.size)
+    leaves = []
+    for i, t in enumerate(t_leaves):
+        if i not in buffers:
+            raise ValueError(f"leaf {i} missing from every host shard file")
+        if filled[i] < buffers[i].size:
+            raise ValueError(f"leaf {i} incomplete: {filled[i]}/{buffers[i].size} elements written (a host shard "
+                             "file is missing)")
+        if tuple(buffers[i].shape) != tuple(t.shape):
+            raise ValueError(f"checkpoint leaf {i} of shape {buffers[i].shape} for a target of shape "
+                             f"{tuple(t.shape)}")
+        leaves.append(_restore_leaf(buffers[i], t))
     return tree_unflatten(target, leaves)
 
 
 class CheckpointManager:
     """``step_N`` directories with latest-checkpoint discovery; meta.json
     is the commit marker, so a directory without it (a crashed write) is
-    skipped by restore and swept by the next save."""
+    skipped by restore and swept by the next save.  ``sharded`` writes the
+    per-host layout (``host_0``); restore reads either format."""
 
     def __init__(self, directory: str, keep: int = 3, *, sharded: bool = False):
-        if sharded:
-            raise NotImplementedError("sharded (per-host) checkpoints are not ported yet")
+        self.sharded = sharded
         self.directory = directory
         self.keep = keep
         self._pending: Optional[threading.Thread] = None
@@ -111,7 +183,10 @@ class CheckpointManager:
         if os.path.isdir(path) and not os.path.exists(os.path.join(path, "meta.json")):
             shutil.rmtree(path, ignore_errors=True)  # a crashed save of this step
         os.makedirs(path, exist_ok=True)
-        save_pytree(os.path.join(path, "state.npz"), state)
+        if self.sharded:
+            save_pytree_sharded(path, state)
+        else:
+            save_pytree(os.path.join(path, "state.npz"), state)
         meta: dict[str, Any] = {"step": step}
         if metadata:
             meta.update(metadata)
@@ -127,9 +202,10 @@ class CheckpointManager:
         if step is None:
             return None, None
         path = os.path.join(self.directory, f"step_{step}")
-        if any(re.fullmatch(r"host_\d+\.layout\.json", f) for f in os.listdir(path)):
-            raise NotImplementedError(f"{path} is a sharded checkpoint; those are not ported yet")
-        state = load_pytree(os.path.join(path, "state.npz"), state_like)
+        if _host_layouts(path):
+            state = load_pytree_sharded(path, state_like)
+        else:
+            state = load_pytree(os.path.join(path, "state.npz"), state_like)
         with open(os.path.join(path, "meta.json")) as f:
             meta = json.load(f)
         return state, meta

@@ -3,19 +3,33 @@
 Counterpart of ``vietnamese_qa_system_tpu/train/trainer.py`` on one
 device.  The step (trainer.py:167-254) runs ``grad_accum`` microbatches,
 each through ``causal_lm.loss_fn`` with the adapter attached to the frozen
-base (``merge_lora``; an int8 base is dequantized at each matmul, the
-"fused" placement), sums the gradients of the trainable tree -- the adapter
-under LoRA, every parameter otherwise -- divides by ``grad_accum``, and
-applies the optimizer chain (train/optim.py) in place.  Metrics are the
-token-weighted ``loss`` and the ``grad_norm`` of the averaged gradients.
+base (``merge_lora``), sums the gradients of the trainable tree -- the
+adapter under LoRA, every parameter otherwise -- divides by
+``grad_accum``, and applies the optimizer chain (train/optim.py) in place.
+Metrics are the token-weighted ``loss`` and the ``grad_norm`` of the
+averaged gradients.
+
+A quantized base (``quantize_base`` int8, nf4 or nf4-dq) is dequantized
+where ``qlora_dequant`` says (trainer.py:184-199): at each matmul
+("fused"), or all of it to bf16 once per microbatch before the forward,
+with the LoRA factors applied lazily ("once") or folded into the weights
+("once_folded", whose backward forms a full-size weight gradient per
+layer).
+
+``host_offload`` ("optimizer", "params" or "all") keeps the persistent
+copy of the optimizer state and / or the parameters in host memory
+(pinned when the device is a GPU) and stages it through the device around
+each step (trainer.py:338-470); scalar leaves stay on the device.
+``profile_steps`` writes a ``torch.profiler`` trace of the first steps
+after start or resume to ``profile_dir``; ``sharded_checkpoint`` writes
+the per-host checkpoint layout (train/checkpoint.py).
 
 The trainer's state is the JAX package's ``{"params", "adapter",
 "opt_state", "step"}`` with the model's tensors as the "params" tree, so
 checkpoints flatten in the JAX order and move between the packages.
 
-Not ported yet (each raises): strategies other than "dp", host offload,
-profiler traces (``profile_steps``), the "once" / "once_folded" dequant
-placements, nf4 / nf4-dq bases, seq2seq and encoder training.
+Not ported yet (each raises): strategies other than "dp", seq2seq and
+encoder training.
 """
 
 from __future__ import annotations
@@ -31,12 +45,14 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..core.device import make_generator, resolve_device
+from ..core.profiling import bytes_to_mb, device_memory_stats
+from ..core.tracing import start_trace, stop_trace
 from ..models import causal_lm
 from ..models.causal_lm import CausalLM, init_causal_lm
 from ..models.config import ModelConfig
 from ..models.layers import Dense
 from ..models.lora import LoraConfig, clear_lora, init_lora, merge_lora
-from ..models.quantize import quantize_dense_tree
+from ..models.quantize import dequantize_tree, quantize_dense_tree
 from ..utils.trackers import make_tracker
 from ..utils.tree import nest, tree_leaves, tree_map, tree_unflatten
 from .checkpoint import CheckpointManager
@@ -68,9 +84,12 @@ class TrainConfig:
     async_checkpoint: bool = False
     keep_checkpoints: int = 3
     resume: bool = False
-    # quantize the frozen base ("int8") before training; LoRA trains over it
+    # quantize the frozen base ("int8", "nf4", "nf4-dq"); LoRA trains over it
     quantize_base: Optional[str] = None
-    # where the quantized base is dequantized: "fused" = at each matmul
+    # where the quantized base is dequantized: "fused" = at each matmul;
+    # "once" = all of it to bf16 before each microbatch's forward, the
+    # factors applied lazily; "once_folded" = the same with the factors
+    # folded into the weights
     qlora_dequant: str = "fused"
     seed: int = 42
     log_every: int = 10
@@ -108,7 +127,12 @@ def make_train_step(cfg: TrainConfig, tx: Transform, model: CausalLM):
     trainable tree and optimizer state are updated in place / replaced."""
     use_lora = cfg.lora is not None
 
+    once = cfg.quantize_base is not None and cfg.qlora_dequant != "fused"
+
     def loss_for(mb):
+        if once:
+            # the whole frozen base to bf16 before the forward (trainer.py:184-199)
+            dequantize_tree(model, torch.bfloat16, fold_lora=cfg.qlora_dequant == "once_folded")
         return causal_lm.loss_fn(model, mb)
 
     if cfg.remat and not (cfg.model.scan_layers and cfg.model.remat_policy != "none"):
@@ -168,17 +192,13 @@ class Trainer:
         self.cfg = cfg
         m = cfg.model
         for what, unported in (("strategy " + repr(cfg.strategy), cfg.strategy != "dp"),
-                               ("host_offload", cfg.host_offload is not None),
-                               ("profile_steps (device traces)", cfg.profile_steps > 0),
-                               ("sharded checkpoints", cfg.sharded_checkpoint),
-                               (f"quantize_base={cfg.quantize_base!r}", cfg.quantize_base in ("nf4", "nf4-dq")),
                                (f"{m.arch} training", m.arch != "causal")):
             if unported:
                 raise NotImplementedError(f"{what} is not ported yet")
         if cfg.qlora_dequant not in ("fused", "once", "once_folded"):
             raise ValueError(f"qlora_dequant must be 'fused', 'once' or 'once_folded', got {cfg.qlora_dequant!r}")
-        if cfg.qlora_dequant != "fused":
-            raise NotImplementedError(f"qlora_dequant={cfg.qlora_dequant!r} is not ported yet; use 'fused'")
+        if cfg.host_offload is not None and cfg.host_offload not in ("optimizer", "params", "all"):
+            raise ValueError(f"host_offload must be optimizer|params|all, got {cfg.host_offload!r}")
         if cfg.lora is None and m.use_flash_attention and (m.seq2seq_family == "t5" or m.relative_attention_buckets):
             raise ValueError(
                 "full fine-tuning with use_flash_attention on a relative-bias family (T5/MPNet) would silently "
@@ -188,7 +208,7 @@ class Trainer:
             raise ValueError("scan_layers requires homogeneous layers (attention_layers alternation cannot be "
                              "scanned)")
         if cfg.quantize_base is not None and cfg.lora is None:
-            raise ValueError("quantize_base requires LoRA: int8 codes cannot take gradient updates")
+            raise ValueError("quantize_base requires LoRA: int8 / nf4 codes cannot take gradient updates")
         device = resolve_device(device)
         if params is None:
             model = init_causal_lm(m, make_generator(cfg.seed, device), quantize=cfg.quantize_base)
@@ -214,7 +234,19 @@ class Trainer:
                       "step": torch.zeros((), dtype=torch.int32, device=self.device)}
         self.state["opt_state"] = self.tx.init(self.adapter if self.adapter is not None else self.state["params"])
         self._step_fn = make_train_step(cfg, self.tx, model)
-        self.ckpt = CheckpointManager(cfg.checkpoint_dir, cfg.keep_checkpoints) if cfg.checkpoint_dir else None
+        # host offload: the persistent copies, pinned on a GPU's host
+        self._pin = self.device.type == "cuda"
+        self._offload_params = cfg.host_offload in ("params", "all")
+        self._offload_opt = cfg.host_offload in ("optimizer", "all")
+        self._host_params = self._host_opt = None
+        if self._offload_params:
+            self._host_params = [self._host_buffer(t) for t in tree_leaves(self.state["params"])]
+            self._params_to_host()
+        if self._offload_opt:
+            self._host_opt = [self._host_buffer(t) for t in tree_leaves(self.state["opt_state"])]
+            self.state["opt_state"] = self._opt_to_host(self.state["opt_state"])
+        self.ckpt = (CheckpointManager(cfg.checkpoint_dir, cfg.keep_checkpoints, sharded=cfg.sharded_checkpoint)
+                     if cfg.checkpoint_dir else None)
         self.tracker = make_tracker(cfg.report_to, cfg.log_dir, cfg.run_name)
         self.start_step = 0
         if cfg.resume and self.ckpt is not None:
@@ -223,6 +255,54 @@ class Trainer:
                 self.load_state(restored)
                 self.start_step = int(meta["step"])
                 print(f"resumed from step {self.start_step}", flush=True)
+
+    # ---------------------------------------------------------- host offload
+
+    def _host_buffer(self, t: torch.Tensor):
+        """A host tensor the shape of ``t`` (pinned on a GPU's host), or
+        None for a scalar, which stays on the device."""
+        if t.dim() == 0:
+            return None
+        return torch.empty(t.shape, dtype=t.dtype, pin_memory=self._pin)
+
+    def _params_to_host(self) -> None:
+        """The model's tensors point at their host copies, updated from the device."""
+        with torch.no_grad():
+            for t, host in zip(tree_leaves(self.state["params"]), self._host_params):
+                if host is not None and t.data.data_ptr() != host.data_ptr():
+                    host.copy_(t.data)
+                    t.data = host
+
+    def _params_to_device(self) -> None:
+        with torch.no_grad():
+            for t, host in zip(tree_leaves(self.state["params"]), self._host_params):
+                if host is not None:
+                    t.data = t.data.to(self.device, non_blocking=True)
+
+    def _opt_to_host(self, opt_state):
+        out = []
+        for t, host in zip(tree_leaves(opt_state), self._host_opt):
+            if host is None:
+                out.append(t)
+            else:
+                host.copy_(t)
+                out.append(host)
+        return tree_unflatten(opt_state, out)
+
+    def _run_step(self, state: dict, batch: dict):
+        """One optimizer step; with host offload the host-resident parts are
+        staged onto the device before it and written back after it
+        (trainer.py:380-402)."""
+        if self._offload_params:
+            self._params_to_device()
+        if self._offload_opt:
+            state["opt_state"] = tree_map(lambda t: t.to(self.device, non_blocking=True), state["opt_state"])
+        state, metrics = self._step_fn(state, batch)
+        if self._offload_params:
+            self._params_to_host()
+        if self._offload_opt:
+            state["opt_state"] = self._opt_to_host(state["opt_state"])
+        return state, metrics
 
     def load_state(self, state: dict) -> None:
         """Take a restored state: the model's tensors and the adapter are
@@ -266,6 +346,10 @@ class Trainer:
             if hasattr(probe, "__len__"):
                 steps_per_epoch = len(probe)
         on_card = self.device.type == "cuda"
+        prof = None
+        if cfg.profile_steps > 0:
+            prof = start_trace(cfg.profile_dir, self.device)
+            profile_until = step + cfg.profile_steps
         for epoch in range(cfg.epochs):
             if steps_per_epoch is not None and skip >= steps_per_epoch:
                 skip -= steps_per_epoch
@@ -281,10 +365,15 @@ class Trainer:
                     continue  # fast-forward within the resume epoch
                 dev_batch = self._device_batch(batch)
                 n_tok = int(np.prod(dev_batch["input_ids"].shape))
-                self.state, metrics = self._step_fn(self.state, dev_batch)
+                self.state, metrics = self._run_step(self.state, dev_batch)
                 step += 1
                 epoch_steps += 1
                 epoch_tokens += n_tok
+                if prof is not None and step >= profile_until:
+                    if on_card:
+                        torch.cuda.synchronize(self.device)
+                    print(f"profiler trace written to {stop_trace(prof, cfg.profile_dir)}", flush=True)
+                    prof = None
                 if step % cfg.log_every == 0:
                     loss = float(metrics["loss"])
                     self.tracker.log({"loss": loss, "grad_norm": float(metrics["grad_norm"]), "epoch": epoch,
@@ -301,7 +390,8 @@ class Trainer:
                       file=sys.stderr)
             if epoch_steps == 0 and n_batches > 0 and step == self.start_step:
                 continue  # epoch consumed entirely by fast-forward counting
-            peak = f"{torch.cuda.max_memory_allocated(self.device) >> 20}MB" if on_card else "n/a (host)"
+            mem = device_memory_stats(self.device)
+            peak = f"{bytes_to_mb(mem['peak_bytes_in_use'])}MB" if mem["supported"] else "n/a (host)"
             print(f"epoch {epoch}: steps={epoch_steps} device_mem_peak={peak}", flush=True)
             if eval_fn is not None:
                 eval_metrics = eval_fn(self.state, epoch)
@@ -310,6 +400,8 @@ class Trainer:
                 self.save(step)
             if max_steps is not None and step >= max_steps:
                 break
+        if prof is not None:
+            print(f"profiler trace written to {stop_trace(prof, cfg.profile_dir)}", flush=True)
         if self.ckpt is not None:
             self.ckpt.wait()
         return self.state
@@ -333,7 +425,11 @@ class Trainer:
 
     def merged_params(self) -> CausalLM:
         """The model with the trained adapter attached (detached factors;
-        the adapter merged into float layers), for inference and export."""
+        the adapter merged into float layers), for inference and export.
+        Offloaded parameters come back to the device (the next step
+        returns them to the host)."""
+        if self._offload_params:
+            self._params_to_device()
         if self.adapter is None:
             return self.model
         return merge_lora(self.model, tree_map(lambda t: t.detach(), self.adapter), self.cfg.lora)
