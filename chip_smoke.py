@@ -120,7 +120,26 @@ and backward against their plain versions at the edges of their tiles
   losses), step s, device busy ms and peak memory per placement; then the
   2-layer twin's ``cli train --profile-steps 1 --sharded-checkpoint`` (a
   trace with CUDA kernel events, ``host_0`` files) resumed from its
-  checkpoint.
+  checkpoint;
+- the seq2seq readers: mt5-small at full width (drawn bf16 weights
+  written as an HF MT5 directory by this script's own name map, loaded
+  through ``serve --reader-params DIR --reader-size mt5small
+  --reader-quantize int8c`` bit-equal to the script's quantization), 8
+  concurrent ``/qa`` at 512-token prompts over the 1M-row bf16 store (K1;
+  K6 in every decoder projection), the same reader with
+  ``use_flash_attention`` (K4 bidirectional with the full relative
+  bias), a 2-layer twin on the card and the host; ``/generate`` as
+  ``serve --continuous-slots 8 --gen-total 256`` builds it (16 requests,
+  every fourth sampled, one over the largest encoder bucket; each greedy
+  stream held to a B=1 ``generate_seq2seq`` by the margin rule; a traced
+  chunk with no host synchronisation); mbart-large-50's width through
+  ``chat --arch seq2seq --init-params DIR`` (greedy and W 4 beams with a
+  forced language id, the beams' summed log-probability at least
+  greedy's, a 2-layer twin); K4 / K7 at mt5-small's training shapes (full
+  bias, scale 1, both forms) against their plain versions and SDPA; three
+  mt5-small LoRA steps over an int8 base with flash at batch 8 x (512 +
+  256), one traced, and the 2-layer twin's ``cli train --arch seq2seq
+  --do-eval --do-generative-eval`` on the card and the host.
 
 Each path resets the kernels' launch counters just before it runs and
 reads them just after; every kernel of the path must have launched.
@@ -198,6 +217,14 @@ W8_LAYER_ROWS = (8, 72, 128, 256)  # a layer's six calls summed: /qa decode, the
 # K6 off the main shapes: a unit's second weight box past N (N % 256 == 128
 # at <= 72 rows), a lone row, rows off every bucket, one unit of K
 W8_EDGES = ((1, 128, 384), (37, 384, 640), (72, 128, 128), (100, 256, 384), (200, 384, 1152), (256, 128, 128))
+# K6 at mt5-small's projections (K, N): q / k / v (512, 384), the attention
+# out (384, 512), the gated MLP's gate and up (512, 1024) and its down
+# (1024, 512); N 384 is three 128-column tiles and K 384 three k-steps,
+# few units for the stream-K partition.  A decoder layer's calls a step:
+# self q k v o, cross q o, gate, up, down (the cross K / V are projected
+# once a sequence)
+MT5_W8_SHAPES = ((512, 384), (384, 512), (512, 1024), (1024, 512))
+MT5_PER_DECODER_LAYER = {(512, 384): 4, (384, 512): 2, (512, 1024): 2, (1024, 512): 1}
 K1_SCORE_TOL = 2e-3  # wgmma sums the exact bf16 products in another order than the f32 product
 TOPK_BATCHES = (1, 8, 32, 200, 256, 512)  # 1-, 2- and 4-CTA clusters, and two groups of 256
 # K1's list form at 10 and at hybrid's 40 dense candidates, and its pool
@@ -280,6 +307,19 @@ PHOGPT_LAYERS_PER_SHARD = 4
 # 1,979 TOP/s int8 on the tensor cores, 67 TFLOP/s f32 on the CUDA cores
 HBM_BYTES_S, BF16_OPS_S, INT8_OPS_S, F32_OPS_S = 3.35e12, 989e12, 1979e12, 67e12
 L2_BYTES = 50 << 20
+# the seq2seq paths: mt5-small's /qa with flash (logits against the dense
+# path within JAX test_t5.py:337's atol), its /generate engine as `serve
+# --continuous-slots 8 --gen-total 256` builds it (encoder buckets 32-128:
+# prompts of 16-128 tokens, and one over the largest), mBART-large-50's
+# greedy and W 4 beams with vi_VN's language id (mbart-50's vocabulary)
+# forced, mt5-small LoRA steps of batch 8 x (encoder 512, target 256), and
+# K4 / K7 at those two shapes (name, B, H, T, D, causal)
+S2S_FLASH_LOGIT_TOL = 0.1
+S2S_ENGINE_FLAGS = ("--continuous-slots", "8", "--gen-total", "256", "--gen-chunk-steps", "16")
+S2S_ENGINE_REQUESTS, S2S_ENGINE_PROMPT = 16, (16, 128)
+MBART_ROWS, MBART_PROMPT_LEN, MBART_NEW_TOKENS, MBART_LANG_ID = 8, 64, 32, 250024
+S2S_TRAIN_STEPS, S2S_TRAIN_BATCH, S2S_TRAIN_ENC, S2S_TRAIN_DEC = 3, 8, 512, 256
+T5_FLASH = (("mt5 encoder", 8, 6, 512, 64, False), ("mt5 decoder", 8, 6, 256, 64, True))
 
 
 SAFETENSORS_CODES = {"torch.float32": "F32", "torch.bfloat16": "BF16"}
@@ -384,6 +424,38 @@ def graph_ms(fn, iters: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / (5 * iters)
+
+
+def graph_nodes(fn) -> list[tuple[str, str]]:
+    """The work one call of ``fn`` puts on the stream, as (node type,
+    label) pairs of a CUDA graph captured around it and printed by the
+    runtime (``cudaGraphDebugDotPrint``): a kernel node's label holds its
+    mangled name and launch shape.  Unlike a profiler pass, the capture
+    sees every launch, copy and memset of the call whatever the state of
+    the activity tracer."""
+    import re
+    import warnings
+
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    graph.enable_debug_mode()
+    with torch.cuda.graph(graph):
+        fn()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_graph_") as d, warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # debug_dump warns that it is a debugging call
+        path = os.path.join(d, "graph.dot")
+        graph.debug_dump(path)
+        with open(path) as f:
+            dot = f.read()
+    graph.reset()
+    return re.findall(r'"graph_\d+_node_\d+"\[[^\n]*label="\{(\w+)\n(.*?)\}"\];', dot, re.S)
 
 
 def bound(n_bytes: float, ops: float, ops_per_s: float) -> dict:
@@ -979,11 +1051,8 @@ def phase_w8(torch, report):
     to stream them from HBM as a forward does (one layer's weights never
     stay in L2 across 32 layers).  Device times come from CUDA graph
     replays; the host-paced time of the same calls (events around plain
-    launches) is printed beside them, and a profiler pass counts one
+    launches) is printed beside them, and a captured CUDA graph counts one
     call's kernels."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from vietnamese_qa_system_tpu_torch.models.quantize import dequantize_weight, quantize_weight
     from vietnamese_qa_system_tpu_torch.ops import w8_matmul as W
 
@@ -1000,6 +1069,7 @@ def phase_w8(torch, report):
               f"K6, {mp} rows: ptxas reports no spills and no serialized wgmma, the kernel fits an SM")
         instances[mp] = info
     layers = {m: dict.fromkeys(("ms", "plain_ms", "library_ms", "bound_ms"), 0.0) for m in W8_LAYER_ROWS}
+    mt5_layer = dict.fromkeys(("ms", "plain_ms", "library_ms", "bound_ms"), 0.0)
     worst = 0.0
 
     def held(m, k, n, x, w_q, w_s):
@@ -1015,7 +1085,7 @@ def phase_w8(torch, report):
               f"{plan.cols} columns): max abs err {err:.3e} ({rel:.2e} of max |y|) <= {W8_REL_TOL}, repeats bit for bit")
         return err
 
-    for k, n in W8_SHAPES:
+    for k, n in W8_SHAPES + MT5_W8_SHAPES:
         leaf = quantize_weight(torch.randn(k, n, generator=gen, device="cuda") * 0.02, "int8c")
         copies = max(2, -(-3 * L2_BYTES // (k * n)))
         wqs = [leaf["w_q"].clone() for _ in range(copies)]
@@ -1039,33 +1109,40 @@ def phase_w8(torch, report):
                   f"{cuda_ms(kernel, 60) * 1e3:6.2f}), plain {rows['plain_ms'] * 1e3:8.2f} us, library (bf16 weight, "
                   f"twice the bytes) {rows['library_ms'] * 1e3:7.2f} us, bound {rows['bound_ms'] * 1e3:6.2f} us "
                   f"({rows['bound_by']})", flush=True)
-            if m in layers:
+            if m in layers and (k, n) in W8_PER_LAYER:
                 for key in layers[m]:
                     layers[m][key] += W8_PER_LAYER[(k, n)] * rows[key]
+            if m == 8 and (k, n) in MT5_PER_DECODER_LAYER:
+                for key in mt5_layer:
+                    mt5_layer[key] += MT5_PER_DECODER_LAYER[(k, n)] * rows[key]
         del wqs, w_bf16
     for m, k, n in W8_EDGES:
         leaf = quantize_weight(torch.randn(k, n, generator=gen, device="cuda") * 0.02, "int8c")
         x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
         worst = max(worst, held(m, k, n, x, leaf["w_q"], leaf["w_s"]))
-    # one call is one kernel launch (the split-K sum happens inside it)
+    # one call is one kernel launch (the split-K sum happens inside it): the
+    # call captured in a CUDA graph holds one node, a kernel node of the
+    # call's row instance at the partition's grid
     leaf = quantize_weight(torch.randn(3072, 3072, generator=gen, device="cuda") * 0.02, "int8c")
     for m in (8, 72):
         x = torch.randn(m, 3072, generator=gen, device="cuda").to(torch.bfloat16)
-        W.w8_matmul(x, leaf["w_q"], leaf["w_s"], out_dtype=torch.float32)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            W.w8_matmul(x, leaf["w_q"], leaf["w_s"], out_dtype=torch.float32)
-            torch.cuda.synchronize()
-        launched = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
-        check(len(launched) == 1 and "w8_gemm_kernel" in launched[0],
-              f"K6: one call at M={m} K=3072 N=3072 is one kernel launch (profiler: {launched})")
+        nodes = graph_nodes(lambda: W.w8_matmul(x, leaf["w_q"], leaf["w_s"], out_dtype=torch.float32))
+        plan = W.partition(m, 3072, 3072, W.resident_slots(0, W.padded_rows(m)))
+        shown = [(kind, label.split("|")[3].strip() if label.count("|") >= 3 else label[:200]) for kind, label in nodes]
+        check(len(nodes) == 1 and nodes[0][0] == "KERNEL" and f"w8_gemm_kernelILi{plan.rows}E" in nodes[0][1]
+              and f"<<<{plan.grid}," in nodes[0][1].replace("\\", ""),
+              f"K6: one call at M={m} K=3072 N=3072 is one kernel launch of the {plan.rows}-row instance on "
+              f"{plan.grid} blocks (captured graph: {shown})")
     for m, acc in layers.items():
         print(f"K6, one PhoGPT-4B layer's six calls at M={m}: kernel {acc['ms'] * 1e3:.2f} us, plain "
               f"{acc['plain_ms'] * 1e3:.2f}, library {acc['library_ms'] * 1e3:.2f}, bound {acc['bound_ms'] * 1e3:.2f}",
               flush=True)
+    print(f"K6, one mt5-small decoder layer's nine calls a step at M=8: kernel {mt5_layer['ms'] * 1e3:.2f} us, plain "
+          f"{mt5_layer['plain_ms'] * 1e3:.2f}, library {mt5_layer['library_ms'] * 1e3:.2f}, bound "
+          f"{mt5_layer['bound_ms'] * 1e3:.2f}", flush=True)
     report["w8_matmul"] = {
         "max_abs_err": worst, **layers[8], "bound_by": "bytes",
-        "m72_layer": layers[72], "m128_layer": layers[128], "m256_layer": layers[256],
+        "m72_layer": layers[72], "m128_layer": layers[128], "m256_layer": layers[256], "mt5_m8_decoder_layer": mt5_layer,
         "library_call": "composite: torch.matmul of bf16 x with a pre-dequantized bf16 weight (twice the bytes)",
         "shape": "one PhoGPT-4B layer's six calls at M=8: 4x (3072,3072) + (3072,12288) + (12288,3072)",
         "timing": "device time, CUDA graph replay of 24 calls over weight copies larger than L2",
@@ -3511,6 +3588,743 @@ def phase_qlora(torch, pkg, logdir: str):
     return launches
 
 
+# ------------------------------------------------------------- seq2seq paths
+
+
+def mt5_config_json(cfg) -> dict:
+    """google/mt5-small's config.json at ``cfg``'s sizes (the fields that
+    shape the model; MT5Config's defaults give the rest)."""
+    return {"architectures": ["MT5ForConditionalGeneration"], "model_type": "mt5", "d_model": cfg.d_model,
+            "d_kv": cfg.head_dim, "d_ff": cfg.d_ff, "num_layers": cfg.n_layers, "num_decoder_layers": cfg.decoder_layers,
+            "num_heads": cfg.n_heads, "vocab_size": cfg.vocab_size, "relative_attention_num_buckets":
+            cfg.relative_attention_buckets, "relative_attention_max_distance": cfg.relative_attention_max_distance,
+            "feed_forward_proj": "gated-gelu", "tie_word_embeddings": False, "layer_norm_epsilon": 1e-6,
+            "decoder_start_token_id": 0, "pad_token_id": 0, "eos_token_id": 1, "torch_dtype": "bfloat16"}
+
+
+def mbart_config_json(cfg) -> dict:
+    """facebook/mbart-large-50's config.json at ``cfg``'s sizes."""
+    return {"architectures": ["MBartForConditionalGeneration"], "model_type": "mbart", "d_model": cfg.d_model,
+            "encoder_layers": cfg.n_layers, "decoder_layers": cfg.decoder_layers,
+            "encoder_attention_heads": cfg.n_heads, "decoder_attention_heads": cfg.n_heads,
+            "encoder_ffn_dim": cfg.d_ff, "decoder_ffn_dim": cfg.d_ff, "vocab_size": cfg.vocab_size,
+            "max_position_embeddings": cfg.max_seq_len, "activation_function": "gelu", "scale_embedding": True,
+            "normalize_before": True, "add_final_layer_norm": True, "pad_token_id": 1, "bos_token_id": 0,
+            "eos_token_id": 2, "decoder_start_token_id": 2, "forced_eos_token_id": 2, "torch_dtype": "bfloat16"}
+
+
+def mt5_tensors(cfg) -> list:
+    """(HF name, shape, port name, kind) of an mT5 checkpoint in file order
+    (the smoke's own map: Linear weights are (out, in); wi_0 is the gelu
+    gate, the port's wg).  kind: "dense" (a Linear), "norm", "embed"."""
+    d, inner, f, h = cfg.d_model, cfg.n_heads * cfg.head_dim, cfg.d_ff, cfg.n_heads
+    out = [("shared.weight", (cfg.vocab_size, d), "tok_embed", "embed")]
+    for stack, hf_stack, n in (("enc_blocks", "encoder", cfg.n_layers), ("dec_blocks", "decoder", cfg.decoder_layers)):
+        for i in range(n):
+            pre = f"{hf_stack}.block.{i}.layer."
+            attns = [("0.SelfAttention", "attn", "ln1")]
+            if stack == "dec_blocks":
+                attns.append(("1.EncDecAttention", "cross_attn", "ln_cross"))
+            for hf_attn, ours, ln in attns:
+                layer = hf_attn.split(".")[0]
+                for proj, shape in (("q", (inner, d)), ("k", (inner, d)), ("v", (inner, d)), ("o", (d, inner))):
+                    out.append((f"{pre}{hf_attn}.{proj}.weight", shape, f"{stack}.{i}.{ours}.w{proj}", "dense"))
+                if i == 0 and ours == "attn":
+                    out.append((f"{pre}0.SelfAttention.relative_attention_bias.weight",
+                                (cfg.relative_attention_buckets, h), f"{stack[:3]}_rel_bias", "embed"))
+                out.append((f"{pre}{layer}.layer_norm.weight", (d,), f"{stack}.{i}.{ln}.scale", "norm"))
+            ff = 1 if stack == "enc_blocks" else 2
+            for hf_w, ours, shape in (("wi_0", "wg", (f, d)), ("wi_1", "wi", (f, d)), ("wo", "wo", (d, f))):
+                out.append((f"{pre}{ff}.DenseReluDense.{hf_w}.weight", shape, f"{stack}.{i}.mlp.{ours}", "dense"))
+            out.append((f"{pre}{ff}.layer_norm.weight", (d,), f"{stack}.{i}.ln2.scale", "norm"))
+        out.append((f"{hf_stack}.final_layer_norm.weight", (d,), f"{stack[:3]}_ln_f.scale", "norm"))
+    out.append(("lm_head.weight", (cfg.vocab_size, d), "lm_head", "head"))
+    return out
+
+
+def mbart_tensors(cfg) -> list:
+    """(HF name, shape, port name, kind) of an mBART checkpoint in file
+    order; kind adds "bias" (a Linear's or a norm's bias, drawn
+    N(0, 0.02^2)) and "zeros" (final_logits_bias, zero as published)."""
+    d, f, rows = cfg.d_model, cfg.d_ff, cfg.max_seq_len + 2
+    out = [("model.shared.weight", (cfg.vocab_size, d), "tok_embed", "embed")]
+    for stack, hf_stack, n in (("enc_blocks", "encoder", cfg.n_layers), ("dec_blocks", "decoder", cfg.decoder_layers)):
+        pre = f"model.{hf_stack}."
+        out.append((pre + "embed_positions.weight", (rows, d), f"{stack[:3]}_pos_embed", "embed"))
+        out += [(pre + "layernorm_embedding.weight", (d,), f"{stack[:3]}_ln_emb.scale", "norm"),
+                (pre + "layernorm_embedding.bias", (d,), f"{stack[:3]}_ln_emb.bias", "bias")]
+        for i in range(n):
+            lp = f"{pre}layers.{i}."
+            attns = [("self_attn", "attn", "self_attn_layer_norm", "ln1")]
+            if stack == "dec_blocks":
+                attns.append(("encoder_attn", "cross_attn", "encoder_attn_layer_norm", "ln_cross"))
+            for hf_attn, ours, hf_ln, ln in attns:
+                for proj, hf_proj in (("wq", "q_proj"), ("wk", "k_proj"), ("wv", "v_proj"), ("wo", "out_proj")):
+                    out += [(f"{lp}{hf_attn}.{hf_proj}.weight", (d, d), f"{stack}.{i}.{ours}.{proj}", "dense"),
+                            (f"{lp}{hf_attn}.{hf_proj}.bias", (d,), f"{stack}.{i}.{ours}.{proj}.b", "bias")]
+                out += [(f"{lp}{hf_ln}.weight", (d,), f"{stack}.{i}.{ln}.scale", "norm"),
+                        (f"{lp}{hf_ln}.bias", (d,), f"{stack}.{i}.{ln}.bias", "bias")]
+            out += [(f"{lp}fc1.weight", (f, d), f"{stack}.{i}.mlp.fc1", "dense"),
+                    (f"{lp}fc1.bias", (f,), f"{stack}.{i}.mlp.fc1.b", "bias"),
+                    (f"{lp}fc2.weight", (d, f), f"{stack}.{i}.mlp.fc2", "dense"),
+                    (f"{lp}fc2.bias", (d,), f"{stack}.{i}.mlp.fc2.b", "bias"),
+                    (f"{lp}final_layer_norm.weight", (d,), f"{stack}.{i}.ln2.scale", "norm"),
+                    (f"{lp}final_layer_norm.bias", (d,), f"{stack}.{i}.ln2.bias", "bias")]
+        out += [(pre + "layer_norm.weight", (d,), f"{stack[:3]}_ln_f.scale", "norm"),
+                (pre + "layer_norm.bias", (d,), f"{stack[:3]}_ln_f.bias", "bias")]
+    out.append(("final_logits_bias", (1, cfg.vocab_size), None, "zeros"))
+    return out
+
+
+def write_s2s_dir(torch, config: dict, tensors: list, out_dir: str, gen, quantize=None,
+                  embed_std=0.02) -> tuple[dict, int]:
+    """One bf16 safetensors file (and config.json) of drawn weights, written
+    tensor by tensor: dense weights U(-1/sqrt(d_in), 1/sqrt(d_in)), norm
+    scales 1 + N(0, 0.1^2), biases N(0, 0.02^2), embeddings and tables
+    N(0, embed_std^2) (the head N(0, 0.02^2)).  Returns the port's state
+    built from the same bf16 values (dense weights of the blocks quantized
+    in mode ``quantize`` by models/quantize.py, the LM head float) and the
+    file's bytes."""
+    from vietnamese_qa_system_tpu_torch.models import quantize_weight
+
+    with open(os.path.join(out_dir, "config.json"), "w") as f:
+        json.dump(config, f, indent=2)
+    path = os.path.join(out_dir, "model.safetensors")
+    state = {}
+    with open(path, "wb") as f:
+        f.write(safetensors_header([(name, torch.bfloat16, shape) for name, shape, _, _ in tensors]))
+        for name, shape, ours, kind in tensors:
+            if kind == "dense":
+                t = (torch.rand(shape, generator=gen, device="cuda") * 2 - 1) / shape[1] ** 0.5
+            elif kind == "norm":
+                t = 1.0 + 0.1 * torch.randn(shape, generator=gen, device="cuda")
+            elif kind == "zeros":
+                t = torch.zeros(shape, device="cuda")
+            else:
+                std = 0.02 if kind in ("bias", "head") else embed_std
+                t = std * torch.randn(shape, generator=gen, device="cuda")
+            t = t.to(torch.bfloat16)
+            write_tensor(f, t)
+            if ours is None:
+                continue
+            if kind in ("dense", "head"):
+                w = t.float().T.contiguous()
+                leaf = quantize_weight(w, quantize) if quantize and kind == "dense" else {"w": w}
+                state.update({f"{ours}.{key}": v for key, v in leaf.items()})
+            else:
+                state[ours] = t.float()
+    return state, os.path.getsize(path)
+
+
+def s2s_teacher_forced(torch, model, enc, mask, stream, bos: int):
+    """Decoder logits (B, N, V) f32 that chose each token of ``stream``
+    (B, N): one cache-less decode of ``[bos] + stream[:-1]``."""
+    dec = torch.cat([torch.full_like(stream[:, :1], bos), stream[:, :-1]], dim=1)
+    with torch.inference_mode():
+        return model({"input_ids": enc, "attention_mask": mask, "decoder_input_ids": dec}).float()
+
+
+def s2s_margin_rule(torch, model, enc, mask, got, want, bos: int) -> tuple[bool, list]:
+    """Row by row, ``got`` equals ``want`` (both (B, N)) up to the first
+    step whose top-2 margin of ``model`` teacher-forced on ``want`` is
+    below TWIN_LOGIT_TOL; returns (agree, steps compared a row)."""
+    if torch.equal(got.cpu(), want.cpu()):
+        return True, [want.shape[1]] * want.shape[0]
+    top2 = torch.topk(s2s_teacher_forced(torch, model, enc, mask, want.to(enc.device), bos), 2, dim=-1).values
+    margin = (top2[..., 0] - top2[..., 1]).cpu()
+    agree, until = True, []
+    for r in range(want.shape[0]):
+        ties = torch.nonzero(margin[r] < TWIN_LOGIT_TOL).flatten()
+        u = int(ties[0]) if len(ties) else want.shape[1]
+        until.append(u)
+        agree &= torch.equal(got[r, :u].cpu(), want[r, :u].cpu())
+    return agree, until
+
+
+def s2s_twin(torch, model, n_layers: int):
+    """``n_layers`` encoder and decoder layers of ``model``'s weights, full
+    width, on the card and on the host."""
+    from vietnamese_qa_system_tpu_torch.models import seq2seq_from_state_dict
+
+    cfg = dataclasses.replace(model.cfg, n_layers=n_layers, n_decoder_layers=n_layers, use_flash_attention=False)
+    state = {k: v for k, v in model.state_dict().items()
+             if not k.startswith(("enc_blocks.", "dec_blocks.")) or int(k.split(".")[1]) < n_layers}
+    return seq2seq_from_state_dict(state, cfg), seq2seq_from_state_dict({k: v.cpu() for k, v in state.items()}, cfg)
+
+
+def check_twin_decode(torch, label: str, card, host, enc, mask, n_new: int, **kw) -> None:
+    """Greedy ``generate_seq2seq`` of the card twin against the host twin:
+    teacher-forced logits within TWIN_LOGIT_TOL, tokens by the margin rule."""
+    from vietnamese_qa_system_tpu_torch.models import generate as G
+
+    bos = kw.get("bos_id", 0)
+    out_card = G.generate_seq2seq(card, enc.cuda(), mask.cuda(), max_new_tokens=n_new, **kw).cpu()
+    out_host = G.generate_seq2seq(host, enc, mask, max_new_tokens=n_new, **kw)
+    lc = s2s_teacher_forced(torch, card, enc.cuda(), mask.cuda(), out_card.cuda(), bos).cpu()
+    lh = s2s_teacher_forced(torch, host, enc, mask, out_card, bos)
+    err = (lc - lh).abs().max().item()
+    agree, until = s2s_margin_rule(torch, host, enc, mask, out_card, out_host, bos)
+    print(f"{label}: logits max abs err {err:.3e} over {n_new} steps, tokens compared up to steps {until}", flush=True)
+    check(err <= TWIN_LOGIT_TOL, f"{label}: greedy logits on the card agree with the host within {TWIN_LOGIT_TOL}")
+    check(agree, f"{label}: greedy tokens agree with the host until the first top-2 margin below the tolerance")
+
+
+def check_s2s_k6(calls: dict, launches: int, path: str) -> None:
+    """Every K6 launch of ``path`` at a (M, K, N) that phase_w8 checked."""
+    print(f"{path}: K6 launches {launches}; by (M, K, N): {sorted(calls.items())}", flush=True)
+    check(launches > 0 and sum(calls.values()) == launches
+          and all(m in W8_ROWS + W8_CHECK_ROWS and (k, n) in MT5_W8_SHAPES for m, k, n in calls),
+          f"K6 launched on {path}, every launch at an mt5-small (M, K, N) that phase_w8 held against the plain version")
+
+
+def phase_seq2seq_qa(torch, pkg, ctx):
+    """mt5-small at full width (nothing cut): drawn bf16 weights written as
+    an HF MT5 directory and loaded through ``serve --reader-params DIR
+    --reader-size mt5small --reader-quantize int8c`` (codes bit-equal to
+    the smoke's own quantization); 8 concurrent /qa over the 1M-row bf16
+    store (K1; K6 at M 8 in every decoder step), answers equal the
+    reference reader's; a 2-layer twin on the card and the host; the same
+    reader with ``use_flash_attention`` (K4 bidirectional with the full
+    relative bias over the 512-token encoder).  Returns the /qa launches,
+    the flash encode's launches and the reader."""
+    import numpy as np
+
+    from vietnamese_qa_system_tpu_torch.cli.main import _reader, build_parser
+    from vietnamese_qa_system_tpu_torch.data import batch_encode
+    from vietnamese_qa_system_tpu_torch.engine import QAPipeline, Retriever, ServingApp
+    from vietnamese_qa_system_tpu_torch.models import generate as G
+    from vietnamese_qa_system_tpu_torch.models import layers as L
+    from vietnamese_qa_system_tpu_torch.models import mt5_small_class, seq2seq_from_state_dict
+
+    t_phase = time.perf_counter()
+    card = gpu_name_and_power()
+    tok, texts = ctx["tok"], ctx["texts"]
+    cfg = mt5_small_class()
+    d = tempfile.mkdtemp(prefix="chip_smoke_mt5_")
+    try:
+        t0 = time.perf_counter()
+        ref_state, n_bytes = write_s2s_dir(torch, mt5_config_json(cfg), mt5_tensors(cfg), d,
+                                           torch.Generator(device="cuda").manual_seed(SEED + 21), "int8c",
+                                           embed_std=1.0)
+        write_s = time.perf_counter() - t0
+        args = build_parser().parse_args(["serve", "--index", d, "--db", ":memory:", "--reader-size", "mt5small",
+                                          "--reader-params", d, "--reader-quantize", "int8c"])
+        t0 = time.perf_counter()
+        reader = _reader(args.reader_size, tok, args.seed + 1, "cuda", args.reader_quantize, args.reader_params)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    reference = seq2seq_from_state_dict(ref_state, cfg)
+    got, want = reader.state_dict(), reference.state_dict()
+    print(f"mt5-small HF directory (d {cfg.d_model}, {cfg.n_heads} heads x d_kv {cfg.head_dim}, {cfg.n_layers} + "
+          f"{cfg.decoder_layers} layers, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, untied head): {n_bytes / 1e9:.2f} GB "
+          f"bf16 written in {write_s:.1f} s, loaded through serve --reader-params --reader-size mt5small "
+          f"--reader-quantize int8c in {load_s:.1f} s", flush=True)
+    check(sorted(got) == sorted(want) and all(got[k].dtype == want[k].dtype and torch.equal(got[k], want[k])
+                                              for k in want),
+          "imported mt5-small int8c codes and scales (and every other tensor) equal quantizing the same bf16 values "
+          "with models/quantize.py, bit for bit")
+    check(reader.lm_head.w_q is None and reader.dec_blocks[0].cross_attn.wk.w_q.dtype == torch.int8,
+          "every encoder and decoder projection is int8c; the untied LM head stays float")
+
+    retriever = Retriever(ctx["encoder"], tok, ctx["store"], ctx["docstore"], max_len=128, query_batch=16)
+    qa = QAPipeline(retriever, reader, tok, k=3, max_prompt_len=READER_PROMPT_LEN, max_new_tokens=READER_NEW_TOKENS,
+                    speculative="ngram")
+    batches = []
+    retrieve = qa.retrieve
+    qa.retrieve = lambda qs: batches.append(list(qs)) or retrieve(qs)
+    app = ServingApp(retriever, qa, k=3, max_batch=16, max_wait_s=2.0)
+    url, stop = serve(app)
+    questions = [texts[i] for i in ctx["questions"]]
+    try:
+        for kern in pkg.KERNELS:
+            kern.launches = 0
+        with k6_tally(L) as k6_calls:
+            t0 = time.perf_counter()
+            answers = ask_all(url, "/qa", [{"question": q} for q in questions])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = {k.name: k.launches for k in pkg.KERNELS}
+    finally:
+        stop()
+    print(f"mt5 /qa: {len(questions)} concurrent questions in {wall:.2f} s; launches {json.dumps(launches)}",
+          flush=True)
+    good = [a is not None and not a["refused"] and a["contexts"][:1] == [q] and isinstance(a["answer"], str)
+            for q, a in zip(questions, answers)]
+    check(all(good) and len(batches) == 1 and qa.speculative == "none",
+          f"{sum(good)}/{len(questions)} mt5 /qa answers (200) carry their own passage, one batch, speculation off")
+    per_call = 9 * cfg.decoder_layers * READER_NEW_TOKENS
+    check(launches["matmul_topk_bf16"] > 0 and launches["w8_matmul"] == per_call,
+          f"mt5 /qa: K1 launched; K6 {launches['w8_matmul']} = 9 projections x {cfg.decoder_layers} decoder layers x "
+          f"{READER_NEW_TOKENS} steps (the 512-token encoder and cross K/V of 8 x 512 rows take the dequantize route)")
+    check_s2s_k6(k6_calls, launches["w8_matmul"], "the mt5 /qa path")
+    ref_qa = QAPipeline(retriever, reference, tok, k=3, max_prompt_len=READER_PROMPT_LEN,
+                        max_new_tokens=READER_NEW_TOKENS)
+    ref = {q: a.answer for q, a in zip(batches[0], ref_qa.answer(batches[0]))}
+    check(all(a["answer"] == ref[q] for q, a in zip(questions, answers)),
+          "every mt5 /qa answer equals the reference reader's")
+    del ref_qa, reference, ref_state
+
+    prompts, _ = qa.retrieve(questions)
+    ids, mask = batch_encode(tok, prompts, READER_PROMPT_LEN, pad_side="right")
+    enc, emask = torch.from_numpy(ids).cuda(), torch.from_numpy(mask).cuda()
+    timings = {}
+    out = G.generate_seq2seq(reader, enc, emask, max_new_tokens=READER_NEW_TOKENS, eos_id=tok.eos_id, timings=timings)
+    tps = len(prompts) * READER_NEW_TOKENS / timings["decode_s"]
+    print(f"mt5 reader ({card}) B={len(prompts)} T_enc={READER_PROMPT_LEN}: encode + cross K/V "
+          f"{timings['prefill_s']:.3f} s, {READER_NEW_TOKENS} decoder steps in {timings['decode_s']:.3f} s = "
+          f"{tps:.1f} tokens/s ({timings['decode_s'] / READER_NEW_TOKENS * 1e3:.2f} ms a step)", flush=True)
+    trace_span(torch, f"mt5 decode trace (B={len(prompts)}, {READER_NEW_TOKENS} steps, torch.profiler)",
+               "generate.seq2seq", READER_NEW_TOKENS, timings["decode_s"] / READER_NEW_TOKENS,
+               lambda: G.generate_seq2seq(reader, enc, emask, max_new_tokens=READER_NEW_TOKENS, eos_id=tok.eos_id,
+                                          timings={}))
+
+    # the same weights with the flash route: the encoder's self-attention
+    # (T 512 >= 256) through K4, bidirectional with the full (H, T, T) bias
+    dense_cfg = reader.cfg
+    with torch.inference_mode():
+        enc_dense = reader.encode(enc, emask)
+        step_dense = reader.decode(out[:, :1].long(), enc_dense, emask)
+    reader.cfg = dataclasses.replace(dense_cfg, use_flash_attention=True)
+    try:
+        for kern in pkg.KERNELS:
+            kern.launches = 0
+        out_flash = G.generate_seq2seq(reader, enc, emask, max_new_tokens=READER_NEW_TOKENS, eos_id=tok.eos_id)
+        torch.cuda.synchronize()
+        flash_launches = {k.name: k.launches for k in pkg.KERNELS}
+        with torch.inference_mode():
+            enc_flash = reader.encode(enc, emask)
+            step_flash = reader.decode(out[:, :1].long(), enc_flash, emask)
+    finally:
+        reader.cfg = dense_cfg
+    valid = emask.bool()[:, :, None]
+    h_err = ((enc_flash - enc_dense).abs() * valid).max().item()
+    l_err = (step_flash - step_dense).abs().max().item()
+    agree, until = s2s_margin_rule(torch, reader, enc, emask, out_flash, out, 0)
+    print(f"mt5 flash route: K4 launches {flash_launches['flash_attention_fwd']} (bidirectional, full bias, kv_lens); "
+          f"encoder hidden max abs err {h_err:.3e} (valid rows), first-step logits {l_err:.3e}; tokens compared up to "
+          f"steps {until}", flush=True)
+    check(flash_launches["flash_attention_fwd"] == cfg.n_layers,
+          f"K4 launched once an encoder layer ({cfg.n_layers}) in generate_seq2seq with use_flash_attention")
+    check(l_err <= S2S_FLASH_LOGIT_TOL and agree,
+          f"flash-route logits within {S2S_FLASH_LOGIT_TOL} of the dense path, greedy tokens equal by the margin rule")
+
+    # a 2-layer twin of the same weights (int8c: K6 on the card) against the host
+    card_twin, host_twin = s2s_twin(torch, reader, TWIN_LAYERS)
+    rng = np.random.default_rng(SEED + 22)
+    tw_ids = torch.from_numpy(rng.integers(4, 260, (TWIN_ROWS, TWIN_PROMPT_LEN)).astype(np.int32))
+    tw_mask = torch.ones_like(tw_ids)
+    tw_mask[1::2, -8:] = 0
+    check_twin_decode(torch, f"mt5 twin ({TWIN_LAYERS} + {TWIN_LAYERS} layers, full width, int8c)", card_twin,
+                      host_twin, tw_ids * tw_mask, tw_mask, TWIN_NEW_TOKENS)
+    del card_twin, host_twin
+    print(f"mt5 /qa phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches, flash_launches, reader
+
+
+def phase_seq2seq_engine(torch, pkg, reader, ctx):
+    """``serve --continuous-slots 8 --gen-total 256`` over the mt5 reader:
+    16 concurrent /generate (16-128 encoder tokens, 16-96 new tokens, every
+    fourth sampled) and one over the largest encoder bucket (a 400); every
+    greedy stream equal to a B=1 ``generate_seq2seq`` at its bucket width
+    by the margin rule; a traced chunk with no host synchronisation.
+    Returns the burst's launches."""
+    import numpy as np
+
+    from vietnamese_qa_system_tpu_torch.cli.main import build_parser, continuous_engine
+    from vietnamese_qa_system_tpu_torch.engine import Retriever, ServingApp
+    from vietnamese_qa_system_tpu_torch.models import decode_engine as de
+    from vietnamese_qa_system_tpu_torch.models import generate as G
+    from vietnamese_qa_system_tpu_torch.models import layers as L
+
+    t_phase = time.perf_counter()
+    card = gpu_name_and_power()
+    tok = ctx["tok"]
+    args = build_parser().parse_args(["serve", "--index", "-", "--db", ":memory:", "--reader-size", "mt5small",
+                                      "--reader-quantize", "int8c", "--port", "0", *S2S_ENGINE_FLAGS])
+    engine = continuous_engine(args, reader, tok, "cuda")
+    buckets = engine.buckets
+    check(not engine.speculative and engine.total == 256 and buckets == [32, 64, 128],
+          f"serve's seq2seq /generate engine: 8 slots x 256 decoder columns, encoder buckets {buckets}, no speculation")
+    app = ServingApp(Retriever(ctx["encoder"], tok, ctx["store"], ctx["docstore"], max_len=128, query_batch=16),
+                     gen=engine, tokenizer=tok, k=3, max_batch=16)
+    marks: dict = {}
+    submit = engine.submit
+
+    def timed_submit(ids, max_new=None, stream=None, **kw):
+        t0, stamps = time.perf_counter(), []
+        fut = submit(ids, max_new, stream=lambda tok_id: stamps.append(time.perf_counter()), **kw)
+        marks[tuple(ids)] = (t0, stamps)
+        return fut
+
+    engine.submit = timed_submit
+    rng = np.random.default_rng(SEED + 23)
+    payloads = [{"prompt": engine_text(rng, int(rng.integers(*S2S_ENGINE_PROMPT, endpoint=True))),
+                 "max_new_tokens": int(rng.integers(*ENGINE_NEW, endpoint=True)),
+                 **(ENGINE_SAMPLED if j % 4 == 3 else {})} for j in range(S2S_ENGINE_REQUESTS)]
+    payloads.append({"prompt": engine_text(rng, buckets[-1] + 1), "max_new_tokens": 16})
+    url, stop = serve(app)
+    try:
+        for kern in pkg.KERNELS:
+            kern.launches = 0
+        with k6_tally(L) as k6_calls:
+            t0 = time.perf_counter()
+            answers = engine_burst(url, payloads, {})
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = {k.name: k.launches for k in pkg.KERNELS}
+        with urllib.request.urlopen(f"{url}/healthz", timeout=60) as resp:
+            stats = json.loads(resp.read())["stats"]["generate"]
+    finally:
+        stop()
+    del engine, app
+    valid = list(range(S2S_ENGINE_REQUESTS))
+    check(answers[-1] == 400 and all(isinstance(answers[j], dict) for j in valid),
+          f"{len(valid)} concurrent seq2seq /generate answered 200, the {buckets[-1] + 1}-token prompt 400")
+    check_s2s_k6(k6_calls, launches["w8_matmul"], "the mt5 /generate path")
+    outs = {j: answers[j]["ids"] for j in valid}
+    tokens = sum(len(o) for o in outs.values())
+    ttft = [(stamps[0] - t_in) * 1e3 for t_in, stamps in marks.values() if stamps]
+    itl = [(stamps[-1] - stamps[0]) / (len(stamps) - 1) * 1e3 for _, stamps in marks.values() if len(stamps) > 1]
+    print(f"mt5 /generate ({card}): {len(valid)} concurrent requests, {tokens} tokens in {wall:.2f} s = "
+          f"{tokens / wall:.1f} tokens/s aggregate; time to first token p50 {percentile(ttft, 0.5):.1f} ms, p99 "
+          f"{percentile(ttft, 0.99):.1f} ms; inter-token latency p50 {percentile(itl, 0.5):.2f} ms; mean occupancy "
+          f"{stats['avg_occupancy']} of 8 slots, {stats['chunks']} chunks, {stats['prefills']} prefills", flush=True)
+    ok, compared = True, []
+    for j in valid:
+        ids = tok.encode(payloads[j]["prompt"])
+        if "temperature" in payloads[j]:
+            ok &= 1 <= len(outs[j]) <= payloads[j]["max_new_tokens"] and all(0 <= t < reader.cfg.vocab_size
+                                                                             for t in outs[j])
+            continue
+        width = bucket_of(buckets, len(ids))
+        x = torch.zeros((1, width), dtype=torch.int32)
+        m = torch.zeros((1, width), dtype=torch.int32)
+        x[0, : len(ids)] = torch.tensor(ids, dtype=torch.int32)
+        m[0, : len(ids)] = 1
+        want = G.generate_seq2seq(reader, x.cuda(), m.cuda(), max_new_tokens=len(outs[j]), eos_id=tok.eos_id)
+        agree, until = s2s_margin_rule(torch, reader, x.cuda(), m.cuda(), torch.tensor([outs[j]]), want.cpu(), 0)
+        ok &= agree
+        compared.append(until[0])
+    print(f"mt5 /generate greedy streams against B=1 generate_seq2seq at their bucket widths: compared up to steps "
+          f"{compared}", flush=True)
+    check(ok, f"{len(compared)} greedy seq2seq /generate streams equal B=1 generate_seq2seq by the margin rule "
+              f"({TWIN_LOGIT_TOL}); {len(valid) - len(compared)} sampled ones well-formed")
+
+    # one traced chunk: 8 live slots, on this thread
+    state = de.make_decode_state_seq2seq(reader.cfg, 8, 256, buckets[-1], device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    for slot in range(8):
+        ids = tok.encode(payloads[slot]["prompt"])
+        width = bucket_of(buckets, len(ids))
+        x = np.zeros((1, width), np.int32)
+        x[0, : len(ids)] = ids
+        m = (np.arange(width) < len(ids))[None].astype(np.int32)
+        ckv, dec_kv, first = de.prefill_seq2seq(reader, x, m, gen, 0.0, 0, 1.0, sampled=False)
+        de.insert_seq2seq(state, ckv, np.pad(m, ((0, 0), (0, buckets[-1] - width))), dec_kv, first, slot, 0.0, 0, 1.0)
+
+    def run():
+        return de.decode_chunk_seq2seq(reader, state, gen, sampled=False, n_steps=16)
+
+    run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    chunk_s = time.perf_counter() - t0
+    traced = trace_span(torch, f"mt5 engine chunk trace (16 steps of 8 rows; {card}; untraced {chunk_s * 1e3:.1f} ms)",
+                        "engine.chunk", 16, chunk_s / 16, run)
+    check(traced is not None and traced["syncs"] == 0,
+          f"no host synchronisation inside a traced seq2seq chunk (profiler: {None if traced is None else traced['syncs']})")
+    del state
+    print(f"mt5 /generate phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
+
+
+def phase_mbart(torch):
+    """mBART at facebook/mbart-large-50's published width (d 1,024, 12 + 12
+    layers, 16 heads, FFN 4,096, V 250,054, scale_embedding): drawn bf16
+    weights written as an HF mbart directory and loaded through ``chat
+    --arch seq2seq --init-params DIR``, tensors bit-equal to the drawn
+    values; greedy and W 4 beams with a forced BOS at B 8 (beams' summed
+    log-probability >= greedy's on the batch), the beam step's ms, and a
+    2-layer twin on the card and the host."""
+    import numpy as np
+
+    from vietnamese_qa_system_tpu_torch.cli.main import _reader, _tokenizer, build_parser
+    from vietnamese_qa_system_tpu_torch.models import ModelConfig
+    from vietnamese_qa_system_tpu_torch.models import generate as G
+
+    t_phase = time.perf_counter()
+    card = gpu_name_and_power()
+    cfg = ModelConfig(arch="seq2seq", seq2seq_family="bart", vocab_size=250054, d_model=1024, n_heads=16, n_layers=12,
+                      n_decoder_layers=12, d_ff=4096, max_seq_len=1024, positional="learned", scale_embedding=True,
+                      norm_eps=1e-5, tie_embeddings=True, attention_bias=True)
+    d = tempfile.mkdtemp(prefix="chip_smoke_mbart_")
+    try:
+        t0 = time.perf_counter()
+        ref_state, n_bytes = write_s2s_dir(torch, mbart_config_json(cfg), mbart_tensors(cfg), d,
+                                           torch.Generator(device="cuda").manual_seed(SEED + 31))
+        write_s = time.perf_counter() - t0
+        args = build_parser().parse_args(["chat", "--arch", "seq2seq", "--init-params", d])
+        t0 = time.perf_counter()
+        model = _reader(args.model_size, _tokenizer(args.tokenizer), args.seed, "cuda", args.quantize,
+                        args.init_params, args.arch)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    got = model.state_dict()
+    print(f"mbart-large-50-width HF directory ({n_bytes / 1e9:.2f} GB bf16) written in {write_s:.1f} s, loaded "
+          f"through chat --arch seq2seq --init-params in {load_s:.1f} s", flush=True)
+    check(model.cfg == cfg and sorted(got) == sorted(ref_state) and all(torch.equal(got[k], ref_state[k])
+                                                                        for k in ref_state),
+          "the imported mBART equals the drawn bf16 values (config from config.json; final_logits_bias zero, so "
+          "not kept)")
+    del ref_state
+    rng = np.random.default_rng(SEED + 32)
+    enc = torch.from_numpy(rng.integers(4, cfg.vocab_size, (MBART_ROWS, MBART_PROMPT_LEN)).astype(np.int32)).cuda()
+    mask = torch.ones_like(enc)
+    mask[1::2, MBART_PROMPT_LEN // 2:] = 0
+    enc = enc * mask
+    kw = dict(max_new_tokens=MBART_NEW_TOKENS, eos_id=2, bos_id=2, forced_bos_id=MBART_LANG_ID, forced_eos_id=2)
+    t_greedy, t_beam = {}, {}
+    greedy = G.generate_seq2seq(model, enc, mask, timings=t_greedy, **kw)
+    beams = G.beam_search_seq2seq(model, enc, mask, num_beams=BEAM_WIDTH, length_penalty=0.0, timings=t_beam, **kw)
+
+    def logprob(stream):
+        """The summed log-probability a row, steps 1.. up to its first eos
+        (step 0 is forced), teacher-forced."""
+        logp = torch.log_softmax(s2s_teacher_forced(torch, model, enc, mask, stream, 2), dim=-1)
+        tok_lp = logp.gather(-1, stream.long()[..., None])[..., 0]
+        keep = torch.cumsum((stream == 2).int(), dim=1) - (stream == 2).int() == 0
+        keep[:, 0] = False
+        return (tok_lp * keep).sum(dim=1)
+
+    lp_g, lp_b = logprob(greedy), logprob(beams)
+    step_ms = t_beam["decode_s"] / MBART_NEW_TOKENS * 1e3
+    print(f"mbart ({card}) B={MBART_ROWS} T_enc={MBART_PROMPT_LEN}: greedy {MBART_NEW_TOKENS} steps "
+          f"{t_greedy['decode_s'] / MBART_NEW_TOKENS * 1e3:.2f} ms a step; W {BEAM_WIDTH} beams {step_ms:.2f} ms a step "
+          f"({BEAM_WIDTH * MBART_ROWS} rows); log-probability summed over the batch: beams {lp_b.sum().item():.3f}, "
+          f"greedy {lp_g.sum().item():.3f} (rows where beams < greedy: {int((lp_b < lp_g - 1e-3).sum())})", flush=True)
+    check(bool((greedy[:, 0] == MBART_LANG_ID).all() and (beams[:, 0] == MBART_LANG_ID).all()),
+          f"the forced BOS ({MBART_LANG_ID}) opens every greedy and beam row")
+    check(lp_b.sum().item() >= lp_g.sum().item() - 1e-3,
+          f"W {BEAM_WIDTH} beams' summed log-probability >= greedy's on the batch")
+    card_twin, host_twin = s2s_twin(torch, model, TWIN_LAYERS)
+    del model
+    torch.cuda.empty_cache()
+    check_twin_decode(torch, f"mbart twin ({TWIN_LAYERS} + {TWIN_LAYERS} layers, full width)", card_twin, host_twin,
+                      enc.cpu(), mask.cpu(), TWIN_NEW_TOKENS, eos_id=2, bos_id=2, forced_bos_id=MBART_LANG_ID)
+    print(f"mbart phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+def s2s_train_batch(rng, b: int, t_enc: int, t_dec: int, vocab: int) -> dict:
+    """Seeded encoder ids (right-padded rows) and decoder labels (-100 past
+    each row's length)."""
+    import numpy as np
+
+    ids = rng.integers(3, vocab, (b, t_enc)).astype(np.int32)
+    mask = np.ones_like(ids)
+    mask[1::2, t_enc - t_enc // 8:] = 0
+    labels = rng.integers(3, vocab, (b, t_dec)).astype(np.int32)
+    labels[1::2, t_dec - t_dec // 8:] = -100
+    return {"input_ids": ids * mask, "attention_mask": mask, "labels": labels}
+
+
+def phase_seq2seq_train(torch, pkg, logdir: str):
+    """mt5-small LoRA over an int8 base with ``use_flash_attention``
+    (``train --arch seq2seq --model-config`` JSON; r 8, adamw): three
+    Trainer.fit steps of batch 8 x (encoder 512, target 256), so both
+    stacks' self-attention takes K4 and K7 with the full relative bias; one
+    traced step; then the 2-layer twin's ``cli train --arch seq2seq
+    --do-eval --do-generative-eval`` on the card and the host from the same
+    HF directory.  Returns the launches of the three steps."""
+    import numpy as np
+
+    from vietnamese_qa_system_tpu_torch.cli.main import _train_config, build_parser
+    from vietnamese_qa_system_tpu_torch.cli.main import main as cli_main
+    from vietnamese_qa_system_tpu_torch.models import LoraConfig, mt5_small_class
+    from vietnamese_qa_system_tpu_torch.train import TrainConfig, Trainer
+
+    t_phase = time.perf_counter()
+    cfg_path = os.path.join(logdir, "mt5_flash.json")
+    with open(cfg_path, "w") as f:
+        f.write(dataclasses.replace(mt5_small_class(), use_flash_attention=True).to_json())
+    cfg = _train_config(build_parser().parse_args(["train", "--arch", "seq2seq", "--model-config", cfg_path]))
+    tcfg = TrainConfig(model=cfg, lora=LoraConfig(r=8, alpha=16), quantize_base="int8", lr=2e-4, log_every=1,
+                       log_dir=logdir, run_name="s2s_train", seed=SEED + 41)
+    trainer = Trainer(tcfg, total_steps=S2S_TRAIN_STEPS + 1, device="cuda")
+    rng = np.random.default_rng(SEED + 42)
+    batches = [s2s_train_batch(rng, S2S_TRAIN_BATCH, S2S_TRAIN_ENC, S2S_TRAIN_DEC, cfg.vocab_size)
+               for _ in range(S2S_TRAIN_STEPS + 1)]
+    marks, peaks = [], []
+
+    def factory():
+        for bt in batches[:S2S_TRAIN_STEPS]:
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            if len(marks) > 1:
+                peaks.append(torch.cuda.max_memory_allocated())
+            torch.cuda.reset_peak_memory_stats()
+            yield bt
+
+    for kern in pkg.KERNELS:
+        kern.launches = 0
+    trainer.fit(factory, max_steps=S2S_TRAIN_STEPS)
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in pkg.KERNELS}
+    marks.append(time.perf_counter())
+    peaks.append(torch.cuda.max_memory_allocated())
+    with open(os.path.join(logdir, "s2s_train.jsonl")) as f:
+        logged = [json.loads(line) for line in f]
+    step_s = [b - a for a, b in zip(marks, marks[1:])]
+    tokens = S2S_TRAIN_BATCH * (S2S_TRAIN_ENC + S2S_TRAIN_DEC)
+    for rec, s, peak in zip(logged, step_s, peaks):
+        print(f"mt5 train step {rec['step']} ({gpu_name_and_power()}): loss {rec['loss']:.6f}, grad_norm "
+              f"{rec['grad_norm']:.6f}, {s:.3f} s, {tokens / s:.1f} tokens/s (encoder + decoder), peak memory "
+              f"{peak / 1e9:.2f} GB", flush=True)
+    print("launches in the mt5 train run: " + json.dumps(launches), flush=True)
+    check(len(logged) == S2S_TRAIN_STEPS and all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"])
+                                                 for r in logged),
+          f"{S2S_TRAIN_STEPS} mt5-small LoRA steps over an int8 base with flash: losses and grad norms finite")
+    layers = S2S_TRAIN_STEPS * cfg.n_layers
+    check(launches["flash_attention_fwd"] == layers and launches["flash_attention_fwd_causal"] == layers
+          and launches["flash_attention_bwd_dkdv"] == 2 * layers and launches["flash_attention_bwd_dq"] == 2 * layers,
+          f"K4 launched once an encoder layer (bidirectional) and once a decoder layer (causal), K7 twice a layer pair, "
+          f"each step ({json.dumps({k: v for k, v in launches.items() if 'flash' in k})})")
+    dev_batch = trainer._device_batch(batches[-1])
+    trace_span(torch, f"mt5 train step trace (B={S2S_TRAIN_BATCH}, T_enc={S2S_TRAIN_ENC}, T_dec={S2S_TRAIN_DEC})",
+               "train.step", 1, float(np.median(step_s)), lambda: trainer._step_fn(trainer.state, dev_batch))
+    del trainer, dev_batch
+    torch.cuda.empty_cache()
+
+    # the twin's cli train on the card and the host from one HF directory
+    twin_cfg = dataclasses.replace(mt5_small_class(), n_layers=TWIN_LAYERS, n_decoder_layers=TWIN_LAYERS)
+    twin_dir = os.path.join(logdir, "mt5_twin")
+    os.makedirs(twin_dir)
+    write_s2s_dir(torch, mt5_config_json(twin_cfg), mt5_tensors(twin_cfg), twin_dir,
+                  torch.Generator(device="cuda").manual_seed(SEED + 43), embed_std=1.0)
+    twin_json = os.path.join(logdir, "mt5_twin.json")
+    with open(twin_json, "w") as f:
+        f.write(twin_cfg.to_json())
+    sample = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples", "sample_instruct.jsonl")
+    losses = {}
+    for device in ("cuda", "cpu"):
+        run = f"s2s_twin_{device}"
+        argv = ["train", "--arch", "seq2seq", "--model-config", twin_json, "--init-params", twin_dir, "--use-lora",
+                "--quantize-base", "int8", "--train-files", sample, "--eval-files", sample, "--max-examples",
+                str(TWIN_EVAL_EXAMPLES), "--max-steps", "1", "--batch-size", "4", "--max-len", "256", "--log-every",
+                "1", "--log-dir", logdir, "--run-name", run, "--do-eval", "--do-generative-eval", "--max-new-tokens",
+                "8", "--device", device]
+        t0 = time.perf_counter()
+        rc = cli_main(argv)
+        with open(os.path.join(logdir, f"{run}.jsonl")) as f:
+            logged = [json.loads(line) for line in f]
+        preds = glob.glob(os.path.join(logdir, "predictions", f"log_dir_e0_{run}_*.txt"))
+        n_pred = open(preds[0]).read().count("### prediction:") if len(preds) == 1 else 0
+        losses[device] = next(r["loss"] for r in logged if "loss" in r)
+        evals = [r for r in logged if "eval_gen_tokens_per_s" in r]
+        print(f"mt5 twin cli train --arch seq2seq --do-eval --do-generative-eval on {device}: exit {rc} in "
+              f"{time.perf_counter() - t0:.1f} s, first loss {losses[device]:.6f}, {n_pred} predictions, eval {evals}",
+              flush=True)
+        check(rc == 0 and n_pred == TWIN_EVAL_EXAMPLES and len(evals) == 1,
+              f"the mt5 twin's cli train --arch seq2seq --do-generative-eval on {device} wrote {TWIN_EVAL_EXAMPLES} "
+              "predictions and its eval")
+    check(abs(losses["cuda"] - losses["cpu"]) <= TWIN_LOSS_TOL * abs(losses["cpu"]),
+          f"the twin's first loss (B = 0: the base's) on the card agrees with the host within {TWIN_LOSS_TOL} (relative)")
+    print(f"mt5 train phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
+
+
+def phase_t5_flash_kernels(torch, A, gen, report):
+    """K4 and K7 against their plain versions at the mt5-small training
+    shapes: the encoder's bidirectional self-attention (B 8 x H 6, T 512)
+    and the decoder's causal one (T 256), D 64, T5's full (H, T, T)
+    relative bias and unscaled scores (their maxima run larger than the
+    scaled forms' that FLASH_EDGES draws), right-padded rows; timed beside
+    the plain versions and SDPA with the bias and mask as one float mask."""
+    from vietnamese_qa_system_tpu_torch.models.config import mt5_small_class
+    from vietnamese_qa_system_tpu_torch.models.encoder import relative_attention_bias
+    from vietnamese_qa_system_tpu_torch.models.t5 import full_decoder_bias
+    from vietnamese_qa_system_tpu_torch.ops.cuda_kernels import FLASH_BWD_DKDV, FLASH_BWD_DQ
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    cfg = mt5_small_class()
+    table = torch.randn(cfg.relative_attention_buckets, cfg.n_heads, generator=gen, device="cuda") * 0.5
+    for label, b, h, t, d, causal in T5_FLASH:
+        bh = b * h
+        # T5 scale: q and k of unit-variance projections summed unscaled
+        q, k, v, do = (torch.randn(bh, t, d, generator=gen, device="cuda") for _ in range(4))
+        qb, kb, vb = (q * 0.5).to(torch.bfloat16).contiguous(), k.to(torch.bfloat16), v.to(torch.bfloat16)
+        dob = (do * 0.1).to(torch.bfloat16)
+        lens = torch.tensor([t - (t // 8 if r % 2 else 0) for r in range(b)], dtype=torch.int32,
+                            device="cuda").repeat_interleave(h)
+        bias = (full_decoder_bias(table, t, cfg) if causal else relative_attention_bias(table, t, cfg))[0].contiguous()
+        o, lse = A.flash_fwd(qb, kb, vb, lens, bias, h, causal, None)
+        po, plse = A.flash_fwd_plain(qb, kb, vb, lens, bias, h, causal, None)
+        grads = A.flash_bwd(qb, kb, vb, o, lse, dob, lens, bias, h, causal, None)
+        plain = A.flash_bwd_plain(qb, kb, vb, o, lse, dob, lens, bias, h, causal, None)
+        torch.cuda.synchronize()
+        rows = torch.arange(t, device="cuda")[None, :] < lens[:, None]  # the queries of a row's real tokens
+        o_err = ((o.float() - po.float()).abs() * rows[..., None]).max().item()
+        lse_err = ((lse - plse).abs() * rows).max().item()
+        check(o_err <= FLASH_O_TOL and lse_err <= FLASH_LSE_TOL,
+              f"K4 {label} BH={bh} T={t} D={d} causal={causal}, full T5 bias, scale 1: o max abs err {o_err:.2e} <= "
+              f"{FLASH_O_TOL}, lse {lse_err:.2e} <= {FLASH_LSE_TOL}")
+        errs = {}
+        for name, got, want in zip(("dq", "dk", "dv"), grads, plain):
+            errs[name] = (got.float() - want.float()).abs().max().item()
+            rel = errs[name] / want.float().abs().max().item()
+            check(rel <= FLASH_GRAD_REL_TOL and bool(torch.isfinite(got.float()).all()),
+                  f"K7 {label} {name}: max abs err {errs[name]:.2e} ({rel:.2e} of max |{name}|) <= {FLASH_GRAD_REL_TOL}")
+        pairs = sum(h * (int(n) * (int(n) + 1) // 2 if causal else int(n) * int(n)) for n in lens[::h].tolist())
+        tile = bh * t * d * 2
+        pos = torch.arange(t, device="cuda")
+        keep = (pos[None, None, :] < lens[::h, None, None]) & ((pos[None, :, None] >= pos[None, None, :]) | (not causal))
+        mask = (torch.where(keep[:, None], 0.0, float("-inf")) + bias[None]).to(torch.bfloat16)  # (B, H, T, T)
+        q4, k4, v4 = (x.view(b, h, t, d) for x in (qb, kb, vb))
+        ql, kl, vl = (x.detach().clone().requires_grad_(True) for x in (q4, k4, v4))
+        dol = dob.view(b, h, t, d)
+
+        def sdpa_fwd_bwd():
+            out = sdpa(ql, kl, vl, attn_mask=mask, scale=1.0)
+            torch.autograd.grad(out, (ql, kl, vl), dol)
+
+        fwd = {
+            "ms": cuda_ms(lambda: A.flash_fwd(qb, kb, vb, lens, bias, h, causal, None), 10),
+            "plain_ms": cuda_ms(lambda: A.flash_fwd_plain(qb, kb, vb, lens, bias, h, causal, None), 2),
+            "library_ms": cuda_ms(lambda: sdpa(q4, k4, v4, attn_mask=mask, scale=1.0), 10),
+            # q k v o, lse, the (H, T, T) bias, lens; two products per kept pair
+            **bound(4 * tile + bh * t * 4 + h * t * t * 4 + bh * 4, 4 * d * pairs, BF16_OPS_S),
+        }
+        common, _keep = bwd_launch_args(torch, A, qb, kb, vb, o, lse, dob, lens, bias, h, causal, None)
+        dk, dv, dq = torch.empty_like(kb), torch.empty_like(vb), torch.empty_like(qb)
+        st = torch.cuda.current_stream().cuda_stream
+        lib_bwd = cuda_ms(sdpa_fwd_bwd, 5)
+        plain_bwd = cuda_ms(lambda: A.flash_bwd_plain(qb, kb, vb, o, lse, dob, lens, bias, h, causal, None), 2)
+        dkdv = {"ms": cuda_ms(lambda: FLASH_BWD_DKDV.launch(*common, dk.data_ptr(), dv.data_ptr(), st), 10),
+                "plain_ms": plain_bwd, "library_ms": lib_bwd,
+                **bound(6 * tile + 2 * bh * t * 4 + h * t * t * 4, 8 * d * pairs, BF16_OPS_S)}
+        dqr = {"ms": cuda_ms(lambda: FLASH_BWD_DQ.launch(*common, dq.data_ptr(), st), 10),
+               "plain_ms": plain_bwd, "library_ms": lib_bwd,
+               **bound(5 * tile + 2 * bh * t * 4 + h * t * t * 4, 6 * d * pairs, BF16_OPS_S)}
+        print(f"K4 {label} ({'causal' if causal else 'bidirectional'}, full bias, BH={bh}, T={t}, D={d}): kernel "
+              f"{fwd['ms']:.3f} ms, plain {fwd['plain_ms']:.3f} ms, SDPA fwd {fwd['library_ms']:.3f} ms, bound "
+              f"{fwd['bound_ms']:.4f} ms ({fwd['bound_by']}); K7 dK/dV {dkdv['ms']:.3f} ms (bound "
+              f"{dkdv['bound_ms']:.4f}, {dkdv['bound_by']}), dQ {dqr['ms']:.3f} ms (bound {dqr['bound_ms']:.4f}, "
+              f"{dqr['bound_by']}), plain backward {plain_bwd:.3f} ms, SDPA fwd+bwd {lib_bwd:.3f} ms", flush=True)
+        key = "t5_decoder" if causal else "t5_encoder"
+        shape = f"BH={bh} (B={b} x H={h}), T={t}, D={d}, {'causal' if causal else 'bidirectional'}, full T5 bias"
+        report["flash_attention_fwd_causal" if causal else "flash_attention_fwd"][key] = dict(
+            fwd, max_abs_err=o_err, shape=shape)
+        report["flash_attention_bwd_dkdv"][key] = dict(dkdv, max_abs_err=max(errs["dk"], errs["dv"]), shape=shape)
+        report["flash_attention_bwd_dq"][key] = dict(dqr, max_abs_err=errs["dq"], shape=shape)
+        del q, k, v, do, qb, kb, vb, dob, o, lse, po, plse, grads, plain, mask, ql, kl, vl
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -3570,6 +4384,17 @@ def main() -> int:
     nf4_launches = phase_nf4(torch, pkg, ctx, int8c_bytes)
     print("launches in the nf4 /qa runs: " + json.dumps(nf4_launches))
     check(nf4_launches["matmul_topk_bf16"] > 0, "matmul_topk_bf16 launched on the nf4 /qa path")
+    torch.cuda.empty_cache()
+    s2s_qa, s2s_flash, mt5 = phase_seq2seq_qa(torch, pkg, ctx)
+    for name in ("matmul_topk_bf16", "w8_matmul"):
+        check(s2s_qa[name] > 0, f"{name} launched on the mt5 /qa path")
+    s2s_engine = phase_seq2seq_engine(torch, pkg, mt5, ctx)
+    print("launches in the mt5 /generate run: " + json.dumps(s2s_engine))
+    check(s2s_engine["w8_matmul"] > 0, "w8_matmul launched on the mt5 /generate path")
+    del mt5
+    torch.cuda.empty_cache()
+    phase_mbart(torch)
+    torch.cuda.empty_cache()
     phase_spec_sampled(torch)
     torch.cuda.empty_cache()
     ivf_launches, ivfs = phase_ivf(torch, pkg, ctx, gen)
@@ -3581,6 +4406,7 @@ def main() -> int:
     del ivfs
     torch.cuda.empty_cache()
     phase_train_kernels(torch, A, gen, report)
+    phase_t5_flash_kernels(torch, A, gen, report)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as logdir:
         train_launches = phase_train(torch, pkg, logdir)
         torch.cuda.empty_cache()
@@ -3591,13 +4417,26 @@ def main() -> int:
         phase_train_twin(torch, logdir)
         torch.cuda.empty_cache()
         qlora_launches = phase_qlora(torch, pkg, logdir)
+        torch.cuda.empty_cache()
+        s2s_train = phase_seq2seq_train(torch, pkg, logdir)
     print("launches in the nf4-dq QLoRA run: " + json.dumps(qlora_launches))
+    for name in ("flash_attention_fwd", "flash_attention_fwd_causal", "flash_attention_bwd_dkdv",
+                 "flash_attention_bwd_dq"):
+        check(s2s_train[name] > 0, f"{name} launched on the mt5 train path")
     launches = dict(retrieval, w8_matmul=reader_launches["w8_matmul"] + engine_launches["w8_matmul"] + strategies_w8
-                    + adapter_launches["w8_matmul"],
+                    + adapter_launches["w8_matmul"] + s2s_qa["w8_matmul"] + s2s_engine["w8_matmul"],
                     ivf_probe_scores=ivf_launches["ivf_probe_scores"],
                     quantize_int8=ivf_launches["quantize_int8"],
-                    **{name: train_launches[name] + qlora_launches[name]
+                    matmul_topk_bf16=retrieval["matmul_topk_bf16"] + s2s_qa["matmul_topk_bf16"],
+                    flash_attention_fwd=retrieval["flash_attention_fwd"] + s2s_flash["flash_attention_fwd"]
+                    + s2s_train["flash_attention_fwd"],
+                    **{name: train_launches[name] + qlora_launches[name] + s2s_train[name]
                        for name in ("flash_attention_fwd_causal", "flash_attention_bwd_dkdv", "flash_attention_bwd_dq")})
+    report["w8_matmul"]["seq2seq_launches"] = s2s_qa["w8_matmul"] + s2s_engine["w8_matmul"]
+    report["matmul_topk_bf16"]["seq2seq_launches"] = s2s_qa["matmul_topk_bf16"]
+    report["flash_attention_fwd"]["seq2seq_launches"] = s2s_flash["flash_attention_fwd"] + s2s_train["flash_attention_fwd"]
+    for name in ("flash_attention_fwd_causal", "flash_attention_bwd_dkdv", "flash_attention_bwd_dq"):
+        report[name]["seq2seq_launches"] = s2s_train[name]
     # the occupancy of the variants that the main shapes run
     for name, key in (("flash_attention_fwd", ("fwd", 64, 0, 1)), ("flash_attention_fwd_causal", ("fwd", 128, 1, 2)),
                       ("flash_attention_bwd_dkdv", ("bwd", 128, 0, 2)), ("flash_attention_bwd_dq", ("bwd", 128, 1, 2))):

@@ -306,8 +306,8 @@ def test_engine_validation(models, engines):
     ranks = {name: init_lora(torch.Generator().manual_seed(r), port, LoraConfig(r=r)) for name, r in (("a", 4), ("b", 8))}
     with pytest.raises(ValueError, match="shapes differ"):
         ContinuousEngine(port, port.cfg, device="cpu", adapters=ranks)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        ContinuousEngine(port, dataclasses.replace(port.cfg, arch="seq2seq"), device="cpu")
+    with pytest.raises(ValueError, match="causal or seq2seq"):
+        ContinuousEngine(port, dataclasses.replace(port.cfg, arch="encoder"), device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             ContinuousEngine(port, port.cfg)  # the default device is the card: no quiet CPU fallback

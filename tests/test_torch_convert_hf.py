@@ -19,7 +19,14 @@ as one safetensors file, as sharded safetensors and as ``.bin``:
 - ``serve --reader-params``, ``chat --init-params`` and ``train
   --init-params`` run on the CPU;
 - the JAX package's ``load_converted_params`` misses an MPT directory that
-  its own ``load_causal_auto`` and the port load.
+  its own ``load_causal_auto`` and the port load;
+- the seq2seq families (T5 v1.0, mT5, mBART with a nonzero
+  ``final_logits_bias``): configs and tensors equal JAX
+  ``load_seq2seq_auto``'s, streamed int8c equal to quantizing, logits
+  against transformers (mBART within the tolerance above, T5 within
+  tests/test_t5.py's envelope), ``hf_config`` answering as ``AutoConfig``
+  for full and minimal files, an mBART directory that JAX
+  ``load_converted_params`` misses, and ``chat --arch seq2seq``.
 """
 
 import dataclasses
@@ -473,3 +480,137 @@ def test_jax_load_converted_params_misses_mpt_dirs(saved):
     port = port_load(d, _port_cfg(jcfg), "cpu")
     _states_equal(port.state_dict(),
                   causal_from_jax(jax.tree.map(np.asarray, jparams), _port_cfg(jcfg), device="cpu").state_dict())
+
+
+# ------------------------------------------------------ seq2seq directories
+
+# family -> (config class, its keyword arguments, JAX *_config)
+SEQ2SEQ = {
+    "t5": (transformers.T5Config, dict(vocab_size=128, d_model=64, d_kv=16, d_ff=96, num_layers=2,
+                                       num_decoder_layers=3, num_heads=4, relative_attention_num_buckets=8,
+                                       relative_attention_max_distance=20), jconv.t5_config),
+    "mt5": (transformers.MT5Config, dict(vocab_size=128, d_model=64, d_kv=16, d_ff=96, num_layers=2, num_heads=4,
+                                         relative_attention_num_buckets=8), jconv.t5_config),
+    "mbart": (transformers.MBartConfig, dict(vocab_size=128, d_model=64, encoder_layers=2, decoder_layers=2,
+                                             encoder_attention_heads=4, decoder_attention_heads=4,
+                                             encoder_ffn_dim=128, decoder_ffn_dim=128, max_position_embeddings=64,
+                                             scale_embedding=True), jconv.mbart_config),
+}
+# attributes of the transformers classes that hf_config must answer as they do
+SEQ2SEQ_ATTRS = {
+    "t5": ("feed_forward_proj", "is_gated_act", "dense_act_fn", "tie_word_embeddings", "num_decoder_layers",
+           "relative_attention_max_distance", "layer_norm_epsilon", "d_kv", "num_heads", "hidden_size",
+           "num_attention_heads", "num_hidden_layers", "pad_token_id", "eos_token_id"),
+    "mbart": ("scale_embedding", "forced_eos_token_id", "activation_function", "max_position_embeddings",
+              "num_attention_heads", "hidden_size", "pad_token_id", "eos_token_id", "bos_token_id"),
+}
+
+
+@pytest.fixture(scope="module")
+def saved_s2s(tmp_path_factory):
+    """family -> (HF model, directory of one safetensors file)."""
+    out = {}
+    for family, (cls, kw, _) in SEQ2SEQ.items():
+        torch.manual_seed(sum(map(ord, family)))
+        model_cls = transformers.MBartForConditionalGeneration if family == "mbart" else (
+            transformers.MT5ForConditionalGeneration if family == "mt5" else transformers.T5ForConditionalGeneration)
+        model = model_cls(cls(**kw)).eval()
+        g = torch.Generator().manual_seed(1)
+        with torch.no_grad():
+            for p in model.parameters():
+                p.add_(0.05 * torch.randn(p.shape, generator=g))
+            if family == "mbart":
+                model.final_logits_bias.add_(0.05 * torch.randn(model.final_logits_bias.shape, generator=g))
+        d = str(tmp_path_factory.mktemp(family))
+        model.save_pretrained(d)
+        out[family] = (model, d)
+    return out
+
+
+@pytest.mark.parametrize("family", list(SEQ2SEQ))
+def test_seq2seq_import_equals_jax(saved_s2s, family):
+    """Config and tensors of the port's import equal JAX
+    ``load_seq2seq_auto``'s carried across; streamed int8c equals
+    quantizing the loaded model; logits agree with transformers."""
+    from vietnamese_qa_system_tpu_torch.models import seq2seq_from_hf, seq2seq_from_jax
+
+    model, d = saved_s2s[family]
+    jparams, jcfg = jconv.load_seq2seq_auto(d)
+    port_cfg = tconv.seq2seq_family(family).config(tconv.hf_config(d))
+    assert dataclasses.asdict(port_cfg) == dataclasses.asdict(jcfg)
+    want = seq2seq_from_jax(jax.tree.map(np.asarray, jparams), _port_cfg(jcfg), device="cpu").state_dict()
+    got = seq2seq_from_hf(d, device="cpu")
+    _states_equal(got.state_dict(), want)
+    assert (family == "mbart") == (got.state_dict().get("logits_bias") is not None)
+    tree, cfg = tconv.load_seq2seq_auto(d)
+    assert cfg == port_cfg and sorted(tree) == sorted(jparams)
+    _states_equal(seq2seq_from_hf(d, device="cpu", quantize="int8c").state_dict(),
+                  quantize_dense_tree(seq2seq_from_hf(d, device="cpu"), "int8c").state_dict())
+    rng = np.random.default_rng(0)
+    enc = torch.from_numpy(rng.integers(3, 128, (2, 10)))
+    mask = torch.ones_like(enc)
+    mask[1, 7:] = 0
+    dec = torch.from_numpy(rng.integers(3, 128, (2, 6)))
+    with torch.inference_mode():
+        want_logits = model(input_ids=enc, attention_mask=mask, decoder_input_ids=dec).logits.numpy()
+        got_logits = got({"input_ids": enc, "attention_mask": mask, "decoder_input_ids": dec}).numpy()
+    if family == "mbart":
+        np.testing.assert_allclose(got_logits, want_logits, atol=LOGIT_TOL, rtol=LOGIT_TOL)
+    else:
+        # tests/test_t5.py's envelope: T5 attention is unscaled, so its bf16
+        # noise runs larger (a few tail logits ~0.2 off at magnitudes ~10)
+        diff = np.abs(got_logits - want_logits)
+        assert np.quantile(diff, 0.995) < 0.3 and diff.max() < 1.0, (np.quantile(diff, 0.995), diff.max())
+    assert (got_logits.argmax(-1) == want_logits.argmax(-1)).mean() > 0.9
+
+
+@pytest.mark.parametrize("minimal", [False, True])
+@pytest.mark.parametrize("family", list(SEQ2SEQ))
+def test_seq2seq_config_json_reads_as_transformers(tmp_path, family, minimal):
+    """A full config.json, or one holding only model_type: the port's view
+    answers as ``AutoConfig`` does, and its ModelConfig equals JAX's."""
+    cls, kw, jax_config = SEQ2SEQ[family]
+    raw = {"model_type": cls.model_type} if minimal else cls(**kw).to_dict()
+    (tmp_path / "config.json").write_text(json.dumps(raw))
+    hf = transformers.AutoConfig.from_pretrained(str(tmp_path))
+    view = tconv.hf_config(str(tmp_path))
+    for attr in SEQ2SEQ_ATTRS["mbart" if family == "mbart" else "t5"]:
+        assert getattr(view, attr) == getattr(hf, attr), attr
+    fam = tconv.seq2seq_family(cls.model_type)
+    assert dataclasses.asdict(fam.config(view)) == dataclasses.asdict(jax_config(hf))
+
+
+def test_jax_load_converted_params_misses_mbart_dirs(saved_s2s):
+    """JAX ``load_converted_params`` dispatches t5 / mt5 / longt5
+    directories only: an mBART one (vinai-translate's architecture) falls
+    through to the checkpoint manager, while its own ``load_seq2seq_auto``
+    and the port (here through ``chat --arch seq2seq --init-params``) load it."""
+    from vietnamese_qa_system_tpu.cli.main import load_converted_params as jax_load
+    from vietnamese_qa_system_tpu_torch.cli.main import load_converted_params as port_load
+    from vietnamese_qa_system_tpu_torch.models import seq2seq_from_jax
+
+    d = saved_s2s["mbart"][1]
+    jparams, jcfg = jconv.load_seq2seq_auto(d)
+    with pytest.raises(FileNotFoundError, match="no checkpoints"):
+        jax_load(d, jcfg)
+    port = port_load(d, _port_cfg(jcfg), "cpu")
+    _states_equal(port.state_dict(), seq2seq_from_jax(jax.tree.map(np.asarray, jparams), _port_cfg(jcfg),
+                                                      device="cpu").state_dict())
+
+
+def test_seq2seq_dirs_through_the_cli(saved_s2s, tmp_path, monkeypatch, capsys):
+    """``chat --arch seq2seq --init-params`` over an mBART directory (its own
+    configuration: no preset of its family) and an mT5 one against the
+    ``mt5small`` preset, which it does not match, raising."""
+    cls, kw, _ = SEQ2SEQ["mbart"]
+    torch.manual_seed(0)
+    transformers.MBartForConditionalGeneration(cls(**dict(kw, vocab_size=300))).save_pretrained(str(tmp_path))
+    lines = iter(["xin chào", ""])
+    monkeypatch.setattr("builtins.input", lambda prompt="": next(lines))
+    assert cli(["chat", "--arch", "seq2seq", "--init-params", str(tmp_path), "--max-new-tokens", "3",
+                "--num-beams", "2", "--max-len", "48", "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert "loaded with its own configuration" in out and "model> " in out
+    with pytest.raises(ValueError, match="another model than the configuration"):
+        cli(["chat", "--arch", "seq2seq", "--model-size", "mt5small", "--init-params", saved_s2s["mt5"][1],
+             "--device", "cpu"])

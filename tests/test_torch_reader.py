@@ -92,7 +92,8 @@ def test_answers_match_jax(both, min_score):
 def test_qa_refuses_unported_readers(both):
     """Speculative /qa is ported: prompt-lookup and draft-model answers equal
     the JAX pipeline's speculative answers and the port's plain ones.  A
-    seq2seq reader still raises."""
+    reader that is neither causal nor seq2seq raises (seq2seq readers:
+    test_torch_seq2seq.py)."""
     (jretr, jparams, jcfg), (retr, reader, _) = both
     kw = dict(k=2, max_prompt_len=256, max_new_tokens=6, seed=7)
     want = [a.answer for a in JQAPipeline(jretr, jparams, jcfg, jtok.ByteTokenizer(), speculative="ngram",
@@ -101,8 +102,8 @@ def test_qa_refuses_unported_readers(both):
     for spec, draft in (("ngram", None), ("draft", reader)):
         qa = QAPipeline(retr, reader, ByteTokenizer(), speculative=spec, draft=draft, draft_tokens=3, **kw)
         assert qa.speculative == spec and [a.answer for a in qa.answer(QUESTIONS)] == want
-    with pytest.raises(NotImplementedError, match="not ported"):
-        QAPipeline(retr, SimpleNamespace(cfg=SimpleNamespace(arch="seq2seq")), ByteTokenizer())
+    with pytest.raises(ValueError, match="causal or seq2seq"):
+        QAPipeline(retr, SimpleNamespace(cfg=SimpleNamespace(arch="encoder")), ByteTokenizer())
 
 
 def _post(url, payload):
@@ -246,8 +247,10 @@ def test_cli_chat_and_serve_reader(tmp_path, monkeypatch, capsys):
         assert cli(["chat", "--device", "cpu", "--max-len", "64", "--max-new-tokens", "3", *extra]) == 0
     out = capsys.readouterr().out
     assert out.count("(no --draft-params: drafting with RANDOM weights)") == 1 and out.count("model> ") == 3
-    # seq2seq readers have no flag in the port: argparse rejects them
+    # seq2seq readers take the JAX CLI's flags (their runs: test_torch_train.py's
+    # test_cli_train_and_chat_seq2seq_on_the_cpu); a draft preset outside the JAX list is refused
     for argv in (serve + ["--reader-size", "mt5small"], ["chat", "--model-size", "mt5small"],
-                 ["chat", "--arch", "seq2seq"], ["chat", "--draft-size", "phogpt4b"]):
-        with pytest.raises(SystemExit):
-            cli(argv)
+                 ["chat", "--arch", "seq2seq"]):
+        build_parser().parse_args(argv)
+    with pytest.raises(SystemExit):
+        cli(["chat", "--draft-size", "phogpt4b"])

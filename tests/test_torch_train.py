@@ -319,3 +319,46 @@ def test_cli_train_on_the_cpu(tmp_path):
             cli_main(argv)
     with pytest.raises(NotImplementedError, match="not ported"):
         cli_main([*argv, "--device", "cpu", "--strategy", "fsdp"])
+
+
+def test_cli_train_and_chat_seq2seq_on_the_cpu(tmp_path, monkeypatch, capsys):
+    """``cli train --arch seq2seq`` (the tiny native stack, int8 base + LoRA,
+    perplexity and beam generative eval) writes an adapter that the JAX
+    package's tree of the same model takes leaf for leaf; ``chat --arch
+    seq2seq`` and ``serve --reader-size tiny-s2s`` answer on the CPU."""
+    from vietnamese_qa_system_tpu.models import seq2seq as jnative
+    from vietnamese_qa_system_tpu.train.checkpoint import load_pytree as jload
+
+    argv = ["train", "--arch", "seq2seq", "--model-size", "tiny", "--use-lora", "--quantize-base", "int8",
+            "--train-files", SAMPLE, "--eval-files", SAMPLE, "--max-examples", "8", "--batch-size", "4", "--max-len", "200",
+            "--max-steps", "2", "--log-every", "1", "--log-dir", str(tmp_path / "logs"), "--checkpoint-dir",
+            str(tmp_path / "ck"), "--run-name", "s2s", "--do-eval", "--do-generative-eval", "--max-new-tokens", "4",
+            "--num-beams", "2", "--device", "cpu"]
+    assert cli_main(argv) == 0
+    out = capsys.readouterr().out
+    assert "eval @ epoch 0" in out and "gen_tokens_per_s" in out
+    logged = [json.loads(line) for line in open(tmp_path / "logs" / "s2s.jsonl")]
+    assert [r["step"] for r in logged if "loss" in r] == [1, 2] and all(
+        np.isfinite(r["loss"]) for r in logged if "loss" in r)
+    assert os.listdir(tmp_path / "logs" / "predictions")
+    cfg = dataclasses.replace(jcfg.tiny_test("seq2seq"), vocab_size=ByteTokenizer().vocab_size)
+    like = jlora.init_lora(jax.random.key(0), jquant(jnative.init_seq2seq(jax.random.key(0), cfg), "int8"),
+                           jlora.LoraConfig())
+    leaves = jload(str(tmp_path / "ck" / "adapter.npz"))
+    assert [np.shape(x) for x in leaves] == [x.shape for x in jax.tree.leaves(like)]
+
+    lines = iter(["xin chào", ""])
+    monkeypatch.setattr("builtins.input", lambda prompt="": next(lines))
+    assert cli_main(["chat", "--arch", "seq2seq", "--max-new-tokens", "3", "--num-beams", "2", "--device",
+                     "cpu"]) == 0
+    assert "model> " in capsys.readouterr().out
+    docs = tmp_path / "docs.jsonl"
+    docs.write_text("\n".join(json.dumps({"doc": f"Tài liệu số {i} về Hà Nội."}, ensure_ascii=False)
+                              for i in range(6)), encoding="utf-8")
+    idx, db = str(tmp_path / "idx"), str(tmp_path / "db.sqlite")
+    assert cli_main(["ingest", "--inputs", str(docs), "--index", idx, "--db", db, "--device", "cpu", "--batch-size",
+                     "8", "--max-len", "32"]) == 0
+    lines = iter(["Tài liệu số 2 về Hà Nội.", ""])
+    assert cli_main(["serve", "--index", idx, "--db", db, "--device", "cpu", "--max-len", "32", "--reader-size",
+                     "tiny-s2s", "--reader-quantize", "int8c", "--max-new-tokens", "3", "--min-score", "-1"]) == 0
+    assert "answer> " in capsys.readouterr().out

@@ -32,15 +32,31 @@ Counterpart of ``vietnamese_qa_system_tpu/cli/main.py:26-436`` and
         --reader-quantize nf4 --continuous-slots 8 \\
         --adapter vi=ckpt_vi/adapter.npz --adapter law=ckpt_law/adapter.npz
 
+    python -m vietnamese_qa_system_tpu_torch.cli serve --index idx \\
+        --db docs.sqlite --port 8080 --reader-size mt5small \\
+        --reader-params /path/to/hf-mt5-dir --reader-quantize int8c \\
+        --continuous-slots 8 --gen-total 256
+    python -m vietnamese_qa_system_tpu_torch.cli chat --arch seq2seq \\
+        --init-params /path/to/hf-mbart-dir
+    python -m vietnamese_qa_system_tpu_torch.cli train --arch seq2seq \\
+        --model-size mt5small --use-lora --quantize-base int8 \\
+        --train-files examples/sample_instruct.jsonl --max-steps 2
+
 Each takes ``--device`` (default ``cuda``; a missing GPU raises).
 ``--encoder`` takes a preset or a local Hugging Face BERT / MPNet
 directory (the model's configuration then comes from its config.json).
 ``serve --reader-params``, ``chat --init-params`` and ``train
---init-params`` load a local Hugging Face causal-LM directory (streamed
-onto the device a layer at a time, quantized as each layer is complete), a
-checkpoint directory (``step_N/state.npz`` of either package's trainer)
-or a flat ``.npz``; the preset's configuration is the model's, and weights
-that do not fit it raise.  Without them the reader answers, and ``train``
+--init-params`` load a local Hugging Face causal-LM or seq2seq (T5 / mT5
+/ LongT5, mBART) directory (streamed onto the device a layer at a time,
+quantized as each layer is complete), a checkpoint directory
+(``step_N/state.npz`` of either package's trainer) or a flat ``.npz``;
+the preset's configuration is the model's, and weights that do not fit
+it raise (a seq2seq directory of another family than the preset's brings
+its own configuration).  Seq2seq readers: ``serve --reader-size
+tiny-s2s|mt5small``, ``chat --arch seq2seq --model-size
+tiny|mt5small|seq2seq-small`` and ``train --arch seq2seq``; they encode
+right-padded inputs, answer with new tokens only and decode without
+speculation.  Without them the reader answers, and ``train``
 starts, with random weights drawn from ``--seed`` on the device.  ``ingest
 --hybrid`` keeps a BM25 term index (``bm25.json``) beside the store, and
 ``serve`` fuses it with the dense scores when ``--hybrid-weight`` is below
@@ -66,10 +82,9 @@ take int8, int8c, nf4 or nf4-dq; ``serve --adapter NAME=PATH``
 (repeatable; ``--adapter-r``, ``--adapter-alpha``, ``--adapter-targets``)
 serves LoRA adapters (``adapter.npz`` of either package's ``train
 --use-lora --checkpoint-dir``) over the shared reader on ``/generate``.
-``train`` refuses what is not ported yet: seq2seq models, strategies other
-than dp, meshes and hub pushes.  Sharded indexes and sharded readers are
-not ported yet and raise where the JAX CLI would use them; seq2seq readers
-have no flag yet.
+``train`` refuses what is not ported yet: strategies other than dp,
+meshes and hub pushes.  Sharded indexes and sharded readers are not
+ported yet and raise where the JAX CLI would use them.
 """
 
 from __future__ import annotations
@@ -85,18 +100,24 @@ from typing import Optional
 ENCODERS = ("tiny", "minilm", "mpnet")
 # presets of the causal readers (cli/main.py:171-182, :710-720)
 READERS = ("tiny", "gpt125m", "gptneo125m", "pythia410m", "llama1b", "qwen2-05b", "bloom560m", "phogpt4b")
+# presets of the seq2seq models: serve's readers (cli/main.py:718-719) and train / chat's sizes
+S2S_READERS = ("tiny-s2s", "mt5small")
+S2S_SIZES = ("mt5small", "seq2seq-small")
+SEQ2SEQ_TYPES = ("t5", "mt5", "longt5", "mbart")
 # presets of the draft models of --speculative draft (cli/main.py:1259-1262)
 DRAFTS = ("tiny", "gpt125m", "gptneo125m", "pythia410m", "qwen2-05b", "bloom560m")
 
 
-def _causal_preset(size: str):
-    """The ModelConfig of a causal preset name."""
+def _causal_preset(size: str, arch: str = "causal"):
+    """The ModelConfig of a preset name (``tiny`` of ``arch``)."""
     from ..models import config as mcfg
 
     return {
-        "tiny": lambda: mcfg.tiny_test("causal"), "gpt125m": mcfg.gpt_125m_class, "gptneo125m": mcfg.gpt_neo_125m,
+        "tiny": lambda: mcfg.tiny_test(arch), "gpt125m": mcfg.gpt_125m_class, "gptneo125m": mcfg.gpt_neo_125m,
         "pythia410m": mcfg.pythia_410m_class, "llama1b": mcfg.llama_1b_class, "qwen2-05b": mcfg.qwen2_05b_class,
         "bloom560m": mcfg.bloom_560m_class, "phogpt4b": mcfg.phogpt_4b_class,
+        "tiny-s2s": lambda: mcfg.tiny_test("seq2seq"), "mt5small": mcfg.mt5_small_class,
+        "seq2seq-small": mcfg.seq2seq_native_small,
     }[size]()
 
 
@@ -116,29 +137,36 @@ def _encoder(spec: str, seed: int, device):
 
 
 def load_converted_params(path: str, cfg, device, quantize: Optional[str] = None):
-    """A :class:`CausalLM` of configuration ``cfg`` from a local HF
-    causal-LM directory (config.json; dispatched as ``load_causal_auto``
-    does, streamed onto ``device`` and quantized layer by layer), a
-    checkpoint directory (``step_N/state.npz`` of either package's trainer:
-    its "params" subtree, with a trained LoRA adapter merged into it) or a
-    flat ``.npz`` of the parameter tree (cli/main.py:472-511).  Weights
-    that do not fill ``cfg``'s model raise."""
+    """The model of configuration ``cfg`` (a :class:`CausalLM` or an
+    encoder-decoder) from a local HF directory (config.json; a causal one
+    dispatched as ``load_causal_auto`` does, a T5 / mT5 / LongT5 or mBART
+    one as ``load_seq2seq_auto`` does; streamed onto ``device`` and
+    quantized layer by layer), a checkpoint directory (``step_N/state.npz``
+    of either package's trainer: its "params" subtree, with a trained LoRA
+    adapter merged into it) or a flat ``.npz`` of the parameter tree
+    (cli/main.py:472-511).  Weights that do not fill ``cfg``'s model raise;
+    a seq2seq directory of another family than ``cfg``'s loads with the
+    file's configuration."""
     import numpy as np
 
-    from ..models import causal_from_hf, causal_from_leaves, quantize_dense_tree
+    from ..models import causal_from_hf, model_from_leaves, quantize_dense_tree, seq2seq_from_hf
     from ..train.checkpoint import CheckpointManager
 
     if os.path.isdir(path) and os.path.exists(os.path.join(path, "config.json")):
         with open(os.path.join(path, "config.json")) as f:
             model_type = json.load(f).get("model_type")
-        if model_type in ("t5", "mt5", "longt5"):
-            raise NotImplementedError(f"{path}: seq2seq ({model_type}) weights are not ported yet")
+        if model_type in SEQ2SEQ_TYPES:
+            family = "bart" if model_type == "mbart" else "t5"
+            if cfg.arch != "seq2seq" or cfg.seq2seq_family != family:
+                print(f"{path}: a {model_type} directory, loaded with its own configuration", flush=True)
+                cfg = None
+            return seq2seq_from_hf(path, cfg, device=device, quantize=quantize)
         return causal_from_hf(path, cfg, device=device, quantize=quantize)
     if not os.path.isdir(path):
         npz = path if path.endswith(".npz") else path + ".npz"
         with np.load(npz) as data:
             arrays = [data[f"leaf_{i}"] for i in range(len(data.files))]
-        model = causal_from_leaves(arrays, cfg, device=device)
+        model = model_from_leaves(arrays, cfg, device=device)
     else:
         step = CheckpointManager(path).latest_step()
         if step is None:
@@ -162,7 +190,7 @@ def _trainer_params(step_dir: str, cfg, device):
     import numpy as np
     import torch
 
-    from ..models import LoraConfig, causal_from_leaves, clear_lora, init_lora, merge_lora
+    from ..models import LoraConfig, clear_lora, init_lora, merge_lora, model_from_leaves
     from ..models.params import _leaf_names
     from ..utils.tree import tree_leaves, tree_unflatten
 
@@ -187,7 +215,7 @@ def _trainer_params(step_dir: str, cfg, device):
     for count in (len(_leaf_names(cfg, False)), len(_leaf_names(cfg, True))):
         if count < n and np.asarray(arrays[-1]).ndim == 0:
             try:
-                model = causal_from_leaves(arrays[n - 1 - count: n - 1], cfg, device=device)
+                model = model_from_leaves(arrays[n - 1 - count: n - 1], cfg, device=device)
                 break
             except ValueError:
                 continue
@@ -210,16 +238,18 @@ def _trainer_params(step_dir: str, cfg, device):
     return model
 
 
-def _reader(size: str, tok, seed: int, device, quantize: Optional[str], params: Optional[str] = None):
-    """A causal reader of preset ``size``: loaded from ``params``
-    (:func:`load_converted_params`), else with random weights drawn on
-    ``device`` from ``seed``; quantized layer by layer as it is made."""
+def _reader(size: str, tok, seed: int, device, quantize: Optional[str], params: Optional[str] = None,
+            arch: str = "causal"):
+    """A reader of preset ``size`` (``tiny`` of ``arch``; a causal LM or an
+    encoder-decoder): loaded from ``params`` (:func:`load_converted_params`),
+    else with random weights drawn on ``device`` from ``seed``; quantized
+    layer by layer as it is made."""
     import dataclasses
 
     from ..core.device import make_generator
-    from ..models import init_causal_lm
+    from ..models import init_causal_lm, init_seq2seq_model
 
-    cfg = _causal_preset(size)
+    cfg = _causal_preset(size, arch)
     if tok.vocab_size > cfg.vocab_size:
         cfg = dataclasses.replace(cfg, vocab_size=tok.vocab_size)
     if params:
@@ -227,7 +257,8 @@ def _reader(size: str, tok, seed: int, device, quantize: Optional[str], params: 
         print(f"reader weights loaded from {params}", flush=True)
     else:
         print("(no reader checkpoint: answering with RANDOM weights)", flush=True)
-        model = init_causal_lm(cfg, make_generator(seed, device), quantize=quantize)
+        init = init_seq2seq_model if cfg.arch == "seq2seq" else init_causal_lm
+        model = init(cfg, make_generator(seed, device), quantize=quantize)
     if quantize:
         print(f"reader decodes over a {quantize} base", flush=True)
     return model
@@ -258,15 +289,11 @@ def _train_config(args):
 
     from ..models import config as mcfg
 
-    if args.arch != "causal":
-        raise NotImplementedError(f"training a {args.arch} model is not ported yet")
     if args.model_config:
         with open(args.model_config) as f:
             cfg = mcfg.ModelConfig.from_json(f.read())
-    elif args.model_size in READERS:
-        cfg = _causal_preset(args.model_size)
     else:
-        cfg = {"mt5small": mcfg.mt5_small_class, "seq2seq-small": mcfg.seq2seq_native_small}[args.model_size]()
+        cfg = _causal_preset(args.model_size, args.arch)
     if args.scan_layers:
         if cfg.arch != "causal" or cfg.attention_layers is not None:
             raise SystemExit("--scan-layers requires a homogeneous causal model")
@@ -286,7 +313,8 @@ def _file_specs(files, schemas, fractions):
 
 
 def cmd_train(args) -> int:
-    """LoRA / QLoRA (or full) fine-tuning of a causal LM (cli/main.py:216-436)."""
+    """LoRA / QLoRA (or full) fine-tuning of a causal or seq2seq LM
+    (cli/main.py:216-436)."""
     import dataclasses
 
     from ..data import IGNORE_INDEX, QADataLoader
@@ -312,8 +340,8 @@ def cmd_train(args) -> int:
         log_every=args.log_every, log_dir=args.log_dir, report_to=args.report_to, run_name=args.run_name,
         remat=args.remat, profile_steps=args.profile_steps, profile_dir=args.profile_dir,
     )
-    dl = QADataLoader(tok, task="causal", max_len=args.max_len, batch_size=args.batch_size, seed=args.seed,
-                      pack=args.pack)
+    dl = QADataLoader(tok, task="seq2seq" if model.arch == "seq2seq" else "causal", max_len=args.max_len,
+                      batch_size=args.batch_size, seed=args.seed, pack=args.pack)
     train_examples = dl.load_examples(_file_specs(args.train_files, args.train_schemas, args.train_fractions),
                                       max_examples=args.max_examples, split="train")
     if not train_examples:
@@ -359,7 +387,7 @@ def cmd_train(args) -> int:
                 min_new_tokens=args.min_new_tokens, num_beams=args.num_beams, length_penalty=args.length_penalty,
                 seed=args.seed, speculative=args.speculative if plain else "none", draft_tokens=args.draft_tokens,
                 draft_ngram=args.draft_ngram)
-            gm = generative_eval(params, model, tok, _gen_batches(eval_examples, tok, args.batch_size),
+            gm = generative_eval(params, model, tok, _gen_batches(eval_examples, tok, args.batch_size, dl.task),
                                  gen_config=gen, log_dir=os.path.join(args.log_dir, "predictions"), epoch=epoch,
                                  run_name=args.run_name or "model")
             metrics["gen_tokens_per_s"] = gm["gen_tokens_per_s"]
@@ -379,17 +407,19 @@ def cmd_train(args) -> int:
     return 0
 
 
-def _gen_batches(examples, tok, batch_size: int):
+def _gen_batches(examples, tok, batch_size: int, task: str = "causal"):
     """LEFT-padded prompt-only batches of the eval examples for generative
-    eval (cli/main.py:439-470): each example's prompt is its tokens before
-    the first supervised label; the short last batch is kept."""
+    eval (cli/main.py:439-470): each causal example's prompt is its tokens
+    before the first supervised label, a seq2seq example's its encoder
+    input; the short last batch is kept."""
     import numpy as np
 
     from ..data import IGNORE_INDEX
 
     for i in range(0, len(examples), batch_size):
         group = examples[i: i + batch_size]
-        prompts = [ex["input_ids"][:sum(1 for lab in ex["labels"] if lab == IGNORE_INDEX)] for ex in group]
+        prompts = [list(ex["input_ids"]) if task == "seq2seq"
+                   else ex["input_ids"][:sum(1 for lab in ex["labels"] if lab == IGNORE_INDEX)] for ex in group]
         width = max(max(len(p) for p in prompts), 1)
         ids = np.full((len(group), width), tok.pad_id, np.int32)
         mask = np.zeros((len(group), width), np.int32)
@@ -402,17 +432,17 @@ def _gen_batches(examples, tok, batch_size: int):
 def _add_train_args(p: argparse.ArgumentParser) -> None:
     """The JAX CLI's train flags (cli/main.py:26-155) and --device."""
     g = p.add_argument_group("model")
-    g.add_argument("--arch", choices=["causal", "seq2seq"], default="causal", help="seq2seq is not ported yet")
-    g.add_argument("--model-size", default="tiny", choices=[*READERS, "mt5small", "seq2seq-small"],
-                   help="preset size (the seq2seq presets are not ported yet)")
+    g.add_argument("--arch", choices=["causal", "seq2seq"], default="causal")
+    g.add_argument("--model-size", default="tiny", choices=[*READERS, *S2S_SIZES],
+                   help="preset size (tiny takes --arch)")
     g.add_argument("--model-config", help="path to a ModelConfig json (overrides preset)")
     g.add_argument("--scan-layers", action="store_true",
                    help="homogeneous layers with per-layer remat (the port keeps a list of layers)")
     g.add_argument("--remat-policy", default=None, choices=["full", "dots", "proj_bf16", "none"],
                    help="per-layer remat: full = recompute the layer, dots = save the products and the flash "
                         "outputs, proj_bf16 = save the projections rounded to bf16, none = no remat")
-    g.add_argument("--init-params", help="weights to start from: a local HF causal-LM directory, a checkpoint "
-                                         "directory or a flat .npz")
+    g.add_argument("--init-params", help="weights to start from: a local HF causal-LM or seq2seq directory, a "
+                                         "checkpoint directory or a flat .npz")
     g = p.add_argument_group("lora")
     g.add_argument("--use-lora", action="store_true")
     g.add_argument("--lora-r", type=int, default=8)
@@ -658,7 +688,7 @@ def cmd_serve(args) -> int:
     if args.reader_size:
         reader = _reader(args.reader_size, tok, args.seed + 1, device, args.reader_quantize, args.reader_params)
         draft = None
-        if args.speculative == "draft":
+        if args.speculative == "draft" and reader.cfg.arch == "causal":
             draft = _draft(args.reader_draft_size, reader.cfg.vocab_size, args.seed + 7, device,
                            args.reader_draft_params, "--reader-draft-params")
         qa = QAPipeline(retriever, reader, tok, k=args.k, min_score=args.min_score,
@@ -725,7 +755,8 @@ def cmd_serve(args) -> int:
 
 
 def cmd_chat(args) -> int:
-    """Interactive generation REPL over a causal reader."""
+    """Interactive generation REPL over a causal or seq2seq reader
+    (cli/main.py:935-1040)."""
     import torch
 
     from ..core.device import resolve_device
@@ -734,9 +765,10 @@ def cmd_chat(args) -> int:
 
     device = resolve_device(args.device)
     tok = _tokenizer(args.tokenizer)
-    model = _reader(args.model_size, tok, args.seed, device, args.quantize, args.init_params)
+    model = _reader(args.model_size, tok, args.seed, device, args.quantize, args.init_params, args.arch)
+    is_s2s = model.cfg.arch == "seq2seq"
     # speculation decodes causal readers without beams (cli/main.py:979-1032)
-    use_spec = args.speculative != "none" and args.num_beams == 1
+    use_spec = args.speculative != "none" and not is_s2s and args.num_beams == 1
     draft = None
     if use_spec and args.speculative == "draft":
         draft = _draft(args.draft_size, model.cfg.vocab_size, args.seed + 7, device, args.draft_params,
@@ -753,10 +785,11 @@ def cmd_chat(args) -> int:
         if not text:
             break
         prompt = f"{QUESTION_PREFIX}\n{text}\n\n{RESPONSE_PREFIX}\n"
-        ids, mask = batch_encode(tok, [prompt], args.max_len, pad_side="left")
+        # a seq2seq encoder takes right padding and answers with new tokens only
+        ids, mask = batch_encode(tok, [prompt], args.max_len, pad_side="right" if is_s2s else "left")
         out = generate_with_config(model, torch.from_numpy(ids).to(device), torch.from_numpy(mask).to(device),
                                    gen, eos_id=tok.eos_id, draft=draft)
-        new_tokens = out[0, ids.shape[1]:].tolist()
+        new_tokens = (out[0] if is_s2s else out[0, ids.shape[1]:]).tolist()
         print(f"model> {tok.decode([t for t in new_tokens if t not in (tok.pad_id, tok.eos_id)])}", flush=True)
     return 0
 
@@ -832,9 +865,9 @@ def build_parser() -> argparse.ArgumentParser:
                          "serves hybrid BM25 + dense retrieval")
     ps.add_argument("--search-mode", default="fast", choices=["fast", "turbo"],
                     help="kept for parity with the JAX CLI: every mode of the port is exact")
-    ps.add_argument("--reader-size", default=None, choices=READERS,
-                    help="enable full QA (/qa): retrieve + generate with a causal reader LM of this preset "
-                         "(weights from --reader-params, else random from --seed)")
+    ps.add_argument("--reader-size", default=None, choices=[*READERS, *S2S_READERS],
+                    help="enable full QA (/qa): retrieve + generate with a reader LM of this preset, causal or "
+                         "seq2seq (tiny-s2s, mt5small) (weights from --reader-params, else random from --seed)")
     ps.add_argument("--reader-quantize", choices=["int8", "int8c", "nf4", "nf4-dq"], default=None,
                     help="quantize the reader's dense weights for decode; int8c (one scale per output channel) "
                          "decodes through the w8 GEMM kernel (K6); int8, nf4 and nf4-dq are dequantized at each "
@@ -847,7 +880,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="speculative decoding of /qa: ngram = prompt lookup (RAG answers quote their contexts, so "
                          "drafts hit often), draft = a small draft model (--reader-draft-size / -params)")
     ps.add_argument("--reader-params", default=None,
-                    help="reader weights: a local HF causal-LM directory, a checkpoint directory or a flat .npz")
+                    help="reader weights: a local HF causal-LM or seq2seq directory, a checkpoint directory or a "
+                         "flat .npz")
     ps.add_argument("--reader-strategy", choices=["tp", "fsdp_tp"], default=None,
                     help="shard the reader over several GPUs (not ported yet)")
     ps.add_argument("--reader-draft-size", default="tiny", choices=DRAFTS,
@@ -887,7 +921,9 @@ def build_parser() -> argparse.ArgumentParser:
     ps.set_defaults(fn=cmd_serve)
 
     pc = sub.add_parser("chat", help="interactive generation REPL")
-    pc.add_argument("--model-size", default="tiny", choices=READERS)
+    pc.add_argument("--arch", choices=["causal", "seq2seq"], default="causal")
+    pc.add_argument("--model-size", default="tiny", choices=[*READERS, *S2S_SIZES], help="preset size (tiny takes "
+                                                                                      "--arch)")
     pc.add_argument("--tokenizer", default="byte")
     pc.add_argument("--max-len", type=int, default=256)
     pc.add_argument("--max-new-tokens", type=int, default=128)
@@ -897,7 +933,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="quantize dense weights for decode; int8c decodes through the w8 GEMM kernel (K6); int8, "
                          "nf4 and nf4-dq are dequantized at each matmul")
     pc.add_argument("--init-params", default=None,
-                    help="model weights: a local HF causal-LM directory, a checkpoint directory or a flat .npz")
+                    help="model weights: a local HF causal-LM or seq2seq directory, a checkpoint directory or a flat "
+                         ".npz")
     pc.add_argument("--speculative", choices=["none", "ngram", "draft"], default="ngram",
                     help="speculative decoding: ngram = prompt lookup, draft = a small draft model (--draft-size / "
                          "--draft-params); greedy gives the same tokens, sampling the same distribution; without "

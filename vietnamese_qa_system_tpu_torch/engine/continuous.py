@@ -1,8 +1,8 @@
 """Continuous-batching scheduler over models/decode_engine.py.
 
 Counterpart of ``vietnamese_qa_system_tpu/engine/continuous.py``
-(:58-856): ``ContinuousEngine`` keeps ``n_slots`` causal sequences in
-flight.  A scheduler thread admits queued requests between chunks (prefill
+(:58-856): ``ContinuousEngine`` keeps ``n_slots`` causal or seq2seq
+sequences in flight.  A scheduler thread admits queued requests between chunks (prefill
 at a bucketed width, through the prefix cache when a stored prompt is a
 prefix, or piece by piece with ``prefill_chunk``), inserts each into a free
 slot, and dispatches decode chunks over all slots: speculative prompt-lookup
@@ -25,7 +25,14 @@ tree} over the shared base are stacked into one bank (index 0 the base
 model); a request names its adapter in :meth:`submit`, its slot keeps the
 bank index, and each chunk runs every slot under its own adapter.  The
 prefix cache is keyed by (tokens, adapter index), so adapters never share
-prompt KV.  Seq2seq readers are not ported yet and raise.
+prompt KV.
+
+A seq2seq reader's slots (continuous.py:207-255, :516-565) hold their own
+cross-attention K/V and encoder mask; prompts are bucketed on the encoder
+side only (the largest bucket may reach ``total``), each decoder row
+holds BOS and at most ``total - 1`` generated tokens, and adapters, the
+prefix cache, chunked prefill and an int8 KV cache are refused, with
+speculation off, as the JAX engine refuses them.
 """
 
 from __future__ import annotations
@@ -146,12 +153,13 @@ class _PrefixCache:
 
 
 class ContinuousEngine:
-    """Slot-scheduled generation over a causal LM (continuous.py:162).
+    """Slot-scheduled generation over a causal or seq2seq LM
+    (continuous.py:162).
 
-    ``model`` (a CausalLM on ``device``) and ``cfg`` its configuration;
-    ``total`` cache columns per slot; prompts are right-padded to the
-    smallest bucket that fits, so a request's headroom is ``total -
-    len(prompt)``.  Sampling knobs are engine defaults, overridable per
+    ``model`` (a CausalLM or an encoder-decoder on ``device``) and ``cfg``
+    its configuration; ``total`` cache columns per slot; prompts are
+    right-padded to the smallest bucket that fits, so a causal request's
+    headroom is ``total - len(prompt)``, a seq2seq one's ``total - 1``.  Sampling knobs are engine defaults, overridable per
     request in :meth:`submit`; greedy by default.  ``adapters`` {name:
     adapter tree} (LoRA fine-tunes of this base, made under
     ``lora_config``, default ``LoraConfig()``) are served by name.
@@ -186,10 +194,18 @@ class ContinuousEngine:
         bos_id: int = 0,
         device="cuda",
     ):
-        if cfg.arch == "seq2seq":
-            raise NotImplementedError("continuous seq2seq serving is not ported yet")
-        if cfg.arch != "causal":
+        if cfg.arch not in ("causal", "seq2seq"):
             raise ValueError(f"ContinuousEngine serves causal or seq2seq LMs, got arch={cfg.arch!r}")
+        self._s2s = cfg.arch == "seq2seq"
+        if self._s2s:
+            # the prompt never enters the decoder cache (no prefix reuse or
+            # piecewise prefill of it) and drafting reads the causal stream
+            unsupported = [name for name, on in (
+                ("adapters (multi-LoRA)", bool(adapters)), ("prefix_cache_mb", prefix_cache_mb > 0),
+                ("prefill_chunk", bool(prefill_chunk)), ("kv_dtype", kv_dtype != "bf16")) if on]
+            if unsupported:
+                raise ValueError("seq2seq continuous serving does not support: " + ", ".join(unsupported))
+            speculative = "off"
         if model.device.type != resolve_device(device).type:
             raise ValueError(f"the model is on {model.device}, the engine on {device}")
         self.device = model.device
@@ -207,7 +223,8 @@ class ContinuousEngine:
             if not buckets:
                 buckets = [max(self.total // 2, 1)]
         self.buckets = sorted(int(b) for b in buckets)
-        if self.buckets[-1] >= self.total:
+        # seq2seq buckets size the encoder side, independent of the decoder cache
+        if not self._s2s and self.buckets[-1] >= self.total:
             raise ValueError(f"largest bucket {self.buckets[-1]} leaves no decode room in total={self.total}")
         self.n_slots = int(n_slots)
         self.chunk_steps = int(chunk_steps)
@@ -363,6 +380,9 @@ class ContinuousEngine:
                 self._state = self._fresh_state()
 
     def _fresh_state(self):
+        if self._s2s:
+            return de.make_decode_state_seq2seq(self.cfg, self.n_slots, self.total, self.buckets[-1],
+                                                device=self.device)
         return de.make_decode_state(self.cfg, self.n_slots, self.total, kv_dtype=self.kv_dtype, device=self.device)
 
     def _bucket(self, n: int) -> int:
@@ -383,11 +403,29 @@ class ContinuousEngine:
                 req = self._pending.popleft()
                 slot = self._free.popleft()
             samp = (req.temperature, req.top_k, req.top_p)
+            if self._s2s:
+                self._admit_s2s(req, slot, samp)
+                continue
             if self.prefill_chunk and len(req.ids) > self.prefill_chunk:
                 self._mid = {"req": req, "slot": slot, "samp": samp, "kv": None, "done": 0}
                 continue  # its first piece runs in the branch above
             kv, first, n_prompt, ids, mask = self._run_prefill(req, samp)
             self._install(req, slot, kv, first, n_prompt, ids, mask, samp)
+
+    def _admit_s2s(self, req: _Request, slot: int, samp) -> None:
+        """Encode the prompt at its bucket and insert it with its BOS step
+        (continuous.py:516-565)."""
+        ids, mask = self._piece(req.ids, self._bucket(len(req.ids)))
+        ckv, dec_kv, first = de.prefill_seq2seq(self.model, ids, mask, self._generator, *samp,
+                                                sampled=req.temperature > 0, bos_id=self.bos_id)
+        self.stats["prefills"] += 1
+        req.pending_first = _Fetch(first)
+        req.start_chunk = self._chunk_idx
+        # BOS holds column 0; generated tokens fill 1..total-1
+        req.remaining = min(req.max_new - 1, self.total - 1)
+        de.insert_seq2seq(self._state, ckv, self._piece(req.ids, self.buckets[-1])[1], dec_kv, first, slot, *samp)
+        with self._lock:
+            self._by_slot[slot] = req
 
     def _install(self, req, slot, kv, first, n_prompt, ids, mask, samp) -> None:
         """Insert a fully prefilled request into its reserved slot."""
@@ -494,6 +532,10 @@ class ContinuousEngine:
         self.stats["chunks"] += 1
         self.stats["occupancy_sum"] += len(self._by_slot)
         sampled = any(r.temperature > 0.0 for r in self._by_slot.values())
+        if self._s2s:
+            toks = de.decode_chunk_seq2seq(self.model, self._state, self._generator, n_steps=self.chunk_steps,
+                                           eos_id=self.eos_id, sampled=sampled)
+            return "plain", _Fetch(toks)
         if self.speculative and not sampled:
             self.stats["spec_chunks"] += 1
             vals, counts = de.decode_chunk_spec(self.model, self._state, n_steps=self.spec_steps, eos_id=self.eos_id,

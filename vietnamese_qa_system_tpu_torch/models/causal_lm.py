@@ -64,9 +64,11 @@ def _window_mask(q_slots, k_slots, window: int):
     return (q_slots[..., :, None] - k_slots[None, :]) < window
 
 
-def make_cache(cfg: ModelConfig, b: int, total_len: int, device, kv_dtype: str = "bf16") -> list[dict]:
+def make_cache(cfg: ModelConfig, b: int, total_len: int, device, kv_dtype: str = "bf16",
+               n_layers: int | None = None) -> list[dict]:
     """One {"k", "v"} (B, total_len, kv heads, head_dim) buffer per layer
-    (GQA stores only the kv heads), as generate.py:267 ``_make_cache``
+    (GQA stores only the kv heads; ``n_layers`` defaults to the model's,
+    a seq2seq decoder passes its own), as generate.py:267 ``_make_cache``
     builds it: bf16, or with ``kv_dtype="int8"`` int8 codes plus f32
     scales "k_s", "v_s" (B, total_len, kv heads, 1) (layers.kv_quantize)."""
     if kv_dtype not in ("bf16", "int8"):
@@ -83,7 +85,7 @@ def make_cache(cfg: ModelConfig, b: int, total_len: int, device, kv_dtype: str =
         return {"k": torch.zeros(shape, dtype=torch.bfloat16, device=device),
                 "v": torch.zeros(shape, dtype=torch.bfloat16, device=device)}
 
-    return [layer() for _ in range(cfg.n_layers)]
+    return [layer() for _ in range(cfg.n_layers if n_layers is None else n_layers)]
 
 
 def _block(cfg: ModelConfig, device) -> Block:

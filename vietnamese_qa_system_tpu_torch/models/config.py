@@ -4,8 +4,9 @@ A copy of ``vietnamese_qa_system_tpu/models/config.py``: the same frozen
 ``ModelConfig`` dataclass, so one config can drive both packages in the
 parity tests, the presets of the retrieval encoders (``tiny_test``,
 ``minilm_class``, ``mpnet_class``) and the causal reader presets that
-``serve --reader-size`` and ``chat --model-size`` accept.  The seq2seq
-presets raise: encoder-decoder readers are not ported yet.  The JAX module
+``serve --reader-size`` and ``chat --model-size`` accept, and the
+encoder-decoder presets (``mt5_small_class``, ``seq2seq_native_small``;
+``tiny_test("seq2seq")`` is the native stack at tiny width).  The JAX module
 cannot be imported without jax (``models/__init__.py`` imports every JAX
 model).
 """
@@ -303,8 +304,22 @@ def phogpt_4b_class() -> ModelConfig:
 
 
 def mt5_small_class() -> ModelConfig:
-    raise NotImplementedError("seq2seq readers (mt5_small_class) are not ported yet")
+    """Faithful google/mt5-small layout (T5 v1.1 family): gated-gelu FFN,
+    untied lm_head, d_kv=64 (inner 384 != d_model 512), shared 32-bucket
+    relative bias -- real mt5 weights import through models/convert_hf.py."""
+    return ModelConfig(
+        arch="seq2seq", seq2seq_family="t5", vocab_size=250112, d_model=512,
+        n_heads=6, d_kv=64, n_layers=8, n_decoder_layers=8, d_ff=1024,
+        max_seq_len=1024, mlp_gated=True, tie_embeddings=False,
+        relative_attention_buckets=32, relative_attention_max_distance=128,
+        attention_bias=False,
+    )
 
 
 def seq2seq_native_small() -> ModelConfig:
-    raise NotImplementedError("seq2seq readers (seq2seq_native_small) are not ported yet")
+    """The native RoPE encoder-decoder (models/seq2seq.py) at mt5-small
+    scale, for from-scratch seq2seq training."""
+    return ModelConfig(
+        arch="seq2seq", vocab_size=250112, d_model=512, n_heads=8,
+        n_layers=8, n_decoder_layers=8, d_ff=1024, max_seq_len=1024,
+    )

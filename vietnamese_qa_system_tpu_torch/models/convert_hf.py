@@ -1,16 +1,17 @@
 """Import of local Hugging Face checkpoints: the causal families (GPT-NeoX,
-GPT-Neo, GPT-2, Llama / Mistral, Qwen2, Gemma, BLOOM, MPT) and the
-BERT / MPNet encoders.
+GPT-Neo, GPT-2, Llama / Mistral, Qwen2, Gemma, BLOOM, MPT), the
+BERT / MPNet encoders and the T5 / mT5 / LongT5 and mBART encoder-decoders.
 
 Counterpart of the import half of
 ``vietnamese_qa_system_tpu/models/convert_hf.py``: the ``*_config``
 functions, the converters (which map an HF state dict onto the JAX
 package's parameter tree, here with f32 tensors for leaves; one
 :class:`Family` each, applied by :func:`convert`) and the
-``load_causal_auto`` / ``load_encoder_auto`` dispatch on ``model_type``.
-The per-family ``convert_*`` / ``load_*`` wrappers, the export half
-(``to_*_state_dict``, ``export_*``) and the T5 / mBART importers are not
-ported.
+``load_causal_auto`` / ``load_encoder_auto`` / ``load_seq2seq_auto``
+dispatch on ``model_type`` (``convert_t5`` / ``load_t5`` and
+``convert_mbart`` / ``load_mbart`` are the seq2seq families' wrappers).
+The other per-family ``convert_*`` / ``load_*`` wrappers and the export
+half (``to_*_state_dict``, ``export_*``) are not ported.
 
 Nothing here imports ``transformers``.  A directory is read by
 :mod:`.hf_io`, and the ``*_config`` functions take :func:`hf_config`, a view
@@ -78,7 +79,22 @@ _DEFAULTS = {
                   apply_residual_connection_post_layernorm=False),
     "mpt": dict(d_model=2048, n_heads=16, n_layers=24, expansion_ratio=4, max_seq_len=2048, vocab_size=50368,
                 layer_norm_epsilon=1e-5, no_bias=True, attn_config=None),
+    "t5": dict(vocab_size=32128, d_model=512, d_kv=64, d_ff=2048, num_layers=6, num_decoder_layers=None, num_heads=8,
+               relative_attention_num_buckets=32, relative_attention_max_distance=128, layer_norm_epsilon=1e-6,
+               feed_forward_proj="relu", pad_token_id=0, eos_token_id=1),
+    "mt5": dict(vocab_size=250112, d_model=512, d_kv=64, d_ff=1024, num_layers=8, num_decoder_layers=None,
+                num_heads=6, relative_attention_num_buckets=32, relative_attention_max_distance=128,
+                layer_norm_epsilon=1e-6, feed_forward_proj="gated-gelu", tie_word_embeddings=False, pad_token_id=0,
+                eos_token_id=1, decoder_start_token_id=0),
+    "longt5": dict(vocab_size=32128, d_model=512, d_kv=64, d_ff=2048, num_layers=6, num_decoder_layers=None,
+                   num_heads=8, relative_attention_num_buckets=32, relative_attention_max_distance=128,
+                   layer_norm_epsilon=1e-6, feed_forward_proj="relu", pad_token_id=0, eos_token_id=1),
+    "mbart": dict(vocab_size=50265, max_position_embeddings=1024, encoder_layers=12, encoder_ffn_dim=4096,
+                  encoder_attention_heads=16, decoder_layers=12, decoder_ffn_dim=4096, decoder_attention_heads=16,
+                  activation_function="gelu", d_model=1024, scale_embedding=False, pad_token_id=1, bos_token_id=0,
+                  eos_token_id=2, forced_eos_token_id=2),
 }
+T5_TYPES = ("t5", "mt5", "longt5")
 # MptAttentionConfig's defaults
 _MPT_ATTN = dict(attn_type="multihead_attention", attn_pdrop=0, attn_impl="torch", clip_qkv=None, softmax_scale=None,
                  prefix_lm=False, qk_ln=False, attn_uses_sequence_id=False, alibi=True, alibi_bias_max=8)
@@ -89,6 +105,9 @@ _ALIASES = {
              "num_hidden_layers": "n_layer"},
     "bloom": {"num_hidden_layers": "n_layer", "num_attention_heads": "n_head"},
     "mpt": {"num_attention_heads": "n_heads", "hidden_size": "d_model", "num_hidden_layers": "n_layers"},
+    **{t: {"hidden_size": "d_model", "num_attention_heads": "num_heads", "num_hidden_layers": "num_layers",
+           "head_dim": "d_kv"} for t in T5_TYPES},
+    "mbart": {"num_attention_heads": "encoder_attention_heads", "hidden_size": "d_model"},
 }
 
 
@@ -135,6 +154,17 @@ def hf_config(source) -> _ConfigView:
                              f"num_layers={values['num_layers']}")
     if model_type == "mpt":
         values["attn_config"] = types.SimpleNamespace(**dict(_MPT_ATTN, **(values["attn_config"] or {})))
+    if model_type in T5_TYPES:
+        # T5Config.__init__: the decoder depth defaults to the encoder's,
+        # and feed_forward_proj "[gated-]act" splits into the two flags
+        if values["num_decoder_layers"] is None:
+            values["num_decoder_layers"] = values["num_layers"]
+        act = values["feed_forward_proj"].split("-")
+        if len(act) > 1 and act[0] != "gated" or len(act) > 2:
+            raise ValueError(f"`feed_forward_proj`: {values['feed_forward_proj']} is not a valid activation function "
+                             "of the dense layer")
+        values["dense_act_fn"] = "gelu_new" if values["feed_forward_proj"] == "gated-gelu" else act[-1]
+        values["is_gated_act"] = act[0] == "gated"
     values["_aliases"] = aliases
     return _ConfigView(**values)
 
@@ -618,6 +648,136 @@ def _mpnet_rest(w: _Weights, cfg: ModelConfig) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# T5 / mT5 / LongT5 and mBART encoder-decoders
+# ---------------------------------------------------------------------------
+
+
+def t5_config(hf_cfg) -> ModelConfig:
+    """T5 / mT5 config -> ModelConfig (models/t5.py family)."""
+    ff_proj = str(getattr(hf_cfg, "feed_forward_proj", "relu"))
+    gated = bool(getattr(hf_cfg, "is_gated_act", "gated" in ff_proj))
+    return ModelConfig(
+        arch="seq2seq",
+        seq2seq_family="t5",
+        vocab_size=hf_cfg.vocab_size,
+        d_model=hf_cfg.d_model,
+        n_heads=hf_cfg.num_heads,
+        d_kv=hf_cfg.d_kv,
+        n_layers=hf_cfg.num_layers,
+        n_decoder_layers=int(getattr(hf_cfg, "num_decoder_layers", None) or hf_cfg.num_layers),
+        d_ff=hf_cfg.d_ff,
+        max_seq_len=1024,  # T5 has no absolute position table
+        mlp_gated=gated,
+        tie_embeddings=bool(getattr(hf_cfg, "tie_word_embeddings", True)),
+        relative_attention_buckets=int(hf_cfg.relative_attention_num_buckets),
+        relative_attention_max_distance=int(getattr(hf_cfg, "relative_attention_max_distance", 128)),
+        norm_eps=float(getattr(hf_cfg, "layer_norm_epsilon", 1e-6)),
+        attention_bias=False,
+    )
+
+
+def _t5_attn(w: _Weights, pre: str) -> dict:
+    return {name: _linear(w, f"{pre}.{hf}", bias=False) for name, hf in (("wq", "q"), ("wk", "k"), ("wv", "v"),
+                                                                          ("wo", "o"))}
+
+
+def _t5_layer(w: _Weights, cfg: ModelConfig, where) -> dict:
+    """HF encoder block = [0: SelfAttention, 1: FFN]; decoder block = [0:
+    SelfAttention, 1: EncDecAttention, 2: FFN].  A gated FFN stores the
+    gelu gate as wi_0 (``wg``) and the linear branch as wi_1 (``wi``)."""
+    stack, i = where
+    pre = f"{'encoder' if stack == 'enc_blocks' else 'decoder'}.block.{i}.layer."
+    ff = 1 if stack == "enc_blocks" else 2
+    dense = pre + f"{ff}.DenseReluDense."
+    if cfg.mlp_gated:
+        mlp = {"wg": _linear(w, dense + "wi_0", bias=False), "wi": _linear(w, dense + "wi_1", bias=False),
+               "wo": _linear(w, dense + "wo", bias=False)}
+    else:
+        mlp = {"wi": _linear(w, dense + "wi", bias=False), "wo": _linear(w, dense + "wo", bias=False)}
+    p = {"ln1": {"scale": w(pre + "0.layer_norm.weight")}, "attn": _t5_attn(w, pre + "0.SelfAttention"),
+         "ln2": {"scale": w(pre + f"{ff}.layer_norm.weight")}, "mlp": mlp}
+    if ff == 2:
+        p["ln_cross"] = {"scale": w(pre + "1.layer_norm.weight")}
+        p["cross_attn"] = _t5_attn(w, pre + "1.EncDecAttention")
+    return p
+
+
+def _t5_rest(w: _Weights, cfg: ModelConfig) -> dict:
+    """The shared relative bias of each stack lives on its block 0."""
+    params = {
+        "tok_embed": w("shared.weight"),
+        "enc_rel_bias": w("encoder.block.0.layer.0.SelfAttention.relative_attention_bias.weight"),
+        "dec_rel_bias": w("decoder.block.0.layer.0.SelfAttention.relative_attention_bias.weight"),
+        "enc_ln_f": {"scale": w("encoder.final_layer_norm.weight")},
+        "dec_ln_f": {"scale": w("decoder.final_layer_norm.weight")},
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = {"w": w("lm_head.weight").T.contiguous()}
+    return params
+
+
+def mbart_config(hf_cfg) -> ModelConfig:
+    """MBart config -> ModelConfig (models/bart.py family)."""
+    if hf_cfg.encoder_attention_heads != hf_cfg.decoder_attention_heads:
+        raise ValueError("mbart import requires equal enc/dec head counts")
+    if hf_cfg.encoder_ffn_dim != hf_cfg.decoder_ffn_dim:
+        raise ValueError("mbart import requires equal enc/dec FFN dims")
+    return ModelConfig(
+        arch="seq2seq",
+        seq2seq_family="bart",
+        vocab_size=hf_cfg.vocab_size,
+        d_model=hf_cfg.d_model,
+        n_heads=int(hf_cfg.encoder_attention_heads),
+        n_layers=int(hf_cfg.encoder_layers),
+        n_decoder_layers=int(hf_cfg.decoder_layers),
+        d_ff=int(hf_cfg.encoder_ffn_dim),
+        max_seq_len=int(hf_cfg.max_position_embeddings),
+        positional="learned",
+        activation=str(getattr(hf_cfg, "activation_function", "gelu")),
+        scale_embedding=bool(getattr(hf_cfg, "scale_embedding", False)),
+        tie_embeddings=True,
+        norm_eps=1e-5,  # torch nn.LayerNorm's default, which HF MBart layers keep
+        attention_bias=True,
+    )
+
+
+def _mbart_attn(w: _Weights, pre: str) -> dict:
+    return {name: _linear(w, f"{pre}.{hf}") for name, hf in (("wq", "q_proj"), ("wk", "k_proj"), ("wv", "v_proj"),
+                                                              ("wo", "out_proj"))}
+
+
+def _mbart_layer(w: _Weights, cfg: ModelConfig, where) -> dict:
+    stack, i = where
+    pre = f"{'encoder' if stack == 'enc_blocks' else 'decoder'}.layers.{i}."
+    p = {"ln1": _ln(w, pre + "self_attn_layer_norm"), "attn": _mbart_attn(w, pre + "self_attn"),
+         "ln2": _ln(w, pre + "final_layer_norm"),
+         "mlp": {"fc1": _linear(w, pre + "fc1"), "fc2": _linear(w, pre + "fc2")}}
+    if stack == "dec_blocks":
+        p["ln_cross"] = _ln(w, pre + "encoder_attn_layer_norm")
+        p["cross_attn"] = _mbart_attn(w, pre + "encoder_attn")
+    return p
+
+
+def _mbart_rest(w: _Weights, cfg: ModelConfig) -> dict:
+    """``final_logits_bias`` (a zeros buffer in published checkpoints) is
+    kept only when nonzero: its presence is self-describing (bart.py)."""
+    params = {
+        "tok_embed": w("shared.weight"),
+        "enc_pos_embed": w("encoder.embed_positions.weight"),
+        "dec_pos_embed": w("decoder.embed_positions.weight"),
+        "enc_ln_emb": _ln(w, "encoder.layernorm_embedding"),
+        "dec_ln_emb": _ln(w, "decoder.layernorm_embedding"),
+        "enc_ln_f": _ln(w, "encoder.layer_norm"),
+        "dec_ln_f": _ln(w, "decoder.layer_norm"),
+    }
+    if w.has("final_logits_bias"):
+        bias = w("final_logits_bias").reshape(-1)
+        if bool((bias != 0.0).any()):
+            params["logits_bias"] = bias
+    return params
+
+
+# ---------------------------------------------------------------------------
 # dispatch
 # ---------------------------------------------------------------------------
 
@@ -644,6 +804,11 @@ FAMILIES = {
     "bert": Family(bert_config, _bert_layer, _bert_rest, ("bert.",)),
     "mpnet": Family(mpnet_config, _mpnet_layer, _mpnet_rest, ("mpnet.",)),
 }
+# the encoder-decoders: ``layer(w, cfg, (stack, i))`` for stack enc_blocks / dec_blocks
+SEQ2SEQ_FAMILIES = {
+    "t5": Family(t5_config, _t5_layer, _t5_rest, ()),
+    "mbart": Family(mbart_config, _mbart_layer, _mbart_rest, ("model.",)),
+}
 ENCODER_TYPES = ("bert", "mpnet")
 
 
@@ -656,6 +821,16 @@ def causal_family(model_type: str) -> Family:
 def encoder_family(model_type: str) -> Family:
     """``load_encoder_auto``'s dispatch: MPNet, else BERT."""
     return FAMILIES["mpnet" if model_type == "mpnet" else "bert"]
+
+
+def seq2seq_family(model_type: str) -> Family:
+    """``load_seq2seq_auto``'s dispatch: t5 / mt5 / longt5, or mbart; any
+    other model type raises."""
+    if model_type in T5_TYPES:
+        return SEQ2SEQ_FAMILIES["t5"]
+    if model_type == "mbart":
+        return SEQ2SEQ_FAMILIES["mbart"]
+    raise ValueError(f"unsupported seq2seq model_type {model_type!r}")
 
 
 def weights(state: Mapping, family: Family, prefix: str = "", device=None) -> _Weights:
@@ -688,3 +863,44 @@ def load_encoder_auto(model_dir: str):
     cfg = family.config(hf_config(model_dir))
     with Checkpoint(model_dir) as state:
         return convert(state, cfg, family), cfg
+
+
+def convert_seq2seq(state: Mapping, cfg: ModelConfig, family: Family) -> dict:
+    """A whole HF encoder-decoder state dict -> the JAX package's tree."""
+    w = weights(state, family)
+    return dict(family.rest(w, cfg),
+                enc_blocks=[family.layer(w, cfg, ("enc_blocks", i)) for i in range(cfg.n_layers)],
+                dec_blocks=[family.layer(w, cfg, ("dec_blocks", i)) for i in range(cfg.decoder_layers)])
+
+
+def convert_t5(state_dict: Mapping, cfg: ModelConfig) -> dict:
+    """T5 / mT5 state dict -> the models/t5.py tree (f32 tensors)."""
+    return convert_seq2seq(state_dict, cfg, SEQ2SEQ_FAMILIES["t5"])
+
+
+def convert_mbart(state_dict: Mapping, cfg: ModelConfig) -> dict:
+    """mBART state dict -> the models/bart.py tree (f32 tensors)."""
+    return convert_seq2seq(state_dict, cfg, SEQ2SEQ_FAMILIES["mbart"])
+
+
+def _load_seq2seq(model_dir: str, family: Family):
+    cfg = family.config(hf_config(model_dir))
+    with Checkpoint(model_dir) as state:
+        return convert_seq2seq(state, cfg, family), cfg
+
+
+def load_t5(model_dir: str):
+    """Local T5 / mT5 / LongT5 directory -> (tree, ModelConfig)."""
+    return _load_seq2seq(model_dir, SEQ2SEQ_FAMILIES["t5"])
+
+
+def load_mbart(model_dir: str):
+    """Local mBART directory -> (tree, ModelConfig)."""
+    return _load_seq2seq(model_dir, SEQ2SEQ_FAMILIES["mbart"])
+
+
+def load_seq2seq_auto(model_dir: str):
+    """Local HF seq2seq directory -> (tree of f32 tensors, ModelConfig),
+    dispatching on ``model_type`` (:func:`seq2seq_family`);
+    ``models.params.seq2seq_from_hf`` streams one onto a device instead."""
+    return _load_seq2seq(model_dir, seq2seq_family(read_config(model_dir).get("model_type", "")))

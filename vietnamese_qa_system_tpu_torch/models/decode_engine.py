@@ -1,9 +1,8 @@
 """Slot-based continuous-batching decode state: prefill, insert, decode.
 
-Counterpart of the causal half of
-``vietnamese_qa_system_tpu/models/decode_engine.py`` (:52-620): a decode
-state of ``n_slots`` independent sequences sharing one static-shape KV
-cache, driven by the host scheduler in engine/continuous.py.
+Counterpart of ``vietnamese_qa_system_tpu/models/decode_engine.py``: a
+decode state of ``n_slots`` independent sequences sharing one static-shape
+KV cache, driven by the host scheduler in engine/continuous.py.
 
 - :func:`prefill` runs a right-padded prompt at a bucket width and returns
   its KV prefix and first token; :func:`prefill_extend` runs only the
@@ -34,8 +33,18 @@ column), and every mask covers only the first ``total``.  The (B, total)
 column matches nothing.
 
 Sampling draws from an explicit ``torch.Generator`` on the state's device:
-the same distributions as the JAX package, other random numbers.  The
-seq2seq functions (:622-835) are not ported yet.
+the same distributions as the JAX package, other random numbers.
+
+The seq2seq half (:622-835): :func:`make_decode_state_seq2seq` adds to
+each slot the bf16 cross-attention K/V of its own encoder input, padded to
+the largest encoder bucket, and its encoder mask;
+:func:`prefill_seq2seq` encodes a prompt at its bucket and runs the BOS
+step; :func:`insert_seq2seq`, :func:`decode_chunk_seq2seq` and
+:func:`release_seq2seq` follow the causal ones.  The decoder stream holds
+no prompt (slot column 0 is BOS), so a slot's cursor is its position.  A
+T5 decoder's relative bias of per-slot cursors is gathered on the device
+(models/t5.py ``decoder_bias``) over the mask's ``total`` columns, so a
+chunk reads nothing back either.
 """
 
 from __future__ import annotations
@@ -404,3 +413,123 @@ def _spec_step(model, st, total, jw, jj, gamma, ngram, eos_id):
     st["cursor"] = new_cursor
     st["done"] = done
     return vals, torch.where(live, n_written, 0)
+
+
+# --------------------------------------------------------------- seq2seq
+
+
+def make_decode_state_seq2seq(cfg, n_slots: int, total: int, enc_width: int, *, device="cuda") -> dict:
+    """A fresh all-slots-free seq2seq state (decode_engine.py:641):
+    ``total`` decoder slots a row (BOS and up to total - 1 generated
+    tokens; the cache is ``total + 1`` wide, the guard column), per-slot
+    bf16 cross K/V ``enc_width`` wide (the largest encoder bucket) and
+    the encoder mask."""
+    if total > cfg.max_seq_len:
+        raise ValueError(f"total={total} exceeds cfg.max_seq_len={cfg.max_seq_len}")
+
+    def zeros(shape, dtype):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    ckv = (n_slots, enc_width, cfg.n_heads, cfg.head_dim)
+    return {
+        "cache": make_cache(cfg, n_slots, total + 1, device, n_layers=cfg.decoder_layers),
+        "cross_kv": [{"k": zeros(ckv, torch.bfloat16), "v": zeros(ckv, torch.bfloat16)}
+                     for _ in range(cfg.decoder_layers)],
+        "enc_mask": zeros((n_slots, enc_width), torch.int32),
+        "key_valid": zeros((n_slots, total), torch.bool),
+        "last_tok": zeros((n_slots,), torch.int32),
+        "cursor": zeros((n_slots,), torch.int32),
+        "active": zeros((n_slots,), torch.bool),
+        "done": torch.ones((n_slots,), dtype=torch.bool, device=device),
+        "temp": zeros((n_slots,), torch.float32),
+        "top_k": zeros((n_slots,), torch.int32),
+        "top_p": torch.ones((n_slots,), dtype=torch.float32, device=device),
+    }
+
+
+@torch.inference_mode()
+def prefill_seq2seq(model, enc_ids, enc_mask, generator, temp, top_k, top_p, *, sampled: bool, bos_id: int = 0):
+    """Encode one RIGHT-padded prompt (1, T bucket), project its cross K/V
+    (bf16, at the bucket's width), run the BOS decoder step and sample the
+    first token (decode_engine.py:690).  Returns ``(cross_kv, dec_kv,
+    first_tok)``, ``dec_kv`` the width-1 self-KV of the BOS step."""
+    dev = model.device
+    enc_ids = _on(dev, enc_ids, torch.long)
+    enc_mask = _on(dev, enc_mask, torch.int32)
+    cross_kv = [{name: t.to(torch.bfloat16) for name, t in layer.items()}
+                for layer in model.precompute_cross_kv(model.encode(enc_ids, enc_mask))]
+    cache = model.make_cache(1, 1)
+    bos = torch.full((1, 1), bos_id, dtype=torch.long, device=dev)
+    logits = model.decode(bos, None, enc_mask, torch.ones((1, 1, 1), dtype=torch.bool, device=dev),
+                          positions=torch.zeros((1, 1), dtype=torch.long, device=dev), cache=cache, cache_index=0,
+                          cross_kv=cross_kv)
+    first = _sample_dynamic(logits[:, 0], generator, *_sampling(temp, top_k, top_p, dev), sampled=sampled)
+    return cross_kv, cache, first
+
+
+@torch.inference_mode()
+def insert_seq2seq(state: dict, cross_kv, enc_mask, dec_kv, first_tok, slot: int, temp, top_k, top_p) -> None:
+    """Install a prefilled seq2seq request into slot ``slot``
+    (decode_engine.py:734): its cross K/V (zero past the bucket's width),
+    its encoder mask (1, enc_width), the BOS column of its self-KV,
+    cursor 1, sampling knobs.  Every field of the row the decode reads is
+    rewritten."""
+    dev = state["cursor"].device
+    for layer, ckv in zip(state["cross_kv"], cross_kv):
+        for name, leaf in layer.items():
+            w = ckv[name].shape[1]
+            leaf[slot, :w] = ckv[name][0]
+            leaf[slot, w:] = 0
+    for layer, prefix in zip(state["cache"], dec_kv):
+        for name, leaf in layer.items():
+            leaf[slot, :1] = prefix[name][0].to(leaf.dtype)
+    state["enc_mask"][slot] = _on(dev, enc_mask, torch.int32)[0]
+    state["key_valid"][slot] = False
+    state["key_valid"][slot, 0] = True
+    state["last_tok"][slot] = first_tok.reshape(())
+    state["cursor"][slot] = 1
+    state["active"][slot] = True
+    state["done"][slot] = False
+    for name, val in zip(("temp", "top_k", "top_p"), _sampling(temp, top_k, top_p, dev)):
+        state[name][slot] = val.reshape(())
+
+
+@torch.inference_mode()
+def decode_chunk_seq2seq(model, state: dict, generator, *, sampled: bool, n_steps: int = 8,
+                         eos_id: int | None = None):
+    """Advance every live seq2seq slot ``n_steps`` decoder tokens
+    (decode_engine.py:780): cross-attention reads each slot's own K/V
+    under its encoder mask, self-attention writes at the per-slot cursors.
+    Returns the (n_slots, n_steps) int32 tokens on the device, as
+    :func:`decode_chunk` does."""
+    st = state
+    total = st["key_valid"].shape[1]
+    fill = torch.full((), 0 if eos_id is None else eos_id, dtype=torch.int32, device=st["cursor"].device)
+    out = []
+    with torch.profiler.record_function("engine.chunk"):
+        for _ in range(n_steps):
+            write_ok = st["active"] & ~st["done"] & (st["cursor"] < total)
+            st["key_valid"] = _set_columns(st["key_valid"], st["cursor"][:, None], write_ok[:, None],
+                                           write_ok[:, None])
+            logits = model.decode(st["last_tok"][:, None], None, st["enc_mask"], st["key_valid"][:, None, :],
+                                  positions=st["cursor"][:, None], cache=st["cache"], cache_index=st["cursor"],
+                                  cross_kv=st["cross_kv"])
+            nxt = _sample_dynamic(logits[:, 0], generator, st["temp"], st["top_k"], st["top_p"], sampled)
+            nxt = torch.where(write_ok, nxt, fill)
+            done = st["done"] | ~st["active"] | (st["cursor"] + 1 >= total)
+            if eos_id is not None:
+                done = done | (nxt == eos_id)
+            st["last_tok"] = torch.where(write_ok, nxt, st["last_tok"])
+            st["cursor"] = st["cursor"] + write_ok.to(torch.int32)
+            st["done"] = done
+            out.append(nxt)
+    return torch.stack(out, dim=1)
+
+
+@torch.inference_mode()
+def release_seq2seq(state: dict, slot: int) -> None:
+    """Free seq2seq slot ``slot``."""
+    state["key_valid"][slot] = False
+    state["enc_mask"][slot] = 0
+    state["active"][slot] = False
+    state["done"][slot] = True

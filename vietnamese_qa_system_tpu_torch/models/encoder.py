@@ -112,13 +112,10 @@ def init_encoder(cfg: ModelConfig, generator: torch.Generator, *, device="cuda")
     return model.to(resolve_device(device)).eval().requires_grad_(False)
 
 
-@functools.lru_cache(maxsize=8)
-def _relative_position_buckets(t: int, num_buckets: int, max_distance: int) -> np.ndarray:
-    """(T, T) int64 T5/MPNet bidirectional log buckets of key - query, in the
-    JAX package's f32 arithmetic (encoder.py:62-80); computed on the host
-    once per T."""
-    pos = np.arange(t)
-    n = -(pos[None, :] - pos[:, None])
+def relative_position_bucket(rel: np.ndarray, num_buckets: int, max_distance: int) -> np.ndarray:
+    """T5/MPNet bidirectional log buckets (int64) of ``rel`` = key - query
+    positions, in the JAX package's f32 arithmetic (encoder.py:62-80)."""
+    n = -rel
     half = num_buckets // 2
     ret = (n < 0).astype(np.int64) * half
     n = np.abs(n)
@@ -130,8 +127,24 @@ def _relative_position_buckets(t: int, num_buckets: int, max_distance: int) -> n
     return ret + np.where(n < max_exact, n, val_large)
 
 
+@functools.lru_cache(maxsize=8)
+def _relative_position_buckets(t: int, num_buckets: int, max_distance: int) -> np.ndarray:
+    """(T, T) :func:`relative_position_bucket` of key - query, computed on
+    the host once per T."""
+    pos = np.arange(t)
+    return relative_position_bucket(pos[None, :] - pos[:, None], num_buckets, max_distance)
+
+
+@functools.lru_cache(maxsize=8)
+def _relative_position_bucket_rows(t: int, num_buckets: int, max_distance: int, device: str) -> torch.Tensor:
+    """:func:`_relative_position_buckets` on ``device``, copied once a width
+    and device (a copy at every forward would wait for it); never written
+    to."""
+    return torch.from_numpy(_relative_position_buckets(t, num_buckets, max_distance)).to(device)
+
+
 def relative_attention_bias(table: torch.Tensor, t: int, cfg: ModelConfig) -> torch.Tensor:
     """(buckets, H) table -> (1, H, T, T) additive attention bias."""
-    buckets = _relative_position_buckets(t, cfg.relative_attention_buckets, cfg.relative_attention_max_distance)
-    idx = torch.from_numpy(buckets).to(table.device)
+    idx = _relative_position_bucket_rows(t, cfg.relative_attention_buckets, cfg.relative_attention_max_distance,
+                                         str(table.device))
     return table[idx].permute(2, 0, 1)[None]

@@ -1,12 +1,14 @@
 """Autoregressive generation with a static-shape KV cache.
 
-Counterpart of the causal paths of
-``vietnamese_qa_system_tpu/models/generate.py``: ``GenerationConfig``,
+Counterpart of ``vietnamese_qa_system_tpu/models/generate.py``:
+``GenerationConfig``,
 ``generate_with_config``, ``generate`` and its logit processors,
 prompt-lookup speculative decoding (``generate_speculative`` with its
 drafter ``_ngram_draft``, which the continuous engine's speculative chunk
 uses too), draft-model speculative decoding
-(``generate_speculative_draft``) and ``beam_search``.  Prompts are
+(``generate_speculative_draft``) and ``beam_search``, and for the
+encoder-decoders ``generate_seq2seq`` and ``beam_search_seq2seq``.  Causal
+prompts are
 LEFT-padded to a fixed length, the cache is one fixed (B, width, kv heads,
 Dh) buffer per layer, bf16 or (``kv_dtype="int8"``, plain decode only)
 int8 codes with scales, written in place.  Positions are logical (pads
@@ -19,7 +21,10 @@ speculative loops read one flag a verify pass (their exit test, JAX's
 ``torch.Generator`` on the model's device: the same distribution as the
 JAX package, other random numbers.
 
-Seq2seq readers are not ported yet and raise.
+A seq2seq reader encodes its (right-padded) input once, projects the
+cross-attention K/V once, and decodes over a cache of ``max_new + 1``
+decoder slots (BOS in slot 0); it returns the new tokens only, (B,
+max_new).
 """
 
 from __future__ import annotations
@@ -63,7 +68,8 @@ def generate_with_config(model: CausalLM, ids, attn_mask, gen: GenerationConfig,
                          bos_id: int = 0, draft: CausalLM | None = None):
     """Dispatch a GenerationConfig to its decode loop, with the JAX
     package's guards (generate.py:66-200); returns (B, T + max_new) ids
-    (prompt included).  ``draft`` is the draft model that
+    (prompt included) for a causal model, (B, max_new) for a seq2seq one
+    (``bos_id`` its decoder start).  ``draft`` is the draft model that
     ``speculative="draft"`` needs."""
     cfg = model.cfg
     if gen.no_repeat_ngram_size > 0 and (gen.num_beams > 1 or cfg.arch == "seq2seq"):
@@ -99,7 +105,16 @@ def generate_with_config(model: CausalLM, ids, attn_mask, gen: GenerationConfig,
         return generate_speculative(model, ids, attn_mask, max_new_tokens=gen.max_new_tokens, eos_id=eos_id,
                                     draft_tokens=gen.draft_tokens, draft_ngram=gen.draft_ngram, **sampling)
     if cfg.arch == "seq2seq":
-        raise NotImplementedError("seq2seq generation is not ported yet")
+        forced = dict(forced_bos_id=gen.forced_bos_token_id, forced_eos_id=gen.forced_eos_token_id)
+        if gen.num_beams > 1:
+            return beam_search_seq2seq(model, ids, attn_mask, max_new_tokens=gen.max_new_tokens,
+                                       num_beams=gen.num_beams, eos_id=eos_id, bos_id=bos_id,
+                                       length_penalty=gen.length_penalty, repetition_penalty=gen.repetition_penalty,
+                                       min_new_tokens=gen.min_new_tokens, **forced)
+        return generate_seq2seq(model, ids, attn_mask, max_new_tokens=gen.max_new_tokens,
+                                temperature=gen.temperature, top_k=gen.top_k, top_p=gen.top_p,
+                                repetition_penalty=gen.repetition_penalty, min_new_tokens=gen.min_new_tokens,
+                                eos_id=eos_id, bos_id=bos_id, generator=generator, **forced)
     if gen.num_beams > 1:
         return beam_search(model, ids, attn_mask, max_new_tokens=gen.max_new_tokens, num_beams=gen.num_beams,
                            eos_id=eos_id, length_penalty=gen.length_penalty,
@@ -541,6 +556,74 @@ def generate_speculative_draft(model: CausalLM, draft: CausalLM, ids, attn_mask,
     return stream.result(ids, return_stats)
 
 
+def _forced(logits, step: int, last: int, forced_bos_id, forced_eos_id, vocab_ids):
+    """mBART's forcing (HF forced_bos_token_id / forced_eos_token_id): step
+    0 can only produce ``forced_bos_id``, the last step only
+    ``forced_eos_id``."""
+    if forced_bos_id is not None and step == 0:
+        logits = torch.where(vocab_ids != forced_bos_id, NEG_INF, logits)
+    if forced_eos_id is not None and step == last:
+        logits = torch.where(vocab_ids != forced_eos_id, NEG_INF, logits)
+    return logits
+
+
+@torch.inference_mode()
+def generate_seq2seq(model, enc_ids, enc_mask, *, max_new_tokens: int = 32, temperature: float = 0.0,
+                     top_k: int = 0, top_p: float = 1.0, repetition_penalty: float = 1.0, min_new_tokens: int = 0,
+                     eos_id: int | None = None, bos_id: int = 0, forced_bos_id: int | None = None,
+                     forced_eos_id: int | None = None, generator: torch.Generator | None = None,
+                     timings: dict | None = None):
+    """Encoder-decoder decode (generate.py:1006-1130) of RIGHT-padded inputs
+    (B, T): encode once, the cross-attention K/V once, then
+    ``max_new_tokens`` decoder steps over a cache of ``max_new_tokens +
+    1`` slots, BOS (``bos_id``) in slot 0.  ``forced_bos_id`` /
+    ``forced_eos_id`` force the first / last token (mBART); the
+    repetition penalty reads the decoder stream only (BOS and the
+    generated tokens); ``min_new_tokens`` holds eos back.  Returns (B,
+    max_new) int32 tokens, every token after a row's first eos an eos.
+    The steps read nothing back from the device.  ``timings`` receives
+    ``prefill_s`` (encode and cross K/V) and ``decode_s``."""
+    dev = model.device
+    enc_ids, enc_mask = _inputs(model, enc_ids, enc_mask)
+    b = enc_ids.shape[0]
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
+    enc_out = model.encode(enc_ids, enc_mask)
+    cross_kv = model.precompute_cross_kv(enc_out)
+    total = max_new_tokens + 1
+    cache = model.make_cache(b, total)
+    jj = torch.arange(total, device=dev)[None, None, :]
+    t1 = _synced(timings, dev)
+    vocab = model.cfg.vocab_size
+    vocab_ids = torch.arange(vocab, device=dev)[None, :]
+    tok = torch.full((b,), bos_id, dtype=torch.int32, device=dev)
+    done = torch.zeros((b,), dtype=torch.bool, device=dev)
+    seen = (vocab_ids == bos_id).expand(b, vocab).clone() if repetition_penalty != 1.0 else None
+    rows = torch.arange(b, device=dev)
+    toks = []
+    with torch.profiler.record_function("generate.seq2seq"):
+        for idx in range(max_new_tokens):
+            logits = model.decode(tok[:, None], None, enc_mask, (jj <= idx).expand(b, 1, total),
+                                  positions=torch.full((b, 1), idx, device=dev), cache=cache, cache_index=idx,
+                                  cross_kv=cross_kv)
+            lg = _forced(logits[:, 0].float(), idx, max_new_tokens - 1, forced_bos_id, forced_eos_id, vocab_ids)
+            if seen is not None:
+                rp = torch.full((), repetition_penalty, dtype=torch.float32, device=dev)
+                lg = torch.where(seen, torch.where(lg > 0, lg / rp, lg * rp), lg)
+            if eos_id is not None and idx < min_new_tokens:
+                lg = torch.where(vocab_ids == eos_id, NEG_INF, lg)
+            tok = _sample_logits(lg, generator, temperature=temperature, top_k=top_k, top_p=top_p)
+            if eos_id is not None:
+                tok = torch.where(done, torch.full((), eos_id, dtype=torch.int32, device=dev), tok)
+                done = done | (tok == eos_id)
+            if seen is not None:
+                seen[rows, tok.long()] = True
+            toks.append(tok)
+    _record(timings, t0, t1, _synced(timings, dev))
+    return torch.stack(toks, dim=1)
+
+
 def _reorder_cache(cache: list[dict], idx, cols: slice | None = None) -> None:
     """Gather every layer's buffers by ``idx`` along the batch / beam axis
     (generate.py:293), in place on the list and one layer at a time, so the
@@ -640,3 +723,91 @@ def beam_search(model: CausalLM, ids, attn_mask, *, max_new_tokens: int = 32, nu
         seen_eos = torch.cumsum((best == eos_id).to(torch.int32), dim=1)
         best = torch.where(seen_eos > 1, eos_id, best)
     return torch.cat([ids, best], dim=1)
+
+
+@torch.inference_mode()
+def beam_search_seq2seq(model, enc_ids, enc_mask, *, max_new_tokens: int = 32, num_beams: int = 4,
+                        eos_id: int | None = None, bos_id: int = 0, length_penalty: float = 1.0,
+                        repetition_penalty: float = 1.0, min_new_tokens: int = 0, forced_bos_id: int | None = None,
+                        forced_eos_id: int | None = None, timings: dict | None = None):
+    """Encoder-decoder beam search (generate.py:1132-1288): encode once, B x
+    W decoder rows, beams ranked and finished as :func:`beam_search` ranks
+    them, with :func:`generate_seq2seq`'s forcing.  The beams of a row
+    share its encoder input, so the cross K/V are computed once a row and
+    never reordered; the self-attention cache follows the parents each
+    step, all of its written slots but slot 0 (the BOS step, the same in
+    every beam of a row).  Returns (B, max_new): each row's best beam by
+    score / length ** length_penalty, every token after its first eos an
+    eos.  ``timings`` as :func:`generate_seq2seq`'s."""
+    dev = model.device
+    enc_ids, enc_mask = _inputs(model, enc_ids, enc_mask)
+    b = enc_ids.shape[0]
+    w = num_beams
+    t0 = time.perf_counter()
+    expand = torch.arange(b, device=dev).repeat_interleave(w)
+    enc_mask_w = enc_mask[expand]
+    cross_kv = [{name: t[expand] for name, t in layer.items()}
+                for layer in model.precompute_cross_kv(model.encode(enc_ids, enc_mask))]
+    total = max_new_tokens + 1
+    cache = model.make_cache(b * w, total)
+    jj = torch.arange(total, device=dev)[None, None, :]
+
+    def decode_step(tok, idx: int):
+        logits = model.decode(tok[:, None], None, enc_mask_w, (jj <= idx).expand(b * w, 1, total),
+                              positions=torch.full((b * w, 1), idx, device=dev), cache=cache, cache_index=idx,
+                              cross_kv=cross_kv)
+        return logits[:, 0].float()
+
+    last_logits = decode_step(torch.full((b * w,), bos_id, dtype=torch.int32, device=dev), 0)
+    v = last_logits.shape[-1]
+    scores = torch.full((b, w), NEG_INF, dtype=torch.float32, device=dev)
+    scores[:, 0] = 0.0
+    toks = torch.zeros((b, w, max_new_tokens), dtype=torch.int32, device=dev)
+    done = torch.zeros((b, w), dtype=torch.bool, device=dev)
+    vocab_ids = torch.arange(v, device=dev)
+    seen = (vocab_ids == bos_id).expand(b * w, v).clone() if repetition_penalty != 1.0 else None
+    rows = torch.arange(b, device=dev)[:, None]
+    t1 = _synced(timings, dev)
+    with torch.profiler.record_function("beam.decode"):
+        for step_idx in range(max_new_tokens):
+            ll = _forced(last_logits, step_idx, max_new_tokens - 1, forced_bos_id, forced_eos_id, vocab_ids)
+            if seen is not None:
+                rp = torch.full((), repetition_penalty, dtype=torch.float32, device=dev)
+                ll = torch.where(seen, torch.where(ll > 0, ll / rp, ll * rp), ll)
+            if eos_id is not None and step_idx < min_new_tokens:
+                ll = torch.where(vocab_ids == eos_id, NEG_INF, ll)
+            logp = torch.log_softmax(ll, dim=-1).reshape(b, w, v)
+            if eos_id is not None:
+                finished = torch.where(vocab_ids == eos_id, 0.0, NEG_INF)
+                logp = torch.where(done[:, :, None], finished, logp)
+            flat = (scores[:, :, None] + logp).reshape(b, w * v)
+            top_s, top_i = torch.sort(flat, dim=1, descending=True, stable=True)
+            scores, top_i = top_s[:, :w], top_i[:, :w]
+            parent = top_i // v
+            token = (top_i % v).to(torch.int32)
+            toks = toks[rows, parent]
+            toks[:, :, step_idx] = token
+            done = done[rows, parent]
+            if eos_id is not None:
+                done = done | (token == eos_id)
+            flat_parent = (rows * w + parent).reshape(b * w)
+            if seen is not None:
+                seen = seen[flat_parent]
+                seen[torch.arange(b * w, device=dev), token.reshape(-1).long()] = True
+            if step_idx == max_new_tokens - 1:
+                break
+            if step_idx:
+                _reorder_cache(cache, flat_parent, slice(1, step_idx + 1))
+            last_logits = decode_step(token.reshape(b * w), step_idx + 1)
+    _record(timings, t0, t1, _synced(timings, dev))
+    if eos_id is not None:
+        first_eos = torch.argmax((toks == eos_id).to(torch.int32), dim=-1) + 1
+        lengths = torch.where(done, first_eos, max_new_tokens).float()
+    else:
+        lengths = torch.full((b, w), float(max_new_tokens), device=dev)
+    norm = scores / lengths.clamp_min(1.0) ** length_penalty
+    best = toks[torch.arange(b, device=dev), torch.argmax(norm, dim=1)]
+    if eos_id is not None:
+        seen_eos = torch.cumsum((best == eos_id).to(torch.int32), dim=1)
+        best = torch.where(seen_eos > 1, eos_id, best)
+    return best

@@ -7,10 +7,12 @@ by models/lora.py, per row for an adapter bank), ``LayerNorm`` (RMSNorm
 when it has no bias), RoPE (partial rotary), ALiBi slopes and the key-only bias, ``kv_quantize`` /
 ``kv_dequantize`` (the int8 KV cache), ``Attention`` (a bf16 or int8 KV
 cache written at a scalar ``cache_index`` or at per-row cursors, GQA,
-``clip_qkv``, the masked-softmax path, and the flash path: the encoder's
-bidirectional form and the causal LM's causal / sliding-window forms,
-differentiable through kernels K4 and K7),
-``MLP`` (plain or gated), ``Block`` (pre-LN, post-LN, parallel residual),
+``clip_qkv``, cross-attention over an encoder output or its precomputed
+K/V (``cross_attention_kv``), the masked-softmax path, and the flash
+path: the encoder's bidirectional form and the causal LM's causal /
+sliding-window forms, differentiable through kernels K4 and K7),
+``MLP`` (plain or gated), ``Block`` (pre-LN, post-LN, parallel residual;
+with ``cross=True`` the encoder-decoder's cross-attention sublayer),
 ``remat_wrap`` (the remat policies, through ``torch.utils.checkpoint``),
 ``causal_mask`` and ``padding_mask``.
 
@@ -400,11 +402,17 @@ class Attention(nn.Module):
         self.wo = Dense(q_dim, d_model, use_bias=o_bias, device=device)
 
     def forward(self, x, *, n_heads: int, mask=None, flash=None, bias=None, scale=None, n_kv_heads=None,
-                rope=None, positions=None, cache=None, cache_index=None, clip=None):
-        """``mask`` (B|1, Tq, Tk) bool, True = attend; ``bias`` (1, H, Tq|1,
-        Tk) added after the scaling; ``flash`` = {"kv_lens", "causal",
-        "window"} takes the fused kernels (no cache; the bias reaches them
-        as (H, Tq|1, Tk)).
+                rope=None, positions=None, cache=None, cache_index=None, clip=None, kv_x=None, static_kv=None):
+        """``mask`` (B|1, Tq, Tk) bool, True = attend; ``bias`` (1|B, H,
+        Tq|1, Tk) added after the scaling; ``flash`` = {"kv_lens", "causal",
+        "window"} takes the fused kernels (self-attention without a cache;
+        the bias reaches them as (H, Tq|1, Tk)).
+
+        Cross-attention (layers.py:384-445): ``kv_x`` (B, Tk, D) is the
+        encoder output the keys and values are projected from, or
+        ``static_kv`` {"k", "v"} (B, Tk, H, Dh) holds them precomputed
+        (:func:`cross_attention_kv`); keys of ``kv_x`` take positions
+        ``arange(Tk)`` under ``rope``.
 
         ``cache`` {"k", "v"} (B, L, kv heads, Dh) bf16, or int8 codes with
         f32 scales "k_s", "v_s" (B, L, kv heads, 1) (:func:`kv_quantize`),
@@ -420,18 +428,25 @@ class Attention(nn.Module):
         the probabilities (layers.py:486-494, :537-547)."""
         b, t, _ = x.shape
         kv_h = n_kv_heads or n_heads
+        cross = kv_x is not None or static_kv is not None
 
-        def proj(dense, heads):
-            y = dense(x)
+        def proj(dense, src, heads):
+            y = dense(src)
             if clip is not None:
                 y = y.clamp(-clip, clip)
-            return y.reshape(b, t, heads, -1)
+            return y.reshape(b, src.shape[1], heads, -1)
 
-        q, k, v = proj(self.wq, n_heads), proj(self.wk, kv_h), proj(self.wv, kv_h)
+        q = proj(self.wq, x, n_heads)
+        if static_kv is not None:
+            k, v = static_kv["k"], static_kv["v"]
+        else:
+            src = x if kv_x is None else kv_x
+            k, v = proj(self.wk, src, kv_h), proj(self.wv, src, kv_h)
         if rope is not None:
             cos, sin = rope
             q = apply_rope(q, cos, sin, positions)
-            k = apply_rope(k, cos, sin, positions)
+            kpos = positions if not cross else torch.arange(k.shape[1], device=x.device)[None, :].expand(b, -1)
+            k = apply_rope(k, cos, sin, kpos)
         k_fold = v_fold = None
         if cache is not None:
             quant = "k_s" in cache
@@ -461,7 +476,7 @@ class Attention(nn.Module):
             if k_fold is not None:
                 k_fold = k_fold.repeat_interleave(rep, dim=2)
                 v_fold = v_fold.repeat_interleave(rep, dim=2)
-        if flash is not None and cache is None:
+        if flash is not None and cache is None and not cross:
             out = flash_attention(
                 q, k, v, kv_lens=flash.get("kv_lens"), causal=flash.get("causal", True),
                 scale=scale, bias=None if bias is None else bias[0], window=flash.get("window"),
@@ -481,6 +496,14 @@ class Attention(nn.Module):
             probs = probs * v_fold[..., 0].transpose(1, 2)[:, :, None, :]
         out = torch.einsum("bhqk,bkhd->bqhd", _bf16(probs), _bf16(v))
         return self.wo(out.reshape(b, t, -1))
+
+
+def cross_attention_kv(attn: Attention, enc_out, n_heads: int) -> dict:
+    """The head-split cross-attention K/V of ``enc_out`` (B, Tk, D), f32
+    {"k", "v"} (B, Tk, H, Dh): projected once a sequence and passed as
+    ``Attention(static_kv=...)`` at every decoder step (layers.py:371)."""
+    b, tk, _ = enc_out.shape
+    return {"k": attn.wk(enc_out).reshape(b, tk, n_heads, -1), "v": attn.wv(enc_out).reshape(b, tk, n_heads, -1)}
 
 
 class MLP(nn.Module):
@@ -505,7 +528,7 @@ class MLP(nn.Module):
 class Block(nn.Module):
     def __init__(self, d_model: int, n_heads: int, d_ff: int, eps: float, *, n_kv_heads: int | None = None,
                  norm: str = "layernorm", gated_mlp: bool = False, use_bias: bool | str = True,
-                 head_dim: int | None = None, device=None):
+                 head_dim: int | None = None, cross: bool = False, device=None):
         super().__init__()
         self.n_heads = n_heads
         self.n_kv_heads = n_kv_heads
@@ -517,12 +540,20 @@ class Block(nn.Module):
                               o_bias=use_bias is True, device=device)
         self.ln2 = LayerNorm(d_model, eps, bias=not rms, device=device)
         self.mlp = MLP(d_model, d_ff, gated=gated_mlp, use_bias=use_bias is True, device=device)
+        if cross:
+            # the encoder-decoder's cross-attention (layers.py:600-706): a
+            # biased d_model attention of the stack's own norm kind
+            self.ln_cross = LayerNorm(d_model, eps, bias=not rms, device=device)
+            self.cross_attn = Attention(d_model, device=device)
 
     def forward(self, x, *, mask=None, flash=None, norm_position: str = "pre", bias=None, scale=None,
                 activation: str = "gelu", activation_dtype=None, parallel_residual: bool = False, rope=None,
-                positions=None, cache=None, cache_index=None, clip=None):
+                positions=None, cache=None, cache_index=None, clip=None, enc_out=None, enc_mask=None,
+                cross_kv=None):
         """``activation_dtype`` (bf16) keeps the residual stream and norm
-        outputs in that dtype; None keeps f32 activations."""
+        outputs in that dtype; None keeps f32 activations.  A ``cross``
+        block attends ``enc_out`` (or its precomputed ``cross_kv``) under
+        ``enc_mask`` (B, Tq, Tk) after its self-attention."""
         adt = activation_dtype
 
         def cast(h):
@@ -541,6 +572,10 @@ class Block(nn.Module):
             m = self.mlp(self.ln2(x, out_dtype=adt), activation)
             return x + cast(h) + cast(m)
         x = x + cast(h)
+        if enc_out is not None or cross_kv is not None:
+            h = self.cross_attn(self.ln_cross(x, out_dtype=adt), n_heads=self.n_heads, mask=enc_mask, kv_x=enc_out,
+                                static_kv=cross_kv)
+            x = x + cast(h)
         return x + cast(self.mlp(self.ln2(x, out_dtype=adt), activation))
 
 

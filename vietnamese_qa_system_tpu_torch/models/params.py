@@ -1,7 +1,7 @@
 """Carry parameters into the port's modules: JAX parameter trees (numpy
-leaves), flat leaf lists of checkpoints, local Hugging Face directories
-(streamed onto the device one layer at a time), and LoRA adapters both
-ways."""
+leaves) of the causal LMs, the encoders and the encoder-decoders, flat
+leaf lists of checkpoints, local Hugging Face directories (streamed onto
+the device one layer at a time), and LoRA adapters both ways."""
 
 from __future__ import annotations
 
@@ -48,15 +48,10 @@ def encoder_from_jax(params, cfg: ModelConfig, device="cuda") -> SentenceEncoder
     return model.eval().requires_grad_(False)
 
 
-def causal_from_state_dict(state: dict, cfg: ModelConfig, *, no_bias=()) -> CausalLM:
-    """A :class:`CausalLM` over the tensors of ``state`` (``state_dict``
-    names; quantized layers as ``.w_q`` with ``.w_s``, or nf4-dq's ``.s_q``,
-    ``.s_s`` and ``.s_m``), used as they are, on
-    their device.  Every tensor the module expects must be present, and
-    nothing else.  ``no_bias`` names the dense layers of each block that
-    the weights' layout holds without a bias (GPT-Neo's ``attn.wq``,
-    ``attn.wk``, ``attn.wv``); those are built without one."""
-    model = CausalLM(cfg, device="meta")
+def _load_state(model, state: dict, no_bias=()):
+    """``model`` (built on the meta device) over the tensors of ``state``:
+    quantized dense layers are made to hold their codes, the dense layers
+    of each block named in ``no_bias`` lose their bias."""
     for name, mod in model.named_modules():
         if isinstance(mod, Dense) and name.startswith("blocks.") and name.split(".", 2)[2] in no_bias:
             mod.b = None
@@ -65,6 +60,51 @@ def causal_from_state_dict(state: dict, cfg: ModelConfig, *, no_bias=()) -> Caus
                                  for key in QUANT_KEYS if f"{name}.{key}" in state})
     model.load_state_dict(state, strict=True, assign=True)
     return model.eval().requires_grad_(False)
+
+
+def causal_from_state_dict(state: dict, cfg: ModelConfig, *, no_bias=()) -> CausalLM:
+    """A :class:`CausalLM` over the tensors of ``state`` (``state_dict``
+    names; quantized layers as ``.w_q`` with ``.w_s``, or nf4-dq's ``.s_q``,
+    ``.s_s`` and ``.s_m``), used as they are, on
+    their device.  Every tensor the module expects must be present, and
+    nothing else.  ``no_bias`` names the dense layers of each block that
+    the weights' layout holds without a bias (GPT-Neo's ``attn.wq``,
+    ``attn.wk``, ``attn.wv``); those are built without one."""
+    return _load_state(CausalLM(cfg, device="meta"), state, no_bias)
+
+
+def seq2seq_from_state_dict(state: dict, cfg: ModelConfig):
+    """The encoder-decoder of ``cfg``'s family (models/families.py) over the
+    tensors of ``state``, used as they are, on their device; an mBART
+    ``logits_bias`` is kept where ``state`` holds one.  Every tensor the
+    module expects must be present, and nothing else."""
+    from .families import s2s_class
+
+    cls = s2s_class(cfg)
+    kwargs = {"logits_bias": True} if "logits_bias" in state else {}
+    return _load_state(cls(cfg, device="meta", **kwargs), state)
+
+
+def _numpy_state(params, device) -> dict:
+    """A JAX tree's leaves by dotted path, as tensors on ``device``: codes
+    (int8 / uint8) as they are, everything else f32."""
+    flat = {}
+    for name, leaf in _flatten(params, "", {}).items():
+        leaf = np.asarray(leaf)
+        kept = leaf.dtype in (np.int8, np.uint8)  # codes
+        flat[name] = torch.from_numpy(np.array(leaf, dtype=leaf.dtype if kept else np.float32)).to(device)
+    return flat
+
+
+def seq2seq_from_jax(params, cfg: ModelConfig, device="cuda"):
+    """A JAX encoder-decoder pytree of any family (t5 list-form or
+    scan-stacked, bart, native; numpy leaves) -> the port's model, float
+    and quantized leaves carried bit for bit as :func:`causal_from_jax`
+    carries them."""
+    from .families import unstack_for_decode
+
+    device = resolve_device(device)
+    return seq2seq_from_state_dict(_numpy_state(unstack_for_decode(params, cfg), device), cfg)
 
 
 def causal_from_jax(params, cfg: ModelConfig, device="cuda", *, no_bias=()) -> CausalLM:
@@ -76,12 +116,7 @@ def causal_from_jax(params, cfg: ModelConfig, device="cuda", *, no_bias=()) -> C
     :func:`causal_from_state_dict` (the JAX import of a GPT-Neo directory
     has no q/k/v biases)."""
     device = resolve_device(device)
-    flat = {}
-    for name, leaf in _flatten(unstack_blocks(params, cfg.n_layers), "", {}).items():
-        leaf = np.asarray(leaf)
-        kept = leaf.dtype in (np.int8, np.uint8)  # codes
-        flat[name] = torch.from_numpy(np.array(leaf, dtype=leaf.dtype if kept else np.float32)).to(device)
-    return causal_from_state_dict(flat, cfg, no_bias=no_bias)
+    return causal_from_state_dict(_numpy_state(unstack_blocks(params, cfg.n_layers), device), cfg, no_bias=no_bias)
 
 
 def _quantize_layer(flat: dict, mode: str) -> dict:
@@ -100,6 +135,16 @@ def _quantize_layer(flat: dict, mode: str) -> dict:
 # configuration fields that choose how the model runs, not what it computes
 # from its weights: a preset may set them whatever the file says
 RUNTIME_FIELDS = ("use_flash_attention", "scan_layers", "remat_policy", "dropout_rate", "activations_bf16")
+
+
+def _check_config(model_dir: str, cfg: ModelConfig, file_cfg: ModelConfig) -> None:
+    """Raise naming the fields where ``cfg`` and the file's configuration
+    differ (all but :data:`RUNTIME_FIELDS`)."""
+    want, got = dataclasses.asdict(cfg), dataclasses.asdict(file_cfg)
+    differ = [f"{k} {want[k]!r} (model) != {got[k]!r} (file)" for k in want
+              if k not in RUNTIME_FIELDS and want[k] != got[k]]
+    if differ:
+        raise ValueError(f"{model_dir} holds another model than the configuration asked for: " + "; ".join(differ))
 
 
 def causal_from_hf(model_dir: str, cfg: ModelConfig | None = None, *, device="cuda",
@@ -122,11 +167,7 @@ def causal_from_hf(model_dir: str, cfg: ModelConfig | None = None, *, device="cu
     family = causal_family(getattr(view, "model_type", ""))
     file_cfg = family.config(view)
     cfg = cfg or file_cfg
-    want, got = dataclasses.asdict(cfg), dataclasses.asdict(file_cfg)
-    differ = [f"{k} {want[k]!r} (model) != {got[k]!r} (file)" for k in want
-              if k not in RUNTIME_FIELDS and want[k] != got[k]]
-    if differ:
-        raise ValueError(f"{model_dir} holds another model than the configuration asked for: " + "; ".join(differ))
+    _check_config(model_dir, cfg, file_cfg)
     with Checkpoint(model_dir) as ckpt:
         w = weights(ckpt, family, device=device)
         state = _flatten(family.rest(w, file_cfg), "", {})
@@ -134,6 +175,33 @@ def causal_from_hf(model_dir: str, cfg: ModelConfig | None = None, *, device="cu
             layer = _flatten(family.layer(w, file_cfg, i), f"blocks.{i}.", {})
             state.update(_quantize_layer(layer, quantize) if quantize else layer)
     return causal_from_state_dict(state, cfg, no_bias=family.no_bias)
+
+
+def seq2seq_from_hf(model_dir: str, cfg: ModelConfig | None = None, *, device="cuda",
+                    quantize: str | None = None):
+    """A local HF T5 / mT5 / LongT5 or mBART directory -> the port's
+    encoder-decoder on ``device``, streamed as :func:`causal_from_hf`
+    streams a causal LM: a tensor at a time, each encoder and decoder
+    layer quantized (``quantize``) as soon as it is complete; embeddings,
+    tables and the LM head stay float.  ``cfg`` (default: the file's own)
+    must equal the file's configuration but in :data:`RUNTIME_FIELDS`."""
+    from .convert_hf import hf_config, seq2seq_family, weights
+    from .hf_io import Checkpoint
+
+    device = resolve_device(device)
+    view = hf_config(model_dir)
+    family = seq2seq_family(getattr(view, "model_type", ""))
+    file_cfg = family.config(view)
+    cfg = cfg or file_cfg
+    _check_config(model_dir, cfg, file_cfg)
+    with Checkpoint(model_dir) as ckpt:
+        w = weights(ckpt, family, device=device)
+        state = _flatten(family.rest(w, file_cfg), "", {})
+        for stack, n in (("enc_blocks", cfg.n_layers), ("dec_blocks", cfg.decoder_layers)):
+            for i in range(n):
+                layer = _flatten(family.layer(w, file_cfg, (stack, i)), f"{stack}.{i}.", {})
+                state.update(_quantize_layer(layer, quantize) if quantize else layer)
+    return seq2seq_from_state_dict(state, cfg)
 
 
 def encoder_from_hf(model_dir: str, device="cuda") -> SentenceEncoder:
@@ -145,30 +213,50 @@ def encoder_from_hf(model_dir: str, device="cuda") -> SentenceEncoder:
     return encoder_from_jax(params, cfg, device=device)
 
 
+def _meta_model(cfg: ModelConfig):
+    """``cfg``'s float model on the meta device: a causal LM or the
+    encoder-decoder of its family."""
+    if cfg.arch == "seq2seq":
+        from .families import s2s_class
+
+        return s2s_class(cfg)(cfg, device="meta")
+    return CausalLM(cfg, device="meta")
+
+
+def _stacks(cfg: ModelConfig) -> dict:
+    """The block lists of ``cfg``'s tree and their layer counts."""
+    if cfg.arch == "seq2seq":
+        return {"enc_blocks": cfg.n_layers, "dec_blocks": cfg.decoder_layers}
+    return {"blocks": cfg.n_layers}
+
+
 def _leaf_names(cfg: ModelConfig, stacked: bool) -> list:
-    """The names of a float causal tree's leaves in the JAX order; with
+    """The names of a float model tree's leaves in the JAX order; with
     ``stacked`` the block leaves are one scan-stacked (L, ...) leaf each,
     named with ``*`` for the layer."""
-    tree = nest({name: name for name in CausalLM(cfg, device="meta").state_dict()})
+    tree = nest({name: name for name in _meta_model(cfg).state_dict()})
     if stacked:
-        rest = [name.split(".", 2)[2] for name in tree_leaves(tree["blocks"][0])]
-        tree["blocks"] = nest({r: "blocks.*." + r for r in rest})
+        for stack in _stacks(cfg):
+            rest = [name.split(".", 2)[2] for name in tree_leaves(tree[stack][0])]
+            tree[stack] = nest({r: f"{stack}.*." + r for r in rest})
     return tree_leaves(tree)
 
 
-def causal_from_leaves(arrays: list, cfg: ModelConfig, device="cuda") -> CausalLM:
-    """A float causal tree's leaves in the JAX order (list-form or
+def model_from_leaves(arrays: list, cfg: ModelConfig, device="cuda"):
+    """A float model tree's leaves in the JAX order (list-form or
     scan-stacked blocks, as a checkpoint or ``save_pytree`` stores them)
-    -> :class:`CausalLM`.  A leaf count or shape that does not fit
-    ``cfg``'s model raises."""
+    -> the :class:`CausalLM` or the encoder-decoder of ``cfg``.  A leaf
+    count or shape that does not fit ``cfg``'s model raises."""
     device = resolve_device(device)
-    meta = CausalLM(cfg, device="meta").state_dict()
+    meta = _meta_model(cfg).state_dict()
+    layers = _stacks(cfg)
 
     def state_for(names) -> dict:
         state = {}
         for name, arr in zip(names, arrays):
             t = torch.as_tensor(np.asarray(arr, np.float32))
-            parts = [(name.replace("*", str(i)), t[i]) for i in range(cfg.n_layers)] if "*" in name else [(name, t)]
+            n = layers.get(name.split(".", 1)[0], 0)
+            parts = [(name.replace("*", str(i)), t[i]) for i in range(n)] if "*" in name else [(name, t)]
             for key, leaf in parts:
                 if tuple(leaf.shape) != tuple(meta[key].shape):
                     raise ValueError(f"{key}: a leaf of shape {tuple(leaf.shape)} for a parameter of shape "
@@ -178,7 +266,7 @@ def causal_from_leaves(arrays: list, cfg: ModelConfig, device="cuda") -> CausalL
 
     forms = [names for names in (_leaf_names(cfg, False), _leaf_names(cfg, True)) if len(names) == len(arrays)]
     if not forms:
-        raise ValueError(f"{len(arrays)} leaves do not make a float causal model of this configuration "
+        raise ValueError(f"{len(arrays)} leaves do not make a float {cfg.arch} model of this configuration "
                          f"({len(_leaf_names(cfg, False))} leaves, or {len(_leaf_names(cfg, True))} scan-stacked)")
     try:
         state = state_for(forms[0])
@@ -187,7 +275,12 @@ def causal_from_leaves(arrays: list, cfg: ModelConfig, device="cuda") -> CausalL
             raise
         state = state_for(forms[1])  # one layer: both forms have the same leaf count
     state = {k: v.to(device) for k, v in state.items()}
+    if cfg.arch == "seq2seq":
+        return seq2seq_from_state_dict(state, cfg)
     return causal_from_state_dict(state, cfg)
+
+
+causal_from_leaves = model_from_leaves
 
 
 def adapter_from_jax(adapter, device="cuda") -> dict:

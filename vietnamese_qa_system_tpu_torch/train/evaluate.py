@@ -4,7 +4,7 @@ Counterpart of ``vietnamese_qa_system_tpu/train/evaluate.py``:
 ``perplexity_eval`` (:38-90), the forward-only loss over an eval set with
 one host sync at the end, and ``generative_eval`` (:91-223), generation
 driven by a ``GenerationConfig`` with the predictions logged as the JAX
-package logs them.  Both run on one device: the JAX functions' ``mesh``
+package logs them, for causal and seq2seq models.  Both run on one device: the JAX functions' ``mesh``
 and multi-host gathers have no counterpart yet.
 """
 
@@ -17,24 +17,24 @@ from typing import Iterable, Optional
 import numpy as np
 import torch
 
-from ..models import causal_lm
 from ..models.config import ModelConfig
 from ..models.generate import GenerationConfig, generate_with_config
 
 
 def perplexity_eval(model, cfg: ModelConfig, batches: Iterable[dict]) -> dict:
     """{"eval_loss", "perplexity", "eval_tokens"} of ``model`` (a
-    :class:`CausalLM`, with any adapter attached) over host batches
-    {"input_ids", "attention_mask", "labels"}."""
-    if cfg.arch != "causal":
-        raise NotImplementedError(f"perplexity of a {cfg.arch} model is not ported yet")
+    :class:`CausalLM` or an encoder-decoder, with any adapter attached)
+    over host batches {"input_ids", "attention_mask", "labels"}."""
+    from ..train.trainer import model_loss_fn
+
+    loss_fn = model_loss_fn(cfg)
     dev = model.device
     total_nll = torch.zeros((), dtype=torch.float32, device=dev)
     total_n = torch.zeros((), dtype=torch.float32, device=dev)
     with torch.no_grad():
         for batch in batches:
             b = {k: torch.from_numpy(np.asarray(v).astype(np.int64)).to(dev) for k, v in batch.items()}
-            loss, n = causal_lm.loss_fn(model, b)
+            loss, n = loss_fn(model, b)
             total_nll += loss * n
             total_n += n
     mean_nll = float(total_nll) / max(float(total_n), 1.0)  # the one sync
@@ -45,7 +45,8 @@ def generative_eval(model, cfg: ModelConfig, tokenizer, batches: Iterable[dict],
                     temperature: float = 0.0, gen_config: Optional[GenerationConfig] = None,
                     log_dir: Optional[str] = None, epoch: int = 0, run_name: str = "model") -> dict:
     """Generation over prompt batches {"input_ids", "attention_mask"}
-    (LEFT-padded host arrays, with optional "reference" strings) by
+    (LEFT-padded host arrays: a causal model's prompts or a seq2seq
+    model's encoder inputs, with optional "reference" strings) by
     ``gen_config`` (beams, sampling, penalties, speculation), or by the
     ``max_new_tokens`` / ``temperature`` shorthands without one.  Writes
     ``{log_dir}/log_dir_e{epoch}_{run_name}_{time}.txt`` in the JAX
@@ -54,9 +55,10 @@ def generative_eval(model, cfg: ModelConfig, tokenizer, batches: Iterable[dict],
     "reference".  Generated tokens are counted without the pad and eos
     fill after a row stops.  A batch's tokens are fetched and decoded
     after the next batch's generation is dispatched, so that decoding
-    overlaps the device's work where the decode loop reads nothing back."""
-    if cfg.arch != "causal":
-        raise NotImplementedError(f"generative eval of a {cfg.arch} model is not ported yet")
+    overlaps the device's work where the decode loop reads nothing back.
+    A seq2seq model decodes from the start token 0, the shift-right start
+    its training losses use (evaluate.py:184-189)."""
+    is_s2s = cfg.arch == "seq2seq"
     if gen_config is None:
         gen_config = GenerationConfig(max_new_tokens=max_new_tokens, temperature=temperature)
     dev = model.device
@@ -67,6 +69,8 @@ def generative_eval(model, cfg: ModelConfig, tokenizer, batches: Iterable[dict],
     def flush(batch, ids, out):
         nonlocal n_tokens
         out = out.cpu().numpy()
+        if is_s2s:  # new tokens only: keep the causal layout (prompt, then tokens)
+            out = np.concatenate([ids, out], axis=1)
         tail = out[:, ids.shape[1]:]
         n_tokens += int(((tail != tokenizer.pad_id) & (tail != tokenizer.eos_id)).sum())
         refs = batch.get("reference")
@@ -83,7 +87,7 @@ def generative_eval(model, cfg: ModelConfig, tokenizer, batches: Iterable[dict],
         ids = np.asarray(batch["input_ids"])
         out = generate_with_config(model, torch.from_numpy(ids).to(dev),
                                    torch.from_numpy(np.asarray(batch["attention_mask"])).to(dev), gen_config,
-                                   eos_id=tokenizer.eos_id, bos_id=tokenizer.bos_id)
+                                   eos_id=tokenizer.eos_id, bos_id=0 if is_s2s else tokenizer.bos_id)
         if pending is not None:
             flush(*pending)
         pending = (batch, ids, out)

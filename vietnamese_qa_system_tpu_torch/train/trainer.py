@@ -1,8 +1,11 @@
 """Training engine: the train step, grad accumulation, LoRA, checkpoints.
 
 Counterpart of ``vietnamese_qa_system_tpu/train/trainer.py`` on one
-device.  The step (trainer.py:167-254) runs ``grad_accum`` microbatches,
-each through ``causal_lm.loss_fn`` with the adapter attached to the frozen
+device, for causal LMs and the encoder-decoders (T5 / mT5, mBART, the
+native stack; trainer.py:142-163 dispatch init and loss by family).  The
+step (trainer.py:167-254) runs ``grad_accum`` microbatches, each through
+the model's loss (``causal_lm.loss_fn`` or the family's seq2seq loss,
+whose batches add "labels" of the decoder side) with the adapter attached to the frozen
 base (``merge_lora``), sums the gradients of the trainable tree -- the
 adapter under LoRA, every parameter otherwise -- divides by
 ``grad_accum``, and applies the optimizer chain (train/optim.py) in place.
@@ -28,8 +31,8 @@ The trainer's state is the JAX package's ``{"params", "adapter",
 "opt_state", "step"}`` with the model's tensors as the "params" tree, so
 checkpoints flatten in the JAX order and move between the packages.
 
-Not ported yet (each raises): strategies other than "dp", seq2seq and
-encoder training.
+Not ported yet (each raises): strategies other than "dp", and encoder
+training.
 """
 
 from __future__ import annotations
@@ -47,8 +50,8 @@ from torch.utils.checkpoint import checkpoint
 from ..core.device import make_generator, resolve_device
 from ..core.profiling import bytes_to_mb, device_memory_stats
 from ..core.tracing import start_trace, stop_trace
-from ..models import causal_lm
-from ..models.causal_lm import CausalLM, init_causal_lm
+from ..models import causal_lm, families
+from ..models.causal_lm import init_causal_lm
 from ..models.config import ModelConfig
 from ..models.layers import Dense
 from ..models.lora import LoraConfig, clear_lora, init_lora, merge_lora
@@ -121,11 +124,30 @@ def params_tree(model: torch.nn.Module) -> dict:
     return nest(dict(model.state_dict(keep_vars=True)))
 
 
-def make_train_step(cfg: TrainConfig, tx: Transform, model: CausalLM):
+def model_loss_fn(cfg: ModelConfig):
+    """The training loss of ``cfg``'s architecture (trainer.py:153-163)."""
+    if cfg.arch == "causal":
+        return causal_lm.loss_fn
+    if cfg.arch == "seq2seq":
+        return families.loss_fn
+    raise ValueError(f"no training loss for arch {cfg.arch!r}")
+
+
+def init_model(cfg: ModelConfig, generator: torch.Generator, *, quantize: Optional[str] = None):
+    """Random weights of ``cfg``'s architecture and family (trainer.py:142-151)."""
+    if cfg.arch == "causal":
+        return init_causal_lm(cfg, generator, quantize=quantize)
+    if cfg.arch == "seq2seq":
+        return families.init_seq2seq_model(cfg, generator, quantize=quantize)
+    raise ValueError(f"no trainable model for arch {cfg.arch!r}")
+
+
+def make_train_step(cfg: TrainConfig, tx: Transform, model):
     """The (state, batch) -> (state, metrics) step; batch leaves are
     (grad_accum, microbatch, T) tensors on the model's device.  The state's
     trainable tree and optimizer state are updated in place / replaced."""
     use_lora = cfg.lora is not None
+    loss_of = model_loss_fn(cfg.model)
 
     once = cfg.quantize_base is not None and cfg.qlora_dequant != "fused"
 
@@ -133,7 +155,7 @@ def make_train_step(cfg: TrainConfig, tx: Transform, model: CausalLM):
         if once:
             # the whole frozen base to bf16 before the forward (trainer.py:184-199)
             dequantize_tree(model, torch.bfloat16, fold_lora=cfg.qlora_dequant == "once_folded")
-        return causal_lm.loss_fn(model, mb)
+        return loss_of(model, mb)
 
     if cfg.remat and not (cfg.model.scan_layers and cfg.model.remat_policy != "none"):
         # whole-loss remat only where no per-layer remat applies: both would
@@ -182,17 +204,16 @@ def make_train_step(cfg: TrainConfig, tx: Transform, model: CausalLM):
 class Trainer:
     """init -> (resume) -> fit on one device (``device``, default the card).
 
-    ``params``: a :class:`CausalLM` to start from (its configuration is
-    replaced by ``cfg.model``); None draws random weights from ``cfg.seed``
-    on the device, layer by layer, each layer quantized as it is made when
-    ``quantize_base`` is set."""
+    ``params``: a :class:`CausalLM` or an encoder-decoder to start from (its
+    configuration is replaced by ``cfg.model``); None draws random weights
+    from ``cfg.seed`` on the device, layer by layer, each layer quantized
+    as it is made when ``quantize_base`` is set."""
 
-    def __init__(self, cfg: TrainConfig, *, params: Optional[CausalLM] = None, total_steps: Optional[int] = None,
-                 device="cuda"):
+    def __init__(self, cfg: TrainConfig, *, params=None, total_steps: Optional[int] = None, device="cuda"):
         self.cfg = cfg
         m = cfg.model
         for what, unported in (("strategy " + repr(cfg.strategy), cfg.strategy != "dp"),
-                               (f"{m.arch} training", m.arch != "causal")):
+                               (f"{m.arch} training", m.arch not in ("causal", "seq2seq"))):
             if unported:
                 raise NotImplementedError(f"{what} is not ported yet")
         if cfg.qlora_dequant not in ("fused", "once", "once_folded"):
@@ -211,7 +232,7 @@ class Trainer:
             raise ValueError("quantize_base requires LoRA: int8 / nf4 codes cannot take gradient updates")
         device = resolve_device(device)
         if params is None:
-            model = init_causal_lm(m, make_generator(cfg.seed, device), quantize=cfg.quantize_base)
+            model = init_model(m, make_generator(cfg.seed, device), quantize=cfg.quantize_base)
         else:
             model = params
             model.cfg = m
@@ -423,7 +444,7 @@ class Trainer:
 
     # ---------------------------------------------------------------- export
 
-    def merged_params(self) -> CausalLM:
+    def merged_params(self):
         """The model with the trained adapter attached (detached factors;
         the adapter merged into float layers), for inference and export.
         Offloaded parameters come back to the device (the next step
