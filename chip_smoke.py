@@ -87,6 +87,20 @@ and backward against their plain versions at the edges of their tiles
   HTTP /search over the index ``select_serving_index`` picks at batch 8
   (the probe-score kernel K5), and the IVF-vs-flat latency sweep that
   sets ``IVF_KAPPA``;
+- sharded serving over a mesh of the one card repeated: BASELINE config
+  4's 10M x 768 corpus (clustered rows drawn on the card in 1M-row
+  blocks) in bf16, int8 and int8_res stores of 4 shards (``ingest
+  --shards 4``'s layout; K8 codes), B 256 top-10 with recall by the
+  rank-count rule against chunked f32 products (bf16 1.000), K1 / K2 once
+  a shard a call, the ms a call beside a one-shard store of the same rows
+  (built after the sharded one is freed) and the merged scores equal to
+  it; an IVF index over the 4-shard int8_res store (K5 once a shard a
+  call, recall); then the tensor-parallel reader of ``serve
+  --reader-strategy tp`` at PhoGPT-4B width (drawn bf16 weights, 6 heads
+  a device over a ``{"model": 4}`` mesh): /qa at B 8 and a /generate
+  burst through the continuous engine, each held to the unsharded
+  reader by the margin rule, the engine's prefills through K4 on every
+  device, and decode ms a step beside the unsharded reader's;
 - training at the full width of ``phogpt_4b_class`` (32 layers, int8 base
   drawn on the card from a seed, LoRA r 8, proj_bf16 remat, adamw):
   the causal flash forward (K4 with the ALiBi key-only bias) and its
@@ -269,6 +283,21 @@ PROBE_BATCHES = (1, 8, 32, 256)
 SWEEP_TO, SWEEP_MAX, SWEEP_REPS = 256, 4096, 9  # batches 1, 2, 4 .. 256, on to 4096 while IVF still wins
 PROBE_REL_TOL = 1e-5  # max abs err / max |s|: exact products, f32 sums in another order
 IVF_RECALL_FLOOR = 0.9
+# the sharded serving phase: BASELINE config 4's corpus (10M x 768) over a
+# {"shard": 4} mesh of the one card repeated, filled in 1M-row blocks; the
+# int8 dtypes' recall floors against the f32 corpus (bf16 must be 1.000
+# against its stored rows); S = 4 scores against S = 1's (the same products
+# a row; the int8_res re-score sums in another batch layout)
+SHARDS, SHARDED_N, SHARDED_BLOCK, SHARDED_ITERS = 4, 10_000_000, 1 << 20, 5
+SHARDED_DTYPES = ("bf16", "int8", "int8_res")
+SHARDED_INT8_FLOOR, SHARDED_RES_FLOOR, SHARDED_SCORE_TOL = 0.8, 0.95, 1e-5
+# the TP reader: PhoGPT-4B over {"model": 4} (6 heads a device); /qa at B 8
+# (128-character questions, 32 new tokens); a /generate burst of 8 requests
+# of 16-200 tokens through the engine `serve --continuous-slots 8 --gen-total
+# 512 --gen-chunk-steps 16` builds
+TP_DEVICES, TP_QA_ROWS, TP_PROMPT, TP_NEW = 4, 8, 128, 32
+TP_ENGINE_FLAGS = ("--continuous-slots", "8", "--gen-total", "512", "--gen-chunk-steps", "16")
+TP_ENGINE_REQUESTS, TP_ENGINE_PROMPT, TP_ENGINE_NEW = 8, (16, 200), 24
 # the training path: PhoGPT-4B QLoRA steps of global batch 8 (grad_accum 2)
 # at T = 1024; K7 against its plain version relative to each gradient's
 # max |g| (bf16 P and dS summed in another tile order); the 2-layer twin's
@@ -1192,11 +1221,12 @@ def on_cpu(store):
     """A host twin of a store: its top-k runs the plain versions."""
     import torch
 
+    cpu = torch.device("cpu")
     twin = copy.copy(store)
-    twin.device = torch.device("cpu")
-    for name in ("vectors", "scales", "res_vectors", "res_scales"):
-        t = getattr(store, name)
-        setattr(twin, name, None if t is None else t.cpu())
+    twin.device, twin.devices, twin._tail = cpu, [cpu] * store.n_shards, store._tail.cpu()
+    twin.slabs = [dataclasses.replace(slab, device=cpu, **{
+        name: None if getattr(slab, name) is None else getattr(slab, name).cpu()
+        for name in ("vectors", "scales", "res_vectors", "res_scales")}) for slab in store.slabs]
     return twin
 
 
@@ -1428,14 +1458,15 @@ def plain_candidates(torch, T, store, qvecs, m: int):
     import numpy as np
 
     q = torch.as_tensor(np.asarray(qvecs), device="cuda").float()
+    slab = store.slabs[0]
     if store.dtype == "bf16":
-        s, i = T.topk_bf16_plain(q.to(torch.bfloat16), store.vectors, store.size, m)
+        s, i = T.topk_bf16_plain(q.to(torch.bfloat16), slab.vectors, store.size, m)
     else:
         q_i8, _ = T.quantize_queries(q)
-        _, slots = T.topk_int8_plain(q_i8, store.vectors, store.scales, store.size, min(4 * m, T.MAX_K))
+        _, slots = T.topk_int8_plain(q_i8, slab.vectors, slab.scales, store.size, min(4 * m, T.MAX_K))
         slots = slots.long()
-        rs = (torch.einsum("bd,bkd->bk", q, store.vectors[slots].float()) * store.scales[slots]
-              + torch.einsum("bd,bkd->bk", q, store.res_vectors[slots].float()) * store.res_scales[slots])
+        rs = (torch.einsum("bd,bkd->bk", q, slab.vectors[slots].float()) * slab.scales[slots]
+              + torch.einsum("bd,bkd->bk", q, slab.res_vectors[slots].float()) * slab.res_scales[slots])
         s, pos = torch.sort(rs, dim=1, descending=True, stable=True)
         s, i = s[:, :m], torch.gather(slots, 1, pos[:, :m])
     return s.cpu().numpy(), i.cpu().numpy()
@@ -1598,7 +1629,7 @@ def phase_hybrid(torch, pkg, ctx):
             same = sum(int((served_dense[q][2] == pi[r]).sum()) for r, q in enumerate(queries))
             rec = 1.0
             if name == "bf16":  # each served id a true top-m member by the plain f32 scores
-                rec = rank_recall(torch.as_tensor(qv, device="cuda").to(torch.bfloat16), store.vectors[:store.size],
+                rec = rank_recall(torch.as_tensor(qv, device="cuda").to(torch.bfloat16), store.slabs[0].vectors[:store.size],
                                   torch.as_tensor(np.stack([served_dense[q][2] for q in queries]), device="cuda"), m)
             print(f"hybrid dense candidates ({name} store, m {m}): scores within {err:.2e} of the plain version's, "
                   f"ids equal at {same}/{m * len(queries)} positions, recall by rank count {rec:.3f}", flush=True)
@@ -2701,7 +2732,7 @@ def phase_ivf(torch, pkg, ctx, gen):
             err = (scores - true).abs().max().item()
             check(err <= 2e-3, f"IVF int8_res auto-rerank scores within 2e-3 of the f32 dot products ({err:.2e})")
     bq = q.to(torch.bfloat16)
-    flat_vecs = stores["bf16"].vectors[:N]
+    flat_vecs = stores["bf16"].slabs[0].vectors[:N]
     _, exact_ids = ivfs["bf16"].topk(q, K, mode="exact")
     _, flat_ids = stores["bf16"].topk(q, K)
     check(rank_recall(bq, flat_vecs, exact_ids, K) == 1.0 and rank_recall(bq, flat_vecs, flat_ids, K) == 1.0,
@@ -2779,7 +2810,7 @@ def phase_k5(torch, P, ivfs, gen, report):
     g_scale = torch.tensor(0.0123, device="cuda")
     worst = 0.0
     for b in PROBE_BATCHES:
-        for kind, ivf, scales in (("bf16", ivf_bf, None), ("int8", ivf_i8, ivf_i8.bucket_scales),
+        for kind, ivf, scales in (("bf16", ivf_bf, None), ("int8", ivf_i8, ivf_i8.shards[0].bucket_scales),
                                   ("int8_global", ivf_i8, None)):
             elt = 2 if kind == "bf16" else 1
             cents_t = ivf.centroids.to(torch.bfloat16).float().T
@@ -2791,7 +2822,7 @@ def phase_k5(torch, P, ivfs, gen, report):
                                    stable=True)[1][:, :IVF_NPROBE].to(torch.int32).contiguous()
                 calls.append((q * g_scale if kind == "int8_global" else q, probe))
             q, probe = calls[0]
-            args = (ivf.buckets, scales, ivf.bucket_gids)
+            args = (ivf.shards[0].buckets, scales, ivf.shards[0].bucket_gids)
             (s, g), (ps, pg) = P.ivf_probe_scores(q, probe, *args), P.ivf_probe_scores_plain(q, probe, *args)
             torch.cuda.synchronize()
             fin = torch.isfinite(ps)
@@ -2810,11 +2841,11 @@ def phase_k5(torch, P, ivfs, gen, report):
             def library():
                 # a yardstick only: bf16 scores of a gathered copy of the slabs
                 qq, pp = next(cycle)
-                slab = ivf.buckets.index_select(0, pp.reshape(-1).long()).view(b, -1, D).to(torch.bfloat16)
+                slab = ivf.shards[0].buckets.index_select(0, pp.reshape(-1).long()).view(b, -1, D).to(torch.bfloat16)
                 sc = torch.bmm(slab, qq.to(torch.bfloat16)[:, :, None])[..., 0].view(b, IVF_NPROBE, -1).float()
                 if scales is not None:
                     sc = sc * scales[pp.long()]
-                return torch.where(ivf.bucket_gids[pp.long()] >= 0, sc, float("-inf"))
+                return torch.where(ivf.shards[0].bucket_gids[pp.long()] >= 0, sc, float("-inf"))
 
             distinct = torch.unique(probe).numel()
             n_bytes = (distinct * ivf.cap * (D * elt + 4 + (4 if scales is not None else 0)) + b * D * 4
@@ -4325,6 +4356,309 @@ def phase_t5_flash_kernels(torch, A, gen, report):
         torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------------ sharded serving
+
+
+def sharded_block(torch, centres, b: int):
+    """Block ``b`` of the sharded phase's corpus: SHARDED_BLOCK unit rows
+    around the shared ``centres`` (IVF_SIGMA noise, as :func:`clustered`),
+    drawn on the card from a generator of its own, so the same rows come
+    back on every call."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 1000 + b)
+    rows = min(SHARDED_BLOCK, SHARDED_N - b * SHARDED_BLOCK)
+    pts = centres[torch.randint(0, len(centres), (rows,), generator=g, device="cuda")]
+    pts += IVF_SIGMA / D ** 0.5 * torch.randn(rows, D, generator=g, device="cuda")
+    return pts / pts.norm(dim=1, keepdim=True)
+
+
+def sharded_recall(torch, centres, q, ids, k: int, bf16: bool) -> float:
+    """bench.py's rank-count rule over the whole SHARDED_N corpus, chunk by
+    chunk: an id is a true top-k member iff its score is at least the k-th
+    largest (fewer than k rows score strictly higher).  The picked ids'
+    scores come out of the same chunked products as the k-th largest, so a
+    true member is never lost to a summation order; ``bf16`` scores the
+    stored bf16 rows with bf16 queries, else the f32 rows."""
+    qr = q.to(torch.bfloat16).float() if bf16 else q.float()
+    ids = ids.long()
+    picked = torch.full(ids.shape, float("nan"), device="cuda")
+    best = None
+    for b in range(-(-SHARDED_N // SHARDED_BLOCK)):
+        blk = sharded_block(torch, centres, b)
+        scores = qr @ (blk.to(torch.bfloat16).float() if bf16 else blk).T
+        lo = b * SHARDED_BLOCK
+        inside = (ids >= lo) & (ids < lo + len(blk))
+        got = torch.gather(scores, 1, (ids - lo).clamp(0, len(blk) - 1))
+        picked = torch.where(inside, got, picked)
+        top = torch.topk(scores, k, dim=1).values
+        best = top if best is None else torch.topk(torch.cat([best, top], dim=1), k, dim=1).values
+        del scores, blk
+    check(not torch.isnan(picked).any().item(), "every returned id lies in the corpus")
+    return (picked >= best[:, k - 1:k]).sum().item() / picked.numel()
+
+
+def fill_store(torch, store, centres) -> float:
+    """Add the corpus block by block; returns the seconds it took."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in range(-(-SHARDED_N // SHARDED_BLOCK)):
+        store.add(sharded_block(torch, centres, b))
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def phase_sharded(torch, pkg, card: str) -> dict:
+    """The corpus-sharded store and IVF index at BASELINE config 4's size
+    (10M x 768) over a ``{"shard": 4}`` mesh of the one card, repeated:
+
+    - for bf16 (15.4 GB), int8 and int8_res: the store filled in 1M-row
+      blocks (clustered rows drawn on the card; K8 once a shard a block a
+      level of the int8 codes), a B 256, k 10 query, its
+      recall@10 by the rank-count rule against chunked f32 products on the
+      card (bf16 must be 1.000), the scan kernel launched once a shard a
+      call (K1 / K2), the ms a call at S = 4 beside S = 1 on the same rows
+      (the S = 1 store built after the S = 4 one is freed) and the S = 1
+      scores equal to the merged S = 4 ones position for position;
+    - an IVF index built over the int8_res store at S = 4 (K5 once a shard
+      a call, recall at or above IVF_RECALL_FLOOR).
+
+    One store lives at a time.  Returns the launches of the sharded calls
+    (counted from zero)."""
+    from vietnamese_qa_system_tpu_torch.core.mesh import SHARD_AXIS, create_mesh
+    from vietnamese_qa_system_tpu_torch.engine import IVFIndex, VectorStore
+    from vietnamese_qa_system_tpu_torch.ops.cuda_kernels import IVF_PROBE, QUANT_INT8, TOPK_BF16, TOPK_INT8
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    mesh = create_mesh({SHARD_AXIS: SHARDS}, devices=["cuda:0"] * SHARDS)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 999)
+    centres = torch.randn(IVF_CENTRES, D, generator=g, device="cuda")
+    centres /= centres.norm(dim=1, keepdim=True)
+    first = sharded_block(torch, centres, 0)
+    q = perturbed(torch, first[torch.randint(0, len(first), (B,), generator=g, device="cuda")], g)
+    del first
+    totals = {k.name: 0 for k in pkg.KERNELS}
+    scan = {"bf16": TOPK_BF16, "int8": TOPK_INT8, "int8_res": TOPK_INT8}
+    floors = {"bf16": 1.0, "int8": SHARDED_INT8_FLOOR, "int8_res": SHARDED_RES_FLOOR}
+    for dt in SHARDED_DTYPES:
+        results = {}
+        for s in (SHARDS, 1):
+            store = VectorStore(SHARDED_N, D, dtype=dt, device="cuda", mesh=mesh if s > 1 else None)
+            for kern in pkg.KERNELS:
+                kern.launches = 0
+            fill_s = fill_store(torch, store, centres)
+            torch.cuda.synchronize()
+            blocks = -(-SHARDED_N // SHARDED_BLOCK)
+            k8 = {"bf16": 0, "int8": 1, "int8_res": 2}[dt] * s * blocks
+            check(QUANT_INT8.launches == k8, f"quantize_int8 launched {k8} times filling the {s}-shard {dt} store "
+                                             f"({QUANT_INT8.launches}: once a shard a block a level)")
+            if s > 1:
+                totals[QUANT_INT8.name] += QUANT_INT8.launches
+            for kern in pkg.KERNELS:
+                kern.launches = 0
+            scores, ids = store.topk(q, K)
+            calls = 1 + 1 + SHARDED_ITERS  # the checked call, cuda_ms's warm-up, its timed calls
+            ms = cuda_ms(lambda: store.topk(q, K), SHARDED_ITERS)
+            torch.cuda.synchronize()
+            launches = {k.name: k.launches for k in pkg.KERNELS}
+            check(launches[scan[dt].name] == s * calls,
+                  f"{scan[dt].name} launched once a shard a call on the {s}-shard {dt} store "
+                  f"({launches[scan[dt].name]} for {calls} calls)")
+            if s > 1:
+                for name, n in launches.items():
+                    totals[name] += n
+            results[s] = scores, ids, ms, fill_s
+            if s == 1:
+                store_gb = sum(t.numel() * t.element_size() for t in (store.slabs[0].vectors, store.slabs[0].scales,
+                                                                       store.slabs[0].res_vectors,
+                                                                       store.slabs[0].res_scales) if t is not None)
+            if s > 1 and dt == "int8_res":
+                t0 = time.perf_counter()
+                ivf = IVFIndex.build(store)
+                torch.cuda.synchronize()
+                build_s = time.perf_counter() - t0
+                del store
+                torch.cuda.empty_cache()
+                for kern in pkg.KERNELS:
+                    kern.launches = 0
+                _, ivf_ids = ivf.topk(q, K)
+                ivf_ms = cuda_ms(lambda: ivf.topk(q, K), SHARDED_ITERS)
+                torch.cuda.synchronize()
+                ivf_launches = {k.name: k.launches for k in pkg.KERNELS}
+                check(ivf_launches[IVF_PROBE.name] == SHARDS * calls,
+                      f"ivf_probe_scores launched once a shard a call on the {SHARDS}-shard IVF index "
+                      f"({ivf_launches[IVF_PROBE.name]} for {calls} calls)")
+                for name, n in ivf_launches.items():
+                    totals[name] += n
+                rec = sharded_recall(torch, centres, q, ivf_ids, K, bf16=False)
+                print(f"sharded IVF int8_res over {SHARDED_N} x {D}, S={SHARDS}: build {build_s:.2f} s, "
+                      f"{ivf.n_clusters} clusters x cap {ivf.cap} a shard, {ivf.spill_count} spilled; B={B} k={K} "
+                      f"nprobe {ivf.nprobe}: {ivf_ms:.4f} ms a call, recall@{K} {rec:.4f} ({card})", flush=True)
+                check(rec >= IVF_RECALL_FLOOR, f"sharded IVF int8_res recall@{K} {rec:.4f} >= {IVF_RECALL_FLOOR}")
+                print(f"peak card memory of the 4-shard int8_res store and its IVF index: "
+                      f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({card})", flush=True)
+                del ivf
+            else:
+                del store
+            torch.cuda.empty_cache()
+        (s4, i4, ms4, fill4), (s1, _, ms1, fill1) = results[SHARDS], results[1]
+        rec = sharded_recall(torch, centres, q, i4, K, bf16=dt == "bf16")
+        print(f"sharded store {dt} {SHARDED_N} x {D} ({store_gb / 1e9:.1f} GB): B={B} k={K} S={SHARDS} "
+              f"{ms4:.4f} ms a call, S=1 {ms1:.4f} ms (filled in {fill4:.1f} / {fill1:.1f} s), recall@{K} "
+              f"{rec:.4f} ({card})", flush=True)
+        check(rec >= floors[dt], f"sharded {dt} recall@{K} {rec:.4f} >= {floors[dt]}")
+        err = (s4 - s1).abs().max().item()
+        check(err <= SHARDED_SCORE_TOL, f"the {SHARDS}-shard merge's {dt} scores equal the one-shard scan's position "
+                                        f"for position (max |diff| {err:.2e})")
+    print(f"peak card memory of the sharded phase: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; phase "
+          f"{time.perf_counter() - t_phase:.1f} s ({card})", flush=True)
+    return totals
+
+
+class NoRetrieval:
+    """The retriever of the TP phase's app: each question's own text as its
+    one context, so /qa exercises the reader alone."""
+
+    class store:  # noqa: N801 -- an attribute namespace
+        size = 0
+
+    def search(self, queries, k):
+        from vietnamese_qa_system_tpu_torch.engine import SearchResult
+
+        return [[SearchResult(id=0, score=1.0, doc=q, source="question")] for q in queries]
+
+
+def phase_tp(torch, pkg, card: str) -> dict:
+    """The tensor-parallel reader at PhoGPT-4B width (32 layers, d 3072, 24
+    heads, vocabulary 20,480; drawn bf16 weights) split ``tp`` over a
+    ``{"model": 4}`` mesh of the one card repeated (6 heads a device), as
+    ``serve --reader-strategy tp`` builds it:
+
+    - /qa over HTTP at B 8 (``QAPipeline`` with serve's default
+      prompt-lookup speculation), every row held to the unsharded reader's
+      plain greedy decode of the same batch by the margin rule;
+    - a /generate burst through the continuous engine ``serve
+      --continuous-slots 8`` builds over the TP reader, each stream held to
+      the unsharded reader's B=1 ``generate()`` by the margin rule; its
+      prefills attend through the split cache, as JAX's engine does (the
+      flash route is the cache-less forward's);
+    - decode ms a step and tokens/s of B 8 greedy ``generate()``, TP beside
+      unsharded (one card: the split runs four devices' work in turn).
+
+    Returns the launches of the TP runs (counted from zero)."""
+    import numpy as np
+
+    from vietnamese_qa_system_tpu_torch.cli.main import build_parser, continuous_engine
+    from vietnamese_qa_system_tpu_torch.core import make_generator
+    from vietnamese_qa_system_tpu_torch.core.mesh import MODEL_AXIS, create_mesh
+    from vietnamese_qa_system_tpu_torch.data import ByteTokenizer
+    from vietnamese_qa_system_tpu_torch.engine import QAPipeline, ServingApp
+    from vietnamese_qa_system_tpu_torch.models import init_causal_lm, phogpt_4b_class
+    from vietnamese_qa_system_tpu_torch.models import generate as G
+    from vietnamese_qa_system_tpu_torch.parallel.sharding import shard_params
+
+    t_phase = time.perf_counter()
+    tok = ByteTokenizer()
+    cfg = phogpt_4b_class()
+    reader = init_causal_lm(cfg, make_generator(SEED + 31, "cuda")).to(torch.bfloat16)
+    args = build_parser().parse_args(["serve", "--index", "-", "--db", ":memory:", "--reader-size", "phogpt4b",
+                                      "--reader-strategy", "tp",
+                                      "--max-new-tokens", str(TP_NEW), *TP_ENGINE_FLAGS])
+    check(args.reader_strategy == "tp", "serve --reader-strategy tp parses")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    # serve's --reader-strategy takes every visible GPU; this machine has
+    # one, so the {"model": 4} mesh repeats it
+    tp = shard_params(reader, create_mesh({MODEL_AXIS: TP_DEVICES}, devices=["cuda:0"] * TP_DEVICES),
+                      args.reader_strategy)
+    torch.cuda.synchronize()
+    print(f"TP reader: {cfg.n_layers} layers, d {cfg.d_model}, {cfg.n_heads} heads, vocab {cfg.vocab_size}, split "
+          f"over {TP_DEVICES} devices in {time.perf_counter() - t0:.2f} s; heads a device {tp.groups[0][1]}", flush=True)
+    check(tp.groups is not None and len(tp.groups) == TP_DEVICES and tp.embed_parts is not None
+          and len(tp.blocks[0].mlp.parts) == TP_DEVICES,
+          "the TP reader splits heads, the MLP hidden and the vocabulary over the 4 devices")
+
+    # /qa at B 8, as serve builds it (prompt-lookup speculation by default)
+    rng = np.random.default_rng(SEED + 5)
+    questions = [engine_text(rng, TP_PROMPT) for _ in range(TP_QA_ROWS)]
+    calls = []
+    real_spec = G.generate_speculative
+
+    def recorded(model, ids, mask, **kw):
+        out = real_spec(model, ids, mask, **kw)
+        calls.append((ids, mask, out))
+        return out
+
+    qa = QAPipeline(NoRetrieval(), tp, tok, k=1, max_prompt_len=2 * TP_PROMPT, max_new_tokens=TP_NEW,
+                    speculative=args.speculative, draft_tokens=args.draft_tokens, draft_ngram=args.draft_ngram)
+    app = ServingApp(NoRetrieval(), qa, k=1, max_batch=TP_QA_ROWS, max_wait_s=2.0)
+    url, stop = serve(app)
+    G.generate_speculative = recorded
+    try:
+        for kern in pkg.KERNELS:
+            kern.launches = 0
+        answers = ask_all(url, "/qa", [{"question": x} for x in questions])
+        torch.cuda.synchronize()
+        qa_launches = {k.name: k.launches for k in pkg.KERNELS}
+    finally:
+        G.generate_speculative = real_spec
+        stop()
+    check(all(a is not None and "answer" in a for a in answers) and len(calls) == 1
+          and calls[0][0].shape[0] == TP_QA_ROWS, f"{TP_QA_ROWS} concurrent /qa over the TP reader answered as one "
+                                                   "speculative batch")
+    ids, mask, got = calls[0]
+    want = G.generate(reader, ids, mask, max_new_tokens=TP_NEW, eos_id=tok.eos_id)
+    agree, equal, others = batch_margin_rule(torch, reader, ids, mask, got, want, tok.eos_id)
+    check(agree, f"TP /qa rows equal the unsharded reader's greedy decode by the margin rule ({equal}/{TP_QA_ROWS} "
+                 f"token for token; others (tokens, steps compared): {others})")
+
+    # /generate: the continuous engine serve builds over the TP reader
+    engine = continuous_engine(args, tp, tok, "cuda")
+    gapp = ServingApp(NoRetrieval(), gen=engine, tokenizer=tok, k=1, max_wait_s=0.02)
+    url, stop = serve(gapp)
+    lens = rng.integers(TP_ENGINE_PROMPT[0], TP_ENGINE_PROMPT[1] + 1, TP_ENGINE_REQUESTS)
+    prompts = [engine_text(rng, int(n)) for n in lens]
+    try:
+        for kern in pkg.KERNELS:
+            kern.launches = 0
+        t0 = time.perf_counter()
+        outs = ask_all(url, "/generate", [{"prompt": p, "max_new_tokens": TP_ENGINE_NEW} for p in prompts])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        gen_launches = {k.name: k.launches for k in pkg.KERNELS}
+    finally:
+        stop()
+    check(all(o is not None for o in outs), f"{TP_ENGINE_REQUESTS} concurrent /generate over the TP reader answered")
+    n_tok, ok_rows = 0, 0
+    for p, o in zip(prompts, outs):
+        pid = tok.encode(p)
+        want = greedy_reference(torch, reader, pid, bucket_of(engine.buckets, len(pid)), len(o["ids"]), tok.eos_id)
+        agree, _ = margin_rule(torch, reader, pid, o["ids"], want)
+        ok_rows += agree
+        n_tok += len(o["ids"])
+    check(ok_rows == len(prompts), f"TP /generate streams equal the unsharded B=1 generate() by the margin rule "
+                                   f"({ok_rows}/{len(prompts)})")
+    print(f"TP /generate: {TP_ENGINE_REQUESTS} requests, {n_tok} tokens in {wall:.2f} s ({n_tok / wall:.1f} tokens/s, "
+          f"host-paced) ({card})", flush=True)
+
+    # decode ms a step, B 8 greedy generate(): TP beside unsharded
+    x, m = ids, mask
+    rows = {}
+    for name, model in (("tp", tp), ("unsharded", reader)):
+        t = {}
+        G.generate(model, x, m, max_new_tokens=TP_NEW, timings=t)  # warm-up
+        G.generate(model, x, m, max_new_tokens=TP_NEW, timings=t)
+        rows[name] = (t["decode_s"] / (TP_NEW - 1) * 1e3, TP_QA_ROWS * TP_NEW / (t["prefill_s"] + t["decode_s"]))
+    print(f"B={TP_QA_ROWS} greedy generate(), {TP_NEW} new tokens after {x.shape[1]}-token prompts: TP "
+          f"{rows['tp'][0]:.2f} ms a decode step, {rows['tp'][1]:.1f} tokens/s; unsharded {rows['unsharded'][0]:.2f} ms, "
+          f"{rows['unsharded'][1]:.1f} tokens/s (the TP split's {TP_DEVICES} devices are one card here) ({card})",
+          flush=True)
+    launches = {name: qa_launches[name] + gen_launches[name] for name in qa_launches}
+    print(f"TP phase {time.perf_counter() - t_phase:.1f} s ({card})", flush=True)
+    del tp, reader
+    return launches
+
+
+
 def main() -> int:
     import torch
 
@@ -4405,6 +4739,15 @@ def main() -> int:
     phase_k5(torch, P, ivfs, gen, report)
     del ivfs
     torch.cuda.empty_cache()
+    card = gpu_name_and_power()
+    sharded = phase_sharded(torch, pkg, card)
+    print("launches in the sharded runs: " + json.dumps(sharded))
+    for name in ("matmul_topk_bf16", "matmul_topk_int8", "ivf_probe_scores", "quantize_int8"):
+        check(sharded[name] > 0, f"{name} launched on the sharded path")
+    torch.cuda.empty_cache()
+    tp_launches = phase_tp(torch, pkg, card)
+    print("launches in the TP runs: " + json.dumps(tp_launches))
+    torch.cuda.empty_cache()
     phase_train_kernels(torch, A, gen, report)
     phase_t5_flash_kernels(torch, A, gen, report)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as logdir:
@@ -4425,13 +4768,17 @@ def main() -> int:
         check(s2s_train[name] > 0, f"{name} launched on the mt5 train path")
     launches = dict(retrieval, w8_matmul=reader_launches["w8_matmul"] + engine_launches["w8_matmul"] + strategies_w8
                     + adapter_launches["w8_matmul"] + s2s_qa["w8_matmul"] + s2s_engine["w8_matmul"],
-                    ivf_probe_scores=ivf_launches["ivf_probe_scores"],
-                    quantize_int8=ivf_launches["quantize_int8"],
-                    matmul_topk_bf16=retrieval["matmul_topk_bf16"] + s2s_qa["matmul_topk_bf16"],
+                    ivf_probe_scores=ivf_launches["ivf_probe_scores"] + sharded["ivf_probe_scores"],
+                    quantize_int8=ivf_launches["quantize_int8"] + sharded["quantize_int8"],
+                    matmul_topk_bf16=retrieval["matmul_topk_bf16"] + s2s_qa["matmul_topk_bf16"]
+                    + sharded["matmul_topk_bf16"],
+                    matmul_topk_int8=retrieval["matmul_topk_int8"] + sharded["matmul_topk_int8"],
                     flash_attention_fwd=retrieval["flash_attention_fwd"] + s2s_flash["flash_attention_fwd"]
                     + s2s_train["flash_attention_fwd"],
                     **{name: train_launches[name] + qlora_launches[name] + s2s_train[name]
                        for name in ("flash_attention_fwd_causal", "flash_attention_bwd_dkdv", "flash_attention_bwd_dq")})
+    for name in ("matmul_topk_bf16", "matmul_topk_int8", "ivf_probe_scores", "quantize_int8"):
+        report[name]["sharded_launches"] = sharded[name]
     report["w8_matmul"]["seq2seq_launches"] = s2s_qa["w8_matmul"] + s2s_engine["w8_matmul"]
     report["matmul_topk_bf16"]["seq2seq_launches"] = s2s_qa["matmul_topk_bf16"]
     report["flash_attention_fwd"]["seq2seq_launches"] = s2s_flash["flash_attention_fwd"] + s2s_train["flash_attention_fwd"]

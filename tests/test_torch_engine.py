@@ -188,7 +188,7 @@ def test_port_index_loads_in_jax(dtype, tmp_path):
     _, tids = port.topk(q, 5)
     np.testing.assert_array_equal(tids.numpy(), np.asarray(jids))
     again = VectorStore.load(str(tmp_path), capacity=0, device="cpu")
-    assert again.capacity == 128 and torch.equal(again.vectors[:37], port.vectors[:37])
+    assert again.capacity == 128 and torch.equal(again.slabs[0].vectors[:37], port.slabs[0].vectors[:37])
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -198,11 +198,12 @@ def test_store_add_matches_jax_codes(dtype):
     port.add(vecs)
     jstore = JStore(256, 32, dtype=dtype, tile_n=128)
     jstore.add(vecs)
-    np.testing.assert_array_equal(port.vectors[:50].float().numpy(), np.asarray(jstore.vectors[0, :50], np.float32))
-    if port.scales is not None:
-        np.testing.assert_array_equal(port.scales[:50].numpy(), np.asarray(jstore.scales[0, :50]))
+    slab = port.slabs[0]
+    np.testing.assert_array_equal(slab.vectors[:50].float().numpy(), np.asarray(jstore.vectors[0, :50], np.float32))
+    if slab.scales is not None:
+        np.testing.assert_array_equal(slab.scales[:50].numpy(), np.asarray(jstore.scales[0, :50]))
     if dtype == "int8_res":
-        np.testing.assert_array_equal(port.res_vectors[:50].numpy(), np.asarray(jstore.res_vectors[0, :50]))
+        np.testing.assert_array_equal(slab.res_vectors[:50].numpy(), np.asarray(jstore.res_vectors[0, :50]))
     assert port.global_scale == jstore.global_scale
 
 

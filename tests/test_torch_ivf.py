@@ -169,7 +169,7 @@ def test_port_saved_ivf_loads_in_jax(dtype, corpus, port_built, tmp_path):
         VectorStore.load(str(tmp_path), device="cpu")
     again = IVFIndex.load(str(tmp_path), device="cpu")
     for name in tivf._SLABS:
-        a, b = getattr(pidx, name), getattr(again, name)
+        a, b = getattr(pidx.shards[0], name), getattr(again.shards[0], name)
         assert (a is None) == (b is None) and (a is None or torch.equal(a, b)), name
 
 
@@ -224,7 +224,7 @@ def test_build_repeats_and_int8_res_rerank(corpus, port_built):
     pts, q, oracle = corpus
     store, pidx = port_built("int8_res")
     again = IVFIndex.build(store, **BUILD)
-    assert torch.equal(again.centroids, pidx.centroids) and torch.equal(again.bucket_gids, pidx.bucket_gids)
+    assert torch.equal(again.centroids, pidx.centroids) and torch.equal(again.shards[0].bucket_gids, pidx.shards[0].bucket_gids)
     scores, ids = pidx.topk(q, K, mode="exact")  # auto rerank 4 * k: residual-precision scores
     np.testing.assert_allclose(scores.numpy(), np.take_along_axis(q @ pts.T, ids.numpy().astype(np.int64), 1),
                                atol=2e-3)
@@ -239,7 +239,7 @@ def test_exact_mode_equals_flat_store(corpus, port_built):
     _, q, _ = corpus
     store, pidx = port_built("bf16")
     bq = torch.from_numpy(q).to(torch.bfloat16).float()
-    full = bq @ store.vectors[:N].float().T
+    full = bq @ store.slabs[0].vectors[:N].float().T
     for _, ids in (pidx.topk(q, K, mode="exact"), store.topk(q, K)):
         picked = torch.gather(full, 1, ids.long())
         higher = (full[:, None, :] > picked[:, :, None] + 1e-6).sum(-1)
@@ -266,8 +266,8 @@ def test_add_goes_to_spill_like_jax(dtype, corpus, tmp_path):
     assert port.size == N + 6 and port.spill_count == base + 6
     rows = slice(base, base + 6)
     for name in ("spill_vecs", "spill_scales", "res_spill_vecs", "spill_gids"):
-        if getattr(port, name) is not None:
-            np.testing.assert_array_equal(getattr(port, name)[rows].float().numpy(),
+        if getattr(port.shards[0], name) is not None:
+            np.testing.assert_array_equal(getattr(port.shards[0], name)[rows].float().numpy(),
                                           np.asarray(getattr(jidx, name)[0, rows], np.float32))
     _, got = port.topk(extra, 2)
     for i, row in enumerate(got.numpy()):
@@ -360,8 +360,13 @@ def test_cli_build_ivf_and_serve(tmp_path, monkeypatch, capsys):
         assert f"index-select: {kind} (query batch 256" in out and "  1. [3] score=" in out
     with pytest.raises(SystemExit):
         cli(serve + ["--index", ivf, "--ivf-index", ivf])
-    with pytest.raises(NotImplementedError, match="--shards"):
-        cli(["build-ivf", "--index", idx, "--out", ivf, "--shards", "2", "--device", "cpu"])
+    # --shards 2 builds over two CPU shards; serve (one shard) refuses that index, as the JAX CLI does
+    ivf2 = ivf + "_2"
+    assert cli(["build-ivf", "--index", idx, "--out", ivf2, "--shards", "2", "--clusters", "8", "--kmeans-iters", "2",
+                "--device", "cpu"]) == 0
+    assert json.load(open(os.path.join(ivf2, "meta.json")))["n_shards"] == 2
+    with pytest.raises(ValueError, match="rebuild from the flat store"):
+        cli(serve + ["--index", ivf2])
 
 
 def _post(url, payload):

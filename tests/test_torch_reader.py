@@ -222,8 +222,8 @@ def test_cli_chat_and_serve_reader(tmp_path, monkeypatch, capsys):
         cli(serve + ["--port", "0", "--continuous-slots", "4"])
     with pytest.raises(SystemExit, match="NAME=PATH"):
         cli(serve + ["--port", "0", "--reader-size", "tiny", "--continuous-slots", "4", "--adapter", "vi"])
-    with pytest.raises(NotImplementedError, match="--reader-strategy"):
-        cli(serve + ["--reader-strategy", "tp"])
+    with pytest.raises(SystemExit, match="shards plain bf16 readers"):
+        cli(serve + ["--reader-size", "tiny", "--reader-quantize", "int8", "--reader-strategy", "tp"])
     _feed(monkeypatch, [DOCS[2], ""])  # an nf4 reader answers in the REPL
     assert cli(serve + ["--reader-size", "tiny", "--reader-quantize", "nf4"]) == 0
     assert "reader decodes over a nf4 base" in capsys.readouterr().out

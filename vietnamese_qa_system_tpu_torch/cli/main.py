@@ -549,19 +549,27 @@ def _load_rows(path: str) -> list:
         return [json.loads(line) for line in f if line.strip()]
 
 
+def _shard_mesh(shards: int, device):
+    """``--shards S``: a ``shard`` mesh of S devices (S CPU shards with
+    ``--device cpu``; the first S GPUs on the card, raising with fewer, as
+    the JAX package's ``create_mesh`` does); None for one shard."""
+    from ..core.mesh import SHARD_AXIS, mesh_on
+
+    return mesh_on(device, {SHARD_AXIS: shards}) if shards > 1 else None
+
+
 def cmd_ingest(args) -> int:
     from ..core.device import resolve_device
     from ..engine import BM25Index, DocStore, IngestPipeline, VectorStore
 
-    if args.shards != 1:
-        raise NotImplementedError("a sharded store (--shards > 1) is not ported yet")
     device = resolve_device(args.device)
+    mesh = _shard_mesh(args.shards, device)
     encoder = _encoder(args.encoder, args.seed, device)
     tok = _tokenizer(args.tokenizer)
     if os.path.exists(os.path.join(args.index, "meta.json")):
-        store = VectorStore.load(args.index, device=device)
+        store = VectorStore.load(args.index, device=device, mesh=mesh)
     else:
-        store = VectorStore(args.capacity, encoder.cfg.d_model, dtype=args.dtype, device=device)
+        store = VectorStore(args.capacity, encoder.cfg.d_model, dtype=args.dtype, device=device, mesh=mesh)
     docstore = DocStore(args.db)
     lexical = None
     bm25_path = os.path.join(args.index, "bm25.json")
@@ -588,13 +596,12 @@ def cmd_build_ivf(args) -> int:
     from ..core.device import resolve_device
     from ..engine import IVFIndex, VectorStore
 
-    if args.shards != 1:
-        raise NotImplementedError("a sharded IVF index (--shards > 1) is not ported yet")
-    store = VectorStore.load(args.index, capacity=0, device=resolve_device(args.device))
+    device = resolve_device(args.device)
+    store = VectorStore.load(args.index, capacity=0, device=device, mesh=_shard_mesh(args.shards, device))
     ivf = IVFIndex.build(store, n_clusters=args.clusters, nprobe=args.nprobe, cap_mult=args.cap_mult,
                          kmeans_iters=args.kmeans_iters, seed=args.seed)
     ivf.save(args.out)
-    print(f"IVF index saved -> {args.out}: {ivf.size} vectors, {ivf.n_clusters} clusters x cap {ivf.cap}, "
+    print(f"IVF index saved -> {args.out}: {ivf.size} vectors, {ivf.n_clusters} clusters x cap {ivf.cap} per shard, "
           f"{ivf.spill_count} spilled ({100.0 * ivf.spill_count / max(ivf.size, 1):.2f}%), "
           f"default nprobe {ivf.nprobe}")
     return 0
@@ -629,6 +636,28 @@ def _serving_index(args, device, query_batch: int):
                   "faster. Lower --max-batch, rebuild with a smaller build-ivf --nprobe, or pass the flat dir as "
                   "--index with --ivf-index for automatic selection.", flush=True)
     return store
+
+
+def _sharded_reader(args, reader, device):
+    """``serve --reader-strategy tp|fsdp_tp`` (cli/main.py:744-767 of the
+    JAX package): the reader split tensor-parallel over a ``{"model": n}``
+    mesh over every visible GPU (``CPU_MESH_DEVICES`` repeats of the host
+    with ``--device cpu``)."""
+    from ..core.mesh import CPU_MESH_DEVICES, MODEL_AXIS, mesh_on, visible_devices
+    from ..parallel.sharding import shard_params
+
+    if args.reader_quantize:
+        raise SystemExit("--reader-strategy shards plain bf16 readers; drop --reader-quantize (int8/nf4 packing "
+                         "hides the dims the sharding rules split)")
+    if reader.cfg.arch != "causal":
+        raise SystemExit("--reader-strategy shards causal readers; a seq2seq reader serves on one device")
+    if args.adapter:
+        raise SystemExit("--adapter serves from one device's bank; drop --reader-strategy")
+    n = CPU_MESH_DEVICES if device.type == "cpu" else len(visible_devices())
+    mesh = mesh_on(device, {MODEL_AXIS: n})
+    sharded = shard_params(reader, mesh, args.reader_strategy)
+    print(f"reader sharded: strategy={args.reader_strategy} over {mesh.size} devices", flush=True)
+    return sharded
 
 
 def continuous_engine(args, reader, tok, device):
@@ -666,7 +695,6 @@ def cmd_serve(args) -> int:
     from ..core.device import resolve_device
     from ..engine import BM25Index, DocStore, IngestPipeline, QAPipeline, Retriever, ServingApp, VectorStore, make_server
 
-    _refuse(args, {"--reader-strategy": ("reader_strategy", None)})
     device = resolve_device(args.device)
     encoder = _encoder(args.encoder, args.seed, device)
     tok = _tokenizer(args.tokenizer)
@@ -687,6 +715,8 @@ def cmd_serve(args) -> int:
     qa = None
     if args.reader_size:
         reader = _reader(args.reader_size, tok, args.seed + 1, device, args.reader_quantize, args.reader_params)
+        if args.reader_strategy:
+            reader = _sharded_reader(args, reader, device)
         draft = None
         if args.speculative == "draft" and reader.cfg.arch == "causal":
             draft = _draft(args.reader_draft_size, reader.cfg.vocab_size, args.seed + 7, device,
@@ -815,7 +845,9 @@ def build_parser() -> argparse.ArgumentParser:
     pi.add_argument("--dtype", default="bf16", choices=["bf16", "int8", "int8_global", "int8_res"],
                     help="index compression: int8 halves memory; int8_res keeps bf16-equal memory but "
                          "scans half the bytes, a two-stage re-rank restores recall")
-    pi.add_argument("--shards", type=int, default=1)
+    pi.add_argument("--shards", type=int, default=1,
+                    help="shard the store round-robin over S devices (the first S GPUs, or S CPU shards with "
+                         "--device cpu)")
     pi.add_argument("--chunk-size", type=int, default=512)
     pi.add_argument("--batch-size", type=int, default=256)
     pi.add_argument("--max-len", type=int, default=128)
@@ -831,7 +863,9 @@ def build_parser() -> argparse.ArgumentParser:
     pf.add_argument("--nprobe", type=int, default=8)
     pf.add_argument("--cap-mult", type=float, default=1.6)
     pf.add_argument("--kmeans-iters", type=int, default=10)
-    pf.add_argument("--shards", type=int, default=1, help="only 1 is ported")
+    pf.add_argument("--shards", type=int, default=1,
+                    help="shards of the IVF index (the flat store is re-laid onto them); one a GPU, or S CPU shards "
+                         "with --device cpu")
     pf.add_argument("--seed", type=int, default=0)
     pf.add_argument("--device", default="cuda")
     pf.set_defaults(fn=cmd_build_ivf)
@@ -883,7 +917,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="reader weights: a local HF causal-LM or seq2seq directory, a checkpoint directory or a "
                          "flat .npz")
     ps.add_argument("--reader-strategy", choices=["tp", "fsdp_tp"], default=None,
-                    help="shard the reader over several GPUs (not ported yet)")
+                    help="split the reader tensor-parallel (attention heads, MLP hidden, vocabulary) over the "
+                         "model axis; plain float readers only")
     ps.add_argument("--reader-draft-size", default="tiny", choices=DRAFTS,
                     help="draft model preset for --speculative draft")
     ps.add_argument("--reader-draft-params", default=None,

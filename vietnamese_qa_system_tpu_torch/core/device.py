@@ -1,7 +1,9 @@
 """Device resolution and seeded generators.
 
 Counterpart of the device and seed parts of ``core/mesh.py`` and
-``core/rng.py``.  The port runs on one device; there is no mesh.
+``core/rng.py``.  An entry point runs on one device unless it is given a
+mesh (``core/mesh.py``: the sharded store and IVF index, the
+tensor-parallel reader).
 """
 
 from __future__ import annotations

@@ -49,6 +49,7 @@ import torch
 from ..core.device import resolve_device
 from ..models import decode_engine as de
 from ..models.decode_engine import TOPK_CAP
+from ..models.causal_lm import TPCausalLM
 from ..models.lora import LoraConfig, stack_adapters
 
 
@@ -206,6 +207,8 @@ class ContinuousEngine:
             if unsupported:
                 raise ValueError("seq2seq continuous serving does not support: " + ", ".join(unsupported))
             speculative = "off"
+        if adapters and isinstance(model, TPCausalLM):
+            raise ValueError("an adapter bank applies to an unsharded reader; a tensor-parallel one serves its base")
         if model.device.type != resolve_device(device).type:
             raise ValueError(f"the model is on {model.device}, the engine on {device}")
         self.device = model.device
@@ -383,7 +386,8 @@ class ContinuousEngine:
         if self._s2s:
             return de.make_decode_state_seq2seq(self.cfg, self.n_slots, self.total, self.buckets[-1],
                                                 device=self.device)
-        return de.make_decode_state(self.cfg, self.n_slots, self.total, kv_dtype=self.kv_dtype, device=self.device)
+        return de.make_decode_state(self.cfg, self.n_slots, self.total, kv_dtype=self.kv_dtype, device=self.device,
+                                    model=self.model)
 
     def _bucket(self, n: int) -> int:
         for b in self.buckets:

@@ -1,27 +1,33 @@
-"""IVF (inverted-file) clustered ANN index on one GPU.
+"""IVF (inverted-file) clustered ANN index over the flat store's shards.
 
-Counterpart of ``vietnamese_qa_system_tpu/engine/ivf.py`` for one device
-(``n_shards == 1``, like the port's :class:`VectorStore`):
+Counterpart of ``vietnamese_qa_system_tpu/engine/ivf.py``:
 
 - **Build.**  Spherical k-means over a seeded sample of the flat store
   (the same numpy draws, in the same order, as the JAX package, so the
-  sample and the initial centroids are equal), then a nearest-centroid
-  assignment of every row.  Both are f32 products of bf16-rounded inputs;
-  ties go to the first centroid; the centroid sums are one-hot products
-  (no atomics), so a build repeats bit for bit on one card.
-- **Fixed-shape buckets.**  Every cluster is a ``cap``-row slab of one
-  ``(C, cap, D)`` tensor, padded with ``gid = -1`` rows; rows past a full
-  bucket land in a spill region that every query scans.  Quantized codes
-  move from the store verbatim (no requantization), scales beside them;
-  int8_res carries its residual level in parallel slabs for the rerank.
-- **Query.**  Centroid scores pick ``nprobe`` clusters, kernel K5
-  (``ops/ivf_probe.py``) scores the probed buckets, the spill region is
-  one product, and a stable descending sort selects (where the JAX package
-  calls ``lax.top_k``: ties to the lowest position).  ``rerank`` re-scores
-  the candidates exactly in f32, with the residual level on int8_res.
+  sample and the initial centroids are equal; drawn ids are gathered from
+  their shards), then a nearest-centroid assignment of every row on its
+  shard's device.  Both are f32 products of bf16-rounded inputs; ties go
+  to the first centroid; the centroid sums are one-hot products (no
+  atomics), so a build repeats bit for bit on one card.
+- **Fixed-shape buckets, per shard.**  Every (shard, cluster) is a
+  ``cap``-row slab of the shard's ``(C, cap, D)`` tensor (``cap`` from the
+  mean cluster size of a shard), padded with ``gid = -1`` rows; rows past
+  a full bucket land in the shard's spill region, which every query
+  scans.  Quantized codes move from the store verbatim (no
+  requantization), scales beside them; int8_res carries its residual
+  level in parallel slabs for the rerank.
+- **Query.**  Centroid scores pick ``nprobe`` clusters (once: the
+  centroids are shared); on every shard kernel K5 (``ops/ivf_probe.py``)
+  scores the probed buckets, the spill region is one product, and a
+  stable descending sort selects (where the JAX package calls
+  ``lax.top_k``: ties to the lowest position).  ``rerank`` re-scores the
+  candidates exactly in f32 (residual level on int8_res), shard-locally.
+  The shards' top-k merge as the flat store's do (ties to the lower
+  shard).
 - **Files.**  ``save`` / ``load`` use the JAX package's layout (leading
-  shard axis of 1, bf16 slabs as f32, ``gid_loc.npy``), so an index saved
-  by either package loads in the other.
+  shard axis, bf16 slabs as f32, ``gid_loc.npy``), so an index saved by
+  either package loads in the other, at the shard count it was built
+  with.
 
 Whether the IVF probe or the flat scan answers a query batch faster is a
 property of the card: :func:`select_serving_index` encodes the crossover
@@ -30,6 +36,7 @@ measured on an H100 (``IVF_KAPPA``).
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 from typing import Optional
@@ -37,10 +44,11 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..core.device import resolve_device
+from ..core.mesh import Mesh
 from ..ops.ivf_probe import ivf_probe_scores
 from ..ops.quant import quantize_int8, quantize_int8_residual
-from .store import VectorStore
+from ..parallel.collectives import all_gather
+from .store import VectorStore, shard_devices
 
 KMEANS_CHUNK = 4096  # sample padding and assignment chunk (ivf.py:238)
 
@@ -105,15 +113,18 @@ def _dequant(codes: torch.Tensor, scales: Optional[torch.Tensor], global_scale) 
     return v
 
 
-def assign_rows(store: VectorStore, cents: torch.Tensor) -> np.ndarray:
-    """Nearest centroid of each of the store's rows, dequantized chunk by
-    chunk (no f32 copy of the corpus).  Returns (size,) int64 on the host."""
-    cents_t = cents.to(torch.bfloat16).float().T
-    scales = store.scales if store.dtype in ("int8", "int8_res") else None
-    out = torch.empty(store.size, dtype=torch.long, device=store.device)
-    for lo in range(0, store.size, KMEANS_CHUNK):
-        hi = min(lo + KMEANS_CHUNK, store.size)
-        x = _dequant(store.vectors[lo:hi], None if scales is None else scales[lo:hi], store.global_scale)
+def assign_rows(store: VectorStore, shard: int, cents: torch.Tensor) -> np.ndarray:
+    """Nearest centroid of each row of one shard of the store (slot order),
+    dequantized chunk by chunk on the shard's device (no f32 copy of the
+    corpus).  Returns (valid rows,) int64 on the host."""
+    slab = store.slabs[shard]
+    cents_t = cents.to(slab.device).to(torch.bfloat16).float().T
+    scales = slab.scales if store.dtype in ("int8", "int8_res") else None
+    n = store.valid_rows(shard)
+    out = torch.empty(n, dtype=torch.long, device=slab.device)
+    for lo in range(0, n, KMEANS_CHUNK):
+        hi = min(lo + KMEANS_CHUNK, n)
+        x = _dequant(slab.vectors[lo:hi], None if scales is None else scales[lo:hi], store.global_scale)
         out[lo:hi] = _scores_bf16(x, cents_t).argmax(1)
     return out.cpu().numpy()
 
@@ -145,16 +156,55 @@ def bucket_layout(assign: np.ndarray, n_clusters: int, cap: int, spill_headroom:
 # ---------------------------------------------------------------------- index
 
 
+def _pad_ids(a: np.ndarray, n: int) -> np.ndarray:
+    """``a`` padded with -1 to ``n`` entries."""
+    return np.concatenate([a, np.full(n - len(a), -1, np.int64)])
+
+
+def shard_layouts(assign_by_shard: list, n_clusters: int, cap: int, spill_headroom: int) -> list[dict]:
+    """:func:`bucket_layout` of every shard (each over its own slots, in
+    slot == id order), with one spill capacity for all: the largest
+    shard's spill plus ``spill_headroom``, rounded to 128 (ivf.py:147-163).
+    The slots of the returned ``gids`` / ``spill_gids`` are shard-local."""
+    lays = [bucket_layout(a, n_clusters, cap, 0) for a in assign_by_shard]
+    spill_cap = _round_up(max(lay["spill_count"] for lay in lays) + spill_headroom, 128)
+    for lay in lays:
+        lay["spill_gids"] = _pad_ids(lay["spill_gids"][: lay["spill_count"]], spill_cap)
+        lay["spill_cap"] = spill_cap
+    return lays
+
+
+@dataclasses.dataclass
+class _Shard:
+    """One shard's slabs on its device (``None`` where the dtype has no
+    such level)."""
+
+    device: torch.device
+    buckets: torch.Tensor = None            # (C, cap, D) bf16 | int8
+    bucket_scales: torch.Tensor = None      # (C, cap) f32 (int8, int8_res)
+    bucket_gids: torch.Tensor = None        # (C, cap) int32 global ids, -1 pad
+    spill_vecs: torch.Tensor = None         # (spill_cap, D)
+    spill_scales: torch.Tensor = None       # (spill_cap,) f32 (int8, int8_res)
+    spill_gids: torch.Tensor = None         # (spill_cap,) int32, -1 pad
+    # int8_res: the residual level, read only by the rerank
+    res_buckets: torch.Tensor = None
+    res_bucket_scales: torch.Tensor = None
+    res_spill_vecs: torch.Tensor = None
+    res_spill_scales: torch.Tensor = None
+
+
 class IVFIndex:
     """Clustered ANN index over a :class:`VectorStore`'s rows, made by
-    :meth:`build` or :meth:`load`.  Exposes the store's query surface
-    (``topk`` / ``size`` / ``dim`` / ``get_vectors`` / ``save``), so the
-    Retriever and the serving layer take either."""
+    :meth:`build` or :meth:`load`, with the store's shards: every shard
+    keeps its own rows' buckets and spill region under the shared
+    centroids.  Exposes the store's query surface (``topk`` / ``size`` /
+    ``dim`` / ``get_vectors`` / ``save``), so the Retriever and the
+    serving layer take either."""
 
-    n_shards = 1
-
-    def __init__(self, device="cuda"):
-        self.device = resolve_device(device)
+    def __init__(self, device="cuda", mesh: Mesh | None = None):
+        self.devices = shard_devices(mesh, device)
+        self.device = self.devices[0]
+        self.n_shards = len(self.devices)
         self.dtype = "bf16"
         self.dim = 0
         self.size = 0
@@ -163,20 +213,16 @@ class IVFIndex:
         self.spill_cap = 0
         self.nprobe = 8
         self.global_scale: float | None = None
-        self.centroids = None         # (C, D) f32
-        self.buckets = None           # (C, cap, D) bf16 | int8
-        self.bucket_scales = None     # (C, cap) f32 (int8, int8_res)
-        self.bucket_gids = None       # (C, cap) int32, -1 pad
-        self.spill_vecs = None        # (spill_cap, D)
-        self.spill_scales = None      # (spill_cap,) f32 (int8, int8_res)
-        self.spill_gids = None        # (spill_cap,) int32, -1 pad
-        # int8_res: the residual level, read only by the rerank
-        self.res_buckets = None
-        self.res_bucket_scales = None
-        self.res_spill_vecs = None
-        self.res_spill_scales = None
-        self.spill_count = 0
-        self._gid_loc: np.ndarray = None  # (size, 3) host: [shard 0, cluster | -1, slot]
+        self.centroids = None         # (C, D) f32 on the lead device
+        self.shards = [_Shard(d) for d in self.devices]
+        self.spill_counts = np.zeros(self.n_shards, np.int64)
+        self._gid_loc: np.ndarray = None  # (size, 3) host: [shard, cluster | -1, slot]
+
+
+    @property
+    def spill_count(self) -> int:
+        """Rows in the spill regions, over every shard."""
+        return int(self.spill_counts.sum())
 
     # ------------------------------------------------------------- build
 
@@ -184,14 +230,16 @@ class IVFIndex:
     def build(cls, store: VectorStore, *, n_clusters: Optional[int] = None, nprobe: int = 8,
               cap_mult: float = 1.6, kmeans_iters: int = 10, sample_n: int = 131072, seed: int = 0,
               spill_headroom: int = 1024) -> "IVFIndex":
-        """Cluster a populated store into an IVF index on the store's device.
+        """Cluster a populated store into an IVF index on the store's
+        shards.
 
         ``n_clusters`` defaults to ~4*sqrt(N) rounded to 128; ``cap_mult``
-        sets the bucket capacity as a multiple of the mean cluster size,
-        rounded to 128 rows; rows past a full bucket spill."""
+        sets the bucket capacity as a multiple of the mean cluster size of
+        a shard, rounded to 128 rows; rows past a full bucket spill."""
         if store.size <= 0:
             raise ValueError("cannot build an IVF index over an empty store")
-        idx = cls(store.device)
+        idx = cls(store.device, store.mesh)
+        s = idx.n_shards
         n = idx.size = store.size
         idx.dtype, idx.dim, idx.nprobe, idx.global_scale = store.dtype, store.dim, nprobe, store.global_scale
         if n_clusters is None:
@@ -199,36 +247,50 @@ class IVFIndex:
         n_clusters = idx.n_clusters = min(n_clusters, _round_up(max(n // 8, 1), 8))
         has_scales = store.dtype in ("int8", "int8_res")
 
+        # the k-means sample: the drawn ids, gathered from their shards
         rows, init = kmeans_draws(n, n_clusters, sample_n, seed)
-        rows_t = torch.as_tensor(rows, device=store.device)
-        sample = _dequant(store.vectors[rows_t], store.scales[rows_t] if has_scales else None, store.global_scale)
+        lead = store.device
+        sample = torch.empty((len(rows), store.dim), dtype=torch.float32, device=lead)
+        for sh, slab in enumerate(store.slabs):
+            sel = np.flatnonzero(rows % s == sh)
+            if sel.size:
+                slot = torch.as_tensor(rows[sel] // s, device=slab.device)
+                x = _dequant(slab.vectors[slot], slab.scales[slot] if has_scales else None, store.global_scale)
+                sample[torch.as_tensor(sel, device=lead)] = x.to(lead)
         idx.centroids = kmeans(sample, init, kmeans_iters)
         del sample
 
-        idx.cap = _round_up(max(int(np.ceil(cap_mult * max(n / n_clusters, 1.0))), 8), 128)
-        lay = bucket_layout(assign_rows(store, idx.centroids), n_clusters, idx.cap, spill_headroom)
-        idx.spill_cap, idx.spill_count = lay["spill_cap"], lay["spill_count"]
-        dev = store.device
-        # pad slots gather row 0, as in the JAX package (their gid masks them)
-        gi = torch.as_tensor(lay["gids"], device=dev).clamp_min(0)
-        si = torch.as_tensor(lay["spill_gids"], device=dev).clamp_min(0)
+        idx.cap = _round_up(max(int(np.ceil(cap_mult * max(n / (s * n_clusters), 1.0))), 8), 128)
+        lays = shard_layouts([assign_rows(store, sh, idx.centroids) for sh in range(s)], n_clusters, idx.cap,
+                             spill_headroom)
+        idx.spill_cap = lays[0]["spill_cap"]
+        idx.spill_counts = np.asarray([lay["spill_count"] for lay in lays], np.int64)
+        loc = np.zeros((n, 3), np.int64)
+        for sh, (slab, lay, shard) in enumerate(zip(store.slabs, lays, idx.shards)):
+            dev = slab.device
+            # pad slots gather row 0, as in the JAX package (their gid masks them)
+            gi = torch.as_tensor(lay["gids"], device=dev).clamp_min(0)
+            si = torch.as_tensor(lay["spill_gids"], device=dev).clamp_min(0)
 
-        def slabs(vectors, scales):
-            # one device gather a slab: codes and scales move verbatim
-            b = vectors.index_select(0, gi).view(n_clusters, idx.cap, -1)
-            s = vectors.index_select(0, si)
-            if scales is None:
-                return b, s, None, None
-            return b, s, scales.index_select(0, gi).view(n_clusters, idx.cap), scales.index_select(0, si)
+            def slabs(vectors, scales):
+                # one device gather a slab: codes and scales move verbatim
+                b = vectors.index_select(0, gi).view(n_clusters, idx.cap, -1)
+                sp = vectors.index_select(0, si)
+                if scales is None:
+                    return b, sp, None, None
+                return b, sp, scales.index_select(0, gi).view(n_clusters, idx.cap), scales.index_select(0, si)
 
-        idx.buckets, idx.spill_vecs, idx.bucket_scales, idx.spill_scales = slabs(
-            store.vectors, store.scales if has_scales else None)
-        if store.dtype == "int8_res":
-            idx.res_buckets, idx.res_spill_vecs, idx.res_bucket_scales, idx.res_spill_scales = slabs(
-                store.res_vectors, store.res_scales)
-        idx.bucket_gids = torch.as_tensor(lay["gids"].reshape(n_clusters, idx.cap), dtype=torch.int32, device=dev)
-        idx.spill_gids = torch.as_tensor(lay["spill_gids"], dtype=torch.int32, device=dev)
-        idx._gid_loc = _gid_locations(lay["gids"], lay["spill_gids"], n, idx.cap)
+            shard.buckets, shard.spill_vecs, shard.bucket_scales, shard.spill_scales = slabs(
+                slab.vectors, slab.scales if has_scales else None)
+            if store.dtype == "int8_res":
+                shard.res_buckets, shard.res_spill_vecs, shard.res_bucket_scales, shard.res_spill_scales = slabs(
+                    slab.res_vectors, slab.res_scales)
+            gids = np.where(lay["gids"] >= 0, lay["gids"] * s + sh, -1)
+            spill = np.where(lay["spill_gids"] >= 0, lay["spill_gids"] * s + sh, -1)
+            shard.bucket_gids = torch.as_tensor(gids.reshape(n_clusters, idx.cap), dtype=torch.int32, device=dev)
+            shard.spill_gids = torch.as_tensor(spill, dtype=torch.int32, device=dev)
+            _gid_locations(loc, sh, gids, spill, idx.cap)
+        idx._gid_loc = loc
         return idx
 
     # ------------------------------------------------------------- query
@@ -238,11 +300,12 @@ class IVFIndex:
         """(B, D) queries -> (scores (B, k) f32, global ids (B, k) int32).
 
         ``nprobe`` overrides the build-time default; ``mode="exact"`` probes
-        every cluster.  ``rerank=K'`` keeps K' >= k candidates and re-scores
-        them exactly in f32 (with the residual level on int8_res) before the
-        final top-k; ``None`` means ``4 * k`` on int8_res and off otherwise,
-        ``0`` switches it off.  Fewer than k probed rows leave id -1 and
-        score 0 in the tail."""
+        every cluster.  ``rerank=K'`` keeps K' >= k candidates a shard and
+        re-scores them exactly in f32 (with the residual level on int8_res)
+        before the final top-k; ``None`` means ``4 * k`` on int8_res and
+        off otherwise, ``0`` switches it off.  Every shard probes the same
+        clusters; the shards' candidates merge as the flat store's do.
+        Fewer than k probed rows leave id -1 and score 0 in the tail."""
         if rerank == 0:
             rerank = None
         elif rerank is None and self.dtype == "int8_res":
@@ -253,43 +316,54 @@ class IVFIndex:
             raise ValueError(f"index has {self.size} < k={k} vectors")
         p = self.n_clusters if mode == "exact" else (nprobe if nprobe is not None else self.nprobe)
         p = min(p, self.n_clusters)
-        cap, spill_cap = self.cap, self.spill_cap
-        if k > p * cap + spill_cap:
-            raise ValueError(f"k={k} exceeds probed rows {p}*{cap}+{spill_cap}; raise nprobe")
-        is_int8 = self.dtype in ("int8", "int8_res")
+        if k > p * self.cap + self.spill_cap:
+            raise ValueError(f"k={k} exceeds probed rows {p}*{self.cap}+{self.spill_cap}; raise nprobe")
         q = torch.as_tensor(queries, device=self.device).float()
+        # the probed clusters, once: every shard holds the same centroids
+        _, probe = _stable_topk(q.to(torch.bfloat16).float() @ self.centroids.to(torch.bfloat16).float().T, p)
+        probe = probe.to(torch.int32)
+        vals, ids = [], []
+        for shard in self.shards:
+            v, i = self._shard_topk(shard, q.to(shard.device), probe.to(shard.device), k, rerank)
+            # a shard's unfilled tail: id -1, score 0 (ivf.py:409-410)
+            vals.append(torch.where(torch.isfinite(v), v, 0.0))
+            ids.append(torch.where(torch.isfinite(v), i, -1))
+        if self.n_shards == 1:
+            return vals[0].contiguous(), ids[0].to(torch.int32).contiguous()
+        all_s = all_gather(vals, self.device, dim=1)
+        all_g = all_gather(ids, self.device, dim=1)
+        mvals, pos = _stable_topk(torch.where(all_g >= 0, all_s, float("-inf")), k)
+        mids = torch.gather(all_g, 1, pos)
+        return torch.where(mids >= 0, mvals, 0.0).contiguous(), mids.to(torch.int32).contiguous()
+
+    def _shard_topk(self, shard: _Shard, q, probe, k: int, rerank: Optional[int]):
+        """One shard's (scores, ids) (B, k): K5 over its probed buckets, a
+        product over its spill region, then the top k (or the rerank)."""
+        p, cap, spill_cap = probe.shape[1], self.cap, self.spill_cap
         bsz = q.shape[0]
+        is_int8 = self.dtype in ("int8", "int8_res")
         g_scale = None
         if self.dtype == "int8_global":
-            g_scale = torch.tensor(self.global_scale, dtype=torch.float32, device=self.device)
-
-        bq = q.to(torch.bfloat16).float()
-        _, probe = _stable_topk(bq @ self.centroids.to(torch.bfloat16).float().T, p)
+            g_scale = torch.tensor(self.global_scale, dtype=torch.float32, device=shard.device)
         # K5, with a global scale folded into the query before its bf16
         # rounding, as the JAX package's kernel route does (ivf.py:474-480)
-        sc, g = ivf_probe_scores(q if g_scale is None else q * g_scale, probe.to(torch.int32), self.buckets,
-                                 self.bucket_scales, self.bucket_gids)
+        sc, g = ivf_probe_scores(q if g_scale is None else q * g_scale, probe, shard.buckets, shard.bucket_scales,
+                                 shard.bucket_gids)
         # the spill region: an always-scanned flat mini-index
-        ssc = bq @ self.spill_vecs.float().T
+        ssc = q.to(torch.bfloat16).float() @ shard.spill_vecs.float().T
         if is_int8:
-            ssc = ssc * self.spill_scales[None, :]
+            ssc = ssc * shard.spill_scales[None, :]
         elif g_scale is not None:
             ssc = ssc * g_scale
-        ssc = torch.where(self.spill_gids[None, :] >= 0, ssc, float("-inf"))
+        ssc = torch.where(shard.spill_gids[None, :] >= 0, ssc, float("-inf"))
         sc = torch.cat([sc.reshape(bsz, -1), ssc], dim=1)
-        g = torch.cat([g.reshape(bsz, -1), self.spill_gids[None, :].expand(bsz, -1)], dim=1)
-
+        g = torch.cat([g.reshape(bsz, -1), shard.spill_gids[None, :].expand(bsz, -1)], dim=1)
         if rerank is None:
             vals, pos = _stable_topk(sc, k)
-            ids = torch.gather(g, 1, pos)
-        else:
-            vals, ids = self._rerank(q, probe, sc, g, k, min(rerank, p * cap + spill_cap), g_scale)
-        # the one-shard merge: the unfilled tail reports id -1 and score 0
-        ids = torch.where(torch.isfinite(vals), ids, -1)
-        vals = torch.where(ids >= 0, vals, 0.0)
-        return vals.contiguous(), ids.to(torch.int32).contiguous()
+            return vals, torch.gather(g, 1, pos)
+        return self._rerank(shard, q, probe, sc, g, k, min(rerank, p * cap + spill_cap), g_scale)
 
-    def _rerank(self, q, probe, sc, g, k: int, kp: int, g_scale):
+    def _rerank(self, shard: _Shard, q, probe, sc, g, k: int, kp: int, g_scale):
         """Exact f32 re-score of the best ``kp`` probe-score candidates
         (+ the residual level on int8_res), then the top k.  Candidate
         position ``pos`` is a bucket row in probe order below ``p * cap``,
@@ -298,7 +372,7 @@ class IVFIndex:
         _, pos = _stable_topk(sc, kp)
         cg = torch.gather(g, 1, pos)
         in_bucket = pos < p * cap
-        cl = torch.gather(probe, 1, (pos // cap).clamp(0, p - 1))
+        cl = torch.gather(probe.long(), 1, (pos // cap).clamp(0, p - 1))
         bidx = torch.where(in_bucket, cl * cap + pos % cap, 0)
         sidx = (pos - p * cap).clamp(0, spill_cap - 1)
 
@@ -312,15 +386,15 @@ class IVFIndex:
             a = slab.reshape(-1)[bidx]
             return a if spill_cap == 0 else torch.where(in_bucket, a, spill[sidx])
 
-        rs = torch.einsum("bd,bkd->bk", q, gather(self.buckets, self.spill_vecs).float())
+        rs = torch.einsum("bd,bkd->bk", q, gather(shard.buckets, shard.spill_vecs).float())
         if self.dtype in ("int8", "int8_res"):
-            rs = rs * gather_scales(self.bucket_scales, self.spill_scales)
+            rs = rs * gather_scales(shard.bucket_scales, shard.spill_scales)
         elif g_scale is not None:
             rs = rs * g_scale
         if self.dtype == "int8_res":
-            rv = gather(self.res_buckets, self.res_spill_vecs).float()
-            rs = rs + torch.einsum("bd,bkd->bk", q, rv) * gather_scales(self.res_bucket_scales,
-                                                                         self.res_spill_scales)
+            rv = gather(shard.res_buckets, shard.res_spill_vecs).float()
+            rs = rs + torch.einsum("bd,bkd->bk", q, rv) * gather_scales(shard.res_bucket_scales,
+                                                                         shard.res_spill_scales)
         rs = torch.where(cg >= 0, rs, float("-inf"))
         vals, pos2 = _stable_topk(rs, k)
         return vals, torch.gather(cg, 1, pos2)
@@ -328,38 +402,50 @@ class IVFIndex:
     # --------------------------------------------------------------- add
 
     def add(self, vectors) -> np.ndarray:
-        """Streaming adds land in the spill region (scanned by every query,
-        so they are searchable at once); rebuild from a flat store when the
-        spill grows.  Returns the assigned global ids."""
+        """Streaming adds land in the spill regions, the emptiest shard
+        first, in contiguous runs (scanned by every query, so they are
+        searchable at once); rebuild from a flat store when the spill
+        grows.  Returns the assigned global ids."""
         new = torch.as_tensor(vectors, device=self.device).float()
         if new.ndim != 2 or new.shape[1] != self.dim:
             raise ValueError(f"expected (E, {self.dim}) vectors, got {tuple(new.shape)}")
         e = new.shape[0]
-        room = self.spill_cap - self.spill_count
+        room = self.spill_cap * self.n_shards - self.spill_count
         if e > room:
             raise ValueError(f"spill region full ({room} slots left, adding {e}); "
                              "rebuild the IVF index from the flat store")
-        base = self.spill_count
-        rows = slice(base, base + e)
-        if self.dtype == "int8":
-            self.spill_vecs[rows], self.spill_scales[rows] = quantize_int8(new)
-        elif self.dtype == "int8_res":
-            q1, s1, q2, s2 = quantize_int8_residual(new)
-            self.spill_vecs[rows], self.spill_scales[rows] = q1, s1
-            self.res_spill_vecs[rows], self.res_spill_scales[rows] = q2, s2
-        elif self.dtype == "int8_global":
-            # a 0-d tensor: a true division on the card too (ops/quant.py div127)
-            gs = torch.tensor(self.global_scale, dtype=torch.float32, device=self.device)
-            self.spill_vecs[rows] = torch.round(new / gs).clamp(-127, 127).to(torch.int8)
-        else:
-            self.spill_vecs[rows] = new.to(torch.bfloat16)
         ids = np.arange(self.size, self.size + e, dtype=np.int64)
-        self.spill_gids[rows] = torch.as_tensor(ids, dtype=torch.int32, device=self.device)
         loc = np.zeros((e, 3), np.int64)
-        loc[:, 1] = -1
-        loc[:, 2] = np.arange(base, base + e)
+        offset = 0
+        for sh in np.argsort(self.spill_counts, kind="stable"):
+            if offset >= e:
+                break
+            take = min(self.spill_cap - int(self.spill_counts[sh]), e - offset)
+            if take <= 0:
+                continue
+            shard = self.shards[sh]
+            base = int(self.spill_counts[sh])
+            rows = slice(base, base + take)
+            x = new[offset: offset + take].to(shard.device)
+            if self.dtype == "int8":
+                shard.spill_vecs[rows], shard.spill_scales[rows] = quantize_int8(x)
+            elif self.dtype == "int8_res":
+                q1, s1, q2, s2 = quantize_int8_residual(x)
+                shard.spill_vecs[rows], shard.spill_scales[rows] = q1, s1
+                shard.res_spill_vecs[rows], shard.res_spill_scales[rows] = q2, s2
+            elif self.dtype == "int8_global":
+                # a 0-d tensor: a true division on the card too (ops/quant.py div127)
+                gs = torch.tensor(self.global_scale, dtype=torch.float32, device=shard.device)
+                shard.spill_vecs[rows] = torch.round(x / gs).clamp(-127, 127).to(torch.int8)
+            else:
+                shard.spill_vecs[rows] = x.to(torch.bfloat16)
+            shard.spill_gids[rows] = torch.as_tensor(ids[offset: offset + take], dtype=torch.int32,
+                                                     device=shard.device)
+            loc[offset: offset + take] = np.stack([np.full(take, sh), np.full(take, -1),
+                                                   np.arange(base, base + take)], axis=1)
+            self.spill_counts[sh] += take
+            offset += take
         self._gid_loc = np.concatenate([self._gid_loc, loc], axis=0)
-        self.spill_count += e
         self.size += e
         return ids
 
@@ -373,67 +459,74 @@ class IVFIndex:
         loc = self._gid_loc[ids]
         out = np.zeros((len(ids), self.dim), np.float32)
         spill = loc[:, 1] < 0
-        for rows, at, planes in (
-            (~spill, (loc[~spill, 1], loc[~spill, 2]),
-             (self.buckets, self.bucket_scales, self.res_buckets, self.res_bucket_scales)),
-            (spill, (loc[spill, 2],), (self.spill_vecs, self.spill_scales, self.res_spill_vecs, self.res_spill_scales)),
-        ):
-            if rows.any():
-                at = tuple(torch.as_tensor(a) for a in at)
-                codes, scales, res, res_scales = (None if t is None else t[at].float().cpu().numpy() for t in planes)
-                # the JAX package's host arithmetic (ivf.py:704-729)
-                if self.dtype in ("int8", "int8_res"):
-                    codes *= scales[:, None]
-                elif self.dtype == "int8_global":
-                    codes *= np.float32(self.global_scale)
-                if self.dtype == "int8_res":
-                    codes += res * res_scales[:, None]
-                out[rows] = codes
+        for sh, shard in enumerate(self.shards):
+            mine = loc[:, 0] == sh
+            for rows, at, planes in (
+                (mine & ~spill, lambda m: (loc[m, 1], loc[m, 2]),
+                 (shard.buckets, shard.bucket_scales, shard.res_buckets, shard.res_bucket_scales)),
+                (mine & spill, lambda m: (loc[m, 2],),
+                 (shard.spill_vecs, shard.spill_scales, shard.res_spill_vecs, shard.res_spill_scales)),
+            ):
+                if rows.any():
+                    at = tuple(torch.as_tensor(a, device=shard.device) for a in at(rows))
+                    codes, scales, res, res_scales = (None if t is None else t[at].float().cpu().numpy()
+                                                      for t in planes)
+                    # the JAX package's host arithmetic (ivf.py:704-729)
+                    if self.dtype in ("int8", "int8_res"):
+                        codes *= scales[:, None]
+                    elif self.dtype == "int8_global":
+                        codes *= np.float32(self.global_scale)
+                    if self.dtype == "int8_res":
+                        codes += res * res_scales[:, None]
+                    out[rows] = codes
         return out
 
     # ------------------------------------------------------------ persist
 
     def save(self, path: str) -> None:
         """The JAX package's IVF directory: ``meta.json`` and one ``.npy``
-        a slab, each with a leading shard axis of 1 (bf16 slabs as f32)."""
+        a slab, each with a leading shard axis (bf16 slabs as f32)."""
         os.makedirs(path, exist_ok=True)
         meta = {
-            "type": "ivf", "dim": self.dim, "dtype": self.dtype, "size": self.size, "n_shards": 1,
+            "type": "ivf", "dim": self.dim, "dtype": self.dtype, "size": self.size, "n_shards": self.n_shards,
             "n_clusters": self.n_clusters, "cap": self.cap, "spill_cap": self.spill_cap,
-            "nprobe": self.nprobe, "global_scale": self.global_scale, "spill_counts": [self.spill_count],
+            "nprobe": self.nprobe, "global_scale": self.global_scale, "spill_counts": self.spill_counts.tolist(),
         }
         with open(os.path.join(path, "meta.json"), "w") as f:
             json.dump(meta, f)
 
-        def put(name, t, shard_axis=True):
-            if t is not None:
-                a = (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
-                np.save(os.path.join(path, name), a[None] if shard_axis else a)
+        def host(t):
+            return (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
 
-        put("centroids.npy", self.centroids, shard_axis=False)
+        np.save(os.path.join(path, "centroids.npy"), host(self.centroids))
         for name in _SLABS:
-            put(f"{name}.npy", getattr(self, name))
+            if getattr(self.shards[0], name) is not None:
+                np.save(os.path.join(path, f"{name}.npy"), np.stack([host(getattr(sh, name)) for sh in self.shards]))
         np.save(os.path.join(path, "gid_loc.npy"), self._gid_loc)
 
     @classmethod
-    def load(cls, path: str, *, device="cuda") -> "IVFIndex":
+    def load(cls, path: str, *, device="cuda", mesh: Mesh | None = None) -> "IVFIndex":
+        """Restore an IVF directory onto ``mesh``'s shards (one shard on
+        ``device`` without a mesh); the shard count must be the build's."""
         with open(os.path.join(path, "meta.json")) as f:
             meta = json.load(f)
-        if meta["n_shards"] != 1:
-            raise ValueError(f"IVF index was built over {meta['n_shards']} shards; the port serves one -- "
-                             "rebuild from the flat store")
-        idx = cls(device)
+        idx = cls(device, mesh)
+        if idx.n_shards != meta["n_shards"]:
+            raise ValueError(f"IVF index was built over {meta['n_shards']} shards; load mesh has {idx.n_shards} "
+                             "-- rebuild from the flat store to reshard")
         for key in ("dim", "dtype", "size", "n_clusters", "cap", "spill_cap", "nprobe", "global_scale"):
             setattr(idx, key, meta[key])
-        idx.spill_count = int(meta["spill_counts"][0])
+        idx.spill_counts = np.asarray(meta["spill_counts"], np.int64)
         vec_dt = torch.bfloat16 if idx.dtype == "bf16" else torch.int8
-        dev = idx.device
-        idx.centroids = torch.as_tensor(np.load(os.path.join(path, "centroids.npy")), device=dev)
+        idx.centroids = torch.as_tensor(np.load(os.path.join(path, "centroids.npy")), device=idx.device)
         for name in _SLABS:
             file = os.path.join(path, f"{name}.npy")
             if os.path.exists(file):
-                arr = torch.as_tensor(np.load(file)[0], device=dev)
-                setattr(idx, name, arr.to(vec_dt) if name in ("buckets", "spill_vecs") else arr)
+                arr = np.load(file)
+                for sh, shard in enumerate(idx.shards):
+                    t = torch.as_tensor(arr[sh], device=shard.device)
+                    setattr(shard, name, t.to(vec_dt) if name in ("buckets", "spill_vecs")
+                            else t.to(torch.int8) if name in ("res_buckets", "res_spill_vecs") else t)
         idx._gid_loc = np.load(os.path.join(path, "gid_loc.npy"))
         return idx
 
@@ -443,26 +536,23 @@ _SLABS = ("buckets", "bucket_gids", "spill_vecs", "spill_gids", "bucket_scales",
           "res_buckets", "res_bucket_scales", "res_spill_vecs", "res_spill_scales")
 
 
-def _gid_locations(bucket_gids: np.ndarray, spill_gids: np.ndarray, n: int, cap: int) -> np.ndarray:
-    """(n, 3) host map id -> [shard 0, cluster | -1 for the spill, slot]."""
-    loc = np.zeros((n, 3), np.int64)
+def _gid_locations(loc: np.ndarray, shard: int, bucket_gids: np.ndarray, spill_gids: np.ndarray, cap: int) -> None:
+    """Fill the host map id -> [shard, cluster | -1 for the spill, slot]
+    with one shard's global ids."""
     at = np.flatnonzero(bucket_gids >= 0)
-    loc[bucket_gids[at], 1] = at // cap
-    loc[bucket_gids[at], 2] = at % cap
+    loc[bucket_gids[at]] = np.stack([np.full(len(at), shard), at // cap, at % cap], axis=1)
     at = np.flatnonzero(spill_gids >= 0)
-    loc[spill_gids[at], 1] = -1
-    loc[spill_gids[at], 2] = at
-    return loc
+    loc[spill_gids[at]] = np.stack([np.full(len(at), shard), np.full(len(at), -1), at], axis=1)
 
 
-def load_index(path: str, *, capacity: Optional[int] = None, device="cuda"):
+def load_index(path: str, *, capacity: Optional[int] = None, device="cuda", mesh: Mesh | None = None):
     """Open a saved index directory by its ``meta.json`` type: an IVF
     directory as :class:`IVFIndex`, a flat one as :class:`VectorStore`."""
     with open(os.path.join(path, "meta.json")) as f:
         meta = json.load(f)
     if meta.get("type") == "ivf":
-        return IVFIndex.load(path, device=device)
-    return VectorStore.load(path, capacity=capacity, device=device)
+        return IVFIndex.load(path, device=device, mesh=mesh)
+    return VectorStore.load(path, capacity=capacity, device=device, mesh=mesh)
 
 
 # The crossover between probing the IVF index and scanning the flat store,

@@ -14,15 +14,24 @@ other than "none") wraps each layer of the list instead.
 The cache-less forward with ``use_flash_attention=True`` runs every layer
 through the causal flash kernels (K4 forward, K7 backward), local layers
 in their sliding-window form, with ALiBi as the key-only bias.
+
+``TPCausalLM`` is the reader split tensor-parallel over a mesh (the
+counterpart of the JAX package's tp-sharded parameters under GSPMD): the
+same forward over per-device parts, made by ``parallel.sharding.
+shard_params``.
 """
 
 from __future__ import annotations
 
+import copy
+
 import torch
 from torch import nn
 
+from ..parallel.collectives import all_gather, all_reduce_sum
 from .config import ModelConfig
-from .layers import Block, Dense, LayerNorm, _matmul, alibi_bias, causal_mask, remat_wrap, rope_frequencies
+from .layers import (Block, Dense, LayerNorm, TPAttention, TPMLP, _matmul, alibi_bias, causal_mask, head_groups,
+                     owned_copy, remat_wrap, rope_frequencies, split_dense)
 from .quantize import quantize_dense_tree
 
 IGNORE_INDEX = -100  # label positions excluded from the loss
@@ -65,15 +74,16 @@ def _window_mask(q_slots, k_slots, window: int):
 
 
 def make_cache(cfg: ModelConfig, b: int, total_len: int, device, kv_dtype: str = "bf16",
-               n_layers: int | None = None) -> list[dict]:
+               n_layers: int | None = None, kv_heads: int | None = None) -> list[dict]:
     """One {"k", "v"} (B, total_len, kv heads, head_dim) buffer per layer
     (GQA stores only the kv heads; ``n_layers`` defaults to the model's,
     a seq2seq decoder passes its own), as generate.py:267 ``_make_cache``
     builds it: bf16, or with ``kv_dtype="int8"`` int8 codes plus f32
-    scales "k_s", "v_s" (B, total_len, kv heads, 1) (layers.kv_quantize)."""
+    scales "k_s", "v_s" (B, total_len, kv heads, 1) (layers.kv_quantize).
+    ``kv_heads`` overrides the model's (a tensor-parallel device's share)."""
     if kv_dtype not in ("bf16", "int8"):
         raise ValueError(f"kv_dtype must be bf16|int8, got {kv_dtype!r}")
-    shape = (b, total_len, cfg.kv_heads, cfg.head_dim)
+    shape = (b, total_len, kv_heads or cfg.kv_heads, cfg.head_dim)
 
     def layer():
         if kv_dtype == "int8":
@@ -116,6 +126,18 @@ class CausalLM(nn.Module):
     def device(self) -> torch.device:
         return self.tok_embed.device
 
+    def embed(self, ids):
+        """Token embeddings (B, T, D) in the table's dtype."""
+        return self.tok_embed[ids]
+
+    def make_cache(self, b: int, total: int, kv_dtype: str = "bf16") -> list[dict]:
+        """This model's KV cache (:func:`make_cache`)."""
+        return make_cache(self.cfg, b, total, self.device, kv_dtype)
+
+    def layer_cache(self, cache, i: int):
+        """Layer ``i``'s part of a cache from :meth:`make_cache`."""
+        return cache[i]
+
     def hidden_states(self, ids, attn_mask=None, *, positions=None, cache=None, cache_index=None):
         """ids (B, T) -> final-norm hidden states (B, T, D) f32.
 
@@ -132,7 +154,7 @@ class CausalLM(nn.Module):
         # positions past the tables read their last row, as JAX's clamped
         # gathers do (a prompt + answer longer than max_seq_len)
         positions = positions.clamp(0, cfg.max_seq_len - 1)
-        x = self.tok_embed[ids]
+        x = self.embed(ids)
         if cfg.scale_embedding:
             x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype, device=dev)
         rope = None
@@ -187,7 +209,7 @@ class CausalLM(nn.Module):
             local = kind == "local"
             run = remat_wrap(blk, cfg.remat_policy) if remat else blk
             x = run(x, mask=local_mask if local else mask, rope=rope, positions=positions,
-                    cache=None if cache is None else cache[i], cache_index=cache_index,
+                    cache=None if cache is None else self.layer_cache(cache, i), cache_index=cache_index,
                     parallel_residual=cfg.parallel_residual, scale=cfg.attention_scale,
                     activation=cfg.activation, bias=bias, clip=cfg.clip_qkv, activation_dtype=adt,
                     flash=flash_local if local else flash)
@@ -273,3 +295,121 @@ def init_causal_lm(cfg: ModelConfig, generator: torch.Generator, *, quantize: st
         if model.lm_head is not None:
             _init_dense_norms(model.lm_head, generator)
     return model.eval().requires_grad_(False)
+
+
+class TPCausalLM(CausalLM):
+    """A :class:`CausalLM` split tensor-parallel over the ``model`` axis
+    of a mesh, one controller driving every device (made by
+    ``parallel.sharding.shard_params``).  The forward is the unsharded
+    one (``hidden_states``) over these parts:
+
+    - attention head-parallel (:class:`~.layers.TPAttention`) where the
+      heads split over the devices, else whole on the lead device; the
+      cache then holds one dict a (layer, device), layer-major, each
+      device's buffers over its own kv heads (:meth:`make_cache`);
+    - the MLP hidden split (:class:`~.layers.TPMLP`) where ``d_ff``
+      divides;
+    - the embedding table split by vocabulary rows where the vocabulary
+      divides: a device looks up the ids in its range and the parts sum on
+      the lead device (one non-zero addend: exact); the head (the table's
+      transpose when tied, else ``lm_head``'s columns) computes each
+      device's vocabulary slice, gathered on the lead device;
+    - norms, positions and biases of the row-parallel sums replicated on
+      the lead device, where the residual stream lives.
+
+    As in the JAX package, the flash route is the cache-less forward's:
+    a prefill attends through the cache."""
+
+    def __init__(self, model: CausalLM, devices, *, split_attention: bool, split_mlp: bool, split_vocab: bool,
+                 split_head: bool):
+        nn.Module.__init__(self)
+        cfg = self.cfg = model.cfg
+        self.devices = list(devices)
+        self.lead = self.devices[0]
+        n = len(self.devices)
+        lead = self.lead
+
+        def rep(t):
+            return None if t is None else nn.Parameter(t.detach().to(lead), requires_grad=False)
+
+        def moved(mod):
+            # replicated modules are shared with the source model where it
+            # lives on the lead device, else copied there
+            if mod is None or all(t.device == lead for t in mod.state_dict().values()):
+                return mod
+            return copy.deepcopy(mod).to(lead)
+
+        self.groups = head_groups(cfg.n_heads, cfg.kv_heads, n) if split_attention else None
+        self.tok_embed = None
+        self.embed_parts = None
+        vocab = cfg.vocab_size
+        if split_vocab:
+            step = vocab // n
+            self.embed_parts = nn.ParameterList(
+                nn.Parameter(owned_copy(model.tok_embed[j * step:(j + 1) * step], dev), requires_grad=False)
+                for j, dev in enumerate(self.devices))
+        else:
+            self.tok_embed = rep(model.tok_embed)
+        self.pos_embed = rep(model.pos_embed)
+        self.emb_ln = moved(model.emb_ln)
+        self.ln_f = moved(model.ln_f)
+        self.lm_head = self.head_parts = None
+        if not cfg.tie_embeddings:
+            if split_head:
+                step = vocab // n
+                self.head_parts = nn.ModuleList(split_dense(model.lm_head, dev, cols=slice(j * step, (j + 1) * step))
+                                                for j, dev in enumerate(self.devices))
+            else:
+                self.lm_head = moved(model.lm_head)
+        self.blocks = nn.ModuleList()
+        for blk in model.blocks:
+            tp = Block.__new__(Block)
+            nn.Module.__init__(tp)
+            tp.n_heads, tp.n_kv_heads = blk.n_heads, blk.n_kv_heads
+            tp.ln1, tp.ln2 = moved(blk.ln1), moved(blk.ln2)
+            tp.attn = (TPAttention(blk.attn, self.groups, cfg.head_dim, self.devices, lead) if self.groups
+                       else moved(blk.attn))
+            tp.mlp = TPMLP(blk.mlp, self.devices, lead) if split_mlp else moved(blk.mlp)
+            self.blocks.append(tp)
+
+    @property
+    def device(self) -> torch.device:
+        return self.lead
+
+    def embed(self, ids):
+        if self.embed_parts is None:
+            return self.tok_embed[ids]
+        parts = []
+        lo = 0
+        for table, dev in zip(self.embed_parts, self.devices):
+            local = ids.to(dev) - lo
+            hit = (local >= 0) & (local < table.shape[0])
+            parts.append(table[local.clamp(0, table.shape[0] - 1)] * hit[..., None])
+            lo += table.shape[0]
+        return all_reduce_sum(parts, self.lead).to(self.embed_parts[0].dtype)
+
+    def head(self, x):
+        if self.cfg.tie_embeddings and self.embed_parts is not None:
+            return all_gather([_matmul(x.to(dev), t.T) for t, dev in zip(self.embed_parts, self.devices)],
+                              self.lead, dim=-1)
+        if self.head_parts is not None:
+            return all_gather([p(x.to(dev)) for p, dev in zip(self.head_parts, self.devices)], self.lead, dim=-1)
+        return _matmul(x, self.tok_embed.T if self.cfg.tie_embeddings else self.lm_head.w)
+
+    def head_weight(self):
+        raise NotImplementedError("a tensor-parallel reader serves; training it is not ported yet")
+
+    def make_cache(self, b: int, total: int, kv_dtype: str = "bf16") -> list[dict]:
+        """One dict a (layer, device), layer-major, each on its device over
+        the kv heads its query heads read; a cache of the lead device's
+        layers where attention runs whole."""
+        if self.groups is None:
+            return make_cache(self.cfg, b, total, self.lead, kv_dtype)
+        return [make_cache(self.cfg, b, total, dev, kv_dtype, n_layers=1, kv_heads=k1 - k0)[0]
+                for _ in range(self.cfg.n_layers) for (_, _, k0, k1), dev in zip(self.groups, self.devices)]
+
+    def layer_cache(self, cache, i: int):
+        if self.groups is None:
+            return cache[i]
+        n = len(self.devices)
+        return cache[i * n:(i + 1) * n]

@@ -98,11 +98,13 @@ def _sample_dynamic(logits, generator, temp, top_k, top_p, sampled: bool):
     return torch.where(temp > 0.0, drawn, greedy)
 
 
-def make_decode_state(cfg, n_slots: int, total: int, *, kv_dtype: str = "bf16", device="cuda") -> dict:
+def make_decode_state(cfg, n_slots: int, total: int, *, kv_dtype: str = "bf16", device="cuda", model=None) -> dict:
     """A fresh all-slots-free decode state (decode_engine.py:117): the
     fields of the JAX state with its shapes, on ``device``, except that
     each cache buffer has ``total + 1`` columns (the guard column, see the
-    module docstring).  ``total`` must not exceed ``cfg.max_seq_len``."""
+    module docstring).  ``total`` must not exceed ``cfg.max_seq_len``.
+    ``model`` makes the cache (a tensor-parallel reader's lives on its
+    devices); without one it is the unsharded layout on ``device``."""
     if total > cfg.max_seq_len:
         raise ValueError(f"total={total} exceeds cfg.max_seq_len={cfg.max_seq_len}")
 
@@ -110,7 +112,8 @@ def make_decode_state(cfg, n_slots: int, total: int, *, kv_dtype: str = "bf16", 
         return torch.zeros(shape, dtype=dtype, device=device)
 
     return {
-        "cache": make_cache(cfg, n_slots, total + 1, device, kv_dtype),
+        "cache": (make_cache(cfg, n_slots, total + 1, device, kv_dtype) if model is None
+                  else model.make_cache(n_slots, total + 1, kv_dtype)),
         "key_valid": zeros((n_slots, total), torch.bool),
         "last_tok": zeros((n_slots,), torch.int32),
         "pos": zeros((n_slots,), torch.int32),
@@ -197,7 +200,7 @@ def prefill(model: CausalLM, ids, attn_mask, generator, temp, top_k, top_p, *, s
     attn_mask = _on(dev, attn_mask, torch.int32)
     b, t = ids.shape
     positions = (torch.cumsum(attn_mask, dim=1) - 1).clamp_min(0).long()
-    cache = make_cache(model.cfg, b, t, dev, kv_dtype)
+    cache = model.make_cache(b, t, kv_dtype)
     j = torch.arange(t, device=dev)
     mask = (j[None, None, :] <= j[None, :, None]) & attn_mask[:, None, :].bool()
     n_prompt = attn_mask.sum(dim=1).to(torch.int32)

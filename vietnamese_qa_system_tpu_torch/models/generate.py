@@ -34,7 +34,7 @@ import time
 
 import torch
 
-from .causal_lm import CausalLM, make_cache
+from .causal_lm import CausalLM
 
 NEG_INF = -1e30
 
@@ -222,7 +222,7 @@ def _prefill(model: CausalLM, ids, attn_mask, total: int, kv_dtype: str = "bf16"
     b, t = ids.shape
     dev = ids.device
     positions = (torch.cumsum(attn_mask, dim=1) - 1).clamp_min(0).long()
-    cache = make_cache(model.cfg, b, total, dev, kv_dtype)
+    cache = model.make_cache(b, total, kv_dtype)
     j = torch.arange(total, device=dev)[None, None, :]
     key_valid = torch.cat([attn_mask.bool(), torch.zeros((b, total - t), dtype=torch.bool, device=dev)], dim=1)
     prefill_mask = (j <= torch.arange(t, device=dev)[None, :, None]) & key_valid[:, None, :]
@@ -633,10 +633,11 @@ def _reorder_cache(cache: list[dict], idx, cols: slice | None = None) -> None:
     prompt slots and the same unwritten ones."""
     for layer in cache:
         for name, buf in layer.items():
+            at = idx.to(buf.device)  # a tensor-parallel cache's buffers live on their devices
             if cols is None:
-                layer[name] = buf.index_select(0, idx)
+                layer[name] = buf.index_select(0, at)
             else:
-                buf[:, cols] = buf[idx, cols]
+                buf[:, cols] = buf[at, cols]
 
 
 @torch.inference_mode()

@@ -14,7 +14,9 @@ sliding-window forms, differentiable through kernels K4 and K7),
 ``MLP`` (plain or gated), ``Block`` (pre-LN, post-LN, parallel residual;
 with ``cross=True`` the encoder-decoder's cross-attention sublayer),
 ``remat_wrap`` (the remat policies, through ``torch.utils.checkpoint``),
-``causal_mask`` and ``padding_mask``.
+``causal_mask`` and ``padding_mask``; and the tensor-parallel forms
+(``split_dense``, ``head_groups``, ``TPAttention``, ``TPMLP``) that
+``parallel/sharding.py`` places over a mesh's ``model`` axis.
 
 Parameter names and layouts follow the JAX pytree (dense weights are
 (d_in, d_out) and applied as ``x @ w``), so a JAX parameter tree maps onto
@@ -44,6 +46,7 @@ from ..ops.attention import flash_attention
 from ..ops.quant import div127
 from ..ops.w8_matmul import supports as w8_supports
 from ..ops.w8_matmul import w8_matmul
+from ..parallel.collectives import all_reduce_sum
 
 COMPUTE_DTYPE = torch.bfloat16
 NEG_INF = -1e30  # finite, as in the reference
@@ -590,3 +593,121 @@ def causal_mask(t: int, device=None) -> torch.Tensor:
 def padding_mask(attn_mask: torch.Tensor) -> torch.Tensor:
     """attn_mask (B, T) {0,1} -> (B, 1, T) key-side mask."""
     return attn_mask[:, None, :].bool()
+
+
+# ------------------------------------------------------- tensor parallelism
+#
+# The tensor-parallel forms over the mesh's ``model`` axis (one controller
+# drives every device; parallel/sharding.py decides what splits).  Each
+# device holds a plain ``Attention`` / ``MLP`` over its share; the
+# column-parallel projections (wq / wk / wv, wi / wg) keep their outputs
+# on their devices, and the row-parallel ones (both wo) leave partial
+# products that ``all_reduce_sum`` adds in f32 on the lead device, where
+# the bias is added once.  Every product rounds its inputs to bf16 as the
+# unsharded layer does; only the order of the f32 additions of a
+# row-parallel sum differs.
+
+
+def split_dense(dense: Dense, device, *, cols: slice | None = None, rows: slice | None = None,
+                bias: bool = True) -> Dense:
+    """A Dense over ``dense``'s columns ``cols`` (column-parallel: its bias
+    slice too) or rows ``rows`` (row-parallel: no bias, the sum adds it),
+    copied to ``device``.  Float weights only (a LoRA merge included)."""
+    if dense.w_q is not None or dense.w_dequant is not None or dense.lora_a is not None:
+        raise ValueError("tensor parallelism splits float weights; quantized or LoRA-factored layers are refused")
+    w = dense.w if dense.w_merged is None else dense.w_merged
+    b = dense.b if bias and rows is None else None
+    if cols is not None:
+        w, b = w[:, cols], None if b is None else b[cols]
+    if rows is not None:
+        w = w[rows]
+    part = Dense(*w.shape, use_bias=b is not None, device="meta")
+    part.w = nn.Parameter(owned_copy(w, device), requires_grad=False)
+    if b is not None:
+        part.b = nn.Parameter(owned_copy(b, device), requires_grad=False)
+    return part
+
+
+def owned_copy(t: torch.Tensor, device) -> torch.Tensor:
+    """A contiguous copy of ``t`` on ``device`` with storage of its own:
+    a part never keeps its source weight alive, even on the source's
+    device, where ``.to()`` of a slice would return a view."""
+    return torch.empty(t.shape, dtype=t.dtype, device=device).copy_(t.detach())
+
+
+def _to(x, device):
+    return x.to(device) if isinstance(x, torch.Tensor) else x
+
+
+def head_groups(n_heads: int, kv_heads: int, n: int) -> list[tuple[int, int, int, int]] | None:
+    """Device j's query heads [q0, q1) and the kv heads [k0, k1) they read,
+    for a head split over ``n`` devices; None where the heads do not
+    split: ``n`` must divide the query heads, and a device's query heads
+    must cover whole kv groups or sit inside one (with more devices than kv
+    heads, each device keeps a copy of the kv head its queries read)."""
+    if n_heads % n:
+        return None
+    hq, rep = n_heads // n, n_heads // kv_heads
+    if hq % rep and rep % hq:
+        return None
+    return [(j * hq, (j + 1) * hq, j * hq // rep, ((j + 1) * hq - 1) // rep + 1) for j in range(n)]
+
+
+class TPAttention(nn.Module):
+    """Head-parallel attention: device j holds the query heads
+    ``groups[j][0:2]``, the kv heads they read, their KV cache (a layer's
+    ``cache`` is the list of the devices' dicts) and their share of wo's
+    rows.  The ALiBi bias arrives for all heads and is sliced by head
+    offset, never recomputed for the share."""
+
+    def __init__(self, attn: Attention, groups, head_dim: int, devices, lead):
+        super().__init__()
+        self.groups, self.devices, self.lead = groups, list(devices), lead
+        self.parts = nn.ModuleList()
+        for (q0, q1, k0, k1), dev in zip(groups, devices):
+            part = Attention.__new__(Attention)
+            nn.Module.__init__(part)
+            part.wq = split_dense(attn.wq, dev, cols=slice(q0 * head_dim, q1 * head_dim))
+            part.wk = split_dense(attn.wk, dev, cols=slice(k0 * head_dim, k1 * head_dim))
+            part.wv = split_dense(attn.wv, dev, cols=slice(k0 * head_dim, k1 * head_dim))
+            part.wo = split_dense(attn.wo, dev, rows=slice(q0 * head_dim, q1 * head_dim))
+            self.parts.append(part)
+        self.wo_b = None if attn.wo.b is None else nn.Parameter(attn.wo.b.detach().to(lead), requires_grad=False)
+
+    def forward(self, x, *, n_heads: int, mask=None, flash=None, bias=None, scale=None, n_kv_heads=None, rope=None,
+                positions=None, cache=None, cache_index=None, clip=None):
+        outs = []
+        for j, ((q0, q1, k0, k1), part, dev) in enumerate(zip(self.groups, self.parts, self.devices)):
+            outs.append(part(
+                x.to(dev), n_heads=q1 - q0, n_kv_heads=k1 - k0, mask=_to(mask, dev),
+                flash=None if flash is None else {key: _to(v, dev) for key, v in flash.items()},
+                bias=None if bias is None else bias[:, q0:q1].to(dev), scale=scale,
+                rope=None if rope is None else tuple(r.to(dev) for r in rope), positions=_to(positions, dev),
+                cache=None if cache is None else cache[j], cache_index=_to(cache_index, dev), clip=clip))
+        y = all_reduce_sum(outs, self.lead)
+        return y if self.wo_b is None else y + self.wo_b
+
+
+class TPMLP(nn.Module):
+    """The MLP with its hidden split over the devices: wi / wg
+    column-parallel, wo row-parallel (summed on the lead device)."""
+
+    def __init__(self, mlp: MLP, devices, lead):
+        super().__init__()
+        self.devices, self.lead = list(devices), lead
+        d_ff = mlp.wi.shape[1]
+        step = d_ff // len(self.devices)
+        self.parts = nn.ModuleList()
+        for j, dev in enumerate(self.devices):
+            cols = slice(j * step, (j + 1) * step)
+            part = MLP.__new__(MLP)
+            nn.Module.__init__(part)
+            part.wi = split_dense(mlp.wi, dev, cols=cols)
+            part.wg = None if mlp.wg is None else split_dense(mlp.wg, dev, cols=cols)
+            part.wo = split_dense(mlp.wo, dev, rows=cols)
+            self.parts.append(part)
+        self.wo_b = None if mlp.wo.b is None else nn.Parameter(mlp.wo.b.detach().to(lead), requires_grad=False)
+
+    def forward(self, x, activation: str = "gelu"):
+        y = all_reduce_sum([part(x.to(dev), activation) for part, dev in zip(self.parts, self.devices)], self.lead)
+        return y if self.wo_b is None else y + self.wo_b

@@ -177,7 +177,7 @@ def flash_fwd(qb, kb, vb, kv_lens, bias, n_heads: int, causal: bool = False, win
     (FLASH_FWD_CAUSAL if causal else FLASH_FWD).launch(
         qb.data_ptr(), kb.data_ptr(), vb.data_ptr(), kv_lens.data_ptr(),
         None if bias is None else bias.data_ptr(), bias_rows, bh, n_heads, tq, kb.shape[1], d,
-        int(causal), int(window or 0), o.data_ptr(), lse.data_ptr(), stream_of(qb),
+        int(causal), int(window or 0), o.data_ptr(), lse.data_ptr(), stream_of(qb), device=qb.device,
     )
     return o, lse
 
@@ -223,8 +223,8 @@ def flash_bwd(qb, kb, vb, o, lse, do, kv_lens, bias, n_heads: int, causal: bool 
     common = (qb.data_ptr(), kb.data_ptr(), vb.data_ptr(), do.data_ptr(), lse.data_ptr(), dd.data_ptr(),
               kv_lens.data_ptr(), None if bias is None else bias.data_ptr(), bias_rows, bh, n_heads, tq, tk, d,
               int(causal), int(window or 0))
-    FLASH_BWD_DKDV.launch(*common, dk.data_ptr(), dv.data_ptr(), stream_of(qb))
-    FLASH_BWD_DQ.launch(*common, dq.data_ptr(), stream_of(qb))
+    FLASH_BWD_DKDV.launch(*common, dk.data_ptr(), dv.data_ptr(), stream_of(qb), device=qb.device)
+    FLASH_BWD_DQ.launch(*common, dq.data_ptr(), stream_of(qb), device=qb.device)
     return dq, dk, dv
 
 

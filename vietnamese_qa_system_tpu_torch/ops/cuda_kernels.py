@@ -127,13 +127,21 @@ class Kernel:
         self._count_lock = threading.Lock()
         self._fn = None
 
-    def launch(self, *args) -> None:
+    def launch(self, *args, device: torch.device | None = None) -> None:
+        """Call the entry point with ``args``, under ``device`` (the
+        operands' device) as the current CUDA device: the launch goes to
+        the context of the card that holds the operands, not to the
+        calling thread's current one."""
         if self._fn is None:
             fn = getattr(library()[self.file], self.symbol)
             fn.argtypes = list(self.argtypes)
             fn.restype = ctypes.c_int
             self._fn = fn
-        err = self._fn(*args)
+        if device is None:
+            err = self._fn(*args)
+        else:
+            with torch.cuda.device(device):
+                err = self._fn(*args)
         if err != 0:
             raise RuntimeError(f"{self.name}: CUDA launch failed with error {err}")
         with self._count_lock:

@@ -73,5 +73,6 @@ def ivf_probe_scores(q, probe_ids, buckets, bucket_scales, bucket_gids):
         qf.data_ptr(), ids.data_ptr(), buckets.data_ptr(),
         None if bucket_scales is None else bucket_scales.data_ptr(), bucket_gids.data_ptr(),
         int(buckets.dtype == torch.int8), b, p, c, cap, d, out_s.data_ptr(), out_g.data_ptr(), stream_of(q),
+        device=q.device,
     )
     return out_s, out_g

@@ -55,7 +55,7 @@ def quantize_int8(x: torch.Tensor):
     scales = torch.empty(n, dtype=torch.float32, device=x.device)
     if n and d:
         QUANT_INT8.launch(x.data_ptr(), int(x.dtype == torch.bfloat16), n, d, q.data_ptr(), scales.data_ptr(),
-                          stream_of(x))
+                          stream_of(x), device=x.device)
     return q, scales
 
 

@@ -263,7 +263,7 @@ def _cluster_cuda(kernel, q, corpus, scales, valid_n: int, k: int, route: str, *
         scratch[2].zero_()
     ptrs = [t.data_ptr() if t.numel() else None for t in scratch]
     kernel.launch(ELEMS[elem], q.data_ptr(), corpus.data_ptr(), None if scales is None else scales.data_ptr(),
-                  b, d, valid_n, k, _FORMS[route], ctas, clusters, *ptrs, what, stream_of(q))
+                  b, d, valid_n, k, _FORMS[route], ctas, clusters, *ptrs, what, stream_of(q), device=q.device)
     return scratch[5], scratch[6], scratch
 
 
@@ -290,7 +290,7 @@ def _scan_cuda(kernel, kind: int, q, corpus, scales, valid_n: int, k: int):
     kernel.launch(
         kind, q.data_ptr(), corpus.data_ptr(), None if scales is None else scales.data_ptr(),
         b, d, valid_n, k, splits, cand_s.data_ptr(), cand_i.data_ptr(),
-        out_s.data_ptr(), out_i.data_ptr(), stream_of(q),
+        out_s.data_ptr(), out_i.data_ptr(), stream_of(q), device=q.device,
     )
     return out_s, out_i
 

@@ -187,12 +187,14 @@ _tickets: dict[int, torch.Tensor] = {}
 _tickets_lock = threading.Lock()
 
 
-def _tickets_for(device: torch.device, n: int) -> torch.Tensor:
+def _tickets_for(index: int, n: int) -> torch.Tensor:
+    """The ticket buffer of CUDA device ``index`` (keyed by index, so
+    ``cuda`` and ``cuda:0`` share one)."""
     with _tickets_lock:
-        t = _tickets.get(device.index)
+        t = _tickets.get(index)
         if t is None or t.numel() < n:
-            t = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
-            _tickets[device.index] = t
+            t = torch.zeros(max(n, 4096), dtype=torch.int32, device=torch.device("cuda", index))
+            _tickets[index] = t
         return t
 
 
@@ -252,6 +254,6 @@ def _w8_forward(x, w_q, w_s, out_dtype):
     part = torch.empty((plan.slots, plan.rows * plan.cols), dtype=torch.float32, device=dev)
     W8_MATMUL.launch(
         xb.data_ptr(), w_q.data_ptr(), ws.data_ptr(), m, kk, n, plan.rows, plan.grid, part.data_ptr(),
-        _tickets_for(dev, 2 * plan.tiles).data_ptr(), y.data_ptr(), stream_of(x),
+        _tickets_for(index, 2 * plan.tiles).data_ptr(), y.data_ptr(), stream_of(x), device=dev,
     )
     return y if out_dtype == torch.float32 else y.to(out_dtype)
