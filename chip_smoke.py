@@ -153,7 +153,20 @@ and backward against their plain versions at the edges of their tiles
   bias, scale 1, both forms) against their plain versions and SDPA; three
   mt5-small LoRA steps over an int8 base with flash at batch 8 x (512 +
   256), one traced, and the 2-layer twin's ``cli train --arch seq2seq
-  --do-eval --do-generative-eval`` on the card and the host.
+  --do-eval --do-generative-eval`` on the card and the host;
+- training over a mesh of the one card repeated four times (``["cuda:0"]
+  * 4``) at PhoGPT-4B width (int8 base, LoRA r 8, proj_bf16, 8 x 1,024,
+  grad_accum 2): two steps under each of dp, zero2 and fsdp on ``{"data":
+  4}``, tp on ``{"model": 4}`` (6 heads a part) and fsdp_tp on ``{"data":
+  2, "model": 2}``, each held to a one-device trainer on the same weights,
+  adapter and batches (K4 / K7 on every part), with the bytes a position
+  holds; ``perplexity_eval(mesh=)`` over the fsdp_tp rows; one ``cli train
+  --strategy fsdp_tp --mesh`` step.
+
+The B=1 ``generate()`` references of the ``/generate`` phases replay their
+decode step from a CUDA graph (``graph_greedy_reference``; the first two
+of each path also run eagerly and must give the same tokens).  Each
+phase's seconds are printed as it ends.
 
 Each path resets the kernels' launch counters just before it runs and
 reads them just after; every kernel of the path must have launched.
@@ -307,6 +320,15 @@ TRAIN_STEPS, TRAIN_BATCH, TRAIN_T = 3, 8, 1024
 FLASH_GRAD_REL_TOL = 2e-2
 TWIN_T, TWIN_LOSS_TOL, TWIN_GRAD_REL_TOL = 128, 1e-3, 5e-2
 TWIN_EVAL_EXAMPLES = 8  # the twin's cli train decodes this many eval prompts with W 2 beams
+# training over a mesh of the one card repeated: each strategy on the
+# axes of JAX tests/test_trainer.py::test_sharded_train_step at four
+# positions; the step-1 loss and every grad_norm against the one-device
+# trainer's (the rows' products and sums run in another order)
+MESH_DEVICES, MESH_STEPS, MESH_EVAL_BATCHES = 4, 2, 1
+MESH_STRATEGIES = (("dp", {"data": 4}), ("zero2", {"data": 4}), ("fsdp", {"data": 4}), ("tp", {"model": 4}),
+                   ("fsdp_tp", {"data": 2, "model": 2}))
+MESH_LOSS_RTOL, MESH_GRAD_RTOL = 1e-3, 5e-2
+MESH_B0_STD = 1e-3  # the adapters' B at the start of the mesh phase: small noise, so that A trains from step 1
 # multi-LoRA /generate: three r 8 / alpha 16 adapters over the default
 # targets (serve's --adapter-r / --adapter-alpha defaults) with B drawn
 # N(0, ADAPTER_B_STD^2) (init_lora's B = 0 would equal the base); six
@@ -2073,6 +2095,90 @@ def greedy_reference(torch, reader, ids: list, width: int, n_new: int, eos_id, k
     return out[: out.index(eos_id) + 1] if eos_id in out else out
 
 
+# eager B=1 generate() runs each label's first calls beside the graph
+# replay, which must give the same tokens
+GRAPH_REF_CHECKS = 2
+_graph_checks: dict = {}
+
+
+@contextlib.contextmanager
+def device_alibi_slopes(L):
+    """``layers.alibi_slopes`` answered from a device copy made once a
+    configuration: its host tensor's copy to the card is the one host
+    transfer of a decode step, which a CUDA graph cannot capture."""
+    real = L.alibi_slopes
+    memo = {}
+
+    def slopes(n_heads, mode="bloom", bias_max=8.0, device=None):
+        key = (n_heads, mode, bias_max, str(device))
+        if key not in memo:
+            memo[key] = real(n_heads, mode, bias_max, device)
+        return memo[key]
+
+    L.alibi_slopes = slopes
+    try:
+        yield
+    finally:
+        L.alibi_slopes = real
+
+
+def graph_greedy_reference(torch, reader, ids: list, width: int, n_new: int, eos_id, kv_dtype="bf16",
+                           label: str = "") -> list:
+    """:func:`greedy_reference` with its decode steps replayed from one CUDA
+    graph: the prefill and the first step run eagerly, as ``generate()``
+    runs them, then the step -- argmax, the eos fill, the cache write, the
+    next logits -- is captured once and replayed; the cache cursor, the
+    position and the mask's last key advance in device buffers that the
+    graph reads (a cursor tensor writes the slot ``generate()``'s integer
+    index writes).  The same operators on the same values as
+    ``generate()``; each ``label``'s first GRAPH_REF_CHECKS calls also run
+    the eager reference and fail unless the tokens are equal."""
+    from vietnamese_qa_system_tpu_torch.models import generate as G
+    from vietnamese_qa_system_tpu_torch.models import layers as L
+
+    x = torch.zeros((1, width), dtype=torch.int32)
+    m = torch.zeros((1, width), dtype=torch.int32)
+    x[0, width - len(ids):] = torch.tensor(ids, dtype=torch.int32)
+    m[0, width - len(ids):] = 1
+    x, m = x.cuda(), m.cuda()
+    total = width + n_new
+    with torch.inference_mode(), device_alibi_slopes(L):
+        cache, last, key_valid, n_prompt = G._prefill(reader, x, m, total, kv_dtype)
+        j = torch.arange(total, device="cuda")[None, None, :]
+        slot = torch.full((1,), width, dtype=torch.long, device="cuda")
+        pos = n_prompt.long()[:, None].clone()
+        done = torch.zeros((1,), dtype=torch.bool, device="cuda")
+        out = torch.zeros((1, n_new), dtype=torch.int32, device="cuda")
+        eos = torch.full((), eos_id, dtype=torch.int32, device="cuda")
+
+        def step():
+            tok = torch.where(done, eos, torch.argmax(last.float(), dim=-1).to(torch.int32))
+            done.copy_(done | (tok == eos))
+            out.index_copy_(1, slot - width, tok[:, None])
+            step_mask = key_valid[:, None, :] | ((j >= width) & (j <= slot[:, None, None]))
+            h = reader.hidden_states(tok[:, None].long(), step_mask, positions=pos, cache=cache, cache_index=slot)
+            last.copy_(reader.head(h[:, 0]))
+            slot.add_(1)
+            pos.add_(1)
+
+        step()
+        if n_new > 1:
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                step()
+            for _ in range(n_new - 1):
+                graph.replay()
+        got = out[0].tolist()
+    got = got[: got.index(eos_id) + 1] if eos_id in got else got
+    left = _graph_checks.setdefault(label, GRAPH_REF_CHECKS)
+    if left > 0:
+        _graph_checks[label] = left - 1
+        want = greedy_reference(torch, reader, ids, width, n_new, eos_id, kv_dtype)
+        check(got == want, f"the CUDA-graph B=1 reference ({label}, {len(ids)}-token prompt, {n_new} new tokens) "
+                           f"equals generate()'s token for token")
+    return got
+
+
 def teacher_forced(torch, reader, ids: list, new: list, kv_dtype="bf16"):
     """The reader's f32 logits (len(new), V) that chose each of ``new``
     after the prompt ``ids``: one prefill of ``ids + new[:-1]`` through a KV
@@ -2246,8 +2352,8 @@ def phase_engine(torch, pkg, reader, ctx):
 
         # every greedy stream against a B=1 generate() at its bucket width
         t_ref = time.perf_counter()
-        refs = {j: greedy_reference(torch, reader, ids[j], bucket_of(buckets, len(ids[j])), len(outs[j]), tok.eos_id)
-                for j in valid}
+        refs = {j: graph_greedy_reference(torch, reader, ids[j], bucket_of(buckets, len(ids[j])), len(outs[j]),
+                                          tok.eos_id, label="engine") for j in valid}
         agree = {j: margin_rule(torch, reader, ids[j], outs[j], refs[j]) for j in valid}
         same = sum(outs[j] == refs[j] for j in valid)
         print(f"/generate greedy streams against B=1 generate() ({time.perf_counter() - t_ref:.1f} s): {same} of "
@@ -2340,9 +2446,9 @@ def phase_engine(torch, pkg, reader, ctx):
     finally:
         eng8.close()
     del eng8
-    ok = all(margin_rule(torch, reader, ids[j], g, greedy_reference(torch, reader, ids[j], bucket_of(buckets, len(ids[j])),
-                                                                     len(g), tok.eos_id, "int8"), "int8")[0]
-             for j, g in zip(picks, got8))
+    ok = all(margin_rule(torch, reader, ids[j], g, graph_greedy_reference(
+        torch, reader, ids[j], bucket_of(buckets, len(ids[j])), len(g), tok.eos_id, "int8", label="engine int8 KV"),
+        "int8")[0] for j, g in zip(picks, got8))
     print(f"int8 KV engine: {len(picks)} requests; cache {slab / 1e9:.3f} GB (bf16: {2 * slab / (1 + 4 / cfg.head_dim) / 1e9:.3f}); "
           f"peak allocation above the weights {extra / 1e9:.3f} GB ({card})", flush=True)
     check(ok, f"{len(picks)} int8 KV engine streams equal B=1 generate(kv_dtype='int8') by the margin rule")
@@ -3075,9 +3181,9 @@ def phase_train(torch, pkg, logdir: str):
                                        f"microbatches x {cfg.n_layers} layers (proj_bf16 keeps the forward's o "
                                        f"and lse: no re-launch in the recompute)")
     del base
-    dev_batch = trainer._device_batch(batches[-1])
+    dev_batch = trainer.device_batch(batches[-1])
     trace_span(torch, f"train step trace (B={TRAIN_BATCH}, T={TRAIN_T}, torch.profiler)", "train.step", 1,
-               float(np.median(step_s)), lambda: trainer._step_fn(trainer.state, dev_batch))
+               float(np.median(step_s)), lambda: trainer.run_step(dev_batch))
     return launches
 
 
@@ -3152,11 +3258,12 @@ def phase_train_twin(torch, logdir: str) -> None:
     straight = make(ckpt)
     straight.fit(lambda: iter(batches), max_steps=2)  # saves step_1 and step_2
     resumed = make()
-    restored, meta = straight.ckpt.restore(resumed.state, step=1)
+    restored, meta = straight.ckpt.restore(resumed.whole_state(), step=1)
     resumed.load_state(restored)
-    resumed._step_fn(resumed.state, resumed._device_batch(batches[1]))
+    resumed.train_step(batches[1])
     diff = max((a - b).abs().max().item() for a, b in zip(tree_leaves(straight.adapter), tree_leaves(resumed.adapter)))
-    same = all(torch.equal(a, b) for a, b in zip(tree_leaves(straight.state), tree_leaves(resumed.state)))
+    same = all(torch.equal(a, b) for a, b in zip(tree_leaves(straight.whole_state()),
+                                                  tree_leaves(resumed.whole_state())))
     print(f"twin checkpoint: restored step {meta['step']}, next step's adapter max abs diff {diff:.3e} from the "
           f"uninterrupted run (state bit-equal: {same})", flush=True)
     check(same, "checkpoint -> resume -> next step on the card equals the uninterrupted run's step, bit for bit")
@@ -3318,7 +3425,8 @@ def phase_adapters(torch, pkg, reader, ctx):
         if j == sampled:
             continue
         with under_adapter(torch, reader, bank, index.get(name, 0)):
-            refs[j] = greedy_reference(torch, reader, ids[j], bucket_of(buckets, len(ids[j])), len(got), tok.eos_id)
+            refs[j] = graph_greedy_reference(torch, reader, ids[j], bucket_of(buckets, len(ids[j])), len(got),
+                                             tok.eos_id, label="adapters")
             agree[j] = margin_rule(torch, reader, ids[j], got, refs[j])
     same = sum(outs[j] == refs[j] for j in refs)
     print(f"/generate adapter streams against B=1 generate() under each adapter ({time.perf_counter() - t_ref:.1f} "
@@ -3564,8 +3672,8 @@ def phase_qlora(torch, pkg, logdir: str):
         with open(os.path.join(logdir, f"qlora_{placement}_{offload}.jsonl")) as f:
             losses = [json.loads(line)["loss"] for line in f]
         step_s = [b - a for a, b in zip(marks, marks[1:])]
-        dev_batch = trainer._device_batch(batches[-1])
-        busy = device_busy_ms(torch, lambda: trainer._run_step(trainer.state, dev_batch))
+        dev_batch = trainer.device_batch(batches[-1])
+        busy = device_busy_ms(torch, lambda: trainer.run_step(dev_batch))
         runs[label] = (losses, step_s, peaks, busy)
         print(f"qlora {label} ({card}): losses {losses}, step s {[round(x, 3) for x in step_s]}, peak memory "
               f"{[round(p / 1e9, 2) for p in peaks]} GB; a traced step's device busy {busy:.1f} ms (idle share "
@@ -4225,9 +4333,9 @@ def phase_seq2seq_train(torch, pkg, logdir: str):
           and launches["flash_attention_bwd_dkdv"] == 2 * layers and launches["flash_attention_bwd_dq"] == 2 * layers,
           f"K4 launched once an encoder layer (bidirectional) and once a decoder layer (causal), K7 twice a layer pair, "
           f"each step ({json.dumps({k: v for k, v in launches.items() if 'flash' in k})})")
-    dev_batch = trainer._device_batch(batches[-1])
+    dev_batch = trainer.device_batch(batches[-1])
     trace_span(torch, f"mt5 train step trace (B={S2S_TRAIN_BATCH}, T_enc={S2S_TRAIN_ENC}, T_dec={S2S_TRAIN_DEC})",
-               "train.step", 1, float(np.median(step_s)), lambda: trainer._step_fn(trainer.state, dev_batch))
+               "train.step", 1, float(np.median(step_s)), lambda: trainer.run_step(dev_batch))
     del trainer, dev_batch
     torch.cuda.empty_cache()
 
@@ -4557,6 +4665,7 @@ def phase_tp(torch, pkg, card: str) -> dict:
     from vietnamese_qa_system_tpu_torch.parallel.sharding import shard_params
 
     t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
     tok = ByteTokenizer()
     cfg = phogpt_4b_class()
     reader = init_causal_lm(cfg, make_generator(SEED + 31, "cuda")).to(torch.bfloat16)
@@ -4631,7 +4740,8 @@ def phase_tp(torch, pkg, card: str) -> dict:
     n_tok, ok_rows = 0, 0
     for p, o in zip(prompts, outs):
         pid = tok.encode(p)
-        want = greedy_reference(torch, reader, pid, bucket_of(engine.buckets, len(pid)), len(o["ids"]), tok.eos_id)
+        want = graph_greedy_reference(torch, reader, pid, bucket_of(engine.buckets, len(pid)), len(o["ids"]),
+                                      tok.eos_id, label="tp")
         agree, _ = margin_rule(torch, reader, pid, o["ids"], want)
         ok_rows += agree
         n_tok += len(o["ids"])
@@ -4653,10 +4763,230 @@ def phase_tp(torch, pkg, card: str) -> dict:
           f"{rows['unsharded'][1]:.1f} tokens/s (the TP split's {TP_DEVICES} devices are one card here) ({card})",
           flush=True)
     launches = {name: qa_launches[name] + gen_launches[name] for name in qa_launches}
-    print(f"TP phase {time.perf_counter() - t_phase:.1f} s ({card})", flush=True)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"TP phase {time.perf_counter() - t_phase:.1f} s; peak card memory {peak:.2f} GiB ({card})", flush=True)
     del tp, reader
     return launches
 
+
+
+def phase_mesh_train(torch, pkg, logdir: str, card: str) -> dict:
+    """Training over a device mesh at PhoGPT-4B width (32 layers, nothing
+    cut; an int8 base drawn on the card from the seed, LoRA r 8 / alpha 16,
+    proj_bf16 remat, adamw lr 2e-4; global batch TRAIN_BATCH x TRAIN_T,
+    grad_accum 2, as ``phase_train``): MESH_STEPS steps under each strategy
+    of MESH_STRATEGIES on a mesh of the one card repeated (``["cuda:0"] *
+    4``), each from the same base, adapter and batches as a one-device
+    trainer, the reference (every trainer starts from one adapter whose B
+    is drawn small, not zero, so that A trains from the first step); one
+    ``cli train --strategy fsdp_tp --mesh
+    '{"data": 2, "model": 2}'`` step; and ``perplexity_eval(mesh=)`` over
+    the fsdp_tp trainer's rows against the one-device eval of the same
+    weights.  One card shows the code paths and their cost, not a
+    multi-GPU speed-up: the four positions run in turn.
+
+    Per strategy it prints seconds and tokens/s a step, each step's loss
+    and grad_norm beside the reference's, the parameter and optimizer
+    bytes a mesh position holds (what it would keep on a card of its own),
+    the card's peak memory and the K4 / K7 launches a step; it fails on a
+    K4 / K7 launch count of 0, a loss off the reference's by more than
+    MESH_LOSS_RTOL, a grad_norm off by more than MESH_GRAD_RTOL, an adapter
+    whose moves over the steps break the move rule of
+    ``tests/test_torch_mesh_train.py`` against the reference's (on the
+    elements whose first-microbatch gradient exceeds 5% of the leaf's
+    largest: the median difference within 5% of lr; over the leaf: the
+    difference's norm within 25% of the reference move's), or an fsdp
+    position holding more than a third of a dp position's parameter
+    bytes.  Returns the launches of the mesh runs (counted from zero)."""
+    import numpy as np
+
+    from vietnamese_qa_system_tpu_torch.cli.main import main as cli_main
+    from vietnamese_qa_system_tpu_torch.core import make_generator
+    from vietnamese_qa_system_tpu_torch.core import mesh as mesh_mod
+    from vietnamese_qa_system_tpu_torch.models import LoraConfig, init_causal_lm, loss_fn, merge_lora, phogpt_4b_class
+    from vietnamese_qa_system_tpu_torch.models.lora import clear_lora
+    from vietnamese_qa_system_tpu_torch.train import TrainConfig, Trainer, perplexity_eval
+    from vietnamese_qa_system_tpu_torch.utils.tree import flatten_paths, nest, tree_map
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(phogpt_4b_class(), remat_policy="proj_bf16")
+    common = dict(model=cfg, lora=LoraConfig(r=8, alpha=16), quantize_base="int8", optimizer="adamw", lr=2e-4,
+                  grad_accum=2, log_every=1, log_dir=logdir, seed=SEED + 41)
+    t0 = time.perf_counter()
+    base = init_causal_lm(cfg, make_generator(SEED + 41, "cuda"), quantize="int8")
+    torch.cuda.synchronize()
+    print(f"mesh train: phogpt_4b_class int8 base drawn in {time.perf_counter() - t0:.1f} s; global batch "
+          f"{TRAIN_BATCH} x {TRAIN_T}, grad_accum 2, {MESH_STEPS} steps a strategy on [cuda:0] x {MESH_DEVICES} "
+          f"({card}; one card runs the positions in turn: code paths and their cost, no multi-GPU speed-up)",
+          flush=True)
+    rng = np.random.default_rng(SEED + 41)
+    batches = [train_batch(rng, TRAIN_BATCH, TRAIN_T, cfg.vocab_size) for _ in range(MESH_STEPS)]
+    tokens = TRAIN_BATCH * TRAIN_T
+    flash = ("flash_attention_fwd_causal", "flash_attention_bwd_dkdv", "flash_attention_bwd_dq")
+
+    def run(trainer):
+        """Each step's (loss, grad_norm, seconds, peak bytes) and the launches."""
+        rows = []
+        for kern in pkg.KERNELS:
+            kern.launches = 0
+        with torch.no_grad():
+            for n, leaf in flatten_paths(trainer.adapter).items():
+                leaf.copy_(ad0[n])
+        for b in batches:
+            dev_batch = trainer.device_batch(b)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            m = trainer.run_step(dev_batch)
+            loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+            torch.cuda.synchronize()
+            rows.append((loss, gnorm, time.perf_counter() - t, torch.cuda.max_memory_allocated()))
+        return rows, {k.name: k.launches for k in pkg.KERNELS}
+
+    ref_trainer = Trainer(TrainConfig(**common, run_name="mesh_ref"), params=base, device="cuda", total_steps=8)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 42)
+    ad0 = {n: t.detach().clone() + (MESH_B0_STD * torch.randn(t.shape, generator=gen, device="cuda")
+                                    if n.endswith(".b") else 0) for n, t in flatten_paths(ref_trainer.adapter).items()}
+    # the reference's gradient of the first microbatch at ad0: which elements carry signal
+    g_ad = {n: t.clone().requires_grad_(True) for n, t in ad0.items()}
+    mb0 = {k: torch.from_numpy(np.asarray(v[:TRAIN_BATCH // 2]).astype(np.int64)).cuda() for k, v in batches[0].items()}
+    merge_lora(base, nest(g_ad), common["lora"])
+    try:
+        g0 = dict(zip(g_ad, torch.autograd.grad(loss_fn(base, mb0)[0], list(g_ad.values()))))
+    finally:
+        clear_lora(base)
+    del g_ad, mb0
+    ref, _ = run(ref_trainer)
+    ref_ad = {n: t.detach().clone() for n, t in flatten_paths(ref_trainer.adapter).items()}
+
+    def move_rule(adapter) -> tuple:
+        """(leaves checked, worst median / lr, worst norm ratio) of the
+        adapter's moves against the reference's (see the docstring)."""
+        checked, worst_med, worst_norm = 0, 0.0, 0.0
+        for n, t in flatten_paths(adapter).items():
+            g = g0[n].abs()
+            sure = g > 0.05 * g.max()
+            if not bool(sure.any()):
+                continue
+            d = (t.detach() - ref_ad[n]).abs()
+            worst_med = max(worst_med, float(d[sure].median()) / common["lr"])
+            worst_norm = max(worst_norm, float(d.norm() / (ref_ad[n] - ad0[n]).norm()))
+            checked += 1
+        return checked, worst_med, worst_norm
+    for i, (loss, gnorm, sec, peak) in enumerate(ref):
+        print(f"mesh train reference (one device) step {i + 1}: loss {loss:.6f}, grad_norm {gnorm:.6f}, {sec:.3f} s, "
+              f"{tokens / sec:.1f} tokens/s, peak memory {peak / 1e9:.2f} GB", flush=True)
+    del ref_trainer
+    torch.cuda.empty_cache()
+
+    launches = {k.name: 0 for k in pkg.KERNELS}
+    held = {}
+    last = None
+    for strategy, axes in MESH_STRATEGIES:
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        mesh = mesh_mod.create_mesh(axes, devices=["cuda:0"] * MESH_DEVICES)
+        trainer = Trainer(TrainConfig(**common, strategy=strategy, mesh_axes=axes, run_name=f"mesh_{strategy}"),
+                          params=base, mesh=mesh, device="cuda", total_steps=8)
+        torch.cuda.synchronize()
+        built = time.perf_counter() - t0
+        pos = trainer.position_bytes()
+        held[strategy] = pos[(0, 0)]
+        rows, got = run(trainer)
+        for name in launches:
+            launches[name] += got[name]
+        per_step = {name: got[name] // MESH_STEPS for name in flash}
+        print(f"mesh train {strategy} {axes}: built in {built:.2f} s; a position holds "
+              f"{pos[(0, 0)]['param_bytes'] / 1e9:.3f} GB of parameters and {pos[(0, 0)]['opt_bytes'] / 1e6:.3f} MB "
+              f"of optimizer state; K4 / K7 launches a step {per_step} ({card})", flush=True)
+        for i, ((loss, gnorm, sec, peak), (rloss, rgn, _, _)) in enumerate(zip(rows, ref)):
+            print(f"mesh train {strategy} step {i + 1}: loss {loss:.6f} (one device {rloss:.6f}), grad_norm "
+                  f"{gnorm:.6f} (one device {rgn:.6f}), {sec:.3f} s, {tokens / sec:.1f} tokens/s, peak memory "
+                  f"{peak / 1e9:.2f} GB ({card})", flush=True)
+            check(np.isfinite(loss) and np.isfinite(gnorm), f"{strategy} step {i + 1}: loss and grad_norm finite")
+            check(abs(loss - rloss) <= MESH_LOSS_RTOL * abs(rloss),
+                  f"{strategy} step-{i + 1} loss within {MESH_LOSS_RTOL} of the one-device trainer's")
+            check(abs(gnorm - rgn) <= MESH_GRAD_RTOL * abs(rgn),
+                  f"{strategy} step {i + 1} grad_norm within {MESH_GRAD_RTOL} of the one-device trainer's")
+        checked, med, ratio = move_rule(trainer.adapter)
+        n_leaves = len(ad0)
+        print(f"mesh train {strategy}: adapter after {MESH_STEPS} steps against the one-device trainer's: "
+              f"{checked} of {n_leaves} leaves checked, worst median difference {med:.4f} lr, worst norm ratio "
+              f"{ratio:.4f} ({card})", flush=True)
+        check(checked == n_leaves and med <= 0.05 and ratio <= 0.25,
+              f"{strategy}: every adapter leaf moved as the one-device trainer's (median within 0.05 lr on the "
+              f"elements of signal, difference norm within 0.25 of the move's)")
+        for name in flash:
+            check(got[name] > 0, f"{name} launched {got[name]} times on the {strategy} mesh path")
+        if strategy == "fsdp_tp":
+            last = trainer
+        else:
+            del trainer
+    check(held["fsdp"]["param_bytes"] <= held["dp"]["param_bytes"] / 3,
+          f"an fsdp position holds {held['fsdp']['param_bytes'] / 1e9:.3f} GB of parameters, at most a third of a "
+          f"dp position's {held['dp']['param_bytes'] / 1e9:.3f} GB")
+    check(held["zero2"]["opt_bytes"] < held["dp"]["opt_bytes"] and
+          held["zero2"]["param_bytes"] == held["dp"]["param_bytes"],
+          "a zero2 position holds the whole parameters and part of the optimizer state")
+
+    # perplexity_eval(mesh=) over the fsdp_tp rows against one device, same weights
+    eval_batches = batches[:MESH_EVAL_BATCHES]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    split = perplexity_eval(last.merged_replicas(), cfg, eval_batches, mesh=last.mesh)
+    t_split = time.perf_counter() - t0
+    adapter = last.adapter
+    del last
+    torch.cuda.empty_cache()
+    merge_lora(base, tree_map(lambda t: t.detach(), adapter), common["lora"])
+    t0 = time.perf_counter()
+    one = perplexity_eval(base, cfg, eval_batches)
+    t_one = time.perf_counter() - t0
+    clear_lora(base)
+    print(f"perplexity_eval over the fsdp_tp rows ({{'data': 2, 'model': 2}}): eval_loss {split['eval_loss']:.6f}, "
+          f"{split['eval_tokens']} tokens in {t_split:.2f} s; one device {one['eval_loss']:.6f} in {t_one:.2f} s "
+          f"({card})", flush=True)
+    check(split["eval_tokens"] == one["eval_tokens"] and abs(split["eval_loss"] - one["eval_loss"])
+          <= MESH_LOSS_RTOL * abs(one["eval_loss"]), f"perplexity_eval(mesh=) within {MESH_LOSS_RTOL} of the "
+                                                      "one-device eval of the same weights")
+    del base
+    torch.cuda.empty_cache()
+
+    # cli train over the mesh: every visible GPU is the one card, four times
+    here = os.path.dirname(os.path.abspath(__file__))
+    argv = ["train", "--model-size", "phogpt4b", "--use-lora", "--quantize-base", "int8", "--remat-policy",
+            "proj_bf16", "--train-files", os.path.join(here, "examples", "sample_instruct.jsonl"), "--max-steps",
+            "1", "--batch-size", "8", "--grad-accum", "2", "--log-every", "1", "--log-dir", logdir, "--run-name",
+            "mesh_cli", "--strategy", "fsdp_tp", "--mesh", '{"data": 2, "model": 2}']
+    real = mesh_mod.visible_devices
+    mesh_mod.visible_devices = lambda: [torch.device("cuda", 0)] * MESH_DEVICES
+    for kern in pkg.KERNELS:
+        kern.launches = 0
+    t0 = time.perf_counter()
+    try:
+        rc = cli_main(argv)
+    finally:
+        mesh_mod.visible_devices = real
+    torch.cuda.synchronize()
+    for kern in pkg.KERNELS:
+        launches[kern.name] += kern.launches
+    with open(os.path.join(logdir, "mesh_cli.jsonl")) as f:
+        logged = [json.loads(line) for line in f]
+    print(f"cli train --strategy fsdp_tp --mesh '{{\"data\": 2, \"model\": 2}}': exit {rc} in "
+          f"{time.perf_counter() - t0:.1f} s; " + "; ".join(f"step {r['step']} loss {r['loss']:.6f} grad_norm "
+                                                         f"{r['grad_norm']:.6f}" for r in logged), flush=True)
+    check(rc == 0 and len(logged) == 1 and np.isfinite(logged[0]["loss"]),
+          "cli train --strategy fsdp_tp --mesh over the repeated card exits 0 after one finite step")
+    print(f"mesh train phase {time.perf_counter() - t_phase:.1f} s ({card})", flush=True)
+    return launches
+
+
+def timed(phase, *args):
+    """``phase(*args)``, printing its seconds."""
+    t0 = time.perf_counter()
+    out = phase(*args)
+    print(f"phase {phase.__name__.removeprefix('phase_')}: {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
 
 
 def main() -> int:
@@ -4683,85 +5013,88 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     report: dict = {}
-    phase_topk(torch, T, quant, gen, report)
-    phase_topk_edges(torch, T, quant, gen)
+    timed(phase_topk, torch, T, quant, gen, report)
+    timed(phase_topk_edges, torch, T, quant, gen)
     variants = flash_variants(torch)
     table = torch.randn(32, FLASH_H, generator=gen, device="cuda") * 0.02
-    phase_flash(torch, A, gen, report, lambda t: relative_attention_bias(table, t, mpnet_class()), variants)
-    phase_flash_edges(torch, A, gen)
-    phase_w8(torch, report)
-    phase_k8(torch, quant, gen, report)
-    retrieval, ctx = phase_slice(torch, pkg, gen)
+    timed(phase_flash, torch, A, gen, report, lambda t: relative_attention_bias(table, t, mpnet_class()), variants)
+    timed(phase_flash_edges, torch, A, gen)
+    timed(phase_w8, torch, report)
+    timed(phase_k8, torch, quant, gen, report)
+    retrieval, ctx = timed(phase_slice, torch, pkg, gen)
     print("launches in the retrieval run: " + json.dumps(retrieval))
     for name in ("matmul_topk_bf16", "matmul_topk_bf16_large", "matmul_topk_int8", "matmul_topk_int8_global",
                  "flash_attention_fwd"):
         check(retrieval[name] > 0, f"{name} launched on the retrieval path")
-    hybrid = phase_hybrid(torch, pkg, ctx)
+    hybrid = timed(phase_hybrid, torch, pkg, ctx)
     print("launches in the hybrid run: " + json.dumps(hybrid))
     for name in ("matmul_topk_bf16", "matmul_topk_int8", "quantize_int8"):
         check(hybrid[name] > 0, f"{name} launched on the hybrid path")
-    phase_bm25_timing(torch)
-    reader_launches, reader = phase_reader(torch, pkg, ctx)
+    timed(phase_bm25_timing, torch)
+    reader_launches, reader = timed(phase_reader, torch, pkg, ctx)
     for name in ("matmul_topk_bf16", "w8_matmul"):
         check(reader_launches[name] > 0, f"{name} launched on the QA path")
-    phase_twin(torch, reader)
-    engine_launches = phase_engine(torch, pkg, reader, ctx)
+    timed(phase_twin, torch, reader)
+    engine_launches = timed(phase_engine, torch, pkg, reader, ctx)
     print("launches in the /generate run: " + json.dumps(engine_launches))
     check(engine_launches["w8_matmul"] > 0, "w8_matmul launched on the /generate path")
-    adapter_launches = phase_adapters(torch, pkg, reader, ctx)
+    adapter_launches = timed(phase_adapters, torch, pkg, reader, ctx)
     print("launches in the /generate run with adapters: " + json.dumps(adapter_launches))
     check(adapter_launches["w8_matmul"] > 0, "w8_matmul launched on the /generate path with the adapter bank")
-    strategies_w8 = phase_decode_strategies(torch, pkg, reader, ctx)
+    strategies_w8 = timed(phase_decode_strategies, torch, pkg, reader, ctx)
     int8c_bytes = tree_bytes(reader)
     del reader
     torch.cuda.empty_cache()
-    nf4_launches = phase_nf4(torch, pkg, ctx, int8c_bytes)
+    nf4_launches = timed(phase_nf4, torch, pkg, ctx, int8c_bytes)
     print("launches in the nf4 /qa runs: " + json.dumps(nf4_launches))
     check(nf4_launches["matmul_topk_bf16"] > 0, "matmul_topk_bf16 launched on the nf4 /qa path")
     torch.cuda.empty_cache()
-    s2s_qa, s2s_flash, mt5 = phase_seq2seq_qa(torch, pkg, ctx)
+    s2s_qa, s2s_flash, mt5 = timed(phase_seq2seq_qa, torch, pkg, ctx)
     for name in ("matmul_topk_bf16", "w8_matmul"):
         check(s2s_qa[name] > 0, f"{name} launched on the mt5 /qa path")
-    s2s_engine = phase_seq2seq_engine(torch, pkg, mt5, ctx)
+    s2s_engine = timed(phase_seq2seq_engine, torch, pkg, mt5, ctx)
     print("launches in the mt5 /generate run: " + json.dumps(s2s_engine))
     check(s2s_engine["w8_matmul"] > 0, "w8_matmul launched on the mt5 /generate path")
     del mt5
     torch.cuda.empty_cache()
-    phase_mbart(torch)
+    timed(phase_mbart, torch)
     torch.cuda.empty_cache()
-    phase_spec_sampled(torch)
+    timed(phase_spec_sampled, torch)
     torch.cuda.empty_cache()
-    ivf_launches, ivfs = phase_ivf(torch, pkg, ctx, gen)
+    ivf_launches, ivfs = timed(phase_ivf, torch, pkg, ctx, gen)
     del ctx
     print("launches in the IVF run: " + json.dumps(ivf_launches))
     for name in ("ivf_probe_scores", "quantize_int8"):
         check(ivf_launches[name] > 0, f"{name} launched on the IVF path")
-    phase_k5(torch, P, ivfs, gen, report)
+    timed(phase_k5, torch, P, ivfs, gen, report)
     del ivfs
     torch.cuda.empty_cache()
     card = gpu_name_and_power()
-    sharded = phase_sharded(torch, pkg, card)
+    sharded = timed(phase_sharded, torch, pkg, card)
     print("launches in the sharded runs: " + json.dumps(sharded))
     for name in ("matmul_topk_bf16", "matmul_topk_int8", "ivf_probe_scores", "quantize_int8"):
         check(sharded[name] > 0, f"{name} launched on the sharded path")
     torch.cuda.empty_cache()
-    tp_launches = phase_tp(torch, pkg, card)
+    tp_launches = timed(phase_tp, torch, pkg, card)
     print("launches in the TP runs: " + json.dumps(tp_launches))
     torch.cuda.empty_cache()
-    phase_train_kernels(torch, A, gen, report)
-    phase_t5_flash_kernels(torch, A, gen, report)
+    timed(phase_train_kernels, torch, A, gen, report)
+    timed(phase_t5_flash_kernels, torch, A, gen, report)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as logdir:
-        train_launches = phase_train(torch, pkg, logdir)
+        train_launches = timed(phase_train, torch, pkg, logdir)
         torch.cuda.empty_cache()
         for name in ("flash_attention_fwd_causal", "flash_attention_bwd_dkdv", "flash_attention_bwd_dq"):
             check(train_launches[name] > 0, f"{name} launched on the train path")
-        phase_cli_train(torch, logdir)
+        timed(phase_cli_train, torch, logdir)
         torch.cuda.empty_cache()
-        phase_train_twin(torch, logdir)
+        timed(phase_train_twin, torch, logdir)
         torch.cuda.empty_cache()
-        qlora_launches = phase_qlora(torch, pkg, logdir)
+        qlora_launches = timed(phase_qlora, torch, pkg, logdir)
         torch.cuda.empty_cache()
-        s2s_train = phase_seq2seq_train(torch, pkg, logdir)
+        s2s_train = timed(phase_seq2seq_train, torch, pkg, logdir)
+        torch.cuda.empty_cache()
+        mesh_train = timed(phase_mesh_train, torch, pkg, logdir, card)
+    print("launches in the mesh training runs: " + json.dumps(mesh_train))
     print("launches in the nf4-dq QLoRA run: " + json.dumps(qlora_launches))
     for name in ("flash_attention_fwd", "flash_attention_fwd_causal", "flash_attention_bwd_dkdv",
                  "flash_attention_bwd_dq"):
@@ -4775,7 +5108,7 @@ def main() -> int:
                     matmul_topk_int8=retrieval["matmul_topk_int8"] + sharded["matmul_topk_int8"],
                     flash_attention_fwd=retrieval["flash_attention_fwd"] + s2s_flash["flash_attention_fwd"]
                     + s2s_train["flash_attention_fwd"],
-                    **{name: train_launches[name] + qlora_launches[name] + s2s_train[name]
+                    **{name: train_launches[name] + qlora_launches[name] + s2s_train[name] + mesh_train[name]
                        for name in ("flash_attention_fwd_causal", "flash_attention_bwd_dkdv", "flash_attention_bwd_dq")})
     for name in ("matmul_topk_bf16", "matmul_topk_int8", "ivf_probe_scores", "quantize_int8"):
         report[name]["sharded_launches"] = sharded[name]
@@ -4784,6 +5117,7 @@ def main() -> int:
     report["flash_attention_fwd"]["seq2seq_launches"] = s2s_flash["flash_attention_fwd"] + s2s_train["flash_attention_fwd"]
     for name in ("flash_attention_fwd_causal", "flash_attention_bwd_dkdv", "flash_attention_bwd_dq"):
         report[name]["seq2seq_launches"] = s2s_train[name]
+        report[name]["mesh_launches"] = mesh_train[name]
     # the occupancy of the variants that the main shapes run
     for name, key in (("flash_attention_fwd", ("fwd", 64, 0, 1)), ("flash_attention_fwd_causal", ("fwd", 128, 1, 2)),
                       ("flash_attention_bwd_dkdv", ("bwd", 128, 0, 2)), ("flash_attention_bwd_dq", ("bwd", 128, 1, 2))):

@@ -145,7 +145,7 @@ def test_once_placements_train_like_fused(tmp_path, placement):
         t = Trainer(_tiny(tmp_path / name, qlora_dequant=name, **base), total_steps=24, device="cpu")
         t.fit(batches)
         runs[name] = (perplexity_eval(t.merged_params(), t.cfg.model, batches())["eval_loss"],
-                      [x.detach().numpy() for x in tree_leaves(t.state["adapter"])])
+                      [x.detach().numpy() for x in tree_leaves(t.whole_state()["adapter"])])
     (loss_f, ad_f), (loss_o, ad_o) = runs["fused"], runs[placement]
     assert abs(loss_o - loss_f) <= 0.1, (loss_o, loss_f)
     for a, b in zip(ad_f, ad_o):
@@ -166,13 +166,14 @@ def test_host_offload_matches_the_device_run(tmp_path, offload):
     hosts = (off._host_params or []) + (off._host_opt or [])
     assert hosts and all(h is None or (h.device.type == "cpu" and not h.is_pinned()) for h in hosts)
     off.fit(batches)
-    for a, b in zip(tree_leaves(dev.state), tree_leaves(off.state)):
+    for a, b in zip(tree_leaves(dev.whole_state()), tree_leaves(off.whole_state())):
         assert torch.equal(a.detach(), b.detach())
     if off._host_opt is not None:  # the state's leaves are the persistent copies
-        assert all(h is None or leaf is h for leaf, h in zip(tree_leaves(off.state["opt_state"]), off._host_opt))
+        assert all(h is None or leaf is h
+                   for leaf, h in zip(tree_leaves(off.whole_state()["opt_state"]), off._host_opt))
     if off._host_params is not None:
         assert all(h is None or leaf.data_ptr() == h.data_ptr()
-                   for leaf, h in zip(tree_leaves(off.state["params"]), off._host_params))
+                   for leaf, h in zip(tree_leaves(off.whole_state()["params"]), off._host_params))
     ppl = perplexity_eval(off.merged_params(), off.cfg.model, batches())["eval_loss"]
     assert ppl == perplexity_eval(dev.merged_params(), dev.cfg.model, batches())["eval_loss"]
 
@@ -193,7 +194,7 @@ def test_profile_steps_writes_a_trace(tmp_path, capsys):
     assert len(files) == 1 and f"profiler trace written to {files[0]}" in capsys.readouterr().out
     with open(files[0]) as f:
         names = [e.get("name") for e in json.load(f)["traceEvents"]]
-    assert names.count("train.step") == 1 and int(t.state["step"]) == 3
+    assert names.count("train.step") == 1 and int(t.whole_state()["step"]) == 3
 
 
 def _jax_trainer(tmp_path, **kw):
@@ -227,7 +228,7 @@ def test_sharded_checkpoints_move_between_packages(tmp_path):
         assert any(e["index"][0] != [0, e["shape"][0]] for e in json.load(f)["entries"] if e["shape"])
     tt = _port_trainer(tmp_path, jt, checkpoint_dir=jdir, resume=True, sharded_checkpoint=True)
     assert tt.start_step == 1
-    for a, b in zip(tree_leaves(tt.state), jax.tree.leaves(jt.state)):
+    for a, b in zip(tree_leaves(tt.whole_state()), jax.tree.leaves(jt.state)):
         assert a.shape == b.shape
         np.testing.assert_array_equal(a.detach().numpy(), np.asarray(b))
     pdir = str(tmp_path / "port")
@@ -237,7 +238,7 @@ def test_sharded_checkpoints_move_between_packages(tmp_path):
     assert sorted(os.listdir(os.path.join(pdir, "step_2"))) == ["host_0.layout.json", "host_0.npz", "meta.json"]
     jt2 = _jax_trainer(tmp_path, checkpoint_dir=pdir, resume=True, mesh_axes={"data": 1})
     assert jt2.start_step == 2
-    for a, b in zip(tree_leaves(tt.state), jax.tree.leaves(jt2.state)):
+    for a, b in zip(tree_leaves(tt.whole_state()), jax.tree.leaves(jt2.state)):
         np.testing.assert_array_equal(a.detach().numpy(), np.asarray(b))
 
 

@@ -198,8 +198,7 @@ def test_trainer_fits_a_quantized_seq2seq_and_guards_full_ft_flash(tmp_path):
     assert isinstance(trainer.model, tt5.T5) and trainer.model.enc_blocks[0].mlp.wg.w_q is not None
     batch = {k: v[None] for k, v in _short_batch(6, (4, 12)).items()}
     before = [t.detach().clone() for t in trainer.adapter["dec_blocks"][0]["cross_attn"]["wq"].values()]
-    state = trainer.fit(lambda: [{k: v[0] for k, v in batch.items()}], max_steps=1)
-    assert int(state["step"]) == 1
+    assert trainer.fit(lambda: [{k: v[0] for k, v in batch.items()}], max_steps=1) == 1
     after = list(trainer.adapter["dec_blocks"][0]["cross_attn"]["wq"].values())
     assert any(not torch.equal(x, y) for x, y in zip(before, after))
     with pytest.raises(ValueError, match="freeze the bias tables"):

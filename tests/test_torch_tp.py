@@ -224,8 +224,8 @@ def test_placement_and_refusals(models):
         tsharding.shard_params(port, create_mesh({"data": 2, "model": 2}, devices=["cpu"] * 4), "fsdp_tp")
     with pytest.raises(ValueError, match="unsharded causal reader"):
         tsharding.shard_params(tp, mesh, "tp")
-    with pytest.raises(NotImplementedError, match="training it"):
-        tp.head_weight()
+    # the whole classifier, gathered from the vocabulary parts
+    assert torch.equal(tp.head_weight(), port.head_weight())
     with pytest.raises(ValueError, match="adapter bank"):
         ContinuousEngine(tp, tp.cfg, device="cpu", adapters={"a": {}})
     quant = init_causal_lm(dataclasses.replace(six, n_heads=8, d_model=64, d_ff=128),

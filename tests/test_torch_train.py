@@ -282,7 +282,7 @@ def test_checkpoints_resume_across_packages(tmp_path):
                        checkpoint_dir=str(tmp_path / "a"), resume=True)
     tt = Trainer(tcfg, params=causal_from_jax(base, tcfg.model, device="cpu"), total_steps=4, device="cpu")
     assert tt.start_step == 1
-    mine, theirs = tree_leaves(tt.state), jax.tree.leaves(jt.state)
+    mine, theirs = tree_leaves(tt.whole_state()), jax.tree.leaves(jt.state)
     assert len(mine) == len(theirs)
     for a, b in zip(mine, theirs):
         np.testing.assert_array_equal(a.detach().numpy(), np.asarray(b))
@@ -292,7 +292,7 @@ def test_checkpoints_resume_across_packages(tmp_path):
     jt2 = jtrainer.Trainer(jtrainer.TrainConfig(model=cfg, checkpoint_dir=str(tmp_path / "b"), resume=True,
                                                 mesh_axes={"data": 1}, **common), total_steps=4)
     assert jt2.start_step == 2
-    for a, b in zip(tree_leaves(tt.state), jax.tree.leaves(jt2.state)):
+    for a, b in zip(tree_leaves(tt.whole_state()), jax.tree.leaves(jt2.state)):
         np.testing.assert_array_equal(a.detach().numpy(), np.asarray(b))
 
 
@@ -318,7 +318,29 @@ def test_cli_train_on_the_cpu(tmp_path):
         with pytest.raises(RuntimeError, match="cuda"):
             cli_main(argv)
     with pytest.raises(NotImplementedError, match="not ported"):
-        cli_main([*argv, "--device", "cpu", "--strategy", "fsdp"])
+        cli_main([*argv, "--device", "cpu", "--strategy", "fsdp", "--mesh", '{"data": 2}', "--host-offload",
+                  "optimizer"])
+
+
+def test_cli_train_over_a_mesh_on_the_cpu(tmp_path):
+    """``train --device cpu --strategy fsdp_tp --mesh '{"data": 2, "model":
+    2}'`` (a mesh of four host repeats; int8 base + LoRA, eval split over the
+    data axis) takes a step and saves; ``train --resume`` on one device
+    restores that checkpoint and takes the second step."""
+    argv = ["train", "--model-size", "tiny", "--use-lora", "--quantize-base", "int8", "--train-files", SAMPLE,
+            "--log-every", "1", "--log-dir", str(tmp_path / "logs"), "--checkpoint-dir", str(tmp_path / "ck"),
+            "--device", "cpu", "--batch-size", "4", "--grad-accum", "2", "--eval-files", SAMPLE, "--do-eval"]
+    assert cli_main([*argv, "--max-steps", "1", "--run-name", "mesh", "--strategy", "fsdp_tp", "--mesh",
+                     '{"data": 2, "model": 2}']) == 0
+    assert os.listdir(tmp_path / "ck" / "step_1")
+    assert cli_main([*argv, "--max-steps", "2", "--run-name", "one", "--resume"]) == 0
+    logged = [json.loads(line) for line in open(tmp_path / "logs" / "mesh.jsonl")]
+    resumed = [json.loads(line) for line in open(tmp_path / "logs" / "one.jsonl")]
+    assert [r["step"] for r in logged if "loss" in r] == [1] and [r["step"] for r in resumed if "loss" in r] == [2]
+    assert any("eval_eval_loss" in r for r in logged)
+    with pytest.raises(ValueError, match="data mesh axis"):
+        cli_main([*argv, "--max-steps", "1", "--run-name", "odd", "--strategy", "fsdp", "--mesh", '{"data": 4}',
+                  "--batch-size", "6", "--grad-accum", "1"])
 
 
 def test_cli_train_and_chat_seq2seq_on_the_cpu(tmp_path, monkeypatch, capsys):

@@ -82,9 +82,13 @@ take int8, int8c, nf4 or nf4-dq; ``serve --adapter NAME=PATH``
 (repeatable; ``--adapter-r``, ``--adapter-alpha``, ``--adapter-targets``)
 serves LoRA adapters (``adapter.npz`` of either package's ``train
 --use-lora --checkpoint-dir``) over the shared reader on ``/generate``.
-``train`` refuses what is not ported yet: strategies other than dp,
-meshes and hub pushes.  Sharded indexes and sharded readers are not
-ported yet and raise where the JAX CLI would use them.
+``train --strategy dp|zero2|fsdp|tp|fsdp_tp --mesh JSON`` trains over a
+mesh (``train/mesh.py``): with ``--device cpu`` its positions repeat the
+host, with ``cuda`` they are the visible GPUs (fewer than the axes need
+raise); ``--do-eval`` then splits the eval batches over the data axis.
+``ingest --shards`` / ``build-ivf --shards`` shard the store and the IVF
+index, and ``serve --reader-strategy tp|fsdp_tp`` splits the reader over
+the GPUs.  ``train`` refuses hub pushes.
 """
 
 from __future__ import annotations
@@ -321,7 +325,7 @@ def cmd_train(args) -> int:
     from ..models import GenerationConfig, LoraConfig
     from ..train import TrainConfig, Trainer, generative_eval, perplexity_eval
 
-    _refuse(args, {"--mesh": ("mesh", None), "--push-to-hub": ("push_to_hub", None)})
+    _refuse(args, {"--push-to-hub": ("push_to_hub", None)})
     model = _train_config(args)
     tok = _tokenizer(args.tokenizer)
     if tok.vocab_size > model.vocab_size:
@@ -332,7 +336,8 @@ def cmd_train(args) -> int:
     cfg = TrainConfig(
         model=model, lora=lora, optimizer=args.optimizer, lr=args.lr, weight_decay=args.weight_decay,
         max_grad_norm=args.max_grad_norm, schedule=args.lr_scheduler, warmup_steps=args.warmup_steps,
-        epochs=args.epochs, grad_accum=args.grad_accum, strategy=args.strategy, host_offload=args.host_offload,
+        epochs=args.epochs, grad_accum=args.grad_accum, strategy=args.strategy,
+        mesh_axes=json.loads(args.mesh) if args.mesh else None, host_offload=args.host_offload,
         checkpoint_dir=args.checkpoint_dir, sharded_checkpoint=args.sharded_checkpoint,
         save_every_steps=args.save_every_steps,
         save_every_seconds=args.save_every_seconds, async_checkpoint=args.async_checkpoint, resume=args.resume,
@@ -373,9 +378,8 @@ def cmd_train(args) -> int:
     def train_batches(epoch: int):
         return dl.batches(train_examples, epoch=epoch)
 
-    def eval_fn(state, epoch):
-        params = trainer.merged_params()
-        metrics = perplexity_eval(params, model, dl.batches(eval_examples, shuffle=False))
+    def eval_fn(rows, epoch):
+        metrics = perplexity_eval(rows, model, dl.batches(eval_examples, shuffle=False), mesh=trainer.mesh)
         if args.do_generative_eval:
             # speculation where the JAX CLI takes it (cli/main.py:371-378):
             # no beams, penalties, n-gram bans or minimum length
@@ -387,22 +391,22 @@ def cmd_train(args) -> int:
                 min_new_tokens=args.min_new_tokens, num_beams=args.num_beams, length_penalty=args.length_penalty,
                 seed=args.seed, speculative=args.speculative if plain else "none", draft_tokens=args.draft_tokens,
                 draft_ngram=args.draft_ngram)
-            gm = generative_eval(params, model, tok, _gen_batches(eval_examples, tok, args.batch_size, dl.task),
+            gm = generative_eval(rows, model, tok, _gen_batches(eval_examples, tok, args.batch_size, dl.task),
                                  gen_config=gen, log_dir=os.path.join(args.log_dir, "predictions"), epoch=epoch,
-                                 run_name=args.run_name or "model")
+                                 run_name=args.run_name or "model", mesh=trainer.mesh)
             metrics["gen_tokens_per_s"] = gm["gen_tokens_per_s"]
         print(f"eval @ epoch {epoch}: {metrics}", flush=True)
         return metrics
 
     trainer.fit(train_batches, eval_fn=eval_fn if (args.do_eval and eval_examples) else None,
                 max_steps=args.max_steps)
-    print(f"training done at step {int(trainer.state['step'])}", flush=True)
+    print(f"training done at step {trainer.global_step}", flush=True)
     if trainer.adapter is not None and args.checkpoint_dir:
         # adapter-only artifact, in the JAX package's layout
         from ..train.checkpoint import save_pytree
 
         adapter_path = os.path.join(args.checkpoint_dir, "adapter.npz")
-        save_pytree(adapter_path, trainer.state["adapter"])
+        save_pytree(adapter_path, trainer.adapter)
         print(f"adapter saved -> {adapter_path} (r={args.lora_r}, alpha={args.lora_alpha})", flush=True)
     return 0
 
@@ -472,8 +476,9 @@ def _add_train_args(p: argparse.ArgumentParser) -> None:
                    help="keep the optimizer state and / or the parameters in (pinned) host memory, staged through "
                         "the device around each step")
     g.add_argument("--strategy", default="dp", choices=["dp", "zero2", "fsdp", "tp", "fsdp_tp"],
-                   help="only dp (one device) is ported")
-    g.add_argument("--mesh", default=None, help="mesh axes as json (not ported yet)")
+                   help="distribution strategy over --mesh (dp on one device without it)")
+    g.add_argument("--mesh", default=None,
+                   help='mesh axes as json, e.g. \'{"data": 2, "model": 4}\' (--device cpu repeats the host)')
     g = p.add_argument_group("data")
     g.add_argument("--train-files", nargs="+", required=False, default=[])
     g.add_argument("--train-schemas", nargs="*", default=None, help="schema per file: qa|instruct (default instruct)")

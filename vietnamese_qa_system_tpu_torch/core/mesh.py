@@ -88,6 +88,23 @@ class Mesh:
         at = [slice(None) if name == axis else 0 for name in self.axis_names]
         return list(self.devices[tuple(at)].reshape(-1))
 
+    def grid(self) -> list[list[torch.device]]:
+        """The devices by (data, model) position: ``grid()[i][j]`` is the
+        device at data index ``i`` and model index ``j``, at index 0 of
+        every other axis; an axis the mesh lacks counts as size 1.  The
+        trainer places one replica row a data index (its tensor-parallel
+        parts along the row)."""
+        at = []
+        for name in self.axis_names:
+            at.append(slice(None) if name in (DATA_AXIS, MODEL_AXIS) else 0)
+        sub = self.devices[tuple(at)]
+        kept = [n for n in self.axis_names if n in (DATA_AXIS, MODEL_AXIS)]
+        if kept == [MODEL_AXIS, DATA_AXIS]:
+            sub = sub.T
+        n_data, n_model = self.shape.get(DATA_AXIS, 1), self.shape.get(MODEL_AXIS, 1)
+        sub = np.asarray(sub, dtype=object).reshape(n_data, n_model)
+        return [list(row) for row in sub]
+
     def __repr__(self) -> str:
         return f"Mesh({self.shape}, devices={[str(d) for d in self.devices.flat]})"
 

@@ -206,9 +206,16 @@ class QADataLoader:
         return {"input_ids": ids, "attention_mask": mask, "labels": labels}
 
     @staticmethod
-    def shard_for_process(examples: list[dict], process_index: int = 0, process_count: int = 1) -> list[dict]:
-        """Each process keeps its strided slice of the examples."""
-        return examples[process_index::process_count]
+    def shard_for_process(examples: list[dict], process_index: Optional[int] = None,
+                          process_count: Optional[int] = None) -> list[dict]:
+        """Each process keeps its strided slice of the examples (this
+        process's index and count under ``torch.distributed`` by default,
+        core/distributed.py)."""
+        from ..core import distributed
+
+        pi = distributed.process_index() if process_index is None else process_index
+        pc = distributed.process_count() if process_count is None else process_count
+        return examples[pi::pc]
 
     def batches(
         self,

@@ -24,6 +24,7 @@ shard_params``.
 from __future__ import annotations
 
 import copy
+import re
 
 import torch
 from torch import nn
@@ -219,6 +220,11 @@ class CausalLM(nn.Module):
         """(D, V) classifier: the embedding transpose for tied heads."""
         return self.tok_embed.T if self.cfg.tie_embeddings else self.lm_head.w
 
+    def classifier_parts(self) -> list:
+        """The classifier as (D, V_j) parts over consecutive vocabulary
+        ranges, each on its device: one part here."""
+        return [self.head_weight()]
+
     def head(self, x):
         """(…, D) hidden states -> (…, V) f32 logits (bf16 inputs)."""
         return _matmul(x, self.head_weight())
@@ -243,7 +249,7 @@ def loss_fn(model: CausalLM, batch: dict):
     labels = batch["labels"][:, 1:]
     if model.cfg.vocab_size >= CHUNKED_XENT_MIN_VOCAB:
         h = model.hidden_states(batch["input_ids"], None)
-        return masked_mean_xent(h[:, :-1], model.head_weight(), labels, IGNORE_INDEX)
+        return masked_mean_xent(h[:, :-1], model.classifier_parts(), labels, IGNORE_INDEX)
     logits = model(batch["input_ids"], None)[:, :-1]
     valid = labels != IGNORE_INDEX
     logp = torch.log_softmax(logits.float(), dim=-1)
@@ -297,6 +303,20 @@ def init_causal_lm(cfg: ModelConfig, generator: torch.Generator, *, quantize: st
     return model.eval().requires_grad_(False)
 
 
+def clone_module(module: nn.Module, device) -> nn.Module:
+    """A copy of ``module``'s structure on ``device`` whose parameters and
+    buffers are ``t.to(device)``: the same tensors where they already live
+    there (a repeated-device mesh keeps one copy of a frozen weight), copies
+    elsewhere."""
+    memo = {}
+    for t in [*module.parameters(), *module.buffers()]:
+        moved = t.to(device)
+        if isinstance(t, nn.Parameter) and not isinstance(moved, nn.Parameter):
+            moved = nn.Parameter(moved, requires_grad=t.requires_grad)
+        memo[id(t)] = moved
+    return copy.deepcopy(module, memo)
+
+
 class TPCausalLM(CausalLM):
     """A :class:`CausalLM` split tensor-parallel over the ``model`` axis
     of a mesh, one controller driving every device (made by
@@ -333,11 +353,9 @@ class TPCausalLM(CausalLM):
             return None if t is None else nn.Parameter(t.detach().to(lead), requires_grad=False)
 
         def moved(mod):
-            # replicated modules are shared with the source model where it
-            # lives on the lead device, else copied there
-            if mod is None or all(t.device == lead for t in mod.state_dict().values()):
-                return mod
-            return copy.deepcopy(mod).to(lead)
+            # replicated modules: a module of their own whose tensors are the
+            # source's where it lives on the lead device, else copies there
+            return None if mod is None else clone_module(mod, lead)
 
         self.groups = head_groups(cfg.n_heads, cfg.kv_heads, n) if split_attention else None
         self.tok_embed = None
@@ -396,8 +414,48 @@ class TPCausalLM(CausalLM):
             return all_gather([p(x.to(dev)) for p, dev in zip(self.head_parts, self.devices)], self.lead, dim=-1)
         return _matmul(x, self.tok_embed.T if self.cfg.tie_embeddings else self.lm_head.w)
 
+    def classifier_parts(self) -> list:
+        """Each device's (D, V / n) vocabulary slice of the classifier where
+        the head splits (the chunked loss streams every slice on its device,
+        ops/xent.py), else the whole classifier."""
+        if self.cfg.tie_embeddings and self.embed_parts is not None:
+            return [t.T for t in self.embed_parts]
+        if self.head_parts is not None:
+            return [p.w for p in self.head_parts]
+        return [self.tok_embed.T if self.cfg.tie_embeddings else self.lm_head.w]
+
     def head_weight(self):
-        raise NotImplementedError("a tensor-parallel reader serves; training it is not ported yet")
+        """The whole (D, V) classifier on the lead device (its parts
+        gathered; differentiable in them)."""
+        return all_gather(self.classifier_parts(), self.lead, dim=1)
+
+    def leaf_index(self) -> dict:
+        """{name of each tensor of this model: (the name of the unsharded
+        model's leaf it holds, the index of that leaf it holds, its model
+        position)}: ``blocks.0.attn.parts.1.wq.w`` holds columns of
+        ``blocks.0.attn.wq.w`` at position 1, ``embed_parts.2`` rows of
+        ``tok_embed``; replicated leaves hold the whole at position 0."""
+        out = {}
+        mods = dict(self.named_modules())
+        for name, t in self.state_dict(keep_vars=True).items():
+            whole = tuple(slice(0, d) for d in t.shape)
+            m = re.fullmatch(r"(blocks\.\d+\.(?:attn|mlp))\.parts\.(\d+)\.(\w+)\.(\w+)", name)
+            if m:
+                part = mods[name.rsplit(".", 1)[0]]
+                out[name] = (f"{m.group(1)}.{m.group(3)}.{m.group(4)}", part.tp_index[m.group(4)], int(m.group(2)))
+                continue
+            m = re.fullmatch(r"head_parts\.(\d+)\.(\w+)", name)
+            if m:
+                part = mods[name.rsplit(".", 1)[0]]
+                out[name] = (f"lm_head.{m.group(2)}", part.tp_index[m.group(2)], int(m.group(1)))
+                continue
+            m = re.fullmatch(r"embed_parts\.(\d+)", name)
+            if m:
+                j, rows = int(m.group(1)), t.shape[0]
+                out[name] = ("tok_embed", (slice(j * rows, (j + 1) * rows), whole[1]), j)
+                continue
+            out[name] = (re.sub(r"\.wo_b$", ".wo.b", name), whole, 0)
+        return out
 
     def make_cache(self, b: int, total: int, kv_dtype: str = "bf16") -> list[dict]:
         """One dict a (layer, device), layer-major, each on its device over

@@ -612,19 +612,49 @@ def split_dense(dense: Dense, device, *, cols: slice | None = None, rows: slice 
                 bias: bool = True) -> Dense:
     """A Dense over ``dense``'s columns ``cols`` (column-parallel: its bias
     slice too) or rows ``rows`` (row-parallel: no bias, the sum adds it),
-    copied to ``device``.  Float weights only (a LoRA merge included)."""
-    if dense.w_q is not None or dense.w_dequant is not None or dense.lora_a is not None:
-        raise ValueError("tensor parallelism splits float weights; quantized or LoRA-factored layers are refused")
-    w = dense.w if dense.w_merged is None else dense.w_merged
+    copied to ``device``.  Float weights (a LoRA merge included) or int8
+    codes: the scales follow the codes' columns, and a row part takes the
+    scale rows of the blocks it spans (or of the one block it lies in), as
+    the sharding rules split ``w_s`` like ``w``.  The part's ``tp_index``
+    maps each of its leaves to the index of the whole leaf it holds."""
+    if dense.w_dequant is not None or dense.lora_a is not None:
+        raise ValueError("tensor parallelism splits the base; attach LoRA factors to the parts")
+    if dense.w_q is not None and (dense.w_q.dtype != torch.int8 or dense.s_q is not None):
+        raise NotImplementedError("tensor-parallel nf4 / nf4-dq bases are not ported yet; use int8 or a float base")
+    quant = dense.w_q is not None
+    leaves = {"w_q": dense.w_q, "w_s": dense.w_s} if quant else {"w": dense.w if dense.w_merged is None
+                                                                 else dense.w_merged}
     b = dense.b if bias and rows is None else None
+    d_in, d_out = dense.shape
+    index = {name: (slice(0, t.shape[0]), slice(0, t.shape[1])) for name, t in leaves.items()}
     if cols is not None:
-        w, b = w[:, cols], None if b is None else b[cols]
+        index = {name: (ix[0], cols) for name, ix in index.items()}
+        b_index = cols
     if rows is not None:
-        w = w[rows]
-    part = Dense(*w.shape, use_bias=b is not None, device="meta")
-    part.w = nn.Parameter(owned_copy(w, device), requires_grad=False)
+        index = {name: (rows, ix[1]) for name, ix in index.items()}
+        if quant:
+            size = d_in // dense.w_s.shape[0]  # rows a scale block
+            lo, hi = rows.start, rows.stop
+            if lo % size == 0 and hi % size == 0:
+                index["w_s"] = (slice(lo // size, hi // size), slice(0, d_out))
+            elif lo // size == (hi - 1) // size:
+                index["w_s"] = (slice(lo // size, lo // size + 1), slice(0, d_out))
+            else:
+                raise ValueError(f"rows {lo}:{hi} straddle int8 scale blocks of {size} rows")
+    parts = {name: leaves[name][index[name]] for name in leaves}
+    if b is not None and cols is not None:
+        b = b[cols]
+    shape = parts["w_q"].shape if quant else parts["w"].shape
+    part = Dense(*shape, use_bias=b is not None, device="meta")
+    if quant:
+        part.set_quantized(owned_copy(parts["w_q"], device), owned_copy(parts["w_s"], device))
+    else:
+        part.w = nn.Parameter(owned_copy(parts["w"], device), requires_grad=False)
     if b is not None:
         part.b = nn.Parameter(owned_copy(b, device), requires_grad=False)
+        index["b"] = (b_index if cols is not None else slice(0, d_out),)
+    part.tp_index = index
+    part.tp_cols, part.tp_rows = cols, rows
     return part
 
 

@@ -68,19 +68,34 @@ def init_lora(generator: torch.Generator, model: nn.Module, cfg: LoraConfig) -> 
 
 def merge_lora(model: nn.Module, adapter: dict, cfg: LoraConfig) -> nn.Module:
     """Attach ``adapter`` to ``model``'s dense layers (in place; returns
-    the model): lazy factors on quantized layers, ``W + scale * A @ B`` on
-    float ones.  Differentiable in the adapter; pass detached leaves for
-    export.  :func:`clear_lora` takes them off again."""
+    the model) by :func:`attach_factors`.  Differentiable in the adapter;
+    pass detached leaves for export.  :func:`clear_lora` takes them off
+    again."""
     flat = flatten_paths(adapter)
     for name in sorted({path.rsplit(".", 1)[0] for path in flat}):
-        dense = model.get_submodule(name)
-        a, b = flat[f"{name}.a"], flat[f"{name}.b"]
-        if dense.w_q is not None:
-            dense.lora_a, dense.lora_b = a, b * cfg.scale
-        else:
-            w = dense.w.detach()
-            dense.w_merged = w + ((a.float() @ b.float()) * cfg.scale).to(w.dtype)
+        attach_factors(model.get_submodule(name), flat[f"{name}.a"], flat[f"{name}.b"], cfg.scale)
     return model
+
+
+def attach_factors(dense: Dense, a: torch.Tensor, b: torch.Tensor, scale: float) -> None:
+    """Attach one layer's whole factors: lazy factors on a quantized layer,
+    ``W + scale * A @ B`` on a float one.  A tensor-parallel part
+    (``layers.split_dense``) takes B's columns of its part (``tp_cols``: x @ A
+    is computed whole) or A's rows (``tp_rows``: the row-parallel sum adds
+    the partial products), on its own device; gradients reach the whole
+    leaves through the slices."""
+    cols, rows = getattr(dense, "tp_cols", None), getattr(dense, "tp_rows", None)
+    if cols is not None:
+        b = b[:, cols]
+    if rows is not None:
+        a = a[rows]
+    dev = (dense.w_q if dense.w_q is not None else dense.w).device
+    a, b = a.to(dev), b.to(dev)
+    if dense.w_q is not None:
+        dense.lora_a, dense.lora_b = a, b * scale
+    else:
+        w = dense.w.detach()
+        dense.w_merged = w + ((a.float() @ b.float()) * scale).to(w.dtype)
 
 
 def clear_lora(model: nn.Module) -> None:

@@ -18,7 +18,10 @@ A spec is a tuple with one entry per dim: an axis name or None.  An axis
 the mesh lacks, of size 1, or that does not divide the dim leaves the
 dim whole, as in the JAX package.  :func:`shard_params` turns a causal
 reader into its tensor-parallel form (``models/causal_lm.py``
-``TPCausalLM``); the data-axis strategies are the training slice's.
+``TPCausalLM``) for serving and, with ``training=True``, for each data
+row of the trainer's mesh; ``train/mesh.py`` places the rest by these
+specs: a leaf split along ``data`` is stored as per-position parts, one
+split along ``model`` as ``TPCausalLM`` splits it, any other replicated.
 """
 
 from __future__ import annotations
@@ -117,34 +120,56 @@ def param_sharding(params, mesh: Mesh, strategy: str | ShardingRules = "fsdp") -
     return {name: _spec_for(param_path(name), tuple(leaf.shape), rules, mesh) for name, leaf in leaves.items()}
 
 
-def shard_params(model, mesh: Mesh, strategy: str = "tp"):
-    """The tensor-parallel form of a float causal reader over ``mesh``'s
-    ``model`` devices under ``strategy`` (tp or fsdp_tp): each leaf the
-    specs split on ``model`` is split onto the devices (attention by
-    heads, where they divide; see ``TPCausalLM``), the rest replicated on
-    the lead device.  The result shares no parameter storage with
-    ``model`` except replicated modules already on the lead device."""
+def batch_sharding(mesh: Mesh) -> tuple:
+    """The spec of batch leaves: the leading (batch) dim on ``data``."""
+    return (DATA_AXIS if mesh.shape.get(DATA_AXIS, 1) > 1 else None,)
+
+
+def accum_batch_sharding(mesh: Mesh) -> tuple:
+    """The spec of (accum, batch, ...) leaves: the batch dim on ``data``."""
+    return (None,) + batch_sharding(mesh)
+
+
+def shard_params(model, mesh: Mesh, strategy: str = "tp", *, training: bool = False, row: int = 0):
+    """The tensor-parallel form of an unsharded causal reader over the
+    ``model`` devices of ``mesh``'s data row ``row`` under ``strategy``
+    (tp or fsdp_tp): each leaf the specs split on ``model`` is split onto
+    the devices (attention by heads, where they divide; see
+    ``TPCausalLM``), the rest replicated on the row's lead device.  The
+    result shares no parameter storage with ``model`` except replicated
+    modules already on the lead device.
+
+    Serving (the default) takes a float reader on a ``{"model": n}`` mesh.
+    ``training=True`` is the trainer's: the mesh may have a data axis
+    (``train/mesh.py`` splits the parts over it for fsdp_tp and replicates
+    them over it for tp) and the base may be int8 (the codes and their
+    scales split like ``w``, JAX parallel/sharding.py:49-53)."""
     from ..models.causal_lm import CausalLM, TPCausalLM
 
     if strategy not in ("tp", "fsdp_tp"):
-        raise NotImplementedError(f"strategy {strategy!r} shards for training; the port serves tp and fsdp_tp")
+        raise NotImplementedError(f"strategy {strategy!r} shards over the data axis for training (train/mesh.py); "
+                                  "shard_params makes the tensor-parallel reader of tp and fsdp_tp")
     if not isinstance(model, CausalLM) or isinstance(model, TPCausalLM):
         raise ValueError("shard_params splits an unsharded causal reader (CausalLM)")
     specs = param_sharding(model, mesh, strategy)
-    if any(DATA_AXIS in spec for spec in specs.values()):
-        raise NotImplementedError("parameters sharded over the data axis (fsdp) are the training slice's; "
-                                  "serve over a {'model': n} mesh")
-    if any(name.endswith(("w_q", "w_s", "s_q")) for name in specs):
-        raise ValueError("--reader-strategy shards plain bf16 readers; drop --reader-quantize (int8/nf4 packing "
-                         "hides the dims the sharding rules split)")
+    if not training:
+        if any(DATA_AXIS in spec for spec in specs.values()):
+            raise NotImplementedError("parameters sharded over the data axis (fsdp) are the trainer's; "
+                                      "serve over a {'model': n} mesh")
+        if any(name.endswith(("w_q", "w_s", "s_q")) for name in specs):
+            raise ValueError("--reader-strategy shards plain bf16 readers; drop --reader-quantize (int8/nf4 packing "
+                             "hides the dims the sharding rules split)")
     cfg = model.cfg
 
     def split(name: str, dim: int) -> bool:
         spec = specs.get(name)
         return spec is not None and spec[dim] == MODEL_AXIS
 
+    def dense_split(prefix: str) -> bool:
+        return split(f"{prefix}.w", 1) or split(f"{prefix}.w_q", 1)
+
     layers = range(cfg.n_layers)
-    mlp = all(split(f"blocks.{i}.mlp.wi.w", 1) for i in layers)
-    attn = all(split(f"blocks.{i}.attn.wq.w", 1) for i in layers)
-    return TPCausalLM(model, mesh.axis_devices(MODEL_AXIS), split_attention=attn, split_mlp=mlp,
+    mlp = all(dense_split(f"blocks.{i}.mlp.wi") for i in layers)
+    attn = all(dense_split(f"blocks.{i}.attn.wq") for i in layers)
+    return TPCausalLM(model, mesh.grid()[row], split_attention=attn, split_mlp=mlp,
                       split_vocab=split("tok_embed", 0), split_head=split("lm_head.w", 1))

@@ -11,10 +11,17 @@ package restores into the other.
 Sharded checkpoints (checkpoint.py:87-208) use the JAX package's per-host
 layout: ``host_{h}.npz`` holds array ``l{i}_s{j}`` for shard ``j`` of leaf
 ``i``, and ``host_{h}.layout.json`` maps each to its leaf, global shape,
-dtype and slice.  The port runs one process on one device, so it writes
-``host_0`` with every leaf whole; ``restore`` detects the format and
-reassembles a directory that the JAX package wrote from several hosts,
-raising on a leaf that no host file holds or that the files do not fill.
+dtype and slice.  One process drives its whole mesh and saves every leaf
+whole (a trainer over a mesh assembles them first), so one process writes
+``host_0`` with every leaf whole.  Under several processes
+(``core/distributed.py``) every process holds the whole state and each
+writes ``host_{rank}``: leaf rows split evenly over the processes (leaves
+with fewer rows than processes, and scalars, from rank 0), so each row is
+written once; rank 0 clears a crashed save of the step before a barrier,
+and writes ``meta.json`` after a second one (checkpoint.py:250-292).
+``restore`` detects the format and reassembles a directory written by any
+number of hosts of either package, raising on a leaf that no host file
+holds or that the files do not fill.
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from ..core import distributed
 from ..utils.tree import tree_leaves, tree_unflatten
 
 _TORCH_DTYPES = {"float32": torch.float32, "int32": torch.int32, "int8": torch.int8, "int64": torch.int64,
@@ -91,19 +99,32 @@ def load_pytree(path: str, target=None):
     return tree_unflatten(target, leaves)
 
 
-def save_pytree_sharded(directory: str, tree, *, host_id: int = 0) -> None:
+def save_pytree_sharded(directory: str, tree, *, host_id: Optional[int] = None,
+                        host_count: Optional[int] = None) -> None:
     """Write ``{directory}/host_{host_id}.npz`` and its
-    ``host_{host_id}.layout.json`` (checkpoint.py:121-153): every leaf of
-    ``tree`` whole, as one shard spanning its shape."""
+    ``host_{host_id}.layout.json`` (checkpoint.py:121-153): this host's
+    share of every leaf of ``tree`` -- rows ``[h * n / H, (h + 1) * n / H)``
+    of a leaf of n >= H rows for host h of H (the process index and count
+    by default), a leaf of fewer rows or no dims from host 0 only."""
+    host_id = distributed.process_index() if host_id is None else host_id
+    host_count = distributed.process_count() if host_count is None else host_count
     os.makedirs(directory, exist_ok=True)
     leaves = tree_leaves(tree)
     arrays, layout = {}, []
     for i, leaf in enumerate(leaves):
         arr, dt = _to_savable(leaf)
+        shape = [int(d) for d in arr.shape]
+        if arr.ndim and arr.shape[0] >= host_count:
+            lo, hi = host_id * arr.shape[0] // host_count, (host_id + 1) * arr.shape[0] // host_count
+            arr = arr[lo:hi]
+            index = [[lo, hi]] + [[0, d] for d in shape[1:]]
+        elif host_id == 0:
+            index = [[0, d] for d in shape]
+        else:
+            continue
         key = f"l{i}_s0"
         arrays[key] = arr
-        layout.append({"leaf": i, "key": key, "shape": list(arr.shape), "dtype": dt,
-                       "index": [[0, int(d)] for d in arr.shape]})
+        layout.append({"leaf": i, "key": key, "shape": shape, "dtype": dt, "index": index})
     np.savez(os.path.join(directory, f"host_{host_id}.npz"), **arrays)
     with open(os.path.join(directory, f"host_{host_id}.layout.json"), "w") as f:
         json.dump({"n_leaves": len(leaves), "entries": layout}, f)
@@ -180,19 +201,26 @@ class CheckpointManager:
 
     def save(self, step: int, state, metadata: Optional[dict] = None) -> str:
         path = os.path.join(self.directory, f"step_{step}")
-        if os.path.isdir(path) and not os.path.exists(os.path.join(path, "meta.json")):
-            shutil.rmtree(path, ignore_errors=True)  # a crashed save of this step
+        rank = distributed.process_index()
+        if rank == 0:
+            if os.path.isdir(path) and not os.path.exists(os.path.join(path, "meta.json")):
+                shutil.rmtree(path, ignore_errors=True)  # a crashed save of this step
+            os.makedirs(path, exist_ok=True)
+        distributed.barrier()  # every process writes after the clean-up
         os.makedirs(path, exist_ok=True)
         if self.sharded:
             save_pytree_sharded(path, state)
-        else:
-            save_pytree(os.path.join(path, "state.npz"), state)
-        meta: dict[str, Any] = {"step": step}
-        if metadata:
-            meta.update(metadata)
-        with open(os.path.join(path, "meta.json"), "w") as f:
-            json.dump(meta, f)
-        self._gc()
+        elif rank == 0:
+            save_pytree(os.path.join(path, "state.npz"), state)  # one writer of the one file
+        distributed.barrier()  # every host file is on disk before the marker
+        if rank == 0:
+            meta: dict[str, Any] = {"step": step}
+            if metadata:
+                meta.update(metadata)
+            with open(os.path.join(path, "meta.json"), "w") as f:
+                json.dump(meta, f)
+            self._gc()
+        distributed.barrier()
         return path
 
     def restore(self, state_like, step: Optional[int] = None):

@@ -115,15 +115,24 @@ def _f32(x, count) -> torch.Tensor:
     return torch.tensor(x, dtype=torch.float32, device=count.device)
 
 
+def _on(x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """``x`` on ``t``'s device (a scalar of the state beside a leaf that a
+    mesh placed elsewhere)."""
+    return x if x.device == t.device else x.to(t.device)
+
+
 def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in tree_leaves(tree)))
+    """The l2 norm of every leaf, summed leaf by leaf on the first leaf's
+    device."""
+    leaves = tree_leaves(tree)
+    return torch.sqrt(sum(_on(torch.sum(torch.square(g.float())), leaves[0]) for g in leaves))
 
 
 def clip_by_global_norm(max_norm: float) -> Transform:
     def update(updates, state, params=None):
         g_norm = global_norm(updates)
         keep = g_norm < max_norm
-        return tree_map(lambda t: torch.where(keep, t, (t / g_norm) * max_norm), updates), state
+        return tree_map(lambda t: torch.where(_on(keep, t), t, (t / _on(g_norm, t)) * max_norm), updates), state
 
     return Transform(lambda params: EmptyState(), update)
 
@@ -139,7 +148,7 @@ def scale_by_adam(b1: float, b2: float, eps: float) -> Transform:
         count = state.count + 1
         c1 = 1 - _f32(b1, count) ** count
         c2 = 1 - _f32(b2, count) ** count
-        u = tree_map(lambda m, v: (m / c1) / (torch.sqrt(v / c2) + eps), mu, nu)
+        u = tree_map(lambda m, v: (m / _on(c1, m)) / (torch.sqrt(v / _on(c2, v)) + eps), mu, nu)
         return u, ScaleByAdamState(count, mu, nu)
 
     return Transform(init, update)
@@ -188,7 +197,7 @@ def scale_by_adam8bit(b1: float, b2: float, eps: float) -> Transform:
             g = g.float()
             mu = b1 * dequantize_blockwise(mu_q) + (1 - b1) * g
             nu = b2 * dequantize_blockwise(nu_q) + (1 - b2) * torch.square(g)
-            u = (mu / b1c) / (torch.sqrt(nu / b2c) + eps)
+            u = (mu / _on(b1c, mu)) / (torch.sqrt(nu / _on(b2c, nu)) + eps)
             return u, quantize_blockwise(mu), quantize_blockwise(nu)
 
         u, mu, nu = _leafwise(updates, state.mu, state.nu, fn=upd)

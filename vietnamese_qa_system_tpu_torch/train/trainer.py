@@ -1,16 +1,16 @@
 """Training engine: the train step, grad accumulation, LoRA, checkpoints.
 
-Counterpart of ``vietnamese_qa_system_tpu/train/trainer.py`` on one
-device, for causal LMs and the encoder-decoders (T5 / mT5, mBART, the
-native stack; trainer.py:142-163 dispatch init and loss by family).  The
-step (trainer.py:167-254) runs ``grad_accum`` microbatches, each through
-the model's loss (``causal_lm.loss_fn`` or the family's seq2seq loss,
-whose batches add "labels" of the decoder side) with the adapter attached to the frozen
-base (``merge_lora``), sums the gradients of the trainable tree -- the
-adapter under LoRA, every parameter otherwise -- divides by
-``grad_accum``, and applies the optimizer chain (train/optim.py) in place.
-Metrics are the token-weighted ``loss`` and the ``grad_norm`` of the
-averaged gradients.
+Counterpart of ``vietnamese_qa_system_tpu/train/trainer.py``, for causal
+LMs and the encoder-decoders (T5 / mT5, mBART, the native stack;
+trainer.py:142-163 dispatch init and loss by family).  The step
+(trainer.py:167-254, ``train/mesh.py``) runs ``grad_accum`` microbatches,
+each through the model's loss (``causal_lm.loss_fn`` or the family's
+seq2seq loss, whose batches add "labels" of the decoder side) with the
+adapter attached to the frozen base (``lora.attach_factors``), sums the
+gradients of the trainable tree -- the adapter under LoRA, every parameter
+otherwise -- divides by ``grad_accum``, and applies the optimizer chain
+(train/optim.py) in place.  Metrics are the token-weighted ``loss`` and the
+``grad_norm`` of the averaged gradients.
 
 A quantized base (``quantize_base`` int8, nf4 or nf4-dq) is dequantized
 where ``qlora_dequant`` says (trainer.py:184-199): at each matmul
@@ -27,12 +27,18 @@ each step (trainer.py:338-470); scalar leaves stay on the device.
 after start or resume to ``profile_dir``; ``sharded_checkpoint`` writes
 the per-host checkpoint layout (train/checkpoint.py).
 
-The trainer's state is the JAX package's ``{"params", "adapter",
+One device is the mesh of one position.  Over a mesh (``Trainer(cfg,
+mesh=...)``, or ``cfg.mesh_axes`` on the device: host repeats with
+``device="cpu"``, the visible GPUs with "cuda") the step runs under
+``cfg.strategy`` -- dp, zero2, fsdp, tp or fsdp_tp (trainer.py:330-420).
+``whole_state()`` gives the JAX package's ``{"params", "adapter",
 "opt_state", "step"}`` with the model's tensors as the "params" tree, so
-checkpoints flatten in the JAX order and move between the packages.
+checkpoints flatten in the JAX order and move between the packages: the
+live tensors where one tensor holds a whole leaf (every leaf, on one
+device), copies assembled on the host from the parts elsewhere.
 
-Not ported yet (each raises): strategies other than "dp", and encoder
-training.
+Not ported yet (each raises): host offload under a strategy other than
+dp on a mesh, and encoder training.
 """
 
 from __future__ import annotations
@@ -45,21 +51,22 @@ from typing import Any, Callable, Iterable, Optional
 
 import numpy as np
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from ..core.device import make_generator, resolve_device
+from ..core.mesh import DATA_AXIS, Mesh, create_mesh, mesh_on
 from ..core.profiling import bytes_to_mb, device_memory_stats
 from ..core.tracing import start_trace, stop_trace
 from ..models import causal_lm, families
 from ..models.causal_lm import init_causal_lm
 from ..models.config import ModelConfig
 from ..models.layers import Dense
-from ..models.lora import LoraConfig, clear_lora, init_lora, merge_lora
-from ..models.quantize import dequantize_tree, quantize_dense_tree
+from ..models.lora import LoraConfig, init_lora
+from ..models.quantize import quantize_dense_tree
 from ..utils.trackers import make_tracker
-from ..utils.tree import nest, tree_leaves, tree_map, tree_unflatten
+from ..utils.tree import nest, tree_leaves, tree_unflatten
 from .checkpoint import CheckpointManager
-from .optim import Transform, apply_updates, global_norm, make_optimizer, make_schedule
+from .mesh import MeshTrainState, check_micro_batch, split_microbatches
+from .optim import Transform, make_optimizer, make_schedule
 
 
 @dataclasses.dataclass
@@ -77,8 +84,8 @@ class TrainConfig:
     warmup_steps: int = 0
     epochs: int = 1
     grad_accum: int = 1  # microbatches per step
-    strategy: str = "dp"  # only "dp" (one device) is ported
-    mesh_axes: Optional[dict] = None
+    strategy: str = "dp"  # dp | zero2 | fsdp | tp | fsdp_tp (train/mesh.py)
+    mesh_axes: Optional[dict] = None  # e.g. {"data": 4} / {"data": 2, "model": 2}; None: one device
     host_offload: Optional[str] = None
     checkpoint_dir: Optional[str] = None
     sharded_checkpoint: bool = False
@@ -142,80 +149,69 @@ def init_model(cfg: ModelConfig, generator: torch.Generator, *, quantize: Option
     raise ValueError(f"no trainable model for arch {cfg.arch!r}")
 
 
+def dequant_once(cfg: TrainConfig) -> Optional[bool]:
+    """None for the fused dequantization, else whether the "once"
+    placement folds the factors into the weights."""
+    return None if cfg.quantize_base is None or cfg.qlora_dequant == "fused" else cfg.qlora_dequant == "once_folded"
+
+
+def one_position(device) -> Mesh:
+    """The mesh of one position on ``device``: the one-device trainer's."""
+    return create_mesh({DATA_AXIS: 1}, devices=[device])
+
+
 def make_train_step(cfg: TrainConfig, tx: Transform, model):
-    """The (state, batch) -> (state, metrics) step; batch leaves are
-    (grad_accum, microbatch, T) tensors on the model's device.  The state's
-    trainable tree and optimizer state are updated in place / replaced."""
-    use_lora = cfg.lora is not None
+    """The JAX package's functional (state, batch) -> (state, metrics) step
+    on the model's device: the trainer's step over one position.  ``state``
+    holds the model's own tensors as "params", the adapter, the optimizer
+    state of the trainable tree in the JAX structure and "step"; batch
+    leaves are (grad_accum, microbatch, T) tensors.  The trainable tree is
+    updated in place."""
+    mesh = one_position(model.device)
     loss_of = model_loss_fn(cfg.model)
 
-    once = cfg.quantize_base is not None and cfg.qlora_dequant != "fused"
-
-    def loss_for(mb):
-        if once:
-            # the whole frozen base to bf16 before the forward (trainer.py:184-199)
-            dequantize_tree(model, torch.bfloat16, fold_lora=cfg.qlora_dequant == "once_folded")
-        return loss_of(model, mb)
-
-    if cfg.remat and not (cfg.model.scan_layers and cfg.model.remat_policy != "none"):
-        # whole-loss remat only where no per-layer remat applies: both would
-        # recompute the forward twice (trainer.py:204-214)
-        plain = loss_for
-
-        def loss_for(mb):
-            return checkpoint(plain, mb, use_reentrant=False)
-
     def step_fn(state, batch):
-        with torch.profiler.record_function("train.step"):
-            return _step(state, batch)
-
-    def _step(state, batch):
-        trainable = state["adapter"] if use_lora else state["params"]
-        leaves = tree_leaves(trainable)
-        g_acc = [torch.zeros_like(leaf, dtype=torch.float32) for leaf in leaves]
-        loss_sum = torch.zeros((), device=leaves[0].device)
-        n_sum = 0
-        for a in range(batch["input_ids"].shape[0]):
-            mb = {k: v[a] for k, v in batch.items()}
-            if use_lora:
-                merge_lora(model, trainable, cfg.lora)
-            try:
-                loss, n = loss_for(mb)
-                grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-            finally:
-                if use_lora:
-                    clear_lora(model)
-            for acc, g in zip(g_acc, grads):
-                if g is not None:
-                    acc += g
-            loss_sum = loss_sum + loss.detach() * n
-            n_sum = n_sum + n
-        grads = tree_unflatten(trainable, [g / cfg.grad_accum for g in g_acc])
-        updates, state["opt_state"] = tx.update(grads, state["opt_state"], trainable)
-        apply_updates(trainable, updates)
+        placed = MeshTrainState(model, mesh, "dp", tx, adapter=state["adapter"] if cfg.lora is not None else None,
+                                lora=cfg.lora, once=dequant_once(cfg))
+        placed.load_opt_state(state["opt_state"])
+        metrics = placed.step(*split_microbatches(cfg.model, batch, placed.grid), loss_of, remat=cfg.remat)
+        state["opt_state"] = placed.whole_opt_state()
         state["step"] = state["step"] + 1
-        metrics = {"loss": loss_sum / torch.clamp(torch.as_tensor(n_sum).float(), min=1.0),
-                   "grad_norm": global_norm(grads)}
         return state, metrics
 
     return step_fn
 
 
+STRATEGIES = ("dp", "zero2", "fsdp", "tp", "fsdp_tp")
+
+
 class Trainer:
-    """init -> (resume) -> fit on one device (``device``, default the card).
+    """init -> (resume) -> fit on one device (``device``, default the card)
+    or over a mesh (``mesh``, or ``cfg.mesh_axes`` on ``device``).
 
     ``params``: a :class:`CausalLM` or an encoder-decoder to start from (its
     configuration is replaced by ``cfg.model``); None draws random weights
     from ``cfg.seed`` on the device, layer by layer, each layer quantized
     as it is made when ``quantize_base`` is set."""
 
-    def __init__(self, cfg: TrainConfig, *, params=None, total_steps: Optional[int] = None, device="cuda"):
+    def __init__(self, cfg: TrainConfig, *, params=None, mesh: Optional[Mesh] = None,
+                 total_steps: Optional[int] = None, device="cuda"):
         self.cfg = cfg
         m = cfg.model
-        for what, unported in (("strategy " + repr(cfg.strategy), cfg.strategy != "dp"),
-                               (f"{m.arch} training", m.arch not in ("causal", "seq2seq"))):
-            if unported:
-                raise NotImplementedError(f"{what} is not ported yet")
+        if cfg.strategy not in STRATEGIES:
+            raise ValueError(f"strategy must be one of {STRATEGIES}, got {cfg.strategy!r}")
+        if m.arch not in ("causal", "seq2seq"):
+            raise NotImplementedError(f"{m.arch} training is not ported yet")
+        if mesh is None and cfg.mesh_axes:
+            mesh = mesh_on(resolve_device(device), cfg.mesh_axes)
+        if mesh is not None and len(mesh.grid()) * len(mesh.grid()[0]) == 1:
+            device, mesh = mesh.grid()[0][0], None  # one position: the one-device trainer
+        self.mesh = mesh
+        if mesh is not None:
+            device = mesh.grid()[0][0]
+            if cfg.host_offload is not None and cfg.strategy != "dp":
+                raise NotImplementedError(f"host_offload under strategy {cfg.strategy!r} is not ported yet "
+                                          "(ROADMAP Queue 1); it runs under dp")
         if cfg.qlora_dequant not in ("fused", "once", "once_folded"):
             raise ValueError(f"qlora_dequant must be 'fused', 'once' or 'once_folded', got {cfg.qlora_dequant!r}")
         if cfg.host_offload is not None and cfg.host_offload not in ("optimizer", "params", "all"):
@@ -238,7 +234,6 @@ class Trainer:
             model.cfg = m
             if cfg.quantize_base is not None:
                 quantize_dense_tree(model, cfg.quantize_base)
-        self.model = model
         self.device = model.device
         if cfg.lora is not None:
             self.adapter = init_lora(make_generator(cfg.seed + 1, self.device), model, cfg.lora)
@@ -247,35 +242,55 @@ class Trainer:
             for mod in model.modules():
                 if isinstance(mod, Dense) and mod.w_q is not None:
                     raise ValueError("full fine-tuning needs a float base; this one is quantized")
-            model.requires_grad_(True)
         sched = make_schedule(cfg.schedule, cfg.lr, total_steps or 10_000, cfg.warmup_steps)
         self.tx = make_optimizer(cfg.optimizer, sched, weight_decay=cfg.weight_decay,
                                  max_grad_norm=cfg.max_grad_norm)
-        self.state = {"params": params_tree(model), "adapter": self.adapter, "opt_state": None,
-                      "step": torch.zeros((), dtype=torch.int32, device=self.device)}
-        self.state["opt_state"] = self.tx.init(self.adapter if self.adapter is not None else self.state["params"])
-        self._step_fn = make_train_step(cfg, self.tx, model)
+        placement = (mesh, cfg.strategy) if mesh is not None else (one_position(self.device), "dp")
+        self.placed = MeshTrainState(model, *placement, self.tx, adapter=self.adapter, lora=cfg.lora,
+                                     once=dequant_once(cfg))
+        self.model = self.placed.rows[0]
+        self.global_step = 0
+        self._loss_of = model_loss_fn(m)
         # host offload: the persistent copies, pinned on a GPU's host
         self._pin = self.device.type == "cuda"
         self._offload_params = cfg.host_offload in ("params", "all")
         self._offload_opt = cfg.host_offload in ("optimizer", "all")
         self._host_params = self._host_opt = None
+        self._param_devices = [t.device for t in self.placed.param_tensors()]
+        self._opt_devices = [t.device for t in tree_leaves(self.placed.opt_state)]
         if self._offload_params:
-            self._host_params = [self._host_buffer(t) for t in tree_leaves(self.state["params"])]
+            self._host_params = [self._host_buffer(t) for t in self.placed.param_tensors()]
             self._params_to_host()
         if self._offload_opt:
-            self._host_opt = [self._host_buffer(t) for t in tree_leaves(self.state["opt_state"])]
-            self.state["opt_state"] = self._opt_to_host(self.state["opt_state"])
+            self._host_opt = [self._host_buffer(t) for t in tree_leaves(self.placed.opt_state)]
+            self.placed.opt_state = self._opt_to_host(self.placed.opt_state)
         self.ckpt = (CheckpointManager(cfg.checkpoint_dir, cfg.keep_checkpoints, sharded=cfg.sharded_checkpoint)
                      if cfg.checkpoint_dir else None)
         self.tracker = make_tracker(cfg.report_to, cfg.log_dir, cfg.run_name)
         self.start_step = 0
         if cfg.resume and self.ckpt is not None:
-            restored, meta = self.ckpt.restore(self.state)
+            restored, meta = self.ckpt.restore(self.whole_state())
             if restored is not None:
                 self.load_state(restored)
                 self.start_step = int(meta["step"])
                 print(f"resumed from step {self.start_step}", flush=True)
+
+    # ----------------------------------------------------------------- state
+
+    def whole_state(self) -> dict:
+        """{"params", "adapter", "opt_state", "step"} in the JAX package's
+        structure: each leaf the live tensor that holds it whole (every
+        leaf on one device; the adapter always), else a copy assembled on
+        the host from its parts -- over a mesh of several devices, a copy
+        of the whole model and optimizer state."""
+        return {"params": self.placed.whole_params(), "adapter": self.adapter,
+                "opt_state": self.placed.whole_opt_state(),
+                "step": torch.tensor(self.global_step, dtype=torch.int32, device=self.device)}
+
+    def position_bytes(self) -> dict:
+        """{(data, model) position: {"param_bytes", "opt_bytes"}} that each
+        mesh position keeps (train/mesh.py)."""
+        return self.placed.position_bytes()
 
     # ---------------------------------------------------------- host offload
 
@@ -289,16 +304,20 @@ class Trainer:
     def _params_to_host(self) -> None:
         """The model's tensors point at their host copies, updated from the device."""
         with torch.no_grad():
-            for t, host in zip(tree_leaves(self.state["params"]), self._host_params):
+            for t, host in zip(self.placed.param_tensors(), self._host_params):
                 if host is not None and t.data.data_ptr() != host.data_ptr():
                     host.copy_(t.data)
                     t.data = host
 
     def _params_to_device(self) -> None:
         with torch.no_grad():
-            for t, host in zip(tree_leaves(self.state["params"]), self._host_params):
+            for t, host, dev in zip(self.placed.param_tensors(), self._host_params, self._param_devices):
                 if host is not None:
-                    t.data = t.data.to(self.device, non_blocking=True)
+                    t.data = t.data.to(dev, non_blocking=True)
+
+    def _opt_to_device(self, opt_state):
+        return tree_unflatten(opt_state, [t.to(dev, non_blocking=True)
+                                          for t, dev in zip(tree_leaves(opt_state), self._opt_devices)])
 
     def _opt_to_host(self, opt_state):
         out = []
@@ -310,51 +329,59 @@ class Trainer:
                 out.append(host)
         return tree_unflatten(opt_state, out)
 
-    def _run_step(self, state: dict, batch: dict):
-        """One optimizer step; with host offload the host-resident parts are
-        staged onto the device before it and written back after it
-        (trainer.py:380-402)."""
+    def run_step(self, batch: dict) -> dict:
+        """One optimizer step on a :meth:`device_batch`; returns its metrics.
+        With host offload the host-resident parts are staged onto the device
+        before it and written back after it (trainer.py:380-402)."""
         if self._offload_params:
             self._params_to_device()
         if self._offload_opt:
-            state["opt_state"] = tree_map(lambda t: t.to(self.device, non_blocking=True), state["opt_state"])
-        state, metrics = self._step_fn(state, batch)
+            self.placed.opt_state = self._opt_to_device(self.placed.opt_state)
+        metrics = self.placed.step(batch["rows"], batch["counts"], self._loss_of, remat=self.cfg.remat)
+        self.global_step += 1
         if self._offload_params:
             self._params_to_host()
         if self._offload_opt:
-            state["opt_state"] = self._opt_to_host(state["opt_state"])
-        return state, metrics
+            self.placed.opt_state = self._opt_to_host(self.placed.opt_state)
+        return metrics
+
+    def train_step(self, batch: dict) -> dict:
+        """One optimizer step on a host batch (as ``fit`` takes them)."""
+        return self.run_step(self.device_batch(batch))
 
     def load_state(self, state: dict) -> None:
-        """Take a restored state: the model's tensors and the adapter are
-        overwritten in place, the optimizer state and step replaced."""
-        with torch.no_grad():
-            for key in ("params", "adapter"):
-                for live, new in zip(tree_leaves(self.state[key]), tree_leaves(state[key])):
-                    live.copy_(new)
-        self.state["opt_state"] = state["opt_state"]
-        self.state["step"] = state["step"]
+        """Take a whole state (``whole_state``'s structure, e.g. restored):
+        every piece of the model and the adapter is overwritten in place,
+        the optimizer state and step replaced."""
+        self.placed.load_params(state["params"])
+        if self.adapter is not None:
+            self.placed.load_adapter(state["adapter"])
+        self.placed.load_opt_state(state["opt_state"])
+        self.global_step = int(state["step"])
 
     # ------------------------------------------------------------------ fit
 
-    def _device_batch(self, batch: dict) -> dict:
-        """(global_b, ...) numpy -> (accum, micro_b, ...) tensors on the device."""
+    def device_batch(self, batch: dict) -> dict:
+        """(global_b, ...) host arrays -> {"rows": each microbatch's share of
+        every data row on the row's device (JAX's ``accum_batch_sharding``),
+        "counts": their supervised targets, "input_ids": the host ids}."""
         a = self.cfg.grad_accum
-        out = {}
-        for k, v in batch.items():
-            x = np.asarray(v)
-            if x.shape[0] % a:
-                raise ValueError(f"global batch {x.shape[0]} not divisible by accum {a}")
-            out[k] = torch.from_numpy(x.reshape(a, x.shape[0] // a, *x.shape[1:]).astype(np.int64)).to(self.device)
-        return out
+        gb = np.asarray(batch["input_ids"]).shape[0]
+        check_micro_batch(gb, a, len(self.placed.grid))
+        host = {k: np.asarray(v).astype(np.int64).reshape(a, gb // a, *np.asarray(v).shape[1:])
+                for k, v in batch.items()}
+        rows, counts = split_microbatches(self.cfg.model, host, self.placed.grid)
+        return {"rows": rows, "counts": counts, "input_ids": host["input_ids"]}
 
     def fit(self, train_batches: Callable[..., Iterable[dict]], *, eval_fn: Optional[Callable[[Any, int], dict]] = None,
-            max_steps: Optional[int] = None):
+            max_steps: Optional[int] = None) -> int:
         """train_batches: factory of one epoch's iterable of host batches
         {"input_ids", "attention_mask", "labels"} with a global batch dim;
         a factory taking a positional argument receives the epoch index (so
         a resumed run repeats the original shuffles).  Resume fast-forwards
-        within the epoch, as trainer.py:495-613 does."""
+        within the epoch, as trainer.py:495-613 does.  ``eval_fn(rows,
+        epoch)`` gets :meth:`merged_replicas` after each epoch.  Returns the
+        step reached."""
         cfg = self.cfg
         epoch_iter = (lambda e: train_batches(e)) if _factory_wants_epoch(train_batches) else (
             lambda e: train_batches())
@@ -384,9 +411,9 @@ class Trainer:
                 if skip > 0:
                     skip -= 1
                     continue  # fast-forward within the resume epoch
-                dev_batch = self._device_batch(batch)
+                dev_batch = self.device_batch(batch)
                 n_tok = int(np.prod(dev_batch["input_ids"].shape))
-                self.state, metrics = self._run_step(self.state, dev_batch)
+                metrics = self.run_step(dev_batch)
                 step += 1
                 epoch_steps += 1
                 epoch_tokens += n_tok
@@ -415,7 +442,7 @@ class Trainer:
             peak = f"{bytes_to_mb(mem['peak_bytes_in_use'])}MB" if mem["supported"] else "n/a (host)"
             print(f"epoch {epoch}: steps={epoch_steps} device_mem_peak={peak}", flush=True)
             if eval_fn is not None:
-                eval_metrics = eval_fn(self.state, epoch)
+                eval_metrics = eval_fn(self.merged_replicas(), epoch)
                 self.tracker.log({f"eval_{k}": v for k, v in eval_metrics.items()}, step)
             if self.ckpt is not None:
                 self.save(step)
@@ -425,7 +452,7 @@ class Trainer:
             print(f"profiler trace written to {stop_trace(prof, cfg.profile_dir)}", flush=True)
         if self.ckpt is not None:
             self.ckpt.wait()
-        return self.state
+        return self.global_step
 
     def _should_save(self, step: int, last_save: float) -> bool:
         if self.ckpt is None:
@@ -438,9 +465,9 @@ class Trainer:
         if self.ckpt is not None:
             meta = {"config": repr(self.cfg)}
             if self.cfg.async_checkpoint:
-                self.ckpt.save_async(step, self.state, meta)
+                self.ckpt.save_async(step, self.whole_state(), meta)
             else:
-                self.ckpt.save(step, self.state, meta)
+                self.ckpt.save(step, self.whole_state(), meta)
 
     # ---------------------------------------------------------------- export
 
@@ -448,9 +475,14 @@ class Trainer:
         """The model with the trained adapter attached (detached factors;
         the adapter merged into float layers), for inference and export.
         Offloaded parameters come back to the device (the next step
-        returns them to the host)."""
+        returns them to the host).  Over a mesh, the first data row's model
+        (:meth:`merged_replicas` gives every row's)."""
+        return self.merged_replicas()[0]
+
+    def merged_replicas(self) -> list:
+        """One model with the trained adapter attached a data row (the
+        mesh's ``perplexity_eval(mesh=)`` / ``generative_eval(mesh=)`` split
+        their batches over them)."""
         if self._offload_params:
             self._params_to_device()
-        if self.adapter is None:
-            return self.model
-        return merge_lora(self.model, tree_map(lambda t: t.detach(), self.adapter), self.cfg.lora)
+        return self.placed.eval_rows()
