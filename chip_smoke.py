@@ -311,6 +311,22 @@ SHARDED_INT8_FLOOR, SHARDED_RES_FLOOR, SHARDED_SCORE_TOL = 0.8, 0.95, 1e-5
 TP_DEVICES, TP_QA_ROWS, TP_PROMPT, TP_NEW = 4, 8, 128, 32
 TP_ENGINE_FLAGS = ("--continuous-slots", "8", "--gen-total", "512", "--gen-chunk-steps", "16")
 TP_ENGINE_REQUESTS, TP_ENGINE_PROMPT, TP_ENGINE_NEW = 8, (16, 200), 24
+# the TP seq2seq readers (phase_tp_seq2seq): mt5-small's bf16 weights (the
+# directory phase_seq2seq_qa writes) with the flash route, over {"model": 2}
+# (3 heads a device: K4 a part) and {"model": 4} (6 heads do not split over
+# 4: attention whole on the lead); /qa at B 8 of 512-token prompts (a
+# 240-token question is its own context), 32 new tokens; 16 greedy /generate
+# of 16-128 encoder tokens and 16-64 new through serve's seq2seq engine;
+# mBART at mbart-large-50's width over {"model": 4}
+TP_S2S_MESHES, TP_S2S_QUESTION, TP_S2S_REQUESTS, TP_S2S_NEW, MBART_TP_DEVICES = (2, 4), 240, 16, (16, 64), 4
+# the bank on the TP reader (phase_tp_adapters): 8 concurrent /generate, two
+# a name over the base and ADAPTER_NAMES, 16-200 prompt tokens, 16-64 new
+TP_ADAPTER_NEW = (16, 64)
+# the TP reader's logits under an adapter against the unsharded reader's, as
+# a share of that adapter's own change of the logits: a wrongly sliced
+# factor errs by the order of the change itself; the split's rounding drift
+# (its row-parallel sums' order, through bf16 activations) grows with depth
+ADAPTER_TP_REL_TOL = 0.1
 # the training path: PhoGPT-4B QLoRA steps of global batch 8 (grad_accum 2)
 # at T = 1024; K7 against its plain version relative to each gradient's
 # max |g| (bf16 P and dS summed in another tile order); the 2-layer twin's
@@ -2183,14 +2199,12 @@ def teacher_forced(torch, reader, ids: list, new: list, kv_dtype="bf16"):
     """The reader's f32 logits (len(new), V) that chose each of ``new``
     after the prompt ``ids``: one prefill of ``ids + new[:-1]`` through a KV
     cache of ``kv_dtype``."""
-    from vietnamese_qa_system_tpu_torch.models import make_cache
-
     n = len(ids) + len(new) - 1
     seq = torch.tensor([ids + new[:-1]], device="cuda")
     mask = torch.tril(torch.ones((1, n, n), dtype=torch.bool, device="cuda"))
     with torch.inference_mode():
         logits = reader(seq, mask, positions=torch.arange(n, device="cuda")[None],
-                        cache=make_cache(reader.cfg, 1, n, "cuda", kv_dtype), cache_index=0)
+                        cache=reader.make_cache(1, n, kv_dtype), cache_index=0)
     return logits[0, len(ids) - 1:].float()
 
 
@@ -3322,7 +3336,7 @@ def phase_adapters(torch, pkg, reader, ctx):
     from vietnamese_qa_system_tpu_torch.models import decode_engine as de
     from vietnamese_qa_system_tpu_torch.models import layers as L
     from vietnamese_qa_system_tpu_torch.train.checkpoint import save_pytree
-    from vietnamese_qa_system_tpu_torch.utils.tree import flatten_paths, tree_leaves
+    from vietnamese_qa_system_tpu_torch.utils.tree import flatten_paths
 
     t_phase = time.perf_counter()
     card = gpu_name_and_power()
@@ -3351,7 +3365,7 @@ def phase_adapters(torch, pkg, reader, ctx):
     finally:
         shutil.rmtree(d, ignore_errors=True)
     bank, index, buckets = engine._bank, engine._adapter_idx, engine.buckets
-    bank_gb = sum(t.numel() * t.element_size() for t in tree_leaves(bank)) / 1e9
+    bank_gb = sum(f.numel() * f.element_size() for pair in bank.values() for f in pair if f is not None) / 1e9
     check(engine.adapter_names == list(ADAPTER_NAMES) and engine.speculative,
           f"serve --adapter loaded {engine.adapter_names} into one bank ({bank_gb:.3f} GB, index 0 the base) in "
           f"{load_s:.1f} s; n-gram speculation on by default")
@@ -3925,7 +3939,8 @@ def phase_seq2seq_qa(torch, pkg, ctx):
     reference reader's; a 2-layer twin on the card and the host; the same
     reader with ``use_flash_attention`` (K4 bidirectional with the full
     relative bias over the 512-token encoder).  Returns the /qa launches,
-    the flash encode's launches and the reader."""
+    the flash encode's launches, the reader and the HF directory, which
+    phase_tp_seq2seq loads again (the caller removes it)."""
     import numpy as np
 
     from vietnamese_qa_system_tpu_torch.cli.main import _reader, build_parser
@@ -3952,8 +3967,9 @@ def phase_seq2seq_qa(torch, pkg, ctx):
         reader = _reader(args.reader_size, tok, args.seed + 1, "cuda", args.reader_quantize, args.reader_params)
         torch.cuda.synchronize()
         load_s = time.perf_counter() - t0
-    finally:
+    except BaseException:
         shutil.rmtree(d, ignore_errors=True)
+        raise
     reference = seq2seq_from_state_dict(ref_state, cfg)
     got, want = reader.state_dict(), reference.state_dict()
     print(f"mt5-small HF directory (d {cfg.d_model}, {cfg.n_heads} heads x d_kv {cfg.head_dim}, {cfg.n_layers} + "
@@ -4059,7 +4075,7 @@ def phase_seq2seq_qa(torch, pkg, ctx):
                       host_twin, tw_ids * tw_mask, tw_mask, TWIN_NEW_TOKENS)
     del card_twin, host_twin
     print(f"mt5 /qa phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
-    return launches, flash_launches, reader
+    return launches, flash_launches, reader, d
 
 
 def phase_seq2seq_engine(torch, pkg, reader, ctx):
@@ -4188,7 +4204,8 @@ def phase_mbart(torch):
     --arch seq2seq --init-params DIR``, tensors bit-equal to the drawn
     values; greedy and W 4 beams with a forced BOS at B 8 (beams' summed
     log-probability >= greedy's on the batch), the beam step's ms, and a
-    2-layer twin on the card and the host."""
+    2-layer twin on the card and the host.  Returns the model, which
+    phase_tp_seq2seq splits."""
     import numpy as np
 
     from vietnamese_qa_system_tpu_torch.cli.main import _reader, _tokenizer, build_parser
@@ -4252,11 +4269,10 @@ def phase_mbart(torch):
     check(lp_b.sum().item() >= lp_g.sum().item() - 1e-3,
           f"W {BEAM_WIDTH} beams' summed log-probability >= greedy's on the batch")
     card_twin, host_twin = s2s_twin(torch, model, TWIN_LAYERS)
-    del model
-    torch.cuda.empty_cache()
     check_twin_decode(torch, f"mbart twin ({TWIN_LAYERS} + {TWIN_LAYERS} layers, full width)", card_twin, host_twin,
                       enc.cpu(), mask.cpu(), TWIN_NEW_TOKENS, eos_id=2, bos_id=2, forced_bos_id=MBART_LANG_ID)
     print(f"mbart phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return model
 
 
 def s2s_train_batch(rng, b: int, t_enc: int, t_dec: int, vocab: int) -> dict:
@@ -4652,7 +4668,8 @@ def phase_tp(torch, pkg, card: str) -> dict:
     - decode ms a step and tokens/s of B 8 greedy ``generate()``, TP beside
       unsharded (one card: the split runs four devices' work in turn).
 
-    Returns the launches of the TP runs (counted from zero)."""
+    Returns the launches of the TP runs (counted from zero), the TP reader
+    and the unsharded one (phase_tp_adapters serves a bank over them)."""
     import numpy as np
 
     from vietnamese_qa_system_tpu_torch.cli.main import build_parser, continuous_engine
@@ -4765,9 +4782,411 @@ def phase_tp(torch, pkg, card: str) -> dict:
     launches = {name: qa_launches[name] + gen_launches[name] for name in qa_launches}
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"TP phase {time.perf_counter() - t_phase:.1f} s; peak card memory {peak:.2f} GiB ({card})", flush=True)
-    del tp, reader
+    return launches, tp, reader
+
+
+
+def generate_burst(torch, tok, engine, payloads: list) -> tuple[list, float, dict]:
+    """POST every payload to /generate of an app over ``engine`` at once;
+    returns the answers, the wall seconds and the engine's stats.  The app
+    and the engine are closed after."""
+    from vietnamese_qa_system_tpu_torch.engine import ServingApp
+
+    url, stop = serve(ServingApp(NoRetrieval(), gen=engine, tokenizer=tok, k=1, max_wait_s=0.02))
+    try:
+        t0 = time.perf_counter()
+        outs = ask_all(url, "/generate", payloads)
+        torch.cuda.synchronize()
+        return outs, time.perf_counter() - t0, engine.snapshot_stats()
+    finally:
+        stop()
+
+
+def s2s_stream_rule(torch, reader, prompt: list, width: int, got: list, want: list) -> tuple[bool, int]:
+    """A seq2seq /generate stream ``got`` against the reference stream
+    ``want`` of the same prompt, right-padded to ``width``: equal over
+    their common length up to the first step whose top-2 margin of
+    ``reader`` teacher-forced on ``want`` is below TWIN_LOGIT_TOL."""
+    n = min(len(got), len(want))
+    if got == want:
+        return True, n
+    x = torch.zeros((1, width), dtype=torch.int32, device="cuda")
+    m = torch.zeros_like(x)
+    x[0, :len(prompt)] = torch.tensor(prompt, dtype=torch.int32)
+    m[0, :len(prompt)] = 1
+    agree, until = s2s_margin_rule(torch, reader, x, m, torch.tensor([got[:n]]), torch.tensor([want[:n]]), 0)
+    return agree, until[0]
+
+
+def phase_tp_seq2seq(torch, pkg, mt5_dir: str, mbart, report) -> dict:
+    """The tensor-parallel seq2seq readers, as ``serve --reader-strategy
+    tp`` builds them, over meshes of the one card repeated:
+
+    - mt5-small loaded through ``serve --reader-params`` from the bf16 HF
+      directory phase_seq2seq_qa wrote (no quantization: TP readers are
+      float), the flash route on, split over {"model": 2} (3 heads a
+      device: K4 runs a part) and {"model": 4} (6 heads do not divide over
+      4: attention whole on the lead, the FFN hidden and the vocabulary
+      split).  At each: /qa at B 8 of 512-token prompts, every row held
+      to the unsharded reader's greedy decode by the margin rule, K4
+      launched once a part (or once) an encoder layer; 16 concurrent
+      /generate through serve's seq2seq engine, each stream held to the
+      unsharded engine's by the margin rule; the ms of a decode step;
+    - K4 against its plain version at a part's shape (3 heads over the
+      second part's slice of the 6-head relative bias), timed beside the
+      plain version and SDPA;
+    - mBART at mbart-large-50's width (phase_mbart's model) over
+      {"model": 4}: 16 heads split 4 a device, the vocabulary (250,054)
+      and fc1 / fc2 whole as JAX's rules leave them; B 8 greedy decode of
+      32 tokens against the unsharded model, and the ms of a decode step
+      beside it.
+
+    Returns the launches of the TP /qa and /generate runs."""
+    import numpy as np
+
+    from vietnamese_qa_system_tpu_torch.cli.main import _reader, build_parser, continuous_engine
+    from vietnamese_qa_system_tpu_torch.core.mesh import MODEL_AXIS, create_mesh
+    from vietnamese_qa_system_tpu_torch.data import ByteTokenizer
+    from vietnamese_qa_system_tpu_torch.engine import QAPipeline, ServingApp
+    from vietnamese_qa_system_tpu_torch.models import generate as G
+    from vietnamese_qa_system_tpu_torch.models.encoder import relative_attention_bias
+    from vietnamese_qa_system_tpu_torch.ops import attention as A
+    from vietnamese_qa_system_tpu_torch.parallel.sharding import shard_params
+
+    t_phase = time.perf_counter()
+    card = gpu_name_and_power()
+    tok = ByteTokenizer()
+    args = build_parser().parse_args(["serve", "--index", "-", "--db", ":memory:", "--reader-size", "mt5small",
+                                      "--reader-params", mt5_dir, "--reader-strategy", "tp", "--max-new-tokens",
+                                      str(READER_NEW_TOKENS), *S2S_ENGINE_FLAGS])
+    t0 = time.perf_counter()
+    reader = _reader(args.reader_size, tok, args.seed + 1, "cuda", args.reader_quantize, args.reader_params)
+    # the flash route of phase_seq2seq_qa's second run: the 512-token encoder through K4
+    reader.cfg = cfg = dataclasses.replace(reader.cfg, use_flash_attention=True)
+    torch.cuda.synchronize()
+    check(reader.dec_blocks[0].cross_attn.wq.w is not None and reader.lm_head.w is not None,
+          f"mt5-small loaded as a float reader from phase_seq2seq_qa's bf16 directory "
+          f"({time.perf_counter() - t0:.1f} s)")
+    rng = np.random.default_rng(SEED + 41)
+    questions = [engine_text(rng, TP_S2S_QUESTION) for _ in range(READER_QUESTIONS)]
+    payloads = [{"prompt": engine_text(rng, int(rng.integers(*S2S_ENGINE_PROMPT, endpoint=True))),
+                 "max_new_tokens": int(rng.integers(*TP_S2S_NEW, endpoint=True))} for _ in range(TP_S2S_REQUESTS)]
+    # the unsharded engine's streams: what every TP stream is held to
+    ref_outs, ref_wall, _ = generate_burst(torch, tok, continuous_engine(args, reader, tok, "cuda"), payloads)
+    check(all(isinstance(o, dict) for o in ref_outs), f"{TP_S2S_REQUESTS} /generate over the unsharded mt5 answered")
+    ref_tokens = sum(len(o["ids"]) for o in ref_outs)
+    print(f"mt5 /generate over the unsharded bf16 reader ({card}): {TP_S2S_REQUESTS} requests, {ref_tokens} tokens in "
+          f"{ref_wall:.2f} s ({ref_tokens / ref_wall:.1f} tokens/s)", flush=True)
+    launches = {k.name: 0 for k in pkg.KERNELS}
+    step_ms, qa_batch = {}, None
+    real = G.generate_seq2seq
+    for n in TP_S2S_MESHES:
+        t0 = time.perf_counter()
+        tp = shard_params(reader, create_mesh({MODEL_AXIS: n}, devices=["cuda:0"] * n), args.reader_strategy)
+        torch.cuda.synchronize()
+        split = tp.groups is not None
+        check(split == (cfg.n_heads % n == 0) and len(tp.enc_blocks[0].mlp.parts) == n
+              and tp.embed_parts is not None and tp.head_parts is not None,
+              f"mt5 over {{'model': {n}}} in {time.perf_counter() - t0:.1f} s: attention "
+              f"{f'split, {cfg.n_heads // n} heads a device' if split else 'whole on the lead device'}; the FFN "
+              f"hidden, the vocabulary and the untied head split")
+        calls = []
+
+        def recorded(model, ids, mask, **kw):
+            out = real(model, ids, mask, **kw)
+            calls.append((ids, mask, out))
+            return out
+
+        qa = QAPipeline(NoRetrieval(), tp, tok, k=1, max_prompt_len=READER_PROMPT_LEN,
+                        max_new_tokens=READER_NEW_TOKENS)
+        url, stop = serve(ServingApp(NoRetrieval(), qa, k=1, max_batch=READER_QUESTIONS, max_wait_s=2.0))
+        G.generate_seq2seq = recorded
+        try:
+            for kern in pkg.KERNELS:
+                kern.launches = 0
+            t0 = time.perf_counter()
+            answers = ask_all(url, "/qa", [{"question": q} for q in questions])
+            torch.cuda.synchronize()
+            qa_wall = time.perf_counter() - t0
+            qa_launches = {k.name: k.launches for k in pkg.KERNELS}
+        finally:
+            G.generate_seq2seq = real
+            stop()
+        check(all(a is not None and "answer" in a for a in answers) and len(calls) == 1
+              and tuple(calls[0][0].shape) == (READER_QUESTIONS, READER_PROMPT_LEN),
+              f"{READER_QUESTIONS} concurrent /qa over the TP mt5 answered as one batch of {READER_PROMPT_LEN}-token "
+              f"prompts")
+        ids, mask, got = qa_batch = calls[0]
+        want = real(reader, ids, mask, max_new_tokens=READER_NEW_TOKENS, eos_id=tok.eos_id)
+        agree, until = s2s_margin_rule(torch, reader, ids, mask, got, want, 0)
+        err = (s2s_teacher_forced(torch, tp, ids, mask, want, 0)
+               - s2s_teacher_forced(torch, reader, ids, mask, want, 0)).abs().max().item()
+        check(agree and err <= TWIN_LOGIT_TOL,
+              f"TP mt5 /qa rows ({{'model': {n}}}) equal the unsharded reader's greedy decode by the margin rule "
+              f"(compared up to steps {until}; {int((got == want).all(dim=1).sum())}/{READER_QUESTIONS} token for "
+              f"token); teacher-forced logits within {err:.2e} of the unsharded reader's (<= {TWIN_LOGIT_TOL})")
+        k4 = qa_launches["flash_attention_fwd"]
+        check(k4 == (n if split else 1) * cfg.n_layers,
+              f"K4 launched {k4} times on the TP /qa path: once {'a part and' if split else 'on the lead an'} "
+              f"encoder layer")
+        engine = continuous_engine(args, tp, tok, "cuda")
+        buckets = engine.buckets
+        for kern in pkg.KERNELS:
+            kern.launches = 0
+        outs, wall, stats = generate_burst(torch, tok, engine, payloads)
+        gen_launches = {k.name: k.launches for k in pkg.KERNELS}
+        check(all(isinstance(o, dict) for o in outs), f"{TP_S2S_REQUESTS} concurrent /generate over the TP mt5 "
+                                                      f"answered")
+        agree, compared = [], []
+        for p, o, r in zip(payloads, outs, ref_outs):
+            pid = tok.encode(p["prompt"])
+            ok, u = s2s_stream_rule(torch, reader, pid, bucket_of(buckets, len(pid)), o["ids"], r["ids"])
+            agree.append(ok)
+            compared.append(u)
+        same = sum(o["ids"] == r["ids"] for o, r in zip(outs, ref_outs))
+        check(all(agree), f"TP mt5 /generate streams ({{'model': {n}}}) equal the unsharded engine's by the margin "
+                          f"rule ({same}/{len(outs)} token for token; compared up to steps {compared})")
+        n_tok = sum(len(o["ids"]) for o in outs)
+        t = {}
+        real(tp, ids, mask, max_new_tokens=READER_NEW_TOKENS, eos_id=tok.eos_id, timings=t)
+        step_ms[n] = t["decode_s"] / READER_NEW_TOKENS * 1e3
+        print(f"TP mt5 {{'model': {n}}} ({card}): /qa B {READER_QUESTIONS} in {qa_wall:.2f} s, K4 launches {k4}; "
+              f"/generate {TP_S2S_REQUESTS} requests, {n_tok} tokens in {wall:.2f} s ({n_tok / wall:.1f} tokens/s, "
+              f"mean occupancy {stats['avg_occupancy']} of 8 slots); B {READER_QUESTIONS} greedy generate_seq2seq "
+              f"{step_ms[n]:.2f} ms a decode step", flush=True)
+        for name in launches:
+            launches[name] += qa_launches[name] + gen_launches[name]
+        del tp, engine, qa
+        torch.cuda.empty_cache()
+    ids, mask, _ = qa_batch
+    t = {}
+    real(reader, ids, mask, max_new_tokens=READER_NEW_TOKENS, eos_id=tok.eos_id, timings=t)
+    step_ms[1] = t["decode_s"] / READER_NEW_TOKENS * 1e3
+    print(f"mt5 B {READER_QUESTIONS} greedy decode step ({card}): unsharded {step_ms[1]:.2f} ms; "
+          + "; ".join(f"{{'model': {n}}} {step_ms[n]:.2f} ms" for n in TP_S2S_MESHES)
+          + " (the split's devices are one card here)", flush=True)
+
+    # K4 at a part's shape: the second part's 3 heads and its slice of the 6-head bias
+    b, h, t_enc, d = READER_QUESTIONS, cfg.n_heads // 2, READER_PROMPT_LEN, cfg.head_dim
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 42)
+    with torch.inference_mode():
+        # as the flash wrapper receives it from TPAttention: heads h.. of the whole bias, made contiguous
+        part_bias = relative_attention_bias(reader.enc_rel_bias, t_enc, cfg)[0, h:].float().contiguous()
+    lens = mask.sum(dim=1).to(torch.int32).repeat_interleave(h)
+    qb, kb, vb = ((torch.randn(b * h, t_enc, d, generator=gen, device="cuda") * (0.5 if j == 0 else 1.0))
+                  .to(torch.bfloat16) for j in range(3))
+    o, _ = A.flash_fwd(qb, kb, vb, lens, part_bias, h, False, None)
+    po, _ = A.flash_fwd_plain(qb, kb, vb, lens, part_bias, h, False, None)
+    rows = torch.arange(t_enc, device="cuda")[None, :] < lens[:, None]
+    err = ((o.float() - po.float()).abs() * rows[..., None]).max().item()
+    check(err <= FLASH_O_TOL, f"K4 at a TP part's shape (BH {b * h}, T {t_enc}, D {d}, the part's bias slice): o max "
+                              f"abs err {err:.2e} <= {FLASH_O_TOL}")
+    pairs = sum(h * int(x) * int(x) for x in lens[::h].tolist())
+    pos = torch.arange(t_enc, device="cuda")
+    keep = pos[None, None, :] < lens[::h, None, None]
+    sdpa_mask = (torch.where(keep[:, None], 0.0, float("-inf")) + part_bias[None]).to(torch.bfloat16)
+    q4, k4_, v4 = (x.view(b, h, t_enc, d) for x in (qb, kb, vb))
+    part = {
+        "ms": cuda_ms(lambda: A.flash_fwd(qb, kb, vb, lens, part_bias, h, False, None), 10),
+        "plain_ms": cuda_ms(lambda: A.flash_fwd_plain(qb, kb, vb, lens, part_bias, h, False, None), 2),
+        "library_ms": cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            q4, k4_, v4, attn_mask=sdpa_mask, scale=1.0), 10),
+        **bound(4 * b * h * t_enc * d * 2 + b * h * t_enc * 4 + h * t_enc * t_enc * 4 + b * h * 4, 4 * d * pairs,
+                BF16_OPS_S),
+    }
+    print(f"K4 TP mt5 part (bidirectional, the part's bias slice, BH={b * h}, T={t_enc}, D={d}; {card}): kernel "
+          f"{part['ms']:.3f} ms, plain {part['plain_ms']:.3f} ms, SDPA {part['library_ms']:.3f} ms, bound "
+          f"{part['bound_ms']:.4f} ms ({part['bound_by']})", flush=True)
+    report["flash_attention_fwd"]["tp_t5_part"] = dict(
+        part, max_abs_err=err, shape=f"BH={b * h} (B={b} x H={h}), T={t_enc}, D={d}, bidirectional, a TP part's "
+                                     f"slice of the T5 bias")
+    del qb, kb, vb, o, po, sdpa_mask, q4, k4_, v4, reader
+    torch.cuda.empty_cache()
+
+    # mBART at mbart-large-50's width over {"model": 4}
+    mc = mbart.cfg
+    t0 = time.perf_counter()
+    mtp = shard_params(mbart, create_mesh({MODEL_AXIS: MBART_TP_DEVICES}, devices=["cuda:0"] * MBART_TP_DEVICES),
+                       "tp")
+    torch.cuda.synchronize()
+    check(mtp.groups is not None and mtp.embed_parts is None and not hasattr(mtp.enc_blocks[0].mlp, "parts"),
+          f"mBART over {{'model': {MBART_TP_DEVICES}}} in {time.perf_counter() - t0:.1f} s: "
+          f"{mc.n_heads // MBART_TP_DEVICES} heads a device in every attention; the vocabulary ({mc.vocab_size}) and "
+          f"fc1 / fc2 whole, as JAX's rules leave them")
+    rng = np.random.default_rng(SEED + 43)
+    enc = torch.from_numpy(rng.integers(4, mc.vocab_size, (MBART_ROWS, MBART_PROMPT_LEN)).astype(np.int32)).cuda()
+    emask = torch.ones_like(enc)
+    emask[1::2, MBART_PROMPT_LEN // 2:] = 0
+    enc = enc * emask
+    kw = dict(max_new_tokens=MBART_NEW_TOKENS, eos_id=2, bos_id=2)
+    outs, ms = {}, {}
+    for name, model in (("tp", mtp), ("unsharded", mbart)):
+        t = {}
+        outs[name] = real(model, enc, emask, timings=t, **kw)
+        ms[name] = t["decode_s"] / MBART_NEW_TOKENS * 1e3
+    agree, until = s2s_margin_rule(torch, mbart, enc, emask, outs["tp"], outs["unsharded"], 2)
+    same = int(sum(torch.equal(a, b) for a, b in zip(outs["tp"].cpu(), outs["unsharded"].cpu())))
+    err = (s2s_teacher_forced(torch, mtp, enc, emask, outs["unsharded"], 2)
+           - s2s_teacher_forced(torch, mbart, enc, emask, outs["unsharded"], 2)).abs().max().item()
+    check(agree and err <= TWIN_LOGIT_TOL,
+          f"TP mBART greedy rows equal the unsharded model's by the margin rule ({same}/{MBART_ROWS} token for "
+          f"token; compared up to steps {until}); teacher-forced logits within {err:.2e} (<= {TWIN_LOGIT_TOL})")
+    print(f"mBART B {MBART_ROWS} greedy decode ({card}): TP {{'model': {MBART_TP_DEVICES}}} {ms['tp']:.2f} ms a step, "
+          f"unsharded {ms['unsharded']:.2f} ms (the split's devices are one card here)", flush=True)
+    del mtp
+    torch.cuda.empty_cache()
+    print(f"TP seq2seq phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
     return launches
 
+
+def phase_tp_adapters(torch, pkg, tp, reader, card: str) -> dict:
+    """Multi-LoRA serving over the TP reader phase_tp built (PhoGPT-4B
+    width, bf16, {"model": 4} of the one card): three adapters drawn as
+    phase_adapters draws them, written as adapter.npz and loaded through
+    ``serve --reader-strategy tp --continuous-slots 8 --adapter ...``
+    (each split part holds its slice of the bank on its device); 8
+    concurrent /generate, two each for the base and the three adapters,
+    once with plain chunks and once with n-gram speculative chunks
+    (``--gen-speculative off|ngram``), every stream held by the margin rule
+    to the unsharded engine with the same bank on the same requests,
+    tokens/s beside it; a speculative chunk of 8 slots under bank indices
+    0-3 traced with no host synchronisation allowed, and its device busy
+    ms.  Returns the launches of the TP runs."""
+    import numpy as np
+
+    from vietnamese_qa_system_tpu_torch.cli.main import build_parser, continuous_engine
+    from vietnamese_qa_system_tpu_torch.data import ByteTokenizer
+    from vietnamese_qa_system_tpu_torch.models import LoraConfig, init_lora
+    from vietnamese_qa_system_tpu_torch.models import decode_engine as de
+    from vietnamese_qa_system_tpu_torch.train.checkpoint import save_pytree
+    from vietnamese_qa_system_tpu_torch.utils.tree import flatten_paths
+
+    t_phase = time.perf_counter()
+    tok, cfg = ByteTokenizer(), reader.cfg
+    rng = np.random.default_rng(SEED + 44)
+    names = [None, *ADAPTER_NAMES] * 2
+    payloads = []
+    for name in names:
+        p = {"prompt": engine_text(rng, int(rng.integers(*TP_ENGINE_PROMPT, endpoint=True))),
+             "max_new_tokens": int(rng.integers(*TP_ADAPTER_NEW, endpoint=True))}
+        payloads.append(p if name is None else dict(p, adapter=name))
+    launches = {k.name: 0 for k in pkg.KERNELS}
+    results, banks = {}, {}
+    d = tempfile.mkdtemp(prefix="chip_smoke_tp_adapters_")
+    try:
+        flags = []
+        for i, name in enumerate(ADAPTER_NAMES):
+            gen = torch.Generator(device="cuda").manual_seed(SEED + 30 + i)
+            adapter = init_lora(gen, reader, LoraConfig())
+            with torch.no_grad():
+                for path, leaf in flatten_paths(adapter).items():
+                    if path.endswith(".b"):
+                        leaf.normal_(0.0, ADAPTER_B_STD, generator=gen)
+            os.makedirs(os.path.join(d, name))
+            save_pytree(os.path.join(d, name, "adapter.npz"), adapter)
+            flags += ["--adapter", f"{name}={os.path.join(d, name, 'adapter.npz')}"]
+        del adapter
+        for spec in ("off", "ngram"):
+            args = build_parser().parse_args(["serve", "--index", "-", "--db", ":memory:", "--reader-size", "phogpt4b",
+                                              "--reader-strategy", "tp", *TP_ENGINE_FLAGS, "--gen-speculative", spec,
+                                              *flags])
+            for label, model in (("unsharded", reader), ("tp", tp)):
+                engine = continuous_engine(args, model, tok, "cuda")
+                banks[label] = engine._bank
+                for kern in pkg.KERNELS:
+                    kern.launches = 0
+                results[spec, label] = generate_burst(torch, tok, engine, payloads)
+                check(all(isinstance(o, dict) for o in results[spec, label][0]),
+                      f"8 concurrent /generate under (base, a, b, c) x 2 over the {label} reader answered "
+                      f"(--gen-speculative {spec})")
+                if label == "tp":
+                    for kern in pkg.KERNELS:
+                        launches[kern.name] += kern.launches
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    tp_parts = sum(1 for m in banks["tp"] if m.__class__.__name__ == "Dense")
+    check(tp_parts == len(banks["unsharded"]) * len(tp.devices),
+          f"the bank laid onto the TP reader: {tp_parts} split parts (each of the unsharded reader's "
+          f"{len(banks['unsharded'])} adapted layers a part a device) and "
+          f"{len(banks['tp']) - tp_parts} row-parallel layers holding B")
+    ids = [tok.encode(p["prompt"]) for p in payloads]
+    for spec in ("off", "ngram"):
+        (outs, wall, stats), (ref_outs, ref_wall, ref_stats) = results[spec, "tp"], results[spec, "unsharded"]
+        check((stats["spec_chunks"] > 0) == (spec == "ngram"),
+              f"--gen-speculative {spec}: {stats['spec_chunks']} speculative chunks of {stats['chunks']}")
+        agree = {}
+        for j, name in enumerate(names):
+            with under_adapter(torch, reader, banks["unsharded"], ADAPTER_NAMES.index(name) + 1 if name else 0):
+                agree[j] = margin_rule(torch, reader, ids[j], outs[j]["ids"], ref_outs[j]["ids"])
+        same = sum(o["ids"] == r["ids"] for o, r in zip(outs, ref_outs))
+        check(all(a for a, _ in agree.values()),
+              f"TP /generate streams with the bank (--gen-speculative {spec}) equal the unsharded engine's with the "
+              f"same bank by the margin rule ({same}/{len(outs)} token for token; steps compared "
+              f"{[u for _, u in agree.values()]})")
+        if spec == "off":
+            # teacher-forced on the reference streams: the TP reader's logits against the unsharded reader's,
+            # without an adapter (the split's own drift) and under each adapter, beside the adapter's effect
+            errs, rel = {0: 0.0}, 0.0
+            for j, name in enumerate(names[:len(ADAPTER_NAMES) + 1]):  # one stream a bank index
+                ix = ADAPTER_NAMES.index(name) + 1 if name else 0
+                with under_adapter(torch, tp, banks["tp"], ix):
+                    got_l = teacher_forced(torch, tp, ids[j], ref_outs[j]["ids"])
+                with under_adapter(torch, reader, banks["unsharded"], ix):
+                    want_l = teacher_forced(torch, reader, ids[j], ref_outs[j]["ids"])
+                err = (got_l - want_l).abs().max().item()
+                errs[ix] = max(errs.get(ix, 0.0), err)
+                if ix:
+                    effect = (want_l - teacher_forced(torch, reader, ids[j], ref_outs[j]["ids"])).abs().max().item()
+                    rel = max(rel, err / effect)
+            check(rel <= ADAPTER_TP_REL_TOL,
+                  f"the TP reader's logits under each adapter within {rel:.3f} of the adapter's own change of the "
+                  f"unsharded reader's logits (<= {ADAPTER_TP_REL_TOL}); max abs err by bank index "
+                  f"{ {k: round(v, 4) for k, v in sorted(errs.items())} } (index 0: no adapter)")
+        n_tok, ref_tok = sum(len(o["ids"]) for o in outs), sum(len(o["ids"]) for o in ref_outs)
+        print(f"TP /generate with a bank of 3 (--gen-speculative {spec}; {card}): {n_tok} tokens in {wall:.2f} s = "
+              f"{n_tok / wall:.1f} tokens/s ({stats['chunks']} chunks, {stats['spec_chunks']} speculative, "
+              f"{stats['drafted_accepted']} drafts accepted); unsharded bf16 with the same bank {ref_tok} tokens in "
+              f"{ref_wall:.2f} s = {ref_tok / ref_wall:.1f} tokens/s", flush=True)
+
+    # one speculative chunk of 8 slots under bank indices 0-3 over the TP reader
+    bank = banks["tp"]
+    state = de.make_decode_state(cfg, 8, 512, device="cuda", model=tp)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    buckets = [32, 64, 128, 256]
+    for slot in range(8):
+        width = bucket_of(buckets, len(ids[slot]))
+        x = np.zeros((1, width), np.int32)
+        x[0, : len(ids[slot])] = ids[slot]
+        m = (np.arange(width) < len(ids[slot]))[None].astype(np.int32)
+        aix = [slot % (len(ADAPTER_NAMES) + 1)]
+        kv, first, n = de.prefill(tp, x, m, gen, 0.0, 0, 1.0, sampled=False, bank=bank, adapter=aix)
+        de.insert(state, kv, x, m, first, n, slot, 0.0, 0, 1.0, adapter=aix)
+
+    def run(steps: int = 4):
+        return de.decode_chunk_spec(tp, state, n_steps=steps, bank=bank)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    chunk_s = time.perf_counter() - t0
+    busy = device_busy_ms(torch, run)
+    t0 = time.perf_counter()
+    run(1)
+    torch.cuda.synchronize()
+    one_s = time.perf_counter() - t0
+    traced = trace_span(torch, f"TP engine chunk trace (speculative, 1 step of 8 x 9 rows, bank of 3; {card}; "
+                               f"untraced {one_s * 1e3:.1f} ms)", "engine.chunk", 1, one_s, lambda: run(1))
+    check(traced is not None and traced["syncs"] == 0,
+          f"no host synchronisation inside a traced TP speculative chunk with the bank "
+          f"({None if traced is None else traced['syncs']})")
+    print(f"TP adapter bank, speculative chunk (4 steps of 8 x 9 rows; {card}): device busy {busy:.1f} ms, untraced "
+          f"{chunk_s * 1e3:.1f} ms, device idle share {1 - busy / (chunk_s * 1e3):.3f} (phase_adapters' line above: "
+          f"the unsharded int8c reader's chunk with the same bank shape)", flush=True)
+    del state
+    torch.cuda.empty_cache()
+    print(f"TP adapters phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
 
 
 def phase_mesh_train(torch, pkg, logdir: str, card: str) -> dict:
@@ -5049,16 +5468,24 @@ def main() -> int:
     print("launches in the nf4 /qa runs: " + json.dumps(nf4_launches))
     check(nf4_launches["matmul_topk_bf16"] > 0, "matmul_topk_bf16 launched on the nf4 /qa path")
     torch.cuda.empty_cache()
-    s2s_qa, s2s_flash, mt5 = timed(phase_seq2seq_qa, torch, pkg, ctx)
-    for name in ("matmul_topk_bf16", "w8_matmul"):
-        check(s2s_qa[name] > 0, f"{name} launched on the mt5 /qa path")
-    s2s_engine = timed(phase_seq2seq_engine, torch, pkg, mt5, ctx)
-    print("launches in the mt5 /generate run: " + json.dumps(s2s_engine))
-    check(s2s_engine["w8_matmul"] > 0, "w8_matmul launched on the mt5 /generate path")
-    del mt5
+    s2s_qa, s2s_flash, mt5, mt5_dir = timed(phase_seq2seq_qa, torch, pkg, ctx)
+    try:
+        for name in ("matmul_topk_bf16", "w8_matmul"):
+            check(s2s_qa[name] > 0, f"{name} launched on the mt5 /qa path")
+        s2s_engine = timed(phase_seq2seq_engine, torch, pkg, mt5, ctx)
+        print("launches in the mt5 /generate run: " + json.dumps(s2s_engine))
+        check(s2s_engine["w8_matmul"] > 0, "w8_matmul launched on the mt5 /generate path")
+        del mt5
+        torch.cuda.empty_cache()
+        mbart = timed(phase_mbart, torch)
+        torch.cuda.empty_cache()
+        tp_s2s = timed(phase_tp_seq2seq, torch, pkg, mt5_dir, mbart, report)
+    finally:
+        shutil.rmtree(mt5_dir, ignore_errors=True)
+    del mbart
     torch.cuda.empty_cache()
-    timed(phase_mbart, torch)
-    torch.cuda.empty_cache()
+    print("launches in the TP seq2seq runs: " + json.dumps(tp_s2s))
+    check(tp_s2s["flash_attention_fwd"] > 0, "flash_attention_fwd launched on the TP seq2seq /qa path")
     timed(phase_spec_sampled, torch)
     torch.cuda.empty_cache()
     ivf_launches, ivfs = timed(phase_ivf, torch, pkg, ctx, gen)
@@ -5075,8 +5502,11 @@ def main() -> int:
     for name in ("matmul_topk_bf16", "matmul_topk_int8", "ivf_probe_scores", "quantize_int8"):
         check(sharded[name] > 0, f"{name} launched on the sharded path")
     torch.cuda.empty_cache()
-    tp_launches = timed(phase_tp, torch, pkg, card)
+    tp_launches, tp, tp_base = timed(phase_tp, torch, pkg, card)
     print("launches in the TP runs: " + json.dumps(tp_launches))
+    tp_adapters = timed(phase_tp_adapters, torch, pkg, tp, tp_base, card)
+    print("launches in the TP runs with the adapter bank: " + json.dumps(tp_adapters))
+    del tp, tp_base
     torch.cuda.empty_cache()
     timed(phase_train_kernels, torch, A, gen, report)
     timed(phase_t5_flash_kernels, torch, A, gen, report)
@@ -5107,7 +5537,7 @@ def main() -> int:
                     + sharded["matmul_topk_bf16"],
                     matmul_topk_int8=retrieval["matmul_topk_int8"] + sharded["matmul_topk_int8"],
                     flash_attention_fwd=retrieval["flash_attention_fwd"] + s2s_flash["flash_attention_fwd"]
-                    + s2s_train["flash_attention_fwd"],
+                    + s2s_train["flash_attention_fwd"] + tp_s2s["flash_attention_fwd"],
                     **{name: train_launches[name] + qlora_launches[name] + s2s_train[name] + mesh_train[name]
                        for name in ("flash_attention_fwd_causal", "flash_attention_bwd_dkdv", "flash_attention_bwd_dq")})
     for name in ("matmul_topk_bf16", "matmul_topk_int8", "ivf_probe_scores", "quantize_int8"):
@@ -5115,6 +5545,7 @@ def main() -> int:
     report["w8_matmul"]["seq2seq_launches"] = s2s_qa["w8_matmul"] + s2s_engine["w8_matmul"]
     report["matmul_topk_bf16"]["seq2seq_launches"] = s2s_qa["matmul_topk_bf16"]
     report["flash_attention_fwd"]["seq2seq_launches"] = s2s_flash["flash_attention_fwd"] + s2s_train["flash_attention_fwd"]
+    report["flash_attention_fwd"]["tp_seq2seq_launches"] = tp_s2s["flash_attention_fwd"]
     for name in ("flash_attention_fwd_causal", "flash_attention_bwd_dkdv", "flash_attention_bwd_dq"):
         report[name]["seq2seq_launches"] = s2s_train[name]
         report[name]["mesh_launches"] = mesh_train[name]

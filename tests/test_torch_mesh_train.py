@@ -212,10 +212,11 @@ def test_no_replicated_leaf_is_updated_more_than_once(tmp_path):
 
 
 def test_tp_seq2seq_is_refused(tmp_path):
-    """A seq2seq model under tp over a model axis waits for the
-    tensor-parallel seq2seq reader; without a model axis tp is dp."""
+    """A seq2seq model under tp over a model axis waits for seq2seq
+    training over a model axis (ROADMAP Queue 1 #5); without a model axis
+    tp is dp."""
     cfg, params, adapter, data = setup(arch="seq2seq")
-    with pytest.raises(NotImplementedError, match="Queue 1 #2"):
+    with pytest.raises(NotImplementedError, match="Queue 1 #5"):
         port_trainer(cfg, params, adapter, "tp", {"model": 4}, None, tmp_path)
     t = port_trainer(cfg, params, adapter, "tp", {"data": 4}, None, tmp_path)
     m = t.train_step(data[0])

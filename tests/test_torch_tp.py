@@ -35,9 +35,10 @@ from vietnamese_qa_system_tpu.models import config as jc
 from vietnamese_qa_system_tpu.models import generate as jg
 from vietnamese_qa_system_tpu.parallel import sharding as jsharding
 from vietnamese_qa_system_tpu_torch.cli import main as cli
+from vietnamese_qa_system_tpu_torch.cli.main import _reader, _sharded_reader, build_parser, continuous_engine
 from vietnamese_qa_system_tpu_torch.core.mesh import create_mesh
 from vietnamese_qa_system_tpu_torch.engine import ContinuousEngine
-from vietnamese_qa_system_tpu_torch.models import ModelConfig, causal_from_jax, init_causal_lm
+from vietnamese_qa_system_tpu_torch.models import LoraConfig, ModelConfig, causal_from_jax, init_causal_lm, init_lora
 from vietnamese_qa_system_tpu_torch.models import generate as tg
 from vietnamese_qa_system_tpu_torch.models import layers as tlayers
 from vietnamese_qa_system_tpu_torch.models.causal_lm import TPCausalLM
@@ -197,7 +198,8 @@ def test_tp_decode_strategies_over_the_split_cache(models):
 
 def test_placement_and_refusals(models):
     """Head groups, the split cache's layout, the parts kept whole where an
-    axis does not divide, and what shard_params refuses."""
+    axis does not divide, an adapter bank laid onto the parts, and what
+    shard_params refuses."""
     assert head_groups(8, 8, 4) == [(0, 2, 0, 2), (2, 4, 2, 4), (4, 6, 4, 6), (6, 8, 6, 8)]
     assert head_groups(8, 2, 4) == [(0, 2, 0, 1), (2, 4, 0, 1), (4, 6, 1, 2), (6, 8, 1, 2)]  # a kv head a pair
     assert head_groups(8, 4, 2) == [(0, 4, 0, 2), (4, 8, 2, 4)]
@@ -226,8 +228,20 @@ def test_placement_and_refusals(models):
         tsharding.shard_params(tp, mesh, "tp")
     # the whole classifier, gathered from the vocabulary parts
     assert torch.equal(tp.head_weight(), port.head_weight())
-    with pytest.raises(ValueError, match="adapter bank"):
-        ContinuousEngine(tp, tp.cfg, device="cpu", adapters={"a": {}})
+    # the engine takes an adapter bank over the TP reader: each split part holds its slice on its device
+    adapter = init_lora(torch.Generator().manual_seed(3), port, LoraConfig(r=4, alpha=8))
+    engine = ContinuousEngine(tp, tp.cfg, device="cpu", adapters={"a": adapter}, lora_config=LoraConfig(r=4, alpha=8),
+                              n_slots=2, total=64, buckets=(16,))
+    try:
+        assert engine.adapter_names == ["a"]
+        part = tp.blocks[0].attn.parts[1]
+        a_o, b_o = engine._bank[part.wo]
+        assert b_o is None and a_o.shape == (2, part.wo.shape[0], 4)  # a row part: A's rows, B on its layer
+        assert engine._bank[tp.blocks[0].attn][1].shape == (2, 4, cfg.d_model)
+        assert engine._bank[part.wq][1].shape == (2, 4, part.wq.shape[1])  # a column part: B's columns
+        assert len(engine.generate_ids(list(range(3, 12)), 4, timeout=TIMEOUT)) == 4
+    finally:
+        engine.close()
     quant = init_causal_lm(dataclasses.replace(six, n_heads=8, d_model=64, d_ff=128),
                            torch.Generator().manual_seed(0), quantize="int8c")
     with pytest.raises(ValueError, match="plain bf16 readers"):
@@ -260,7 +274,8 @@ def test_serve_reader_strategy_cli(tmp_path, monkeypatch, capsys):
     """``serve --reader-strategy tp|fsdp_tp --device cpu`` (a mesh of
     ``CPU_MESH_DEVICES`` = 4 repeats of the host): the REPL answers
     /qa-style; ``--port`` in a subprocess answers POST /qa and /generate;
-    a quantized reader and an adapter are refused."""
+    a quantized reader is refused; ``--adapter`` builds /generate's engine
+    with its bank over the TP reader."""
     docs = tmp_path / "docs.jsonl"
     docs.write_text("\n".join(json.dumps({"doc": f"tài liệu số {i} về Hà Nội"}, ensure_ascii=False)
                               for i in range(6)), encoding="utf-8")
@@ -277,8 +292,22 @@ def test_serve_reader_strategy_cli(tmp_path, monkeypatch, capsys):
         assert f"reader sharded: strategy={strategy} over 4 devices" in out and "answer" in out
     with pytest.raises(SystemExit, match="plain bf16 readers"):
         cli(serve + ["--reader-strategy", "tp", "--reader-quantize", "int8c"])
-    with pytest.raises(SystemExit, match="drop --reader-strategy"):
-        cli(serve + ["--reader-strategy", "tp", "--adapter", "vi=x"])
+    # --adapter beside --reader-strategy: /generate's engine serves the bank over the TP reader
+    from vietnamese_qa_system_tpu_torch.data import ByteTokenizer
+    from vietnamese_qa_system_tpu_torch.train.checkpoint import save_pytree
+
+    tok = ByteTokenizer()
+    reader = _reader("tiny", tok, 1, torch.device("cpu"), None)
+    save_pytree(str(tmp_path / "adapter.npz"), init_lora(torch.Generator().manual_seed(5), reader, LoraConfig()))
+    args = build_parser().parse_args(serve + ["--reader-strategy", "tp", "--adapter",
+                                                       f"vi={tmp_path / 'adapter.npz'}", "--continuous-slots", "2",
+                                                       "--gen-total", "128"])
+    engine = continuous_engine(args, _sharded_reader(args, reader, torch.device("cpu")), tok, "cpu")
+    try:
+        assert engine.adapter_names == ["vi"] and isinstance(engine.model, TPCausalLM)
+        assert len(engine.submit(tok.encode("xin chào"), 3, adapter="vi").result(timeout=TIMEOUT)["ids"]) == 3
+    finally:
+        engine.close()
     env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
     proc = subprocess.Popen([sys.executable, "-m", "vietnamese_qa_system_tpu_torch.cli", *serve, "--port", "0",
                              "--reader-strategy", "tp", "--continuous-slots", "2",

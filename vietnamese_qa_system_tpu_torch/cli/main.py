@@ -645,19 +645,16 @@ def _serving_index(args, device, query_batch: int):
 
 def _sharded_reader(args, reader, device):
     """``serve --reader-strategy tp|fsdp_tp`` (cli/main.py:744-767 of the
-    JAX package): the reader split tensor-parallel over a ``{"model": n}``
-    mesh over every visible GPU (``CPU_MESH_DEVICES`` repeats of the host
-    with ``--device cpu``)."""
+    JAX package): the reader -- causal or seq2seq -- split tensor-parallel
+    over a ``{"model": n}`` mesh over every visible GPU
+    (``CPU_MESH_DEVICES`` repeats of the host with ``--device cpu``); a
+    causal one serves ``--adapter`` banks on /generate."""
     from ..core.mesh import CPU_MESH_DEVICES, MODEL_AXIS, mesh_on, visible_devices
     from ..parallel.sharding import shard_params
 
     if args.reader_quantize:
         raise SystemExit("--reader-strategy shards plain bf16 readers; drop --reader-quantize (int8/nf4 packing "
                          "hides the dims the sharding rules split)")
-    if reader.cfg.arch != "causal":
-        raise SystemExit("--reader-strategy shards causal readers; a seq2seq reader serves on one device")
-    if args.adapter:
-        raise SystemExit("--adapter serves from one device's bank; drop --reader-strategy")
     n = CPU_MESH_DEVICES if device.type == "cpu" else len(visible_devices())
     mesh = mesh_on(device, {MODEL_AXIS: n})
     sharded = shard_params(reader, mesh, args.reader_strategy)

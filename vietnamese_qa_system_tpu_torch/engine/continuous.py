@@ -22,10 +22,11 @@ holds it to the JAX engine).  Sampled requests draw from the engine's
 
 Multi-LoRA serving (continuous.py:266-280): ``adapters`` {name: adapter
 tree} over the shared base are stacked into one bank (index 0 the base
-model); a request names its adapter in :meth:`submit`, its slot keeps the
-bank index, and each chunk runs every slot under its own adapter.  The
-prefix cache is keyed by (tokens, adapter index), so adapters never share
-prompt KV.
+model), laid onto the reader's dense layers once (on a tensor-parallel
+reader each split part holds its slice on its device); a request names
+its adapter in :meth:`submit`, its slot keeps the bank index, and each
+chunk runs every slot under its own adapter.  The prefix cache is keyed
+by (tokens, adapter index), so adapters never share prompt KV.
 
 A seq2seq reader's slots (continuous.py:207-255, :516-565) hold their own
 cross-attention K/V and encoder mask; prompts are bucketed on the encoder
@@ -49,8 +50,7 @@ import torch
 from ..core.device import resolve_device
 from ..models import decode_engine as de
 from ..models.decode_engine import TOPK_CAP
-from ..models.causal_lm import TPCausalLM
-from ..models.lora import LoraConfig, stack_adapters
+from ..models.lora import LoraConfig, place_bank, stack_adapters
 
 
 @dataclass
@@ -207,8 +207,6 @@ class ContinuousEngine:
             if unsupported:
                 raise ValueError("seq2seq continuous serving does not support: " + ", ".join(unsupported))
             speculative = "off"
-        if adapters and isinstance(model, TPCausalLM):
-            raise ValueError("an adapter bank applies to an unsharded reader; a tensor-parallel one serves its base")
         if model.device.type != resolve_device(device).type:
             raise ValueError(f"the model is on {model.device}, the engine on {device}")
         self.device = model.device
@@ -240,7 +238,7 @@ class ContinuousEngine:
         self._adapter_idx: dict[str, int] = {}
         if adapters:
             names = list(adapters)
-            self._bank = stack_adapters([adapters[n] for n in names], lora_config or LoraConfig())
+            self._bank = place_bank(model, stack_adapters([adapters[n] for n in names], lora_config or LoraConfig()))
             self._adapter_idx = {n: i + 1 for i, n in enumerate(names)}
         if speculative not in ("off", "none", "ngram"):
             raise ValueError(f"speculative must be off|ngram, got {speculative!r}")
@@ -385,7 +383,7 @@ class ContinuousEngine:
     def _fresh_state(self):
         if self._s2s:
             return de.make_decode_state_seq2seq(self.cfg, self.n_slots, self.total, self.buckets[-1],
-                                                device=self.device)
+                                                device=self.device, model=self.model)
         return de.make_decode_state(self.cfg, self.n_slots, self.total, kv_dtype=self.kv_dtype, device=self.device,
                                     model=self.model)
 

@@ -16,6 +16,12 @@ architecture of the vinai-translate en->vi model and mbart-large-50):
 - Training shifts the labels the mBART way (:func:`shift_labels_mbart`:
   the last real label rotates to position 0).
 
+``TPBart`` is the family split tensor-parallel (``families.
+TPEncoderDecoder``): heads and the vocabulary (where it divides) over a
+mesh's ``model`` devices.  The sharding rules name ``wi`` / ``wg`` / ``wo``
+only, so ``fc1`` / ``fc2`` stay whole on the lead device, as JAX's rules
+leave them.
+
 No scan-stacked form: ``scan_layers`` is refused, as in the JAX package.
 The flash kernels are never taken here (the JAX family passes no
 ``flash=``).
@@ -29,7 +35,7 @@ from torch import nn
 
 from .causal_lm import CHUNKED_XENT_MIN_VOCAB, IGNORE_INDEX, _init_dense_norms
 from .config import ModelConfig
-from .families import EncoderDecoder, clamp_positions, xent
+from .families import EncoderDecoder, TPEncoderDecoder, clamp_positions, xent
 from .layers import Attention, Dense, LayerNorm, _matmul, causal_mask, padding_mask
 from .quantize import quantize_dense_tree
 
@@ -94,7 +100,7 @@ class Bart(EncoderDecoder):
         self.logits_bias = nn.Parameter(torch.empty(cfg.vocab_size, device=device)) if logits_bias else None
 
     def _embed(self, ids):
-        x = self.tok_embed[ids.long()]
+        x = self.embed(ids)
         return x * (float(self.cfg.d_model) ** 0.5) if self.cfg.scale_embedding else x
 
     def encode(self, ids, attn_mask):
@@ -138,16 +144,22 @@ class Bart(EncoderDecoder):
         else:
             if cross_kv is None:
                 cross_kv = self.precompute_cross_kv(enc_out)
-            for blk, layer_cache, ckv in zip(self.dec_blocks, cache, cross_kv):
-                x = x + blk.attn(blk.ln1(x), n_heads=cfg.n_heads, mask=dec_mask, cache=layer_cache,
+            for i, blk in enumerate(self.dec_blocks):
+                x = x + blk.attn(blk.ln1(x), n_heads=cfg.n_heads, mask=dec_mask, cache=self.layer_cache(cache, i),
                                  cache_index=cache_index)
-                x = x + blk.cross_attn(blk.ln_cross(x), n_heads=cfg.n_heads, mask=cross_mask, static_kv=ckv)
+                x = x + blk.cross_attn(blk.ln_cross(x), n_heads=cfg.n_heads, mask=cross_mask,
+                                       static_kv=self.layer_cache(cross_kv, i))
                 x = x + blk.mlp(blk.ln2(x), cfg.activation)
         x = self.dec_ln_f(x)
         return x if hidden_only else self.head(x)
 
 
+class TPBart(TPEncoderDecoder, Bart):
+    """A :class:`Bart` split tensor-parallel (``families.TPEncoderDecoder``)."""
+
+
 MODEL = Bart
+TP_MODEL = TPBart
 
 
 def shift_labels_mbart(labels, pad_id: int = 1):

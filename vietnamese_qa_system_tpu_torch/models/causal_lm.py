@@ -23,16 +23,14 @@ shard_params``.
 
 from __future__ import annotations
 
-import copy
 import re
 
 import torch
 from torch import nn
 
-from ..parallel.collectives import all_gather, all_reduce_sum
 from .config import ModelConfig
-from .layers import (Block, Dense, LayerNorm, TPAttention, TPMLP, _matmul, alibi_bias, causal_mask, head_groups,
-                     owned_copy, remat_wrap, rope_frequencies, split_dense)
+from .layers import (Block, Dense, LayerNorm, SplitVocab, _matmul, alibi_bias, causal_mask, clone_module, head_groups,
+                     remat_wrap, rope_frequencies, tp_block)
 from .quantize import quantize_dense_tree
 
 IGNORE_INDEX = -100  # label positions excluded from the loss
@@ -303,21 +301,7 @@ def init_causal_lm(cfg: ModelConfig, generator: torch.Generator, *, quantize: st
     return model.eval().requires_grad_(False)
 
 
-def clone_module(module: nn.Module, device) -> nn.Module:
-    """A copy of ``module``'s structure on ``device`` whose parameters and
-    buffers are ``t.to(device)``: the same tensors where they already live
-    there (a repeated-device mesh keeps one copy of a frozen weight), copies
-    elsewhere."""
-    memo = {}
-    for t in [*module.parameters(), *module.buffers()]:
-        moved = t.to(device)
-        if isinstance(t, nn.Parameter) and not isinstance(moved, nn.Parameter):
-            moved = nn.Parameter(moved, requires_grad=t.requires_grad)
-        memo[id(t)] = moved
-    return copy.deepcopy(module, memo)
-
-
-class TPCausalLM(CausalLM):
+class TPCausalLM(SplitVocab, CausalLM):
     """A :class:`CausalLM` split tensor-parallel over the ``model`` axis
     of a mesh, one controller driving every device (made by
     ``parallel.sharding.shard_params``).  The forward is the unsharded
@@ -329,11 +313,7 @@ class TPCausalLM(CausalLM):
       device's buffers over its own kv heads (:meth:`make_cache`);
     - the MLP hidden split (:class:`~.layers.TPMLP`) where ``d_ff``
       divides;
-    - the embedding table split by vocabulary rows where the vocabulary
-      divides: a device looks up the ids in its range and the parts sum on
-      the lead device (one non-zero addend: exact); the head (the table's
-      transpose when tied, else ``lm_head``'s columns) computes each
-      device's vocabulary slice, gathered on the lead device;
+    - the vocabulary as :class:`~.layers.SplitVocab` places it;
     - norms, positions and biases of the row-parallel sums replicated on
       the lead device, where the residual stream lives.
 
@@ -345,89 +325,18 @@ class TPCausalLM(CausalLM):
         nn.Module.__init__(self)
         cfg = self.cfg = model.cfg
         self.devices = list(devices)
-        self.lead = self.devices[0]
-        n = len(self.devices)
-        lead = self.lead
-
-        def rep(t):
-            return None if t is None else nn.Parameter(t.detach().to(lead), requires_grad=False)
-
-        def moved(mod):
-            # replicated modules: a module of their own whose tensors are the
-            # source's where it lives on the lead device, else copies there
-            return None if mod is None else clone_module(mod, lead)
-
-        self.groups = head_groups(cfg.n_heads, cfg.kv_heads, n) if split_attention else None
-        self.tok_embed = None
-        self.embed_parts = None
-        vocab = cfg.vocab_size
-        if split_vocab:
-            step = vocab // n
-            self.embed_parts = nn.ParameterList(
-                nn.Parameter(owned_copy(model.tok_embed[j * step:(j + 1) * step], dev), requires_grad=False)
-                for j, dev in enumerate(self.devices))
-        else:
-            self.tok_embed = rep(model.tok_embed)
-        self.pos_embed = rep(model.pos_embed)
-        self.emb_ln = moved(model.emb_ln)
-        self.ln_f = moved(model.ln_f)
-        self.lm_head = self.head_parts = None
-        if not cfg.tie_embeddings:
-            if split_head:
-                step = vocab // n
-                self.head_parts = nn.ModuleList(split_dense(model.lm_head, dev, cols=slice(j * step, (j + 1) * step))
-                                                for j, dev in enumerate(self.devices))
-            else:
-                self.lm_head = moved(model.lm_head)
-        self.blocks = nn.ModuleList()
-        for blk in model.blocks:
-            tp = Block.__new__(Block)
-            nn.Module.__init__(tp)
-            tp.n_heads, tp.n_kv_heads = blk.n_heads, blk.n_kv_heads
-            tp.ln1, tp.ln2 = moved(blk.ln1), moved(blk.ln2)
-            tp.attn = (TPAttention(blk.attn, self.groups, cfg.head_dim, self.devices, lead) if self.groups
-                       else moved(blk.attn))
-            tp.mlp = TPMLP(blk.mlp, self.devices, lead) if split_mlp else moved(blk.mlp)
-            self.blocks.append(tp)
-
-    @property
-    def device(self) -> torch.device:
-        return self.lead
-
-    def embed(self, ids):
-        if self.embed_parts is None:
-            return self.tok_embed[ids]
-        parts = []
-        lo = 0
-        for table, dev in zip(self.embed_parts, self.devices):
-            local = ids.to(dev) - lo
-            hit = (local >= 0) & (local < table.shape[0])
-            parts.append(table[local.clamp(0, table.shape[0] - 1)] * hit[..., None])
-            lo += table.shape[0]
-        return all_reduce_sum(parts, self.lead).to(self.embed_parts[0].dtype)
+        lead = self.lead = self.devices[0]
+        self.groups = head_groups(cfg.n_heads, cfg.kv_heads, len(self.devices)) if split_attention else None
+        self.place_vocab(model, split_vocab, split_head)
+        self.pos_embed = None if model.pos_embed is None else nn.Parameter(model.pos_embed.detach().to(lead),
+                                                                           requires_grad=False)
+        self.emb_ln = None if model.emb_ln is None else clone_module(model.emb_ln, lead)
+        self.ln_f = clone_module(model.ln_f, lead)
+        self.blocks = nn.ModuleList(tp_block(blk, self.groups, cfg.head_dim, self.devices, lead, split_mlp=split_mlp)
+                                    for blk in model.blocks)
 
     def head(self, x):
-        if self.cfg.tie_embeddings and self.embed_parts is not None:
-            return all_gather([_matmul(x.to(dev), t.T) for t, dev in zip(self.embed_parts, self.devices)],
-                              self.lead, dim=-1)
-        if self.head_parts is not None:
-            return all_gather([p(x.to(dev)) for p, dev in zip(self.head_parts, self.devices)], self.lead, dim=-1)
-        return _matmul(x, self.tok_embed.T if self.cfg.tie_embeddings else self.lm_head.w)
-
-    def classifier_parts(self) -> list:
-        """Each device's (D, V / n) vocabulary slice of the classifier where
-        the head splits (the chunked loss streams every slice on its device,
-        ops/xent.py), else the whole classifier."""
-        if self.cfg.tie_embeddings and self.embed_parts is not None:
-            return [t.T for t in self.embed_parts]
-        if self.head_parts is not None:
-            return [p.w for p in self.head_parts]
-        return [self.tok_embed.T if self.cfg.tie_embeddings else self.lm_head.w]
-
-    def head_weight(self):
-        """The whole (D, V) classifier on the lead device (its parts
-        gathered; differentiable in them)."""
-        return all_gather(self.classifier_parts(), self.lead, dim=1)
+        return self.vocab_logits(x)
 
     def leaf_index(self) -> dict:
         """{name of each tensor of this model: (the name of the unsharded

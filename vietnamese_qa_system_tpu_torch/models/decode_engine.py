@@ -14,10 +14,12 @@ KV cache, driven by the host scheduler in engine/continuous.py.
   :func:`decode_chunk_spec` runs greedy prompt-lookup speculation per slot.
 
 Multi-LoRA serving: with an adapter ``bank`` (models/lora.py
-``stack_adapters``) every function runs each row under its own adapter,
-the state's ``adapter`` column (bank index, 0 the base model) in the
-decode chunks.  A chunk gathers the bank's per-row factors once, on the
-device, from that column: the host reads nothing back for it.
+``stack_adapters``, or ``place_bank``'s layout of it) every function runs
+each row under its own adapter, the state's ``adapter`` column (bank
+index, 0 the base model) in the decode chunks.  A chunk gathers the
+bank's per-row factors once, on the device, from that column: the host
+reads nothing back for it.  On a tensor-parallel reader each split part
+gathers its slice of the factors on its own device.
 
 The JAX functions return a new state; these update the state's tensors in
 place (one device) and return only their outputs.  Per-slot progress lives
@@ -37,7 +39,9 @@ the same distributions as the JAX package, other random numbers.
 
 The seq2seq half (:622-835): :func:`make_decode_state_seq2seq` adds to
 each slot the bf16 cross-attention K/V of its own encoder input, padded to
-the largest encoder bucket, and its encoder mask;
+the largest encoder bucket, and its encoder mask (a tensor-parallel
+reader's decoder cache and cross K/V are one dict a (layer, device),
+each over the device's heads);
 :func:`prefill_seq2seq` encodes a prompt at its bucket and runs the BOS
 step; :func:`insert_seq2seq`, :func:`decode_chunk_seq2seq` and
 :func:`release_seq2seq` follow the causal ones.  The decoder stream holds
@@ -421,23 +425,28 @@ def _spec_step(model, st, total, jw, jj, gamma, ngram, eos_id):
 # --------------------------------------------------------------- seq2seq
 
 
-def make_decode_state_seq2seq(cfg, n_slots: int, total: int, enc_width: int, *, device="cuda") -> dict:
+def make_decode_state_seq2seq(cfg, n_slots: int, total: int, enc_width: int, *, device="cuda", model=None) -> dict:
     """A fresh all-slots-free seq2seq state (decode_engine.py:641):
     ``total`` decoder slots a row (BOS and up to total - 1 generated
     tokens; the cache is ``total + 1`` wide, the guard column), per-slot
     bf16 cross K/V ``enc_width`` wide (the largest encoder bucket) and
-    the encoder mask."""
+    the encoder mask.  ``model`` lays out the cache and the cross K/V (a
+    tensor-parallel reader's live on its devices); without one they are
+    the unsharded layout on ``device``."""
     if total > cfg.max_seq_len:
         raise ValueError(f"total={total} exceeds cfg.max_seq_len={cfg.max_seq_len}")
 
     def zeros(shape, dtype):
         return torch.zeros(shape, dtype=dtype, device=device)
 
-    ckv = (n_slots, enc_width, cfg.n_heads, cfg.head_dim)
+    if model is None:
+        cache = make_cache(cfg, n_slots, total + 1, device, n_layers=cfg.decoder_layers)
+        cross = make_cache(cfg, n_slots, enc_width, device, n_layers=cfg.decoder_layers)
+    else:
+        cache, cross = model.make_cache(n_slots, total + 1), model.make_cross_cache(n_slots, enc_width)
     return {
-        "cache": make_cache(cfg, n_slots, total + 1, device, n_layers=cfg.decoder_layers),
-        "cross_kv": [{"k": zeros(ckv, torch.bfloat16), "v": zeros(ckv, torch.bfloat16)}
-                     for _ in range(cfg.decoder_layers)],
+        "cache": cache,
+        "cross_kv": cross,
         "enc_mask": zeros((n_slots, enc_width), torch.int32),
         "key_valid": zeros((n_slots, total), torch.bool),
         "last_tok": zeros((n_slots,), torch.int32),

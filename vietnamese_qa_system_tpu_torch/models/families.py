@@ -16,6 +16,12 @@ dec_mask, *, positions, cache, cache_index, hidden_only, cross_kv)`` and
 ``loss_fn(model, batch)`` and ``init(cfg, generator, quantize=)``.  A cached ``decode`` writes the
 new keys and values into ``cache`` (:meth:`EncoderDecoder.make_cache`) in
 place and returns only the logits (or hidden states).
+
+:class:`TPEncoderDecoder` is an encoder-decoder split tensor-parallel over
+a mesh (the counterpart of the JAX package's tp-sharded seq2seq params
+under GSPMD), made by ``parallel.sharding.shard_params``; each family
+module's ``TP_MODEL`` puts it ahead of the family's class, whose
+``encode`` and ``decode`` then run over the parts.
 """
 
 from __future__ import annotations
@@ -25,7 +31,7 @@ from torch import nn
 
 from .causal_lm import IGNORE_INDEX, make_cache
 from .config import ModelConfig
-from .layers import cross_attention_kv
+from .layers import SplitVocab, clone_module, cross_attention_kv, head_groups, tp_block
 
 
 def s2s_module(cfg: ModelConfig):
@@ -112,13 +118,22 @@ class EncoderDecoder(nn.Module):
     """The surface every seq2seq family shares.  Subclasses hold
     ``tok_embed``, ``enc_blocks``, ``enc_ln_f``, ``dec_blocks`` (each with
     a ``cross_attn``) and ``dec_ln_f`` under the JAX tree's names, and
-    define ``encode`` and ``decode``."""
+    define ``encode`` and ``decode``, which read a decoder layer's cache
+    and cross K/V through :meth:`layer_cache`."""
 
     cfg: ModelConfig
 
     @property
     def device(self) -> torch.device:
         return self.tok_embed.device
+
+    def embed(self, ids):
+        """Token embeddings (B, T, D) of ``ids``, unscaled."""
+        return self.tok_embed[ids.long()]
+
+    def head_input(self, x):
+        """The hidden states as the classifier reads them."""
+        return x
 
     def precompute_cross_kv(self, enc_out) -> list[dict]:
         """Per decoder layer, the cross-attention K/V of ``enc_out``
@@ -129,9 +144,86 @@ class EncoderDecoder(nn.Module):
         """A bf16 decoder self-attention cache, ``total`` slots a row."""
         return make_cache(self.cfg, b, total, self.device, n_layers=self.cfg.decoder_layers)
 
+    def make_cross_cache(self, b: int, width: int) -> list[dict]:
+        """Zero bf16 cross-attention K/V buffers ``width`` encoder positions
+        wide, laid out as :meth:`precompute_cross_kv` returns them (the
+        slot engine's per-slot cross K/V)."""
+        return make_cache(self.cfg, b, width, self.device, n_layers=self.cfg.decoder_layers)
+
+    def layer_cache(self, cache, i: int):
+        """Decoder layer ``i``'s part of a cache (or of the cross K/V)."""
+        return cache[i]
+
     def forward(self, batch: dict):
         """{"input_ids", "attention_mask", "decoder_input_ids"[,
         "decoder_attention_mask"]} -> decoder logits (B, T_dec, V) f32."""
         enc_out = self.encode(batch["input_ids"], batch["attention_mask"])
         return self.decode(batch["decoder_input_ids"], enc_out, batch["attention_mask"],
                            batch.get("decoder_attention_mask"))
+
+
+class TPEncoderDecoder(SplitVocab, EncoderDecoder):
+    """An :class:`EncoderDecoder` split tensor-parallel over the ``model``
+    axis of a mesh, one controller driving every device.  A family's
+    ``TP_MODEL`` (``t5.TPT5``, ``bart.TPBart``, ``seq2seq.TPSeq2Seq``)
+    puts this class ahead of the family's in its bases, so ``encode`` and
+    ``decode`` are the family's own, run over these parts:
+
+    - the self- and cross-attention of every layer head-parallel
+      (:class:`~.layers.TPAttention`) where the heads split over the
+      devices, else whole on the lead device.  The decoder cache and the
+      cross K/V then hold one dict a (layer, device), layer-major, each
+      over the device's own heads (:meth:`make_cache`,
+      :meth:`precompute_cross_kv`); a score bias (T5's relative bias) is
+      computed once on the lead and sliced by head offset;
+    - the MLP hidden split (:class:`~.layers.TPMLP`, the parts of the
+      family's feed-forward class) where the sharding rules split it;
+    - the vocabulary as :class:`~.layers.SplitVocab` places it; the head
+      reads the family's ``head_input`` and adds a logits bias after the
+      gather;
+    - norms, position tables, relative-bias tables and the logits bias
+      replicated on the lead device, where the residual stream lives."""
+
+    def __init__(self, model: EncoderDecoder, devices, *, split_attention: bool, split_mlp: bool,
+                 split_vocab: bool, split_head: bool):
+        nn.Module.__init__(self)
+        cfg = self.cfg = model.cfg
+        self.devices = list(devices)
+        lead = self.lead = self.devices[0]
+        self.groups = head_groups(cfg.n_heads, cfg.n_heads, len(self.devices)) if split_attention else None
+        self.place_vocab(model, split_vocab, split_head)
+        self.logits_bias = None
+        for name, p in model.named_parameters(recurse=False):
+            if name != "tok_embed":
+                setattr(self, name, nn.Parameter(p.detach().to(lead), requires_grad=False))
+        for name, mod in model.named_children():
+            if name in ("enc_blocks", "dec_blocks"):
+                setattr(self, name, nn.ModuleList(tp_block(blk, self.groups, cfg.head_dim, self.devices, lead,
+                                                           split_mlp=split_mlp) for blk in mod))
+            elif name != "lm_head":
+                setattr(self, name, clone_module(mod, lead))
+
+    def head(self, x):
+        logits = self.vocab_logits(self.head_input(x))
+        return logits if self.logits_bias is None else logits + self.logits_bias
+
+    def precompute_cross_kv(self, enc_out) -> list[dict]:
+        if self.groups is None:
+            return super().precompute_cross_kv(enc_out)
+        return [kv for blk in self.dec_blocks for kv in blk.cross_attn.cross_kv(enc_out)]
+
+    def _per_device(self, b: int, width: int) -> list[dict]:
+        return [make_cache(self.cfg, b, width, dev, n_layers=1, kv_heads=q1 - q0)[0]
+                for _ in range(self.cfg.decoder_layers) for (q0, q1, _, _), dev in zip(self.groups, self.devices)]
+
+    def make_cache(self, b: int, total: int) -> list[dict]:
+        return super().make_cache(b, total) if self.groups is None else self._per_device(b, total)
+
+    def make_cross_cache(self, b: int, width: int) -> list[dict]:
+        return super().make_cross_cache(b, width) if self.groups is None else self._per_device(b, width)
+
+    def layer_cache(self, cache, i: int):
+        if self.groups is None:
+            return cache[i]
+        n = len(self.devices)
+        return cache[i * n:(i + 1) * n]

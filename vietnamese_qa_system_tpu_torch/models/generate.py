@@ -747,7 +747,7 @@ def beam_search_seq2seq(model, enc_ids, enc_mask, *, max_new_tokens: int = 32, n
     t0 = time.perf_counter()
     expand = torch.arange(b, device=dev).repeat_interleave(w)
     enc_mask_w = enc_mask[expand]
-    cross_kv = [{name: t[expand] for name, t in layer.items()}
+    cross_kv = [{name: t[expand.to(t.device)] for name, t in layer.items()}
                 for layer in model.precompute_cross_kv(model.encode(enc_ids, enc_mask))]
     total = max_new_tokens + 1
     cache = model.make_cache(b * w, total)

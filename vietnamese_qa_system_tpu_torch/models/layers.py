@@ -15,7 +15,8 @@ sliding-window forms, differentiable through kernels K4 and K7),
 with ``cross=True`` the encoder-decoder's cross-attention sublayer),
 ``remat_wrap`` (the remat policies, through ``torch.utils.checkpoint``),
 ``causal_mask`` and ``padding_mask``; and the tensor-parallel forms
-(``split_dense``, ``head_groups``, ``TPAttention``, ``TPMLP``) that
+(``split_dense``, ``head_groups``, ``TPAttention`` with its
+cross-attention, ``TPMLP``, ``tp_block``, ``SplitVocab``) that
 ``parallel/sharding.py`` places over a mesh's ``model`` axis.
 
 Parameter names and layouts follow the JAX pytree (dense weights are
@@ -34,6 +35,7 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
+import copy
 import functools
 import math
 
@@ -46,7 +48,7 @@ from ..ops.attention import flash_attention
 from ..ops.quant import div127
 from ..ops.w8_matmul import supports as w8_supports
 from ..ops.w8_matmul import w8_matmul
-from ..parallel.collectives import all_reduce_sum
+from ..parallel.collectives import all_gather, all_reduce_sum
 
 COMPUTE_DTYPE = torch.bfloat16
 NEG_INF = -1e30  # finite, as in the reference
@@ -188,12 +190,19 @@ _ROW_LORA = contextvars.ContextVar("row_lora", default=None)
 def row_adapters(factors: dict):
     """Apply ``factors`` ({Dense: (a, b)}) in every forward this thread
     runs inside the block; they take the place of factors attached by
-    ``merge_lora``."""
+    ``merge_lora``.  A row-split part of a tensor-parallel layer holds
+    (a, None) and its layer (a ``TPAttention`` / ``TPMLP``) holds (None,
+    b): see :class:`_RowParallel`."""
     tok = _ROW_LORA.set(factors)
     try:
         yield
     finally:
         _ROW_LORA.reset(tok)
+
+
+# the rank-r products x @ A of the row-split parts of a tensor-parallel
+# layer under an adapter bank, {Dense: xa}, collected by that layer
+_ROW_XA = contextvars.ContextVar("row_xa", default=None)
 
 
 _QUANT_KEYS = ("w_q", "w_s", "s_q", "s_s", "s_m")
@@ -273,15 +282,26 @@ class Dense(nn.Module):
         if rows is not None and self in rows:
             lora_a, lora_b = rows[self]
         if lora_a is not None:
-            if lora_a.dim() == 3:
+            per_row = lora_a.dim() == 3
+            if per_row:
                 # per-row factors: one rank-r correction a batch row, as
                 # f32 products of bf16-rounded inputs (layers.py:161-177)
-                xb = _bf16(x).reshape(x.shape[0], -1, x.shape[-1])
-                xa = torch.bmm(xb, _bf16(lora_a))
-                y = y + torch.bmm(_bf16(xa), _bf16(lora_b)).reshape(*x.shape[:-1], -1)
+                xa = torch.bmm(_bf16(x).reshape(x.shape[0], -1, x.shape[-1]), _bf16(lora_a))
             else:
-                y = y + _matmul(_matmul(x, lora_a), lora_b)
+                xa = _matmul(x, lora_a)
+            if lora_b is None:
+                # a row-split part: its layer sums the parts' x @ A first
+                _ROW_XA.get()[self] = xa
+            else:
+                y = y + _lora_out(xa, lora_b, per_row, x.shape)
         return _maybe_tag_proj(y)
+
+
+def _lora_out(xa, lora_b, per_row: bool, shape):
+    """The correction ``bf16(xa) @ bf16(B)`` of an input of ``shape``."""
+    if per_row:
+        return torch.bmm(_bf16(xa), _bf16(lora_b)).reshape(*shape[:-1], -1)
+    return _matmul(xa, lora_b)
 
 
 class LayerNorm(nn.Module):
@@ -616,7 +636,8 @@ def split_dense(dense: Dense, device, *, cols: slice | None = None, rows: slice 
     codes: the scales follow the codes' columns, and a row part takes the
     scale rows of the blocks it spans (or of the one block it lies in), as
     the sharding rules split ``w_s`` like ``w``.  The part's ``tp_index``
-    maps each of its leaves to the index of the whole leaf it holds."""
+    maps each of its leaves to the index of the whole leaf it holds, and
+    ``tp_whole`` is the whole layer's (d_in, d_out)."""
     if dense.w_dequant is not None or dense.lora_a is not None:
         raise ValueError("tensor parallelism splits the base; attach LoRA factors to the parts")
     if dense.w_q is not None and (dense.w_q.dtype != torch.int8 or dense.s_q is not None):
@@ -654,7 +675,7 @@ def split_dense(dense: Dense, device, *, cols: slice | None = None, rows: slice 
         part.b = nn.Parameter(owned_copy(b, device), requires_grad=False)
         index["b"] = (b_index if cols is not None else slice(0, d_out),)
     part.tp_index = index
-    part.tp_cols, part.tp_rows = cols, rows
+    part.tp_cols, part.tp_rows, part.tp_whole = cols, rows, (d_in, d_out)
     return part
 
 
@@ -663,6 +684,20 @@ def owned_copy(t: torch.Tensor, device) -> torch.Tensor:
     a part never keeps its source weight alive, even on the source's
     device, where ``.to()`` of a slice would return a view."""
     return torch.empty(t.shape, dtype=t.dtype, device=device).copy_(t.detach())
+
+
+def clone_module(module: nn.Module, device) -> nn.Module:
+    """A copy of ``module``'s structure on ``device`` whose parameters and
+    buffers are ``t.to(device)``: the same tensors where they already live
+    there (a repeated-device mesh keeps one copy of a frozen weight), copies
+    elsewhere."""
+    memo = {}
+    for t in [*module.parameters(), *module.buffers()]:
+        moved = t.to(device)
+        if isinstance(t, nn.Parameter) and not isinstance(moved, nn.Parameter):
+            moved = nn.Parameter(moved, requires_grad=t.requires_grad)
+        memo[id(t)] = moved
+    return copy.deepcopy(module, memo)
 
 
 def _to(x, device):
@@ -683,12 +718,49 @@ def head_groups(n_heads: int, kv_heads: int, n: int) -> list[tuple[int, int, int
     return [(j * hq, (j + 1) * hq, j * hq // rep, ((j + 1) * hq - 1) // rep + 1) for j in range(n)]
 
 
-class TPAttention(nn.Module):
+class _RowParallel(nn.Module):
+    """A tensor-parallel layer whose parts end in a row-parallel ``wo``:
+    their partial products are summed in f32 on the lead device, where
+    wo's bias is added once.  Under an adapter bank (``models/lora.py``
+    ``place_bank``) each part's ``wo`` holds its rows of A and this layer
+    holds B: the parts' f32 products x @ A are summed before the bf16
+    rounding the unsharded layer applies to x @ A, then multiplied by B on
+    the lead, so the correction differs from the unsharded one only in the
+    order of f32 additions."""
+
+    parts: nn.ModuleList
+    lead: torch.device
+    wo_b: nn.Parameter | None
+
+    def _sum(self, run):
+        factors = _ROW_LORA.get()
+        bank = factors is not None and self in factors
+        tok = _ROW_XA.set({}) if bank else None
+        try:
+            outs = run()
+            xas = _ROW_XA.get()
+        finally:
+            if tok is not None:
+                _ROW_XA.reset(tok)
+        y = all_reduce_sum(outs, self.lead)
+        if self.wo_b is not None:
+            y = y + self.wo_b
+        if bank:
+            xa = all_reduce_sum([xas[part.wo] for part in self.parts], self.lead)
+            b = factors[self][1]
+            y = y + _lora_out(xa, b, b.dim() == 3, y.shape)
+        return y
+
+
+class TPAttention(_RowParallel):
     """Head-parallel attention: device j holds the query heads
     ``groups[j][0:2]``, the kv heads they read, their KV cache (a layer's
     ``cache`` is the list of the devices' dicts) and their share of wo's
-    rows.  The ALiBi bias arrives for all heads and is sliced by head
-    offset, never recomputed for the share."""
+    rows.  A score bias (ALiBi, T5's relative bias) arrives for all heads
+    and is sliced by head offset, never recomputed for the share.  As
+    cross-attention, each device projects the encoder output ``kv_x`` onto
+    its own heads, or reads their precomputed K/V: ``static_kv`` is the
+    list of the devices' dicts (:meth:`cross_kv`)."""
 
     def __init__(self, attn: Attention, groups, head_dim: int, devices, lead):
         super().__init__()
@@ -705,22 +777,30 @@ class TPAttention(nn.Module):
         self.wo_b = None if attn.wo.b is None else nn.Parameter(attn.wo.b.detach().to(lead), requires_grad=False)
 
     def forward(self, x, *, n_heads: int, mask=None, flash=None, bias=None, scale=None, n_kv_heads=None, rope=None,
-                positions=None, cache=None, cache_index=None, clip=None):
-        outs = []
-        for j, ((q0, q1, k0, k1), part, dev) in enumerate(zip(self.groups, self.parts, self.devices)):
-            outs.append(part(
-                x.to(dev), n_heads=q1 - q0, n_kv_heads=k1 - k0, mask=_to(mask, dev),
-                flash=None if flash is None else {key: _to(v, dev) for key, v in flash.items()},
-                bias=None if bias is None else bias[:, q0:q1].to(dev), scale=scale,
-                rope=None if rope is None else tuple(r.to(dev) for r in rope), positions=_to(positions, dev),
-                cache=None if cache is None else cache[j], cache_index=_to(cache_index, dev), clip=clip))
-        y = all_reduce_sum(outs, self.lead)
-        return y if self.wo_b is None else y + self.wo_b
+                positions=None, cache=None, cache_index=None, clip=None, kv_x=None, static_kv=None):
+        def run():
+            return [part(x.to(dev), n_heads=q1 - q0, n_kv_heads=k1 - k0, mask=_to(mask, dev),
+                         flash=None if flash is None else {key: _to(v, dev) for key, v in flash.items()},
+                         bias=None if bias is None else bias[:, q0:q1].to(dev), scale=scale,
+                         rope=None if rope is None else tuple(r.to(dev) for r in rope), positions=_to(positions, dev),
+                         cache=None if cache is None else cache[j], cache_index=_to(cache_index, dev), clip=clip,
+                         kv_x=_to(kv_x, dev), static_kv=None if static_kv is None else static_kv[j])
+                    for j, ((q0, q1, k0, k1), part, dev) in enumerate(zip(self.groups, self.parts, self.devices))]
+
+        return self._sum(run)
+
+    def cross_kv(self, enc_out) -> list[dict]:
+        """Each device's cross-attention K/V of ``enc_out`` over its own
+        heads, on its device (:func:`cross_attention_kv` a part)."""
+        return [cross_attention_kv(part, enc_out.to(dev), q1 - q0)
+                for (q0, q1, _, _), part, dev in zip(self.groups, self.parts, self.devices)]
 
 
-class TPMLP(nn.Module):
+class TPMLP(_RowParallel):
     """The MLP with its hidden split over the devices: wi / wg
-    column-parallel, wo row-parallel (summed on the lead device)."""
+    column-parallel, wo row-parallel (summed on the lead device).  Each
+    part is of the source's class, so a family's own feed-forward
+    (``models/t5.py`` ``T5FFN``) keeps its activation."""
 
     def __init__(self, mlp: MLP, devices, lead):
         super().__init__()
@@ -730,7 +810,7 @@ class TPMLP(nn.Module):
         self.parts = nn.ModuleList()
         for j, dev in enumerate(self.devices):
             cols = slice(j * step, (j + 1) * step)
-            part = MLP.__new__(MLP)
+            part = mlp.__class__.__new__(mlp.__class__)
             nn.Module.__init__(part)
             part.wi = split_dense(mlp.wi, dev, cols=cols)
             part.wg = None if mlp.wg is None else split_dense(mlp.wg, dev, cols=cols)
@@ -739,5 +819,102 @@ class TPMLP(nn.Module):
         self.wo_b = None if mlp.wo.b is None else nn.Parameter(mlp.wo.b.detach().to(lead), requires_grad=False)
 
     def forward(self, x, activation: str = "gelu"):
-        y = all_reduce_sum([part(x.to(dev), activation) for part, dev in zip(self.parts, self.devices)], self.lead)
-        return y if self.wo_b is None else y + self.wo_b
+        return self._sum(lambda: [part(x.to(dev), activation) for part, dev in zip(self.parts, self.devices)])
+
+
+def tp_block(blk: nn.Module, groups, head_dim: int, devices, lead, *, split_mlp: bool) -> nn.Module:
+    """A layer of a tensor-parallel reader, of ``blk``'s class (a ``Block``
+    or a family's block, whose forward it keeps): its self- and
+    cross-attention head-parallel where ``groups`` split the heads, its
+    MLP hidden split with ``split_mlp``, every other module (the norms)
+    replicated on the lead device."""
+    tp = blk.__class__.__new__(blk.__class__)
+    nn.Module.__init__(tp)
+    for key, val in vars(blk).items():
+        if not key.startswith("_") and key != "training":
+            setattr(tp, key, val)  # plain settings: a Block's head counts
+    for name, child in blk.named_children():
+        if name in ("attn", "cross_attn") and groups:
+            child = TPAttention(child, groups, head_dim, devices, lead)
+        elif name == "mlp" and split_mlp:
+            child = TPMLP(child, devices, lead)
+        else:
+            child = clone_module(child, lead)
+        setattr(tp, name, child)
+    return tp
+
+
+class SplitVocab:
+    """The vocabulary of a tensor-parallel reader (mixed into
+    ``causal_lm.TPCausalLM`` and ``families.TPEncoderDecoder``, which set
+    ``devices`` and ``lead``): the embedding table split by vocabulary
+    rows where the vocabulary divides (``embed_parts``: a device looks up
+    the ids in its range and the parts sum on the lead device, one
+    non-zero addend, exact), else whole on the lead (``tok_embed``); the
+    classifier -- the table's transpose when tied, else ``lm_head``, split
+    by columns (``head_parts``) or whole -- computes each device's
+    vocabulary slice, gathered on the lead device."""
+
+    devices: list
+    lead: torch.device
+
+    def place_vocab(self, model: nn.Module, split_vocab: bool, split_head: bool) -> None:
+        n, vocab = len(self.devices), model.cfg.vocab_size
+        step = vocab // n
+        self.tok_embed = self.embed_parts = None
+        if split_vocab:
+            self.embed_parts = nn.ParameterList(
+                nn.Parameter(owned_copy(model.tok_embed[j * step:(j + 1) * step], dev), requires_grad=False)
+                for j, dev in enumerate(self.devices))
+        else:
+            self.tok_embed = nn.Parameter(model.tok_embed.detach().to(self.lead), requires_grad=False)
+        self.lm_head = self.head_parts = None
+        head = getattr(model, "lm_head", None)
+        if head is not None and split_head:
+            self.head_parts = nn.ModuleList(split_dense(head, dev, cols=slice(j * step, (j + 1) * step))
+                                            for j, dev in enumerate(self.devices))
+        elif head is not None:
+            self.lm_head = clone_module(head, self.lead)
+
+    @property
+    def device(self) -> torch.device:
+        return self.lead
+
+    def embed(self, ids):
+        """Token embeddings (B, T, D) on the lead device."""
+        if self.embed_parts is None:
+            return self.tok_embed[ids.long()]
+        parts = []
+        lo = 0
+        for table, dev in zip(self.embed_parts, self.devices):
+            local = ids.to(dev).long() - lo
+            hit = (local >= 0) & (local < table.shape[0])
+            parts.append(table[local.clamp(0, table.shape[0] - 1)] * hit[..., None])
+            lo += table.shape[0]
+        return all_reduce_sum(parts, self.lead).to(self.embed_parts[0].dtype)
+
+    def classifier_parts(self) -> list:
+        """Each device's (D, V / n) vocabulary slice of the classifier where
+        it splits (the chunked loss streams every slice on its device,
+        ops/xent.py), else the whole classifier."""
+        if self.head_parts is not None:
+            return [p.w for p in self.head_parts]
+        if self.lm_head is not None:
+            return [self.lm_head.w]
+        if self.embed_parts is not None:
+            return [t.T for t in self.embed_parts]
+        return [self.tok_embed.T]
+
+    def head_weight(self):
+        """The whole (D, V) classifier on the lead device (its parts
+        gathered; differentiable in them)."""
+        return all_gather(self.classifier_parts(), self.lead, dim=1)
+
+    def vocab_logits(self, x):
+        """(…, D) -> (…, V) f32 logits of the classifier, on the lead."""
+        if self.head_parts is not None:
+            return all_gather([p(x.to(dev)) for p, dev in zip(self.head_parts, self.devices)], self.lead, dim=-1)
+        if self.embed_parts is None or self.lm_head is not None:
+            return _matmul(x, self.classifier_parts()[0])
+        return all_gather([_matmul(x.to(dev), t.T) for t, dev in zip(self.embed_parts, self.devices)], self.lead,
+                          dim=-1)

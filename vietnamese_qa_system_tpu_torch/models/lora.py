@@ -14,7 +14,9 @@ detached).
 
 Multi-LoRA serving (lora.py:145-234): ``stack_adapters`` stacks same-shaped
 adapters into a bank (index 0 the zero adapter, ``b`` pre-scaled by
-alpha / r) and ``select_adapters`` gathers per-row factors from it at a
+alpha / r), ``place_bank`` lays it onto the dense layers that apply it
+(a tensor-parallel reader's split parts each take their slice, on their
+device) and ``select_adapters`` gathers per-row factors from it at a
 (B,) index for ``layers.row_adapters``; ``load_adapter`` reads the
 ``adapter.npz`` that either package's ``train --use-lora
 --checkpoint-dir`` writes.
@@ -23,6 +25,7 @@ alpha / r) and ``select_adapters`` gathers per-row factors from it at a
 from __future__ import annotations
 
 import dataclasses
+import re
 from typing import Sequence
 
 import torch
@@ -46,19 +49,21 @@ class LoraConfig:
         return self.alpha / self.r
 
 
-def _targets(model: nn.Module, cfg: LoraConfig) -> dict[str, Dense]:
-    return {name: mod for name, mod in model.named_modules()
-            if isinstance(mod, Dense) and name.split(".")[-1] in cfg.targets}
+def _targets(model: nn.Module, cfg: LoraConfig) -> dict[str, tuple[int, int]]:
+    """{name: (d_in, d_out)} of every targeted dense layer of ``model``; a
+    tensor-parallel reader's split parts stand for their whole layer, under
+    its unsharded name (``blocks.0.attn.parts.1.wq`` is ``blocks.0.attn.wq``)."""
+    return {re.sub(r"\.parts\.\d+", "", name): getattr(mod, "tp_whole", mod.shape)
+            for name, mod in model.named_modules() if isinstance(mod, Dense) and name.split(".")[-1] in cfg.targets}
 
 
 def init_lora(generator: torch.Generator, model: nn.Module, cfg: LoraConfig) -> dict:
     """An adapter for every targeted dense layer of ``model`` (float or
-    quantized): A ~ N(0, 1/r^2) drawn from ``generator`` (on its device),
-    B = 0, so the adapted model starts equal to the base.  Leaves are f32
-    and require grad."""
+    quantized; of a tensor-parallel reader, its whole layers): A ~ N(0,
+    1/r^2) drawn from ``generator`` (on its device), B = 0, so the adapted
+    model starts equal to the base.  Leaves are f32 and require grad."""
     flat = {}
-    for name, dense in sorted(_targets(model, cfg).items()):
-        d_in, d_out = dense.shape
+    for name, (d_in, d_out) in sorted(_targets(model, cfg).items()):
         dev = generator.device
         a = torch.randn(d_in, cfg.r, generator=generator, device=dev) / cfg.r
         flat[f"{name}.a"] = a.requires_grad_(True)
@@ -129,15 +134,65 @@ def stack_adapters(adapters: Sequence[dict], cfg: LoraConfig) -> dict:
     return nest(bank)
 
 
-def select_adapters(model: nn.Module, bank: dict, idx) -> dict:
-    """Per-row factors of ``bank`` at ``idx`` for ``model``'s dense layers:
-    {Dense: (a (B, d_in, r), b (B, r, d_out))} for a (B,) index tensor,
-    (d_in, r) / (r, d_out) for a scalar one; apply them with
-    ``layers.row_adapters``.  The gather runs on the bank's device and
-    reads nothing back to the host."""
+class PlacedBank(dict):
+    """A bank laid onto a model's layers (:func:`place_bank`): {module:
+    (a (N, d_in, r) or None, b (N, r, d_out) or None)}, each on its
+    module's device."""
+
+
+def place_bank(model: nn.Module, bank: dict) -> PlacedBank:
+    """The bank ``stack_adapters`` made, by the layer of ``model`` that
+    applies each leaf pair: the Dense layer itself, or on a
+    tensor-parallel reader its split parts (``layers.split_dense``), each
+    with its slice, copied to the part's device once (an engine places its
+    bank when it is built).  A column part takes B's columns with A whole;
+    a row part takes A's rows and no B, and its layer (``layers.
+    TPAttention`` / ``TPMLP``) takes B whole on the lead device: the layer
+    sums the parts' x @ A before it rounds and multiplies by B, as the
+    unsharded Dense does (``layers._RowParallel``).  On the bank's device
+    a whole leaf is the bank's own tensor."""
     flat = flatten_paths(bank)
-    return {model.get_submodule(name): (flat[f"{name}.a"][idx], flat[f"{name}.b"][idx])
-            for name in sorted({path.rsplit(".", 1)[0] for path in flat})}
+    out = PlacedBank()
+    for name in sorted({path.rsplit(".", 1)[0] for path in flat}):
+        a, b = flat[f"{name}.a"], flat[f"{name}.b"]
+        try:
+            parts, layer = [model.get_submodule(name)], None
+        except AttributeError:  # a tensor-parallel layer's split parts
+            parent, leaf = name.rsplit(".", 1)
+            layer = model.get_submodule(parent)
+            parts = [getattr(part, leaf) for part in layer.parts]
+        for dense in parts:
+            cols, rows = getattr(dense, "tp_cols", None), getattr(dense, "tp_rows", None)
+            dev = (dense.w_q if dense.w_q is not None else dense.w).device
+            if rows is not None:
+                out[dense] = (a[:, rows].to(dev).contiguous(), None)
+                out[layer] = (None, b.to(layer.lead))
+            else:
+                out[dense] = (a.to(dev), (b if cols is None else b[:, :, cols]).to(dev).contiguous())
+    return out
+
+
+def select_adapters(model: nn.Module, bank: dict, idx) -> dict:
+    """Per-row factors of ``bank`` (stacked, or placed by
+    :func:`place_bank`) at ``idx`` for ``model``'s dense layers: {Dense:
+    (a (B, d_in, r), b (B, r, d_out))} for a (B,) index tensor, (d_in, r) /
+    (r, d_out) for a scalar one (a tensor-parallel reader's row parts and
+    their layers hold one of the two, see :func:`place_bank`); apply them
+    with ``layers.row_adapters``.  Each layer gathers on its own device,
+    the index copied there once, and nothing is read back to the host."""
+    placed = bank if isinstance(bank, PlacedBank) else place_bank(model, bank)
+    at = {}
+    out = {}
+    for mod, factors in placed.items():
+        dev = next(f.device for f in factors if f is not None)
+        if isinstance(idx, torch.Tensor):
+            if dev not in at:
+                at[dev] = idx.to(dev)
+            ix = at[dev]
+        else:
+            ix = idx
+        out[mod] = tuple(None if f is None else f[ix] for f in factors)
+    return out
 
 
 def load_adapter(path: str, model: nn.Module, cfg: LoraConfig) -> dict:

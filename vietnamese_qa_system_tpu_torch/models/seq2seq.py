@@ -4,7 +4,8 @@ the decoder, pre-LN biased blocks with cross-attention.
 Counterpart of ``vietnamese_qa_system_tpu/models/seq2seq.py:29-178``
 (``encode``, ``precompute_cross_kv``, ``decode`` with a scalar or a (B,)
 ``cache_index``, ``forward``, ``loss_fn``).  RoPE rotates the decoder's
-self-attention only, never the cross half.
+self-attention only, never the cross half.  ``TPSeq2Seq`` is the stack
+split tensor-parallel (``families.TPEncoderDecoder``).
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ from torch import nn
 
 from .causal_lm import CHUNKED_XENT_MIN_VOCAB, IGNORE_INDEX, _init_dense_norms
 from .config import ModelConfig
-from .families import EncoderDecoder, clamp_positions, xent
+from .families import EncoderDecoder, TPEncoderDecoder, clamp_positions, xent
 from .layers import Block, LayerNorm, _matmul, causal_mask, padding_mask, rope_frequencies
 from .quantize import quantize_dense_tree
 
@@ -47,7 +48,7 @@ class Seq2Seq(EncoderDecoder):
         # positions past the table read its last row (JAX's slice raises
         # there): only padding sits past it when the input fits the table
         pos = clamp_positions(torch.arange(t, device=ids.device), self.enc_pos_embed.shape[0])
-        x = self.tok_embed[ids.long()] + self.enc_pos_embed[pos][None]
+        x = self.embed(ids) + self.enc_pos_embed[pos][None]
         mask = padding_mask(attn_mask).expand(b, t, t)
         for blk in self.enc_blocks:
             x = blk(x, mask=mask)
@@ -66,7 +67,7 @@ class Seq2Seq(EncoderDecoder):
         if positions is None:
             positions = torch.arange(t, device=dev)[None, :].expand(b, t)
         positions = clamp_positions(positions, cfg.max_seq_len)
-        x = self.tok_embed[dec_ids.long()]
+        x = self.embed(dec_ids)
         rope = rope_frequencies(cfg.head_dim, cfg.max_seq_len, cfg.rope_theta, device=dev)
         cross_mask = padding_mask(enc_mask).expand(b, t, enc_mask.shape[1])
         if cache is None:
@@ -78,14 +79,19 @@ class Seq2Seq(EncoderDecoder):
         else:
             if cross_kv is None:
                 cross_kv = self.precompute_cross_kv(enc_out)
-            for blk, layer_cache, ckv in zip(self.dec_blocks, cache, cross_kv):
-                x = blk(x, mask=dec_mask, enc_mask=cross_mask, cross_kv=ckv, rope=rope, positions=positions,
-                        cache=layer_cache, cache_index=cache_index)
+            for i, blk in enumerate(self.dec_blocks):
+                x = blk(x, mask=dec_mask, enc_mask=cross_mask, cross_kv=self.layer_cache(cross_kv, i), rope=rope,
+                        positions=positions, cache=self.layer_cache(cache, i), cache_index=cache_index)
         x = self.dec_ln_f(x)
         return x if hidden_only else self.head(x)
 
 
+class TPSeq2Seq(TPEncoderDecoder, Seq2Seq):
+    """A :class:`Seq2Seq` split tensor-parallel (``families.TPEncoderDecoder``)."""
+
+
 MODEL = Seq2Seq
+TP_MODEL = TPSeq2Seq
 
 
 def loss_fn(model: Seq2Seq, batch: dict):

@@ -18,6 +18,10 @@ Counterpart of ``vietnamese_qa_system_tpu/models/t5.py:48-466``:
   causal with the decoder mask's.  The bias gets a zero cotangent there
   (LoRA and inference only; the trainer refuses full fine-tuning).
 
+``TPT5`` is the family split tensor-parallel (``families.
+TPEncoderDecoder``): heads, the FFN hidden and the vocabulary over a
+mesh's ``model`` devices, the relative biases computed once on the lead.
+
 The bucket ids are computed on the host in numpy float32, in the JAX
 package's order of operations, once per width (bit-equal to JAX's; the
 tests hold them over distances 0-4,096).  The per-step decoder bias of a
@@ -38,9 +42,22 @@ from torch import nn
 from .causal_lm import CHUNKED_XENT_MIN_VOCAB, IGNORE_INDEX, _init_dense_norms
 from .config import ModelConfig
 from .encoder import relative_attention_bias
-from .families import EncoderDecoder, xent
+from .families import EncoderDecoder, TPEncoderDecoder, xent
 from .layers import MLP, Attention, Dense, LayerNorm, _matmul, causal_mask, padding_mask, remat_wrap
 from .quantize import quantize_dense_tree
+
+
+class T5FFN(MLP):
+    """T5's feed-forward: gated tanh-GELU ``wo(gelu_new(wg(x)) * wi(x))``
+    (v1.1 / mT5), or ``wo(relu(wi(x)))`` (v1.0); ``activation`` is unused
+    (a tensor-parallel part is called as an ``MLP``)."""
+
+    def forward(self, x, activation: str | None = None):
+        if self.wg is not None:
+            h = F.gelu(self.wg(x), approximate="tanh") * self.wi(x)
+        else:
+            h = F.relu(self.wi(x))
+        return self.wo(h)
 
 
 class T5Block(nn.Module):
@@ -60,15 +77,7 @@ class T5Block(nn.Module):
             self.ln_cross = LayerNorm(d, eps, bias=False, device=device)
             self.cross_attn = attn()
         self.ln2 = LayerNorm(d, eps, bias=False, device=device)
-        self.mlp = MLP(d, cfg.d_ff, gated=cfg.mlp_gated, use_bias=False, device=device)
-
-    def ffn(self, x):
-        m = self.mlp
-        if m.wg is not None:
-            h = F.gelu(m.wg(x), approximate="tanh") * m.wi(x)
-        else:
-            h = F.relu(m.wi(x))
-        return m.wo(h)
+        self.mlp = T5FFN(d, cfg.d_ff, gated=cfg.mlp_gated, use_bias=False, device=device)
 
 
 def causal_bucket(rel: np.ndarray, num_buckets: int, max_distance: int) -> np.ndarray:
@@ -150,7 +159,7 @@ class T5(EncoderDecoder):
         """ids / attn_mask (B, T) -> (B, T, D) f32 hidden states."""
         cfg = self.cfg
         b, t = ids.shape
-        x = self.tok_embed[ids.long()]
+        x = self.embed(ids)
         bias = relative_attention_bias(self.enc_rel_bias, t, cfg)
         mask = padding_mask(attn_mask).expand(b, t, t)
         flash = None
@@ -159,7 +168,7 @@ class T5(EncoderDecoder):
         for blk in self.enc_blocks:
             def layer(h, blk=blk):
                 h = h + blk.attn(blk.ln1(h), n_heads=cfg.n_heads, mask=mask, bias=bias, scale=1.0, flash=flash)
-                return h + blk.ffn(blk.ln2(h))
+                return h + blk.mlp(blk.ln2(h))
 
             x = self._run(layer)(x)
         return self.enc_ln_f(x)
@@ -171,7 +180,7 @@ class T5(EncoderDecoder):
     def head_input(self, x):
         """The hidden states as the classifier reads them: scaled by
         ``d_model ** -0.5`` under a tied head (T5 v1.0)."""
-        return x if self.lm_head is not None else x * (self.cfg.d_model ** -0.5)
+        return x * (self.cfg.d_model ** -0.5) if self.cfg.tie_embeddings else x
 
     def head(self, x):
         if self.lm_head is not None:
@@ -190,7 +199,7 @@ class T5(EncoderDecoder):
         relative bias takes the query position from ``cache_index``."""
         cfg = self.cfg
         b, t = dec_ids.shape
-        x = self.tok_embed[dec_ids.long()]
+        x = self.embed(dec_ids)
         cross_mask = padding_mask(enc_mask).expand(b, t, enc_mask.shape[1])
         if cache is None:
             bias = full_decoder_bias(self.dec_rel_bias, t, cfg)
@@ -206,7 +215,7 @@ class T5(EncoderDecoder):
                     h = h + blk.attn(blk.ln1(h), n_heads=cfg.n_heads, mask=mask, bias=bias, scale=1.0, flash=flash)
                     h = h + blk.cross_attn(blk.ln_cross(h), n_heads=cfg.n_heads, kv_x=enc_out, mask=cross_mask,
                                            scale=1.0)
-                    return h + blk.ffn(blk.ln2(h))
+                    return h + blk.mlp(blk.ln2(h))
 
                 x = self._run(layer)(x)
         else:
@@ -214,17 +223,22 @@ class T5(EncoderDecoder):
             bias = decoder_bias(self.dec_rel_bias, cache_index, total, cfg)
             if cross_kv is None:
                 cross_kv = self.precompute_cross_kv(enc_out)
-            for blk, layer_cache, ckv in zip(self.dec_blocks, cache, cross_kv):
+            for i, blk in enumerate(self.dec_blocks):
                 x = x + blk.attn(blk.ln1(x), n_heads=cfg.n_heads, mask=dec_mask, bias=bias, scale=1.0,
-                                 cache=layer_cache, cache_index=cache_index)
+                                 cache=self.layer_cache(cache, i), cache_index=cache_index)
                 x = x + blk.cross_attn(blk.ln_cross(x), n_heads=cfg.n_heads, mask=cross_mask, scale=1.0,
-                                       static_kv=ckv)
-                x = x + blk.ffn(blk.ln2(x))
+                                       static_kv=self.layer_cache(cross_kv, i))
+                x = x + blk.mlp(blk.ln2(x))
         x = self.dec_ln_f(x)
         return x if hidden_only else self.head(x)
 
 
+class TPT5(TPEncoderDecoder, T5):
+    """A :class:`T5` split tensor-parallel (``families.TPEncoderDecoder``)."""
+
+
 MODEL = T5
+TP_MODEL = TPT5
 
 
 def loss_fn(model: T5, batch: dict):

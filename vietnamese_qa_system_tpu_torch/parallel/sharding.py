@@ -19,9 +19,12 @@ the mesh lacks, of size 1, or that does not divide the dim leaves the
 dim whole, as in the JAX package.  :func:`shard_params` turns a causal
 reader into its tensor-parallel form (``models/causal_lm.py``
 ``TPCausalLM``) for serving and, with ``training=True``, for each data
-row of the trainer's mesh; ``train/mesh.py`` places the rest by these
-specs: a leaf split along ``data`` is stored as per-position parts, one
-split along ``model`` as ``TPCausalLM`` splits it, any other replicated.
+row of the trainer's mesh, and an encoder-decoder (T5 / mT5, mBART, the
+native stack) into its family's (``models/families.py``
+``TPEncoderDecoder``) for serving; ``train/mesh.py`` places the rest by
+these specs: a leaf split along ``data`` is stored as per-position parts,
+one split along ``model`` as ``TPCausalLM`` splits it, any other
+replicated.
 """
 
 from __future__ import annotations
@@ -131,26 +134,31 @@ def accum_batch_sharding(mesh: Mesh) -> tuple:
 
 
 def shard_params(model, mesh: Mesh, strategy: str = "tp", *, training: bool = False, row: int = 0):
-    """The tensor-parallel form of an unsharded causal reader over the
-    ``model`` devices of ``mesh``'s data row ``row`` under ``strategy``
-    (tp or fsdp_tp): each leaf the specs split on ``model`` is split onto
-    the devices (attention by heads, where they divide; see
-    ``TPCausalLM``), the rest replicated on the row's lead device.  The
-    result shares no parameter storage with ``model`` except replicated
-    modules already on the lead device.
+    """The tensor-parallel form of an unsharded reader -- a causal LM, or
+    an encoder-decoder of any family -- over the ``model`` devices of
+    ``mesh``'s data row ``row`` under ``strategy`` (tp or fsdp_tp): each
+    leaf the specs split on ``model`` is split onto the devices (attention
+    by heads, where they divide: every attention of the model splits, or
+    none; see ``TPCausalLM``, ``TPEncoderDecoder``), the rest replicated on
+    the row's lead device.  A leaf the rules leave whole stays whole: an
+    mBART FFN (``fc1`` / ``fc2``), T5's relative-bias tables, a vocabulary
+    that does not divide.  The result shares no parameter storage with
+    ``model`` except replicated modules already on the lead device.
 
     Serving (the default) takes a float reader on a ``{"model": n}`` mesh.
-    ``training=True`` is the trainer's: the mesh may have a data axis
-    (``train/mesh.py`` splits the parts over it for fsdp_tp and replicates
-    them over it for tp) and the base may be int8 (the codes and their
-    scales split like ``w``, JAX parallel/sharding.py:49-53)."""
+    ``training=True`` is the trainer's, for a causal LM: the mesh may have
+    a data axis (``train/mesh.py`` splits the parts over it for fsdp_tp and
+    replicates them over it for tp) and the base may be int8 (the codes
+    and their scales split like ``w``, JAX parallel/sharding.py:49-53)."""
     from ..models.causal_lm import CausalLM, TPCausalLM
+    from ..models.families import EncoderDecoder, TPEncoderDecoder, s2s_module
 
     if strategy not in ("tp", "fsdp_tp"):
         raise NotImplementedError(f"strategy {strategy!r} shards over the data axis for training (train/mesh.py); "
                                   "shard_params makes the tensor-parallel reader of tp and fsdp_tp")
-    if not isinstance(model, CausalLM) or isinstance(model, TPCausalLM):
-        raise ValueError("shard_params splits an unsharded causal reader (CausalLM)")
+    if not isinstance(model, (CausalLM, EncoderDecoder)) or isinstance(model, (TPCausalLM, TPEncoderDecoder)):
+        raise ValueError("shard_params splits an unsharded causal reader (CausalLM) or encoder-decoder "
+                         "(EncoderDecoder)")
     specs = param_sharding(model, mesh, strategy)
     if not training:
         if any(DATA_AXIS in spec for spec in specs.values()):
@@ -168,8 +176,20 @@ def shard_params(model, mesh: Mesh, strategy: str = "tp", *, training: bool = Fa
     def dense_split(prefix: str) -> bool:
         return split(f"{prefix}.w", 1) or split(f"{prefix}.w_q", 1)
 
-    layers = range(cfg.n_layers)
-    mlp = all(dense_split(f"blocks.{i}.mlp.wi") for i in layers)
-    attn = all(dense_split(f"blocks.{i}.attn.wq") for i in layers)
-    return TPCausalLM(model, mesh.grid()[row], split_attention=attn, split_mlp=mlp,
-                      split_vocab=split("tok_embed", 0), split_head=split("lm_head.w", 1))
+    if isinstance(model, CausalLM):
+        layers = [f"blocks.{i}" for i in range(cfg.n_layers)]
+        attns = [f"{layer}.attn" for layer in layers]
+        cls = TPCausalLM
+    else:
+        if training:
+            raise NotImplementedError("shard_params(training=True) splits a causal LM; seq2seq training under a "
+                                      "model axis is not ported yet")
+        layers = ([f"enc_blocks.{i}" for i in range(cfg.n_layers)]
+                  + [f"dec_blocks.{i}" for i in range(cfg.decoder_layers)])
+        attns = [f"{layer}.attn" for layer in layers] + [f"dec_blocks.{i}.cross_attn"
+                                                        for i in range(cfg.decoder_layers)]
+        cls = s2s_module(cfg).TP_MODEL
+    mlp = all(dense_split(f"{layer}.mlp.wi") for layer in layers)
+    attn = all(dense_split(f"{name}.wq") for name in attns)
+    return cls(model, mesh.grid()[row], split_attention=attn, split_mlp=mlp, split_vocab=split("tok_embed", 0),
+               split_head=split("lm_head.w", 1))

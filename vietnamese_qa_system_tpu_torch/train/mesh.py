@@ -175,8 +175,8 @@ class MeshTrainState:
         tp = strategy in ("tp", "fsdp_tp") and self.n_model > 1
         if tp and model.cfg.arch != "causal":
             raise NotImplementedError(
-                f"{strategy} over a model axis splits the heads of a causal LM; the tensor-parallel seq2seq "
-                "reader is not ported yet (ROADMAP Queue 1 #2) -- train seq2seq under dp, zero2 or fsdp")
+                f"{strategy} over a model axis trains a causal LM; seq2seq training over a model axis is not "
+                "ported yet (ROADMAP Queue 1 #5) -- train seq2seq under dp, zero2 or fsdp")
         self.fsdp = strategy in ("fsdp", "fsdp_tp") and self.n_data > 1
         all_model = list(range(self.n_model))
         # the rows: replicas, or tensor-parallel forms along each data row
