@@ -183,6 +183,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import gc
 import glob
 import itertools
 import json
@@ -340,10 +341,22 @@ TWIN_EVAL_EXAMPLES = 8  # the twin's cli train decodes this many eval prompts wi
 # axes of JAX tests/test_trainer.py::test_sharded_train_step at four
 # positions; the step-1 loss and every grad_norm against the one-device
 # trainer's (the rows' products and sums run in another order)
-MESH_DEVICES, MESH_STEPS, MESH_EVAL_BATCHES = 4, 2, 1
+# (PhoGPT-4B at 8 of its 32 layers, full width); an nf4-dq QLoRA step under
+# fsdp_tp, and host_offload="all" under MESH_OFFLOAD against the same
+# strategy without it (the same operations: QLORA_OFFLOAD_RTOL)
+MESH_DEVICES, MESH_STEPS, MESH_EVAL_BATCHES, MESH_LAYERS = 4, 2, 1, 8
 MESH_STRATEGIES = (("dp", {"data": 4}), ("zero2", {"data": 4}), ("fsdp", {"data": 4}), ("tp", {"model": 4}),
                    ("fsdp_tp", {"data": 2, "model": 2}))
+MESH_OFFLOAD = ("fsdp", "tp")
 MESH_LOSS_RTOL, MESH_GRAD_RTOL = 1e-3, 5e-2
+# seq2seq training over a model axis: mt5-small at full width and depth
+# (the seq2seq train phase's batch, grad_accum 2) under each of these, an
+# mBART-large-50-width bf16 LoRA step under tp {"model": 2}, and K4 / K7 at
+# a TP part's shapes (mt5's 6 heads split 3 + 3: 4 rows a microbatch x 3
+# heads; name, B, H, first head, T, D, causal)
+MESH_S2S_STRATEGIES = (("tp", {"model": 2}), ("tp", {"model": 4}), ("fsdp_tp", {"data": 2, "model": 2}))
+MESH_S2S_ACCUM = 2
+T5_TP_FLASH = (("mt5 TP part encoder", 4, 3, 3, 512, 64, False), ("mt5 TP part decoder", 4, 3, 3, 256, 64, True))
 MESH_B0_STD = 1e-3  # the adapters' B at the start of the mesh phase: small noise, so that A trains from step 1
 # multi-LoRA /generate: three r 8 / alpha 16 adapters over the default
 # targets (serve's --adapter-r / --adapter-alpha defaults) with B drawn
@@ -362,6 +375,7 @@ NF4_MODES, NF4_LOGIT_REL_TOL = ("nf4", "nf4-dq"), 0.35
 # initial adapter, whose B = 0: the same forward), and host_offload="all"
 # against the device run (the same operations)
 QLORA_STEPS, QLORA_LOSS_RTOL, QLORA_OFFLOAD_RTOL = 2, 1e-4, 1e-5
+QLORA_LAYERS = 16  # of PhoGPT-4B's 32, at full width: the depth cut that pays for the seq2seq mesh phase
 # hybrid retrieval: 12 concurrent /search at k 10 and weight 0.5 over the
 # ingested passages; served scores are rounded to 6 decimals (HYBRID_TOL);
 # the BM25 timing index; /search latency rounds for p50 / p99
@@ -386,7 +400,7 @@ S2S_ENGINE_FLAGS = ("--continuous-slots", "8", "--gen-total", "256", "--gen-chun
 S2S_ENGINE_REQUESTS, S2S_ENGINE_PROMPT = 16, (16, 128)
 MBART_ROWS, MBART_PROMPT_LEN, MBART_NEW_TOKENS, MBART_LANG_ID = 8, 64, 32, 250024
 S2S_TRAIN_STEPS, S2S_TRAIN_BATCH, S2S_TRAIN_ENC, S2S_TRAIN_DEC = 3, 8, 512, 256
-T5_FLASH = (("mt5 encoder", 8, 6, 512, 64, False), ("mt5 decoder", 8, 6, 256, 64, True))
+T5_FLASH = (("mt5 encoder", 8, 6, 0, 512, 64, False), ("mt5 decoder", 8, 6, 0, 256, 64, True))
 
 
 SAFETENSORS_CODES = {"torch.float32": "F32", "torch.bfloat16": "BF16"}
@@ -3630,8 +3644,9 @@ def phase_nf4(torch, pkg, ctx, int8c_bytes: int):
 
 
 def phase_qlora(torch, pkg, logdir: str):
-    """QLoRA at PhoGPT-4B width over an nf4-dq base (drawn on the card
-    layer by layer; LoRA r 8 on the default targets; proj_bf16; adamw;
+    """QLoRA at PhoGPT-4B width (QLORA_LAYERS of its 32 layers) over an
+    nf4-dq base (drawn on the card layer by layer; LoRA r 8 on the default
+    targets; proj_bf16; adamw;
     global batch 8 x 1,024, grad_accum 2): QLORA_STEPS steps with each
     dequant placement (fused, once, once_folded) from the same base and
     initial adapter, then fused with host_offload="all"; step s, device
@@ -3647,7 +3662,7 @@ def phase_qlora(torch, pkg, logdir: str):
 
     t_phase = time.perf_counter()
     card = gpu_name_and_power()
-    cfg = dataclasses.replace(phogpt_4b_class(), remat_policy="proj_bf16")
+    cfg = dataclasses.replace(phogpt_4b_class(), remat_policy="proj_bf16", n_layers=QLORA_LAYERS)
     rng = np.random.default_rng(SEED + 40)
     batches = [train_batch(rng, TRAIN_BATCH, TRAIN_T, cfg.vocab_size) for _ in range(QLORA_STEPS)]
     model, runs, launches = None, {}, None
@@ -3661,7 +3676,8 @@ def phase_qlora(torch, pkg, logdir: str):
         torch.cuda.synchronize()
         if model is None:
             model = trainer.model
-            print(f"qlora phogpt_4b_class: nf4-dq base drawn in {time.perf_counter() - t0:.1f} s", flush=True)
+            print(f"qlora phogpt_4b_class ({cfg.n_layers} of 32 layers, full width): nf4-dq base drawn in "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
         marks, peaks = [], []
 
         def factory():
@@ -4400,6 +4416,15 @@ def phase_t5_flash_kernels(torch, A, gen, report):
     relative bias and unscaled scores (their maxima run larger than the
     scaled forms' that FLASH_EDGES draws), right-padded rows; timed beside
     the plain versions and SDPA with the bias and mask as one float mask."""
+    t5_flash_check(torch, A, gen, report, T5_FLASH, "t5")
+
+
+def t5_flash_check(torch, A, gen, report, shapes, prefix: str) -> None:
+    """K4 and K7 against their plain versions at each (label, B, H, first
+    head, T, D, causal) of ``shapes``: the heads ``[h0, h0 + H)`` of mt5's
+    relative bias (a tensor-parallel part reads its slice of the table's
+    bias in place), timed beside the plain versions and SDPA; recorded in
+    ``report`` under ``{prefix}_encoder`` / ``{prefix}_decoder``."""
     from vietnamese_qa_system_tpu_torch.models.config import mt5_small_class
     from vietnamese_qa_system_tpu_torch.models.encoder import relative_attention_bias
     from vietnamese_qa_system_tpu_torch.models.t5 import full_decoder_bias
@@ -4408,7 +4433,7 @@ def phase_t5_flash_kernels(torch, A, gen, report):
     sdpa = torch.nn.functional.scaled_dot_product_attention
     cfg = mt5_small_class()
     table = torch.randn(cfg.relative_attention_buckets, cfg.n_heads, generator=gen, device="cuda") * 0.5
-    for label, b, h, t, d, causal in T5_FLASH:
+    for label, b, h, h0, t, d, causal in shapes:
         bh = b * h
         # T5 scale: q and k of unit-variance projections summed unscaled
         q, k, v, do = (torch.randn(bh, t, d, generator=gen, device="cuda") for _ in range(4))
@@ -4416,7 +4441,8 @@ def phase_t5_flash_kernels(torch, A, gen, report):
         dob = (do * 0.1).to(torch.bfloat16)
         lens = torch.tensor([t - (t // 8 if r % 2 else 0) for r in range(b)], dtype=torch.int32,
                             device="cuda").repeat_interleave(h)
-        bias = (full_decoder_bias(table, t, cfg) if causal else relative_attention_bias(table, t, cfg))[0].contiguous()
+        bias = (full_decoder_bias(table, t, cfg) if causal else relative_attention_bias(table, t, cfg))[0]
+        bias = bias.contiguous()[h0:h0 + h]  # a part's heads: a view of the whole bias
         o, lse = A.flash_fwd(qb, kb, vb, lens, bias, h, causal, None)
         po, plse = A.flash_fwd_plain(qb, kb, vb, lens, bias, h, causal, None)
         grads = A.flash_bwd(qb, kb, vb, o, lse, dob, lens, bias, h, causal, None)
@@ -4470,7 +4496,7 @@ def phase_t5_flash_kernels(torch, A, gen, report):
               f"{fwd['bound_ms']:.4f} ms ({fwd['bound_by']}); K7 dK/dV {dkdv['ms']:.3f} ms (bound "
               f"{dkdv['bound_ms']:.4f}, {dkdv['bound_by']}), dQ {dqr['ms']:.3f} ms (bound {dqr['bound_ms']:.4f}, "
               f"{dqr['bound_by']}), plain backward {plain_bwd:.3f} ms, SDPA fwd+bwd {lib_bwd:.3f} ms", flush=True)
-        key = "t5_decoder" if causal else "t5_encoder"
+        key = f"{prefix}_{'decoder' if causal else 'encoder'}"
         shape = f"BH={bh} (B={b} x H={h}), T={t}, D={d}, {'causal' if causal else 'bidirectional'}, full T5 bias"
         report["flash_attention_fwd_causal" if causal else "flash_attention_fwd"][key] = dict(
             fwd, max_abs_err=o_err, shape=shape)
@@ -5189,20 +5215,117 @@ def phase_tp_adapters(torch, pkg, tp, reader, card: str) -> dict:
     return launches
 
 
+def mesh_steps(torch, pkg, trainer, batches: list, ad0: dict) -> tuple:
+    """``trainer``'s steps over ``batches`` from the adapter ``ad0``: each
+    step's (loss, grad_norm, seconds, peak bytes), and the launches of the
+    steps (every count set to 0 just before them)."""
+    from vietnamese_qa_system_tpu_torch.utils.tree import flatten_paths
+
+    rows = []
+    with torch.no_grad():
+        for n, leaf in flatten_paths(trainer.adapter).items():
+            leaf.copy_(ad0[n])
+    for kern in pkg.KERNELS:
+        kern.launches = 0
+    for b in batches:
+        dev_batch = trainer.device_batch(b)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        m = trainer.run_step(dev_batch)
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        torch.cuda.synchronize()
+        rows.append((loss, gnorm, time.perf_counter() - t, torch.cuda.max_memory_allocated()))
+    return rows, {k.name: k.launches for k in pkg.KERNELS}
+
+
+def drawn_adapter(torch, adapter: dict, seed: int) -> dict:
+    """The trainers' common start: ``adapter``'s leaves, B drawn
+    N(0, MESH_B0_STD^2) on the card so that A trains from the first step."""
+    from vietnamese_qa_system_tpu_torch.utils.tree import flatten_paths
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return {n: t.detach().clone() + (MESH_B0_STD * torch.randn(t.shape, generator=gen, device="cuda")
+                                     if n.endswith(".b") else 0) for n, t in flatten_paths(adapter).items()}
+
+
+def first_grads(torch, base, loss_of, lora, ad0: dict, mb: dict) -> dict:
+    """The one-device gradient of the adapter at ``ad0`` on the microbatch
+    ``mb``: which elements carry signal for the move rule."""
+    from vietnamese_qa_system_tpu_torch.models import merge_lora
+    from vietnamese_qa_system_tpu_torch.models.lora import clear_lora
+    from vietnamese_qa_system_tpu_torch.utils.tree import nest
+
+    g_ad = {n: t.clone().requires_grad_(True) for n, t in ad0.items()}
+    merge_lora(base, nest(g_ad), lora)
+    try:
+        return dict(zip(g_ad, torch.autograd.grad(loss_of(base, mb)[0], list(g_ad.values()))))
+    finally:
+        clear_lora(base)
+
+
+def move_rule(adapter, g0: dict, ref_ad: dict, ad0: dict, lr: float) -> tuple:
+    """(leaves checked, worst median / lr, worst norm ratio) of the adapter's
+    moves against the reference's: on the elements whose first-microbatch
+    gradient exceeds 5% of the leaf's largest, the median difference of the
+    moves; over the leaf, the difference's norm against the reference
+    move's (``tests/test_torch_mesh_train.py``'s rule)."""
+    from vietnamese_qa_system_tpu_torch.utils.tree import flatten_paths
+
+    checked, worst_med, worst_norm = 0, 0.0, 0.0
+    for n, t in flatten_paths(adapter).items():
+        g = g0[n].abs()
+        sure = g > 0.05 * g.max()
+        if not bool(sure.any()):
+            continue
+        d = (t.detach() - ref_ad[n]).abs()
+        worst_med = max(worst_med, float(d[sure].median()) / lr)
+        worst_norm = max(worst_norm, float(d.norm() / (ref_ad[n] - ad0[n]).norm()))
+        checked += 1
+    return checked, worst_med, worst_norm
+
+
+def hold_mesh_steps(label: str, rows: list, ref: list, tokens: int, card: str) -> None:
+    """Print each step of a mesh run beside the one-device reference's and
+    hold its loss and grad_norm to it."""
+    import numpy as np
+
+    for i, ((loss, gnorm, sec, peak), (rloss, rgn, _, _)) in enumerate(zip(rows, ref)):
+        print(f"{label} step {i + 1}: loss {loss:.6f} (one device {rloss:.6f}), grad_norm {gnorm:.6f} (one device "
+              f"{rgn:.6f}), {sec:.3f} s, {tokens / sec:.1f} tokens/s, peak memory {peak / 1e9:.2f} GB ({card})",
+              flush=True)
+        check(np.isfinite(loss) and np.isfinite(gnorm), f"{label} step {i + 1}: loss and grad_norm finite")
+        check(abs(loss - rloss) <= MESH_LOSS_RTOL * abs(rloss),
+              f"{label} step {i + 1} loss within {MESH_LOSS_RTOL} of the one-device trainer's")
+        check(abs(gnorm - rgn) <= MESH_GRAD_RTOL * abs(rgn),
+              f"{label} step {i + 1} grad_norm within {MESH_GRAD_RTOL} of the one-device trainer's")
+
+
+def hold_moves(label: str, adapter, g0, ref_ad, ad0, lr: float, card: str) -> None:
+    checked, med, ratio = move_rule(adapter, g0, ref_ad, ad0, lr)
+    print(f"{label}: adapter after the steps against the one-device trainer's: {checked} of {len(ad0)} leaves "
+          f"checked, worst median difference {med:.4f} lr, worst norm ratio {ratio:.4f} ({card})", flush=True)
+    check(checked == len(ad0) and med <= 0.05 and ratio <= 0.25,
+          f"{label}: every adapter leaf moved as the one-device trainer's (median within 0.05 lr on the elements of "
+          f"signal, difference norm within 0.25 of the move's)")
+
+
 def phase_mesh_train(torch, pkg, logdir: str, card: str) -> dict:
-    """Training over a device mesh at PhoGPT-4B width (32 layers, nothing
-    cut; an int8 base drawn on the card from the seed, LoRA r 8 / alpha 16,
-    proj_bf16 remat, adamw lr 2e-4; global batch TRAIN_BATCH x TRAIN_T,
+    """Training over a device mesh at PhoGPT-4B width (MESH_LAYERS of its 32
+    layers; an int8 base drawn on the card from the seed, LoRA r 8 / alpha
+    16, proj_bf16 remat, adamw lr 2e-4; global batch TRAIN_BATCH x TRAIN_T,
     grad_accum 2, as ``phase_train``): MESH_STEPS steps under each strategy
     of MESH_STRATEGIES on a mesh of the one card repeated (``["cuda:0"] *
     4``), each from the same base, adapter and batches as a one-device
     trainer, the reference (every trainer starts from one adapter whose B
-    is drawn small, not zero, so that A trains from the first step); one
-    ``cli train --strategy fsdp_tp --mesh
-    '{"data": 2, "model": 2}'`` step; and ``perplexity_eval(mesh=)`` over
-    the fsdp_tp trainer's rows against the one-device eval of the same
-    weights.  One card shows the code paths and their cost, not a
-    multi-GPU speed-up: the four positions run in turn.
+    is drawn small, not zero, so that A trains from the first step); the
+    same steps with ``host_offload="all"`` under each of MESH_OFFLOAD; one
+    nf4-dq QLoRA step under fsdp_tp against the one-device nf4-dq trainer;
+    one ``cli train --strategy fsdp_tp --mesh '{"data": 2, "model": 2}'``
+    step; and ``perplexity_eval(mesh=)`` over the fsdp_tp trainer's rows
+    against the one-device eval of the same weights.  One card shows the
+    code paths and their cost, not a multi-GPU speed-up: the four
+    positions run in turn.
 
     Per strategy it prints seconds and tokens/s a step, each step's loss
     and grad_norm beside the reference's, the parameter and optimizer
@@ -5211,12 +5334,12 @@ def phase_mesh_train(torch, pkg, logdir: str, card: str) -> dict:
     K4 / K7 launch count of 0, a loss off the reference's by more than
     MESH_LOSS_RTOL, a grad_norm off by more than MESH_GRAD_RTOL, an adapter
     whose moves over the steps break the move rule of
-    ``tests/test_torch_mesh_train.py`` against the reference's (on the
-    elements whose first-microbatch gradient exceeds 5% of the leaf's
-    largest: the median difference within 5% of lr; over the leaf: the
-    difference's norm within 25% of the reference move's), or an fsdp
+    ``tests/test_torch_mesh_train.py`` against the reference's, an fsdp
     position holding more than a third of a dp position's parameter
-    bytes.  Returns the launches of the mesh runs (counted from zero)."""
+    bytes, an offloaded run whose losses or grad_norm differ from the same
+    strategy's by more than QLORA_OFFLOAD_RTOL or whose position keeps as
+    many bytes on the card.  Returns the launches of the mesh runs
+    (counted from zero)."""
     import numpy as np
 
     from vietnamese_qa_system_tpu_torch.cli.main import main as cli_main
@@ -5225,73 +5348,30 @@ def phase_mesh_train(torch, pkg, logdir: str, card: str) -> dict:
     from vietnamese_qa_system_tpu_torch.models import LoraConfig, init_causal_lm, loss_fn, merge_lora, phogpt_4b_class
     from vietnamese_qa_system_tpu_torch.models.lora import clear_lora
     from vietnamese_qa_system_tpu_torch.train import TrainConfig, Trainer, perplexity_eval
-    from vietnamese_qa_system_tpu_torch.utils.tree import flatten_paths, nest, tree_map
+    from vietnamese_qa_system_tpu_torch.utils.tree import flatten_paths, tree_map
 
     t_phase = time.perf_counter()
-    cfg = dataclasses.replace(phogpt_4b_class(), remat_policy="proj_bf16")
+    cfg = dataclasses.replace(phogpt_4b_class(), remat_policy="proj_bf16", n_layers=MESH_LAYERS)
     common = dict(model=cfg, lora=LoraConfig(r=8, alpha=16), quantize_base="int8", optimizer="adamw", lr=2e-4,
                   grad_accum=2, log_every=1, log_dir=logdir, seed=SEED + 41)
     t0 = time.perf_counter()
     base = init_causal_lm(cfg, make_generator(SEED + 41, "cuda"), quantize="int8")
     torch.cuda.synchronize()
-    print(f"mesh train: phogpt_4b_class int8 base drawn in {time.perf_counter() - t0:.1f} s; global batch "
-          f"{TRAIN_BATCH} x {TRAIN_T}, grad_accum 2, {MESH_STEPS} steps a strategy on [cuda:0] x {MESH_DEVICES} "
-          f"({card}; one card runs the positions in turn: code paths and their cost, no multi-GPU speed-up)",
-          flush=True)
+    print(f"mesh train: phogpt_4b_class at {MESH_LAYERS} of its 32 layers (full width), int8 base drawn in "
+          f"{time.perf_counter() - t0:.1f} s; global batch {TRAIN_BATCH} x {TRAIN_T}, grad_accum 2, {MESH_STEPS} "
+          f"steps a strategy on [cuda:0] x {MESH_DEVICES} ({card}; one card runs the positions in turn: code paths "
+          "and their cost, no multi-GPU speed-up)", flush=True)
     rng = np.random.default_rng(SEED + 41)
     batches = [train_batch(rng, TRAIN_BATCH, TRAIN_T, cfg.vocab_size) for _ in range(MESH_STEPS)]
     tokens = TRAIN_BATCH * TRAIN_T
     flash = ("flash_attention_fwd_causal", "flash_attention_bwd_dkdv", "flash_attention_bwd_dq")
 
-    def run(trainer):
-        """Each step's (loss, grad_norm, seconds, peak bytes) and the launches."""
-        rows = []
-        for kern in pkg.KERNELS:
-            kern.launches = 0
-        with torch.no_grad():
-            for n, leaf in flatten_paths(trainer.adapter).items():
-                leaf.copy_(ad0[n])
-        for b in batches:
-            dev_batch = trainer.device_batch(b)
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            t = time.perf_counter()
-            m = trainer.run_step(dev_batch)
-            loss, gnorm = float(m["loss"]), float(m["grad_norm"])
-            torch.cuda.synchronize()
-            rows.append((loss, gnorm, time.perf_counter() - t, torch.cuda.max_memory_allocated()))
-        return rows, {k.name: k.launches for k in pkg.KERNELS}
-
     ref_trainer = Trainer(TrainConfig(**common, run_name="mesh_ref"), params=base, device="cuda", total_steps=8)
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 42)
-    ad0 = {n: t.detach().clone() + (MESH_B0_STD * torch.randn(t.shape, generator=gen, device="cuda")
-                                    if n.endswith(".b") else 0) for n, t in flatten_paths(ref_trainer.adapter).items()}
-    # the reference's gradient of the first microbatch at ad0: which elements carry signal
-    g_ad = {n: t.clone().requires_grad_(True) for n, t in ad0.items()}
+    ad0 = drawn_adapter(torch, ref_trainer.adapter, SEED + 42)
     mb0 = {k: torch.from_numpy(np.asarray(v[:TRAIN_BATCH // 2]).astype(np.int64)).cuda() for k, v in batches[0].items()}
-    merge_lora(base, nest(g_ad), common["lora"])
-    try:
-        g0 = dict(zip(g_ad, torch.autograd.grad(loss_fn(base, mb0)[0], list(g_ad.values()))))
-    finally:
-        clear_lora(base)
-    del g_ad, mb0
-    ref, _ = run(ref_trainer)
+    g0 = first_grads(torch, base, loss_fn, common["lora"], ad0, mb0)
+    ref, _ = mesh_steps(torch, pkg, ref_trainer, batches, ad0)
     ref_ad = {n: t.detach().clone() for n, t in flatten_paths(ref_trainer.adapter).items()}
-
-    def move_rule(adapter) -> tuple:
-        """(leaves checked, worst median / lr, worst norm ratio) of the
-        adapter's moves against the reference's (see the docstring)."""
-        checked, worst_med, worst_norm = 0, 0.0, 0.0
-        for n, t in flatten_paths(adapter).items():
-            g = g0[n].abs()
-            sure = g > 0.05 * g.max()
-            if not bool(sure.any()):
-                continue
-            d = (t.detach() - ref_ad[n]).abs()
-            worst_med = max(worst_med, float(d[sure].median()) / common["lr"])
-            worst_norm = max(worst_norm, float(d.norm() / (ref_ad[n] - ad0[n]).norm()))
-            checked += 1
-        return checked, worst_med, worst_norm
     for i, (loss, gnorm, sec, peak) in enumerate(ref):
         print(f"mesh train reference (one device) step {i + 1}: loss {loss:.6f}, grad_norm {gnorm:.6f}, {sec:.3f} s, "
               f"{tokens / sec:.1f} tokens/s, peak memory {peak / 1e9:.2f} GB", flush=True)
@@ -5311,33 +5391,54 @@ def phase_mesh_train(torch, pkg, logdir: str, card: str) -> dict:
         built = time.perf_counter() - t0
         pos = trainer.position_bytes()
         held[strategy] = pos[(0, 0)]
-        rows, got = run(trainer)
+        rows, got = mesh_steps(torch, pkg, trainer, batches, ad0)
         for name in launches:
             launches[name] += got[name]
         per_step = {name: got[name] // MESH_STEPS for name in flash}
         print(f"mesh train {strategy} {axes}: built in {built:.2f} s; a position holds "
               f"{pos[(0, 0)]['param_bytes'] / 1e9:.3f} GB of parameters and {pos[(0, 0)]['opt_bytes'] / 1e6:.3f} MB "
               f"of optimizer state; K4 / K7 launches a step {per_step} ({card})", flush=True)
-        for i, ((loss, gnorm, sec, peak), (rloss, rgn, _, _)) in enumerate(zip(rows, ref)):
-            print(f"mesh train {strategy} step {i + 1}: loss {loss:.6f} (one device {rloss:.6f}), grad_norm "
-                  f"{gnorm:.6f} (one device {rgn:.6f}), {sec:.3f} s, {tokens / sec:.1f} tokens/s, peak memory "
-                  f"{peak / 1e9:.2f} GB ({card})", flush=True)
-            check(np.isfinite(loss) and np.isfinite(gnorm), f"{strategy} step {i + 1}: loss and grad_norm finite")
-            check(abs(loss - rloss) <= MESH_LOSS_RTOL * abs(rloss),
-                  f"{strategy} step-{i + 1} loss within {MESH_LOSS_RTOL} of the one-device trainer's")
-            check(abs(gnorm - rgn) <= MESH_GRAD_RTOL * abs(rgn),
-                  f"{strategy} step {i + 1} grad_norm within {MESH_GRAD_RTOL} of the one-device trainer's")
-        checked, med, ratio = move_rule(trainer.adapter)
-        n_leaves = len(ad0)
-        print(f"mesh train {strategy}: adapter after {MESH_STEPS} steps against the one-device trainer's: "
-              f"{checked} of {n_leaves} leaves checked, worst median difference {med:.4f} lr, worst norm ratio "
-              f"{ratio:.4f} ({card})", flush=True)
-        check(checked == n_leaves and med <= 0.05 and ratio <= 0.25,
-              f"{strategy}: every adapter leaf moved as the one-device trainer's (median within 0.05 lr on the "
-              f"elements of signal, difference norm within 0.25 of the move's)")
+        hold_mesh_steps(f"mesh train {strategy}", rows, ref, tokens, card)
+        hold_moves(f"mesh train {strategy}", trainer.adapter, g0, ref_ad, ad0, common["lr"], card)
         for name in flash:
             check(got[name] > 0, f"{name} launched {got[name]} times on the {strategy} mesh path")
-        if strategy == "fsdp_tp":
+        if strategy in MESH_OFFLOAD:
+            on_card = trainer.position_bytes(device_only=True)[(0, 0)]
+            gc.collect()  # the earlier strategies' trainers, kept by their cycles
+            torch.cuda.synchronize()
+            plain_alloc = torch.cuda.memory_allocated()
+            del trainer
+            gc.collect()  # a trainer's layer wrappers and its rows form cycles
+            torch.cuda.empty_cache()
+            off = Trainer(TrainConfig(**common, strategy=strategy, mesh_axes=axes, host_offload="all",
+                                      run_name=f"mesh_{strategy}_offload"), params=base, mesh=mesh, device="cuda",
+                          total_steps=8)
+            off_rows, off_got = mesh_steps(torch, pkg, off, batches, ad0)
+            for name in launches:
+                launches[name] += off_got[name]
+            off_card = off.position_bytes(device_only=True)[(0, 0)]
+            gc.collect()
+            torch.cuda.synchronize()
+            off_alloc = torch.cuda.memory_allocated()
+            for i, ((loss, gnorm, sec, peak), (ploss, pgn, psec, _)) in enumerate(zip(off_rows, rows)):
+                print(f"mesh train {strategy} host_offload=all step {i + 1}: loss {loss:.6f} (without offload "
+                      f"{ploss:.6f}), grad_norm {gnorm:.6f} ({pgn:.6f}), {sec:.3f} s (without offload {psec:.3f} s), "
+                      f"peak memory {peak / 1e9:.2f} GB ({card})", flush=True)
+                check(abs(loss - ploss) <= QLORA_OFFLOAD_RTOL * abs(ploss) and
+                      abs(gnorm - pgn) <= QLORA_OFFLOAD_RTOL * abs(pgn),
+                      f"{strategy} host_offload=all step {i + 1}: loss and grad_norm within {QLORA_OFFLOAD_RTOL} of "
+                      "the same strategy's without offload")
+            print(f"mesh train {strategy} host_offload=all: between steps a position keeps "
+                  f"{off_card['param_bytes'] / 1e9:.3f} GB of parameters and {off_card['opt_bytes'] / 1e6:.3f} MB "
+                  f"of optimizer state on the card (without offload {on_card['param_bytes'] / 1e9:.3f} GB, "
+                  f"{on_card['opt_bytes'] / 1e6:.3f} MB); card memory allocated after the steps "
+                  f"{off_alloc / 1e9:.2f} GB (without offload {plain_alloc / 1e9:.2f} GB) ({card})", flush=True)
+            check(off_card["param_bytes"] + off_card["opt_bytes"] < on_card["param_bytes"] + on_card["opt_bytes"]
+                  and off_alloc < plain_alloc,
+                  f"{strategy} host_offload=all: a position's bytes on the card fall")
+            off.merged_replicas()  # the offloaded pieces that alias the drawn base come back to the card
+            del off
+        elif strategy == "fsdp_tp":
             last = trainer
         else:
             del trainer
@@ -5371,14 +5472,62 @@ def phase_mesh_train(torch, pkg, logdir: str, card: str) -> dict:
     del base
     torch.cuda.empty_cache()
 
+    # nf4-dq QLoRA under fsdp_tp: the codes, their int8 scale codes and the
+    # per-block-row offsets split over the model axis, then over the data axis
+    t0 = time.perf_counter()
+    nf4 = init_causal_lm(cfg, make_generator(SEED + 43, "cuda"), quantize="nf4-dq")
+    nf4_common = dict(common, quantize_base="nf4-dq")
+    nf4_ref = Trainer(TrainConfig(**nf4_common, run_name="mesh_nf4_ref"), params=nf4, device="cuda", total_steps=8)
+    nf4_ad0 = drawn_adapter(torch, nf4_ref.adapter, SEED + 44)
+    ref1, _ = mesh_steps(torch, pkg, nf4_ref, batches[:1], nf4_ad0)
+    del nf4_ref
+    torch.cuda.empty_cache()
+    axes = {"data": 2, "model": 2}
+    nf4_tp = Trainer(TrainConfig(**nf4_common, strategy="fsdp_tp", mesh_axes=axes, run_name="mesh_nf4_fsdp_tp"),
+                     params=nf4, mesh=mesh_mod.create_mesh(axes, devices=["cuda:0"] * MESH_DEVICES), device="cuda",
+                     total_steps=8)
+    pos = nf4_tp.position_bytes()[(0, 0)]
+    rows1, got = mesh_steps(torch, pkg, nf4_tp, batches[:1], nf4_ad0)
+    for name in launches:
+        launches[name] += got[name]
+    print(f"mesh train nf4-dq fsdp_tp {axes}: a position holds {pos['param_bytes'] / 1e9:.3f} GB of parameters "
+          f"(nf4-dq codes and scales); K4 / K7 launches {({n: got[n] for n in flash})}; phase part "
+          f"{time.perf_counter() - t0:.1f} s ({card})", flush=True)
+    hold_mesh_steps("mesh train nf4-dq fsdp_tp", rows1, ref1, tokens, card)
+    for name in flash:
+        check(got[name] > 0, f"{name} launched {got[name]} times on the nf4-dq fsdp_tp mesh path")
+    del nf4_tp, nf4
+    torch.cuda.empty_cache()
+
     # cli train over the mesh: every visible GPU is the one card, four times
     here = os.path.dirname(os.path.abspath(__file__))
-    argv = ["train", "--model-size", "phogpt4b", "--use-lora", "--quantize-base", "int8", "--remat-policy",
+    cfg_path = os.path.join(logdir, "phogpt_mesh.json")
+    with open(cfg_path, "w") as f:
+        f.write(cfg.to_json())
+    argv = ["train", "--model-config", cfg_path, "--use-lora", "--quantize-base", "int8", "--remat-policy",
             "proj_bf16", "--train-files", os.path.join(here, "examples", "sample_instruct.jsonl"), "--max-steps",
             "1", "--batch-size", "8", "--grad-accum", "2", "--log-every", "1", "--log-dir", logdir, "--run-name",
             "mesh_cli", "--strategy", "fsdp_tp", "--mesh", '{"data": 2, "model": 2}']
+    rc, logged, cli_s, got = cli_on_repeated_card(torch, pkg, cli_main, mesh_mod, argv, MESH_DEVICES,
+                                                  os.path.join(logdir, "mesh_cli.jsonl"))
+    for name in launches:
+        launches[name] += got[name]
+    print(f"cli train --strategy fsdp_tp --mesh '{{\"data\": 2, \"model\": 2}}' (PhoGPT-4B width, {MESH_LAYERS} "
+          f"layers): exit {rc} in {cli_s:.1f} s; " + "; ".join(f"step {r['step']} loss {r['loss']:.6f} grad_norm "
+                                                            f"{r['grad_norm']:.6f}" for r in logged if "loss" in r),
+          flush=True)
+    check(rc == 0 and len([r for r in logged if "loss" in r]) == 1 and np.isfinite(logged[0]["loss"]),
+          "cli train --strategy fsdp_tp --mesh over the repeated card exits 0 after one finite step")
+    print(f"mesh train phase {time.perf_counter() - t_phase:.1f} s ({card})", flush=True)
+    return launches
+
+
+def cli_on_repeated_card(torch, pkg, cli_main, mesh_mod, argv: list, n: int, log: str) -> tuple:
+    """``cli_main(argv)`` with every visible GPU the one card, ``n`` times
+    (the CLI takes every visible GPU); (exit code, the logged records,
+    seconds, launches)."""
     real = mesh_mod.visible_devices
-    mesh_mod.visible_devices = lambda: [torch.device("cuda", 0)] * MESH_DEVICES
+    mesh_mod.visible_devices = lambda: [torch.device("cuda", 0)] * n
     for kern in pkg.KERNELS:
         kern.launches = 0
     t0 = time.perf_counter()
@@ -5387,16 +5536,165 @@ def phase_mesh_train(torch, pkg, logdir: str, card: str) -> dict:
     finally:
         mesh_mod.visible_devices = real
     torch.cuda.synchronize()
-    for kern in pkg.KERNELS:
-        launches[kern.name] += kern.launches
-    with open(os.path.join(logdir, "mesh_cli.jsonl")) as f:
+    with open(log) as f:
         logged = [json.loads(line) for line in f]
-    print(f"cli train --strategy fsdp_tp --mesh '{{\"data\": 2, \"model\": 2}}': exit {rc} in "
-          f"{time.perf_counter() - t0:.1f} s; " + "; ".join(f"step {r['step']} loss {r['loss']:.6f} grad_norm "
-                                                         f"{r['grad_norm']:.6f}" for r in logged), flush=True)
-    check(rc == 0 and len(logged) == 1 and np.isfinite(logged[0]["loss"]),
-          "cli train --strategy fsdp_tp --mesh over the repeated card exits 0 after one finite step")
-    print(f"mesh train phase {time.perf_counter() - t_phase:.1f} s ({card})", flush=True)
+    return rc, logged, time.perf_counter() - t0, {k.name: k.launches for k in pkg.KERNELS}
+
+
+def implied_flash_launches(trainer, cfg, accum: int) -> dict:
+    """K4 / K7 launches a step of a seq2seq trainer with flash (T >= 256 in
+    both stacks): each microbatch runs every data row's encoder (K4
+    bidirectional) and decoder (K4 causal) self-attention once a layer and
+    a part where attention splits (whole where it does not); the backward
+    launches K7's two kernels once each of those; fsdp's gathering
+    sublayers run under a checkpoint, so their backward runs K4 again."""
+    placed = trainer.placed
+    parts = placed.n_model if getattr(placed.rows[0], "groups", None) is not None else 1
+    runs = accum * placed.n_data * parts
+    again = 2 if placed.fsdp else 1
+    enc, dec = cfg.n_layers, cfg.decoder_layers
+    return {"flash_attention_fwd": runs * enc * again, "flash_attention_fwd_causal": runs * dec * again,
+            "flash_attention_bwd_dkdv": runs * (enc + dec), "flash_attention_bwd_dq": runs * (enc + dec)}
+
+
+def phase_mesh_train_s2s(torch, pkg, A, gen, report, logdir: str, card: str) -> dict:
+    """Seq2seq training over a model axis on the one card repeated: mt5-small
+    at full width and depth (d 512, 6 heads x d_kv 64, 8 + 8 layers, d_ff
+    1,024 gated, vocabulary 250,112, untied head; an int8 base drawn on the
+    card from the seed, LoRA r 8 / alpha 16, ``use_flash_attention``;
+    global batch S2S_TRAIN_BATCH x (S2S_TRAIN_ENC + S2S_TRAIN_DEC) tokens,
+    grad_accum MESH_S2S_ACCUM), MESH_STEPS steps under each of
+    MESH_S2S_STRATEGIES (tp {"model": 2}: heads 3 + 3, vocabulary 125,056 a
+    part; tp {"model": 4}: attention whole, the MLP and vocabulary split;
+    fsdp_tp {"data": 2, "model": 2}), each held to the one-device trainer
+    from the same base, adapter (B drawn small) and batches by
+    ``phase_mesh_train``'s rules, with the K4 / K7 launches of each step
+    equal to the count the code implies (``implied_flash_launches``); K4
+    and K7 at a TP part's shapes against their plain versions; one
+    mBART-large-50-width bf16 LoRA step under tp {"model": 2} held the
+    same way; and one ``cli train --arch seq2seq --model-size mt5small
+    --strategy tp --mesh '{"model": 2}' --do-eval`` step.  One card shows
+    the code paths and their cost, not a multi-GPU speed-up.  Returns the
+    launches of the mesh runs."""
+    import numpy as np
+
+    from vietnamese_qa_system_tpu_torch.cli.main import main as cli_main
+    from vietnamese_qa_system_tpu_torch.core import make_generator
+    from vietnamese_qa_system_tpu_torch.core import mesh as mesh_mod
+    from vietnamese_qa_system_tpu_torch.models import LoraConfig, ModelConfig, mt5_small_class
+    from vietnamese_qa_system_tpu_torch.models.families import init_seq2seq_model
+    from vietnamese_qa_system_tpu_torch.models.families import loss_fn as s2s_loss
+    from vietnamese_qa_system_tpu_torch.train import TrainConfig, Trainer
+    from vietnamese_qa_system_tpu_torch.utils.tree import flatten_paths
+
+    t_phase = time.perf_counter()
+    t5_flash_check(torch, A, gen, report, T5_TP_FLASH, "t5_tp_part")
+    print(f"mesh s2s: K4 / K7 at a TP part's shapes checked in {time.perf_counter() - t_phase:.1f} s", flush=True)
+    flash = ("flash_attention_fwd", "flash_attention_fwd_causal", "flash_attention_bwd_dkdv", "flash_attention_bwd_dq")
+    launches = {k.name: 0 for k in pkg.KERNELS}
+    tokens = S2S_TRAIN_BATCH * (S2S_TRAIN_ENC + S2S_TRAIN_DEC)
+    rng = np.random.default_rng(SEED + 51)
+
+    def hold_family(label, cfg, base, quantize, strategies, steps, seed):
+        """The one-device reference and each strategy of ``strategies`` from
+        ``base``; returns the launches of the mesh runs."""
+        common = dict(model=cfg, lora=LoraConfig(r=8, alpha=16), quantize_base=quantize, optimizer="adamw", lr=2e-4,
+                      grad_accum=MESH_S2S_ACCUM, log_every=1, log_dir=logdir, seed=seed)
+        batches = [s2s_train_batch(rng, S2S_TRAIN_BATCH, S2S_TRAIN_ENC, S2S_TRAIN_DEC, cfg.vocab_size)
+                   for _ in range(steps)]
+        ref_trainer = Trainer(TrainConfig(**common, run_name=f"{label}_ref"), params=base, device="cuda",
+                              total_steps=8)
+        ad0 = drawn_adapter(torch, ref_trainer.adapter, seed + 1)
+        mb0 = {k: torch.from_numpy(np.asarray(v[:S2S_TRAIN_BATCH // MESH_S2S_ACCUM]).astype(np.int64)).cuda()
+               for k, v in batches[0].items()}
+        g0 = first_grads(torch, base, s2s_loss, common["lora"], ad0, mb0)
+        ref, ref_got = mesh_steps(torch, pkg, ref_trainer, batches, ad0)
+        want = implied_flash_launches(ref_trainer, cfg, MESH_S2S_ACCUM) if cfg.use_flash_attention else None
+        ref_ad = {n: t.detach().clone() for n, t in flatten_paths(ref_trainer.adapter).items()}
+        for i, (loss, gnorm, sec, peak) in enumerate(ref):
+            print(f"{label} reference (one device) step {i + 1}: loss {loss:.6f}, grad_norm {gnorm:.6f}, {sec:.3f} s, "
+                  f"{tokens / sec:.1f} tokens/s, peak memory {peak / 1e9:.2f} GB ({card})", flush=True)
+        if want is not None:
+            check(all(ref_got[n] == steps * want[n] for n in flash),
+                  f"{label} one device: K4 / K7 launches {({n: ref_got[n] for n in flash})} = {steps} steps x "
+                  f"{want}")
+        del ref_trainer
+        torch.cuda.empty_cache()
+        out = {k.name: 0 for k in pkg.KERNELS}
+        for strategy, axes in strategies:
+            t0 = time.perf_counter()
+            n = int(np.prod(list(axes.values())))
+            trainer = Trainer(TrainConfig(**common, strategy=strategy, mesh_axes=axes,
+                                          run_name=f"{label}_{strategy}_{n}"),
+                              params=base, mesh=mesh_mod.create_mesh(axes, devices=["cuda:0"] * n), device="cuda",
+                              total_steps=8)
+            torch.cuda.synchronize()
+            built = time.perf_counter() - t0
+            pos = trainer.position_bytes()[(0, 0)]
+            split = trainer.placed.rows[0].groups is not None
+            rows, got = mesh_steps(torch, pkg, trainer, batches, ad0)
+            for name in out:
+                out[name] += got[name]
+            print(f"{label} {strategy} {axes}: built in {built:.2f} s; attention {'split by heads' if split else 'whole'};"
+                  f" a position holds {pos['param_bytes'] / 1e9:.3f} GB of parameters and "
+                  f"{pos['opt_bytes'] / 1e6:.3f} MB of optimizer state; K4 / K7 launches "
+                  f"{({n: got[n] for n in flash})} ({card})", flush=True)
+            hold_mesh_steps(f"{label} {strategy} {axes}", rows, ref, tokens, card)
+            hold_moves(f"{label} {strategy} {axes}", trainer.adapter, g0, ref_ad, ad0, common["lr"], card)
+            if want is not None:
+                per = implied_flash_launches(trainer, cfg, MESH_S2S_ACCUM)
+                check(all(got[n] == steps * per[n] > 0 for n in flash),
+                      f"{label} {strategy} {axes}: K4 / K7 launches {({n: got[n] for n in flash})} = {steps} steps "
+                      f"x {per}")
+            del trainer
+            torch.cuda.empty_cache()
+        return out
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(mt5_small_class(), use_flash_attention=True)
+    base = init_seq2seq_model(cfg, make_generator(SEED + 51, "cuda"), quantize="int8")
+    torch.cuda.synchronize()
+    print(f"mesh s2s: mt5-small (full width and depth) int8 base drawn in {time.perf_counter() - t0:.1f} s; global "
+          f"batch {S2S_TRAIN_BATCH} x ({S2S_TRAIN_ENC} + {S2S_TRAIN_DEC}), grad_accum {MESH_S2S_ACCUM}, {MESH_STEPS} "
+          f"steps a strategy ({card}; one card runs the positions in turn)", flush=True)
+    got = hold_family("mesh s2s mt5", cfg, base, "int8", MESH_S2S_STRATEGIES, MESH_STEPS, SEED + 52)
+    for name in launches:
+        launches[name] += got[name]
+    del base
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    mbart = ModelConfig(arch="seq2seq", seq2seq_family="bart", vocab_size=250054, d_model=1024, n_heads=16,
+                        n_layers=12, n_decoder_layers=12, d_ff=4096, max_seq_len=1024, positional="learned",
+                        scale_embedding=True, norm_eps=1e-5, tie_embeddings=True, attention_bias=True)
+    base = init_seq2seq_model(mbart, make_generator(SEED + 53, "cuda")).to(torch.bfloat16)
+    torch.cuda.synchronize()
+    print(f"mesh s2s: mBART-large-50 width (d 1,024, 16 heads, 12 + 12 layers, vocabulary 250,054) bf16 base drawn "
+          f"in {time.perf_counter() - t0:.1f} s", flush=True)
+    got = hold_family("mesh s2s mbart", mbart, base, None, (("tp", {"model": 2}),), 1, SEED + 54)
+    for name in launches:
+        launches[name] += got[name]
+    del base
+    torch.cuda.empty_cache()
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    sample = os.path.join(here, "examples", "sample_instruct.jsonl")
+    argv = ["train", "--arch", "seq2seq", "--model-size", "mt5small", "--use-lora", "--train-files", sample,
+            "--eval-files", sample, "--max-examples", "8", "--max-steps", "1", "--batch-size", "4", "--max-len",
+            "256", "--log-every", "1", "--log-dir", logdir, "--run-name", "mesh_s2s_cli", "--strategy", "tp",
+            "--mesh", '{"model": 2}', "--do-eval"]
+    rc, logged, cli_s, got = cli_on_repeated_card(torch, pkg, cli_main, mesh_mod, argv, 2,
+                                                  os.path.join(logdir, "mesh_s2s_cli.jsonl"))
+    for name in launches:
+        launches[name] += got[name]
+    steps = [r for r in logged if "loss" in r]
+    evals = [r for r in logged if "eval_eval_loss" in r]
+    print(f"cli train --arch seq2seq --model-size mt5small --strategy tp --mesh '{{\"model\": 2}}' --do-eval: exit "
+          f"{rc} in {cli_s:.1f} s; {steps}; eval {evals} ({card})", flush=True)
+    check(rc == 0 and len(steps) == 1 and np.isfinite(steps[0]["loss"]) and len(evals) == 1
+          and np.isfinite(evals[0]["eval_eval_loss"]),
+          "cli train --arch seq2seq --strategy tp --mesh over the repeated card: one finite step and its eval")
+    print(f"mesh s2s phase {time.perf_counter() - t_phase:.1f} s ({card})", flush=True)
     return launches
 
 
@@ -5524,11 +5822,15 @@ def main() -> int:
         s2s_train = timed(phase_seq2seq_train, torch, pkg, logdir)
         torch.cuda.empty_cache()
         mesh_train = timed(phase_mesh_train, torch, pkg, logdir, card)
+        torch.cuda.empty_cache()
+        mesh_s2s = timed(phase_mesh_train_s2s, torch, pkg, A, gen, report, logdir, card)
     print("launches in the mesh training runs: " + json.dumps(mesh_train))
+    print("launches in the seq2seq mesh training runs: " + json.dumps(mesh_s2s))
     print("launches in the nf4-dq QLoRA run: " + json.dumps(qlora_launches))
     for name in ("flash_attention_fwd", "flash_attention_fwd_causal", "flash_attention_bwd_dkdv",
                  "flash_attention_bwd_dq"):
         check(s2s_train[name] > 0, f"{name} launched on the mt5 train path")
+        check(mesh_s2s[name] > 0, f"{name} launched on the seq2seq mesh train path")
     launches = dict(retrieval, w8_matmul=reader_launches["w8_matmul"] + engine_launches["w8_matmul"] + strategies_w8
                     + adapter_launches["w8_matmul"] + s2s_qa["w8_matmul"] + s2s_engine["w8_matmul"],
                     ivf_probe_scores=ivf_launches["ivf_probe_scores"] + sharded["ivf_probe_scores"],
@@ -5537,8 +5839,9 @@ def main() -> int:
                     + sharded["matmul_topk_bf16"],
                     matmul_topk_int8=retrieval["matmul_topk_int8"] + sharded["matmul_topk_int8"],
                     flash_attention_fwd=retrieval["flash_attention_fwd"] + s2s_flash["flash_attention_fwd"]
-                    + s2s_train["flash_attention_fwd"] + tp_s2s["flash_attention_fwd"],
+                    + s2s_train["flash_attention_fwd"] + tp_s2s["flash_attention_fwd"] + mesh_s2s["flash_attention_fwd"],
                     **{name: train_launches[name] + qlora_launches[name] + s2s_train[name] + mesh_train[name]
+                       + mesh_s2s[name]
                        for name in ("flash_attention_fwd_causal", "flash_attention_bwd_dkdv", "flash_attention_bwd_dq")})
     for name in ("matmul_topk_bf16", "matmul_topk_int8", "ivf_probe_scores", "quantize_int8"):
         report[name]["sharded_launches"] = sharded[name]
@@ -5549,6 +5852,9 @@ def main() -> int:
     for name in ("flash_attention_fwd_causal", "flash_attention_bwd_dkdv", "flash_attention_bwd_dq"):
         report[name]["seq2seq_launches"] = s2s_train[name]
         report[name]["mesh_launches"] = mesh_train[name]
+    for name in ("flash_attention_fwd", "flash_attention_fwd_causal", "flash_attention_bwd_dkdv",
+                 "flash_attention_bwd_dq"):
+        report[name]["mesh_seq2seq_launches"] = mesh_s2s[name]
     # the occupancy of the variants that the main shapes run
     for name, key in (("flash_attention_fwd", ("fwd", 64, 0, 1)), ("flash_attention_fwd_causal", ("fwd", 128, 1, 2)),
                       ("flash_attention_bwd_dkdv", ("bwd", 128, 0, 2)), ("flash_attention_bwd_dq", ("bwd", 128, 1, 2))):

@@ -212,12 +212,16 @@ def test_no_replicated_leaf_is_updated_more_than_once(tmp_path):
 
 
 def test_tp_seq2seq_is_refused(tmp_path):
-    """A seq2seq model under tp over a model axis waits for seq2seq
-    training over a model axis (ROADMAP Queue 1 #5); without a model axis
-    tp is dp."""
+    """A seq2seq model under tp over a model axis is no longer refused: its
+    rows are the family's tensor-parallel form, and its first loss is the
+    one of tp without a model axis (which is dp) within 1e-4 (the
+    parity with JAX is test_torch_mesh_train_s2s.py's)."""
+    from vietnamese_qa_system_tpu_torch.models.families import TPEncoderDecoder
+
     cfg, params, adapter, data = setup(arch="seq2seq")
-    with pytest.raises(NotImplementedError, match="Queue 1 #5"):
-        port_trainer(cfg, params, adapter, "tp", {"model": 4}, None, tmp_path)
+    split = port_trainer(cfg, params, adapter, "tp", {"model": 4}, None, tmp_path)
+    assert isinstance(split.placed.rows[0], TPEncoderDecoder) and split.placed.rows[0].groups is not None
     t = port_trainer(cfg, params, adapter, "tp", {"data": 4}, None, tmp_path)
     m = t.train_step(data[0])
     assert np.isfinite(float(m["loss"]))
+    np.testing.assert_allclose(float(split.train_step(data[0])["loss"]), float(m["loss"]), rtol=1e-4)

@@ -302,7 +302,8 @@ def test_checkpoints_resume_across_packages(tmp_path):
 def test_cli_train_on_the_cpu(tmp_path):
     """``cli train`` (tiny preset, int8 base + LoRA) over the repo's sample
     file exits 0, logs each step and writes the adapter in the JAX
-    layout; without --device it asks for the card."""
+    layout; without --device it asks for the card; with ``--strategy
+    fsdp --mesh '{"data": 2}' --host-offload optimizer`` it trains too."""
     argv = ["train", "--model-size", "tiny", "--use-lora", "--quantize-base", "int8", "--train-files", SAMPLE,
             "--max-steps", "2", "--log-every", "1", "--log-dir", str(tmp_path / "logs"), "--checkpoint-dir",
             str(tmp_path / "ck"), "--run-name", "cli"]
@@ -317,9 +318,13 @@ def test_cli_train_on_the_cpu(tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             cli_main(argv)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        cli_main([*argv, "--device", "cpu", "--strategy", "fsdp", "--mesh", '{"data": 2}', "--host-offload",
-                  "optimizer"])
+    # host offload under a strategy over a mesh runs (it was refused before it was ported)
+    off = [a if a != str(tmp_path / "ck") else str(tmp_path / "ck_off") for a in argv]
+    off = [a if a != "cli" else "cli_off" for a in off]
+    assert cli_main([*off, "--device", "cpu", "--strategy", "fsdp", "--mesh", '{"data": 2}', "--host-offload",
+                     "optimizer"]) == 0
+    logged = [json.loads(line) for line in open(tmp_path / "logs" / "cli_off.jsonl")]
+    assert [r["step"] for r in logged] == [1, 2] and all(np.isfinite(r["loss"]) for r in logged)
 
 
 def test_cli_train_over_a_mesh_on_the_cpu(tmp_path):

@@ -86,6 +86,9 @@ serves LoRA adapters (``adapter.npz`` of either package's ``train
 mesh (``train/mesh.py``): with ``--device cpu`` its positions repeat the
 host, with ``cuda`` they are the visible GPUs (fewer than the axes need
 raise); ``--do-eval`` then splits the eval batches over the data axis.
+Every strategy takes ``--arch seq2seq`` (tp and fsdp_tp split T5 / mT5,
+mBART and the native stack over the model axis), a float, int8, nf4 or
+nf4-dq base, and ``--host-offload``.
 ``ingest --shards`` / ``build-ivf --shards`` shard the store and the IVF
 index, and ``serve --reader-strategy tp|fsdp_tp`` splits the reader over
 the GPUs.  ``train`` refuses hub pushes.

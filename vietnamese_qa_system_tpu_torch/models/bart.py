@@ -187,7 +187,7 @@ def loss_fn(model: Bart, batch: dict):
         from ..ops.xent import masked_mean_xent
 
         h = model.decode(dec_in, enc_out, batch["attention_mask"], dec_mask, hidden_only=True)
-        return masked_mean_xent(h, model.tok_embed.T, labels, IGNORE_INDEX)
+        return masked_mean_xent(h, model.classifier_parts(), labels, IGNORE_INDEX)
     return xent(model.decode(dec_in, enc_out, batch["attention_mask"], dec_mask), labels)
 
 

@@ -23,8 +23,6 @@ shard_params``.
 
 from __future__ import annotations
 
-import re
-
 import torch
 from torch import nn
 
@@ -337,34 +335,6 @@ class TPCausalLM(SplitVocab, CausalLM):
 
     def head(self, x):
         return self.vocab_logits(x)
-
-    def leaf_index(self) -> dict:
-        """{name of each tensor of this model: (the name of the unsharded
-        model's leaf it holds, the index of that leaf it holds, its model
-        position)}: ``blocks.0.attn.parts.1.wq.w`` holds columns of
-        ``blocks.0.attn.wq.w`` at position 1, ``embed_parts.2`` rows of
-        ``tok_embed``; replicated leaves hold the whole at position 0."""
-        out = {}
-        mods = dict(self.named_modules())
-        for name, t in self.state_dict(keep_vars=True).items():
-            whole = tuple(slice(0, d) for d in t.shape)
-            m = re.fullmatch(r"(blocks\.\d+\.(?:attn|mlp))\.parts\.(\d+)\.(\w+)\.(\w+)", name)
-            if m:
-                part = mods[name.rsplit(".", 1)[0]]
-                out[name] = (f"{m.group(1)}.{m.group(3)}.{m.group(4)}", part.tp_index[m.group(4)], int(m.group(2)))
-                continue
-            m = re.fullmatch(r"head_parts\.(\d+)\.(\w+)", name)
-            if m:
-                part = mods[name.rsplit(".", 1)[0]]
-                out[name] = (f"lm_head.{m.group(2)}", part.tp_index[m.group(2)], int(m.group(1)))
-                continue
-            m = re.fullmatch(r"embed_parts\.(\d+)", name)
-            if m:
-                j, rows = int(m.group(1)), t.shape[0]
-                out[name] = ("tok_embed", (slice(j * rows, (j + 1) * rows), whole[1]), j)
-                continue
-            out[name] = (re.sub(r"\.wo_b$", ".wo.b", name), whole, 0)
-        return out
 
     def make_cache(self, b: int, total: int, kv_dtype: str = "bf16") -> list[dict]:
         """One dict a (layer, device), layer-major, each on its device over

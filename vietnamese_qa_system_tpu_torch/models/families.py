@@ -31,7 +31,7 @@ from torch import nn
 
 from .causal_lm import IGNORE_INDEX, make_cache
 from .config import ModelConfig
-from .layers import SplitVocab, clone_module, cross_attention_kv, head_groups, tp_block
+from .layers import SplitVocab, clone_module, head_groups, tp_block
 
 
 def s2s_module(cfg: ModelConfig):
@@ -135,10 +135,20 @@ class EncoderDecoder(nn.Module):
         """The hidden states as the classifier reads them."""
         return x
 
+    def head_weight(self):
+        """(D, V) classifier: the embedding transpose for a tied head."""
+        return self.tok_embed.T
+
+    def classifier_parts(self) -> list:
+        """The classifier as (D, V_j) parts over consecutive vocabulary
+        ranges, each on its device (the chunked loss streams each on its
+        device, ops/xent.py): one part here."""
+        return [self.head_weight()]
+
     def precompute_cross_kv(self, enc_out) -> list[dict]:
         """Per decoder layer, the cross-attention K/V of ``enc_out``
         (computed once a sequence; the HF past_key_values cross half)."""
-        return [cross_attention_kv(blk.cross_attn, enc_out, self.cfg.n_heads) for blk in self.dec_blocks]
+        return [blk.cross_attn.cross_kv(enc_out, self.cfg.n_heads) for blk in self.dec_blocks]
 
     def make_cache(self, b: int, total: int) -> list[dict]:
         """A bf16 decoder self-attention cache, ``total`` slots a row."""
@@ -180,9 +190,19 @@ class TPEncoderDecoder(SplitVocab, EncoderDecoder):
       family's feed-forward class) where the sharding rules split it;
     - the vocabulary as :class:`~.layers.SplitVocab` places it; the head
       reads the family's ``head_input`` and adds a logits bias after the
-      gather;
+      gather, and the chunked loss streams each vocabulary part on its
+      device (``classifier_parts``);
     - norms, position tables, relative-bias tables and the logits bias
-      replicated on the lead device, where the residual stream lives."""
+      replicated on the lead device, where the residual stream lives.
+
+    For training (``train/mesh.py``; ``shard_params(training=True)``) the
+    base may be float, int8, nf4 or nf4-dq, and :meth:`leaf_index` names
+    the unsharded leaf each tensor holds.  Each part of a cross-attention
+    reads a copy of the encoder output (autograd sums their gradients in
+    f32 on the lead, where it lives); T5's relative bias is computed once
+    on the lead and each part's slice carries its gradient back to the
+    table (the dense path; the flash kernels give the bias a zero
+    cotangent, so full fine-tuning with flash is refused)."""
 
     def __init__(self, model: EncoderDecoder, devices, *, split_attention: bool, split_mlp: bool,
                  split_vocab: bool, split_head: bool):

@@ -38,6 +38,7 @@ import contextvars
 import copy
 import functools
 import math
+import re
 
 import torch
 import torch.nn.functional as F
@@ -289,7 +290,7 @@ class Dense(nn.Module):
                 xa = torch.bmm(_bf16(x).reshape(x.shape[0], -1, x.shape[-1]), _bf16(lora_a))
             else:
                 xa = _matmul(x, lora_a)
-            if lora_b is None:
+            if lora_b is None or (getattr(self, "tp_rows", None) is not None and _ROW_XA.get() is not None):
                 # a row-split part: its layer sums the parts' x @ A first
                 _ROW_XA.get()[self] = xa
             else:
@@ -520,6 +521,10 @@ class Attention(nn.Module):
         out = torch.einsum("bhqk,bkhd->bqhd", _bf16(probs), _bf16(v))
         return self.wo(out.reshape(b, t, -1))
 
+    def cross_kv(self, enc_out, n_heads: int) -> dict:
+        """This cross-attention's K/V of ``enc_out`` (:func:`cross_attention_kv`)."""
+        return cross_attention_kv(self, enc_out, n_heads)
+
 
 def cross_attention_kv(attn: Attention, enc_out, n_heads: int) -> dict:
     """The head-split cross-attention K/V of ``enc_out`` (B, Tk, D), f32
@@ -632,43 +637,56 @@ def split_dense(dense: Dense, device, *, cols: slice | None = None, rows: slice 
                 bias: bool = True) -> Dense:
     """A Dense over ``dense``'s columns ``cols`` (column-parallel: its bias
     slice too) or rows ``rows`` (row-parallel: no bias, the sum adds it),
-    copied to ``device``.  Float weights (a LoRA merge included) or int8
-    codes: the scales follow the codes' columns, and a row part takes the
-    scale rows of the blocks it spans (or of the one block it lies in), as
-    the sharding rules split ``w_s`` like ``w``.  The part's ``tp_index``
-    maps each of its leaves to the index of the whole leaf it holds, and
+    copied to ``device``.  Float weights (a LoRA merge included) or
+    quantized codes (quantize.py:78-173): the scales follow the codes'
+    columns, and a row part takes the scale rows of the blocks it spans (or
+    of the one block it lies in), as the sharding rules split ``w_s`` and
+    ``s_q`` like ``w``.  nf4 codes pack two rows a byte, so a row part takes
+    the packed rows ``lo/2 : hi/2`` and may not cut a byte; nf4-dq's
+    per-block-row ``s_s`` and ``s_m`` (nb, 1) stay whole in a column part
+    and follow the scale rows in a row part.  The part's ``tp_index`` maps
+    each of its leaves to the index of the whole leaf it holds, and
     ``tp_whole`` is the whole layer's (d_in, d_out)."""
     if dense.w_dequant is not None or dense.lora_a is not None:
         raise ValueError("tensor parallelism splits the base; attach LoRA factors to the parts")
-    if dense.w_q is not None and (dense.w_q.dtype != torch.int8 or dense.s_q is not None):
-        raise NotImplementedError("tensor-parallel nf4 / nf4-dq bases are not ported yet; use int8 or a float base")
     quant = dense.w_q is not None
-    leaves = {"w_q": dense.w_q, "w_s": dense.w_s} if quant else {"w": dense.w if dense.w_merged is None
-                                                                 else dense.w_merged}
+    if quant:
+        leaves = {k: getattr(dense, k) for k in _QUANT_KEYS if getattr(dense, k) is not None}
+    else:
+        leaves = {"w": dense.w if dense.w_merged is None else dense.w_merged}
     b = dense.b if bias and rows is None else None
     d_in, d_out = dense.shape
+    packed = 2 if quant and dense.w_q.dtype == torch.uint8 else 1  # rows of d_in a row of w_q
     index = {name: (slice(0, t.shape[0]), slice(0, t.shape[1])) for name, t in leaves.items()}
+    per_block_row = {"s_s", "s_m"}  # (nb, 1): every column of a block row
     if cols is not None:
-        index = {name: (ix[0], cols) for name, ix in index.items()}
+        index = {name: ix if name in per_block_row else (ix[0], cols) for name, ix in index.items()}
         b_index = cols
     if rows is not None:
-        index = {name: (rows, ix[1]) for name, ix in index.items()}
+        lo, hi = rows.start, rows.stop
+        if lo % packed or hi % packed:
+            raise ValueError(f"rows {lo}:{hi} cut a byte of packed nf4 codes (two rows a byte)")
+        index["w_q" if quant else "w"] = (slice(lo // packed, hi // packed), slice(0, d_out))
         if quant:
-            size = d_in // dense.w_s.shape[0]  # rows a scale block
-            lo, hi = rows.start, rows.stop
+            nb = (dense.w_s if dense.w_s is not None else dense.s_q).shape[0]
+            size = d_in // nb  # rows a scale block
             if lo % size == 0 and hi % size == 0:
-                index["w_s"] = (slice(lo // size, hi // size), slice(0, d_out))
+                blocks = slice(lo // size, hi // size)
             elif lo // size == (hi - 1) // size:
-                index["w_s"] = (slice(lo // size, lo // size + 1), slice(0, d_out))
+                blocks = slice(lo // size, lo // size + 1)
             else:
-                raise ValueError(f"rows {lo}:{hi} straddle int8 scale blocks of {size} rows")
+                raise ValueError(f"rows {lo}:{hi} straddle quantization scale blocks of {size} rows")
+            for name in leaves:
+                if name != "w_q":
+                    index[name] = (blocks, index[name][1])
     parts = {name: leaves[name][index[name]] for name in leaves}
     if b is not None and cols is not None:
         b = b[cols]
-    shape = parts["w_q"].shape if quant else parts["w"].shape
+    shape = ((parts["w_q"].shape[0] * packed, parts["w_q"].shape[1]) if quant else parts["w"].shape)
     part = Dense(*shape, use_bias=b is not None, device="meta")
     if quant:
-        part.set_quantized(owned_copy(parts["w_q"], device), owned_copy(parts["w_s"], device))
+        own = {name: owned_copy(t, device) for name, t in parts.items()}
+        part.set_quantized(own.pop("w_q"), own.pop("w_s", None), **own)
     else:
         part.w = nn.Parameter(owned_copy(parts["w"], device), requires_grad=False)
     if b is not None:
@@ -726,7 +744,9 @@ class _RowParallel(nn.Module):
     holds B: the parts' f32 products x @ A are summed before the bf16
     rounding the unsharded layer applies to x @ A, then multiplied by B on
     the lead, so the correction differs from the unsharded one only in the
-    order of f32 additions."""
+    order of f32 additions.  A trainer's lazy factors (a quantized base:
+    each part's ``wo`` holds A's rows and the whole B, ``lora.
+    attach_factors``) are summed the same way, with part 0's copy of B."""
 
     parts: nn.ModuleList
     lead: torch.device
@@ -735,7 +755,8 @@ class _RowParallel(nn.Module):
     def _sum(self, run):
         factors = _ROW_LORA.get()
         bank = factors is not None and self in factors
-        tok = _ROW_XA.set({}) if bank else None
+        lazy = not bank and self.parts[0].wo.lora_a is not None and not self.parts[0].wo.lora_folded
+        tok = _ROW_XA.set({}) if bank or lazy else None
         try:
             outs = run()
             xas = _ROW_XA.get()
@@ -745,9 +766,9 @@ class _RowParallel(nn.Module):
         y = all_reduce_sum(outs, self.lead)
         if self.wo_b is not None:
             y = y + self.wo_b
-        if bank:
+        if bank or lazy:
             xa = all_reduce_sum([xas[part.wo] for part in self.parts], self.lead)
-            b = factors[self][1]
+            b = factors[self][1] if bank else self.parts[0].wo.lora_b.to(self.lead)
             y = y + _lora_out(xa, b, b.dim() == 3, y.shape)
         return y
 
@@ -789,9 +810,10 @@ class TPAttention(_RowParallel):
 
         return self._sum(run)
 
-    def cross_kv(self, enc_out) -> list[dict]:
+    def cross_kv(self, enc_out, n_heads: int | None = None) -> list[dict]:
         """Each device's cross-attention K/V of ``enc_out`` over its own
-        heads, on its device (:func:`cross_attention_kv` a part)."""
+        heads, on its device (:func:`cross_attention_kv` a part; the head
+        counts are the parts')."""
         return [cross_attention_kv(part, enc_out.to(dev), q1 - q0)
                 for (q0, q1, _, _), part, dev in zip(self.groups, self.parts, self.devices)]
 
@@ -844,6 +866,10 @@ def tp_block(blk: nn.Module, groups, head_dim: int, devices, lead, *, split_mlp:
     return tp
 
 
+# a leaf of a split part: (layer.sublayer).parts.(position).(dense).(leaf)
+_PART_LEAF = re.compile(r"((?:blocks|enc_blocks|dec_blocks)\.\d+\.(?:attn|cross_attn|mlp))\.parts\.(\d+)\.(\w+)\.(\w+)")
+
+
 class SplitVocab:
     """The vocabulary of a tensor-parallel reader (mixed into
     ``causal_lm.TPCausalLM`` and ``families.TPEncoderDecoder``, which set
@@ -892,6 +918,38 @@ class SplitVocab:
             parts.append(table[local.clamp(0, table.shape[0] - 1)] * hit[..., None])
             lo += table.shape[0]
         return all_reduce_sum(parts, self.lead).to(self.embed_parts[0].dtype)
+
+    def leaf_index(self) -> dict:
+        """{name of each tensor of this model: (the name of the unsharded
+        model's leaf it holds, the index of that leaf it holds, its model
+        position)}: ``blocks.0.attn.parts.1.wq.w`` (or ``enc_blocks`` /
+        ``dec_blocks``, ``cross_attn``, ``mlp``) holds columns of
+        ``blocks.0.attn.wq.w`` at position 1 (each leaf of a quantized
+        part by its ``tp_index``), ``embed_parts.2`` rows of ``tok_embed``,
+        ``head_parts.2`` columns of ``lm_head``; replicated leaves (norms,
+        position and relative-bias tables, a logits bias, a row-parallel
+        layer's ``wo_b``) hold the whole at position 0."""
+        out = {}
+        mods = dict(self.named_modules())
+        for name, t in self.state_dict(keep_vars=True).items():
+            whole = tuple(slice(0, d) for d in t.shape)
+            m = _PART_LEAF.fullmatch(name)
+            if m:
+                part = mods[name.rsplit(".", 1)[0]]
+                out[name] = (f"{m.group(1)}.{m.group(3)}.{m.group(4)}", part.tp_index[m.group(4)], int(m.group(2)))
+                continue
+            m = re.fullmatch(r"head_parts\.(\d+)\.(\w+)", name)
+            if m:
+                part = mods[name.rsplit(".", 1)[0]]
+                out[name] = (f"lm_head.{m.group(2)}", part.tp_index[m.group(2)], int(m.group(1)))
+                continue
+            m = re.fullmatch(r"embed_parts\.(\d+)", name)
+            if m:
+                j, rows = int(m.group(1)), t.shape[0]
+                out[name] = ("tok_embed", (slice(j * rows, (j + 1) * rows), whole[1]), j)
+                continue
+            out[name] = (re.sub(r"\.wo_b$", ".wo.b", name), whole, 0)
+        return out
 
     def classifier_parts(self) -> list:
         """Each device's (D, V / n) vocabulary slice of the classifier where

@@ -245,7 +245,9 @@ def loss_fn(model: T5, batch: dict):
     """Seq2seq cross-entropy (t5.py:436-466): decoder inputs are the labels
     shifted right with start 0 (T5's decoder_start_token_id = pad), -100
     labels excluded; vocabularies of at least CHUNKED_XENT_MIN_VOCAB
-    stream the head in chunks (ops/xent.py).  -> (mean_loss, n)."""
+    stream the head in chunks (ops/xent.py), each vocabulary part of a
+    tensor-parallel head on its device, the input scaled first under a
+    tied head (``head_input``).  -> (mean_loss, n)."""
     labels = batch["labels"]
     start = torch.zeros_like(labels[:, :1])
     dec_in = torch.cat([start, torch.where(labels == IGNORE_INDEX, 0, labels)[:, :-1]], dim=1)
@@ -255,7 +257,7 @@ def loss_fn(model: T5, batch: dict):
         from ..ops.xent import masked_mean_xent
 
         h = model.decode(dec_in, enc_out, batch["attention_mask"], dec_mask, hidden_only=True)
-        return masked_mean_xent(model.head_input(h), model.head_weight(), labels, IGNORE_INDEX)
+        return masked_mean_xent(model.head_input(h), model.classifier_parts(), labels, IGNORE_INDEX)
     return xent(model.decode(dec_in, enc_out, batch["attention_mask"], dec_mask), labels)
 
 

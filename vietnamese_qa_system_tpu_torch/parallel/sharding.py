@@ -18,12 +18,12 @@ A spec is a tuple with one entry per dim: an axis name or None.  An axis
 the mesh lacks, of size 1, or that does not divide the dim leaves the
 dim whole, as in the JAX package.  :func:`shard_params` turns a causal
 reader into its tensor-parallel form (``models/causal_lm.py``
-``TPCausalLM``) for serving and, with ``training=True``, for each data
-row of the trainer's mesh, and an encoder-decoder (T5 / mT5, mBART, the
-native stack) into its family's (``models/families.py``
-``TPEncoderDecoder``) for serving; ``train/mesh.py`` places the rest by
-these specs: a leaf split along ``data`` is stored as per-position parts,
-one split along ``model`` as ``TPCausalLM`` splits it, any other
+``TPCausalLM``), and an encoder-decoder (T5 / mT5, mBART, the native
+stack) into its family's (``models/families.py`` ``TPEncoderDecoder``),
+for serving and, with ``training=True``, for each data row of the
+trainer's mesh; ``train/mesh.py`` places the rest by these specs: a
+leaf split along ``data`` is stored as per-position parts, one split
+along ``model`` as the tensor-parallel form splits it, any other
 replicated.
 """
 
@@ -146,10 +146,12 @@ def shard_params(model, mesh: Mesh, strategy: str = "tp", *, training: bool = Fa
     ``model`` except replicated modules already on the lead device.
 
     Serving (the default) takes a float reader on a ``{"model": n}`` mesh.
-    ``training=True`` is the trainer's, for a causal LM: the mesh may have
-    a data axis (``train/mesh.py`` splits the parts over it for fsdp_tp and
-    replicates them over it for tp) and the base may be int8 (the codes
-    and their scales split like ``w``, JAX parallel/sharding.py:49-53)."""
+    ``training=True`` is the trainer's, for a causal LM or an
+    encoder-decoder: the mesh may have a data axis (``train/mesh.py``
+    splits the parts over it for fsdp_tp and replicates them over it for
+    tp) and the base may be int8, nf4 or nf4-dq (the codes and their
+    scales split like ``w``, JAX parallel/sharding.py:44-63;
+    ``layers.split_dense``)."""
     from ..models.causal_lm import CausalLM, TPCausalLM
     from ..models.families import EncoderDecoder, TPEncoderDecoder, s2s_module
 
@@ -181,9 +183,6 @@ def shard_params(model, mesh: Mesh, strategy: str = "tp", *, training: bool = Fa
         attns = [f"{layer}.attn" for layer in layers]
         cls = TPCausalLM
     else:
-        if training:
-            raise NotImplementedError("shard_params(training=True) splits a causal LM; seq2seq training under a "
-                                      "model axis is not ported yet")
         layers = ([f"enc_blocks.{i}" for i in range(cfg.n_layers)]
                   + [f"dec_blocks.{i}" for i in range(cfg.decoder_layers)])
         attns = [f"{layer}.attn" for layer in layers] + [f"dec_blocks.{i}.cross_attn"

@@ -7,9 +7,11 @@ The JAX trainer is one SPMD program: every state leaf carries a
 ``NamedSharding`` from ``param_sharding`` and XLA inserts the collectives.
 Here one process drives the mesh (``core/mesh.py``): each data index ``i``
 holds a *row* -- a replica of the model on ``grid[i][0]``, or its
-tensor-parallel form over ``grid[i]`` (``TPCausalLM``, made by
-``parallel.sharding.shard_params``) -- and the step runs the rows one after
-another, merging through the collectives of ``parallel/collectives.py``.
+tensor-parallel form over ``grid[i]`` (``TPCausalLM`` or a family's
+``TPEncoderDecoder``, made by ``parallel.sharding.shard_params``; their
+``leaf_index`` names the whole leaf each tensor holds) -- and the step
+runs the rows one after another, merging through the collectives of
+``parallel/collectives.py``.
 
 Every leaf of the state is a *whole* leaf of the JAX tree (the unsharded
 model's ``state_dict`` names, the adapter, the optimizer state), stored as
@@ -18,16 +20,20 @@ whole leaf.
 
 - A leaf the strategy leaves replicated has one piece a row (the row's own
   tensor; on a repeated-device mesh the rows' frozen tensors are one).
-- A leaf split along ``model`` has ``TPCausalLM``'s parts as pieces.
+- A leaf split along ``model`` has the tensor-parallel form's parts as
+  pieces (int8, nf4 and nf4-dq codes and scales too, ``layers.
+  split_dense``).
 - A leaf split along ``data`` (fsdp, fsdp_tp) is stored as one part a data
   index: between steps every row's module holds only its own part, and a
-  layer's whole weight exists only while that layer runs.  A forward
-  wrapper of each layer gathers the layer's parts (``all_gather``, which
-  hands each part its slice of the gradient in the backward) and gives the
-  row its part back after the layer; the layer runs under a checkpoint (the
-  model's per-layer remat, or one of its own), so its backward re-runs the
-  wrapper and regathers.  The leaves outside the layers (embeddings, final
-  norm, head) are gathered for the row's whole loss.
+  sublayer's whole weight exists only while that sublayer runs.  A forward
+  wrapper of each sublayer of a layer (its norms, attention,
+  cross-attention and MLP: a family may call them without the layer's own
+  forward) gathers its parts (``all_gather``, which hands each part its
+  slice of the gradient in the backward) and gives the row its part back
+  after it; it runs under a checkpoint (the model's per-layer remat, or
+  one of its own), so its backward re-runs the wrapper and regathers.
+  The leaves outside the layers (embeddings, final norm, head) are
+  gathered for the row's whole loss.
 
 The optimizer runs over *units*: each trainable leaf split into the index
 regions where its optimizer state lives (one unit on the lead for dp; one
@@ -149,7 +155,9 @@ class _Slot:
 
 def _per_layer_remat(model) -> bool:
     """Whether the model wraps each layer in a checkpoint already
-    (causal_lm.py / t5.py: ``scan_layers`` with a remat policy)."""
+    (causal_lm.py / t5.py: ``scan_layers`` with a remat policy); every
+    other family (mBART, the native stack; T5 without a scan) gets a
+    checkpoint of its own around each gathering sublayer."""
     cfg = model.cfg
     return bool(cfg.scan_layers and cfg.remat_policy != "none" and
                 (cfg.arch == "causal" or cfg.seq2seq_family == "t5"))
@@ -173,10 +181,6 @@ class MeshTrainState:
         self.n_data, self.n_model = len(grid), len(grid[0])
         self.lead = grid[0][0]
         tp = strategy in ("tp", "fsdp_tp") and self.n_model > 1
-        if tp and model.cfg.arch != "causal":
-            raise NotImplementedError(
-                f"{strategy} over a model axis trains a causal LM; seq2seq training over a model axis is not "
-                "ported yet (ROADMAP Queue 1 #5) -- train seq2seq under dp, zero2 or fsdp")
         self.fsdp = strategy in ("fsdp", "fsdp_tp") and self.n_data > 1
         all_model = list(range(self.n_model))
         # the rows: replicas, or tensor-parallel forms along each data row
@@ -199,9 +203,16 @@ class MeshTrainState:
         self.slots: list[list[tuple[str, _Slot]]] = [[] for _ in range(self.n_data)]
         mods = [dict(r.named_modules()) for r in self.rows]
         tensors = [r.state_dict(keep_vars=True) for r in self.rows]
+        copies = {}  # the tensors of a row that hold some of each leaf
+        for wname, _, _ in maps[0].values():
+            copies[wname] = copies.get(wname, 0) + 1
         for name, (wname, index, j) in maps[0].items():
             t0 = tensors[0][name]
-            holders_j = all_model if index == _whole_index(self.param_shapes[wname][0]) else [j]
+            # a leaf held whole by one tensor stands for every model position;
+            # a part (or a part's own copy of a whole leaf: a kv head, nf4-dq's
+            # s_s) for its own
+            whole_leaf = index == _whole_index(self.param_shapes[wname][0]) and copies[wname] == 1
+            holders_j = all_model if whole_leaf else [j]
             spec = specs.get(wname)
             dim = spec.index(DATA_AXIS) if spec is not None and DATA_AXIS in spec else None
             if dim is not None and t0.shape[dim] % self.n_data == 0:
@@ -307,21 +318,31 @@ class MeshTrainState:
         return out
 
     def _wrap_layers(self, row, slots) -> None:
-        """Gather each layer's parts around its forward (under a checkpoint
-        unless the model remats its layers already); the other slots are
-        the row's root, gathered around its whole loss."""
-        layers = []
-        for list_name in LAYER_LISTS:
-            mods = getattr(row, list_name, None)
-            if isinstance(mods, nn.ModuleList):
-                layers += [(f"{list_name}.{k}", layer) for k, layer in enumerate(mods)]
+        """Gather each sublayer's parts around its forward (under a
+        checkpoint unless the model remats its layers already): the
+        children of each layer (its norms, attention, cross-attention,
+        MLP), since a family may call them without the layer's own forward
+        (T5 and mBART do), and around a cross-attention's ``cross_kv``
+        (generation projects the encoder output once a sequence); slots
+        held by a layer itself gather around the layer's forward.  The
+        other slots are the row's root, gathered around its whole loss."""
         own_ckpt = not _per_layer_remat(row)
         claimed = set()
-        for prefix, layer in layers:
-            mine = [s for name, s in slots if name == prefix or name.startswith(prefix + ".")]
-            if mine:
-                claimed.update(id(s) for s in mine)
-                layer.forward = self._gathering(layer.forward, mine, layer, own_ckpt)
+        for list_name in LAYER_LISTS:
+            mods = getattr(row, list_name, None)
+            if not isinstance(mods, nn.ModuleList):
+                continue
+            for k, layer in enumerate(mods):
+                prefix = f"{list_name}.{k}"
+                scopes = [(f"{prefix}.{child}", mod) for child, mod in layer.named_children()] + [(prefix, layer)]
+                for scope, mod in scopes:
+                    mine = [s for name, s in slots if id(s) not in claimed
+                            and (name == scope or name.startswith(scope + "."))]
+                    if mine:
+                        claimed.update(id(s) for s in mine)
+                        mod.forward = self._gathering(mod.forward, mine, mod, own_ckpt)
+                        if hasattr(mod, "cross_kv"):  # a decoder's cross K/V, projected once a sequence
+                            mod.cross_kv = self._gathering(mod.cross_kv, mine, mod, False)
         self.root_slots[id(row)] = [s for _, s in slots if id(s) not in claimed]
 
     def _materialize(self, slots, scope) -> list:
@@ -578,8 +599,14 @@ class MeshTrainState:
 
     def param_tensors(self) -> list[torch.Tensor]:
         """Every distinct tensor of the model's pieces, leaf by leaf in the
-        JAX order."""
-        return [p.tensor for n in self.param_names for p in self._distinct(self.pieces[n])]
+        JAX order (a tensor that several pieces alias comes once)."""
+        seen, out = set(), []
+        for n in self.param_names:
+            for p in self.pieces[n]:
+                if id(p.tensor) not in seen:
+                    seen.add(id(p.tensor))
+                    out.append(p.tensor)
+        return out
 
     @staticmethod
     def _live(pieces: list, shape) -> Optional[torch.Tensor]:
@@ -672,18 +699,23 @@ class MeshTrainState:
 
     # ---------------------------------------------------------------- bytes
 
-    def position_bytes(self) -> dict:
+    def position_bytes(self, device_only: bool = False) -> dict:
         """{(data, model) position: {"param_bytes", "opt_bytes"}}: what each
         position keeps (the base, the adapter and the optimizer state), as
         it would on a card of its own, whether or not its tensors alias
-        another position's here."""
+        another position's here; with ``device_only`` what of it lives on a
+        GPU (host offload keeps the rest in host memory between steps)."""
+        def nbytes(t) -> int:
+            leaf = t.q if isinstance(t, QTensor) else t
+            return 0 if device_only and leaf.device.type == "cpu" else _nbytes(t)
+
         out = {(i, j): {"param_bytes": 0, "opt_bytes": 0} for i in range(self.n_data) for j in range(self.n_model)}
         pieces = [p for ps in self.pieces.values() for p in ps]
         if self.adapter is not None:
             pieces += [p for ps in self.train_pieces.values() for p in ps]
         for p in pieces:
             for h in p.holders:
-                out[h]["param_bytes"] += _nbytes(p.tensor)
+                out[h]["param_bytes"] += nbytes(p.tensor)
         per_unit = [0] * len(self.units)
         scalars = 0
 
@@ -694,9 +726,9 @@ class MeshTrainState:
                     walk(x)
             elif isinstance(st, list):
                 for k, x in enumerate(st):
-                    per_unit[k] += sum(_nbytes(t) for t in tree_leaves(x))
+                    per_unit[k] += sum(nbytes(t) for t in tree_leaves(x))
             elif isinstance(st, torch.Tensor):
-                scalars += _nbytes(st)
+                scalars += nbytes(st)
 
         walk(self.opt_state)
         for u, nb in zip(self.units, per_unit):

@@ -22,7 +22,10 @@ layer).
 ``host_offload`` ("optimizer", "params" or "all") keeps the persistent
 copy of the optimizer state and / or the parameters in host memory
 (pinned when the device is a GPU) and stages it through the device around
-each step (trainer.py:338-470); scalar leaves stay on the device.
+each step (trainer.py:338-470), under every strategy: one host buffer a
+distinct piece of the model (a tensor that several rows or positions
+alias is copied once) and a leaf of each optimizer unit's state, each
+staged back to the device it came from; scalar leaves stay on the device.
 ``profile_steps`` writes a ``torch.profiler`` trace of the first steps
 after start or resume to ``profile_dir``; ``sharded_checkpoint`` writes
 the per-host checkpoint layout (train/checkpoint.py).
@@ -37,8 +40,7 @@ checkpoints flatten in the JAX order and move between the packages: the
 live tensors where one tensor holds a whole leaf (every leaf, on one
 device), copies assembled on the host from the parts elsewhere.
 
-Not ported yet (each raises): host offload under a strategy other than
-dp on a mesh, and encoder training.
+Not ported yet (it raises): encoder training.
 """
 
 from __future__ import annotations
@@ -209,9 +211,6 @@ class Trainer:
         self.mesh = mesh
         if mesh is not None:
             device = mesh.grid()[0][0]
-            if cfg.host_offload is not None and cfg.strategy != "dp":
-                raise NotImplementedError(f"host_offload under strategy {cfg.strategy!r} is not ported yet "
-                                          "(ROADMAP Queue 1); it runs under dp")
         if cfg.qlora_dequant not in ("fused", "once", "once_folded"):
             raise ValueError(f"qlora_dequant must be 'fused', 'once' or 'once_folded', got {cfg.qlora_dequant!r}")
         if cfg.host_offload is not None and cfg.host_offload not in ("optimizer", "params", "all"):
@@ -287,10 +286,12 @@ class Trainer:
                 "opt_state": self.placed.whole_opt_state(),
                 "step": torch.tensor(self.global_step, dtype=torch.int32, device=self.device)}
 
-    def position_bytes(self) -> dict:
+    def position_bytes(self, device_only: bool = False) -> dict:
         """{(data, model) position: {"param_bytes", "opt_bytes"}} that each
-        mesh position keeps (train/mesh.py)."""
-        return self.placed.position_bytes()
+        mesh position keeps (train/mesh.py); with ``device_only`` what of
+        it lives on a GPU between steps (host offload keeps the rest on the
+        host)."""
+        return self.placed.position_bytes(device_only)
 
     # ---------------------------------------------------------- host offload
 
@@ -357,6 +358,8 @@ class Trainer:
         if self.adapter is not None:
             self.placed.load_adapter(state["adapter"])
         self.placed.load_opt_state(state["opt_state"])
+        if self._offload_opt:  # the loaded state lands in the persistent host buffers
+            self.placed.opt_state = self._opt_to_host(self.placed.opt_state)
         self.global_step = int(state["step"])
 
     # ------------------------------------------------------------------ fit
