@@ -96,8 +96,8 @@ and backward against their plain versions at the edges of their tiles
   (built after the sharded one is freed) and the merged scores equal to
   it; an IVF index over the 4-shard int8_res store (K5 once a shard a
   call, recall); then the tensor-parallel reader of ``serve
-  --reader-strategy tp`` at PhoGPT-4B width (drawn bf16 weights, 6 heads
-  a device over a ``{"model": 4}`` mesh): /qa at B 8 and a /generate
+  --reader-strategy tp`` at PhoGPT-4B width (8 of its 32 layers, drawn
+  bf16 weights, 6 heads a device over a ``{"model": 4}`` mesh): /qa at B 8 and a /generate
   burst through the continuous engine, each held to the unsharded
   reader by the margin rule, the engine's prefills through K4 on every
   device, and decode ms a step beside the unsharded reader's;
@@ -112,6 +112,19 @@ and backward against their plain versions at the edges of their tiles
   the host (plain versions) and resumed from a checkpoint, and the twin's
   ``cli train --do-eval --do-generative-eval --num-beams 2`` (predictions
   file and gen_tokens_per_s);
+- the offline path at PhoGPT-4B width (4 of its 32 layers): ``cli parse
+  --parser alpaca`` over the repo's sample, ``cli train`` over the parsed
+  file (int8 + LoRA, two steps, K4 / K7, a checkpoint, ``--push-to-hub
+  --push-dry-run``: the manifest lists the npz export), ``cli
+  convert-ckpt --format hf`` (an f32 MPT directory; seconds, bytes and
+  peak resident set), its tensors bit-equal to the merged model's
+  dequantized weights, and the directory loaded as int8c giving the merged
+  model's greedy tokens (K6);
+- model-backed translation (``etl.translate_texts``): the mt5-small
+  int8c reader with flash over 64 drawn texts on four threads, every
+  chunk failed once and resubmitted, the strings equal to a one-thread
+  pass (K4, K6); mbart-large-50's width with W 4 beams and a forced
+  language id, equal to ``generate_with_config``'s decoded rows;
 - multi-LoRA ``/generate`` over the int8c reader, after the /generate
   phase: three r 8 adapters written as ``adapter.npz`` and served through
   ``serve --continuous-slots 8 --adapter a=... --adapter b=... --adapter
@@ -127,8 +140,8 @@ and backward against their plain versions at the edges of their tiles
   and decode rates, the weights' bytes beside int8c and bf16, the first
   decode step's logits against the float reader's, a traced decode step
   and the dequantization's share of it;
-- QLoRA over an nf4-dq base at PhoGPT-4B width (global batch 8 x 1,024):
-  two steps with each dequant placement (fused, once, once_folded; K4 and
+- QLoRA over an nf4-dq base at PhoGPT-4B width (8 of its 32 layers;
+  global batch 8 x 1,024): two steps with each dequant placement (fused, once, once_folded; K4 and
   K7) from the same base and initial adapter, their first losses held
   together, the fused run again with ``host_offload="all"`` (the same
   losses), step s, device busy ms and peak memory per placement; then the
@@ -189,6 +202,7 @@ import itertools
 import json
 import math
 import os
+import random
 import shutil
 import subprocess
 import sys
@@ -310,6 +324,7 @@ SHARDED_INT8_FLOOR, SHARDED_RES_FLOOR, SHARDED_SCORE_TOL = 0.8, 0.95, 1e-5
 # of 16-200 tokens through the engine `serve --continuous-slots 8 --gen-total
 # 512 --gen-chunk-steps 16` builds
 TP_DEVICES, TP_QA_ROWS, TP_PROMPT, TP_NEW = 4, 8, 128, 32
+TP_LAYERS = 8  # of PhoGPT-4B's 32, at full width: the depth cut that pays for the offline ETL phases
 TP_ENGINE_FLAGS = ("--continuous-slots", "8", "--gen-total", "512", "--gen-chunk-steps", "16")
 TP_ENGINE_REQUESTS, TP_ENGINE_PROMPT, TP_ENGINE_NEW = 8, (16, 200), 24
 # the TP seq2seq readers (phase_tp_seq2seq): mt5-small's bf16 weights (the
@@ -375,7 +390,7 @@ NF4_MODES, NF4_LOGIT_REL_TOL = ("nf4", "nf4-dq"), 0.35
 # initial adapter, whose B = 0: the same forward), and host_offload="all"
 # against the device run (the same operations)
 QLORA_STEPS, QLORA_LOSS_RTOL, QLORA_OFFLOAD_RTOL = 2, 1e-4, 1e-5
-QLORA_LAYERS = 16  # of PhoGPT-4B's 32, at full width: the depth cut that pays for the seq2seq mesh phase
+QLORA_LAYERS = 8  # of PhoGPT-4B's 32, at full width: the depth cut that pays for the seq2seq mesh and ETL phases
 # hybrid retrieval: 12 concurrent /search at k 10 and weight 0.5 over the
 # ingested passages; served scores are rounded to 6 decimals (HYBRID_TOL);
 # the BM25 timing index; /search latency rounds for p50 / p99
@@ -401,6 +416,16 @@ S2S_ENGINE_REQUESTS, S2S_ENGINE_PROMPT = 16, (16, 128)
 MBART_ROWS, MBART_PROMPT_LEN, MBART_NEW_TOKENS, MBART_LANG_ID = 8, 64, 32, 250024
 S2S_TRAIN_STEPS, S2S_TRAIN_BATCH, S2S_TRAIN_ENC, S2S_TRAIN_DEC = 3, 8, 512, 256
 T5_FLASH = (("mt5 encoder", 8, 6, 0, 512, 64, False), ("mt5 decoder", 8, 6, 0, 256, 64, True))
+# the offline ETL: mt5-small translation (chunks on a thread pool, every
+# chunk failed once), and the parse -> train -> convert-ckpt -> reload path
+# at PhoGPT-4B's width with 4 of its 32 layers (an f32 export of all 32 is
+# ~15 GB: the cut is for time and host memory)
+TRANSLATE_TEXTS, TRANSLATE_CHUNK, TRANSLATE_WORKERS, TRANSLATE_NEW_TOKENS = 64, 8, 4, 32
+CONVERT_LAYERS, CONVERT_PROMPTS, CONVERT_PROMPT_LEN, CONVERT_NEW_TOKENS = 4, 8, 256, 16
+CONVERT_REPO = "org/phogpt-4b-vi-lora"
+EXPORT_W_REL_TOL = 1e-6  # f32: the file's weight is codes x scale + A @ B rounded once
+EXPORT_LORA_MIN = 100  # the folded A @ B must stand this many tolerances above the weights' error bound
+EXPORT_LOGIT_REL_TOL = 5e-2  # bf16 products: the trained model rounds W and its LoRA term apart, the export W + AB
 
 
 SAFETENSORS_CODES = {"torch.float32": "F32", "torch.bfloat16": "BF16"}
@@ -4291,6 +4316,268 @@ def phase_mbart(torch):
     return model
 
 
+def id_tokenizer():
+    """The byte tokenizer with a ``decode`` that writes every id (drawn
+    weights over a 250k vocabulary mostly produce ids past the byte
+    tokenizer's 259, which its own decode drops), so equal strings mean
+    equal tokens."""
+    from vietnamese_qa_system_tpu_torch.data import ByteTokenizer
+
+    class IdTokenizer(ByteTokenizer):
+        def decode(self, ids):
+            return " ".join(str(int(i)) for i in ids)
+
+    return IdTokenizer()
+
+
+def phase_translate(torch, pkg, mt5, mbart) -> dict:
+    """The offline ETL's model-backed translation (etl/translate.py) on the
+    card.  mt5-small (the int8c reader of phase_seq2seq_qa, full width,
+    with flash): ``translate_texts`` of TRANSLATE_TEXTS drawn passages
+    through ``FlakyWrapper(Seq2SeqTranslator(mt5, max_len 256,
+    max_new_tokens 32), fail_times=1)`` in chunks of TRANSLATE_CHUNK on
+    TRANSLATE_WORKERS threads (every chunk fails once and is resubmitted),
+    the strings equal to a one-thread pass over the same chunks, K4 (the
+    encoder at T 256) and K6 (the decoder at M 8) launched; texts/s and
+    tokens/s.  mBART at mbart-large-50's width: W 4 beams from eos with
+    vi_VN's id forced, the strings equal to decoding ``generate_with_config``
+    called directly, the forced id never in the text.  Strings spell every
+    token id (``id_tokenizer``).  Returns the pooled mt5 run's launches."""
+    from vietnamese_qa_system_tpu_torch.data import batch_encode
+    from vietnamese_qa_system_tpu_torch.etl.translate import FlakyWrapper, Seq2SeqTranslator, translate_texts
+    from vietnamese_qa_system_tpu_torch.models import generate as G
+
+    t_phase = time.perf_counter()
+    card = gpu_name_and_power()
+    tok = id_tokenizer()
+    texts = passages(TRANSLATE_TEXTS, SEED + 41)
+    dense_cfg = mt5.cfg
+    mt5.cfg = dataclasses.replace(dense_cfg, use_flash_attention=True)
+    try:
+        backend = Seq2SeqTranslator(mt5, tok, max_len=256, max_new_tokens=TRANSLATE_NEW_TOKENS,
+                                    prompt="translate {src} to {dst}: {text}")
+        flaky = FlakyWrapper(backend, fail_times=1)
+        backend.translate_batch(texts[:TRANSLATE_CHUNK], "en", "vi")  # warm: both timed passes run warm
+        torch.cuda.synchronize()
+        for kern in pkg.KERNELS:
+            kern.launches = 0
+        t0 = time.perf_counter()
+        pooled = translate_texts(texts, flaky, chunk_size=TRANSLATE_CHUNK, max_workers=TRANSLATE_WORKERS)
+        torch.cuda.synchronize()
+        pooled_s = time.perf_counter() - t0
+        launches = {k.name: k.launches for k in pkg.KERNELS}
+        t0 = time.perf_counter()
+        single = translate_texts(texts, backend, chunk_size=TRANSLATE_CHUNK, max_workers=1)
+        single_s = time.perf_counter() - t0
+    finally:
+        mt5.cfg = dense_cfg
+    n_chunks = -(-TRANSLATE_TEXTS // TRANSLATE_CHUNK)
+    new_tokens = TRANSLATE_TEXTS * TRANSLATE_NEW_TOKENS
+    print(f"mt5 translation ({card}): {TRANSLATE_TEXTS} texts in {n_chunks} chunks of {TRANSLATE_CHUNK} on "
+          f"{TRANSLATE_WORKERS} threads, every chunk failed once and resubmitted: {pooled_s:.2f} s = "
+          f"{TRANSLATE_TEXTS / pooled_s:.1f} texts/s, {new_tokens / pooled_s:.1f} tokens/s ({TRANSLATE_NEW_TOKENS} "
+          f"decoder steps a text); one thread {single_s:.2f} s = {TRANSLATE_TEXTS / single_s:.1f} texts/s, "
+          f"{new_tokens / single_s:.1f} tokens/s; launches {json.dumps(launches)}", flush=True)
+    check(sum(flaky._failures.values()) == n_chunks and len(pooled) == TRANSLATE_TEXTS,
+          f"each of the {n_chunks} chunks failed once and was resubmitted; {len(pooled)} strings back")
+    check(pooled == single,
+          f"the {TRANSLATE_WORKERS}-thread strings equal the one-thread pass over the same chunks, text for text")
+    check(launches["flash_attention_fwd"] > 0 and launches["w8_matmul"] > 0,
+          f"K4 ({launches['flash_attention_fwd']}; {n_chunks} chunks x {dense_cfg.n_layers} encoder layers expected) "
+          f"and K6 ({launches['w8_matmul']}) launched on the translation path")
+
+    mb = Seq2SeqTranslator(mbart, tok, max_len=MBART_PROMPT_LEN, max_new_tokens=MBART_NEW_TOKENS,
+                           num_beams=BEAM_WIDTH, bos_id=2, forced_bos_id=MBART_LANG_ID)
+    mb_texts = texts[:MBART_ROWS]
+    t0 = time.perf_counter()
+    got = translate_texts(mb_texts, mb, chunk_size=MBART_ROWS, max_workers=1)
+    mb_s = time.perf_counter() - t0
+    ids, mask = batch_encode(tok, mb_texts, MBART_PROMPT_LEN)
+    out = G.generate_with_config(mbart, ids, mask, G.GenerationConfig(
+        max_new_tokens=MBART_NEW_TOKENS, num_beams=BEAM_WIDTH, forced_bos_token_id=MBART_LANG_ID),
+        eos_id=tok.eos_id, bos_id=2).cpu().tolist()
+    skip = {tok.pad_id, tok.eos_id, MBART_LANG_ID}
+    want = [tok.decode([t for t in row if t not in skip]) for row in out]
+    print(f"mbart translation ({card}): {MBART_ROWS} texts, W {BEAM_WIDTH} beams, {MBART_NEW_TOKENS} steps in "
+          f"{mb_s:.2f} s", flush=True)
+    check(got == want and all(row[0] == MBART_LANG_ID for row in out)
+          and all(str(MBART_LANG_ID) not in t.split() for t in got),
+          f"mBART W {BEAM_WIDTH} translations equal generate_with_config's rows decoded; the forced id "
+          f"{MBART_LANG_ID} opens every row and is never in the text")
+    print(f"translate phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
+
+
+def export_witness(torch, trained, plain, ids, mask) -> dict:
+    """The exported directory against the model it was trained as, by code
+    that the export does not run: ``plain`` is the directory loaded back
+    through the import half (the file's f32 weights), ``trained`` the
+    resumed trainer's model (int8 codes, the LoRA factors applied lazily,
+    as in training).  Returns every dense weight's largest error against
+    its codes x scale + A @ B over the largest |weight| (``w_rel``), the
+    largest |A @ B| on the same scale (``lora_rel``: the fold that a wrong
+    export would drop or misplace), and the logits' largest error over
+    their largest |logit| at the prompts' valid positions
+    (``logit_rel``; right-padded prompts)."""
+    from vietnamese_qa_system_tpu_torch.models.layers import Dense
+
+    w_err = w_max = lora_max = 0.0
+    with torch.no_grad():
+        for name, dense in trained.named_modules():
+            if isinstance(dense, Dense) and dense.w_q is not None:
+                base = dense.dequantized(torch.float32)
+                lora = dense.lora_a.float() @ dense.lora_b.float()
+                w_err = max(w_err, (plain.get_submodule(name).w.float() - (base + lora)).abs().max().item())
+                w_max = max(w_max, base.abs().max().item())
+                lora_max = max(lora_max, lora.abs().max().item())
+        valid = mask.bool()
+        want = trained(ids, mask)[valid]
+        got = plain(ids, mask)[valid]
+        logit_rel = (got - want).abs().max().item() / want.abs().max().item()
+    return {"w_rel": w_err / w_max, "lora_rel": lora_max / w_max, "logit_rel": logit_rel}
+
+
+def phase_convert_ckpt(torch, pkg, logdir: str) -> dict:
+    """The offline path end to end at PhoGPT-4B's width (CONVERT_LAYERS of
+    its 32 layers): ``cli parse --parser alpaca`` over the repo's sample,
+    ``cli train`` over the parsed file (int8 base + LoRA, two steps, a
+    checkpoint, ``--push-to-hub REPO --push-dry-run``), ``cli convert-ckpt
+    --use-lora --quantize-base int8 --format hf`` (an f32 MPT directory;
+    seconds, bytes and the process's peak resident set); the file, read
+    back through hf_io, holds the export's tensors bit for bit; loaded back
+    in f32 it holds the trained model's weights and computes its logits
+    (:func:`export_witness`, against the resumed trainer's int8 codes and
+    lazy LoRA); the directory loaded as int8c equals the merged model
+    quantized the same way and gives its greedy tokens on CONVERT_PROMPTS
+    /qa prompts (K6);
+    the push manifest lists the export.  Returns the launches of the
+    train run (K4 causal, K7) and of the reload's decode (K6)."""
+    from vietnamese_qa_system_tpu_torch.cli.main import main as cli_main
+    from vietnamese_qa_system_tpu_torch.data import batch_encode
+    from vietnamese_qa_system_tpu_torch.data.templates import DEFAULT_BANK
+    from vietnamese_qa_system_tpu_torch.models import (LoraConfig, ModelConfig, causal_from_state_dict,
+                                                       phogpt_4b_class, quantize_dense_tree)
+    from vietnamese_qa_system_tpu_torch.models import convert_hf as C
+    from vietnamese_qa_system_tpu_torch.models import generate as G
+    from vietnamese_qa_system_tpu_torch.models import hf_io
+    from vietnamese_qa_system_tpu_torch.train import TrainConfig, Trainer
+    from vietnamese_qa_system_tpu_torch.utils.tree import flatten_paths
+
+    t_phase = time.perf_counter()
+    card = gpu_name_and_power()
+    here = os.path.dirname(os.path.abspath(__file__))
+    parsed = os.path.join(logdir, "parsed")
+    rc = cli_main(["parse", "--parser", "alpaca", "--input", os.path.join(here, "examples", "sample_instruct.jsonl"),
+                   "--output-dir", parsed])
+    data = os.path.join(parsed, "AlpacaParser.jsonl")
+    with open(data, encoding="utf-8") as f:
+        n_rows = sum(1 for _ in f)
+    check(rc == 0 and n_rows > 0, f"cli parse --parser alpaca wrote {n_rows} records")
+
+    cfg = dataclasses.replace(phogpt_4b_class(), n_layers=CONVERT_LAYERS)
+    cfg_path = os.path.join(logdir, "convert_model.json")
+    with open(cfg_path, "w") as f:
+        f.write(cfg.to_json())
+    ckpt, runs, out = (os.path.join(logdir, d) for d in ("convert_ckpt", "convert_logs", "convert_hf"))
+    for kern in pkg.KERNELS:
+        kern.launches = 0
+    t0 = time.perf_counter()
+    rc = cli_main(["train", "--model-config", cfg_path, "--use-lora", "--quantize-base", "int8", "--remat-policy",
+                   "proj_bf16", "--train-files", data, "--max-steps", "2", "--batch-size", "8", "--log-every", "1",
+                   "--checkpoint-dir", ckpt, "--save-every-steps", "2", "--log-dir", runs, "--run-name", "convert",
+                   "--push-to-hub", CONVERT_REPO, "--push-dry-run"])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in pkg.KERNELS}
+    with open(os.path.join(runs, "convert.jsonl")) as f:
+        logged = [json.loads(line) for line in f]
+    print(f"cli train ({cfg.n_layers} of 32 PhoGPT-4B layers, int8 + LoRA, 2 steps, checkpoint, push dry run): exit "
+          f"{rc} in {train_s:.1f} s; " + "; ".join(f"step {r['step']} loss {r['loss']:.6f}" for r in logged
+                                                   if "loss" in r) + f"; launches {json.dumps(launches)}", flush=True)
+    check(rc == 0 and launches["flash_attention_fwd_causal"] > 0 and launches["flash_attention_bwd_dkdv"] > 0
+          and launches["flash_attention_bwd_dq"] > 0,
+          "cli train over the parsed file exits 0; K4 causal and K7 launched on the step")
+    export = os.path.join(runs, "export")
+    with open(os.path.join(export, "push_manifest.json")) as f:
+        manifest = json.load(f)
+    listed = {e["path"]: e["bytes"] for e in manifest["files"]}
+    on_disk = {n: os.path.getsize(os.path.join(export, n)) for n in os.listdir(export) if n != "push_manifest.json"}
+    print(f"push manifest: {json.dumps({k: v for k, v in manifest.items() if k != 'files'})}, files {listed}",
+          flush=True)
+    check(listed == on_disk and {"params.npz", "config.json"} <= set(listed) and manifest["repo_id"] == CONVERT_REPO
+          and not manifest["pushed"] and manifest["reason"] == "dry run requested",
+          "train --push-to-hub --push-dry-run: push_manifest.json lists every file of the export with its size")
+    shutil.rmtree(export)
+
+    rss0 = rss_bytes()
+    with RssPeak() as peak:
+        t0 = time.perf_counter()
+        rc = cli_main(["convert-ckpt", "--checkpoint-dir", ckpt, "--out-dir", out, "--model-config", cfg_path,
+                       "--use-lora", "--quantize-base", "int8", "--format", "hf"])
+        convert_s = time.perf_counter() - t0
+    files = sorted(n for n in os.listdir(out) if n != "_logs")
+    n_bytes = sum(os.path.getsize(os.path.join(out, n)) for n in files)
+    print(f"cli convert-ckpt --format hf ({card}): exit {rc} in {convert_s:.1f} s, {n_bytes / 1e9:.3f} GB written "
+          f"({', '.join(files)}); process resident set {rss0 / 1e9:.2f} GB before, peak {peak.peak / 1e9:.2f} GB "
+          f"during (+{(peak.peak - rss0) / 1e9:.2f} GB)", flush=True)
+    check(rc == 0 and files == ["config.json", "generation_config.json", hf_io.BIN],
+          "convert-ckpt wrote config.json, generation_config.json and pytorch_model.bin")
+
+    tcfg = TrainConfig(model=ModelConfig.from_json(cfg.to_json()), lora=LoraConfig(), quantize_base="int8",
+                       checkpoint_dir=ckpt, resume=True, seed=42, log_dir=os.path.join(logdir, "convert_check"))
+    merged = Trainer(tcfg, total_steps=1, device="cuda").merged_params()
+    seen, equal = set(), True
+    with hf_io.Checkpoint(out) as written:
+        for group in C.export_groups(merged, C.EXPORTERS[C.causal_export_type(cfg)]):
+            for name, t in group.items():
+                seen.add(name)
+                equal = equal and torch.equal(written[name].cuda(), t)
+        names = set(written)
+    check(equal and seen == names, f"the {len(names)} tensors of the file, read back through hf_io, equal the "
+                                   "export's tensors of the resumed model bit for bit (the write and read are lossless)")
+    tok = id_tokenizer()
+    rng = random.Random(SEED + 51)
+    docs = passages(CONVERT_PROMPTS, SEED + 52)
+    prompts = [DEFAULT_BANK.render_random("prompt", rng, question=f"{d.split(':')[0]} nói về gì?", context=d)
+               for d in docs]
+    ids, mask = batch_encode(tok, prompts, CONVERT_PROMPT_LEN, pad_side="left")
+    ids, mask = torch.from_numpy(ids).cuda(), torch.from_numpy(mask).cuda()
+    # right-padded, as in training: the trained model's flash route reads a
+    # mask as right padding (kv_lens), as the JAX package's does
+    right = [torch.from_numpy(a).cuda() for a in batch_encode(tok, prompts, CONVERT_PROMPT_LEN, pad_side="right")]
+    plain = C.load_causal_auto(out)
+    witness = export_witness(torch, merged, plain, *right)
+    del plain
+    print(f"export witness (the f32 reload against the trainer's int8 codes + lazy LoRA): {json.dumps(witness)}",
+          flush=True)
+    check(witness["w_rel"] <= EXPORT_W_REL_TOL and witness["lora_rel"] >= EXPORT_LORA_MIN * EXPORT_W_REL_TOL
+          and witness["logit_rel"] <= EXPORT_LOGIT_REL_TOL,
+          f"the export loaded back in f32 holds the trained weights (codes x scale + A @ B within "
+          f"{EXPORT_W_REL_TOL} of max |W|, the LoRA term {witness['lora_rel']:.2e} of it) and computes the trained "
+          f"model's logits within {EXPORT_LOGIT_REL_TOL} of max |logit| on {CONVERT_PROMPTS} prompts")
+
+    loaded = C.load_causal_auto(out, quantize="int8c")
+    ref = causal_from_state_dict(flatten_paths(C.export_tree(merged)), loaded.cfg)
+    del merged
+    quantize_dense_tree(ref, "int8c")
+    got_sd, want_sd = loaded.state_dict(), ref.state_dict()
+    check(sorted(got_sd) == sorted(want_sd) and all(torch.equal(got_sd[k], want_sd[k]) for k in want_sd),
+          "the export loaded as int8c (load_causal_auto) equals the merged model quantized to int8c, bit for bit")
+    for kern in pkg.KERNELS:
+        kern.launches = 0
+    got = G.generate(loaded, ids, mask, max_new_tokens=CONVERT_NEW_TOKENS, eos_id=tok.eos_id)
+    torch.cuda.synchronize()
+    reload = {k.name: k.launches for k in pkg.KERNELS}
+    want = G.generate(ref, ids, mask, max_new_tokens=CONVERT_NEW_TOKENS, eos_id=tok.eos_id)
+    check(torch.equal(got, want) and reload["w8_matmul"] > 0,
+          f"greedy tokens of the reloaded int8c export on {CONVERT_PROMPTS} /qa prompts equal the in-memory merged "
+          f"model's; K6 launched {reload['w8_matmul']} times")
+    del loaded, ref
+    shutil.rmtree(out)
+    print(f"convert_ckpt phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {name: launches[name] + reload[name] for name in launches}
+
+
 def s2s_train_batch(rng, b: int, t_enc: int, t_dec: int, vocab: int) -> dict:
     """Seeded encoder ids (right-padded rows) and decoder labels (-100 past
     each row's length)."""
@@ -4678,7 +4965,7 @@ class NoRetrieval:
 
 
 def phase_tp(torch, pkg, card: str) -> dict:
-    """The tensor-parallel reader at PhoGPT-4B width (32 layers, d 3072, 24
+    """The tensor-parallel reader at PhoGPT-4B width (TP_LAYERS of its 32 layers, d 3072, 24
     heads, vocabulary 20,480; drawn bf16 weights) split ``tp`` over a
     ``{"model": 4}`` mesh of the one card repeated (6 heads a device), as
     ``serve --reader-strategy tp`` builds it:
@@ -4710,7 +4997,7 @@ def phase_tp(torch, pkg, card: str) -> dict:
     t_phase = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     tok = ByteTokenizer()
-    cfg = phogpt_4b_class()
+    cfg = dataclasses.replace(phogpt_4b_class(), n_layers=TP_LAYERS)
     reader = init_causal_lm(cfg, make_generator(SEED + 31, "cuda")).to(torch.bfloat16)
     args = build_parser().parse_args(["serve", "--index", "-", "--db", ":memory:", "--reader-size", "phogpt4b",
                                       "--reader-strategy", "tp",
@@ -5773,9 +6060,9 @@ def main() -> int:
         s2s_engine = timed(phase_seq2seq_engine, torch, pkg, mt5, ctx)
         print("launches in the mt5 /generate run: " + json.dumps(s2s_engine))
         check(s2s_engine["w8_matmul"] > 0, "w8_matmul launched on the mt5 /generate path")
-        del mt5
-        torch.cuda.empty_cache()
         mbart = timed(phase_mbart, torch)
+        translate = timed(phase_translate, torch, pkg, mt5, mbart)
+        del mt5
         torch.cuda.empty_cache()
         tp_s2s = timed(phase_tp_seq2seq, torch, pkg, mt5_dir, mbart, report)
     finally:
@@ -5815,6 +6102,8 @@ def main() -> int:
             check(train_launches[name] > 0, f"{name} launched on the train path")
         timed(phase_cli_train, torch, logdir)
         torch.cuda.empty_cache()
+        convert = timed(phase_convert_ckpt, torch, pkg, logdir)
+        torch.cuda.empty_cache()
         timed(phase_train_twin, torch, logdir)
         torch.cuda.empty_cache()
         qlora_launches = timed(phase_qlora, torch, pkg, logdir)
@@ -5831,20 +6120,27 @@ def main() -> int:
                  "flash_attention_bwd_dq"):
         check(s2s_train[name] > 0, f"{name} launched on the mt5 train path")
         check(mesh_s2s[name] > 0, f"{name} launched on the seq2seq mesh train path")
+    print("launches in the offline ETL runs: translate " + json.dumps(translate) + "; convert " + json.dumps(convert))
+    etl = {name: translate[name] + convert[name] for name in translate}
     launches = dict(retrieval, w8_matmul=reader_launches["w8_matmul"] + engine_launches["w8_matmul"] + strategies_w8
-                    + adapter_launches["w8_matmul"] + s2s_qa["w8_matmul"] + s2s_engine["w8_matmul"],
+                    + adapter_launches["w8_matmul"] + s2s_qa["w8_matmul"] + s2s_engine["w8_matmul"]
+                    + etl["w8_matmul"],
                     ivf_probe_scores=ivf_launches["ivf_probe_scores"] + sharded["ivf_probe_scores"],
                     quantize_int8=ivf_launches["quantize_int8"] + sharded["quantize_int8"],
                     matmul_topk_bf16=retrieval["matmul_topk_bf16"] + s2s_qa["matmul_topk_bf16"]
                     + sharded["matmul_topk_bf16"],
                     matmul_topk_int8=retrieval["matmul_topk_int8"] + sharded["matmul_topk_int8"],
                     flash_attention_fwd=retrieval["flash_attention_fwd"] + s2s_flash["flash_attention_fwd"]
-                    + s2s_train["flash_attention_fwd"] + tp_s2s["flash_attention_fwd"] + mesh_s2s["flash_attention_fwd"],
+                    + s2s_train["flash_attention_fwd"] + tp_s2s["flash_attention_fwd"] + mesh_s2s["flash_attention_fwd"]
+                    + etl["flash_attention_fwd"],
                     **{name: train_launches[name] + qlora_launches[name] + s2s_train[name] + mesh_train[name]
-                       + mesh_s2s[name]
+                       + mesh_s2s[name] + etl[name]
                        for name in ("flash_attention_fwd_causal", "flash_attention_bwd_dkdv", "flash_attention_bwd_dq")})
     for name in ("matmul_topk_bf16", "matmul_topk_int8", "ivf_probe_scores", "quantize_int8"):
         report[name]["sharded_launches"] = sharded[name]
+    for name in ("w8_matmul", "flash_attention_fwd", "flash_attention_fwd_causal", "flash_attention_bwd_dkdv",
+                 "flash_attention_bwd_dq"):
+        report[name]["etl_launches"] = etl[name]
     report["w8_matmul"]["seq2seq_launches"] = s2s_qa["w8_matmul"] + s2s_engine["w8_matmul"]
     report["matmul_topk_bf16"]["seq2seq_launches"] = s2s_qa["matmul_topk_bf16"]
     report["flash_attention_fwd"]["seq2seq_launches"] = s2s_flash["flash_attention_fwd"] + s2s_train["flash_attention_fwd"]

@@ -7,16 +7,22 @@ its counterpart there:
 - ``core``    -- device resolution and seeded generators.
 - ``data``    -- the tokenizers, templates, schemas and training loader
                  (copies; token ids and batches match the JAX package).
+- ``etl``     -- the offline ETL: dataset parsers, filters, tone
+                 normalization, sources, model-backed translation.
 - ``ops``     -- the hand-written Hopper kernels (``csrc/``) behind
                  ``matmul_topk``, ``flash_attention``, ``w8_matmul``,
                  ``ivf_probe_scores`` and ``quantize_int8``, each with its
                  plain PyTorch version; the chunked cross-entropy.
-- ``models``  -- the sentence encoder, the causal LM, generation, LoRA.
+- ``models``  -- the sentence encoder, the causal LM, the encoder-decoders,
+                 generation, LoRA, HF import and export.
 - ``engine``  -- vector store, IVF index, doc store, chunking, ingest,
                  query, QA, HTTP serving.
-- ``train``   -- the trainer, optimizers, checkpoints, perplexity.
-- ``utils``   -- JAX-order parameter trees, experiment trackers.
-- ``cli``     -- ``train``, ``ingest``, ``build-ivf``, ``serve``, ``chat``.
+- ``train``   -- the trainer, optimizers, checkpoints, evaluation, hub
+                 pushes.
+- ``utils``   -- JAX-order parameter trees, experiment trackers, logging,
+                 base-call contracts.
+- ``cli``     -- ``train``, ``parse``, ``ingest``, ``build-ivf``, ``serve``,
+                 ``chat``, ``convert-ckpt``.
 
 Nothing here imports jax or the JAX package: the modules the port needs
 are carried into it, and the parity tests (``tests/test_torch_*.py``) hold

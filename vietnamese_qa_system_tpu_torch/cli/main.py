@@ -1,8 +1,16 @@
-"""Command-line interface of the port: ``train``, ``ingest``,
-``build-ivf``, ``serve`` and ``chat``.
+"""Command-line interface of the port: ``train``, ``parse``, ``ingest``,
+``build-ivf``, ``serve``, ``chat`` and ``convert-ckpt``.
 
-Counterpart of ``vietnamese_qa_system_tpu/cli/main.py:26-436`` and
-``:535-1044``::
+Counterpart of ``vietnamese_qa_system_tpu/cli/main.py:26-1116`` (all but
+``bench``)::
+
+    python -m vietnamese_qa_system_tpu_torch.cli parse --parser alpaca \\
+        --input examples/sample_instruct.jsonl --output-dir parsed
+    python -m vietnamese_qa_system_tpu_torch.cli train --model-size tiny \\
+        --use-lora --train-files parsed/AlpacaParser.jsonl --max-steps 2 \\
+        --checkpoint-dir ckpt --push-to-hub org/repo --push-dry-run
+    python -m vietnamese_qa_system_tpu_torch.cli convert-ckpt \\
+        --checkpoint-dir ckpt --use-lora --format hf --out-dir exported
 
     python -m vietnamese_qa_system_tpu_torch.cli train --model-size phogpt4b \\
         --use-lora --quantize-base int8 --remat-policy proj_bf16 \\
@@ -91,7 +99,16 @@ mBART and the native stack over the model axis), a float, int8, nf4 or
 nf4-dq base, and ``--host-offload``.
 ``ingest --shards`` / ``build-ivf --shards`` shard the store and the IVF
 index, and ``serve --reader-strategy tp|fsdp_tp`` splits the reader over
-the GPUs.  ``train`` refuses hub pushes.
+the GPUs.  ``parse`` runs a dataset parser of the offline ETL (``etl/``;
+``--translate`` goes through the identity translator, as in the JAX
+CLI).  ``convert-ckpt`` restores a ``train`` checkpoint, merges its LoRA
+adapter (dequantizing a ``--quantize-base`` base) and writes an HF
+directory (``--format hf``: the causal families, or T5 with the
+tokenizer's special-token ids) or ``params.npz`` with ``config.json``
+(``--format npz``).  ``train --push-to-hub REPO`` exports the merged model
+to ``<log-dir>/export`` and pushes it, or records ``push_manifest.json``
+(``--push-dry-run``, no ``HF_TOKEN``, or a failed upload); ``--report-to
+wandb`` falls back to jsonl where wandb does not start.
 """
 
 from __future__ import annotations
@@ -102,6 +119,8 @@ import os
 import signal
 import sys
 from typing import Optional
+
+from ..utils.logging import dist_print
 
 # presets of the retrieval encoders (cli/main.py:547-551)
 ENCODERS = ("tiny", "minilm", "mpnet")
@@ -165,7 +184,7 @@ def load_converted_params(path: str, cfg, device, quantize: Optional[str] = None
         if model_type in SEQ2SEQ_TYPES:
             family = "bart" if model_type == "mbart" else "t5"
             if cfg.arch != "seq2seq" or cfg.seq2seq_family != family:
-                print(f"{path}: a {model_type} directory, loaded with its own configuration", flush=True)
+                dist_print(f"{path}: a {model_type} directory, loaded with its own configuration", flush=True)
                 cfg = None
             return seq2seq_from_hf(path, cfg, device=device, quantize=quantize)
         return causal_from_hf(path, cfg, device=device, quantize=quantize)
@@ -241,7 +260,8 @@ def _trainer_params(step_dir: str, cfg, device):
             if getattr(mod, "w_merged", None) is not None:
                 mod.w = torch.nn.Parameter(mod.w_merged, requires_grad=False)
         clear_lora(model)
-        print(f"merged the checkpoint's LoRA adapter (r={lora.r}, alpha={lora.alpha}) into its weights", flush=True)
+        dist_print(f"merged the checkpoint's LoRA adapter (r={lora.r}, alpha={lora.alpha}) into its weights",
+                   flush=True)
     return model
 
 
@@ -261,13 +281,13 @@ def _reader(size: str, tok, seed: int, device, quantize: Optional[str], params: 
         cfg = dataclasses.replace(cfg, vocab_size=tok.vocab_size)
     if params:
         model = load_converted_params(params, cfg, device, quantize)
-        print(f"reader weights loaded from {params}", flush=True)
+        dist_print(f"reader weights loaded from {params}", flush=True)
     else:
-        print("(no reader checkpoint: answering with RANDOM weights)", flush=True)
+        dist_print("(no reader checkpoint: answering with RANDOM weights)", flush=True)
         init = init_seq2seq_model if cfg.arch == "seq2seq" else init_causal_lm
         model = init(cfg, make_generator(seed, device), quantize=quantize)
     if quantize:
-        print(f"reader decodes over a {quantize} base", flush=True)
+        dist_print(f"reader decodes over a {quantize} base", flush=True)
     return model
 
 
@@ -285,8 +305,19 @@ def _draft(size: str, vocab_size: int, seed: int, device, params: Optional[str],
         cfg = dataclasses.replace(cfg, vocab_size=vocab_size)
     if params:
         return load_converted_params(params, cfg, device)
-    print(f"(no {flag}: drafting with RANDOM weights)", flush=True)
+    dist_print(f"(no {flag}: drafting with RANDOM weights)", flush=True)
     return init_causal_lm(cfg, make_generator(seed, device))
+
+
+def _model_config(args):
+    """The model configuration of ``--model-config`` (a JSON file), else of
+    the ``--model-size`` preset."""
+    from ..models import config as mcfg
+
+    if args.model_config:
+        with open(args.model_config) as f:
+            return mcfg.ModelConfig.from_json(f.read())
+    return _causal_preset(args.model_size, args.arch)
 
 
 def _train_config(args):
@@ -294,13 +325,7 @@ def _train_config(args):
     --scan-layers / --remat-policy applied (cli/main.py:158-193)."""
     import dataclasses
 
-    from ..models import config as mcfg
-
-    if args.model_config:
-        with open(args.model_config) as f:
-            cfg = mcfg.ModelConfig.from_json(f.read())
-    else:
-        cfg = _causal_preset(args.model_size, args.arch)
+    cfg = _model_config(args)
     if args.scan_layers:
         if cfg.arch != "causal" or cfg.attention_layers is not None:
             raise SystemExit("--scan-layers requires a homogeneous causal model")
@@ -328,7 +353,6 @@ def cmd_train(args) -> int:
     from ..models import GenerationConfig, LoraConfig
     from ..train import TrainConfig, Trainer, generative_eval, perplexity_eval
 
-    _refuse(args, {"--push-to-hub": ("push_to_hub", None)})
     model = _train_config(args)
     tok = _tokenizer(args.tokenizer)
     if tok.vocab_size > model.vocab_size:
@@ -353,8 +377,8 @@ def cmd_train(args) -> int:
     train_examples = dl.load_examples(_file_specs(args.train_files, args.train_schemas, args.train_fractions),
                                       max_examples=args.max_examples, split="train")
     if not train_examples:
-        print(f"no training examples loaded (stats: {dl.stats} -- skipped_too_long>0 means --max-len "
-              f"{args.max_len} is too small for prompt+answer)", file=sys.stderr)
+        dist_print(f"no training examples loaded (stats: {dl.stats} -- skipped_too_long>0 means --max-len "
+                   f"{args.max_len} is too small for prompt+answer)", file=sys.stderr)
         return 2
     eval_examples = (dl.load_examples(_file_specs(args.eval_files, None, None), max_examples=args.max_examples,
                                       split="eval") if args.eval_files else [])
@@ -366,7 +390,7 @@ def cmd_train(args) -> int:
                     break
                 full = tok.decode([t for t in ids_row if t != tok.pad_id])
                 target = tok.decode([t for t in labels_row if t not in (IGNORE_INDEX, tok.pad_id)])
-                print(f"--- sample {shown} ---\n{full}\n>>> target: {target}")
+                dist_print(f"--- sample {shown} ---\n{full}\n>>> target: {target}")
                 shown += 1
             if shown >= args.print_samples:
                 break
@@ -398,19 +422,87 @@ def cmd_train(args) -> int:
                                  gen_config=gen, log_dir=os.path.join(args.log_dir, "predictions"), epoch=epoch,
                                  run_name=args.run_name or "model", mesh=trainer.mesh)
             metrics["gen_tokens_per_s"] = gm["gen_tokens_per_s"]
-        print(f"eval @ epoch {epoch}: {metrics}", flush=True)
+        dist_print(f"eval @ epoch {epoch}: {metrics}", flush=True)
         return metrics
 
     trainer.fit(train_batches, eval_fn=eval_fn if (args.do_eval and eval_examples) else None,
                 max_steps=args.max_steps)
-    print(f"training done at step {trainer.global_step}", flush=True)
+    dist_print(f"training done at step {trainer.global_step}", flush=True)
     if trainer.adapter is not None and args.checkpoint_dir:
         # adapter-only artifact, in the JAX package's layout
         from ..train.checkpoint import save_pytree
 
         adapter_path = os.path.join(args.checkpoint_dir, "adapter.npz")
         save_pytree(adapter_path, trainer.adapter)
-        print(f"adapter saved -> {adapter_path} (r={args.lora_r}, alpha={args.lora_alpha})", flush=True)
+        dist_print(f"adapter saved -> {adapter_path} (r={args.lora_r}, alpha={args.lora_alpha})", flush=True)
+    if args.push_to_hub:
+        # export the merged weights and push them (offline-safe: a manifest
+        # when there is no token or network), logged as a tracker artifact
+        from ..train.hub import push_to_hub
+
+        export_dir = os.path.join(args.log_dir, "export")
+        _export_npz(trainer.merged_params(), model, export_dir)
+        result = push_to_hub(export_dir, args.push_to_hub, dry_run=args.push_dry_run)
+        trainer.tracker.log_artifact(export_dir, name=args.push_to_hub)
+        if result["pushed"]:
+            dist_print(f"pushed to hub repo {args.push_to_hub}")
+        else:
+            dist_print(f"hub push recorded offline ({result['reason']}) -> {export_dir}/push_manifest.json")
+    return 0
+
+
+def _export_npz(merged, cfg, out_dir: str) -> None:
+    """``params.npz`` (the merged model's parameter tree, f32, in the JAX
+    order: a quantized base dequantized with the adapter folded in, as
+    ``export_tree`` reads it) and ``config.json`` (the ModelConfig) in
+    ``out_dir``."""
+    from ..models.convert_hf import export_tree
+    from ..train.checkpoint import save_pytree
+
+    os.makedirs(out_dir, exist_ok=True)
+    save_pytree(os.path.join(out_dir, "params.npz"), export_tree(merged))
+    with open(os.path.join(out_dir, "config.json"), "w") as f:
+        f.write(cfg.to_json())
+
+
+def cmd_convert_ckpt(args) -> int:
+    """Restore a training checkpoint (merging its LoRA adapter) and export
+    it as an HF directory or a flat npz (cli/main.py:1050-1116)."""
+    from ..models import LoraConfig
+    from ..train import TrainConfig, Trainer
+
+    model = _model_config(args)
+    lora = (LoraConfig(r=args.lora_r, alpha=args.lora_alpha,
+                       targets=tuple(args.lora_targets) if args.lora_targets else LoraConfig.targets)
+            if args.use_lora else None)
+    cfg = TrainConfig(model=model, lora=lora, optimizer=args.optimizer, checkpoint_dir=args.checkpoint_dir,
+                      resume=True, quantize_base=args.quantize_base, seed=args.seed,
+                      log_dir=os.path.join(args.out_dir, "_logs"))
+    trainer = Trainer(cfg, total_steps=1, device=args.device)
+    if trainer.start_step == 0:
+        dist_print(f"no checkpoint found under {args.checkpoint_dir}", file=sys.stderr)
+        return 2
+    merged = trainer.merged_params()
+    if args.format == "hf":
+        # a quantized base is dequantized (its adapter folded) one layer at
+        # a time as it is exported (convert_hf.export_tree)
+        if model.arch == "causal":
+            from ..models.convert_hf import export_causal_auto
+
+            export_causal_auto(merged, args.out_dir)
+        elif model.arch == "seq2seq" and model.seq2seq_family == "t5":
+            from ..models.convert_hf import export_t5
+
+            # the exported special-token ids are those of the tokenizer the
+            # model was trained with (ByteTokenizer: eos 2; HF t5: eos 1)
+            tok = _tokenizer(args.tokenizer)
+            export_t5(merged, args.out_dir, pad_token_id=tok.pad_id, eos_token_id=tok.eos_id)
+        else:
+            dist_print("hf export supports causal and t5-family seq2seq models", file=sys.stderr)
+            return 2
+    else:
+        _export_npz(merged, model, args.out_dir)
+    dist_print(f"exported step-{trainer.start_step} model -> {args.out_dir}")
     return 0
 
 
@@ -501,10 +593,13 @@ def _add_train_args(p: argparse.ArgumentParser) -> None:
     g.add_argument("--async-checkpoint", action="store_true", help="write checkpoints from a background thread")
     g.add_argument("--resume", action="store_true")
     g.add_argument("--log-dir", default="runs/logs")
-    g.add_argument("--report-to", default="jsonl", choices=["jsonl", "wandb"], help="wandb is not ported yet")
+    g.add_argument("--report-to", default="jsonl", choices=["jsonl", "wandb"],
+                   help="wandb when it imports and its run starts, else jsonl")
     g.add_argument("--run-name", default=None)
-    g.add_argument("--push-to-hub", default=None, metavar="REPO_ID", help="not ported yet")
-    g.add_argument("--push-dry-run", action="store_true")
+    g.add_argument("--push-to-hub", default=None, metavar="REPO_ID",
+                   help="export the merged model to <log-dir>/export and push it (a push_manifest.json without a "
+                        "token or network)")
+    g.add_argument("--push-dry-run", action="store_true", help="with --push-to-hub: write the manifest, upload nothing")
     g.add_argument("--log-every", type=int, default=10)
     g.add_argument("--seed", type=int, default=42)
     g = p.add_argument_group("evaluation")
@@ -533,28 +628,25 @@ def _add_train_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--device", default="cuda")
 
 
-def _refuse(args, flags: dict) -> None:
-    """Raise for a JAX CLI option the port has no counterpart for yet."""
-    for flag, (attr, idle) in flags.items():
-        if getattr(args, attr) != idle:
-            raise NotImplementedError(f"{flag} is not ported yet")
-
-
 def _tokenizer(spec: str):
     from ..data import ByteTokenizer, HFTokenizer
 
     return ByteTokenizer() if spec == "byte" else HFTokenizer(spec)
 
 
-def _load_rows(path: str) -> list:
-    """A JSON array or JSON-lines file (a copy of etl/parser.py
-    load_json_or_jsonl, whose package imports jax)."""
-    with open(path, encoding="utf-8") as f:
-        head = f.read(1)
-        f.seek(0)
-        if head == "[":
-            return json.load(f)
-        return [json.loads(line) for line in f if line.strip()]
+def cmd_parse(args) -> int:
+    """Run a dataset parser of the offline ETL (cli/main.py:518-529)."""
+    from ..etl import get_parser
+
+    cls = get_parser(args.parser)
+    kwargs = dict(seed=args.seed, do_translate=args.translate)
+    if args.ctx_pool:
+        with open(args.ctx_pool) as f:
+            kwargs["ctx_pool"] = [line.strip() for line in f if line.strip()]
+    parser = cls(args.input, args.output_dir, **kwargs)
+    out = parser.run()
+    dist_print(f"wrote {parser.stats['converted']} records -> {out}")
+    return 0
 
 
 def _shard_mesh(shards: int, device):
@@ -569,6 +661,7 @@ def _shard_mesh(shards: int, device):
 def cmd_ingest(args) -> int:
     from ..core.device import resolve_device
     from ..engine import BM25Index, DocStore, IngestPipeline, VectorStore
+    from ..etl.parser import load_json_or_jsonl
 
     device = resolve_device(args.device)
     mesh = _shard_mesh(args.shards, device)
@@ -586,15 +679,15 @@ def cmd_ingest(args) -> int:
     pipe = IngestPipeline(encoder, tok, store, docstore, batch_size=args.batch_size, max_len=args.max_len,
                           lexical=lexical)
     for path in args.inputs:
-        rows = _load_rows(path)
+        rows = load_json_or_jsonl(path)
         docs = [r[args.text_field] if isinstance(r, dict) else str(r) for r in rows]
         ids = pipe.add_documents(docs, [path] * len(docs), chunk_size=args.chunk_size)
-        print(f"{path}: ingested {len(ids)} chunks (store size {store.size})")
+        dist_print(f"{path}: ingested {len(ids)} chunks (store size {store.size})")
     store.save(args.index)
     if lexical is not None:
         lexical.save(bm25_path)
-        print(f"bm25 term index saved ({lexical.n_docs} docs)")
-    print(f"index saved -> {args.index}; docs in {args.db}")
+        dist_print(f"bm25 term index saved ({lexical.n_docs} docs)")
+    dist_print(f"index saved -> {args.index}; docs in {args.db}")
     return 0
 
 
@@ -609,9 +702,9 @@ def cmd_build_ivf(args) -> int:
     ivf = IVFIndex.build(store, n_clusters=args.clusters, nprobe=args.nprobe, cap_mult=args.cap_mult,
                          kmeans_iters=args.kmeans_iters, seed=args.seed)
     ivf.save(args.out)
-    print(f"IVF index saved -> {args.out}: {ivf.size} vectors, {ivf.n_clusters} clusters x cap {ivf.cap} per shard, "
-          f"{ivf.spill_count} spilled ({100.0 * ivf.spill_count / max(ivf.size, 1):.2f}%), "
-          f"default nprobe {ivf.nprobe}")
+    dist_print(f"IVF index saved -> {args.out}: {ivf.size} vectors, {ivf.n_clusters} clusters x cap {ivf.cap} "
+               f"per shard, {ivf.spill_count} spilled ({100.0 * ivf.spill_count / max(ivf.size, 1):.2f}%), "
+               f"default nprobe {ivf.nprobe}")
     return 0
 
 
@@ -633,16 +726,16 @@ def _serving_index(args, device, query_batch: int):
         else:
             chosen, cross = (store if args.index_select == "flat" else ivf), None
         kind = "ivf" if chosen is ivf else "flat"
-        print(f"index-select: {kind} (query batch {query_batch}"
-              + (f", crossover ~{cross}" if cross is not None else ", forced") + ")", flush=True)
+        dist_print(f"index-select: {kind} (query batch {query_batch}"
+                   + (f", crossover ~{cross}" if cross is not None else ", forced") + ")", flush=True)
         return chosen
     if isinstance(store, IVFIndex):
         cross = ivf_crossover_batch(store)
         if query_batch > cross:
-            print(f"WARNING: IVF index with query batch {query_batch} > crossover ~{cross} (= {store.size} rows / "
-                  f"(nprobe {store.nprobe} * cap {store.cap} * {IVF_KAPPA})); the flat scan answers such batches "
-                  "faster. Lower --max-batch, rebuild with a smaller build-ivf --nprobe, or pass the flat dir as "
-                  "--index with --ivf-index for automatic selection.", flush=True)
+            dist_print(f"WARNING: IVF index with query batch {query_batch} > crossover ~{cross} (= {store.size} rows / "
+                       f"(nprobe {store.nprobe} * cap {store.cap} * {IVF_KAPPA})); the flat scan answers such batches "
+                       "faster. Lower --max-batch, rebuild with a smaller build-ivf --nprobe, or pass the flat dir as "
+                       "--index with --ivf-index for automatic selection.", flush=True)
     return store
 
 
@@ -661,7 +754,7 @@ def _sharded_reader(args, reader, device):
     n = CPU_MESH_DEVICES if device.type == "cpu" else len(visible_devices())
     mesh = mesh_on(device, {MODEL_AXIS: n})
     sharded = shard_params(reader, mesh, args.reader_strategy)
-    print(f"reader sharded: strategy={args.reader_strategy} over {mesh.size} devices", flush=True)
+    dist_print(f"reader sharded: strategy={args.reader_strategy} over {mesh.size} devices", flush=True)
     return sharded
 
 
@@ -683,7 +776,7 @@ def continuous_engine(args, reader, tok, device):
             if not name or not path:
                 raise SystemExit(f"--adapter expects NAME=PATH, got {spec!r}")
             adapters[name] = load_adapter(path, reader, lcfg)
-        print(f"adapters loaded: {sorted(adapters)} (r={lcfg.r}, alpha={lcfg.alpha})", flush=True)
+        dist_print(f"adapters loaded: {sorted(adapters)} (r={lcfg.r}, alpha={lcfg.alpha})", flush=True)
     engine = ContinuousEngine(
         reader, reader.cfg, n_slots=args.continuous_slots, total=min(reader.cfg.max_seq_len, args.gen_total),
         chunk_steps=args.gen_chunk_steps, eos_id=tok.eos_id, default_max_new=args.max_new_tokens,
@@ -691,8 +784,8 @@ def continuous_engine(args, reader, tok, device):
         draft_ngram=args.draft_ngram, kv_dtype=args.kv_quant, prefill_chunk=args.prefill_chunk, device=device,
         adapters=adapters, lora_config=lcfg,
     )
-    print(f"/generate: continuous batching, {args.continuous_slots} slots x {engine.total} cache, buckets "
-          f"{engine.buckets}, chunk {args.gen_chunk_steps}", flush=True)
+    dist_print(f"/generate: continuous batching, {args.continuous_slots} slots x {engine.total} cache, buckets "
+               f"{engine.buckets}, chunk {args.gen_chunk_steps}", flush=True)
     return engine
 
 
@@ -714,7 +807,7 @@ def cmd_serve(args) -> int:
     bm25_path = os.path.join(args.index, "bm25.json")
     if args.hybrid_weight < 1.0 and os.path.exists(bm25_path):
         lexical = BM25Index.load(bm25_path)
-        print(f"hybrid retrieval on (weight {args.hybrid_weight})", flush=True)
+        dist_print(f"hybrid retrieval on (weight {args.hybrid_weight})", flush=True)
     retriever = Retriever(encoder, tok, store, docstore, max_len=args.max_len, lexical=lexical,
                           hybrid_weight=args.hybrid_weight, mode=args.search_mode, query_batch=qbatch)
     qa = None
@@ -730,7 +823,7 @@ def cmd_serve(args) -> int:
                         max_new_tokens=args.max_new_tokens, speculative=args.speculative,
                         draft_tokens=args.draft_tokens, draft_ngram=args.draft_ngram, draft=draft)
     if args.port is None:
-        print(f"index: {store.size} vectors; type a query (empty line quits)")
+        dist_print(f"index: {store.size} vectors; type a query (empty line quits)")
         while True:
             try:
                 query = input("query> ").strip()
@@ -760,7 +853,7 @@ def cmd_serve(args) -> int:
     app = ServingApp(retriever, qa, ingest=ingest, gen=gen_engine, tokenizer=tok if gen_engine is not None else None,
                      k=args.k, max_k=args.max_k, max_batch=args.max_batch, max_wait_s=args.batch_wait_ms / 1000.0)
     httpd = make_server(app, host=args.host, port=args.port)
-    print(
+    dist_print(
         f"serving {store.size} vectors on http://{httpd.server_address[0]}:{httpd.server_address[1]} "
         f"(max_batch={args.max_batch}, wait={args.batch_wait_ms}ms; endpoints: /healthz /search /ingest"
         f"{' /qa' if qa else ''}{' /generate' if gen_engine is not None else ''})",
@@ -785,7 +878,7 @@ def cmd_serve(args) -> int:
             store.save(args.index)
             if lexical is not None:
                 lexical.save(bm25_path)
-            print(f"index persisted -> {args.index} ({store.size} vectors)")
+            dist_print(f"index persisted -> {args.index} ({store.size} vectors)")
     return 0
 
 
@@ -811,7 +904,7 @@ def cmd_chat(args) -> int:
     gen = GenerationConfig(max_new_tokens=args.max_new_tokens, temperature=args.temperature, num_beams=args.num_beams,
                            speculative=args.speculative if use_spec else "none", draft_tokens=args.draft_tokens,
                            draft_ngram=args.draft_ngram)
-    print("chat REPL — empty line quits", flush=True)
+    dist_print("chat REPL — empty line quits", flush=True)
     while True:
         try:
             text = input("user> ").strip()
@@ -837,6 +930,15 @@ def build_parser() -> argparse.ArgumentParser:
     pt = sub.add_parser("train", help="fine-tune a causal LM (LoRA / QLoRA)")
     _add_train_args(pt)
     pt.set_defaults(fn=cmd_train)
+
+    pp = sub.add_parser("parse", help="run a dataset parser (offline ETL)")
+    pp.add_argument("--parser", required=True)
+    pp.add_argument("--input", required=True)
+    pp.add_argument("--output-dir", required=True)
+    pp.add_argument("--translate", action="store_true")
+    pp.add_argument("--ctx-pool", default=None, help="file of passages for random context injection")
+    pp.add_argument("--seed", type=int, default=42)
+    pp.set_defaults(fn=cmd_parse)
 
     pi = sub.add_parser("ingest", help="build the retrieval index")
     pi.add_argument("--inputs", nargs="+", required=True)
@@ -987,6 +1089,26 @@ def build_parser() -> argparse.ArgumentParser:
     pc.add_argument("--seed", type=int, default=42)
     pc.add_argument("--device", default="cuda")
     pc.set_defaults(fn=cmd_chat)
+
+    pv = sub.add_parser("convert-ckpt", help="checkpoint -> exported model (an HF directory or a flat npz)")
+    pv.add_argument("--checkpoint-dir", required=True)
+    pv.add_argument("--out-dir", required=True)
+    pv.add_argument("--format", default="hf", choices=["hf", "npz"])
+    pv.add_argument("--arch", choices=["causal", "seq2seq"], default="causal")
+    pv.add_argument("--model-size", default="tiny", choices=[*READERS, *S2S_SIZES])
+    pv.add_argument("--tokenizer", default="byte",
+                    help="tokenizer the checkpoint was trained with; sets the exported special-token ids (t5 export)")
+    pv.add_argument("--model-config", default=None)
+    pv.add_argument("--use-lora", action="store_true")
+    pv.add_argument("--lora-r", type=int, default=8)
+    pv.add_argument("--lora-alpha", type=int, default=16)
+    pv.add_argument("--lora-targets", nargs="*", default=None)
+    pv.add_argument("--quantize-base", choices=["int8", "nf4", "nf4-dq"], default=None,
+                    help="the checkpoint was trained with this base quantization; weights are dequantized for export")
+    pv.add_argument("--optimizer", default="adamw", choices=["adamw", "lion", "adamw8bit", "lion8bit"])
+    pv.add_argument("--seed", type=int, default=42)
+    pv.add_argument("--device", default="cuda")
+    pv.set_defaults(fn=cmd_convert_ckpt)
     return p
 
 

@@ -1,17 +1,21 @@
-"""Import of local Hugging Face checkpoints: the causal families (GPT-NeoX,
-GPT-Neo, GPT-2, Llama / Mistral, Qwen2, Gemma, BLOOM, MPT), the
-BERT / MPNet encoders and the T5 / mT5 / LongT5 and mBART encoder-decoders.
+"""Import and export of local Hugging Face checkpoints: the causal
+families (GPT-NeoX, GPT-Neo, GPT-2, Llama / Mistral, Qwen2, Gemma, BLOOM,
+MPT), the BERT / MPNet encoders and the T5 / mT5 / LongT5 and mBART
+encoder-decoders.
 
-Counterpart of the import half of
-``vietnamese_qa_system_tpu/models/convert_hf.py``: the ``*_config``
+Counterpart of ``vietnamese_qa_system_tpu/models/convert_hf.py``: the ``*_config``
 functions, the converters (which map an HF state dict onto the JAX
 package's parameter tree, here with f32 tensors for leaves; one
 :class:`Family` each, applied by :func:`convert`) and the
 ``load_causal_auto`` / ``load_encoder_auto`` / ``load_seq2seq_auto``
 dispatch on ``model_type`` (``convert_t5`` / ``load_t5`` and
 ``convert_mbart`` / ``load_mbart`` are the seq2seq families' wrappers).
-The other per-family ``convert_*`` / ``load_*`` wrappers and the export
-half (``to_*_state_dict``, ``export_*``) are not ported.
+The other per-family ``convert_*`` / ``load_*`` wrappers are thin over
+the :data:`FAMILIES` table.  The export half (``to_*_state_dict``,
+``export_*``, ``export_causal_auto``, ``to_t5_state_dict`` /
+``export_t5``) takes the port's module and writes the directory the JAX
+package's ``save_pretrained`` leaves, through :mod:`.hf_io`, one layer at
+a time.
 
 Nothing here imports ``transformers``.  A directory is read by
 :mod:`.hf_io`, and the ``*_config`` functions take :func:`hf_config`, a view
@@ -39,6 +43,7 @@ import torch
 
 from .config import ModelConfig
 from .hf_io import Checkpoint, read_config
+from .quantize import dequantized_weight
 
 # ---------------------------------------------------------------------------
 # config.json as the transformers config class would read it
@@ -904,3 +909,499 @@ def load_seq2seq_auto(model_dir: str):
     dispatching on ``model_type`` (:func:`seq2seq_family`);
     ``models.params.seq2seq_from_hf`` streams one onto a device instead."""
     return _load_seq2seq(model_dir, seq2seq_family(read_config(model_dir).get("model_type", "")))
+
+
+# ---------------------------------------------------------------------------
+# the per-family wrappers of the JAX package
+# ---------------------------------------------------------------------------
+
+
+def _convert_family(model_type: str):
+    def convert_family(state_dict: Mapping, cfg: ModelConfig, prefix: str = "") -> dict:
+        return convert(state_dict, cfg, FAMILIES[model_type], prefix)
+
+    convert_family.__doc__ = f"A {model_type} state dict -> the JAX package's parameter tree (f32 tensors)."
+    return convert_family
+
+
+def _load_family(model_type: str):
+    def load_family(model_dir: str):
+        family = FAMILIES[model_type]
+        cfg = family.config(hf_config(model_dir))
+        with Checkpoint(model_dir) as state:
+            return convert(state, cfg, family), cfg
+
+    load_family.__doc__ = (f"A local {model_type} directory -> (parameter tree of f32 tensors, ModelConfig); "
+                           "``models.params.causal_from_hf`` streams one onto a device instead.")
+    return load_family
+
+
+convert_gpt_neox, load_gpt_neox = _convert_family("gpt_neox"), _load_family("gpt_neox")
+convert_gpt_neo, load_gpt_neo = _convert_family("gpt_neo"), _load_family("gpt_neo")
+convert_gpt2, load_gpt2 = _convert_family("gpt2"), _load_family("gpt2")
+convert_llama, load_llama = _convert_family("llama"), _load_family("llama")
+load_qwen2 = _load_family("qwen2")
+convert_gemma, load_gemma = _convert_family("gemma"), _load_family("gemma")
+convert_bloom, load_bloom = _convert_family("bloom"), _load_family("bloom")
+convert_mpt, load_mpt = _convert_family("mpt"), _load_family("mpt")
+convert_bert, load_bert = _convert_family("bert"), _load_family("bert")
+convert_mpnet, load_mpnet = _convert_family("mpnet"), _load_family("mpnet")
+
+
+# ---------------------------------------------------------------------------
+# export: the port's modules -> HF directories
+# ---------------------------------------------------------------------------
+#
+# Counterpart of the JAX package's ``to_*_state_dict`` / ``export_*``, which
+# fill a transformers model and call ``save_pretrained(...,
+# safe_serialization=False)``.  Here the directory is written without
+# transformers (models/hf_io.py): the same files (config.json,
+# generation_config.json, pytorch_model.bin), the same tensor names,
+# shapes, dtypes (f32) and values, a tied head stored as the embedding's
+# storage, and a config.json that ``AutoConfig`` reads as it reads the JAX
+# package's.  ``export_*`` reads and writes one layer at a time.
+
+STACKS = ("blocks", "enc_blocks", "dec_blocks")
+# each class's ids that GenerationConfig.from_model_config carries into
+# generation_config.json (the class defaults; T5's come from export_t5)
+_GENERATION = {
+    "gpt_neox": dict(bos_token_id=0, eos_token_id=2), "gpt_neo": dict(bos_token_id=50256, eos_token_id=50256),
+    "gpt2": dict(bos_token_id=50256, eos_token_id=50256), "llama": dict(bos_token_id=1, eos_token_id=2),
+    "qwen2": {}, "gemma": dict(bos_token_id=2, eos_token_id=1, pad_token_id=0),
+    "bloom": dict(bos_token_id=1, eos_token_id=2), "mpt": dict(use_cache=False),
+}
+
+
+def _dense_weight(dense) -> torch.Tensor:
+    """The f32 weight a dense layer computes with: the float weight (LoRA
+    merged where ``merge_lora`` merged it), else its codes dequantized with
+    the attached LoRA factors folded in (``quantize.dequantized_weight``,
+    one layer at a time)."""
+    if dense.w_q is not None:
+        return dequantized_weight(dense).detach()
+    return (dense.w if dense.w_merged is None else dense.w_merged).detach().float()
+
+
+def export_tree(module, skip=()) -> dict:
+    """``module``'s parameters as the JAX package's tree (its
+    ``state_dict`` names nested), f32 on the module's device; a dense
+    layer's ``w`` is :func:`_dense_weight`, so a merged model (a quantized
+    base dequantized layer by layer) gives the float tree the JAX package's
+    ``merged_params`` and ``dequantize_tree`` give (what ``convert-ckpt --format npz`` and
+    ``train --push-to-hub`` save).  Children named in ``skip`` are left
+    out."""
+    from ..utils.tree import nest
+    from .layers import Dense
+
+    flat = {}
+
+    def visit(mod, prefix):
+        if isinstance(mod, Dense):
+            flat[prefix + "w"] = _dense_weight(mod)
+            if mod.b is not None:
+                flat[prefix + "b"] = mod.b.detach().float()
+            return
+        for name, t in [*mod.named_parameters(recurse=False), *mod.named_buffers(recurse=False)]:
+            if t is not None and name not in mod._non_persistent_buffers_set:
+                flat[prefix + name] = t.detach().float()
+        for name, child in mod.named_children():
+            if not (prefix == "" and name in skip):
+                visit(child, f"{prefix}{name}.")
+
+    visit(module, "")
+    return nest(flat)
+
+
+def _layers(model, stack: str) -> list:
+    return list(getattr(model, stack, None) or [])
+
+
+def _t(x: torch.Tensor) -> torch.Tensor:
+    """An (in, out) weight as HF's (out, in) Linear weight."""
+    return x.T.contiguous()
+
+
+def _hf_config(cfg_class: str, model_type: str, **fields) -> dict:
+    return dict(fields, architectures=[cfg_class], model_type=model_type, torch_dtype="float32")
+
+
+def _gpt_neox_rest(p: dict, cfg: ModelConfig) -> dict:
+    embed = p["tok_embed"]
+    return {"gpt_neox.embed_in.weight": embed, "gpt_neox.final_layer_norm.weight": p["ln_f"]["scale"],
+            "gpt_neox.final_layer_norm.bias": p["ln_f"]["bias"],
+            "embed_out.weight": _t(p["lm_head"]["w"]) if "lm_head" in p else embed}
+
+
+def _fuse_heads(attn: dict, h: int, dh: int, d: int) -> tuple:
+    """q / k / v -> one head-interleaved ((H, 3, Dh) rows) weight and bias:
+    the inverse of :func:`_fused_heads`."""
+    w = torch.stack([attn[n]["w"].T.reshape(h, dh, d) for n in ("wq", "wk", "wv")], dim=1)
+    b = torch.stack([attn[n]["b"].reshape(h, dh) for n in ("wq", "wk", "wv")], dim=1)
+    return w.reshape(3 * d, d), b.reshape(3 * d)
+
+
+def _gpt_neox_layer(blk: dict, cfg: ModelConfig, i: int) -> dict:
+    pre = f"gpt_neox.layers.{i}."
+    w, b = _fuse_heads(blk["attn"], cfg.n_heads, cfg.head_dim, cfg.d_model)
+    out = {pre + "attention.query_key_value.weight": w, pre + "attention.query_key_value.bias": b}
+    _linear_sd(out, pre + "attention.dense", blk["attn"]["wo"])
+    _ln_sd(out, pre + "input_layernorm", blk["ln1"])
+    _ln_sd(out, pre + "post_attention_layernorm", blk["ln2"])
+    _linear_sd(out, pre + "mlp.dense_h_to_4h", blk["mlp"]["wi"])
+    _linear_sd(out, pre + "mlp.dense_4h_to_h", blk["mlp"]["wo"])
+    return out
+
+
+def _gpt_neox_config(cfg: ModelConfig) -> dict:
+    return _hf_config("GPTNeoXForCausalLM", "gpt_neox", vocab_size=cfg.vocab_size, hidden_size=cfg.d_model,
+                      num_hidden_layers=cfg.n_layers, num_attention_heads=cfg.n_heads, intermediate_size=cfg.d_ff,
+                      max_position_embeddings=cfg.max_seq_len, rotary_pct=cfg.rope_pct,
+                      rotary_emb_base=int(cfg.rope_theta), use_parallel_residual=cfg.parallel_residual,
+                      tie_word_embeddings=cfg.tie_embeddings, layer_norm_eps=cfg.norm_eps)
+
+
+def _learned_pos_rest(p: dict, cfg: ModelConfig) -> dict:
+    embed = p["tok_embed"]
+    return {"transformer.wte.weight": embed, "transformer.wpe.weight": p["pos_embed"],
+            "transformer.ln_f.weight": p["ln_f"]["scale"], "transformer.ln_f.bias": p["ln_f"]["bias"],
+            "lm_head.weight": embed}
+
+
+def _ln_sd(out: dict, name: str, ln: dict) -> None:
+    out[name + ".weight"], out[name + ".bias"] = ln["scale"], ln["bias"]
+
+
+def _linear_sd(out: dict, name: str, dense: dict) -> None:
+    """{"w" (in, out)[, "b"]} -> an HF Linear's (out, in) weight and its
+    bias: the inverse of :func:`_linear`."""
+    out[name + ".weight"] = _t(dense["w"])
+    if "b" in dense:
+        out[name + ".bias"] = dense["b"]
+
+
+def _gpt_neo_layer(blk: dict, cfg: ModelConfig, i: int) -> dict:
+    pre = f"transformer.h.{i}."
+    out = {}
+    _ln_sd(out, pre + "ln_1", blk["ln1"])
+    for ours, theirs in (("wq", "q_proj"), ("wk", "k_proj"), ("wv", "v_proj")):
+        out[pre + f"attn.attention.{theirs}.weight"] = _t(blk["attn"][ours]["w"])  # no biases in HF's layout
+    _linear_sd(out, pre + "attn.attention.out_proj", blk["attn"]["wo"])
+    _ln_sd(out, pre + "ln_2", blk["ln2"])
+    _linear_sd(out, pre + "mlp.c_fc", blk["mlp"]["wi"])
+    _linear_sd(out, pre + "mlp.c_proj", blk["mlp"]["wo"])
+    return out
+
+
+def _gpt_neo_config(cfg: ModelConfig) -> dict:
+    kinds = cfg.attention_layers or ("global",) * cfg.n_layers
+    return _hf_config("GPTNeoForCausalLM", "gpt_neo", vocab_size=cfg.vocab_size, hidden_size=cfg.d_model,
+                      num_layers=cfg.n_layers, attention_types=[[[k], 1] for k in kinds], num_heads=cfg.n_heads,
+                      intermediate_size=cfg.d_ff, max_position_embeddings=cfg.max_seq_len,
+                      window_size=cfg.attention_window, activation_function="gelu_new",
+                      layer_norm_epsilon=cfg.norm_eps, tie_word_embeddings=True)
+
+
+def _gpt2_layer(blk: dict, cfg: ModelConfig, i: int) -> dict:
+    """Conv1D keeps the (in, out) orientation; c_attn fuses [q | k | v]
+    columns."""
+    pre = f"transformer.h.{i}."
+    attn, mlp = blk["attn"], blk["mlp"]
+    out = {}
+    _ln_sd(out, pre + "ln_1", blk["ln1"])
+    out[pre + "attn.c_attn.weight"] = torch.cat([attn[n]["w"] for n in ("wq", "wk", "wv")], dim=1)
+    out[pre + "attn.c_attn.bias"] = torch.cat([attn[n]["b"] for n in ("wq", "wk", "wv")])
+    out[pre + "attn.c_proj.weight"], out[pre + "attn.c_proj.bias"] = attn["wo"]["w"], attn["wo"]["b"]
+    _ln_sd(out, pre + "ln_2", blk["ln2"])
+    out[pre + "mlp.c_fc.weight"], out[pre + "mlp.c_fc.bias"] = mlp["wi"]["w"], mlp["wi"]["b"]
+    out[pre + "mlp.c_proj.weight"], out[pre + "mlp.c_proj.bias"] = mlp["wo"]["w"], mlp["wo"]["b"]
+    return out
+
+
+def _gpt2_config(cfg: ModelConfig) -> dict:
+    return _hf_config("GPT2LMHeadModel", "gpt2", vocab_size=cfg.vocab_size, n_embd=cfg.d_model, n_layer=cfg.n_layers,
+                      n_head=cfg.n_heads, n_inner=cfg.d_ff, n_positions=cfg.max_seq_len,
+                      layer_norm_epsilon=cfg.norm_eps, tie_word_embeddings=True)
+
+
+def _llama_layout_rest(p: dict, cfg: ModelConfig) -> dict:
+    embed = p["tok_embed"]
+    return {"model.embed_tokens.weight": embed, "model.norm.weight": p["ln_f"]["scale"],
+            "lm_head.weight": _t(p["lm_head"]["w"]) if "lm_head" in p else embed}
+
+
+def _llama_layout_layer(blk: dict, cfg: ModelConfig, i: int) -> dict:
+    pre = f"model.layers.{i}."
+    out = {pre + "input_layernorm.weight": blk["ln1"]["scale"],
+           pre + "post_attention_layernorm.weight": blk["ln2"]["scale"]}
+    for ours, theirs in (("wq", "q_proj"), ("wk", "k_proj"), ("wv", "v_proj"), ("wo", "o_proj")):
+        _linear_sd(out, pre + f"self_attn.{theirs}", blk["attn"][ours])  # Qwen2: q / k / v carry biases
+    for ours, theirs in (("wg", "gate_proj"), ("wi", "up_proj"), ("wo", "down_proj")):
+        _linear_sd(out, pre + f"mlp.{theirs}", blk["mlp"][ours])
+    return out
+
+
+def _gemma_norms(tree: dict) -> dict:
+    """Gemma stores its RMSNorm scales as ``w`` of ``(1 + w)``: the fold of
+    the import is undone."""
+    return {k: ({"scale": v["scale"] - 1.0} if k in ("ln1", "ln2", "ln_f") else v) for k, v in tree.items()}
+
+
+def _llama_fields(cfg: ModelConfig) -> dict:
+    return dict(vocab_size=cfg.vocab_size, hidden_size=cfg.d_model, num_hidden_layers=cfg.n_layers,
+                num_attention_heads=cfg.n_heads, num_key_value_heads=cfg.kv_heads, intermediate_size=cfg.d_ff,
+                max_position_embeddings=cfg.max_seq_len, rope_theta=cfg.rope_theta, rms_norm_eps=cfg.norm_eps,
+                tie_word_embeddings=cfg.tie_embeddings)
+
+
+def _llama_config(cfg: ModelConfig) -> dict:
+    return _hf_config("LlamaForCausalLM", "llama", **_llama_fields(cfg), attention_bias=False)
+
+
+def _qwen2_config(cfg: ModelConfig) -> dict:
+    return _hf_config("Qwen2ForCausalLM", "qwen2", **_llama_fields(cfg), use_sliding_window=False)
+
+
+def _gemma_config(cfg: ModelConfig) -> dict:
+    return _hf_config("GemmaForCausalLM", "gemma", **_llama_fields(cfg), head_dim=cfg.head_dim,
+                      hidden_act="gelu_pytorch_tanh", attention_bias=False)
+
+
+def _bloom_rest(p: dict, cfg: ModelConfig) -> dict:
+    embed = p["tok_embed"]
+    out = {"transformer.word_embeddings.weight": embed, "lm_head.weight": embed}
+    _ln_sd(out, "transformer.word_embeddings_layernorm", p["emb_ln"])
+    _ln_sd(out, "transformer.ln_f", p["ln_f"])
+    return out
+
+
+def _bloom_layer(blk: dict, cfg: ModelConfig, i: int) -> dict:
+    pre = f"transformer.h.{i}."
+    w, b = _fuse_heads(blk["attn"], cfg.n_heads, cfg.head_dim, cfg.d_model)
+    out = {pre + "self_attention.query_key_value.weight": w, pre + "self_attention.query_key_value.bias": b}
+    _linear_sd(out, pre + "self_attention.dense", blk["attn"]["wo"])
+    _ln_sd(out, pre + "input_layernorm", blk["ln1"])
+    _ln_sd(out, pre + "post_attention_layernorm", blk["ln2"])
+    _linear_sd(out, pre + "mlp.dense_h_to_4h", blk["mlp"]["wi"])
+    _linear_sd(out, pre + "mlp.dense_4h_to_h", blk["mlp"]["wo"])
+    return out
+
+
+def _bloom_config(cfg: ModelConfig) -> dict:
+    return _hf_config("BloomForCausalLM", "bloom", vocab_size=cfg.vocab_size, hidden_size=cfg.d_model,
+                      n_layer=cfg.n_layers, n_head=cfg.n_heads, layer_norm_epsilon=cfg.norm_eps,
+                      tie_word_embeddings=True)
+
+
+def _mpt_norm(out: dict, name: str, ln: dict) -> None:
+    """MPT LayerNorms have no bias on the Hub: a learned nonzero bias
+    cannot be written, and raises (LoRA keeps the zeros of the import)."""
+    out[name + ".weight"] = ln["scale"]
+    bias = ln.get("bias")
+    if bias is not None and float(bias.abs().max()) > 1e-6:
+        raise ValueError(f"{name}: nonzero LayerNorm bias cannot be exported to the MPT format (HF MptModel pins "
+                         "norm biases to None)")
+
+
+def _mpt_rest(p: dict, cfg: ModelConfig) -> dict:
+    embed = p["tok_embed"]
+    out = {"transformer.wte.weight": embed, "lm_head.weight": embed if cfg.tie_embeddings else _t(p["lm_head"]["w"])}
+    _mpt_norm(out, "transformer.norm_f", p["ln_f"])
+    return out
+
+
+def _mpt_layer(blk: dict, cfg: ModelConfig, i: int) -> dict:
+    pre = f"transformer.blocks.{i}."
+    attn, mlp = blk["attn"], blk["mlp"]
+    out = {}
+    _mpt_norm(out, pre + "norm_1", blk["ln1"])
+    _mpt_norm(out, pre + "norm_2", blk["ln2"])
+    out[pre + "attn.Wqkv.weight"] = torch.cat([attn[n]["w"].T for n in ("wq", "wk", "wv")], dim=0)
+    if "b" in attn["wq"]:
+        out[pre + "attn.Wqkv.bias"] = torch.cat([attn[n]["b"] for n in ("wq", "wk", "wv")])
+    _linear_sd(out, pre + "attn.out_proj", attn["wo"])
+    _linear_sd(out, pre + "ffn.up_proj", mlp["wi"])
+    _linear_sd(out, pre + "ffn.down_proj", mlp["wo"])
+    return out
+
+
+def _mpt_config(cfg: ModelConfig) -> dict:
+    return _hf_config("MptForCausalLM", "mpt", vocab_size=cfg.vocab_size, d_model=cfg.d_model, n_heads=cfg.n_heads,
+                      n_layers=cfg.n_layers, expansion_ratio=cfg.d_ff // cfg.d_model, max_seq_len=cfg.max_seq_len,
+                      layer_norm_epsilon=cfg.norm_eps, no_bias=not bool(cfg.attention_bias),
+                      tie_word_embeddings=cfg.tie_embeddings,
+                      attn_config={"alibi": True, "alibi_bias_max": cfg.alibi_bias_max, "clip_qkv": cfg.clip_qkv,
+                                   "softmax_scale": cfg.attention_scale})
+
+
+def _t5_rest(p: dict, cfg: ModelConfig) -> dict:
+    """The shared embedding is written under its three names, one storage."""
+    shared = p["tok_embed"]
+    return {"shared.weight": shared, "encoder.embed_tokens.weight": shared, "decoder.embed_tokens.weight": shared,
+            "encoder.block.0.layer.0.SelfAttention.relative_attention_bias.weight": p["enc_rel_bias"],
+            "decoder.block.0.layer.0.SelfAttention.relative_attention_bias.weight": p["dec_rel_bias"],
+            "encoder.final_layer_norm.weight": p["enc_ln_f"]["scale"],
+            "decoder.final_layer_norm.weight": p["dec_ln_f"]["scale"],
+            "lm_head.weight": _t(p["lm_head"]["w"]) if "lm_head" in p else shared}
+
+
+def _t5_layer(blk: dict, cfg: ModelConfig, where) -> dict:
+    stack, i = where
+    pre = f"{'encoder' if stack == 'enc_blocks' else 'decoder'}.block.{i}.layer."
+    ff = 1 if stack == "enc_blocks" else 2
+    out = {pre + "0.layer_norm.weight": blk["ln1"]["scale"], pre + f"{ff}.layer_norm.weight": blk["ln2"]["scale"]}
+    attns = [("0.SelfAttention", blk["attn"])]
+    if ff == 2:
+        out[pre + "1.layer_norm.weight"] = blk["ln_cross"]["scale"]
+        attns.append(("1.EncDecAttention", blk["cross_attn"]))
+    for name, attn in attns:
+        for ours, theirs in (("wq", "q"), ("wk", "k"), ("wv", "v"), ("wo", "o")):
+            out[f"{pre}{name}.{theirs}.weight"] = _t(attn[ours]["w"])
+    dense, mlp = pre + f"{ff}.DenseReluDense.", blk["mlp"]
+    if "wg" in mlp:
+        out[dense + "wi_0.weight"], out[dense + "wi_1.weight"] = _t(mlp["wg"]["w"]), _t(mlp["wi"]["w"])
+    else:
+        out[dense + "wi.weight"] = _t(mlp["wi"]["w"])
+    out[dense + "wo.weight"] = _t(mlp["wo"]["w"])
+    return out
+
+
+def _t5_config(cfg: ModelConfig, pad_token_id: int, eos_token_id: int, decoder_start_token_id: int) -> dict:
+    return _hf_config("T5ForConditionalGeneration", "t5", vocab_size=cfg.vocab_size, d_model=cfg.d_model,
+                      d_kv=cfg.head_dim, d_ff=cfg.d_ff, num_layers=cfg.n_layers,
+                      num_decoder_layers=cfg.decoder_layers, num_heads=cfg.n_heads,
+                      relative_attention_num_buckets=cfg.relative_attention_buckets,
+                      relative_attention_max_distance=cfg.relative_attention_max_distance,
+                      feed_forward_proj="gated-gelu" if cfg.mlp_gated else "relu",
+                      tie_word_embeddings=cfg.tie_embeddings, layer_norm_epsilon=cfg.norm_eps,
+                      decoder_start_token_id=decoder_start_token_id, pad_token_id=pad_token_id,
+                      eos_token_id=eos_token_id)
+
+
+class Exporter(NamedTuple):
+    rest: Callable  # (tree without its blocks, cfg) -> {HF name: tensor}
+    layer: Callable  # (one block's tree, cfg, i or (stack, i)) -> {HF name: tensor}
+    config: Callable  # cfg -> config.json's dict
+    generation: dict  # generation_config.json's ids
+    tree: Callable = lambda tree: tree  # a tree (or a block's) as the layout reads it
+
+
+EXPORTERS = {
+    "gpt_neox": Exporter(_gpt_neox_rest, _gpt_neox_layer, _gpt_neox_config, _GENERATION["gpt_neox"]),
+    "gpt_neo": Exporter(_learned_pos_rest, _gpt_neo_layer, _gpt_neo_config, _GENERATION["gpt_neo"]),
+    "gpt2": Exporter(_learned_pos_rest, _gpt2_layer, _gpt2_config, _GENERATION["gpt2"]),
+    "llama": Exporter(_llama_layout_rest, _llama_layout_layer, _llama_config, _GENERATION["llama"]),
+    "qwen2": Exporter(_llama_layout_rest, _llama_layout_layer, _qwen2_config, _GENERATION["qwen2"]),
+    "gemma": Exporter(_llama_layout_rest, _llama_layout_layer, _gemma_config, _GENERATION["gemma"], _gemma_norms),
+    "bloom": Exporter(_bloom_rest, _bloom_layer, _bloom_config, _GENERATION["bloom"]),
+    "mpt": Exporter(_mpt_rest, _mpt_layer, _mpt_config, _GENERATION["mpt"]),
+}
+
+
+def _generation_config(ids: dict) -> dict:
+    """generation_config.json as ``GenerationConfig.from_model_config``
+    writes it (without ``transformers_version``)."""
+    return {"_from_model_config": True, **ids}
+
+
+def export_groups(model, exporter: Exporter):
+    """The HF tensors of ``model`` in groups, each made when it is asked
+    for (on the model's device): the tree without its blocks (with a tied
+    head), then one group a block."""
+    cfg = model.cfg
+    yield exporter.rest(exporter.tree(export_tree(model, STACKS)), cfg)
+    for stack in STACKS:
+        for i, blk in enumerate(_layers(model, stack)):
+            yield exporter.layer(exporter.tree(export_tree(blk)), cfg, i if cfg.arch == "causal" else (stack, i))
+
+
+def _state_dict(model, exporter: Exporter) -> dict:
+    return {k: v.cpu() for group in export_groups(model, exporter) for k, v in group.items()}
+
+
+def _export(model, out_dir: str, exporter: Exporter, config: dict, generation: dict) -> str:
+    """Write ``model`` as an HF directory, one layer at a time: each
+    layer's tensors go to the host and into the current shard, and a
+    shard is written when it is full (models/hf_io.py ``BinWriter``)."""
+    from .hf_io import BinWriter, write_config
+
+    writer = BinWriter(out_dir)
+    for group in export_groups(model, exporter):
+        writer.add(group)
+    writer.close()
+    write_config(out_dir, config, _generation_config(generation))
+    return out_dir
+
+
+def _causal_pair(model_type: str):
+    exporter = EXPORTERS[model_type]
+
+    def to_state_dict(model) -> dict:
+        return _state_dict(model, exporter)
+
+    def export(model, out_dir: str) -> str:
+        return _export(model, out_dir, exporter, exporter.config(model.cfg), exporter.generation)
+
+    to_state_dict.__doc__ = (f"A causal LM's weights as an HF {model_type} state dict: f32 host tensors under the "
+                             "transformers names, a tied head as the embedding tensor (the inverse of the import).")
+    export.__doc__ = (f"Write ``model`` as a transformers-loadable {model_type} directory (config.json, "
+                      "generation_config.json, pytorch_model.bin or its shards); returns ``out_dir``.")
+    return to_state_dict, export
+
+
+to_gpt_neox_state_dict, export_gpt_neox = _causal_pair("gpt_neox")
+to_gpt_neo_state_dict, export_gpt_neo = _causal_pair("gpt_neo")
+to_gpt2_state_dict, export_gpt2 = _causal_pair("gpt2")
+to_llama_state_dict, export_llama = _causal_pair("llama")
+_, export_qwen2 = _causal_pair("qwen2")
+_, export_gemma = _causal_pair("gemma")
+to_bloom_state_dict, export_bloom = _causal_pair("bloom")
+to_mpt_state_dict, export_mpt = _causal_pair("mpt")
+CAUSAL_EXPORTS = {"gpt_neox": export_gpt_neox, "gpt_neo": export_gpt_neo, "gpt2": export_gpt2, "llama": export_llama,
+                  "qwen2": export_qwen2, "gemma": export_gemma, "bloom": export_bloom, "mpt": export_mpt}
+
+
+def causal_export_type(cfg: ModelConfig) -> str:
+    """The HF model type a causal configuration exports to, by its
+    architecture's fingerprints (the inverse of ``load_causal_auto``):
+
+    - RMSNorm / gated MLP            -> llama (qkv biases -> qwen2,
+                                       scale_embedding -> gemma)
+    - ALiBi positions                -> bloom (alibi_mode "mpt" -> mpt)
+    - learned positions, unscaled    -> gpt_neo (attention_scale == 1.0)
+    - learned positions, 1/sqrt(d)   -> gpt2
+    - otherwise (RoPE)               -> gpt_neox"""
+    if cfg.norm == "rmsnorm" or cfg.mlp_gated:
+        if cfg.attention_bias == "qkv":
+            return "qwen2"
+        return "gemma" if cfg.scale_embedding else "llama"
+    if cfg.positional == "alibi":
+        return "mpt" if cfg.alibi_mode == "mpt" else "bloom"
+    if cfg.positional == "learned":
+        return "gpt_neo" if cfg.attention_scale == 1.0 else "gpt2"
+    return "gpt_neox"
+
+
+def export_causal_auto(model, out_dir: str) -> str:
+    """Export a causal LM to the HF format its configuration's fingerprints
+    name (:func:`causal_export_type`), one layer at a time; returns
+    ``out_dir``."""
+    return CAUSAL_EXPORTS[causal_export_type(model.cfg)](model, out_dir)
+
+
+_T5_EXPORTER = Exporter(_t5_rest, _t5_layer, _t5_config, {})
+
+
+def to_t5_state_dict(model) -> dict:
+    """A T5 / mT5 model's weights as an HF T5 state dict (f32 host
+    tensors; the shared embedding under its three names)."""
+    return _state_dict(model, _T5_EXPORTER)
+
+
+def export_t5(model, out_dir: str, *, pad_token_id: int = 0, eos_token_id: int = 1,
+              decoder_start_token_id: int = 0) -> str:
+    """Write a transformers-loadable T5 directory.  The special-token ids
+    default to the HF T5 convention (eos 1); a model trained with another
+    tokenizer (ByteTokenizer: eos 2) must pass its own, or HF
+    ``generate()`` stops on the wrong token."""
+    ids = dict(pad_token_id=pad_token_id, eos_token_id=eos_token_id, decoder_start_token_id=decoder_start_token_id)
+    return _export(model, out_dir, _T5_EXPORTER, _t5_config(model.cfg, **ids), ids)

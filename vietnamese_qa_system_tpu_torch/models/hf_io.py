@@ -1,5 +1,5 @@
-"""Read a local Hugging Face model directory without ``transformers`` or
-``safetensors``.
+"""Read and write a local Hugging Face model directory without
+``transformers`` or ``safetensors``.
 
 ``read_config`` returns ``config.json`` as a dict; :class:`Checkpoint`
 reads the weights, one tensor at a time, from whichever of these the
@@ -18,6 +18,14 @@ pages of a private mapping stayed resident after ``madvise(MADV_DONTNEED)``
 until the mapping closed.)  ``.bin`` files load through
 ``torch.load(weights_only=True, mmap=True)``, whose tensors are views of
 the mapped file.
+
+The write half leaves a directory as ``save_pretrained(...,
+safe_serialization=False)`` does: ``config.json`` and
+``generation_config.json`` (:func:`write_config`) and the weights as
+``torch.save`` of contiguous CPU tensors in ``pytorch_model.bin``, or,
+above :data:`MAX_SHARD_BYTES`, in ``pytorch_model-0000i-of-0000n.bin``
+shards behind ``pytorch_model.bin.index.json`` (:class:`BinWriter`, which
+holds at most one shard in host memory).
 """
 
 from __future__ import annotations
@@ -37,6 +45,8 @@ DTYPES = {
 }
 SAFETENSORS, SAFETENSORS_INDEX = "model.safetensors", "model.safetensors.index.json"
 BIN, BIN_INDEX = "pytorch_model.bin", "pytorch_model.bin.index.json"
+# transformers' default max_shard_size ("5GB"); a test may lower it
+MAX_SHARD_BYTES = 5 * 10**9
 
 
 def read_config(model_dir: str) -> dict:
@@ -153,3 +163,93 @@ class Checkpoint(Mapping):
 
     def __exit__(self, *exc) -> None:
         self.close()
+
+
+# ---------------------------------------------------------------------------
+# the write half
+# ---------------------------------------------------------------------------
+
+
+def write_json(path: str, obj: dict) -> None:
+    """``obj`` as transformers writes its config files: keys sorted, two
+    spaces of indent, a newline at the end."""
+    with open(path, "w", encoding="utf-8") as f:
+        f.write(json.dumps(obj, indent=2, sort_keys=True) + "\n")
+
+
+def write_config(out_dir: str, config: dict, generation: dict) -> None:
+    """``config.json`` and ``generation_config.json`` of ``out_dir``."""
+    os.makedirs(out_dir, exist_ok=True)
+    write_json(os.path.join(out_dir, "config.json"), config)
+    write_json(os.path.join(out_dir, "generation_config.json"), generation)
+
+
+def _storage_bytes(tensors: dict, seen: set) -> int:
+    """Bytes of the storages of ``tensors`` not in ``seen`` (a tied weight
+    is stored once), adding them to ``seen``."""
+    n = 0
+    for t in tensors.values():
+        key = t.untyped_storage().data_ptr()
+        if key not in seen:
+            seen.add(key)
+            n += t.untyped_storage().nbytes()
+    return n
+
+
+class BinWriter:
+    """The weights of an HF directory as ``pytorch_model.bin``, or as
+    shards behind its index when they pass :data:`MAX_SHARD_BYTES`.  Tensors come in
+    groups (:meth:`add`): a group never straddles two shards, and a shard
+    is written as soon as the next group would take it past the limit, so
+    the host holds about one shard.  Tensors of one group may share storage
+    (a tied head): ``torch.save`` stores it once."""
+
+    def __init__(self, out_dir: str):
+        os.makedirs(out_dir, exist_ok=True)
+        self.out_dir = out_dir
+        self._shard: dict = {}
+        self._shard_bytes = 0
+        self._seen: set = set()
+        self._files: list[list[str]] = []  # the names of each written shard
+        self.total_bytes = 0
+
+    def add(self, tensors: dict) -> None:
+        host: dict = {}  # id of a given tensor -> its host copy: a tied pair stays one storage
+        for v in tensors.values():
+            if id(v) not in host:
+                t = v.detach().cpu().contiguous()
+                # torch.save writes whole storages: a view of a larger one is copied out
+                host[id(v)] = t if t.untyped_storage().nbytes() == t.nbytes else t.clone()
+        tensors = {k: host[id(v)] for k, v in tensors.items()}
+        seen = set(self._seen)
+        n = _storage_bytes(tensors, seen)
+        if self._shard and self._shard_bytes + n > MAX_SHARD_BYTES:
+            self._flush()
+            seen = set()
+            n = _storage_bytes(tensors, seen)
+        self._seen = seen
+        self._shard.update(tensors)
+        self._shard_bytes += n
+        self.total_bytes += n
+
+    def _flush(self) -> None:
+        torch.save(self._shard, os.path.join(self.out_dir, f"{BIN}.part{len(self._files)}"))
+        self._files.append(list(self._shard))
+        self._shard, self._shard_bytes, self._seen = {}, 0, set()
+
+    def close(self) -> list[str]:
+        """Write what is left; returns the files written."""
+        if self._shard or not self._files:
+            self._flush()
+        n = len(self._files)
+        if n == 1:
+            os.replace(os.path.join(self.out_dir, f"{BIN}.part0"), os.path.join(self.out_dir, BIN))
+            return [BIN]
+        names = [f"pytorch_model-{i + 1:05d}-of-{n:05d}.bin" for i in range(n)]
+        weight_map = {}
+        for i, (name, keys) in enumerate(zip(names, self._files)):
+            os.replace(os.path.join(self.out_dir, f"{BIN}.part{i}"), os.path.join(self.out_dir, name))
+            weight_map.update({k: name for k in keys})
+        write_json(os.path.join(self.out_dir, BIN_INDEX),
+                   {"metadata": {"total_size": self.total_bytes}, "weight_map": dict(sorted(weight_map.items()))})
+        return names + [BIN_INDEX]

@@ -116,12 +116,19 @@ def dequantize_tree(model: nn.Module, dtype=torch.float32, *, fold_lora: bool = 
     again."""
     for mod in model.modules():
         if isinstance(mod, Dense) and mod.w_q is not None:
-            w = mod.dequantized(torch.float32)
             mod.lora_folded = fold_lora and mod.lora_a is not None
-            if mod.lora_folded:
-                w = w + mod.lora_a @ mod.lora_b  # lora_b carries alpha / r
-            mod.w_dequant = w.to(dtype)
+            mod.w_dequant = dequantized_weight(mod, fold_lora).to(dtype)
     return model
+
+
+def dequantized_weight(dense: Dense, fold_lora: bool = True) -> torch.Tensor:
+    """A quantized dense layer's f32 weight from its codes, with its
+    attached LoRA factors folded in when ``fold_lora`` (``W + A @ B`` in
+    f32: the export semantics of :func:`dequantize_tree`)."""
+    w = dense.dequantized(torch.float32)
+    if fold_lora and dense.lora_a is not None:
+        w = w + dense.lora_a @ dense.lora_b  # lora_b carries alpha / r
+    return w
 
 
 def tree_bytes(model: nn.Module) -> int:
