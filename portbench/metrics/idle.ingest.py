@@ -1,0 +1,9 @@
+"""idle.ingest: the share (%) of the traced ingest calls in which no
+operation ran on the card."""
+
+
+def read(rec):
+    tr = rec.get("trace")
+    if not tr or tr["window_s"] <= 0:
+        return None
+    return 100.0 * (1.0 - tr["busy_s"] / tr["window_s"])

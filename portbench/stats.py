@@ -1,0 +1,25 @@
+"""Percentiles and spreads."""
+
+from __future__ import annotations
+
+import math
+import statistics
+
+
+def percentile(values, q: float) -> float:
+    """The ``q``-th percentile (0-100) by linear interpolation between the
+    closest ranks, over every value."""
+    xs = sorted(float(v) for v in values)
+    if not xs:
+        raise ValueError("percentile of nothing")
+    pos = (len(xs) - 1) * q / 100.0
+    lo = math.floor(pos)
+    hi = min(lo + 1, len(xs) - 1)
+    return xs[lo] + (xs[hi] - xs[lo]) * (pos - lo)
+
+
+def spread(values) -> float:
+    """The distance between the first and third quartiles (Python's
+    ``statistics.quantiles(values, n=4)``) as a share of the median."""
+    q1, _, q3 = statistics.quantiles(values, n=4)
+    return (q3 - q1) / statistics.median(values)
