@@ -271,9 +271,8 @@ def test_sharded_restore_refuses_missing_and_incomplete_leaves(tmp_path):
 def test_profiling_and_tracing_utilities_match_jax(tmp_path):
     """The port's copies of core/profiling.py and core/tracing.py against
     the JAX package's on the CPU, where neither device has memory
-    statistics; ``roofline`` with the JAX package's peaks gives its dict."""
+    statistics."""
     from vietnamese_qa_system_tpu.core import profiling as jprof
-    from vietnamese_qa_system_tpu.core import tracing as jtrace
     from vietnamese_qa_system_tpu_torch.core import profiling as tprof
     from vietnamese_qa_system_tpu_torch.core import tracing as ttrace
 
@@ -287,14 +286,6 @@ def test_profiling_and_tracing_utilities_match_jax(tmp_path):
     with tprof.MemoryTracker("cpu") as mem:
         block = bytearray(3 << 20)
     assert not mem.device_supported and mem.peaked == 0 and mem.cpu_peaked >= 3.0 and len(block) == 3 << 20
-    t = ttrace.StepTimer(total_steps=10)
-    got = t.update(100)
-    assert set(got) == set(jtrace.StepTimer(total_steps=10).update(100)) and got["tokens_per_s"] > 0
-    for flops, n_bytes in ((1e12, 1e9), (1e9, 1e10)):
-        mine = ttrace.roofline(flops, n_bytes, 0.01, peak_flops=jtrace.PEAK_BF16_FLOPS, peak_bw=jtrace.PEAK_HBM_BW)
-        assert mine == jtrace.roofline(flops, n_bytes, 0.01)
-    assert ttrace.roofline(1e12, 1e9, 0.01)["bound"] == "compute" and ttrace.roofline(1e9, 1e10, 0.01)["bound"] == \
-        "memory"
     err = tmp_path / "err.json"
 
     @ttrace.record_errors(error_file=str(err))

@@ -7,9 +7,9 @@ imports jax):
   ``torch.profiler`` trace of the host's operators and, on a GPU, the
   device's kernels, written as a Chrome trace (``trace_*.json``) that
   Perfetto or ``chrome://tracing`` opens;
-- :class:`StepTimer`: running steps/s, tokens/s and ETA;
-- :func:`roofline`: achieved against peak compute and memory rate, with
-  the H100 SXM5's dense bf16 peak and HBM rate as defaults;
+- :func:`span` and :func:`record`: the port's named spans, kept in
+  memory while a ``torch.profiler`` session runs and read with
+  :func:`spans`;
 - :func:`record_errors`: writes a JSON error file before re-raising, for
   an external supervisor.
 """
@@ -18,17 +18,17 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import itertools
 import json
 import os
+import threading
 import time
 import traceback
-from typing import Optional
+from collections import deque
+from typing import NamedTuple, Optional
 
 import torch
-
-# H100 SXM5 (700 W) data sheet: dense bf16 tensor-core peak and HBM3 rate
-PEAK_BF16_FLOPS = 989e12
-PEAK_HBM_BW = 3.35e12
+from torch.autograd import profiler as _profiler
 
 
 def start_trace(log_dir: str = "runs/profile", device: str | torch.device = "cuda"):
@@ -63,48 +63,135 @@ def trace(log_dir: str = "runs/profile", device: str | torch.device = "cuda"):
         stop_trace(prof, log_dir)
 
 
-class StepTimer:
-    """Running steps/s, tokens/s and ETA."""
+# ---- spans ------------------------------------------------------------------
+#
+# A span records only while a torch.profiler session runs, whichever thread
+# started it: the recorder reads the process-wide flag that the profiler sets
+# at its start and clears at its stop (``torch.autograd._profiler_enabled()``
+# answers for the calling thread alone, and is False on a thread that was
+# running before the session began, such as the continuous engine's).
+# Times are ``time.time_ns()``: the clock of the profiler's own events, so a
+# span lines up with the device activity of the same trace.  Each session the
+# profiler starts gets a number, counted by wrapping the function that sets
+# the flag at the start; :func:`spans` returns the latest session's spans, so
+# the short sessions a caller runs before the one it measures (to initialize
+# the profiler) never reach it.
 
-    def __init__(self, total_steps: Optional[int] = None):
-        self.total = total_steps
-        self.start = time.perf_counter()
-        self.steps = 0
-        self.tokens = 0
-
-    def update(self, n_tokens: int = 0) -> dict:
-        self.steps += 1
-        self.tokens += n_tokens
-        elapsed = time.perf_counter() - self.start
-        out = {
-            "steps_per_s": self.steps / max(elapsed, 1e-9),
-            "tokens_per_s": self.tokens / max(elapsed, 1e-9),
-            "elapsed_s": elapsed,
-        }
-        if self.total:
-            remaining = max(self.total - self.steps, 0)
-            out["eta_s"] = remaining / max(out["steps_per_s"], 1e-9)
-        return out
+MAX_SPANS = 1 << 16  # the newest are kept
 
 
-def roofline(flops: float, bytes_accessed: float, seconds: float, *, peak_flops: float = PEAK_BF16_FLOPS,
-             peak_bw: float = PEAK_HBM_BW) -> dict:
-    """Achieved against peak compute and bandwidth, and the binding resource."""
-    achieved_flops = flops / seconds
-    achieved_bw = bytes_accessed / seconds
-    intensity = flops / max(bytes_accessed, 1)
-    ridge = peak_flops / peak_bw
-    bound = "compute" if intensity >= ridge else "memory"
-    limit = peak_flops if bound == "compute" else peak_bw * intensity
-    return {
-        "achieved_tflops": achieved_flops / 1e12,
-        "achieved_gbps": achieved_bw / 1e9,
-        "flops_utilization": achieved_flops / peak_flops,
-        "bw_utilization": achieved_bw / peak_bw,
-        "arithmetic_intensity": intensity,
-        "bound": bound,
-        "fraction_of_roofline": achieved_flops / limit,
-    }
+class Span(NamedTuple):
+    name: str
+    t0: int  # ns, time.time_ns()
+    t1: int
+    thread: int  # threading.get_ident() of the recording thread
+    id: int
+    parent: Optional[int]  # the id of the span open on the same thread when this one began
+    rid: Optional[int]  # the request's id, for a request's spans
+    args: dict  # a few integers
+    session: int  # the profiler session it was recorded in
+
+
+_spans: deque = deque(maxlen=MAX_SPANS)
+_ids = itertools.count(1)
+_open = threading.local()  # .stack: the spans open on this thread, innermost last
+_session = 0
+
+
+def _count_session(_start=_profiler._run_on_profiler_start) -> None:
+    global _session
+    _session += 1
+    _start()
+
+
+if not getattr(_profiler._run_on_profiler_start, "counts_sessions", False):
+    _count_session.counts_sessions = True
+    _profiler._run_on_profiler_start = _count_session
+
+
+def _stack() -> list:
+    stack = getattr(_open, "stack", None)
+    if stack is None:
+        stack = _open.stack = []
+    return stack
+
+
+class _Off:
+    """What :func:`span` returns while no profiler runs: nothing is
+    allocated or recorded."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        return False
+
+    def set(self, **ints) -> None:
+        pass
+
+
+_OFF = _Off()
+
+
+class _On:
+    __slots__ = ("name", "rid", "args", "id", "parent", "session", "t0", "rf")
+
+    def __init__(self, name: str, rid, args: dict):
+        self.name, self.rid, self.args = name, rid, args
+
+    def __enter__(self):
+        stack = _stack()
+        self.parent = stack[-1].id if stack else None
+        self.id = next(_ids)
+        self.session = _session
+        stack.append(self)
+        # the span in a trace that records this thread's host events (Perfetto, train --profile-steps)
+        self.rf = torch.profiler.record_function(self.name) if torch.autograd._profiler_enabled() else None
+        if self.rf is not None:
+            self.rf.__enter__()
+        self.t0 = time.time_ns()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        t1 = time.time_ns()
+        if self.rf is not None:
+            self.rf.__exit__(None, None, None)
+        _stack().pop()
+        _spans.append(Span(self.name, self.t0, t1, threading.get_ident(), self.id, self.parent, self.rid, self.args,
+                           self.session))
+        return False
+
+    def set(self, **ints) -> None:
+        """Add integer arguments known only inside the span."""
+        self.args.update(ints)
+
+
+def span(name: str, *, rid: Optional[int] = None, **ints):
+    """A context manager that records the block as a span named ``name``
+    (request id ``rid``, integer arguments ``ints``; more with ``.set()``
+    inside) while a profiler session runs; otherwise it costs one check."""
+    if not _profiler._is_profiler_enabled:
+        return _OFF
+    return _On(name, rid, ints)
+
+
+def record(name: str, t0: int, t1: int, *, rid: Optional[int] = None, **ints) -> None:
+    """Record a span whose ends were stamped (``time.time_ns()``) by the
+    caller, its start perhaps on another thread.  Its parent is the span
+    open on the calling thread that began at or before ``t0``, if any."""
+    if not _profiler._is_profiler_enabled:
+        return
+    parent = next((s.id for s in reversed(_stack()) if s.t0 <= t0), None)
+    _spans.append(Span(name, t0, t1, threading.get_ident(), next(_ids), parent, rid, ints, _session))
+
+
+def spans() -> list[Span]:
+    """The spans of the latest profiler session started, in the order they
+    ended."""
+    latest = _session
+    return [s for s in list(_spans) if s.session == latest]
 
 
 ERROR_FILE_ENV = "VQA_TPU_ERROR_FILE"

@@ -34,11 +34,22 @@ side only (the largest bucket may reach ``total``), each decoder row
 holds BOS and at most ``total - 1`` generated tokens, and adapters, the
 prefix cache, chunked prefill and an int8 KV cache are refused, with
 speculation off, as the JAX engine refuses them.
+
+While a ``torch.profiler`` session runs, the scheduler records spans
+(core/tracing.py), per turn and per request, never per token:
+``engine.queue`` (``submit()`` to the pop that gives the request a slot),
+``engine.prefill`` (that pop to the insert done), ``engine.first`` (the
+insert to the first token handed to the stream): the three cover a
+request's wait for its first token without a gap; ``engine.admit``,
+``engine.chunk`` (models/decode_engine.py), ``engine.harvest`` with its
+``engine.fetch`` (the wait on the chunk's copy), ``engine.wait`` (idle).
 """
 
 from __future__ import annotations
 
+import itertools
 import threading
+import time
 from collections import deque
 from concurrent.futures import Future
 from dataclasses import dataclass, field
@@ -47,10 +58,13 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
+from ..core import tracing
 from ..core.device import resolve_device
 from ..models import decode_engine as de
 from ..models.decode_engine import TOPK_CAP
 from ..models.lora import LoraConfig, place_bank, stack_adapters
+
+_rids = itertools.count()  # request ids, unique in the process
 
 
 @dataclass
@@ -69,6 +83,12 @@ class _Request:
     # first chunk index whose emissions belong to this request
     start_chunk: int = -1
     adapter_ix: int = 0  # LoRA bank index (0 = the base model)
+    rid: int = field(default_factory=lambda: next(_rids))
+    # time.time_ns() at submit(), at the pop that gave it a slot, at the insert's end (the spans' ends)
+    t_submit: int = field(default_factory=time.time_ns)
+    t_pop: int = 0
+    t_install: int = 0
+    reused: int = 0  # prompt tokens taken from the prefix cache
 
 
 def _validate_sampling(temperature, top_k, top_p) -> None:
@@ -353,7 +373,8 @@ class ContinuousEngine:
                         self._harvest(*prev)
                         prev = None
                         continue  # the harvest may have freed work to do
-                    self._wake.wait(timeout=0.05)
+                    with tracing.span("engine.wait"):
+                        self._wake.wait(timeout=0.05)
                     self._wake.clear()
                     continue
                 self._admit()
@@ -394,16 +415,26 @@ class ContinuousEngine:
         raise AssertionError("submit() validated the length")
 
     def _admit(self) -> None:
+        with tracing.span("engine.admit") as sp:
+            sp.set(admitted=self._admit_pending())
+
+    def _admit_pending(self) -> int:
+        """Give queued requests free slots and prefill them; returns how
+        many were popped."""
+        popped = 0
         while True:
             if self.prefill_chunk and self._mid is not None:
                 # one piece of the in-flight chunked prefill, then a decode chunk
                 self._advance_prefill()
-                return
+                return popped
             with self._lock:
                 if not self._pending or not self._free:
-                    return
+                    return popped
                 req = self._pending.popleft()
                 slot = self._free.popleft()
+            req.t_pop = time.time_ns()
+            tracing.record("engine.queue", req.t_submit, req.t_pop, rid=req.rid, prompt=len(req.ids))
+            popped += 1
             samp = (req.temperature, req.top_k, req.top_p)
             if self._s2s:
                 self._admit_s2s(req, slot, samp)
@@ -428,6 +459,7 @@ class ContinuousEngine:
         de.insert_seq2seq(self._state, ckv, self._piece(req.ids, self.buckets[-1])[1], dec_kv, first, slot, *samp)
         with self._lock:
             self._by_slot[slot] = req
+        self._installed(req, ids.shape[1])
 
     def _install(self, req, slot, kv, first, n_prompt, ids, mask, samp) -> None:
         """Insert a fully prefilled request into its reserved slot."""
@@ -440,6 +472,14 @@ class ContinuousEngine:
         de.insert(self._state, kv, ids, mask, first, n_prompt, slot, *samp, adapter=self._aix(req))
         with self._lock:
             self._by_slot[slot] = req
+        self._installed(req, ids.shape[1])
+
+    @staticmethod
+    def _installed(req: _Request, bucket: int) -> None:
+        """Close the request's ``engine.prefill`` span; its ``engine.first``
+        starts here."""
+        req.t_install = time.time_ns()
+        tracing.record("engine.prefill", req.t_pop, req.t_install, rid=req.rid, bucket=bucket, reused=req.reused)
 
     def _aix(self, req: _Request):
         """The request's bank index for the decode functions (None without a bank)."""
@@ -464,7 +504,7 @@ class ContinuousEngine:
             if hit is not None:
                 ent, p = hit
                 m["kv"] = de.crop_kv(ent["kv"], self._bucket(p))
-                m["done"] = p
+                m["done"] = req.reused = p
                 self.stats["prefix_hits"] += 1
                 self.stats["prefix_tokens_reused"] += p
         take = min(self.prefill_chunk, n - m["done"])
@@ -500,6 +540,7 @@ class ContinuousEngine:
         hit = self._pcache.lookup(req.ids, req.adapter_ix) if self._pcache is not None else None
         if hit is not None:
             ent, p = hit
+            req.reused = p
             sfx_ids, sfx_mask = self._piece(req.ids[p:], self._bucket(n - p))
             kv, first, n_total = de.prefill_extend(self.model, ent["kv"], [p], sfx_ids, sfx_mask, self._generator,
                                                    *samp, sampled=sampled, bank=self._bank, adapter=self._aix(req))
@@ -548,20 +589,28 @@ class ContinuousEngine:
         return "plain", _Fetch(toks)
 
     def _harvest(self, chunk_idx: int, payload) -> None:
+        with tracing.span("engine.harvest") as sp:
+            sp.set(tokens=self._route(chunk_idx, payload))
+
+    def _route(self, chunk_idx: int, payload) -> int:
         """Read a dispatched chunk's tokens and route them to requests
-        (continuous.py:749).  A slot's row belongs to its current request
-        only from ``start_chunk`` on; a request's first token is emitted
-        before its first harvested row.  Finished slots are freed on the
-        host only: the next insert rewrites the row."""
+        (continuous.py:749); returns how many were handed on.  A slot's row
+        belongs to its current request only from ``start_chunk`` on; a
+        request's first token is emitted before its first harvested row.
+        Finished slots are freed on the host only: the next insert rewrites
+        the row."""
         kind, fetch = payload
+        with tracing.span("engine.fetch"):
+            got = fetch.get()
+        routed = 0
         if kind == "spec":
-            vals, counts = fetch.get()  # (S, steps, gamma+1), (S, steps)
+            vals, counts = got  # (S, steps, gamma+1), (S, steps)
             per_slot = {s: [int(t) for j in range(counts.shape[1]) for t in vals[s, j, : counts[s, j]]]
                         for s in self._by_slot}
             for s in self._by_slot:
                 self.stats["drafted_accepted"] += int(np.maximum(counts[s] - 1, 0).sum())
         else:
-            (toks_np,) = fetch.get()  # (S, chunk_steps)
+            (toks_np,) = got  # (S, chunk_steps)
             per_slot = {s: [int(t) for t in toks_np[s]] for s in self._by_slot}
         finished: list[int] = []
         for slot, req in list(self._by_slot.items()):
@@ -572,6 +621,8 @@ class ContinuousEngine:
                 req.pending_first = None
                 req.out.append(first)
                 self.stats["tokens"] += 1
+                routed += 1
+                tracing.record("engine.first", req.t_install, time.time_ns(), rid=req.rid)
                 self._emit(req, first)
                 if (self.eos_id is not None and first == self.eos_id) or req.remaining <= 0:
                     finished.append(slot)
@@ -580,6 +631,7 @@ class ContinuousEngine:
                 req.out.append(tok)
                 req.remaining -= 1
                 self.stats["tokens"] += 1
+                routed += 1
                 self._emit(req, tok)
                 if (self.eos_id is not None and tok == self.eos_id) or req.remaining <= 0:
                     finished.append(slot)
@@ -589,6 +641,7 @@ class ContinuousEngine:
             self._finish(req)
             with self._lock:
                 self._free.append(slot)
+        return routed
 
     @staticmethod
     def _emit(req: _Request, tok: int) -> None:

@@ -58,6 +58,7 @@ import contextlib
 import numpy as np
 import torch
 
+from ..core import tracing
 from ..core.device import resolve_device
 from .causal_lm import CausalLM, make_cache
 from .generate import NEG_INF, _ngram_draft, _sample_logits
@@ -324,8 +325,8 @@ def decode_chunk(model: CausalLM, state: dict, generator, *, sampled: bool, n_st
     total = st["key_valid"].shape[1]
     fill = torch.full((), 0 if eos_id is None else eos_id, dtype=torch.int32, device=st["toks"].device)
     out = []
-    # a named span for torch.profiler traces
-    with torch.profiler.record_function("engine.chunk"), _adapters(model, bank, st["adapter"]):
+    with (tracing.span("engine.chunk", slots=st["cursor"].shape[0], steps=n_steps, spec=0),
+          _adapters(model, bank, st["adapter"])):
         for _ in range(n_steps):
             out.append(_plain_step(model, st, generator, total, fill, eos_id, sampled))
     return torch.stack(out, dim=1)
@@ -368,7 +369,8 @@ def decode_chunk_spec(model: CausalLM, state: dict, *, n_steps: int = 4, eos_id:
     jw = torch.arange(gamma + 1, device=dev)[None, :]
     jj = torch.arange(total, device=dev)[None, None, :]
     all_vals, all_counts = [], []
-    with torch.profiler.record_function("engine.chunk"), _adapters(model, bank, st["adapter"]):
+    with (tracing.span("engine.chunk", slots=st["cursor"].shape[0], steps=n_steps, spec=1),
+          _adapters(model, bank, st["adapter"])):
         for _ in range(n_steps):
             vals, counts = _spec_step(model, st, total, jw, jj, gamma, ngram, eos_id)
             all_vals.append(vals)
@@ -518,7 +520,7 @@ def decode_chunk_seq2seq(model, state: dict, generator, *, sampled: bool, n_step
     total = st["key_valid"].shape[1]
     fill = torch.full((), 0 if eos_id is None else eos_id, dtype=torch.int32, device=st["cursor"].device)
     out = []
-    with torch.profiler.record_function("engine.chunk"):
+    with tracing.span("engine.chunk", slots=st["cursor"].shape[0], steps=n_steps, spec=0):
         for _ in range(n_steps):
             write_ok = st["active"] & ~st["done"] & (st["cursor"] < total)
             st["key_valid"] = _set_columns(st["key_valid"], st["cursor"][:, None], write_ok[:, None],

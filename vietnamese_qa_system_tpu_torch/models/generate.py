@@ -34,6 +34,7 @@ import time
 
 import torch
 
+from ..core import tracing
 from .causal_lm import CausalLM
 
 NEG_INF = -1e30
@@ -294,8 +295,7 @@ def generate(model: CausalLM, ids, attn_mask, *, max_new_tokens: int = 32, tempe
     done = torch.zeros((b,), dtype=torch.bool, device=dev)
     vocab_ids = torch.arange(vocab, device=dev)[None, :]
     toks = []
-    # a named span for torch.profiler traces of the decode loop
-    with torch.profiler.record_function("generate.decode"):
+    with tracing.span("generate.decode"):
         for step_idx in range(max_new_tokens):
             logits = last_logits.float()
             if no_repeat_ngram_size == 1:
@@ -455,7 +455,7 @@ def generate_speculative(model: CausalLM, ids, attn_mask, *, max_new_tokens: int
     stream = _Stream(ids, _sample_logits(last, generator, **sampling), max_new_tokens, eos_id)
     pad_start = t - n_prompt
     t1 = _synced(timings, dev)
-    with torch.profiler.record_function("generate.speculative"):
+    with tracing.span("generate.speculative"):
         while stream.running():
             drafts = _ngram_draft(stream.buf, t + stream.n_dec + 1, pad_start, gamma, ngram)
             window = torch.cat([stream.pending(), drafts], dim=1)
@@ -520,7 +520,7 @@ def generate_speculative_draft(model: CausalLM, draft: CausalLM, ids, attn_mask,
     stream = _Stream(ids, _sample_logits(last, generator, **sampling), max_new_tokens, eos_id)
     two = torch.arange(2, device=dev)[None, :]
     t1 = _synced(timings, dev)
-    with torch.profiler.record_function("generate.speculative"):
+    with tracing.span("generate.speculative"):
         while stream.running():
             prev = t + stream.n_dec - 1
             lg = _cached_pass(draft, stream.buf.gather(1, prev[:, None] + two), prev, t, n_prompt, key_valid,
@@ -602,7 +602,7 @@ def generate_seq2seq(model, enc_ids, enc_mask, *, max_new_tokens: int = 32, temp
     seen = (vocab_ids == bos_id).expand(b, vocab).clone() if repetition_penalty != 1.0 else None
     rows = torch.arange(b, device=dev)
     toks = []
-    with torch.profiler.record_function("generate.seq2seq"):
+    with tracing.span("generate.seq2seq"):
         for idx in range(max_new_tokens):
             logits = model.decode(tok[:, None], None, enc_mask, (jj <= idx).expand(b, 1, total),
                                   positions=torch.full((b, 1), idx, device=dev), cache=cache, cache_index=idx,
@@ -678,7 +678,7 @@ def beam_search(model: CausalLM, ids, attn_mask, *, max_new_tokens: int = 32, nu
     rows = torch.arange(b, device=dev)[:, None]
     jj = torch.arange(total, device=dev)[None, None, :]
     t1 = _synced(timings, dev)
-    with torch.profiler.record_function("beam.decode"):
+    with tracing.span("beam.decode"):
         for step_idx in range(max_new_tokens):
             ll = last_logits
             if seen is not None:
@@ -769,7 +769,7 @@ def beam_search_seq2seq(model, enc_ids, enc_mask, *, max_new_tokens: int = 32, n
     seen = (vocab_ids == bos_id).expand(b * w, v).clone() if repetition_penalty != 1.0 else None
     rows = torch.arange(b, device=dev)[:, None]
     t1 = _synced(timings, dev)
-    with torch.profiler.record_function("beam.decode"):
+    with tracing.span("beam.decode"):
         for step_idx in range(max_new_tokens):
             ll = _forced(last_logits, step_idx, max_new_tokens - 1, forced_bos_id, forced_eos_id, vocab_ids)
             if seen is not None:

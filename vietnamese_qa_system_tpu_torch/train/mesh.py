@@ -68,6 +68,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..core import tracing
 from ..core.mesh import DATA_AXIS, Mesh
 from ..models.causal_lm import clone_module
 from ..models.layers import Dense
@@ -461,7 +462,7 @@ class MeshTrainState:
         number of supervised targets.  Each row's loss is its summed NLL
         over the microbatch's targets, so the rows' gradients add to the
         microbatch's; the metrics are the one-device trainer's."""
-        with torch.profiler.record_function("train.step"):
+        with tracing.span("train.step"):
             return self._step(rows, counts, loss_of, remat)
 
     def _step(self, rows: list, counts: list, loss_of, remat: bool) -> dict:
