@@ -16,7 +16,8 @@ tiles, warpgroups and clusters at every batch, form and route
 K3 at TOPK_BATCHES x INT8_KS on random, repeated and tie-heavy low-range
 codes, runs the tile scans through their route (SCAN_D), holds K1, K2 and
 K3 at the edges of the cluster forms (TOPK_EDGES), checks that a K6 call
-is one kernel launch, holds the flash forward
+is one kernel launch, holds K9 (decode attention over the bf16 cache)
+against its plain version at DECODE_ATTN_CASES, holds the flash forward
 and backward against their plain versions at the edges of their tiles
 (FLASH_EDGES), then drives its serving paths once:
 
@@ -259,6 +260,24 @@ W8_LAYER_ROWS = (8, 72, 128, 256)  # a layer's six calls summed: /qa decode, the
 # K6 off the main shapes: a unit's second weight box past N (N % 256 == 128
 # at <= 72 rows), a lone row, rows off every bucket, one unit of K
 W8_EDGES = ((1, 128, 384), (37, 384, 640), (72, 128, 128), (100, 256, 384), (200, 384, 1152), (256, 128, 128))
+# K9 (decode attention over the bf16 cache): (label, B, H, kvH, D, Tq, bias, a free row); the cell's shape is
+# PhoGPT-4B's decode step at 32 slots of a 1,024-column cache (1,025 with the guard column), ALiBi, with
+# valid lengths drawn in DECODE_LENS and a padding hole in each row; Tq 9 is a speculative verify window
+DECODE_ATTN_CASES = (
+    ("decode", 32, 24, 24, 128, 1, "alibi", False),
+    ("spec", 32, 24, 24, 128, 9, "alibi", False),
+    ("qa_b1", 1, 24, 24, 128, 1, "alibi", False),
+    ("gqa", 8, 32, 8, 128, 1, None, True),
+    ("gqa_spec", 8, 32, 8, 128, 9, None, False),
+    ("t5_bias", 8, 6, 6, 64, 1, "rows", True),
+    ("gqa_d64_spec", 4, 8, 2, 64, 9, "alibi", False),
+)
+DECODE_TOTAL = 1024
+DECODE_LENS = (192, 896)
+# K9 against its plain version: each probability is rounded to bf16 against the plain version's denominator
+# or, split over blocks, its block's; the two roundings (2^-9 each) move the output by at most 2^-8 of max |v|,
+# and the f32 sums in another order by far less
+DECODE_ATTN_REL_TOL = 2.0 ** -8
 # K6 at mt5-small's projections (K, N): q / k / v (512, 384), the attention
 # out (384, 512), the gated MLP's gate and up (512, 1024) and its down
 # (1024, 512); N 384 is three 128-column tiles and K 384 three k-steps,
@@ -1253,6 +1272,103 @@ def phase_w8(torch, report):
         "shape": "one PhoGPT-4B layer's six calls at M=8: 4x (3072,3072) + (3072,12288) + (12288,3072)",
         "timing": "device time, CUDA graph replay of 24 calls over weight copies larger than L2",
         **instances[8], "instances": {str(mp): info for mp, info in instances.items()},
+    }
+
+
+def decode_attn_inputs(torch, gen, b, h, kv_h, d, tq, bias_kind, free_row):
+    """One K9 call at a cache of DECODE_TOTAL columns and its guard column:
+    q, the bf16 buffers (NaN in the guard column, which no query may read),
+    the mask (each row's valid prefix drawn in DECODE_LENS with a padding
+    hole of 0-96 columns; a Tq 9 window the spec chunk's per-query mask),
+    the bias, and the columns any query attends."""
+    from vietnamese_qa_system_tpu_torch.models.layers import alibi_bias
+
+    total = DECODE_TOTAL
+    q = torch.randn(b, tq, h, d, generator=gen, device="cuda")
+    k, v = (torch.randn(b, total + 1, kv_h, d, generator=gen, device="cuda").to(torch.bfloat16) for _ in range(2))
+    k[:, total], v[:, total] = float("nan"), float("nan")
+    lens = torch.randint(DECODE_LENS[0], DECODE_LENS[1] + 1, (b,), generator=gen, device="cuda")
+    hole_at = (torch.rand(b, generator=gen, device="cuda") * (lens - 100).float()).long()
+    hole_len = torch.randint(0, 97, (b,), generator=gen, device="cuda")
+    cols = torch.arange(total, device="cuda")[None, :]
+    valid = (cols < lens[:, None]) & ~((cols >= hole_at[:, None]) & (cols < (hole_at + hole_len)[:, None]))
+    if tq == 1:
+        mask = valid[:, None, :]
+    else:
+        steps = torch.arange(tq, device="cuda")[None, :, None]
+        mask = valid[:, None, :] | ((cols[:, None, :] >= lens[:, None, None]) & (cols[:, None, :] <= lens[:, None, None] + steps))
+    if free_row:
+        mask = mask.clone()
+        mask[0] = False
+    bias = None
+    if bias_kind == "alibi":
+        bias = alibi_bias(h, total, "mpt", 8.0, "cuda")
+    elif bias_kind == "rows":  # a T5 decoder's per-row bias (B, H, 1, Tk)
+        bias = torch.randn(b, h, 1, total, generator=gen, device="cuda")
+    return q, k, v, mask, bias, int(mask.any(dim=1).sum())
+
+
+def phase_decode_attn(torch, report):
+    """K9 against its plain version at PhoGPT-4B's decode shapes (DECODE_ATTN_CASES),
+    its launches, registers and shared memory, and its time beside its
+    bound (the attended columns' K and V read once, q, the output, the mask
+    and the bias), the plain version (the einsum branch it replaced) and SDPA."""
+    from vietnamese_qa_system_tpu_torch.ops import cuda_kernels as ck
+    from vietnamese_qa_system_tpu_torch.ops import decode_attention as DA
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    ck.DECODE_ATTN.launches = 0
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rows = {}
+    for label, b, h, kv_h, d, tq, bias_kind, free_row in DECODE_ATTN_CASES:
+        q, k, v, mask, bias, n_cols = decode_attn_inputs(torch, gen, b, h, kv_h, d, tq, bias_kind, free_row)
+        before = ck.DECODE_ATTN.launches
+        out = DA.decode_attention(q, k, v, mask, bias)
+        torch.cuda.synchronize()
+        check(ck.DECODE_ATTN.launches == before + 1, f"K9 {label}: one launch a call")
+        want = DA.decode_attention_plain(q, k, v, mask, bias)
+        vmax = v[:, :DECODE_TOTAL].float().abs().max().item()
+        err = (out - want).abs().max().item()
+        p = DA.plan(b, h, kv_h, tq, DECODE_TOTAL, sms)
+        check(bool(torch.isfinite(out).all()), f"K9 {label}: every output finite (the guard column holds NaN)")
+        check(err <= DECODE_ATTN_REL_TOL * vmax,
+              f"K9 {label} B={b} H={h} kvH={kv_h} D={d} Tq={tq} bias {bias_kind} ({p.splits} splits of {p.per} "
+              f"tiles, {p.row_blocks} x {p.block_rows} rows): max abs err {err:.3e} <= 2^-8 x max|v| {vmax:.2f}")
+        if free_row:
+            check(bool((out[0] == 0).all()), f"K9 {label}: a row with no valid key gives 0")
+        info = ck.query("decode_attn.cu", "vqa_decode_attn_info", d, p.block_rows, p.per)
+        check(info[3] == 0, f"K9 {label}: no local memory (spills) a thread, {info[0]} registers")
+        mrows = 1 if mask.shape[1] == 1 else tq
+        io = (n_cols * kv_h * d * 2 * 2 + b * tq * h * d * (2 + 4) + b * mrows * DECODE_TOTAL
+              + (0 if bias is None else bias.numel() * 4))
+        ops = 4 * tq * h * d * n_cols
+        row = {"max_abs_err": err, "max_abs_v": vmax, "splits": p.splits, "tiles_a_split": p.per,
+               "row_blocks": p.row_blocks, "block_rows": p.block_rows, "registers": info[0], "shared_bytes": info[1],
+               "blocks_per_sm": info[2], "attended_columns": n_cols,
+               "ms": graph_ms(lambda: DA.decode_attention(q, k, v, mask, bias), 20),
+               "plain_ms": cuda_ms(lambda: DA.decode_attention_plain(q, k, v, mask, bias), 5),
+               **bound(io, ops, F32_OPS_S)}
+        if not free_row:
+            # the library yardstick: SDPA over the cache's columns, the bias and the mask folded into one bf16 mask
+            keys = torch.where(mask[:, None, :, :], 0.0, float("-inf"))
+            amask = (keys if bias is None else keys + bias).to(torch.bfloat16)
+            qh = q.transpose(1, 2).to(torch.bfloat16)
+            kh, vh = (x[:, :DECODE_TOTAL].transpose(1, 2) for x in (k, v))
+            row["library_ms"] = cuda_ms(lambda: sdpa(qh, kh, vh, attn_mask=amask, enable_gqa=kv_h != h), 20)
+        rows[label] = row
+        print(f"K9 {label}: B={b} H={h} kvH={kv_h} D={d} Tq={tq}, {n_cols} attended columns: kernel "
+              f"{row['ms']:.4f} ms against a {row['bound_ms']:.4f} ms bound ({row['bound_by']}; "
+              f"{100 * row['bound_ms'] / row['ms']:.1f}%), plain {row['plain_ms']:.4f} ms, SDPA "
+              f"{row.get('library_ms', float('nan')):.4f} ms; {info[0]} registers, {info[1]} B shared, "
+              f"{info[2]} blocks/SM; err {err:.3e}", flush=True)
+    cell = rows["decode"]
+    report["decode_attention"] = {
+        "phase_launches": ck.DECODE_ATTN.launches,
+        **{key: cell[key] for key in ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                                      "registers", "shared_bytes", "blocks_per_sm")},
+        "library_call": "torch.nn.functional.scaled_dot_product_attention, bias + key mask as a bf16 attn_mask",
+        "cases": rows,
     }
 
 
@@ -2326,6 +2442,7 @@ def phase_engine(torch, pkg, reader, ctx):
     import numpy as np
 
     from vietnamese_qa_system_tpu_torch.cli.main import build_parser, continuous_engine
+    from vietnamese_qa_system_tpu_torch.core import tracing
     from vietnamese_qa_system_tpu_torch.engine import ContinuousEngine, Retriever, ServingApp
     from vietnamese_qa_system_tpu_torch.models import decode_engine as de
     from vietnamese_qa_system_tpu_torch.models import layers as L
@@ -2367,6 +2484,7 @@ def phase_engine(torch, pkg, reader, ctx):
     try:
         for kern in pkg.KERNELS:
             kern.launches = 0
+        einsum0 = tracing.totals().get(L.CACHED_EINSUM, 0)
         # K6's calls by (rows, K, N), to split the launches into decode and prefill rows
         with k6_tally(L) as k6_calls:
             t0 = time.perf_counter()
@@ -2374,6 +2492,10 @@ def phase_engine(torch, pkg, reader, ctx):
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         launches = {k.name: k.launches for k in pkg.KERNELS}
+        einsum = tracing.totals().get(L.CACHED_EINSUM, 0) - einsum0
+        print(f"/generate cached attention: {launches['decode_attention']} calls through K9, {einsum} through the "
+              f"einsum (the prefills at bucket width): K9's share "
+              f"{100 * launches['decode_attention'] / max(1, launches['decode_attention'] + einsum):.1f}%", flush=True)
         decode_calls = sum(c for (m, _, _), c in k6_calls.items() if m in (8, 72))
         rows = sorted({m for m, _, _ in k6_calls})
         print(f"/generate K6 launches: {launches['w8_matmul']}; decode {decode_calls} (M 8 plain, M 72 speculative), "
@@ -2692,6 +2814,8 @@ def phase_decode_strategies(torch, pkg, reader, ctx) -> int:
           f"equal plain greedy, the rest up to the first near-tie: {others}", flush=True)
     check(agree, f"{b} draft-model speculative streams equal plain greedy decode by the margin rule")
     check_k6_rows(k6_draft, draft_launches["w8_matmul"], "the draft-model path (the reader's verify windows)")
+    check(spec_launches["decode_attention"] > 0 and draft_launches["decode_attention"] > 0,
+          "decode_attention launched on the speculative /qa and the draft-model verify windows")
     del draft
 
     # W 4 beams through generate_with_config
@@ -2703,6 +2827,7 @@ def phase_decode_strategies(torch, pkg, reader, ctx) -> int:
         w1 = G.beam_search(reader, ids, mask, max_new_tokens=n_new, num_beams=1, eos_id=eos)
         torch.cuda.synchronize()
     beam_launches = {k.name: k.launches for k in pkg.KERNELS}
+    check(beam_launches["decode_attention"] > 0, "decode_attention launched on the beam path")
     greedy = G.generate(reader, ids, mask, max_new_tokens=n_new)
     check(torch.equal(beam1, greedy), "generate_with_config(num_beams=1) is greedy decode")
     agree, equal, others = batch_margin_rule(torch, reader, ids, mask, w1, plain, eos)
@@ -6024,6 +6149,7 @@ def main() -> int:
     timed(phase_flash, torch, A, gen, report, lambda t: relative_attention_bias(table, t, mpnet_class()), variants)
     timed(phase_flash_edges, torch, A, gen)
     timed(phase_w8, torch, report)
+    timed(phase_decode_attn, torch, report)
     timed(phase_k8, torch, quant, gen, report)
     retrieval, ctx = timed(phase_slice, torch, pkg, gen)
     print("launches in the retrieval run: " + json.dumps(retrieval))
@@ -6036,15 +6162,17 @@ def main() -> int:
         check(hybrid[name] > 0, f"{name} launched on the hybrid path")
     timed(phase_bm25_timing, torch)
     reader_launches, reader = timed(phase_reader, torch, pkg, ctx)
-    for name in ("matmul_topk_bf16", "w8_matmul"):
+    for name in ("matmul_topk_bf16", "w8_matmul", "decode_attention"):
         check(reader_launches[name] > 0, f"{name} launched on the QA path")
     timed(phase_twin, torch, reader)
     engine_launches = timed(phase_engine, torch, pkg, reader, ctx)
     print("launches in the /generate run: " + json.dumps(engine_launches))
     check(engine_launches["w8_matmul"] > 0, "w8_matmul launched on the /generate path")
+    check(engine_launches["decode_attention"] > 0, "decode_attention launched on the /generate path")
     adapter_launches = timed(phase_adapters, torch, pkg, reader, ctx)
     print("launches in the /generate run with adapters: " + json.dumps(adapter_launches))
     check(adapter_launches["w8_matmul"] > 0, "w8_matmul launched on the /generate path with the adapter bank")
+    check(adapter_launches["decode_attention"] > 0, "decode_attention launched on the /generate path with the bank")
     strategies_w8 = timed(phase_decode_strategies, torch, pkg, reader, ctx)
     int8c_bytes = tree_bytes(reader)
     del reader
@@ -6060,6 +6188,7 @@ def main() -> int:
         s2s_engine = timed(phase_seq2seq_engine, torch, pkg, mt5, ctx)
         print("launches in the mt5 /generate run: " + json.dumps(s2s_engine))
         check(s2s_engine["w8_matmul"] > 0, "w8_matmul launched on the mt5 /generate path")
+        check(s2s_engine["decode_attention"] > 0, "decode_attention launched on the mt5 /generate path")
         mbart = timed(phase_mbart, torch)
         translate = timed(phase_translate, torch, pkg, mt5, mbart)
         del mt5
@@ -6089,6 +6218,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     tp_launches, tp, tp_base = timed(phase_tp, torch, pkg, card)
     print("launches in the TP runs: " + json.dumps(tp_launches))
+    check(tp_launches["decode_attention"] > 0, "decode_attention launched on each device of the TP reader")
     tp_adapters = timed(phase_tp_adapters, torch, pkg, tp, tp_base, card)
     print("launches in the TP runs with the adapter bank: " + json.dumps(tp_adapters))
     del tp, tp_base
@@ -6125,6 +6255,9 @@ def main() -> int:
     launches = dict(retrieval, w8_matmul=reader_launches["w8_matmul"] + engine_launches["w8_matmul"] + strategies_w8
                     + adapter_launches["w8_matmul"] + s2s_qa["w8_matmul"] + s2s_engine["w8_matmul"]
                     + etl["w8_matmul"],
+                    decode_attention=sum(run.get("decode_attention", 0) for run in (
+                        reader_launches, engine_launches, adapter_launches, nf4_launches, s2s_qa, s2s_engine,
+                        tp_s2s, tp_launches, tp_adapters, translate, convert)) + report["decode_attention"]["phase_launches"],
                     ivf_probe_scores=ivf_launches["ivf_probe_scores"] + sharded["ivf_probe_scores"],
                     quantize_int8=ivf_launches["quantize_int8"] + sharded["quantize_int8"],
                     matmul_topk_bf16=retrieval["matmul_topk_bf16"] + s2s_qa["matmul_topk_bf16"]

@@ -10,6 +10,8 @@ imports jax):
 - :func:`span` and :func:`record`: the port's named spans, kept in
   memory while a ``torch.profiler`` session runs and read with
   :func:`spans`;
+- :func:`count`: the port's counters, read for the whole process with
+  :func:`totals` and for the latest profiler session with :func:`counts`;
 - :func:`record_errors`: writes a JSON error file before re-raising, for
   an external supervisor.
 """
@@ -192,6 +194,43 @@ def spans() -> list[Span]:
     ended."""
     latest = _session
     return [s for s in list(_spans) if s.session == latest]
+
+
+# ---- counters ---------------------------------------------------------------
+#
+# A counter tallies one kind of event for the life of the process; the events
+# of a running profiler session are also tallied for that session alone, so
+# a reader of a traced window gets the window's own count, as it gets its
+# spans.
+
+_count_lock = threading.Lock()
+_totals: dict[str, int] = {}
+_session_counts: dict[str, int] = {}  # of profiler session _counted_session
+_counted_session = 0
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to counter ``name``."""
+    global _counted_session
+    with _count_lock:
+        _totals[name] = _totals.get(name, 0) + n
+        if _profiler._is_profiler_enabled:
+            if _counted_session != _session:
+                _session_counts.clear()
+                _counted_session = _session
+            _session_counts[name] = _session_counts.get(name, 0) + n
+
+
+def totals() -> dict[str, int]:
+    """Every counter's tally since the process started."""
+    with _count_lock:
+        return dict(_totals)
+
+
+def counts() -> dict[str, int]:
+    """The counters' tallies in the latest profiler session started."""
+    with _count_lock:
+        return dict(_session_counts) if _counted_session == _session else {}
 
 
 ERROR_FILE_ENV = "VQA_TPU_ERROR_FILE"

@@ -8,7 +8,8 @@ when it has no bias), RoPE (partial rotary), ALiBi slopes and the key-only bias,
 ``kv_dequantize`` (the int8 KV cache), ``Attention`` (a bf16 or int8 KV
 cache written at a scalar ``cache_index`` or at per-row cursors, GQA,
 ``clip_qkv``, cross-attention over an encoder output or its precomputed
-K/V (``cross_attention_kv``), the masked-softmax path, and the flash
+K/V (``cross_attention_kv``), the masked-softmax path
+(``masked_attention``; on the card, kernel K9 over a bf16 cache), and the flash
 path: the encoder's bidirectional form and the causal LM's causal /
 sliding-window forms, differentiable through kernels K4 and K7),
 ``MLP`` (plain or gated), ``Block`` (pre-LN, post-LN, parallel residual;
@@ -45,7 +46,10 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
+from ..core import tracing
 from ..ops.attention import flash_attention
+from ..ops.decode_attention import decode_attention
+from ..ops.decode_attention import supports as decode_attn_supports
 from ..ops.quant import div127
 from ..ops.w8_matmul import supports as w8_supports
 from ..ops.w8_matmul import w8_matmul
@@ -53,6 +57,9 @@ from ..parallel.collectives import all_gather, all_reduce_sum
 
 COMPUTE_DTYPE = torch.bfloat16
 NEG_INF = -1e30  # finite, as in the reference
+# the counter of cached-attention calls on the card that kept the einsum
+# (core/tracing.py); those that took K9 are its launches
+CACHED_EINSUM = "attention.cached_einsum"
 
 # set by remat_wrap("proj_bf16") while the wrapped layer runs (its forward
 # and its recompute in the backward): Dense rounds its output to bf16
@@ -449,7 +456,10 @@ class Attention(nn.Module):
         takes the writes that JAX drops as out of bounds, and no query
         ever attends them.  An int8 cache is never dequantized: the
         products run on its codes and the scales fold into the logits and
-        the probabilities (layers.py:486-494, :537-547)."""
+        the probabilities (layers.py:486-494, :537-547).  On the card a
+        bf16 cache with a ``mask`` goes to kernel K9 (ops/decode_attention.py
+        ``supports``: at most 16 query positions), which reads it in place;
+        every other call runs :func:`masked_attention`."""
         b, t, _ = x.shape
         kv_h = n_kv_heads or n_heads
         cross = kv_x is not None or static_kv is not None
@@ -489,6 +499,12 @@ class Attention(nn.Module):
                 for name, val in new.items():
                     cache[name][:, cache_index: cache_index + t] = val.to(cache[name].dtype)
             n_keys = cache["k"].shape[1] if mask is None else mask.shape[-1]
+            if not quant and not cross and mask is not None and decode_attn_supports(q, cache["k"], cache["v"]):
+                # K9 reads the bf16 cache in place: no f32 copy of it, no repeat of grouped heads
+                out = decode_attention(q, cache["k"], cache["v"], mask, bias, scale=scale)
+                return self.wo(out.reshape(b, t, -1))
+            if q.is_cuda:
+                tracing.count(CACHED_EINSUM)
             k, v = cache["k"][:, :n_keys], cache["v"][:, :n_keys]
             if quant:
                 k_fold, v_fold = cache["k_s"][:, :n_keys], cache["v_s"][:, :n_keys]
@@ -506,24 +522,34 @@ class Attention(nn.Module):
                 scale=scale, bias=None if bias is None else bias[0], window=flash.get("window"),
             )
             return self.wo(out.reshape(b, t, -1))
-        if scale is None:
-            scale = 1.0 / float(q.shape[-1]) ** 0.5
-        logits = torch.einsum("bqhd,bkhd->bhqk", _bf16(q), _bf16(k)) * scale
-        if k_fold is not None:
-            logits = logits * k_fold[..., 0].transpose(1, 2)[:, :, None, :]
-        if bias is not None:
-            logits = logits + bias
-        if mask is not None:
-            logits = torch.where(mask[:, None, :, :], logits, NEG_INF)
-        probs = torch.softmax(logits, dim=-1)
-        if v_fold is not None:
-            probs = probs * v_fold[..., 0].transpose(1, 2)[:, :, None, :]
-        out = torch.einsum("bhqk,bkhd->bqhd", _bf16(probs), _bf16(v))
+        out = masked_attention(q, k, v, mask=mask, bias=bias, scale=scale, k_fold=k_fold, v_fold=v_fold)
         return self.wo(out.reshape(b, t, -1))
 
     def cross_kv(self, enc_out, n_heads: int) -> dict:
         """This cross-attention's K/V of ``enc_out`` (:func:`cross_attention_kv`)."""
         return cross_attention_kv(self, enc_out, n_heads)
+
+
+def masked_attention(q, k, v, *, mask=None, bias=None, scale=None, k_fold=None, v_fold=None):
+    """The einsum path of :class:`Attention` (layers.py:528-553): q (B, Tq,
+    H, D) over k, v (B, Tk, H, D), products of bf16-rounded inputs summed
+    in f32, ``scale`` (default D^-0.5) then ``bias`` (1|B, H, Tq|1, Tk),
+    masked keys at NEG_INF, an f32 softmax, probabilities rounded to bf16;
+    an int8 cache's per-(token, head) scales ``k_fold``, ``v_fold`` (B, Tk,
+    H, 1) fold into the logits and the probabilities.  (B, Tq, H, D) f32."""
+    if scale is None:
+        scale = 1.0 / float(q.shape[-1]) ** 0.5
+    logits = torch.einsum("bqhd,bkhd->bhqk", _bf16(q), _bf16(k)) * scale
+    if k_fold is not None:
+        logits = logits * k_fold[..., 0].transpose(1, 2)[:, :, None, :]
+    if bias is not None:
+        logits = logits + bias
+    if mask is not None:
+        logits = torch.where(mask[:, None, :, :], logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    if v_fold is not None:
+        probs = probs * v_fold[..., 0].transpose(1, 2)[:, :, None, :]
+    return torch.einsum("bhqk,bkhd->bqhd", _bf16(probs), _bf16(v))
 
 
 def cross_attention_kv(attn: Attention, enc_out, n_heads: int) -> dict:

@@ -113,7 +113,9 @@ def on_card(t: torch.Tensor) -> bool:
 class Kernel:
     """One hand-written kernel of the port: its C entry point in
     ``csrc/<file>`` and that entry point's argument types, what TPU kernel
-    it replaces, and how often it was launched."""
+    it replaces (``file:line`` of the Pallas kernel, or ``file:first-last``
+    of the plain JAX code it takes over where the TPU had no kernel), and
+    how often it was launched."""
 
     def __init__(self, name: str, symbol: str, file: str, argtypes: tuple, replaces: str):
         self.name = name
@@ -204,8 +206,18 @@ QUANT_INT8 = Kernel(
     (_P, _I, _I, _I, _P, _P, _P),
     "vietnamese_qa_system_tpu/ops/quant.py:30",
 )
+_L = ctypes.c_longlong
+DECODE_ATTN = Kernel(
+    "decode_attention", "vqa_decode_attn", "decode_attn.cu",
+    # q, k, v, mask, bias, out, part_o, part_ml, B, Tq, H, kvH, hd, n_keys, mask rows, splits, tiles a split,
+    # row blocks, block rows, the strides of k (3), v (3), mask (3) and bias (4), scale, stream
+    (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I) + (_L,) * 13 + (ctypes.c_float, _P),
+    # none: the JAX package's two einsums over the cache
+    "vietnamese_qa_system_tpu/models/layers.py:528-553",
+)
 KERNELS = (TOPK_BF16, TOPK_INT8, TOPK_INT8_GLOBAL, FLASH_FWD, W8_MATMUL, IVF_PROBE, QUANT_INT8, FLASH_FWD_CAUSAL,
-           FLASH_BWD_DKDV, FLASH_BWD_DQ, TOPK_BF16_SCAN, TOPK_BF16_LARGE, TOPK_INT8_SCAN, TOPK_INT8_GLOBAL_SCAN)
+           FLASH_BWD_DKDV, FLASH_BWD_DQ, TOPK_BF16_SCAN, TOPK_BF16_LARGE, TOPK_INT8_SCAN, TOPK_INT8_GLOBAL_SCAN,
+           DECODE_ATTN)
 
 
 def query(file: str, symbol: str, *args: int) -> list[int]:
